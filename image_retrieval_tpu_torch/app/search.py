@@ -1,0 +1,143 @@
+"""Text->image search read path — port of ``image_retrieval_tpu/app/search.py``.
+
+Candidates are an exact cosine top-(k * overfetch) from the index, followed
+by the same optional optimized rerank, threshold and dedup as the JAX
+searcher. The IVF candidate path (ann=), attribute filters and image
+queries are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, List
+
+import numpy as np
+
+from image_retrieval_tpu_torch.config import (
+    DEFAULT_SIMILARITY_PARAMS,
+    SCORE_THRESHOLD,
+)
+from image_retrieval_tpu_torch.index import ShardedVectorIndex
+from image_retrieval_tpu_torch.models.encoder import Encoder
+
+logger = logging.getLogger(__name__)
+
+
+def _all_metrics_rows(q: np.ndarray, g: np.ndarray) -> Dict[str, np.ndarray]:
+    """Host float64 metrics of one query vs candidate rows (tiny set)."""
+    q = q.astype(np.float64)
+    g = g.astype(np.float64)
+    d = g.shape[1]
+    nq = np.linalg.norm(q)
+    ng = np.linalg.norm(g, axis=1)
+    denom = nq * ng
+    dots = g @ q
+    cos = np.where(denom > 0, dots / np.where(denom > 0, denom, 1.0), 0.0)
+    diff = np.abs(g - q[None, :])
+    return {
+        "cosine_similarity": cos,
+        "cosine_distance": 1 - cos,
+        "angular_distance": np.arccos(np.clip(cos, -1.0, 1.0)),
+        "l1_distance": diff.sum(1) / d,
+        "l2_distance": np.sqrt((diff * diff).sum(1)) / np.sqrt(d),
+        "linf_distance": diff.max(1),
+        "magnitude_difference": np.abs(ng - nq),
+    }
+
+
+def _optimized_rows(m: Dict[str, np.ndarray], p: Dict[str, float]) -> np.ndarray:
+    return (
+        p.get("w_angle", 1.0) * m["cosine_similarity"]
+        - p.get("w_l1", 0.0) * m["l1_distance"]
+        - p.get("w_l2", 0.0) * m["l2_distance"]
+        - p.get("w_inf", 0.0) * m["linf_distance"]
+        - p.get("w_mag", 0.0) * m["magnitude_difference"]
+    )
+
+
+class TextImageSearcher:
+    """Text->image search over the exact index."""
+
+    def __init__(self, encoder: Encoder, index: ShardedVectorIndex, ann=None):
+        if ann is not None:
+            raise NotImplementedError(
+                "ann= (IVF candidates) is not ported yet (see ROADMAP.md)")
+        self.encoder = encoder
+        self.index = index
+        self.similarity_params = dict(DEFAULT_SIMILARITY_PARAMS)
+
+    def set_similarity_params(self, params: dict) -> None:
+        self.similarity_params = params
+
+    def generate_text_embedding(self, text: str) -> np.ndarray:
+        """Unnormalized text embedding."""
+        if not text.strip():
+            raise ValueError("Text query cannot be empty")
+        return self.encoder.encode_texts([text])[0]
+
+    def search(self, text_query: str, top_k: int = 5,
+               score_threshold: float = SCORE_THRESHOLD,
+               use_optimized_similarity: bool = False,
+               filter_expr=None) -> List[dict]:
+        """Candidate overfetch -> optional optimized rerank -> threshold ->
+        dedup -> top_k; [{'path', 'score'}]."""
+        text_embedding = self.generate_text_embedding(text_query)
+        return self._search_with_embedding(
+            text_embedding, top_k, score_threshold, use_optimized_similarity,
+            filter_expr=filter_expr)
+
+    def _search_with_embedding(self, embedding: np.ndarray, top_k: int,
+                               score_threshold: float,
+                               use_optimized_similarity: bool,
+                               filter_expr=None) -> List[dict]:
+        """Shared query chain: candidates -> optional optimized rerank ->
+        threshold (min-max-relative when reranked) -> dedup -> top_k."""
+        self.index.load()
+        try:
+            limit = top_k * 3
+            qn = embedding / max(float(np.linalg.norm(embedding)), 1e-12)
+            cos_scores, idx = self.index.search(
+                qn, top_k=min(limit, len(self.index)), flt=filter_expr)
+            if use_optimized_similarity:
+                cand = self.index.get_vectors(idx)
+                scores = _optimized_rows(_all_metrics_rows(embedding, cand),
+                                         self.similarity_params)
+            else:
+                scores = cos_scores
+            matches = [{"path": self.index.paths[int(i)], "score": float(s)}
+                       for s, i in zip(scores, idx)]
+            matches.sort(key=lambda x: x["score"], reverse=True)
+            if use_optimized_similarity:
+                if matches:
+                    lo = min(m["score"] for m in matches)
+                    hi = max(m["score"] for m in matches)
+                else:
+                    lo, hi = 0, 1
+                cut = lo + score_threshold * (hi - lo)
+                filtered = [m for m in matches if m["score"] >= cut]
+            else:
+                filtered = [m for m in matches if m["score"] >= score_threshold]
+            seen, unique = set(), []
+            for m in filtered:  # dedup by path, best score first
+                if m["path"] not in seen:
+                    seen.add(m["path"])
+                    unique.append(m)
+                    if len(unique) >= top_k:
+                        break
+            return unique
+        finally:
+            self.index.release()
+
+    def search_batch(self, text_queries: List[str], top_k: int = 5) -> List[List[dict]]:
+        """Encode all queries at once and score them in one gallery sweep."""
+        if not text_queries:
+            return []
+        for q in text_queries:
+            if not q.strip():
+                raise ValueError("Text query cannot be empty")
+        embs = self.encoder.encode_texts(text_queries)
+        qn = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
+        vals, idx = self.index.search(qn, top_k=min(top_k, len(self.index)))
+        return [[{"path": self.index.paths[int(i)], "score": float(v)}
+                 for v, i in zip(vrow, irow)]
+                for vrow, irow in zip(vals, idx)]
