@@ -1,9 +1,9 @@
 """Text->image search read path — port of ``image_retrieval_tpu/app/search.py``.
 
-Candidates are an exact cosine top-(k * overfetch) from the index, followed
-by the same optional optimized rerank, threshold and dedup as the JAX
-searcher. The IVF candidate path (ann=), attribute filters and image
-queries are not ported yet (ROADMAP.md).
+Candidates are a cosine top-(k * overfetch) from the index, optionally
+under an attribute filter, followed by the same optional optimized rerank,
+threshold and dedup as the JAX searcher. The IVF candidate path (ann=) and
+image queries are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -98,6 +98,11 @@ class TextImageSearcher:
             qn = embedding / max(float(np.linalg.norm(embedding)), 1e-12)
             cos_scores, idx = self.index.search(
                 qn, top_k=min(limit, len(self.index)), flt=filter_expr)
+            if filter_expr is not None:
+                # sub-overfetch matches pad with (-inf, -1); drop them so no
+                # -1 picks the last path, nor skews the min-max rerank
+                keep = np.isfinite(cos_scores) & (idx >= 0)
+                cos_scores, idx = cos_scores[keep], idx[keep]
             if use_optimized_similarity:
                 cand = self.index.get_vectors(idx)
                 scores = _optimized_rows(_all_metrics_rows(embedding, cand),

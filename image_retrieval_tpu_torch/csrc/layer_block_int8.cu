@@ -509,7 +509,7 @@ int irt_layer_block_int8(
 
 const char* irt_error_string(int code) {
   if (code == IRT_BAD_ARGS) {
-    return "invalid shape or dtype for the layer_block_int8 kernel";
+    return "invalid shape, dtype or alignment for the kernel";
   }
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -1,24 +1,44 @@
-"""Resident exact vector index on one device — the port of
-``image_retrieval_tpu/index/vector_index.py``'s float32 tier.
+"""Resident vector index on one device — the port of
+``image_retrieval_tpu/index/vector_index.py``'s resident tiers.
 
 Rows are stored as (unit vector, magnitude), like the JAX index and the
 Milvus schema it replaces. Host numpy buffers are the source of truth; the
 device copy is refreshed lazily on the first search after a mutation, so N
-inserts cost one upload. Search is one f32 product of the queries with the
-unit rows, tombstones masked to -inf, and an exact top-k with lowest-index
-ties (ops/topk.py) — the semantics of ``parallel/collectives.py``'s
-``sharded_search_topk`` on one shard.
+inserts cost one upload. ``IndexConfig.dtype`` picks the storage tier:
 
-Not ported yet (each raises NotImplementedError; ROADMAP.md, queue 1): the
-bf16/int8/int4 tiers, metrics other than cosine, attribute filters (flt=),
-approximate selection, the streamed beyond-HBM tier and the journal.
+- ``float32``: f32 queries x f32 unit rows (full f32: TF32 is refused).
+- ``bfloat16``: rows stored in bf16 (the host keeps their bit patterns);
+  f32 queries x rows upcast to f32.
+- ``int8``: symmetric per-row int8 with norm-preserving scales; the unit
+  query rounded to bf16 x the int8 rows, f32 sums, x the row's scale.
+- ``int4``, the capacity tier: the device holds only the nibble-packed rows,
+  their int4 scales and the valid mask (a quarter of f32's bytes per row);
+  the int8 rows stay in host RAM. Search is two-phase: the int4 screen
+  (the Hopper kernel of ``ops/int4_screen.py``) selects ``rerank_c``
+  candidates per query, whose int8 rows are gathered on the host and
+  reranked exactly on the device. ``rerank_device=True`` (latency mode)
+  also keeps the int8 rows on the device and gathers there.
+
+Every tier takes attribute filters (``flt=``, ``index/filters.py``): the
+filter mask replaces the valid mask; when fewer rows match than top_k, the
+tail pads with (-inf, -1). Tombstoned and filtered rows score -inf before
+an exact top-k with lowest-index ties (``ops/topk.py``), the semantics of
+``parallel/collectives.py``'s ``sharded_search_topk`` on one shard.
+
+Not ported yet (each raises NotImplementedError naming ROADMAP.md): metrics
+other than cosine, ``multi_metric_topk``, ``scores``, approximate selection,
+``l1_shadow``, the streamed beyond-HBM tier, save/``load_from``/``open`` and
+the journal, and multi-device sharding.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
+import os
 import threading
-from typing import List, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +49,28 @@ from image_retrieval_tpu_torch.device import (
     require_full_f32,
     resolve_device,
 )
-from image_retrieval_tpu_torch.ops.topk import exact_topk
+from image_retrieval_tpu_torch.index.filters import AttributeStore, parse_filter
+from image_retrieval_tpu_torch.ops.int4 import (
+    quantize_pack_int4,
+    rerank_int8_topk,
+    unit_queries,
+)
+from image_retrieval_tpu_torch.ops.topk import exact_topk_wide
+from image_retrieval_tpu_torch.parallel.collectives import (
+    sharded_int4_screen_topk,
+    sharded_int4_two_phase_topk,
+)
+
+logger = logging.getLogger(__name__)
+
+DTYPES = ("float32", "bfloat16", "int8", "int4")
+# Rows upcast to f32 per block in the bf16/int8 sweeps: no (N, D) f32 copy
+# of the gallery is made (a 2^16 x 512 block is 128 MiB).
+ROW_BLOCK = 1 << 16
+# Rows per task of the host quantization. Every step of it is row-wise, so
+# its bits do not depend on how the rows are split; a large insert spreads
+# the tasks over the host's cores (numpy releases the GIL in its loops).
+QUANT_ROWS = 1 << 16
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -49,14 +90,54 @@ def _locked(fn):
     return wrapper
 
 
-def _cosine_scores(queries: torch.Tensor, unit_rows: torch.Tensor) -> torch.Tensor:
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 bit patterns (uint16), round to nearest even."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns (uint16) -> f32, exactly."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def quantize_int8(unit: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int8 on the absmax/127 grid, with the
+    norm-preserving scale ||int8 row|| * scale == ||unit row||, exactly as
+    the JAX index's insert computes it. Returns (int8 rows, f32 scales)."""
+    absmax = np.maximum(np.abs(unit).max(axis=1), 1e-12)
+    grid = (absmax / 127.0).astype(np.float32)
+    qrows = np.clip(np.rint(unit / grid[:, None]), -127, 127).astype(np.int8)
+    qnorm = np.linalg.norm(qrows.astype(np.float32), axis=1)
+    unorm = np.linalg.norm(unit, axis=1)
+    return qrows, (unorm / np.where(qnorm > 0, qnorm, 1.0)).astype(np.float32)
+
+
+def _row_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(Q, D) f32 x (N, D) rows of any dtype -> (Q, N) f32 products of the
+    rows upcast to f32, ROW_BLOCK rows at a time."""
+    if rows.dtype == torch.float32:
+        return q @ rows.t()
+    out = torch.empty((q.shape[0], rows.shape[0]), dtype=torch.float32, device=q.device)
+    for off in range(0, rows.shape[0], ROW_BLOCK):
+        out[:, off: off + ROW_BLOCK] = q @ rows[off: off + ROW_BLOCK].to(torch.float32).t()
+    return out
+
+
+def _cosine_scores(queries: torch.Tensor, unit_rows: torch.Tensor,
+                   scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(Q, D) raw queries x (N, D) unit rows -> (Q, N) cosine, f32.
 
-    <q, g> / ||q|| directly (the rows are unit norm); a zero-norm query
-    scores 0 against every row (collectives.py:80-91)."""
+    f32/bf16 rows: <q, g> / ||q|| directly (the rows are unit norm). int8
+    rows (with `scales`): the unit query rounded to bf16, x the rows, x the
+    norm-preserving scale (collectives.py:80-91, 126-137). A zero-norm query
+    scores 0 against every row."""
     q = queries.to(torch.float32)
+    if scales is not None:
+        qu = unit_queries(q).to(torch.bfloat16).to(torch.float32)
+        return _row_dots(qu, unit_rows) * scales
     qn = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
-    dots = q @ unit_rows.t()
+    dots = _row_dots(q, unit_rows)
     return torch.where(qn > 0, dots / torch.where(qn > 0, qn, 1.0), 0.0)
 
 
@@ -66,50 +147,96 @@ class ShardedVectorIndex:
     def __init__(self, dim: int = 512, config: Optional[IndexConfig] = None,
                  *, device: DeviceLike):
         self.config = config or IndexConfig(embedding_dim=dim)
-        if self.config.dtype != "float32":
-            raise _not_ported(f"IndexConfig.dtype={self.config.dtype!r}")
+        if self.config.dtype not in DTYPES:
+            raise ValueError(f"IndexConfig.dtype={self.config.dtype!r}: one of {DTYPES}")
         if self.config.stream_threshold_bytes is not None:
             raise _not_ported("IndexConfig.stream_threshold_bytes (streamed tier)")
         if self.config.approx_select:
             raise _not_ported("IndexConfig.approx_select")
+        if self.config.l1_shadow:
+            raise _not_ported("IndexConfig.l1_shadow")
+        if self.config.dtype == "int4" and dim % 2:
+            raise ValueError(f"the int4 tier packs dim pairs: dim {dim} is odd")
         self._lock = threading.RLock()
         self.dim = dim
         self.device = resolve_device(device)
         self.paths: List[str] = []
         self.count = 0
         self.capacity = 0
-        self._host_gallery = None  # (capacity, D) f32 unit rows
+        self._host_gallery = None  # (capacity, D): f32, bf16 bits, or int8
         self._host_mags = None  # (capacity,) f32
         self._host_valid = None  # (capacity,) bool, False = tombstone/padding
-        self._gallery = None  # (count, D) device copy
-        self._valid = None  # (count,) device copy
+        self._host_scales = None  # (capacity,) f32, int8/int4 tiers
+        self._host_packed = None  # (capacity, D/2) uint8, int4 tier only
+        self._host_scales4 = None  # (capacity,) f32, int4 tier only
+        self._gallery = None  # (count, D) device rows (int4: latency mode only)
+        self._valid = None  # (count,) device bool
+        self._scales = None  # (count,) device f32, int8 (and int4 latency mode)
+        self._packed = None  # (count, D/2) device uint8, int4 tier
+        self._scales4 = None  # (count,) device f32, int4 tier
         self._device_dirty = True
+        # bumps on every mutation; the filter-mask cache and live_count key on it
+        self.generation = 0
+        self._live = (-1, 0)  # (generation, live rows)
+        self.attrs = AttributeStore()
+        # expression -> (generation, device mask): repeated serving traffic
+        # with the same filter reuses the mask
+        self._filter_cache: Dict[str, Tuple[int, torch.Tensor]] = {}
 
     # -- storage ------------------------------------------------------------
+
+    @property
+    def _np_dtype(self):
+        if self.config.dtype == "bfloat16":
+            return np.uint16  # bf16 bit patterns (numpy has no bf16)
+        if self.config.dtype in ("int8", "int4"):
+            # int4 keeps the HOST rows at int8: the exact-rerank source
+            return np.int8
+        return np.float32
+
+    @property
+    def _quantized(self) -> bool:
+        return self.config.dtype in ("int8", "int4")
+
+    @property
+    def _packed4(self) -> bool:
+        return self.config.dtype == "int4"
 
     def _grow_to(self, n: int) -> None:
         step = max(self.config.capacity_step, 1)
         cap = -(-n // step) * step
         if cap <= self.capacity:
             return
-        g = np.zeros((cap, self.dim), np.float32)
+        g = np.zeros((cap, self.dim), self._np_dtype)
         m = np.zeros((cap,), np.float32)
         v = np.zeros((cap,), bool)
+        sc = np.ones((cap,), np.float32) if self._quantized else None
+        pk = np.zeros((cap, self.dim // 2), np.uint8) if self._packed4 else None
+        sc4 = np.ones((cap,), np.float32) if self._packed4 else None
         if self.count:
             g[: self.count] = self._host_gallery[: self.count]
             m[: self.count] = self._host_mags[: self.count]
             v[: self.count] = self._host_valid[: self.count]  # keep tombstones
+            if self._quantized:
+                sc[: self.count] = self._host_scales[: self.count]
+            if self._packed4:
+                pk[: self.count] = self._host_packed[: self.count]
+                sc4[: self.count] = self._host_scales4[: self.count]
         self.capacity = cap
         self._host_gallery, self._host_mags, self._host_valid = g, m, v
+        self._host_scales = sc
+        self._host_packed, self._host_scales4 = pk, sc4
         self._device_dirty = True
 
     @_locked
     def insert(self, paths: Sequence[str], embeddings: np.ndarray,
-               magnitudes: Optional[Sequence[float]] = None) -> int:
+               magnitudes: Optional[Sequence[float]] = None,
+               attrs: Optional[Dict[str, Sequence]] = None) -> int:
         """Bulk insert. Without `magnitudes`, rows may be unnormalized and
         are stored as (unit vector, magnitude); a zero row stays zero with
         magnitude 0. With `magnitudes`, rows are stored as given (already
-        unit). Returns the number inserted."""
+        unit). `attrs` maps a field name to one scalar per row (str or
+        number) for filtered search. Returns the number inserted."""
         emb = np.asarray(embeddings, np.float32)
         if emb.ndim == 1:
             emb = emb[None]
@@ -127,15 +254,46 @@ class ShardedVectorIndex:
                 raise ValueError(f"insert(): magnitudes shape {mags.shape} for "
                                  f"{emb.shape[0]} embedding rows")
             unit = emb
+        # validates and commits the attributes before the gallery mutates
+        self.attrs.append(attrs, emb.shape[0])
         n_new, start = emb.shape[0], self.count
         self._grow_to(start + n_new)
-        self._host_gallery[start: start + n_new] = unit
-        self._host_mags[start: start + n_new] = mags
-        self._host_valid[start: start + n_new] = True
+        new = slice(start, start + n_new)
+        if self._quantized:
+            self._quantize_into(unit, start)
+        elif self.config.dtype == "bfloat16":
+            self._host_gallery[new] = bf16_bits(unit)
+        else:
+            self._host_gallery[new] = unit
+        self._host_mags[new] = mags
+        self._host_valid[new] = True
         self._device_dirty = True
+        self.generation += 1
         self.paths.extend(str(p) for p in paths)
         self.count += n_new
         return n_new
+
+    def _quantize_into(self, unit: np.ndarray, start: int) -> None:
+        """int8 rows and scales (and, for int4, an independent int4
+        quantization of the same unit rows: the device screen, while the
+        int8 rows are the rerank source) of `unit`, written from row
+        `start` on, QUANT_ROWS rows per task."""
+
+        def task(lo: int) -> None:
+            u = unit[lo: lo + QUANT_ROWS]
+            at = slice(start + lo, start + lo + u.shape[0])
+            self._host_gallery[at], self._host_scales[at] = quantize_int8(u)
+            if self._packed4:
+                self._host_packed[at], self._host_scales4[at] = quantize_pack_int4(u)
+
+        spans = range(0, unit.shape[0], QUANT_ROWS)
+        if len(spans) <= 1:
+            for lo in spans:
+                task(lo)
+            return
+        with ThreadPoolExecutor(min(len(spans), os.cpu_count() or 1)) as pool:
+            for done in [pool.submit(task, lo) for lo in spans]:
+                done.result()
 
     @_locked
     def delete(self, paths: Sequence[str]) -> int:
@@ -149,7 +307,14 @@ class ShardedVectorIndex:
                 deleted += 1
         if deleted:
             self._device_dirty = True
+            self.generation += 1
         return deleted
+
+    @_locked
+    def delete_where(self, flt) -> int:
+        """Tombstone every live row matching a boolean attribute expression
+        (Milvus `collection.delete(expr)`). Returns rows deleted."""
+        return self.delete_rows(np.flatnonzero(self.filter_mask(flt)))
 
     @_locked
     def delete_rows(self, row_indices) -> int:
@@ -161,19 +326,126 @@ class ShardedVectorIndex:
         if len(idx):
             self._host_valid[idx] = False
             self._device_dirty = True
+            self.generation += 1
         return int(len(idx))
+
+    @_locked
+    def filter_mask(self, flt) -> np.ndarray:
+        """(count,) bool: live rows matching the filter, a boolean
+        expression string (index/filters.py) or a precomputed (count,) bool
+        mask."""
+        if isinstance(flt, np.ndarray):
+            if flt.shape != (self.count,):
+                raise ValueError(f"filter mask shape {flt.shape} != ({self.count},)")
+            mask = flt.astype(bool, copy=True)
+        else:
+            mask = self.attrs.evaluate(parse_filter(flt), self.count)
+        if self._host_valid is not None:
+            mask = mask & self._host_valid[: self.count]
+        return mask
+
+    def _filtered_valid(self, flt) -> torch.Tensor:
+        """Device mask (filter AND live), a drop-in for the valid mask.
+        Expression strings are cached per (expression, generation); mask
+        arrays are shipped fresh each call."""
+        key = flt if isinstance(flt, str) else None
+        if key is not None:
+            hit = self._filter_cache.get(key)
+            if hit is not None and hit[0] == self.generation:
+                return hit[1]
+        dev = torch.from_numpy(self.filter_mask(flt)).to(self.device)
+        if key is not None:
+            if len(self._filter_cache) >= 16:  # bound device-mask memory
+                self._filter_cache.pop(next(iter(self._filter_cache)))
+            self._filter_cache[key] = (self.generation, dev)
+        return dev
 
     @property
     def live_count(self) -> int:
+        """Rows not tombstoned; counted once per generation (a search reads
+        it, and summing 8M flags costs ~5 ms of host time)."""
         if self._host_valid is None:
             return 0
-        return int(self._host_valid[: self.count].sum())
+        if self._live[0] != self.generation:
+            self._live = (self.generation, int(np.count_nonzero(self._host_valid[: self.count])))
+        return self._live[1]
+
+    def live_mask(self) -> np.ndarray:
+        """(count,) bool, True for non-tombstoned rows."""
+        if self._host_valid is None:
+            return np.zeros((0,), bool)
+        return self._host_valid[: self.count].copy()
+
+    @_locked
+    def compact(self) -> int:
+        """Reclaim tombstoned rows in place: live rows slide down, paths,
+        attributes and per-row sidecars stay aligned. Returns rows
+        reclaimed."""
+        if self._host_valid is None:
+            return 0
+        live = np.flatnonzero(self._host_valid[: self.count])
+        reclaimed = self.count - len(live)
+        if reclaimed == 0:
+            return 0
+        keep = slice(0, len(live))
+        self._host_gallery[keep] = self._host_gallery[live]
+        self._host_mags[keep] = self._host_mags[live]
+        if self._quantized:
+            self._host_scales[keep] = self._host_scales[live]
+        if self._packed4:
+            self._host_packed[keep] = self._host_packed[live]
+            self._host_scales4[keep] = self._host_scales4[live]
+        self._host_valid[:] = False
+        self._host_valid[keep] = True
+        self.paths = [self.paths[int(i)] for i in live]
+        self.attrs.take(live)
+        self.count = len(live)
+        self._device_dirty = True
+        self.generation += 1
+        return reclaimed
+
+    def _warn_if_too_big(self) -> None:
+        """Latency mode holds the packed rows, the int8 rows and their
+        scales: warn when that exceeds the card's free memory."""
+        if self.device.type != "cuda":
+            return
+        need = self.count * (self.dim // 2 + self.dim + 9)
+        free, _ = torch.cuda.mem_get_info(self.device)
+        if need > free:
+            logger.warning(
+                "rerank_device: ~%.1f GiB of rows exceeds the %.1f GiB free on %s; "
+                "expect an out-of-memory error; use the capacity configuration "
+                "(rerank_device=False)", need / (1 << 30), free / (1 << 30), self.device)
 
     def _sync_device(self) -> None:
         if not self._device_dirty or self._host_gallery is None:
             return
-        self._gallery = torch.from_numpy(self._host_gallery[: self.count]).to(self.device)
-        self._valid = torch.from_numpy(self._host_valid[: self.count]).to(self.device)
+        n = self.count
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a[:n]).to(self.device)
+
+        # drop the old copies first: a re-upload never holds two galleries
+        self._gallery = self._valid = self._scales = None
+        self._packed = self._scales4 = None
+        self._valid = up(self._host_valid)
+        if self._packed4:
+            # capacity tier: the screen copy only; the int8 rows stay on the
+            # host unless latency mode asks for them too. Magnitudes never
+            # ship: the tier is cosine-only.
+            if self.config.rerank_device:
+                self._warn_if_too_big()
+            self._packed = up(self._host_packed)
+            self._scales4 = up(self._host_scales4)
+            if self.config.rerank_device:
+                self._gallery = up(self._host_gallery)
+                self._scales = up(self._host_scales)
+        elif self.config.dtype == "bfloat16":
+            self._gallery = up(self._host_gallery.view(np.int16)).view(torch.bfloat16)
+        else:
+            self._gallery = up(self._host_gallery)
+            if self._quantized:
+                self._scales = up(self._host_scales)
         self._device_dirty = False
 
     @_locked
@@ -193,47 +465,134 @@ class ShardedVectorIndex:
         """A journaled index (the JAX package's write-ahead log)."""
         raise _not_ported("ShardedVectorIndex.open (the journal)")
 
+    def save(self, path: str) -> None:
+        raise _not_ported("ShardedVectorIndex.save")
+
+    @classmethod
+    def load_from(cls, path: str, **kwargs):
+        raise _not_ported("ShardedVectorIndex.load_from")
+
     def __len__(self) -> int:
         return self.count
 
     # -- search -------------------------------------------------------------
 
-    @_locked
-    def search(self, queries: np.ndarray, top_k: int = 5,
-               metric: str = "cosine_similarity", flt=None,
-               approx: Optional[bool] = None) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact top-k cosine. Returns numpy (scores (Q, k) f32, indices
-        (Q, k) int32), or 1-D for a single 1-D query; k = min(top_k, live
-        rows). Equal scores rank by ascending row index."""
-        if self.count == 0:
-            raise ValueError("index is empty")
-        if metric == "cosine":
-            metric = "cosine_similarity"
-        if metric != "cosine_similarity":
-            raise _not_ported(f"metric {metric!r}")
-        if flt is not None:
-            raise _not_ported("search(flt=) (attribute filters)")
-        if approx:
-            raise _not_ported("search(approx=True)")
-        self._sync_device()
+    def _prep_queries(self, queries) -> Tuple[torch.Tensor, bool]:
         q = np.asarray(queries, np.float32)
         single = q.ndim == 1
         if single:
             q = q[None]
-        require_full_f32(self.device)  # the f32 tier's contract: full-f32 scores
+        return torch.from_numpy(q).to(self.device), single
+
+    @_locked
+    def search(self, queries: np.ndarray, top_k: int = 5,
+               metric: str = "cosine_similarity", flt=None,
+               approx: Optional[bool] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k cosine. Returns numpy (scores (Q, k) f32, indices (Q, k)
+        int32), or 1-D for a single 1-D query; k = min(top_k, live rows).
+        Equal scores rank by ascending row index. With `flt` (an attribute
+        expression or a (count,) bool mask), rows outside the filter never
+        appear, and a tail the filter cannot fill pads with (-inf, -1)."""
+        if self.count == 0:
+            raise ValueError("index is empty")
+        if metric == "cosine":
+            metric = "cosine_similarity"
+        # f32 products throughout: the f32/bf16 tiers need them, and the
+        # int8/int4 ones (exact in TF32) keep the same one rule
+        require_full_f32(self.device)
+        self._sync_device()
+        if self._packed4:  # cosine-only by design; ignores approx, as in JAX
+            return self._search_int4(queries, top_k, metric, flt)
+        if metric != "cosine_similarity":
+            raise _not_ported(f"metric {metric!r}")
+        if approx:
+            raise _not_ported("search(approx=True)")
+        valid = self._valid if flt is None else self._filtered_valid(flt)
+        q, single = self._prep_queries(queries)
         with torch.inference_mode():
-            scores = _cosine_scores(torch.from_numpy(q).to(self.device), self._gallery)
-            scores = scores.masked_fill(~self._valid, float("-inf"))
-            vals, idx = exact_topk(scores, min(top_k, self.live_count))
+            scores = _cosine_scores(q, self._gallery, self._scales)
+            scores = scores.masked_fill(~valid, float("-inf"))
+            vals, idx = exact_topk_wide(scores, min(top_k, self.live_count))
             vals, idx = vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
+        if flt is not None:
+            idx = np.where(np.isfinite(vals), idx, -1)
+        if single:
+            return vals[0], idx[0]
+        return vals, idx
+
+    def _search_int4(self, queries, top_k: int, metric: str,
+                     flt=None) -> Tuple[np.ndarray, np.ndarray]:
+        """The int4 capacity tier: two-phase exact-rerank search.
+
+        Phase 1 (device): the int4 screen selects c = min(max(rerank_c, k),
+        count) candidates per query. Phase 2: their int8 rows, gathered on
+        the host (or on the device in latency mode), are reranked exactly
+        with the resident int8 sweep's math, so returned scores equal what
+        dtype='int8' reports for the same rows. Tombstones and filters mask
+        inside phase 1."""
+        if metric != "cosine_similarity":
+            raise ValueError(
+                f"metric '{metric}' is not available in the int4 capacity tier "
+                "(cosine-only two-phase search); use dtype='int8' for "
+                "multi-metric galleries")
+        valid = self._valid if flt is None else self._filtered_valid(flt)
+        q, single = self._prep_queries(queries)
+        k = int(min(top_k, self.live_count))
+        if k == 0:  # fully tombstoned: the resident tiers' k = 0 shape
+            ev, ei = np.zeros((q.shape[0], 0), np.float32), np.zeros((q.shape[0], 0), np.int32)
+            return (ev[0], ei[0]) if single else (ev, ei)
+        c = int(min(max(self.config.rerank_c, k), self.count))
+        with torch.inference_mode():
+            if self._gallery is not None:  # latency mode: one device pass
+                vals, idx = sharded_int4_two_phase_topk(
+                    q, self._packed, valid, self._scales4, self._gallery,
+                    self._scales, c, k)
+                vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            else:
+                vals4, gidx = sharded_int4_screen_topk(q, self._packed, valid,
+                                                       self._scales4, c)
+                vals4, gidx = vals4.cpu().numpy(), gidx.cpu().numpy()
+                ok = np.isfinite(vals4)
+                safe = np.where(ok, gidx, 0)
+                dev = lambda a: torch.from_numpy(a).to(self.device)
+                vals, pos = rerank_int8_topk(
+                    q, dev(self._host_gallery[safe]), dev(self._host_scales[safe]),
+                    dev(ok), k)
+                vals = vals.cpu().numpy()
+                idx = np.take_along_axis(gidx, pos.cpu().numpy(), axis=1)
+        # sub-k matches (filters/tombstones): the -1 sentinel of every tier
+        idx = np.where(np.isfinite(vals), idx, -1).astype(np.int32)
         if single:
             return vals[0], idx[0]
         return vals, idx
 
     @_locked
+    def multi_metric_topk(self, queries: np.ndarray, top_k: int = 5, flt=None):
+        if self._packed4:
+            raise ValueError("multi-metric search is not available in the int4 "
+                             "capacity tier (cosine-only); use dtype='int8'")
+        raise _not_ported("multi_metric_topk")
+
+    @_locked
+    def scores(self, queries: np.ndarray, metric: str = "cosine_similarity",
+               params=None) -> np.ndarray:
+        if self._packed4:
+            raise ValueError("scores() is not available in the int4 capacity "
+                             "tier (two-phase top-k only); use dtype='int8'")
+        raise _not_ported("scores")
+
+    def _rows_f32(self, indices) -> np.ndarray:
+        """Dequantized f32 unit rows of the given global indices only."""
+        rows = self._host_gallery[indices]
+        rows = bf16_to_f32(rows) if self.config.dtype == "bfloat16" else rows.astype(np.float32)
+        if self._quantized and rows.size:
+            rows = rows * self._host_scales[indices][:, None]
+        return rows
+
+    @_locked
     def get_vectors(self, indices: Sequence[int]) -> np.ndarray:
-        """Stored unit vectors for global indices."""
-        return self._host_gallery[np.asarray(indices, int)].astype(np.float32)
+        """Stored unit vectors for global indices (dequantized)."""
+        return self._rows_f32(np.asarray(indices, int))
 
     @_locked
     def get_magnitudes(self, indices: Sequence[int]) -> np.ndarray:
@@ -241,11 +600,12 @@ class ShardedVectorIndex:
 
     @_locked
     def query(self, limit: int = 1000, with_magnitude: bool = False):
-        """Stored (path, unit_embedding[, magnitude]) tuples of live rows."""
+        """Stored (path, unit_embedding[, magnitude]) tuples of live rows;
+        only the emitted rows are dequantized."""
         if self.count == 0:
             return []
         live = np.flatnonzero(self._host_valid[: self.count])[:limit]
-        rows = self._host_gallery[live]
+        rows = self._rows_f32(live)
         if with_magnitude:
             return [(self.paths[int(i)], rows[j], float(self._host_mags[i]))
                     for j, i in enumerate(live)]

@@ -1,13 +1,15 @@
 """Build and bind the port's CUDA kernels (nvcc + ctypes, no PyTorch headers).
 
-The sources under ``csrc/`` are compiled at first use with
+Each source under ``csrc/`` is compiled at first use, all at once, one nvcc
+process per source,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c <source>.cu
 
-into ``_build/<hash of sources and flags>/`` inside the package (listed in
-.gitignore), and loaded with ctypes. The library has a plain C interface, so
-a build takes seconds instead of the minutes a PyTorch-header extension
+and the objects are linked into one shared library (``nvcc -shared``) in
+``_build/<hash of sources and flags>/`` inside the package (listed in
+.gitignore), loaded with ctypes. The library has a plain C interface, so a
+build takes seconds instead of the minutes a PyTorch-header extension
 costs. No ``--use_fast_math``: the kernels rely on IEEE division, square
 root and exp. Nothing here runs at import time.
 """
@@ -24,11 +26,11 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("layer_block_int8.cu",)
-HEADERS = ("layer_block_int8.cuh",)
+SOURCES = ("layer_block_int8.cu", "int4_screen.cu")
+HEADERS = ("layer_block_int8.cuh", "int4_screen.cuh")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libirt_kernels.so"
 
@@ -60,22 +62,36 @@ def build() -> str:
     """Compile csrc/ into the hashed build directory (if not there yet) and
     return the library path; nvcc's output (ptxas registers and spills) is
     kept beside it in build.log. Concurrent builds race benignly: each
-    writes its own temporary file and renames it into place."""
+    writes its own temporary files and renames the library into place."""
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    nvcc, tag = find_nvcc(), f"tmp{os.getpid()}"
+    cmds, procs = [], []
+    for src in SOURCES:
+        obj = os.path.join(out_dir, f"{os.path.splitext(src)[0]}.{tag}.o")
+        cmds.append([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, src), "-o", obj])
+        procs.append(subprocess.Popen(cmds[-1], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = [" ".join(cmd) + "\n" + p.communicate()[0] for cmd, p in zip(cmds, procs)]
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", f"{lib_path}.{tag}",
+                *(cmd[-1] for cmd in cmds)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        failed = [proc.returncode] if proc.returncode != 0 else []
+    log = "".join(logs)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib_path)
+        f.write(log)
+    for cmd in cmds:
+        if os.path.exists(cmd[-1]):
+            os.remove(cmd[-1])
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
+    os.replace(f"{lib_path}.{tag}", lib_path)
     return lib_path
 
 
@@ -94,6 +110,8 @@ def load_library() -> ctypes.CDLL:
             lib.irt_layer_block_int8.argtypes = (
                 [p] * 2 + [p] * 16 + [p] + [i] * 7 + [ctypes.c_float, p])
             lib.irt_layer_block_int8.restype = i
+            lib.irt_int4_screen_scores.argtypes = [p] * 5 + [i, i, ctypes.c_longlong, i, p]
+            lib.irt_int4_screen_scores.restype = i
             lib.irt_error_string.argtypes = [i]
             lib.irt_error_string.restype = ctypes.c_char_p
             _lib = lib

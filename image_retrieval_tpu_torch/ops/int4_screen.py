@@ -1,0 +1,134 @@
+"""The int4 screen kernel (K3) and its plain PyTorch version.
+
+Port of ``image_retrieval_tpu/ops/pallas_kernels.py``'s int4 screen:
+``_int4_screen_kernel`` (l.602) under ``int4_screen_scores_pallas`` (l.783)
+and ``int4_screen_topc_pallas`` (l.800). For each query and gallery row
+
+    score[q, n] = scale4[n] * sum_d bf16(qu[q, d]) * (nibble(packed[n], d) - 8)
+
+in f32, over the plain (N, D/2) uint8 nibble rows of ``ops/int4.py``; rows
+whose ``valid`` flag is False score -inf.
+
+``int4_screen_scores`` launches the hand-written Hopper kernel
+(csrc/int4_screen.cu) for CUDA tensors and runs
+``int4_screen_scores_reference`` for CPU tensors; it never falls back from
+the card to the plain version. ``int4_screen_topc`` sweeps a gallery in
+segments of ``SEGMENT_ROWS`` rows and merges each segment's top-c, exact
+with lowest-index ties (``ops/topk.py::exact_topk_wide``). The JAX
+package's TPU selection is ``approx_max_k``; on the CPU that lowers to the
+exact ``top_k``, which is what this selection reproduces.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from image_retrieval_tpu_torch.ops.int4 import segmented_topc, unpack2_dots
+
+# Rows per kernel launch of int4_screen_topc: a (64, 2^21) f32 plane is
+# 512 MiB, the largest device buffer of a search besides the gallery.
+SEGMENT_ROWS = 1 << 21
+
+# Kernel vs plain: both take exact products (bf16 x nibble) and sum them in
+# f32, in other orders. For unit queries and unit rows at D <= 768 the raw
+# dot stays below ~60 and the scale near 1/50, so reordered sums move a
+# score by ~1e-6 at most; a swapped nibble order or a dropped scale moves
+# it by ~1e-1 (tests/test_torch_int4.py shows both).
+SCREEN_MAX_ABS = 1e-5
+
+
+def _check(qu, packed, scales, valid, row_offset, rows):
+    if qu.dim() != 2 or packed.dim() != 2 or packed.dtype != torch.uint8:
+        raise ValueError("int4_screen_scores takes (Q, D) queries and (N, D/2) "
+                         "uint8 packed rows")
+    n, half = packed.shape
+    if qu.shape[1] != 2 * half:
+        raise ValueError(f"int4_screen_scores: queries of dim {qu.shape[1]} for "
+                         f"packed rows of {half} bytes (dim {2 * half})")
+    if scales.shape != (n,) or valid.shape != (n,):
+        raise ValueError(f"int4_screen_scores: scales {tuple(scales.shape)} and "
+                         f"valid {tuple(valid.shape)} must be ({n},)")
+    if scales.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError("int4_screen_scores: scales must be float32, valid bool")
+    if not 0 <= row_offset <= row_offset + rows <= n:
+        raise ValueError(f"int4_screen_scores: segment [{row_offset}, "
+                         f"{row_offset + rows}) outside {n} rows")
+
+
+def int4_screen_scores_reference(qu: torch.Tensor, packed: torch.Tensor,
+                                 scales: torch.Tensor, valid: torch.Tensor,
+                                 row_offset: int = 0, rows=None) -> torch.Tensor:
+    """Plain PyTorch version: ``unpack2_dots(qu, packed) * scales`` over the
+    segment [row_offset, row_offset + rows), invalid rows -inf. (Q, rows) f32."""
+    rows = packed.shape[0] - row_offset if rows is None else rows
+    _check(qu, packed, scales, valid, row_offset, rows)
+    seg = slice(row_offset, row_offset + rows)
+    s = unpack2_dots(qu, packed[seg]) * scales[seg]
+    return s.masked_fill(~valid[seg], float("-inf"))
+
+
+def _int4_screen_scores_cuda(qu, packed, scales, valid, row_offset, rows):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    if qu.dtype != torch.bfloat16:
+        raise TypeError(f"int4_screen kernel takes bfloat16 queries, got {qu.dtype}")
+    for name, a in (("queries", qu), ("packed", packed), ("scales", scales),
+                    ("valid", valid)):
+        if a.device != packed.device or not a.is_contiguous():
+            raise ValueError(f"int4_screen kernel: {name} must be contiguous on "
+                             f"{packed.device}")
+    if qu.data_ptr() % 4:
+        raise ValueError("int4_screen kernel: queries must be 4-byte aligned")
+    out = torch.empty((qu.shape[0], rows), dtype=torch.float32, device=packed.device)
+    if qu.shape[0] == 0 or rows == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        rc = lib.irt_int4_screen_scores(
+            qu.data_ptr(), packed.data_ptr(), scales.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), qu.shape[0], qu.shape[1], row_offset, rows, stream)
+    if rc != 0:
+        raise RuntimeError("int4_screen kernel failed: "
+                           + lib.irt_error_string(rc).decode())
+    int4_screen_scores.launches += 1
+    return out
+
+
+def int4_screen_scores(qu: torch.Tensor, packed: torch.Tensor,
+                       scales: torch.Tensor, valid: torch.Tensor,
+                       row_offset: int = 0, rows=None) -> torch.Tensor:
+    """Screen scores of the gallery segment [row_offset, row_offset + rows):
+    (Q, rows) f32, -inf where ``valid`` is False.
+
+    qu: (Q, D) bf16 unit queries; packed: (N, D/2) uint8; scales: (N,) f32;
+    valid: (N,) bool. A CUDA tensor goes through the Hopper kernel (or this
+    raises); a CPU tensor takes the plain version.
+    ``int4_screen_scores.launches`` counts kernel launches."""
+    rows = packed.shape[0] - row_offset if rows is None else rows
+    _check(qu, packed, scales, valid, row_offset, rows)
+    if packed.device.type == "cuda":
+        return _int4_screen_scores_cuda(qu, packed, scales, valid, row_offset, rows)
+    if packed.device.type == "cpu":
+        return int4_screen_scores_reference(qu, packed, scales, valid, row_offset, rows)
+    raise ValueError(f"int4_screen_scores: unsupported device {packed.device}")
+
+
+int4_screen_scores.launches = 0
+
+
+def int4_screen_topc(qu: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                     valid: torch.Tensor, c: int,
+                     seg_rows: int = SEGMENT_ROWS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-c of the int4 screen over the whole gallery: one
+    ``int4_screen_scores`` call per segment of `seg_rows` rows, each
+    segment's exact top-c merged into a running list (lowest index first
+    among ties). Returns (scores f32, indices int64), each (Q, min(c, N));
+    -inf entries are padding (fewer valid rows than c)."""
+
+    def seg(off, rows):
+        return int4_screen_scores(qu, packed, scales, valid, off, rows)
+
+    return segmented_topc(seg, packed.shape[0], c, seg_rows)

@@ -89,7 +89,8 @@ def test_serving_towers_cuda_vs_cpu(cuda):
         assert cos.min() >= 0.999
 
 
-def test_index_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_index_cuda_matches_cpu(cuda, dtype):
     from image_retrieval_tpu_torch.config import IndexConfig
     from image_retrieval_tpu_torch.index import ShardedVectorIndex
 
@@ -99,10 +100,91 @@ def test_index_cuda_matches_cpu(cuda):
     q = np.concatenate([emb[7:8], rng.normal(size=(9, 64)).astype(np.float32)])
     out = []
     for dev in (cuda, "cpu"):
-        ix = ShardedVectorIndex(dim=64, config=IndexConfig(embedding_dim=64), device=dev)
+        ix = ShardedVectorIndex(dim=64, config=IndexConfig(embedding_dim=64, dtype=dtype),
+                                device=dev)
         ix.insert([str(i) for i in range(len(emb))], emb)
         ix.delete_rows([3, 4])
         out.append(ix.search(q, top_k=20))
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=0, atol=1e-5)
     assert list(out[0][1][0, :2]) == [7, 100]
+
+
+def _int4_gallery(rng, n, d, device):
+    from image_retrieval_tpu_torch.ops.int4 import quantize_pack_int4
+
+    rows = rng.normal(size=(n, d)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    packed, scales = quantize_pack_int4(rows)
+    valid = rng.random(n) >= 0.05
+    return (torch.from_numpy(packed).to(device), torch.from_numpy(scales).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.parametrize("d", [64, 512, 768, 40])
+@pytest.mark.parametrize("nq", [1, 3, 64, 130])
+def test_int4_screen_kernel_matches_plain(cuda, d, nq):
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    rng = np.random.default_rng(d * 1000 + nq)
+    n = 3 * 128 + 37  # ragged: not a multiple of the 128-row tile
+    packed, scales, valid = _int4_gallery(rng, n, d, cuda)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    q[nq // 2] = 0.0  # a zero query scores 0 on every valid row
+    qu = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    for off, rows in ((0, n), (131, n - 131 - 5)):
+        before = k3.int4_screen_scores.launches
+        got = k3.int4_screen_scores(qu, packed, scales, valid, off, rows)
+        want = k3.int4_screen_scores_reference(qu, packed, scales, valid, off, rows)
+        torch.cuda.synchronize()
+        assert k3.int4_screen_scores.launches == before + 1
+        assert got.shape == (nq, rows)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin)
+        assert torch.equal(fin[0], valid[off: off + rows])
+        assert float((got[fin] - want[fin]).abs().max()) <= k3.SCREEN_MAX_ABS
+        assert float(got[nq // 2][fin[nq // 2]].abs().max()) == 0.0
+
+
+def test_int4_screen_kernel_rejects_bad_input(cuda):
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    packed, scales, valid = _int4_gallery(np.random.default_rng(0), 256, 64, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k3.int4_screen_scores(torch.zeros(2, 64, device=cuda), packed, scales, valid)
+    with pytest.raises(ValueError, match="dim"):
+        k3.int4_screen_scores(torch.zeros(2, 32, device=cuda, dtype=torch.bfloat16),
+                              packed, scales, valid)
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_int4_index_cuda_modes_match_cpu(cuda, d):
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    rng = np.random.default_rng(5)
+    n = 5000
+    emb = rng.normal(size=(n, d)).astype(np.float32)
+    attrs = {"bucket": np.arange(n) % 8}
+    q = np.concatenate([rng.normal(size=(9, d)).astype(np.float32),
+                        np.zeros((1, d), np.float32)])
+    out = {}
+    for name, dev, kw in (("host", cuda, {}), ("device", cuda, {"rerank_device": True}),
+                          ("cpu", "cpu", {})):
+        ix = ShardedVectorIndex(dim=d, config=IndexConfig(
+            embedding_dim=d, dtype="int4", rerank_c=128, capacity_step=4096, **kw),
+            device=dev)
+        ix.insert([str(i) for i in range(n)], emb, attrs=attrs)
+        ix.delete_rows(np.arange(0, n, 11))
+        before = k3.int4_screen_scores.launches
+        out[name] = (ix.search(q, top_k=10), ix.search(q[0], top_k=40, flt="bucket == 3"))
+        if dev != "cpu":
+            assert k3.int4_screen_scores.launches == before + 2  # one segment each
+    for name in ("device", "cpu"):
+        for (gv, gi), (wv, wi) in zip(out[name], out["host"]):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-6)
+    (_, _), (fv, fi) = out["host"]
+    assert ((fi % 8 == 3) & (fi % 11 != 0)).all()

@@ -126,7 +126,7 @@ def test_index_mutations_after_search_resync():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(config=IndexConfig(embedding_dim=8, dtype="int8")),
+    dict(config=IndexConfig(embedding_dim=8, dtype="int8", l1_shadow=True)),
     dict(config=IndexConfig(embedding_dim=8, stream_threshold_bytes=1 << 20)),
     dict(config=IndexConfig(embedding_dim=8, approx_select=True)),
 ])
@@ -142,8 +142,11 @@ def test_journal_not_ported(tmp_path):
 
 @pytest.mark.parametrize("call", [
     lambda ix: ix.search(np.ones(8, np.float32), metric="l2_distance"),
-    lambda ix: ix.search(np.ones(8, np.float32), flt="color == 'red'"),
+    lambda ix: ix.scores(np.ones(8, np.float32), metric="optimized_similarity"),
     lambda ix: ix.search(np.ones(8, np.float32), approx=True),
+    lambda ix: ix.multi_metric_topk(np.ones(8, np.float32)),
+    lambda ix: ix.save("index_dir"),
+    lambda ix: ix.load_from("index_dir"),
 ])
 def test_unported_index_calls_raise(call):
     ix = ShardedVectorIndex(dim=8, config=IndexConfig(embedding_dim=8), device="cpu")

@@ -31,8 +31,10 @@ def imported_modules(path):
 
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert "image_retrieval_tpu_torch/ops/flash_attention.py" in names
-    assert len(names) >= 15
+    for module in ("ops/flash_attention.py", "ops/int4.py", "ops/int4_screen.py",
+                   "parallel/collectives.py", "index/filters.py"):
+        assert f"image_retrieval_tpu_torch/{module}" in names
+    assert len(names) >= 21
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
