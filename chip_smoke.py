@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's text->image serving path once on one GPU.
+"""Drive the PyTorch/CUDA port's text->image serving paths once on one GPU.
 
-    python3 chip_smoke.py    # needs one CUDA card and nvcc
+    python3 chip_smoke.py             # needs one CUDA card and nvcc
+    python3 chip_smoke.py --time-k1   # build, then only K1's times (phase 2)
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
      port's kernels compiled from image_retrieval_tpu_torch/csrc with nvcc
-     for sm_90a.
-  2. kernel vs plain: layer_block_int8 on the card against its plain
-     PyTorch version on the same inputs, at the ViT-B/32 tower shapes
-     (vision B=8 T=50 W=768 12 heads; text B=8 T=77 W=512 8 heads, causal),
-     in bf16 and f32, with timings (CUDA events, median of 24 samples taken
-     in turns plain/kernel/kernel/plain).
-  3. the slice: CLIPEncoder(vit_b32_serving, seed 0) at full width on the
-     card encodes 256 seeded uint8 images; they and 1,000,000 seeded unit
-     rows go into the f32 ShardedVectorIndex; SearchServer answers 64
+     for sm_90a (one nvcc per source, in parallel).
+  2. kernel vs plain: layer_block_int8 (K1), attention_block_int8 (K2a) and
+     mlp_block_int8 (K2b) on the card against their plain PyTorch versions
+     on the same inputs, in bf16 and f32, by kernel_agreement: K1 at the
+     ViT-B/32 tower shapes (B=8 T=50 W=768 12 heads; B=8 T=77 W=512 8 heads,
+     causal) and at the ViT-B/16 shape (B=4 T=197 W=768), K2a and K2b at the
+     ViT-L/14 vision shape (B=4 T=257 W=1024 16 heads) and at the two B/32
+     shapes; K2a then K2b against K1 at (8, 50, 768), bitwise; QuantDense
+     against its plain version. Then timings (CUDA events, medians of samples
+     taken in turns plain/kernel/kernel/plain) at B=8 and at the main paths'
+     batches, each beside the least time the card could take for the work.
+  3. the ViT-B/32 slice: CLIPEncoder(vit_b32_serving, seed 0) at full width
+     on the card encodes 256 seeded uint8 images; they and 1,000,000 seeded
+     unit rows go into the f32 ShardedVectorIndex; SearchServer answers 64
      concurrent text queries, each checked against a float64 numpy oracle.
      The kernel's launch counter must show one launch per layer per encoded
      batch, and the towers must agree with the same model on CPU tensors.
@@ -29,10 +35,23 @@ Phases (any failure exits non-zero):
      exact query each search was given; the int4 screen kernel's launch
      counter must show one launch per 2^21-row segment per search. Then the
      kernel against its plain version on one segment, at Q = 1 and 64.
+  5. the ViT-L/14 slice: CLIPEncoder(serving_config(vit_l14()), seed 0) at
+     full width (24 + 12 layers, widths 1024 / 768, embedding 768), on the
+     card by default, encodes 64 seeded uint8 images (one batch, padded to
+     the encoder's 128 bucket: 32,896 token rows); they and 2^20 seeded 768-d
+     unit rows (planted neighbours as in phase 4) go into the int8 tier of an
+     ImageEmbeddingSystem's index; SearchServer answers 64 concurrent text
+     queries at top-10 and TextImageSearcher four single ones, every answer
+     held against the float64 oracle over the index's host int8 rows. The
+     launch counters must show 24 K2a + 24 K2b launches per image batch and
+     12 K1 launches per text batch. Then every block of both towers on the
+     card against its plain version on the same card, on the same input, and
+     the plain chain against the kernel chain (TOWER_MIN_COS); and a
+     torch.profiler window over one image batch: device time by kernel.
 
-Prints the card line, a JSON line of per-kernel results, and, last, the
-{"ok": true, "device": ...} line. Imports no JAX: the port reads only the
-JAX package's framework-free config module and vendored BPE vocab.
+Prints the card line, a JSON line of per-kernel results (times and the
+bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
+line. Imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -51,19 +70,58 @@ import numpy as np
 # than 1e-3, per-token cosine of the layer's update), set from int8
 # rounding flips and shown there to reject a layer that drops a bias add.
 # Whole towers compound 12 layers of flips, so they are held by cosine.
-TOWER_MIN_COS = 0.999  # embeddings of the CUDA towers vs the CPU towers
+TOWER_MIN_COS = 0.999  # the towers through the kernels vs through the plain versions
 ORACLE_SCORE_ATOL = 1e-5  # f32 sweep vs float64 oracle, unit rows, D = 512
 N_IMAGES, N_ROWS, N_CLIENTS, TOP_K = 256, 1_000_000, 64, 10
 # Phase 4: gallery rows, insert chunk, planted neighbours per query, the
 # screen's candidates per query, single-query latency samples.
 N4, CHUNK4, PLANTED4, RERANK_C, N_SINGLE = 1 << 23, 1 << 20, 16, 128, 50
-INT4_ORACLE_ATOL = 1e-5  # f32 rerank vs float64 int8-exact oracle, same bf16 query
+# Phase 5: images (one encoder batch, padded to the 128 bucket), gallery
+# rows, single searches through TextImageSearcher, images of the tower check.
+N_IMAGES5, ENC_BUCKET5, N5, N_SINGLE5, N_CHECK5 = 64, 128, CHUNK4, 4, 4
+INT4_ORACLE_ATOL = 1e-5  # f32 sums vs float64 int8-exact oracle, same bf16 query
 LATENCY_ATOL = 1e-6  # latency mode vs capacity mode, same rows and queries
 RECALL_MIN = 0.99  # recall@10 of the two-phase tier vs the oracle's top-10
 
 
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet): the bound of
+# a kernel is the larger of its operations over the peak for their type and
+# its bytes (every input read once, every output written once) over the
+# memory rate.
+PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
+
+
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke FAILED: {msg}")
+
+
+def bound(int8_ops: float, bf16_flops: float, nbytes: float) -> dict:
+    """The least time the card could take: {"bound_ms", "bound_by"}."""
+    ops_ms = (int8_ops / PEAK_INT8_OPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def block_bound(kind: str, x, wts, heads: int, causal: bool) -> dict:
+    """Bound of one K1 / K2a / K2b call on these inputs. Operations: the
+    int8 projections (2 per multiply-add: 8 W^2 per token in the attention
+    half, 4 W hidden in the MLP half) at the int8 peak, and the attention's
+    QK^T and PV (4 hd per query-key pair and head; with the causal mask only
+    the pairs j <= i) at the bf16 peak. Bytes: x, the output, and every
+    weight, scale and bias tensor once."""
+    b, t, w = x.shape
+    m = b * t
+    pairs = t * (t + 1) // 2 if causal else t * t
+    int8_ops = flops = 0.0
+    if kind in ("layer", "attn"):
+        int8_ops += 8.0 * w * w * m
+        flops += 4.0 * b * pairs * w
+    if kind in ("layer", "mlp"):
+        int8_ops += 4.0 * w * wts.hidden * m
+    nbytes = 2 * x.numel() * x.element_size() + sum(
+        a.numel() * a.element_size() for a in wts.tensors())
+    return bound(int8_ops, flops, nbytes)
 
 
 def card_line() -> str:
@@ -121,39 +179,137 @@ def time_pair(torch, fns, samples=24, reps=5):
     return {k: float(np.median(v)) for k, v in got.items()}
 
 
+def _agree(fa, torch, name, case, got, want, x):
+    """kernel_agreement of one case, printed; fails the run if it is not ok."""
+    torch.cuda.synchronize()
+    r = fa.kernel_agreement(got, want, x)
+    print(f"kernel-vs-plain {name} {case} {str(x.dtype)[6:]}: max_abs_err "
+          f"{r['max_abs_err']:.6g} (limit {r['max_abs_limit']:.6g}), "
+          f"{r['flip_share']:.4%} of elements off by > {fa.AGREE_FLIP_ATOL} "
+          f"(limit {fa.AGREE_FLIP_SHARE:.0%}), min per-token cos of the "
+          f"update {r['min_update_cos']:.8f} (limit "
+          f"{fa.AGREE_MIN_UPDATE_COS})", flush=True)
+    if not r["ok"]:
+        fail(f"{name} {case} {x.dtype} disagrees with its plain version")
+    return r["max_abs_err"]
+
+
+def kernel_runs(fa):
+    """name -> (kernel, plain version, which part of a layer) with one
+    calling convention: (x, whole-layer weights, heads, causal)."""
+    return {
+        "layer_block_int8": (
+            lambda x, w, h, c: fa.layer_block_int8(x, w, h, c),
+            lambda x, w, h, c: fa.layer_block_int8_reference(x, w, h, c), "layer"),
+        "attention_block_int8": (
+            lambda x, w, h, c: fa.attention_block_int8(x, w.attn, h, c),
+            lambda x, w, h, c: fa.attention_block_int8_reference(x, w.attn, h, c), "attn"),
+        "mlp_block_int8": (
+            lambda x, w, h, c: fa.mlp_block_int8(x, w.mlp),
+            lambda x, w, h, c: fa.mlp_block_int8_reference(x, w.mlp), "mlp"),
+    }
+
+
+# Shapes (B, T, W, heads, causal) the kernels are timed at, in bf16: B = 8
+# (mostly launch overhead) and the batches the main paths of phases 3 and 5
+# give them.
+B32_VISION, B32_TEXT = (8, 50, 768, 12, False), (8, 77, 512, 8, True)
+B16_VISION, L14_VISION = (4, 197, 768, 12, False), (4, 257, 1024, 16, False)
+L14_BATCH = (ENC_BUCKET5, 257, 1024, 16, False)
+TIME_SHAPES = {
+    "layer_block_int8": {"b32-vision-B8": B32_VISION, "b32-text-B8": B32_TEXT,
+                         "b32-vision-B256": (256, 50, 768, 12, False),
+                         "b32-text-B64": (64, 77, 512, 8, True),
+                         "l14-text-B64": (64, 77, 768, 12, True)},
+    "attention_block_int8": {"l14-vision-B4": L14_VISION,
+                             f"l14-vision-B{ENC_BUCKET5}": L14_BATCH},
+    "mlp_block_int8": {"l14-vision-B4": L14_VISION, f"l14-vision-B{ENC_BUCKET5}": L14_BATCH},
+}
+
+
+def time_kernels(torch, card, fa, names):
+    """{name: {case: {"kernel", "plain", "bound_ms", "bound_by"}}} at
+    TIME_SHAPES, kernel beside plain version beside the bound."""
+    out = {}
+    for name in names:
+        kernel, plain, kind = kernel_runs(fa)[name]
+        out[name] = {}
+        for case, (b, t, w, heads, causal) in TIME_SHAPES[name].items():
+            x32, wts = layer_inputs(torch, b, t, w, heads, seed=len(case))
+            xb = x32.to(device="cuda", dtype=torch.bfloat16)
+            big = b * t > 4096
+            r = time_pair(torch, {"kernel": lambda: kernel(xb, wts, heads, causal),
+                                  "plain": lambda: plain(xb, wts, heads, causal)},
+                          samples=8 if big else 24, reps=2 if big else 5)
+            part = {"attn": getattr(wts, "attn", None), "mlp": getattr(wts, "mlp", None),
+                    "layer": wts}[kind]
+            r.update(block_bound(kind, xb, part, heads, causal))
+            out[name][case] = r
+            print(f"time {name} {case} bf16 B={b} T={t} W={w}: kernel {r['kernel']:.4f} ms, "
+                  f"plain {r['plain']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}) [{card}]", flush=True)
+            del xb, wts
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, card):
-    """Kernel vs plain at both tower shapes; returns the largest error and
-    the bf16 times per shape."""
+    """K1, K2a, K2b and QuantDense against their plain versions, then their
+    times beside the plain versions' and the bound. Returns, per kernel,
+    {"max_abs_err", "times": {case: {"kernel", "plain", "bound_ms",
+    "bound_by"}}}."""
     from image_retrieval_tpu_torch.ops import flash_attention as fa
 
-    shapes = {"vision": (8, 50, 768, 12, False), "text": (8, 77, 512, 8, True)}
-    max_err, times = 0.0, {}
-    for name, (b, t, w, heads, causal) in shapes.items():
-        x32, wts = layer_inputs(torch, b, t, w, heads, seed=len(name))
-        for dt in (torch.bfloat16, torch.float32):
-            x = x32.to(device="cuda", dtype=dt)
-            got = fa.layer_block_int8(x, wts, heads, causal)
-            want = fa.layer_block_int8_reference(x, wts, heads, causal)
-            torch.cuda.synchronize()
-            r = fa.kernel_agreement(got, want, x)
-            max_err = max(max_err, r["max_abs_err"])
-            print(f"kernel-vs-plain {name} {str(dt)[6:]}: max_abs_err "
-                  f"{r['max_abs_err']:.6g} (limit {r['max_abs_limit']:.6g}), "
-                  f"{r['flip_share']:.4%} of elements off by > {fa.AGREE_FLIP_ATOL} "
-                  f"(limit {fa.AGREE_FLIP_SHARE:.0%}), min per-token cos of the "
-                  f"update {r['min_update_cos']:.8f} (limit "
-                  f"{fa.AGREE_MIN_UPDATE_COS})", flush=True)
-            if not r["ok"]:
-                fail(f"layer_block_int8 {name} {dt} disagrees with its plain version")
-        xb = x32.to(device="cuda", dtype=torch.bfloat16)
-        times[name] = time_pair(torch, {
-            "kernel": lambda: fa.layer_block_int8(xb, wts, heads, causal),
-            "plain": lambda: fa.layer_block_int8_reference(xb, wts, heads, causal),
-        })
-        print(f"layer time {name} bf16 B={b} T={t} W={w}: kernel "
-              f"{times[name]['kernel']:.4f} ms, plain {times[name]['plain']:.4f} ms "
-              f"per layer [{card}]", flush=True)
-    return max_err, times
+    runs = kernel_runs(fa)
+    halves = {"l14-vision": L14_VISION, "b32-vision": B32_VISION, "b32-text": B32_TEXT}
+    agree_shapes = {
+        "layer_block_int8": {"b32-vision": B32_VISION, "b32-text": B32_TEXT,
+                             "b16-vision": B16_VISION},
+        "attention_block_int8": halves,
+        "mlp_block_int8": halves,
+    }
+    out = {name: {"max_abs_err": 0.0, "times": {}} for name in runs}
+    for name, shapes in agree_shapes.items():
+        kernel, plain, _ = runs[name]
+        for case, (b, t, w, heads, causal) in shapes.items():
+            x32, wts = layer_inputs(torch, b, t, w, heads, seed=len(case) + w)
+            for dt in (torch.bfloat16, torch.float32):
+                x = x32.to(device="cuda", dtype=dt)
+                err = _agree(fa, torch, name, case, kernel(x, wts, heads, causal),
+                             plain(x, wts, heads, causal), x)
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+
+    # K2a then K2b run K1's launches on K1's values: equal bit for bit
+    x32, wts = layer_inputs(torch, *B32_VISION[:4], seed=21)
+    for dt in (torch.bfloat16, torch.float32):
+        x = x32.to(device="cuda", dtype=dt)
+        two = fa.mlp_block_int8(fa.attention_block_int8(x, wts.attn, 12), wts.mlp)
+        one = fa.layer_block_int8(x, wts, 12)
+        torch.cuda.synchronize()
+        if not torch.equal(two, one):
+            fail(f"attention_block_int8 then mlp_block_int8 differs from layer_block_int8 ({dt})")
+    print("K2a then K2b equals K1 bit for bit at (8, 50, 768), bf16 and f32", flush=True)
+
+    # QuantDense: the int32 sums are exact and the rowquant and the rescale
+    # run the same f32 operations in the same order on both sides: equal
+    x32, wts = layer_inputs(torch, *L14_VISION[:4], seed=22)
+    for in_dt, out_dt, (w_t, w_s, bias) in (
+            (torch.float32, torch.bfloat16, (wts.wqkv_t, wts.wqkv_s, wts.bqkv)),
+            (torch.bfloat16, torch.bfloat16, (wts.wo_t, wts.wo_s, wts.bo)),
+            (torch.float32, torch.float32, (wts.w1_t, wts.w1_s, wts.b1))):
+        x = x32.to(device="cuda", dtype=in_dt)
+        got = fa.quant_dense(x, w_t, w_s, bias, out_dt)
+        want = fa.quant_dense_reference(x, w_t, w_s, bias, out_dt)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        print(f"quant_dense {tuple(x.shape)} {str(in_dt)[6:]} -> {w_t.shape[0]} "
+              f"{str(out_dt)[6:]}: max_abs_err vs plain {err:.3g} (limit 0)", flush=True)
+        if not (torch.isfinite(got).all() and err == 0.0):
+            fail("quant_dense disagrees with its plain version")
+
+    for name, times in time_kernels(torch, card, fa, list(runs)).items():
+        out[name]["times"] = times
+    return out
 
 
 def oracle_topk(gallery: np.ndarray, queries: np.ndarray, k: int):
@@ -323,16 +479,17 @@ def recording_index(base):
     return RecordingIndex
 
 
-def planted_rows(q_emb, rng):
+def planted_rows(q_emb, rng, n_rows=N4):
     """PLANTED4 rows per query, normalize(q_hat + sigma * noise) with sigma
-    set for cosines spread over 0.3-0.95, at distinct seeded positions."""
+    set for cosines spread over 0.3-0.95, at distinct seeded positions
+    among `n_rows`."""
     qhat = q_emb / np.linalg.norm(q_emb, axis=1, keepdims=True)
     nq, d = qhat.shape
     rho = rng.uniform(0.3, 0.95, size=(nq, PLANTED4, 1))
     sigma = np.sqrt((1.0 / rho ** 2 - 1.0) / d)
     rows = qhat[:, None, :] + sigma * rng.standard_normal((nq, PLANTED4, d))
     rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
-    pos = rng.choice(N4, size=nq * PLANTED4, replace=False)
+    pos = rng.choice(n_rows, size=nq * PLANTED4, replace=False)
     return pos, rows.reshape(-1, d).astype(np.float32)
 
 
@@ -348,7 +505,7 @@ def gallery_chunk(torch, c, d, pos, planted):
     return rows
 
 
-def int4_oracle(torch, index, depth):
+def int8_exact_oracle(torch, index, depth):
     """float64 int8-exact scores of every live row for each recorded query
     of `index`: the query normalized by the index's own f32 steps on the
     card and rounded to bf16, times the host int8 rows, times their scales;
@@ -387,7 +544,7 @@ def int4_oracle(torch, index, depth):
     return out
 
 
-def check_int4_answers(index, oracle):
+def check_answers(index, oracle):
     """Every recorded answer of `index` against the oracle: the returned
     rows' scores within INT4_ORACLE_ATOL of their float64 scores, ranked in
     the oracle's order except swaps within that limit, filtered answers
@@ -411,6 +568,18 @@ def check_int4_answers(index, oracle):
     if worst > INT4_ORACLE_ATOL:
         fail(f"scores differ from the oracle by {worst:.3g}")
     return worst, recall
+
+
+def check_clients_got_the_indexs_answers(name, ix, waves):
+    """Every client's answer of every wave is, hit for hit, what a recorded
+    "wave" search of `ix` returned."""
+    seen = {tuple((ix.paths[i], float(v)) for v, i in zip(vr, ir))
+            for stage, _, _, (vals, idx) in ix.calls if stage == "wave"
+            for vr, ir in zip(vals, idx)}
+    for answers, _, _ in waves:
+        for a in answers:
+            if a is None or tuple((h["path"], h["score"]) for h in a) not in seen:
+                fail(f"{name}: a client's answer is not what the index returned")
 
 
 def kernel_vs_plain_int4(torch, card, index, qu64):
@@ -453,6 +622,7 @@ def kernel_vs_plain_int4(torch, card, index, qu64):
         if not err <= k3.SCREEN_MAX_ABS:
             fail(f"int4_screen Q={nq} disagrees with its plain version")
         out[nq] = dict(t, max_abs_err=err)
+    out["rows"] = seg
     return out
 
 
@@ -523,21 +693,14 @@ def phase_int4(torch, card, enc, queries, q_emb):
     if not np.array_equal(ic, il) or lat_diff > LATENCY_ATOL:
         fail(f"latency mode answers differ from capacity mode (score diff {lat_diff:.3g})")
     for name, both in waves.items():
-        ix = cap if name == "capacity" else lat
-        seen = {tuple((f"gallery/{i:07d}", float(v)) for v, i in zip(vr, ir))
-                for stage, _, _, (vals, idx) in ix.calls if stage == "wave"
-                for vr, ir in zip(vals, idx)}
-        for answers, _, _ in both:
-            for a in answers:
-                if a is None or tuple((h["path"], h["score"]) for h in a) not in seen:
-                    fail(f"{name}: a client's answer is not what the index returned")
+        check_clients_got_the_indexs_answers(name, cap if name == "capacity" else lat, both)
     for a in filtered:
         if len(a) != TOP_K or any(int(h["path"][8:]) % 8 != 3 for h in a):
             fail(f"filtered search returned {a!r:.200}")
 
     worst = {}
     for name, ix in (("capacity", cap), ("latency", lat)):
-        worst[name], recall = check_int4_answers(ix, int4_oracle(torch, ix, 3 * TOP_K))
+        worst[name], recall = check_answers(ix, int8_exact_oracle(torch, ix, 3 * TOP_K))
         for stage, (n, misses) in recall.items():
             print(f"int4 {name} mode, {stage}: recall@10 vs the oracle "
                   f"{1 - misses / n:.4f} over {n} answers ({misses} misses; limit "
@@ -571,6 +734,193 @@ def phase_int4(torch, card, enc, queries, q_emb):
     return launches, kernel
 
 
+def towers_vs_plain(torch, enc, images, texts):
+    """Every block of both towers on the card against its plain version on
+    the same card and the same input (kernel_agreement), and the chain of
+    plain versions from the first block's input against the chain of
+    kernels (per-token cosine of the last block's output). Returns the
+    smallest cosine per tower."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    seen = []
+    towers = {"vision": enc.model.vision, "text": enc.model.text}
+    hooks = [blk.register_forward_hook(
+        lambda blk, args, out, name=name: seen.append((name, blk, args[0], out)))
+        for name, tower in towers.items() for blk in tower.blocks]
+    try:
+        enc.encode_pixels(images)
+        enc.encode_texts(texts)
+    finally:
+        for h in hooks:
+            h.remove()
+    cos = {}
+    with torch.inference_mode():
+        for name, tower in towers.items():
+            blocks = [e for e in seen if e[0] == name]
+            if len(blocks) != len(tower.blocks):
+                fail(f"{name}: {len(blocks)} block calls for {len(tower.blocks)} blocks")
+            chain, worst = blocks[0][2], 0.0
+            for i, (_, blk, x, out) in enumerate(blocks):
+                wts = blk.int8_weights()
+                want = fa.layer_block_int8_reference(x, wts, blk.heads, blk.causal)
+                r = fa.kernel_agreement(out, want, x)
+                if not r["ok"]:
+                    fail(f"{name} block {i} on the card disagrees with its plain version: {r}")
+                worst = max(worst, r["max_abs_err"])
+                chain = fa.layer_block_int8_reference(chain, wts, blk.heads, blk.causal)
+            cos[name] = float(row_cos(blocks[-1][3], chain).min())
+            print(f"{name} tower, {len(blocks)} blocks {tuple(blocks[0][2].shape)} "
+                  f"{str(chain.dtype)[6:]}: every block within kernel_agreement of its plain "
+                  f"version (max_abs_err {worst:.4g}); plain chain vs kernel chain min "
+                  f"per-token cos {cos[name]:.6f} (limit {TOWER_MIN_COS})", flush=True)
+            if not cos[name] >= TOWER_MIN_COS:
+                fail(f"the {name} tower through the kernels left its plain version")
+    return cos
+
+
+def profile_encode(torch, enc, images, card):
+    """One warm encode_pixels call under torch.profiler: wall time, and the
+    device's self time by kernel family (the launches are serial on one
+    stream, so their sum is the device's busy time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    families = (("gemm_s8", "int8 GEMMs"), ("attention_tiled", "attention"),
+                ("ln_rowquant", "LayerNorm/rowquant passes"), ("Memcpy", "copies"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        enc.encode_pixels(images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        family = next((label for pat, label in families if pat in e.key), "other kernels")
+        ms[family] = ms.get(family, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(ms.values())
+    if busy <= 0:
+        print("L/14 encode profile: torch.profiler recorded no device time; "
+              "device time by kernel not measured", flush=True)
+        return
+    parts = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(ms.items(), key=lambda kv: -kv[1]))
+    print(f"L/14 encode profile, one batch of {len(images)} images (padded to {ENC_BUCKET5}), "
+          f"torch.profiler on: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms (idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.1%}): {parts} [{card}]", flush=True)
+
+
+def phase_l14(torch, card, queries):
+    """The ViT-L/14 serving slice, counted; then its answers against the
+    oracle and its towers against the plain versions. Returns the launches
+    of K1, K2a and K2b in the counted run."""
+    from image_retrieval_tpu_torch.app.embed import ImageEmbeddingSystem
+    from image_retrieval_tpu_torch.app.search import TextImageSearcher
+    from image_retrieval_tpu_torch.app.server import SearchServer
+    from image_retrieval_tpu_torch.config import Config, IndexConfig, serving_config, vit_l14
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.clip import KERNEL, LAYER
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    cfg = Config(model=serving_config(vit_l14()),
+                 index=IndexConfig(embedding_dim=768, dtype="int8", capacity_step=N5 + 65536))
+    mc = cfg.model
+    t0 = time.perf_counter()
+    enc = CLIPEncoder(cfg, seed=0)  # no device=: the card
+    if enc.device.type != "cuda":
+        fail(f"CLIPEncoder without device= is on {enc.device}")
+    modes = (enc.model.vision.blocks[0].mode, enc.model.text.blocks[0].mode)
+    if modes != ((KERNEL, KERNEL), (LAYER, LAYER)):
+        fail(f"L/14 towers routed {modes}")
+    print(f"CLIPEncoder serving_config(vit_l14()) on {enc.device}: {mc.vision_layers}+"
+          f"{mc.text_layers} layers, widths {mc.vision_width}/{mc.text_width}, embed "
+          f"{mc.embed_dim}, image {mc.image_size} patch {mc.patch_size}, "
+          f"{sum(p.numel() for p in enc.model.parameters()) / 1e6:.0f} M parameters, "
+          f"{time.perf_counter() - t0:.1f} s to build", flush=True)
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, size=(N_IMAGES5, mc.image_size, mc.image_size, 3),
+                          dtype=np.uint8)
+    # warm-up (weight quantization of all 36 layers, cuBLAS handles); its
+    # launches are not counted
+    enc.encode_pixels(images[:8])
+    q_emb = enc.encode_texts(queries)
+    torch.cuda.synchronize()
+    pos, planted = planted_rows(q_emb, np.random.default_rng(6), N5)
+    rows = gallery_chunk(torch, 0, mc.embed_dim, pos, planted)
+    Index = recording_index(ShardedVectorIndex)
+
+    # ---- the main path, counted ------------------------------------------
+    kernels = (fa.layer_block_int8, fa.attention_block_int8, fa.mlp_block_int8)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img_emb = enc.encode_pixels(images)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    system = ImageEmbeddingSystem(enc, index=Index(dim=mc.embed_dim, config=cfg.index),
+                                  config=cfg)
+    index = system.index
+    if index.device.type != "cuda":
+        fail(f"ShardedVectorIndex without device= is on {index.device}")
+    t0 = time.perf_counter()
+    index.insert([f"gallery/{i:07d}" for i in range(N5)], rows, np.ones(N5, np.float32))
+    index.insert([f"images/{i:04d}.jpg" for i in range(N_IMAGES5)], img_emb)
+    index.load()
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    index.stage = "wave"
+    server = SearchServer(enc, index, max_batch=64, max_wait_ms=2.0)
+    waves = [serve_wave(server, queries) for _ in range(2)]  # cold, then again
+    index.stage = "single"
+    searcher = TextImageSearcher(enc, index)
+    t0 = time.perf_counter()
+    singles = [searcher.search(queries[i], top_k=TOP_K, score_threshold=-1.0)
+               for i in range(N_SINGLE5)]
+    single_ms = (time.perf_counter() - t0) * 1e3 / N_SINGLE5
+    launches = {k.__name__: k.launches for k in kernels}
+    # ---- end of the counted run ------------------------------------------
+    text_batches = sum(w[2] for w in waves) + N_SINGLE5
+    expected = {"layer_block_int8": mc.text_layers * text_batches,
+                "attention_block_int8": mc.vision_layers, "mlp_block_int8": mc.vision_layers}
+    print(f"launches in the L/14 main path: {launches} (expected {mc.vision_layers} K2a + "
+          f"{mc.vision_layers} K2b for the one image batch, {mc.text_layers} K1 x "
+          f"{text_batches} text batches = {expected['layer_block_int8']})", flush=True)
+    if launches != expected:
+        fail("the L/14 main path did not run K2a and K2b once per vision layer per "
+             "image batch and K1 once per text layer per text batch")
+    if img_emb.shape != (N_IMAGES5, mc.embed_dim) or not np.isfinite(img_emb).all():
+        fail(f"image embeddings {img_emb.shape} are not finite ({N_IMAGES5}, {mc.embed_dim})")
+    print(f"L/14 image embed: {N_IMAGES5} images (one batch of {ENC_BUCKET5} with padding, "
+          f"{ENC_BUCKET5 * 257} token rows) in {embed_s:.3f} s = {N_IMAGES5 / embed_s:.1f} "
+          f"img/s, uint8 in, embeddings back on the host; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    (_, cold, cold_b), (_, warm, warm_b) = waves
+    print(f"int8 tier: {len(index)} x {mc.embed_dim} rows quantized on the host and "
+          f"uploaded in {insert_s:.1f} s ({index._gallery.numel() / 2**30:.2f} GiB on the "
+          f"card); {N_CLIENTS} concurrent text queries through SearchServer: cold "
+          f"{N_CLIENTS / cold:.1f} QPS ({cold_b} micro-batches), again "
+          f"{N_CLIENTS / warm:.1f} QPS ({warm_b} micro-batches); single searches "
+          f"{single_ms:.2f} ms each (text tower + sweep, host clock) [{card}]", flush=True)
+
+    # ---- answers vs the float64 oracle -----------------------------------
+    check_clients_got_the_indexs_answers("L/14", index, waves)
+    for a in singles:
+        if len(a) != TOP_K or not all(np.isfinite(h["score"]) for h in a):
+            fail(f"single search returned {a!r:.200}")
+    worst, recall = check_answers(index, int8_exact_oracle(torch, index, 3 * TOP_K))
+    for stage, (n, misses) in recall.items():
+        print(f"L/14 int8 tier, {stage}: recall@10 vs the oracle {1 - misses / n:.4f} over "
+              f"{n} answers ({misses} misses; limit {RECALL_MIN})", flush=True)
+        if 1 - misses / n < RECALL_MIN:
+            fail(f"L/14 {stage}: recall@10 below {RECALL_MIN}")
+    print(f"L/14 int8 tier vs float64 int8-exact oracle: max score diff {worst:.3g} "
+          f"(limit {INT4_ORACLE_ATOL})", flush=True)
+
+    towers_vs_plain(torch, enc, images[:N_CHECK5], queries[:8])
+    profile_encode(torch, enc, images, card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -594,39 +944,65 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip(), flush=True)
 
-    max_err, times = phase_kernels(torch, card)
+    if sys.argv[1:] == ["--time-k1"]:
+        # only K1's times: to compare two checkouts inside one call on one
+        # card, copy this script into each and run it there in turns
+        from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+        time_kernels(torch, card, fa, ["layer_block_int8"])
+        return 0
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    kernels = phase_kernels(torch, card)
     launches, enc, queries, q_emb = phase_slice(torch, card)
     int4_launches, k3 = phase_int4(torch, card, enc, queries, q_emb)
+    del enc
+    torch.cuda.empty_cache()
+    l14_launches = phase_l14(torch, card, queries)
 
-    jax_free = "jax" not in sys.modules and not any(
-        m.startswith("image_retrieval_tpu.") and m != "image_retrieval_tpu.config"
-        for m in sys.modules)
-    if not jax_free:
-        fail("JAX or a JAX-package module other than its config was imported")
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "image_retrieval_tpu")]
+    if loaded:
+        fail(f"JAX or the JAX package was imported: {loaded[:5]}")
+
+    def block_entry(name, source, line, n_launches, case, extra):
+        k = kernels[name]
+        t = k["times"][case]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"image_retrieval_tpu_torch/csrc/{source}",
+                 "replaces": f"image_retrieval_tpu/ops/flash_attention.py:{line}",
+                 "launches": n_launches, "max_abs_err": k["max_abs_err"],
+                 "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": None, "shape": case}
+        for key, other in extra.items():
+            o = k["times"][other]
+            entry.update({f"{key}_ms": o["kernel"], f"{key}_plain_ms": o["plain"],
+                          f"{key}_bound_ms": o["bound_ms"]})
+        return entry
+
+    # int4_screen at Q = 64 over one segment: 2 Q N D multiply-adds' worth of
+    # bf16 operations; bytes: the packed rows, scales, validity, queries, scores
+    seg, d, nq = k3["rows"], q_emb.shape[1], 64
+    k3_bound = bound(0.0, 2.0 * nq * seg * d, seg * (d // 2 + 4 + 1) + nq * d * 2 + nq * seg * 4)
+    big = f"l14-vision-B{ENC_BUCKET5}"
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "layer_block_int8",
-        "route": "cuda",
-        "source": "image_retrieval_tpu_torch/csrc/layer_block_int8.cu",
-        "replaces": "image_retrieval_tpu/ops/flash_attention.py:772",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": times["vision"]["kernel"],
-        "plain_ms": times["vision"]["plain"],
-        "text_ms": times["text"]["kernel"],
-        "text_plain_ms": times["text"]["plain"],
-    }, {
-        "name": "int4_screen",
-        "route": "cuda",
-        "source": "image_retrieval_tpu_torch/csrc/int4_screen.cu",
-        "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:602",
-        "launches": int4_launches,
-        "max_abs_err": max(k3[1]["max_abs_err"], k3[64]["max_abs_err"]),
-        "ms": k3[64]["kernel"],
-        "plain_ms": k3[64]["plain"],
-        "q1_ms": k3[1]["kernel"],
-        "q1_plain_ms": k3[1]["plain"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        block_entry("layer_block_int8", "layer_block_int8.cu", 772,
+                    launches + l14_launches["layer_block_int8"], "b32-vision-B256",
+                    {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
+                     "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
+        {"name": "int4_screen", "route": "cuda",
+         "source": "image_retrieval_tpu_torch/csrc/int4_screen.cu",
+         "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:602",
+         "launches": int4_launches,
+         "max_abs_err": max(k3[1]["max_abs_err"], k3[64]["max_abs_err"]),
+         "ms": k3[64]["kernel"], "plain_ms": k3[64]["plain"], **k3_bound,
+         "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
+         "q1_ms": k3[1]["kernel"], "q1_plain_ms": k3[1]["plain"]},
+        block_entry("attention_block_int8", "attention_block_int8.cu", 554,
+                    l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
+        block_entry("mlp_block_int8", "mlp_block_int8.cu", 671,
+                    l14_launches["mlp_block_int8"], big, {"b4": "l14-vision-B4"}),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

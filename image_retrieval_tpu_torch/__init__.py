@@ -11,7 +11,8 @@ jax. The port covers the text->image serving slice so far:
 - the resident f32 exact index                                 -> index/
 - ingest, search and the micro-batching server                 -> app/
 
-Nothing picks a device by itself: every entry point takes ``device=``.
+Entry points run on the card unless the caller passes ``device="cpu"``;
+without a card they raise, and nothing falls back to the CPU.
 ROADMAP.md lists what is still to be ported.
 """
 

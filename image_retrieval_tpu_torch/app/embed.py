@@ -22,15 +22,13 @@ logger = logging.getLogger(__name__)
 
 class ImageEmbeddingSystem:
     """Generate and store image embeddings. Without an `index`, one is
-    created on `device`."""
+    created on `device` (the card unless the caller names the CPU)."""
 
     def __init__(self, encoder: Encoder, index: Optional[ShardedVectorIndex] = None,
-                 config: Optional[Config] = None, device: Optional[DeviceLike] = None):
+                 config: Optional[Config] = None, device: DeviceLike = "cuda"):
         self.encoder = encoder
         self.config = config or Config()
         if index is None:
-            if device is None:
-                raise ValueError("ImageEmbeddingSystem needs index= or device=")
             index = ShardedVectorIndex(dim=encoder.dim, config=self.config.index,
                                        device=device)
         self.index = index

@@ -1,0 +1,601 @@
+// Device code shared by the Hopper (sm_90a) int8 serving kernels:
+// layer_block_int8.cu (whole layer), attention_block_int8.cu and
+// mlp_block_int8.cu (its two halves) and quant_dense.cu (one projection).
+// Each is a chain of these simple kernels, every one reading its operands
+// once from device memory (the 50 MB L2 holds a layer's weights and
+// activations between launches):
+//   (a) ln_rowquant_kernel      LayerNorm (f32, fast variance) fused with the
+//                               per-row int8 quantization; one block per row.
+//   (b) gemm_s8_kernel          int8 GEMM on the tensor cores (mma.sync
+//                               m16n8k32, int32 accumulate), 64x64 tiles,
+//                               cp.async double buffering, and a fused
+//                               epilogue: acc * row_scale * col_scale + bias,
+//                               then quick_gelu in f32 or the residual add in
+//                               the compute type.
+//   (c) attention_tiled_kernel  one block per (head, image, tile of query
+//                               rows): the (image, head)'s K and V and the
+//                               tile's Q and score rows stay in shared
+//                               memory; exact two-pass f32 softmax,
+//                               probabilities cast to the compute type, PV
+//                               accumulated in f32.
+// Everything sits in an anonymous namespace: each source that includes this
+// file gets its own copy and instantiates only the kernels it launches.
+//
+// Numerics follow the JAX kernels: rowquant is round-half-even of a true
+// division (__fdiv_rn, __float2int_rn); the dequant keeps the order
+// acc * hs * ws + b with no contraction into an FMA (__fmul_rn/__fadd_rn);
+// projection outputs are cast to the compute type before the residual add,
+// while fc1 stays f32 through quick_gelu; attention scales after the QK dot
+// in f32. Built without --use_fast_math.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#ifndef IRT_BAD_ARGS
+#define IRT_BAD_ARGS 100000
+#endif
+
+// Most dynamic shared memory one block may ask for on sm_90 (227 KB).
+#define IRT_MAX_SMEM 232448
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// Type helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as astype(bfloat16)
+}
+
+// A cast to the compute type and back (JAX's .astype(dt) on an f32 value).
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide reductions; every thread gets the result. `red` holds one
+// value per warp; the leading barrier protects it across successive calls.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return warp_sum(lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f);
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return warp_max(lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// (a) LayerNorm + per-row int8 quantization
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 256;
+// a row of f32 values sits in dynamic shared memory; the default limit
+constexpr int kMaxRowWidth = 48 * 1024 / (int)sizeof(float);
+
+// One block per row of `width` values. With kLN, the row is first
+// normalized: (x - mu) * rsqrt(E[x^2] - mu^2 (>= 0) + 1e-5) * gamma + beta.
+// Then s = max(absmax, 1e-12) / 127 and q = round_half_even(h / s).
+template <typename In, bool kLN>
+__global__ void __launch_bounds__(kRowThreads) ln_rowquant_kernel(
+    const In* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int8_t* __restrict__ q,
+    float* __restrict__ qscale, int width) {
+  extern __shared__ float row[];
+  __shared__ float red[32];
+  const size_t base = (size_t)blockIdx.x * width;
+  float sum = 0.f, sq = 0.f;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    const float v = to_f32(x[base + i]);
+    row[i] = v;  // each thread later reads back only its own elements
+    if (kLN) {
+      sum += v;
+      sq = fmaf(v, v, sq);
+    }
+  }
+  if (kLN) {
+    sum = block_sum(sum, red);
+    sq = block_sum(sq, red);
+    const float mu = __fdiv_rn(sum, (float)width);
+    const float ms = __fdiv_rn(sq, (float)width);
+    const float var = fmaxf(__fsub_rn(ms, __fmul_rn(mu, mu)), 0.f);
+    const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, 1e-5f)));
+    for (int i = threadIdx.x; i < width; i += blockDim.x) {
+      const float h = __fmul_rn(__fmul_rn(__fsub_rn(row[i], mu), inv), gamma[i]);
+      row[i] = __fadd_rn(h, beta[i]);
+    }
+  }
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) amax = fmaxf(amax, fabsf(row[i]));
+  amax = block_max(amax, red);
+  const float s = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    q[base + i] = (int8_t)__float2int_rn(__fdiv_rn(row[i], s));
+  }
+  if (threadIdx.x == 0) qscale[blockIdx.x] = s;
+}
+
+// ---------------------------------------------------------------------------
+// (b) int8 GEMM with fused dequant epilogue
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 64, BN = 64, BK = 64;
+// 80-byte shared rows: the 8 rows a fragment load touches land on distinct
+// banks (row * 20 words mod 32 = 0, 20, 8, 28, 16, 4, 24, 12), and rows
+// stay 16-byte aligned for cp.async.
+constexpr int LDS = BK + 16;
+constexpr int kGemmThreads = 128;  // 4 warps, 2 x 2, each a 32 x 32 tile
+// gridDim.y carries the row tiles
+constexpr size_t kMaxRows = (size_t)65535 * BM;
+
+enum Epilogue { kStore = 0, kGelu = 1, kResidual = 2 };
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  // src_bytes = 0 zero-fills the 16 bytes (rows past M)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// D = A(16x32 s8, row) * B(32x8 s8, col) + D, int32.
+__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned lds32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// C[m, n] = epilogue(sum_k A[m, k] * Bt[n, k]). A (M, K) int8 row-major,
+// Bt (N, K) int8 (output-major weights). N % 64 == 0, K % 64 == 0; rows
+// past M are zero-filled on load and not stored.
+template <typename OutT, int kEpi>
+__global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
+    const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
+    const float* __restrict__ row_scale, const float* __restrict__ col_scale,
+    const float* __restrict__ bias, const OutT* __restrict__ residual,
+    OutT* __restrict__ C, int M, int N, int K) {
+  __shared__ __align__(16) int8_t As[2][BM][LDS];
+  __shared__ __align__(16) int8_t Bs[2][BN][LDS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  auto load_tile = [&](int stage, int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * kGemmThreads;  // 256 chunks of 16 bytes per tile
+      const int r = c >> 2, col = (c & 3) * 16;
+      const int gm = m0 + r;
+      const bool in = gm < M;
+      cp_async16(&As[stage][r][col], A + (size_t)(in ? gm : 0) * K + k0 + col, in ? 16 : 0);
+      cp_async16(&Bs[stage][r][col], Bt + (size_t)(n0 + r) * K + k0 + col, 16);
+    }
+  };
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+
+  const int kt_count = K / BK;
+  load_tile(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < kt_count; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < kt_count) {
+      load_tile(st ^ 1, (kt + 1) * BK);  // stage st^1 was released by the
+      cp_async_commit();                 // barrier ending iteration kt-1
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      unsigned af[2][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm + mi * 16 + g;
+        af[mi][0] = lds32(&As[st][r][kk + tig * 4]);
+        af[mi][1] = lds32(&As[st][r + 8][kk + tig * 4]);
+        af[mi][2] = lds32(&As[st][r][kk + 16 + tig * 4]);
+        af[mi][3] = lds32(&As[st][r + 8][kk + 16 + tig * 4]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = wn + ni * 8 + g;
+        bf[ni][0] = lds32(&Bs[st][n][kk + tig * 4]);
+        bf[ni][1] = lds32(&Bs[st][n][kk + 16 + tig * 4]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+    }
+    __syncthreads();
+  }
+
+  // Accumulator fragment: element e sits at row g + 8 * (e >> 1), column
+  // 2 * tig + (e & 1) of its 16 x 8 tile.
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mi * 16 + g + half * 8;
+      if (m >= M) continue;
+      const float rs = row_scale[m];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = n0 + wn + ni * 8 + tig * 2 + j;
+          const size_t o = (size_t)m * N + n;
+          float v = __fadd_rn(
+              __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][half * 2 + j]), rs), col_scale[n]),
+              bias[n]);
+          if (kEpi == kGelu) {  // quick_gelu in f32: v * sigmoid(1.702 v)
+            const float z = __fmul_rn(1.702f, v);
+            v = __fmul_rn(v, __frcp_rn(__fadd_rn(1.f, expf(-z))));
+            C[o] = from_f32<OutT>(v);
+          } else if (kEpi == kResidual) {  // cast, then add in the compute type
+            C[o] = from_f32<OutT>(__fadd_rn(to_f32(residual[o]), round_to<OutT>(v)));
+          } else {
+            C[o] = from_f32<OutT>(v);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (c) Attention, tiled over the query rows
+// ---------------------------------------------------------------------------
+
+constexpr int kAttnThreads = 256;
+constexpr int kAttnMaxTile = 64;  // query rows per block, at most
+constexpr int kAttnRows = 4;      // query rows per thread
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Floats of dynamic shared memory of one block: K rows padded by 4 (16-byte
+// row loads by 8 neighbouring lanes hit distinct banks), V rows, the
+// tile's Q rows and its score rows; every row count rounded up to 4.
+inline size_t attention_smem_floats(int seq, int head_dim, int tile) {
+  const size_t s4 = round4(seq), t4 = round4(tile);
+  return s4 * (head_dim + 4) + s4 * head_dim + t4 * (head_dim + 4) + t4 * s4;
+}
+
+// Query rows per block for (seq, head_dim): the largest power of two up to
+// 64 that is not needlessly larger than seq and whose block fits in shared
+// memory; 0 when not even one row fits beside the whole K and V.
+inline int attention_tile_rows(int seq, int head_dim) {
+  int tile = kAttnMaxTile;
+  while (tile > 1 && tile / 2 >= seq) tile /= 2;
+  while (tile > 1 && attention_smem_floats(seq, head_dim, tile) * sizeof(float) > IRT_MAX_SMEM)
+    tile /= 2;
+  return attention_smem_floats(seq, head_dim, tile) * sizeof(float) > IRT_MAX_SMEM ? 0 : tile;
+}
+
+// qkv: (batch * seq, 3 * width) rows [q | k | v], heads contiguous inside
+// each. out: (batch * seq, width). Grid (heads, batch, ceil(seq / tile)).
+// head_dim % 4 == 0. A block takes query rows [q0, q0 + rows) of one
+// (image, head) against keys [0, kv): all of them, or with `causal` those
+// up to the tile's last row. Per row the order of operations is: dot over
+// d (fmaf, ascending), times scale, mask, max, exp(s - max), sum, divide,
+// round to T, then PV over ascending j (fmaf).
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads) attention_tiled_kernel(
+    const T* __restrict__ qkv, T* __restrict__ out, int seq, int width, int head_dim,
+    int tile, int causal, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int ldk = head_dim + 4;
+  const int ldp = round4(seq);
+  const int t4 = round4(tile);
+  float* ks = sm;                     // round4(seq) x ldk
+  float* vs = ks + (size_t)ldp * ldk;  // round4(seq) x head_dim
+  float* qs = vs + (size_t)ldp * head_dim;  // t4 x ldk
+  float* ps = qs + (size_t)t4 * ldk;        // t4 x ldp scores, then probabilities
+  const int h = blockIdx.x;
+  const size_t row0 = (size_t)blockIdx.y * seq;
+  const int q0 = blockIdx.z * tile;
+  const int rows = min(tile, seq - q0);
+  const int kv = causal ? q0 + rows : seq;
+  const int kv4 = round4(kv);
+  const int groups = (rows + kAttnRows - 1) / kAttnRows;
+
+  // K and V rows [0, kv4) (zeros past kv), Q rows [0, 4 * groups) (zeros
+  // past rows): the padded rows are read but weigh nothing
+  for (int idx = threadIdx.x; idx < kv4 * head_dim; idx += blockDim.x) {
+    const int t = idx / head_dim, d = idx - t * head_dim;
+    float kvl = 0.f, vvl = 0.f;
+    if (t < kv) {
+      const T* src = qkv + (row0 + t) * (size_t)(3 * width) + width + h * head_dim + d;
+      kvl = to_f32(src[0]);
+      vvl = to_f32(src[width]);
+    }
+    ks[t * ldk + d] = kvl;
+    vs[t * head_dim + d] = vvl;
+  }
+  for (int idx = threadIdx.x; idx < groups * kAttnRows * head_dim; idx += blockDim.x) {
+    const int t = idx / head_dim, d = idx - t * head_dim;
+    qs[t * ldk + d] =
+        t < rows ? to_f32(qkv[(row0 + q0 + t) * (size_t)(3 * width) + h * head_dim + d]) : 0.f;
+  }
+  __syncthreads();
+
+  // scores: a thread takes one key and four query rows
+  for (int it = threadIdx.x; it < groups * kv; it += blockDim.x) {
+    const int g = it / kv, j = it - g * kv;
+    const float4* kp = reinterpret_cast<const float4*>(ks + j * ldk);
+    const float4* qp = reinterpret_cast<const float4*>(qs + g * kAttnRows * ldk);
+    const int ldq4 = ldk / 4;
+    float a[kAttnRows] = {0.f, 0.f, 0.f, 0.f};
+    for (int d4 = 0; d4 < head_dim / 4; ++d4) {
+      const float4 kk = kp[d4];
+#pragma unroll
+      for (int r = 0; r < kAttnRows; ++r) {
+        const float4 qq = qp[r * ldq4 + d4];
+        a[r] = fmaf(qq.x, kk.x, a[r]);
+        a[r] = fmaf(qq.y, kk.y, a[r]);
+        a[r] = fmaf(qq.z, kk.z, a[r]);
+        a[r] = fmaf(qq.w, kk.w, a[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kAttnRows; ++r) {
+      const int i = g * kAttnRows + r;  // row inside the tile
+      // scaled after the dot in f32 (the TPU kernel's order)
+      ps[i * ldp + j] = (causal && j > q0 + i) ? -INFINITY : __fmul_rn(a[r], scale);
+    }
+  }
+  __syncthreads();
+
+  // f32 softmax, one warp per row; probabilities rounded to the compute
+  // type; columns [kv, kv4) zeroed for the four-wide PV loop
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < groups * kAttnRows; i += kAttnThreads / 32) {
+    float* pr = ps + i * ldp;
+    if (i >= rows) {  // padding rows of the last group
+      for (int j = lane; j < kv4; j += 32) pr[j] = 0.f;
+      continue;
+    }
+    float mx = -INFINITY;
+    for (int j = lane; j < kv; j += 32) mx = fmaxf(mx, pr[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < kv; j += 32) {
+      const float e = expf(__fsub_rn(pr[j], mx));
+      pr[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < kv4; j += 32)
+      pr[j] = j < kv ? round_to<T>(__fdiv_rn(pr[j], sum)) : 0.f;
+  }
+  __syncthreads();
+
+  // PV: a thread takes one output column and four query rows
+  for (int it = threadIdx.x; it < groups * head_dim; it += blockDim.x) {
+    const int g = it / head_dim, d = it - g * head_dim;
+    const float4* pp = reinterpret_cast<const float4*>(ps + g * kAttnRows * ldp);
+    const int ldp4 = ldp / 4;
+    float a[kAttnRows] = {0.f, 0.f, 0.f, 0.f};
+    for (int j4 = 0; j4 < kv4 / 4; ++j4) {
+      const float* vp = vs + (j4 * 4) * head_dim + d;
+      const float v0 = vp[0], v1 = vp[head_dim], v2 = vp[2 * head_dim], v3 = vp[3 * head_dim];
+#pragma unroll
+      for (int r = 0; r < kAttnRows; ++r) {
+        const float4 p = pp[r * ldp4 + j4];
+        a[r] = fmaf(p.x, v0, a[r]);
+        a[r] = fmaf(p.y, v1, a[r]);
+        a[r] = fmaf(p.z, v2, a[r]);
+        a[r] = fmaf(p.w, v3, a[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kAttnRows; ++r) {
+      const int i = g * kAttnRows + r;
+      if (i < rows) out[(row0 + q0 + i) * width + h * head_dim + d] = from_f32<T>(a[r]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
+
+// Hands out 256-byte aligned pieces of a workspace from `base`, or only
+// sizes them when base is null.
+struct Carver {
+  char* base;
+  size_t off = 0;
+  explicit Carver(void* b) : base((char*)b) {}
+  void* take(size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align256(bytes);
+    return p;
+  }
+};
+
+// Launch, then report a refused launch (too many threads, too much shared
+// memory) at once: it never runs, and a later synchronize would not say so.
+#define IRT_TRY(...)                              \
+  do {                                            \
+    __VA_ARGS__;                                  \
+    const cudaError_t e_ = cudaGetLastError();    \
+    if (e_ != cudaSuccess) return (int)e_;        \
+  } while (0)
+
+inline bool rows_ok(long long m) { return m > 0 && (size_t)m <= kMaxRows; }
+
+inline bool attention_shape_ok(int seq, int width, int heads) {
+  if (seq <= 0 || heads <= 0 || width <= 0 || width % heads) return false;
+  const int hd = width / heads;
+  return hd % 4 == 0 && hd <= 128 && attention_tile_rows(seq, hd) > 0;
+}
+
+template <typename In, bool kLN>
+int launch_ln_rowquant(const In* x, const float* gamma, const float* beta, int8_t* q,
+                       float* qscale, int m, int width, cudaStream_t st) {
+  IRT_TRY(ln_rowquant_kernel<In, kLN><<<m, kRowThreads, width * sizeof(float), st>>>(
+      x, gamma, beta, q, qscale, width));
+  return 0;
+}
+
+template <typename OutT, int kEpi>
+int launch_gemm_s8(const int8_t* a, const int8_t* bt, const float* row_scale,
+                   const float* col_scale, const float* bias, const OutT* residual,
+                   OutT* c, int m, int n, int k, cudaStream_t st) {
+  IRT_TRY(gemm_s8_kernel<OutT, kEpi><<<dim3(n / BN, (m + BM - 1) / BM), kGemmThreads, 0, st>>>(
+      a, bt, row_scale, col_scale, bias, residual, c, m, n, k));
+  return 0;
+}
+
+template <typename T>
+int launch_attention(const T* qkv, T* out, int batch, int seq, int width, int heads,
+                     int causal, float scale, cudaStream_t st) {
+  const int hd = width / heads;
+  const int tile = attention_tile_rows(seq, hd);
+  if (tile <= 0 || batch > 65535) return IRT_BAD_ARGS;  // gridDim.y carries the images
+  const size_t smem = attention_smem_floats(seq, hd, tile) * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      attention_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  IRT_TRY(attention_tiled_kernel<T>
+          <<<dim3(heads, batch, (seq + tile - 1) / tile), kAttnThreads, smem, st>>>(
+              qkv, out, seq, width, hd, tile, causal, scale));
+  return 0;
+}
+
+#define IRT_CHECK(call)          \
+  do {                           \
+    const int rc_ = (call);      \
+    if (rc_ != 0) return rc_;    \
+  } while (0)
+
+// The attention sub-block: LN1 -> rowquant -> int8 QKV -> attention ->
+// rowquant -> int8 out-proj -> x + out. Five launches.
+struct AttnWorkspace {
+  int8_t* hq;  // (m, width)   LN1 rows, int8
+  float* hs;   // (m,)
+  void* qkv;   // (m, 3 width) compute type
+  void* attn;  // (m, width)   compute type
+  int8_t* aq;  // (m, width)
+  float* as;   // (m,)
+};
+
+inline void carve_attn(Carver& c, int m, int width, int eb, AttnWorkspace* w) {
+  const size_t mw = (size_t)m * width;
+  w->hq = (int8_t*)c.take(mw);
+  w->hs = (float*)c.take(m * sizeof(float));
+  w->qkv = c.take(3 * mw * eb);
+  w->attn = c.take(mw * eb);
+  w->aq = (int8_t*)c.take(mw);
+  w->as = (float*)c.take(m * sizeof(float));
+}
+
+template <typename T>
+int run_attn_block(const T* x, T* out, const float* ln_s, const float* ln_b,
+                   const int8_t* wqkv_t, const float* wqkv_s, const float* bqkv,
+                   const int8_t* wo_t, const float* wo_s, const float* bo,
+                   const AttnWorkspace& w, int batch, int seq, int width, int heads,
+                   int causal, float scale, cudaStream_t st) {
+  const int m = batch * seq;
+  T* qkv = (T*)w.qkv;
+  T* attn = (T*)w.attn;
+  IRT_CHECK((launch_ln_rowquant<T, true>(x, ln_s, ln_b, w.hq, w.hs, m, width, st)));
+  IRT_CHECK((launch_gemm_s8<T, kStore>(w.hq, wqkv_t, w.hs, wqkv_s, bqkv, nullptr, qkv, m,
+                                       3 * width, width, st)));
+  IRT_CHECK(launch_attention<T>(qkv, attn, batch, seq, width, heads, causal, scale, st));
+  IRT_CHECK((launch_ln_rowquant<T, false>(attn, nullptr, nullptr, w.aq, w.as, m, width, st)));
+  IRT_CHECK((launch_gemm_s8<T, kResidual>(w.aq, wo_t, w.as, wo_s, bo, x, out, m, width,
+                                          width, st)));
+  return 0;
+}
+
+// The MLP sub-block: LN2 -> rowquant -> int8 fc1 (f32) -> quick_gelu in f32
+// -> rowquant -> int8 fc2 -> x + out. Four launches.
+struct MlpWorkspace {
+  int8_t* hq;  // (m, width)  LN2 rows, int8
+  float* hs;   // (m,)
+  float* g;    // (m, hidden) f32 quick_gelu(fc1)
+  int8_t* gq;  // (m, hidden)
+  float* gs;   // (m,)
+};
+
+inline void carve_mlp(Carver& c, int m, int width, int hidden, MlpWorkspace* w) {
+  const size_t mw = (size_t)m * width, mh = (size_t)m * hidden;
+  w->hq = (int8_t*)c.take(mw);
+  w->hs = (float*)c.take(m * sizeof(float));
+  w->g = (float*)c.take(mh * sizeof(float));
+  w->gq = (int8_t*)c.take(mh);
+  w->gs = (float*)c.take(m * sizeof(float));
+}
+
+template <typename T>
+int run_mlp_block(const T* x, T* out, const float* ln_s, const float* ln_b,
+                  const int8_t* w1_t, const float* w1_s, const float* b1,
+                  const int8_t* w2_t, const float* w2_s, const float* b2,
+                  const MlpWorkspace& w, int m, int width, int hidden, cudaStream_t st) {
+  IRT_CHECK((launch_ln_rowquant<T, true>(x, ln_s, ln_b, w.hq, w.hs, m, width, st)));
+  IRT_CHECK((launch_gemm_s8<float, kGelu>(w.hq, w1_t, w.hs, w1_s, b1, nullptr, w.g, m, hidden,
+                                          width, st)));
+  IRT_CHECK((launch_ln_rowquant<float, false>(w.g, nullptr, nullptr, w.gq, w.gs, m, hidden, st)));
+  IRT_CHECK((launch_gemm_s8<T, kResidual>(w.gq, w2_t, w.gs, w2_s, b2, x, out, m, width, hidden,
+                                          st)));
+  return 0;
+}
+
+inline bool block_shape_ok(int batch, int seq, int width, int hidden, int dtype) {
+  return batch > 0 && seq > 0 && width > 0 && width % 64 == 0 && hidden > 0 &&
+         hidden % 64 == 0 && width <= kMaxRowWidth && hidden <= kMaxRowWidth &&
+         (dtype == 0 || dtype == 1) && rows_ok((long long)batch * seq);
+}
+
+}  // namespace

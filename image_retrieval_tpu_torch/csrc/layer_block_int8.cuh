@@ -15,7 +15,12 @@ extern "C" {
 size_t irt_layer_block_int8_workspace_bytes(int m, int width, int hidden,
                                             int elem_bytes);
 
-// Dynamic shared memory of one (image, head) attention block.
+// Query rows one attention block takes for (seq, head_dim), chosen so that
+// the block's shared memory fits; 0 when the (image, head)'s K and V do not
+// fit beside a single query row. The attention of every int8 kernel here.
+int irt_attention_tile_rows(int seq, int head_dim);
+
+// Dynamic shared memory of one attention block at that tile.
 size_t irt_attention_smem_bytes(int seq, int head_dim);
 
 // One pre-LN transformer layer, int8 projections (see layer_block_int8.cu).
@@ -40,4 +45,6 @@ const char* irt_error_string(int code);
 }
 #endif
 
+#ifndef IRT_BAD_ARGS
 #define IRT_BAD_ARGS 100000
+#endif

@@ -3,8 +3,8 @@
 A framework-free copy of ``image_retrieval_tpu/data/loader.py`` (that
 package's ``data/__init__`` imports jax through ``data/color.py``). The PIL
 path decodes through the port's ``models/preprocess.py``; the native path
-reuses the framework-free ``image_retrieval_tpu.utils.native`` ctypes
-bindings, imported only when native decode is asked for.
+uses the port's own ctypes bindings (``utils/native.py``), imported only
+when native decode is asked for.
 
 The reference embeds images one at a time with a synchronous
 decode->forward per image (reference ImageEmbeddingSystem.py:120-129,
@@ -33,7 +33,7 @@ logger = logging.getLogger(__name__)
 
 def _decode_chunk_native(paths: List[str], size: int, threads: int,
                          emit: str = "f32"):
-    from image_retrieval_tpu.utils import native
+    from image_retrieval_tpu_torch.utils import native
 
     fn = (native.decode_preprocess_batch_u8 if emit == "u8"
           else native.decode_preprocess_batch)
@@ -191,7 +191,7 @@ class ImageBatchLoader:
         self.use_process = use_process
         if use_native:
             try:
-                from image_retrieval_tpu.utils import native
+                from image_retrieval_tpu_torch.utils import native
 
                 use_native = native.available()
             except Exception:

@@ -1,4 +1,5 @@
-"""Explicit device handling: the port never picks a device by itself."""
+"""Device handling: the port's entry points run on the card unless the
+caller asks for the CPU (``device="cpu"``), and never fall back to it."""
 
 from __future__ import annotations
 
@@ -9,8 +10,9 @@ import torch
 DeviceLike = Union[str, torch.device]
 
 
-def resolve_device(device: DeviceLike) -> torch.device:
-    """Validate a caller's ``device=``; a CUDA device must exist.
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """Validate an entry point's ``device=`` (default: the card); a CUDA
+    device must exist.
 
     Raises instead of falling back to the CPU: a run that asked for the card
     and silently ran on the host would report host numbers as device ones."""

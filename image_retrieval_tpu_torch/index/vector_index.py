@@ -142,10 +142,11 @@ def _cosine_scores(queries: torch.Tensor, unit_rows: torch.Tensor,
 
 
 class ShardedVectorIndex:
-    """Exact cosine index over (unit row, magnitude) pairs on `device`."""
+    """Exact cosine index over (unit row, magnitude) pairs on `device`
+    (the card unless the caller names the CPU)."""
 
     def __init__(self, dim: int = 512, config: Optional[IndexConfig] = None,
-                 *, device: DeviceLike):
+                 *, device: DeviceLike = "cuda"):
         self.config = config or IndexConfig(embedding_dim=dim)
         if self.config.dtype not in DTYPES:
             raise ValueError(f"IndexConfig.dtype={self.config.dtype!r}: one of {DTYPES}")

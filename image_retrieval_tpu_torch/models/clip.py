@@ -1,4 +1,5 @@
-"""CLIP ViT-B/32 towers in PyTorch — the port of models/clip.py.
+"""CLIP towers in PyTorch — the port of models/clip.py (ViT-B/32, B/16 and
+L/14 presets of config.py).
 
 Same architecture and dtype contract as the Flax model: bf16 (or f32)
 compute with f32 parameters; LayerNorms, softmax and the final projections
@@ -7,37 +8,51 @@ in f32. Parameter names follow the Flax tree (``vision.blocks.0.attn.q_proj
 (in, out) layout), so ``models/weights.py`` maps either package's weights
 one to one.
 
-Two execution paths per transformer layer:
+Each half of a transformer layer takes one of the routes that the Flax
+``Block.__call__`` chooses from the same ``ModelConfig`` flags
+(``layer_mode`` below):
 
-- the plain path of the default ``ModelConfig`` (unfused, compute-dtype
-  projections);
-- ``fused_layer_block and int8_matmuls`` (``serving_config``, the
-  ``vit_b32_serving`` preset): every layer of both towers is one call to
-  ``ops.flash_attention.layer_block_int8``, the hand-written Hopper kernel
-  on a CUDA tensor.
+- plain: unfused, compute-dtype projections (the default ``ModelConfig``);
+- ``fused_layer_block + int8_matmuls`` (``serving_config``): the whole layer
+  is one ``layer_block_int8`` call up to width 768; wider towers (ViT-L/14
+  vision) take ``attention_block_int8`` then ``mlp_block_int8``; a vision
+  sequence padded by ``vision_seq_pad`` keeps its masked attention unfused
+  over int8 projections (``quant_dense``) and takes ``mlp_block_int8``;
+- ``fused_attn_block`` / ``fused_mlp_block`` with ``int8_matmuls``: that half
+  through its sub-block kernel, the other unfused over ``quant_dense``;
+- ``int8_matmuls`` alone: ``quant_dense`` projections everywhere.
 
-Every other flag combination of ``ModelConfig`` raises NotImplementedError
+All four are hand-written Hopper kernels on a CUDA tensor
+(``ops/flash_attention.py``). The flags that need the bf16 kernels
+(``fused_*`` without ``int8_matmuls``, ``pallas_attention``,
+``fused_train_vjp``) and ``fused_attention`` raise NotImplementedError
 rather than silently taking the plain path; ROADMAP.md lists them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from image_retrieval_tpu_torch.config import ModelConfig
 from image_retrieval_tpu_torch.ops.flash_attention import (
+    attention_block_int8,
     fast_layernorm_f32,
     layer_block_int8,
+    mlp_block_int8,
+    quant_dense,
     quantize_layer,
     quick_gelu,
 )
 
-# widest tower the whole-layer kernel serves; the JAX package takes its
-# sub-block pair above this width (models/clip.py:275-286), not yet ported
+# widest tower the whole-layer kernel serves; above it the JAX package takes
+# the sub-block pair on purpose (models/clip.py:268-286), and so does the port
 _LAYER_KERNEL_MAX_WIDTH = 768
+
+# routes of a layer's halves
+LAYER, KERNEL, QUANT, PLAIN = "int8_layer", "int8_block", "quant_dense", "plain"
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -46,26 +61,32 @@ def _unsupported(what: str) -> NotImplementedError:
         "(see ROADMAP.md, queue 2)")
 
 
-def layer_mode(cfg: ModelConfig, width: int) -> str:
-    """'int8_layer' (the serving kernel) or 'plain'; raises on the
-    execution strategies the port does not have yet."""
-    for flag in ("pallas_attention", "fused_attn_block", "fused_mlp_block",
-                 "fused_train_vjp", "fused_attention"):
+def layer_mode(cfg: ModelConfig, width: int, causal: bool = False,
+               masked: bool = False) -> Tuple[str, str]:
+    """(attention route, MLP route) of a layer of `width`, as the Flax
+    Block.__call__ decides them (models/clip.py:266-354). `causal` marks the
+    text tower, whose mask the kernels apply themselves; `masked` a vision
+    sequence padded by vision_seq_pad, whose mask only the unfused
+    attention honours. Routes: LAYER (both halves in one layer_block_int8
+    call), KERNEL (attention_block_int8 / mlp_block_int8), QUANT (unfused
+    over quant_dense), PLAIN. Raises on the strategies not ported yet."""
+    for flag in ("pallas_attention", "fused_train_vjp", "fused_attention"):
         if getattr(cfg, flag):
             raise _unsupported(f"ModelConfig.{flag}")
-    if cfg.vision_seq_pad and cfg.vision_seq_pad > (cfg.image_size // cfg.patch_size) ** 2 + 1:
-        raise _unsupported("ModelConfig.vision_seq_pad")
-    if cfg.fused_layer_block and cfg.int8_matmuls:
-        if width > _LAYER_KERNEL_MAX_WIDTH:
-            raise _unsupported(
-                f"serving_config at width {width} (the int8 sub-block "
-                "kernels attention_block_int8 + mlp_block_int8)")
-        return "int8_layer"
-    if cfg.fused_layer_block:
-        raise _unsupported("fused_layer_block without int8_matmuls (layer_block)")
-    if cfg.int8_matmuls:
-        raise _unsupported("int8_matmuls without fused_layer_block (QuantDense)")
-    return "plain"
+    if not cfg.int8_matmuls:
+        for flag, kernel in (("fused_layer_block", "layer_block"),
+                             ("fused_attn_block", "attention_block"),
+                             ("fused_mlp_block", "mlp_block")):
+            if getattr(cfg, flag):
+                raise _unsupported(f"{flag} without int8_matmuls ({kernel})")
+        return PLAIN, PLAIN
+    mask_ok = causal or not masked
+    if cfg.fused_layer_block and width <= _LAYER_KERNEL_MAX_WIDTH and mask_ok:
+        return LAYER, LAYER
+    subblocks = cfg.fused_layer_block  # too wide, or a mask the kernel lacks
+    attn = KERNEL if (cfg.fused_attn_block or subblocks) and mask_ok else QUANT
+    mlp = KERNEL if cfg.fused_mlp_block or subblocks else QUANT
+    return attn, mlp
 
 
 def _param(*shape) -> nn.Parameter:
@@ -111,19 +132,28 @@ class Attention(nn.Module):
         self.v_proj = Dense(width, width)
         self.out_proj = Dense(width, width)
 
-    def forward(self, h, dt, mask: Optional[torch.Tensor]):
+    def forward(self, h, dt, mask: Optional[torch.Tensor], int8=None):
+        """Unfused attention on the f32 LayerNorm output `h`. With `int8`
+        (Int8AttnWeights) the projections are QuantDense: q, k, v as one
+        int8 product over the concatenated weights, which per-channel scales
+        make bitwise equal to three."""
         b, t, _ = h.shape
         hd = self.width // self.heads
         split = lambda a: a.reshape(b, t, self.heads, hd).transpose(1, 2)
-        q = split(self.q_proj(h, dt)) * (hd ** -0.5)  # scaled in dt, as Flax
-        k = split(self.k_proj(h, dt))
-        v = split(self.v_proj(h, dt))
-        logits = q.float() @ k.float().transpose(-1, -2)
+        if int8 is None:
+            q, k, v = self.q_proj(h, dt), self.k_proj(h, dt), self.v_proj(h, dt)
+        else:
+            q, k, v = quant_dense(h.contiguous(), int8.wqkv_t, int8.wqkv_s, int8.bqkv,
+                                  dt).split(self.width, dim=-1)
+        q = split(q) * (hd ** -0.5)  # scaled in dt, as Flax
+        logits = q.float() @ split(k).float().transpose(-1, -2)
         if mask is not None:
             logits = logits + mask
         probs = torch.softmax(logits, dim=-1).to(dt)
-        out = (probs @ v).transpose(1, 2).reshape(b, t, self.width)
-        return self.out_proj(out, dt)
+        out = (probs @ split(v)).transpose(1, 2).reshape(b, t, self.width)
+        if int8 is None:
+            return self.out_proj(out, dt)
+        return quant_dense(out.contiguous(), int8.wo_t, int8.wo_s, int8.bo, dt)
 
 
 class MLP(nn.Module):
@@ -132,14 +162,21 @@ class MLP(nn.Module):
         self.fc1 = Dense(width, 4 * width)
         self.fc2 = Dense(4 * width, width)
 
-    def forward(self, h, dt):
-        return self.fc2(quick_gelu(self.fc1(h, dt)), dt)
+    def forward(self, h, dt, int8=None):
+        """Unfused MLP on the f32 LayerNorm output `h`; with `int8`
+        (Int8MlpWeights) both projections are QuantDense, quick_gelu between
+        them in the compute dtype."""
+        if int8 is None:
+            return self.fc2(quick_gelu(self.fc1(h, dt)), dt)
+        g = quick_gelu(quant_dense(h.contiguous(), int8.w1_t, int8.w1_s, int8.b1, dt))
+        return quant_dense(g, int8.w2_t, int8.w2_s, int8.b2, dt)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer layer; `mode` is layer_mode()'s answer."""
+    """Pre-LN transformer layer; `mode` is layer_mode()'s answer, the routes
+    of its attention and MLP halves."""
 
-    def __init__(self, width: int, heads: int, causal: bool, mode: str):
+    def __init__(self, width: int, heads: int, causal: bool, mode: Tuple[str, str]):
         super().__init__()
         self.heads, self.causal, self.mode = heads, causal, mode
         self.ln1 = LayerNorm(width)
@@ -158,9 +195,9 @@ class Block(nn.Module):
 
     def int8_weights(self):
         """The layer quantized on first use (bitwise quantize_weight of the
-        f32 parameters), then cached. Loading a state dict or moving or
-        casting the module drops the cache; serving edits no parameter in
-        place."""
+        f32 parameters), then cached; every int8 route reads its half from
+        it. Loading a state dict or moving or casting the module drops the
+        cache; serving edits no parameter in place."""
         if self._int8 is None:
             with torch.no_grad():
                 self._int8 = quantize_layer(*self._layer_params())
@@ -175,11 +212,19 @@ class Block(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x, dt, mask=None):
-        if self.mode == "int8_layer":
+        attn, mlp = self.mode
+        if attn == LAYER:
             return layer_block_int8(x.to(dt).contiguous(), self.int8_weights(),
                                     self.heads, self.causal)
-        x = x + self.attn(self.ln1(x), dt, mask)
-        return x + self.mlp(self.ln2(x), dt)
+        int8 = self.int8_weights() if QUANT in self.mode or KERNEL in self.mode else None
+        if attn == KERNEL:
+            x = attention_block_int8(x.to(dt).contiguous(), int8.attn, self.heads,
+                                     self.causal)
+        else:
+            x = x + self.attn(self.ln1(x), dt, mask, int8.attn if attn == QUANT else None)
+        if mlp == KERNEL:
+            return mlp_block_int8(x.to(dt).contiguous(), int8.mlp)
+        return x + self.mlp(self.ln2(x), dt, int8.mlp if mlp == QUANT else None)
 
 
 class PatchEmbed(nn.Module):
@@ -206,7 +251,9 @@ class CLIPVisionTower(nn.Module):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         n = (cfg.image_size // cfg.patch_size) ** 2
-        mode = layer_mode(cfg, cfg.vision_width)
+        # zero tokens appended up to vision_seq_pad, their keys masked
+        self.seq_pad = max(cfg.vision_seq_pad - (n + 1), 0) if cfg.vision_seq_pad else 0
+        mode = layer_mode(cfg, cfg.vision_width, masked=self.seq_pad > 0)
         self.patch_embed = PatchEmbed(cfg.vision_width, cfg.patch_size)
         self.class_embedding = _param(cfg.vision_width)
         self.position_embedding = _param(n + 1, cfg.vision_width)
@@ -224,8 +271,16 @@ class CLIPVisionTower(nn.Module):
         cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.position_embedding.to(dt)
         x = self.pre_ln(x).to(dt)
+        mask = None
+        if self.seq_pad:
+            # real tokens' outputs (and the CLS pooling) stay identical: the
+            # padded keys get a -inf bias
+            t = x.shape[1]
+            x = torch.nn.functional.pad(x, (0, 0, 0, self.seq_pad))
+            mask = torch.zeros(t + self.seq_pad, device=x.device)
+            mask[t:] = float("-inf")
         for blk in self.blocks:
-            x = blk(x, dt)
+            x = blk(x, dt, mask)
         return _f32_product(self.post_ln(x[:, 0]), self.proj, dt)
 
 
@@ -233,7 +288,7 @@ class CLIPTextTower(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        mode = layer_mode(cfg, cfg.text_width)
+        mode = layer_mode(cfg, cfg.text_width, causal=True)
         self.token_embedding = _param(cfg.vocab_size, cfg.text_width)
         self.position_embedding = _param(cfg.context_length, cfg.text_width)
         self.blocks = nn.ModuleList(

@@ -3,8 +3,8 @@
 Port of ``image_retrieval_tpu/models/encoder.py``. Two implementations share
 one interface:
   CLIPEncoder — the PyTorch CLIP (HF weights when a checkpoint directory is
-                configured, seeded random weights otherwise) on the device
-                the caller names.
+                configured, seeded random weights otherwise) on the card,
+                or on the CPU when the caller asks for it.
   FakeEncoder — the deterministic numpy projection encoder, a verbatim copy
                 (bit-identical embeddings to the JAX package's).
 
@@ -64,15 +64,16 @@ def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
 
 
 class CLIPEncoder(Encoder):
-    """CLIP on `device` ("cpu" or "cuda"). `params` is a state dict from
-    models/weights.py; without one, Config.weights_path or `seed` decides."""
+    """CLIP on `device` ("cuda", the default, or "cpu"). `params` is a state
+    dict from models/weights.py; without one, Config.weights_path or `seed`
+    decides."""
 
     # the JAX encoder's bucket ladder (one compile per shape there; here it
     # keeps both packages' padded shapes equal)
     _BUCKETS = (8, 32, 128, 192, 256)
 
     def __init__(self, config: Optional[Config] = None, params=None,
-                 seed: int = 0, *, device: DeviceLike):
+                 seed: int = 0, *, device: DeviceLike = "cuda"):
         self.config = config or Config()
         cfg = self.config.model
         self.dim = cfg.embed_dim

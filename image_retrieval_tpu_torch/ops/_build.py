@@ -26,8 +26,10 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("layer_block_int8.cu", "int4_screen.cu")
-HEADERS = ("layer_block_int8.cuh", "int4_screen.cuh")
+SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu",
+           "quant_dense.cu", "int4_screen.cu")
+HEADERS = ("int8_common.cuh", "layer_block_int8.cuh", "attention_block_int8.cuh",
+           "mlp_block_int8.cuh", "quant_dense.cuh", "int4_screen.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,9 +109,26 @@ def load_library() -> ctypes.CDLL:
             lib.irt_layer_block_int8_workspace_bytes.restype = ctypes.c_size_t
             lib.irt_attention_smem_bytes.argtypes = [i, i]
             lib.irt_attention_smem_bytes.restype = ctypes.c_size_t
+            lib.irt_attention_tile_rows.argtypes = [i, i]
+            lib.irt_attention_tile_rows.restype = i
             lib.irt_layer_block_int8.argtypes = (
                 [p] * 2 + [p] * 16 + [p] + [i] * 7 + [ctypes.c_float, p])
             lib.irt_layer_block_int8.restype = i
+            lib.irt_attention_block_int8_workspace_bytes.argtypes = [i, i, i]
+            lib.irt_attention_block_int8_workspace_bytes.restype = ctypes.c_size_t
+            lib.irt_attention_block_int8.argtypes = (
+                [p] * 2 + [p] * 8 + [p] + [i] * 6 + [ctypes.c_float, p])
+            lib.irt_attention_block_int8.restype = i
+            lib.irt_attention.argtypes = [p, p] + [i] * 6 + [ctypes.c_float, p]
+            lib.irt_attention.restype = i
+            lib.irt_mlp_block_int8_workspace_bytes.argtypes = [i, i, i]
+            lib.irt_mlp_block_int8_workspace_bytes.restype = ctypes.c_size_t
+            lib.irt_mlp_block_int8.argtypes = [p] * 2 + [p] * 8 + [p] + [i] * 4 + [p]
+            lib.irt_mlp_block_int8.restype = i
+            lib.irt_quant_dense_workspace_bytes.argtypes = [i, i]
+            lib.irt_quant_dense_workspace_bytes.restype = ctypes.c_size_t
+            lib.irt_quant_dense.argtypes = [p] * 6 + [i] * 5 + [p]
+            lib.irt_quant_dense.restype = i
             lib.irt_int4_screen_scores.argtypes = [p] * 5 + [i, i, ctypes.c_longlong, i, p]
             lib.irt_int4_screen_scores.restype = i
             lib.irt_error_string.argtypes = [i]

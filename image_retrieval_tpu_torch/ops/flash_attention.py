@@ -1,10 +1,13 @@
-"""The int8 whole-layer serving kernel and its plain PyTorch version.
+"""The int8 serving kernels and their plain PyTorch versions.
 
 Port of the serving family of ``image_retrieval_tpu/ops/flash_attention.py``:
 ``_fast_layernorm_f32`` (l.199), ``_quantize_weight`` (l.532),
-``_rowquant`` (l.539) and ``layer_block_int8`` (l.879), whose TPU kernel is
-``_layer_block_int8_kernel`` (l.772). One call runs a whole pre-LN
-transformer layer:
+``_rowquant`` (l.539), ``layer_block_int8`` (l.879, TPU kernel
+``_layer_block_int8_kernel`` l.772) and its two halves
+``attention_block_int8`` (l.643, ``_attn_block_int8_kernel`` l.554) and
+``mlp_block_int8`` (l.745, ``_mlp_block_int8_kernel`` l.671); and of
+``QuantDense`` / ``_quant_matmul`` (``models/clip.py`` l.37-110). One whole
+pre-LN transformer layer is:
 
     h   = rowquant(LN1_f32(x))                      int8 rows, f32 row scales
     qkv = int8 GEMM(h, Wqkv) * hs * ws + b          -> compute dtype
@@ -13,10 +16,14 @@ transformer layer:
     g   = quick_gelu(int8 GEMM(rowquant(LN2_f32(x1)), W1) * s * s + b)   f32
     out = x1 + (int8 GEMM(rowquant(g), W2) * s * s + b -> compute dtype)
 
-``layer_block_int8`` launches the hand-written Hopper kernel chain
-(csrc/layer_block_int8.cu) for a CUDA tensor and runs
-``layer_block_int8_reference`` for a CPU tensor; it never falls back from the
-card to the plain version. There is no backward yet (serving only).
+``attention_block_int8`` returns x1, ``mlp_block_int8`` takes it to out, and
+``layer_block_int8`` does both; x1 passes in the compute dtype either way,
+so the plain versions of the halves compose to the plain whole layer bit
+for bit. ``quant_dense`` is one such projection on its own.
+
+Each wrapper launches its hand-written Hopper kernel chain (csrc/) for a
+CUDA tensor and runs its ``*_reference`` for a CPU tensor; none falls back
+from the card to the plain version. There is no backward yet (serving only).
 
 Weights are quantized once per layer (``quantize_layer``) from the f32
 parameters, bitwise as the JAX package's ``_quantize_weight`` does, and kept
@@ -47,17 +54,25 @@ def fast_layernorm_f32(xf: torch.Tensor, scale: torch.Tensor,
     return (xf - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
+def _absmax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(absmax, 1e-12) / 127 as a true division. The divisor is a tensor:
+    PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
+    which is not the correctly rounded quotient the JAX package and the
+    kernels (__fdiv_rn) compute."""
+    return torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
+
+
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 (in, out) -> (int8 values, f32 (1, out) per-channel scales).
 
     True division and round-half-even, bitwise equal to _quantize_weight."""
-    s = torch.clamp(w.abs().amax(0), min=1e-12) / 127.0
+    s = _absmax_scale(w.abs().amax(0))
     return torch.round(w / s).to(torch.int8), s.reshape(1, -1).to(torch.float32)
 
 
 def rowquant(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 (m, w) -> (int8 values, f32 (m, 1) per-row scales)."""
-    s = torch.clamp(h.abs().amax(-1, keepdim=True), min=1e-12) / 127.0
+    s = _absmax_scale(h.abs().amax(-1, keepdim=True))
     return torch.round(h / s).to(torch.int8), s
 
 
@@ -91,6 +106,62 @@ class Int8LayerWeights:
     @property
     def width(self) -> int:
         return self.wo_t.shape[0]
+
+    @property
+    def hidden(self) -> int:
+        return self.w1_t.shape[0]
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    @property
+    def attn(self) -> "Int8AttnWeights":
+        return Int8AttnWeights(self.ln1_s, self.ln1_b, self.wqkv_t, self.wqkv_s,
+                               self.bqkv, self.wo_t, self.wo_s, self.bo)
+
+    @property
+    def mlp(self) -> "Int8MlpWeights":
+        return Int8MlpWeights(self.ln2_s, self.ln2_b, self.w1_t, self.w1_s,
+                              self.b1, self.w2_t, self.w2_s, self.b2)
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8AttnWeights:
+    """The attention half of Int8LayerWeights (the same tensors)."""
+
+    ln_s: torch.Tensor
+    ln_b: torch.Tensor
+    wqkv_t: torch.Tensor  # (3W, W) int8: [q | k | v] output channels
+    wqkv_s: torch.Tensor
+    bqkv: torch.Tensor
+    wo_t: torch.Tensor  # (W, W)
+    wo_s: torch.Tensor
+    bo: torch.Tensor
+
+    @property
+    def width(self) -> int:
+        return self.wo_t.shape[0]
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8MlpWeights:
+    """The MLP half of Int8LayerWeights (the same tensors)."""
+
+    ln_s: torch.Tensor
+    ln_b: torch.Tensor
+    w1_t: torch.Tensor  # (4W, W)
+    w1_s: torch.Tensor
+    b1: torch.Tensor
+    w2_t: torch.Tensor  # (W, 4W)
+    w2_s: torch.Tensor
+    b2: torch.Tensor
+
+    @property
+    def width(self) -> int:
+        return self.w2_t.shape[0]
 
     @property
     def hidden(self) -> int:
@@ -156,9 +227,9 @@ def _attention_reference(qkv, b, t, w, heads, causal, dt):
     return o.permute(0, 2, 1, 3).reshape(b * t, w)
 
 
-def layer_block_int8_reference(x: torch.Tensor, weights: Int8LayerWeights,
-                               heads: int, causal: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the whole int8 layer, on x's device.
+def attention_block_int8_reference(x: torch.Tensor, weights: Int8AttnWeights,
+                                   heads: int, causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the int8 attention sub-block, on x's device.
 
     Every f32 product here must be a full f32 product, as in the JAX
     reference, so on a CUDA tensor it raises if the caller has turned TF32
@@ -168,18 +239,45 @@ def layer_block_int8_reference(x: torch.Tensor, weights: Int8LayerWeights,
     dt = x.dtype
     wt = weights
     xb = x.reshape(b * t, w)
-    hq, hs = rowquant(fast_layernorm_f32(xb.float(), wt.ln1_s, wt.ln1_b))
+    hq, hs = rowquant(fast_layernorm_f32(xb.float(), wt.ln_s, wt.ln_b))
     qkv = _int8_proj(hq, hs, wt.wqkv_t, wt.wqkv_s, wt.bqkv, dt)
     attn = _attention_reference(qkv, b, t, w, heads, causal, dt)
     aq, as_ = rowquant(attn.float())
     # the projection is cast to the compute type BEFORE the residual add
-    x1 = xb + _int8_proj(aq, as_, wt.wo_t, wt.wo_s, wt.bo, dt)
-    h2q, h2s = rowquant(fast_layernorm_f32(x1.float(), wt.ln2_s, wt.ln2_b))
+    return (xb + _int8_proj(aq, as_, wt.wo_t, wt.wo_s, wt.bo, dt)).reshape(b, t, w)
+
+
+def mlp_block_int8_reference(x: torch.Tensor, weights: Int8MlpWeights) -> torch.Tensor:
+    """Plain PyTorch version of the int8 MLP sub-block, on x's device (full
+    f32 products, as attention_block_int8_reference)."""
+    require_full_f32(x.device)
+    b, t, w = x.shape
+    wt = weights
+    xb = x.reshape(b * t, w)
+    hq, hs = rowquant(fast_layernorm_f32(xb.float(), wt.ln_s, wt.ln_b))
     # fc1 stays f32 through quick_gelu into the requantization
-    g = quick_gelu(_int8_proj(h2q, h2s, wt.w1_t, wt.w1_s, wt.b1, torch.float32))
+    g = quick_gelu(_int8_proj(hq, hs, wt.w1_t, wt.w1_s, wt.b1, torch.float32))
     gq, gs = rowquant(g)
-    out = x1 + _int8_proj(gq, gs, wt.w2_t, wt.w2_s, wt.b2, dt)
-    return out.reshape(b, t, w)
+    return (xb + _int8_proj(gq, gs, wt.w2_t, wt.w2_s, wt.b2, x.dtype)).reshape(b, t, w)
+
+
+def layer_block_int8_reference(x: torch.Tensor, weights: Int8LayerWeights,
+                               heads: int, causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the whole int8 layer: the two halves, with
+    the mid-layer activation in the compute dtype as in the kernel."""
+    x1 = attention_block_int8_reference(x, weights.attn, heads, causal)
+    return mlp_block_int8_reference(x1, weights.mlp)
+
+
+def quant_dense_reference(x: torch.Tensor, w_t: torch.Tensor, w_s: torch.Tensor,
+                          bias: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of QuantDense (_quant_matmul's arithmetic): x
+    quantized per row in f32, acc.astype(f32) * xscale * wscale, + bias in
+    f32, then the cast. x (..., K); w_t (N, K) int8 with scales w_s (N,)."""
+    require_full_f32(x.device)
+    xq, xs = rowquant(x.reshape(-1, x.shape[-1]).float())
+    out = _int8_proj(xq, xs, w_t, w_s, bias, out_dtype)
+    return out.reshape(*x.shape[:-1], w_t.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -233,78 +331,106 @@ def kernel_agreement(got: torch.Tensor, want: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The kernel's wrapper
+# The kernels' wrappers
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
-def _check_weights(weights: Int8LayerWeights, w: int, device) -> int:
-    hidden = weights.hidden
-    want = {
-        "ln1_s": ((w,), torch.float32), "ln1_b": ((w,), torch.float32),
-        "wqkv_t": ((3 * w, w), torch.int8), "wqkv_s": ((3 * w,), torch.float32),
-        "bqkv": ((3 * w,), torch.float32),
-        "wo_t": ((w, w), torch.int8), "wo_s": ((w,), torch.float32),
-        "bo": ((w,), torch.float32),
-        "ln2_s": ((w,), torch.float32), "ln2_b": ((w,), torch.float32),
-        "w1_t": ((hidden, w), torch.int8), "w1_s": ((hidden,), torch.float32),
-        "b1": ((hidden,), torch.float32),
-        "w2_t": ((w, hidden), torch.int8), "w2_s": ((w,), torch.float32),
-        "b2": ((w,), torch.float32),
-    }
-    for name, (shape, dtype) in want.items():
-        a = getattr(weights, name)
-        if tuple(a.shape) != shape or a.dtype != dtype:
-            raise ValueError(f"layer_block_int8: {name} is {tuple(a.shape)} "
-                             f"{a.dtype}, expected {shape} {dtype}")
-        if a.device != device or not a.is_contiguous():
-            raise ValueError(f"layer_block_int8: {name} must be contiguous "
-                             f"on {device}")
-        if a.data_ptr() % 16:  # the GEMM copies 16-byte chunks (cp.async)
-            raise ValueError(f"layer_block_int8: {name} is not 16-byte aligned")
+def _check_tensor(fn: str, name: str, a: torch.Tensor, shape, dtype, device) -> None:
+    if tuple(a.shape) != tuple(shape) or a.dtype != dtype:
+        raise ValueError(f"{fn}: {name} is {tuple(a.shape)} {a.dtype}, "
+                         f"expected {tuple(shape)} {dtype}")
+    if a.device != device or not a.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous on {device}")
+    if a.data_ptr() % 16:  # the GEMM copies 16-byte chunks (cp.async)
+        raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+
+
+def _check_attn_weights(fn: str, wt: Int8AttnWeights, w: int, device) -> None:
+    f32, i8 = torch.float32, torch.int8
+    for name, shape, dtype in (
+            ("ln_s", (w,), f32), ("ln_b", (w,), f32),
+            ("wqkv_t", (3 * w, w), i8), ("wqkv_s", (3 * w,), f32), ("bqkv", (3 * w,), f32),
+            ("wo_t", (w, w), i8), ("wo_s", (w,), f32), ("bo", (w,), f32)):
+        _check_tensor(fn, name, getattr(wt, name), shape, dtype, device)
+
+
+def _check_mlp_weights(fn: str, wt: Int8MlpWeights, w: int, device) -> int:
+    f32, i8 = torch.float32, torch.int8
+    hidden = wt.hidden
+    for name, shape, dtype in (
+            ("ln_s", (w,), f32), ("ln_b", (w,), f32),
+            ("w1_t", (hidden, w), i8), ("w1_s", (hidden,), f32), ("b1", (hidden,), f32),
+            ("w2_t", (w, hidden), i8), ("w2_s", (w,), f32), ("b2", (w,), f32)):
+        _check_tensor(fn, name, getattr(wt, name), shape, dtype, device)
     return hidden
+
+
+def _check_x(fn: str, x: torch.Tensor) -> None:
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} kernel takes bfloat16 or float32, got {x.dtype}")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"{fn} kernel takes a contiguous (B, T, W) x")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{fn}: x is not 16-byte aligned")
+
+
+def _check_gemm_dims(fn: str, *dims: int) -> None:
+    if any(d % 64 for d in dims):
+        raise ValueError(f"{fn}: the kernel's 64-wide GEMM tiles need width and "
+                         f"hidden divisible by 64, got {', '.join(map(str, dims))}")
+
+
+def _check_attention_shape(fn: str, lib, t: int, w: int, heads: int) -> int:
+    """The tiled attention keeps one (image, head)'s K and V in shared
+    memory beside a tile of query rows; returns head_dim."""
+    if w % heads:
+        raise ValueError(f"{fn}: width {w} is not a multiple of heads {heads}")
+    hd = w // heads
+    if hd % 4 or hd > 128:
+        raise ValueError(f"{fn}: head_dim {hd} must be a multiple of 4, at most 128")
+    if lib.irt_attention_tile_rows(t, hd) <= 0:
+        raise ValueError(
+            f"{fn}: K and V of one (image, head) at t={t}, head_dim={hd} do not "
+            "fit in a block's 227 KB of shared memory beside one query row "
+            f"({lib.irt_attention_smem_bytes(t, hd)} bytes)")
+    return hd
+
+
+def _run(fn, lib, device, call):
+    """`call(stream)` on PyTorch's current stream of `device`; raises on a
+    refused launch, counts an accepted one."""
+    with torch.cuda.device(device):
+        rc = call(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel failed: "
+                           + lib.irt_error_string(rc).decode())
+    fn.launches += 1
+
+
+def _workspace(nbytes: int, device) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def _layer_block_int8_cuda(x, weights, heads, causal):
     from image_retrieval_tpu_torch.ops._build import load_library
 
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"layer_block_int8 kernel takes bfloat16 or float32, "
-                        f"got {x.dtype}")
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("layer_block_int8 kernel takes a contiguous (B, T, W) x")
+    fn = "layer_block_int8"
+    _check_x(fn, x)
     b, t, w = x.shape
-    hidden = _check_weights(weights, w, x.device)
-    if w % heads:
-        raise ValueError(f"width {w} is not a multiple of heads {heads}")
-    if w % 64 or hidden % 64:
-        raise ValueError(f"the kernel's 64-wide GEMM tiles need width and "
-                         f"hidden divisible by 64, got {w}, {hidden}")
+    _check_attn_weights(fn, weights.attn, w, x.device)
+    hidden = _check_mlp_weights(fn, weights.mlp, w, x.device)
+    _check_gemm_dims(fn, w, hidden)
     lib = load_library()
-    hd = w // heads
-    smem = lib.irt_attention_smem_bytes(t, hd)
-    if hd > 128 or smem > 232448:
-        raise ValueError(f"attention tile (t={t}, head_dim={hd}) needs {smem} "
-                         "bytes of shared memory; the kernel holds one "
-                         "(image, head) in at most 227 KB")
+    hd = _check_attention_shape(fn, lib, t, w, heads)
     out = torch.empty_like(x)
-    ws = torch.empty(
-        lib.irt_layer_block_int8_workspace_bytes(b * t, w, hidden,
-                                                 x.element_size()),
-        dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.irt_layer_block_int8(
-            x.data_ptr(), out.data_ptr(),
-            *(a.data_ptr() for a in weights.tensors()),
-            ws.data_ptr(), b, t, w, hidden, heads, int(bool(causal)),
-            _DTYPE_CODES[x.dtype], ctypes.c_float(hd ** -0.5), stream,
-        )
-    if rc != 0:
-        raise RuntimeError("layer_block_int8 kernel failed: "
-                           + lib.irt_error_string(rc).decode())
-    layer_block_int8.launches += 1
+    ws = _workspace(lib.irt_layer_block_int8_workspace_bytes(
+        b * t, w, hidden, x.element_size()), x.device)
+    _run(layer_block_int8, lib, x.device, lambda stream: lib.irt_layer_block_int8(
+        x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
+        ws.data_ptr(), b, t, w, hidden, heads, int(bool(causal)),
+        _DTYPE_CODES[x.dtype], ctypes.c_float(hd ** -0.5), stream))
     return out
 
 
@@ -323,3 +449,149 @@ def layer_block_int8(x: torch.Tensor, weights: Int8LayerWeights, heads: int,
 
 
 layer_block_int8.launches = 0
+
+
+def _attention_block_int8_cuda(x, weights, heads, causal):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "attention_block_int8"
+    _check_x(fn, x)
+    b, t, w = x.shape
+    _check_attn_weights(fn, weights, w, x.device)
+    _check_gemm_dims(fn, w)
+    lib = load_library()
+    hd = _check_attention_shape(fn, lib, t, w, heads)
+    out = torch.empty_like(x)
+    ws = _workspace(lib.irt_attention_block_int8_workspace_bytes(
+        b * t, w, x.element_size()), x.device)
+    _run(attention_block_int8, lib, x.device, lambda stream: lib.irt_attention_block_int8(
+        x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
+        ws.data_ptr(), b, t, w, heads, int(bool(causal)), _DTYPE_CODES[x.dtype],
+        ctypes.c_float(hd ** -0.5), stream))
+    return out
+
+
+def attention_block_int8(x: torch.Tensor, weights: Int8AttnWeights, heads: int,
+                         causal: bool = False) -> torch.Tensor:
+    """The int8 attention sub-block, x + out_proj(MHA(LN1(x))), on (B, T, W)
+    x in its compute dtype. CUDA: the Hopper kernel chain (or this raises);
+    CPU: the plain version. ``attention_block_int8.launches`` counts kernel
+    launches."""
+    if x.device.type == "cuda":
+        return _attention_block_int8_cuda(x, weights, heads, causal)
+    if x.device.type == "cpu":
+        return attention_block_int8_reference(x, weights, heads, causal)
+    raise ValueError(f"attention_block_int8: unsupported device {x.device}")
+
+
+attention_block_int8.launches = 0
+
+
+def _mlp_block_int8_cuda(x, weights):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "mlp_block_int8"
+    _check_x(fn, x)
+    b, t, w = x.shape
+    hidden = _check_mlp_weights(fn, weights, w, x.device)
+    _check_gemm_dims(fn, w, hidden)
+    lib = load_library()
+    out = torch.empty_like(x)
+    ws = _workspace(lib.irt_mlp_block_int8_workspace_bytes(b * t, w, hidden), x.device)
+    _run(mlp_block_int8, lib, x.device, lambda stream: lib.irt_mlp_block_int8(
+        x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
+        ws.data_ptr(), b * t, w, hidden, _DTYPE_CODES[x.dtype], stream))
+    return out
+
+
+def mlp_block_int8(x: torch.Tensor, weights: Int8MlpWeights) -> torch.Tensor:
+    """The int8 MLP sub-block, x + fc2(quick_gelu(fc1(LN2(x)))), on (B, T, W)
+    x in its compute dtype. CUDA: the Hopper kernel chain (or this raises);
+    CPU: the plain version. ``mlp_block_int8.launches`` counts kernel
+    launches."""
+    if x.device.type == "cuda":
+        return _mlp_block_int8_cuda(x, weights)
+    if x.device.type == "cpu":
+        return mlp_block_int8_reference(x, weights)
+    raise ValueError(f"mlp_block_int8: unsupported device {x.device}")
+
+
+mlp_block_int8.launches = 0
+
+
+def _quant_dense_cuda(x, w_t, w_s, bias, out_dtype):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "quant_dense"
+    if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} kernel takes bfloat16 or float32, got {x.dtype} "
+                        f"-> {out_dtype}")
+    if x.dim() < 2 or not x.is_contiguous():
+        raise ValueError(f"{fn} kernel takes a contiguous (..., K) x")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{fn}: x is not 16-byte aligned")
+    k, n = x.shape[-1], w_t.shape[0]
+    m = x.numel() // k
+    _check_tensor(fn, "w_t", w_t, (n, k), torch.int8, x.device)
+    _check_tensor(fn, "w_s", w_s, (n,), torch.float32, x.device)
+    _check_tensor(fn, "bias", bias, (n,), torch.float32, x.device)
+    _check_gemm_dims(fn, k, n)
+    lib = load_library()
+    out = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=x.device)
+    ws = _workspace(lib.irt_quant_dense_workspace_bytes(m, k), x.device)
+    _run(quant_dense, lib, x.device, lambda stream: lib.irt_quant_dense(
+        x.data_ptr(), out.data_ptr(), w_t.data_ptr(), w_s.data_ptr(), bias.data_ptr(),
+        ws.data_ptr(), m, k, n, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], stream))
+    return out
+
+
+def quant_dense(x: torch.Tensor, w_t: torch.Tensor, w_s: torch.Tensor,
+                bias: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """QuantDense: (..., K) x (f32 or bf16) through an int8 x int8 -> int32
+    projection with per-row activation scales, to (..., N) in `out_dtype`.
+    CUDA: rowquant + int8 GEMM kernels (or this raises); CPU: the plain
+    version. ``quant_dense.launches`` counts kernel launches."""
+    if x.device.type == "cuda":
+        return _quant_dense_cuda(x, w_t, w_s, bias, out_dtype)
+    if x.device.type == "cpu":
+        return quant_dense_reference(x, w_t, w_s, bias, out_dtype)
+    raise ValueError(f"quant_dense: unsupported device {x.device}")
+
+
+quant_dense.launches = 0
+
+
+def _attention_cuda(qkv, batch, heads, causal):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "tiled_attention"
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} kernel takes bfloat16 or float32, got {qkv.dtype}")
+    if qkv.dim() != 2 or not qkv.is_contiguous() or qkv.shape[1] % 3 or qkv.shape[0] % batch:
+        raise ValueError(f"{fn} kernel takes a contiguous (B * T, 3 W) [q | k | v]")
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{fn}: qkv is not 16-byte aligned")
+    t, w = qkv.shape[0] // batch, qkv.shape[1] // 3
+    lib = load_library()
+    hd = _check_attention_shape(fn, lib, t, w, heads)
+    out = torch.empty((qkv.shape[0], w), dtype=qkv.dtype, device=qkv.device)
+    _run(tiled_attention, lib, qkv.device, lambda stream: lib.irt_attention(
+        qkv.data_ptr(), out.data_ptr(), batch, t, w, heads, int(bool(causal)),
+        _DTYPE_CODES[qkv.dtype], ctypes.c_float(hd ** -0.5), stream))
+    return out
+
+
+def tiled_attention(qkv: torch.Tensor, batch: int, heads: int,
+                    causal: bool = False) -> torch.Tensor:
+    """The attention step of the int8 kernels on its own: packed
+    (B * T, 3 W) [q | k | v] rows in the compute dtype -> (B * T, W). CUDA:
+    the tiled kernel (or this raises); CPU: the plain version."""
+    if qkv.device.type == "cuda":
+        return _attention_cuda(qkv, batch, heads, causal)
+    if qkv.device.type == "cpu":
+        return _attention_reference(qkv, batch, qkv.shape[0] // batch,
+                                    qkv.shape[1] // 3, heads, causal, qkv.dtype)
+    raise ValueError(f"tiled_attention: unsupported device {qkv.device}")
+
+
+tiled_attention.launches = 0

@@ -14,7 +14,7 @@ import torch
 from image_retrieval_tpu.config import ModelConfig, serving_config
 from image_retrieval_tpu.models.clip import CLIP as JaxCLIP
 from image_retrieval_tpu.models.clip import init_params as jax_init_params
-from image_retrieval_tpu_torch.models.clip import CLIP, layer_mode
+from image_retrieval_tpu_torch.models.clip import CLIP, LAYER, layer_mode
 from image_retrieval_tpu_torch.models.weights import (
     init_params,
     params_from_hf_state_dict,
@@ -75,28 +75,23 @@ def test_serving_path_matches_jax(jax_params, inputs):
     interpreted). Agreement is to f32 rounding except where an int8 rounding
     flip (test_torch_layer_block.py) shifts a row: per-row cosine bounds it."""
     cfg = serving_config(SMALL)
-    assert layer_mode(cfg, cfg.vision_width) == "int8_layer"
+    assert layer_mode(cfg, cfg.vision_width) == (LAYER, LAYER)
+    assert layer_mode(cfg, cfg.text_width, causal=True) == (LAYER, LAYER)
     for got, want in _towers(cfg, jax_params, inputs):
         assert got.shape == want.shape
         assert _row_cos(got, want).min() >= 0.9999
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("pallas_attention", True), ("fused_attn_block", True),
-    ("fused_mlp_block", True), ("fused_attention", True),
-    ("fused_train_vjp", True), ("int8_matmuls", True),
-    ("fused_layer_block", True), ("vision_seq_pad", 24),
+@pytest.mark.parametrize("flag", [
+    "pallas_attention", "fused_attn_block", "fused_mlp_block", "fused_attention",
+    "fused_train_vjp", "fused_layer_block",
 ])
-def test_unported_flags_raise(flag, value):
+def test_unported_flags_raise(flag):
+    """The flags that need the bf16 kernels (and fused_attention) go on
+    raising; int8_matmuls alone, vision_seq_pad and the wide serving towers
+    run now and are held against the JAX towers in tests/test_torch_l14.py."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CLIP(dataclasses.replace(SMALL, **{flag: value}))
-
-
-def test_wide_serving_tower_raises():
-    cfg = serving_config(dataclasses.replace(
-        SMALL, vision_width=1024, vision_heads=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CLIP(cfg)
+        CLIP(dataclasses.replace(SMALL, **{flag: True}))
 
 
 def _hf_configs():

@@ -7,6 +7,7 @@ This file imports no JAX, so it also runs on a GPU machine without JAX:
 (`--noconftest` skips tests/conftest.py, which configures JAX.)
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -65,6 +66,144 @@ def test_kernel_rejects_unsupported_width(cuda):
     wts = _layer_weights(np.random.default_rng(1), 96, cuda)
     with pytest.raises(ValueError, match="divisible by 64"):
         fa.layer_block_int8(torch.zeros(2, 5, 96, device=cuda), wts, 3)
+
+
+def _x(rng, shape, device, dtype):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device, getattr(torch, dtype))
+
+
+# Ragged token counts, every head width the towers use, one and three
+# images, with and without the causal mask; (4, 197, 768) is ViT-B/16 and
+# (2, 257, 1024) ViT-L/14 vision, which need the query rows tiled.
+SUBBLOCK_SHAPES = [
+    (1, 1, 64, 2, False), (3, 50, 768, 12, False), (3, 77, 512, 8, True),
+    (1, 197, 768, 12, False), (2, 257, 1024, 16, False), (3, 77, 256, 2, True),
+    (1, 50, 128, 4, False), (3, 197, 128, 1, True),
+]
+
+
+@pytest.mark.parametrize("b,t,w,heads,causal", SUBBLOCK_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_block_kernel_matches_plain(cuda, b, t, w, heads, causal, dtype):
+    rng = np.random.default_rng(t * w)
+    wts = _layer_weights(rng, w, cuda).attn
+    x = _x(rng, (b, t, w), cuda, dtype)
+    before = fa.attention_block_int8.launches
+    got = fa.attention_block_int8(x, wts, heads, causal)
+    want = fa.attention_block_int8_reference(x, wts, heads, causal)
+    torch.cuda.synchronize()
+    assert fa.attention_block_int8.launches == before + 1
+    r = fa.kernel_agreement(got, want, x)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("b,t,w", [(1, 1, 64), (3, 50, 768), (2, 257, 1024), (3, 77, 512)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mlp_block_kernel_matches_plain(cuda, b, t, w, dtype):
+    rng = np.random.default_rng(t + w)
+    wts = _layer_weights(rng, w, cuda).mlp
+    x = _x(rng, (b, t, w), cuda, dtype)
+    before = fa.mlp_block_int8.launches
+    got = fa.mlp_block_int8(x, wts)
+    want = fa.mlp_block_int8_reference(x, wts)
+    torch.cuda.synchronize()
+    assert fa.mlp_block_int8.launches == before + 1
+    r = fa.kernel_agreement(got, want, x)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_subblocks_compose_to_the_layer_kernel(cuda, dtype):
+    """K2a then K2b run the same launches as K1 on the same values: bitwise."""
+    rng = np.random.default_rng(11)
+    wts = _layer_weights(rng, 768, cuda)
+    x = _x(rng, (3, 50, 768), cuda, dtype)
+    two = fa.mlp_block_int8(fa.attention_block_int8(x, wts.attn, 12), wts.mlp)
+    one = fa.layer_block_int8(x, wts, 12)
+    torch.cuda.synchronize()
+    assert torch.equal(two, one)
+
+
+@pytest.mark.parametrize("t", [1, 50, 77, 197, 257])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("b,causal", [(1, False), (3, True)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tiled_attention_matches_plain(cuda, t, hd, b, causal, dtype):
+    """Same order of operations per row on both sides; they differ by the
+    f32 sum order of the dots (and, in bf16, by a probability or an output
+    rounding to its neighbour): 2 bf16 ulps of the largest value, 1e-5 in
+    f32 for values of order 1."""
+    rng = np.random.default_rng(t * hd + b)
+    heads = 2
+    qkv = _x(rng, (b * t, 3 * heads * hd), cuda, dtype)
+    if t == 257 and hd == 128:  # K and V alone are 257 KB in f32: the wrapper raises
+        with pytest.raises(ValueError, match="do not fit"):
+            fa.tiled_attention(qkv, b, heads, causal)
+        return
+    before = fa.tiled_attention.launches
+    got = fa.tiled_attention(qkv, b, heads, causal)
+    want = fa._attention_reference(qkv, b, t, heads * hd, heads, causal, qkv.dtype)
+    torch.cuda.synchronize()
+    assert fa.tiled_attention.launches == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    top = float(want.float().abs().max())
+    atol = 2 * top * 2.0 ** -8 if dtype == "bfloat16" else 1e-5
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 64), (150, 768, 2304), (514, 1024, 4096),
+                                    (77, 4096, 1024)])
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "bfloat16")])
+def test_quant_dense_kernel_matches_plain(cuda, m, k, n, in_dtype, out_dtype):
+    """The int32 sums are exact on both sides, and the rowquant and the
+    rescale run the same correctly rounded f32 operations in the same order
+    (no exp, no sum whose order could differ): the two are equal bit for
+    bit. The plain version's scale must be a true division for that
+    (ops/flash_attention.py::_absmax_scale)."""
+    rng = np.random.default_rng(m + k)
+    w_t, w_s = fa.quantize_weight(torch.from_numpy(
+        rng.normal(size=(k, n)).astype(np.float32) / math.sqrt(k)))
+    w_t, w_s = w_t.t().contiguous().to(cuda), w_s.reshape(-1).to(cuda)
+    bias = torch.from_numpy(0.02 * rng.normal(size=n).astype(np.float32)).to(cuda)
+    x = _x(rng, (m, k), cuda, in_dtype)
+    od = getattr(torch, out_dtype)
+    before = fa.quant_dense.launches
+    got = fa.quant_dense(x, w_t, w_s, bias, od)
+    want = fa.quant_dense_reference(x, w_t, w_s, bias, od)
+    torch.cuda.synchronize()
+    assert fa.quant_dense.launches == before + 1
+    assert got.dtype == od and torch.equal(got, want)
+
+
+def test_wrappers_reject_bad_input(cuda):
+    wts = _layer_weights(np.random.default_rng(2), 128, cuda)
+    x = torch.zeros(2, 6, 128, device=cuda)
+    for fn, args in ((fa.attention_block_int8, (wts.attn, 2)), (fa.mlp_block_int8, (wts.mlp,))):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.transpose(0, 1), *args)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            fn(x.half(), *args)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(torch.zeros(2 * 6 * 128 + 1, device=cuda)[1:].reshape(2, 6, 128), *args)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.attention_block_int8(x, wts.attn, 64)  # head_dim 2
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.tiled_attention(torch.zeros(600, 3 * 64, device=cuda), 1, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.quant_dense(x[:, :, ::2], wts.wo_t, wts.wo_s, wts.bo, torch.float32)
+    with pytest.raises(ValueError, match="expected"):
+        fa.quant_dense(x, wts.w1_t.t(), wts.wo_s, wts.bo, torch.float32)
+    bad = dataclasses.replace(wts.mlp, w1_t=wts.mlp.w1_t.cpu())
+    with pytest.raises(ValueError, match="must be contiguous on"):
+        fa.mlp_block_int8(x, bad)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+
+    assert ShardedVectorIndex(dim=8).device.type == "cuda"
 
 
 def test_serving_towers_cuda_vs_cpu(cuda):
