@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's text->image serving paths once on one GPU.
+"""Drive the PyTorch/CUDA port's serving and search paths once on one GPU.
 
     python3 chip_smoke.py             # needs one CUDA card and nvcc
     python3 chip_smoke.py --time-k1   # build, then only K1's times (phase 2)
@@ -7,7 +7,7 @@
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
      port's kernels compiled from image_retrieval_tpu_torch/csrc with nvcc
-     for sm_90a (one nvcc per source, in parallel).
+     for sm_90a (one nvcc per source, six in parallel).
   2. kernel vs plain: layer_block_int8 (K1), attention_block_int8 (K2a) and
      mlp_block_int8 (K2b) on the card against their plain PyTorch versions
      on the same inputs, in bf16 and f32, by kernel_agreement: K1 at the
@@ -49,6 +49,32 @@ Phases (any failure exits non-zero):
      the plain chain against the kernel chain (TOWER_MIN_COS); and a
      torch.profiler window over one image batch: device time by kernel.
 
+  6. the weighted and multi-metric path: the f32 gallery of phase 3 and the
+     int8 gallery of phase 5 (seeded magnitudes in [0.5, 4], a `bucket`
+     attribute) get, per text query, one row equal to the query's embedding
+     and 16 planted neighbours. Counted: SearchServer answers one wave of
+     72 concurrent requests with metric="optimized_similarity": the 64
+     queries under weights (1, 1, 1, 0, 0.5), the last 16 of them under a
+     filter, and 8 more under a second weight set, so that a micro-batch
+     holds several (metric, weights, filter) groups; on the int8 tier (the
+     int8 weighted kernel K5: one launch per group, held against the
+     server's count of groups) and on the f32 tier (tensor operations,
+     direct L2); multi_metric_topk on both
+     tiers with and without the filter (the five-plane kernel K6: one launch
+     per f32 call, one per 2^16-row block of the int8 tier); an ascending
+     search (l1_distance), also under a 4-row mask (+inf, -1 padding);
+     scores() of 2048-row indexes; search_with_multiple_metrics; and the
+     ops-level entries fused_optimized_topk (K4) and fused_optimized_scores
+     (K7) over the whole f32 gallery. Every answer is held against a float64
+     oracle computed on the card from the index's host rows (for the int8
+     weighted score by the int8 scorer's definition: bf16 query, bf16
+     differences). Then K7, K6, K4 (k = 10 and 64, f32 and bf16 rows, a
+     ragged row count, and rows that score -inf) and K5 (D = 768 and 512)
+     against their plain versions on 2^18 rows at Q = 1 and 64 by the limits
+     of ops/fused_metrics.py, and
+     their times over the whole galleries beside the plain versions' and the
+     bounds.
+
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
 line. Imports no JAX and nothing of the JAX package.
@@ -89,15 +115,24 @@ RECALL_MIN = 0.99  # recall@10 of the two-phase tier vs the oracle's top-10
 # its bytes (every input read once, every output written once) over the
 # memory rate.
 PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
+# f32 outside the tensor cores: 67 TFLOP/s counts an FMA as two operations,
+# so the CUDA cores complete 33.5e12 f32 operations a second, an FMA, a
+# subtract, an add or a max each taking one slot.
+PEAK_F32_SLOTS = 67e12 / 2
+# bf16 outside the tensor cores is packed two to a lane (NVIDIA's H100
+# architecture paper: 133.8 TFLOP/s, an FMA counted twice), so a bf16
+# subtract or max of one element takes half an f32 slot.
+BF16_SLOT = 0.5
 
 
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke FAILED: {msg}")
 
 
-def bound(int8_ops: float, bf16_flops: float, nbytes: float) -> dict:
+def bound(int8_ops: float, bf16_flops: float, nbytes: float, f32_slots: float = 0.0) -> dict:
     """The least time the card could take: {"bound_ms", "bound_by"}."""
-    ops_ms = (int8_ops / PEAK_INT8_OPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+    ops_ms = (int8_ops / PEAK_INT8_OPS + bf16_flops / PEAK_BF16_FLOPS
+              + f32_slots / PEAK_F32_SLOTS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -155,10 +190,10 @@ def layer_inputs(torch, b, t, w, heads, seed):
     return x, quantize_layer(*[p.cuda() for p in params])
 
 
-def time_pair(torch, fns, samples=24, reps=5):
+def time_pair(torch, fns, samples=24, reps=5, warm=3):
     """Median ms per call of each fn; samples taken in turns
     plain/kernel/kernel/plain, each the mean of `reps` back-to-back calls
-    between CUDA events."""
+    between CUDA events, after `warm` calls of each."""
     def one(fn):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
@@ -168,8 +203,8 @@ def time_pair(torch, fns, samples=24, reps=5):
         e.synchronize()
         return s.elapsed_time(e) / reps
 
-    for fn in fns.values():  # warm
-        for _ in range(3):
+    for fn in fns.values():
+        for _ in range(warm):
             fn()
     torch.cuda.synchronize()
     got = {k: [] for k in fns}
@@ -332,15 +367,17 @@ def oracle_topk(gallery: np.ndarray, queries: np.ndarray, k: int):
     return np.stack(vals), np.stack(ids)
 
 
-def serve_wave(server, queries):
-    """One wave of concurrent clients, one per query, through `server`.
-    Returns (answers, seconds, micro-batches)."""
+def serve_wave(server, queries, requests=None):
+    """One wave of concurrent clients, one per query, through `server`;
+    requests[i] holds client i's further arguments of `search` (metric,
+    weights, flt). Returns (answers, seconds, micro-batches)."""
     answers = [None] * len(queries)
     errors = []
 
     def client(i):
         try:
-            answers[i] = server.search(queries[i], top_k=TOP_K, timeout=300)
+            answers[i] = server.search(queries[i], top_k=TOP_K, timeout=300,
+                                       **(requests[i] if requests else {}))
         except Exception as e:  # reported after the join
             errors.append(repr(e))
 
@@ -400,7 +437,11 @@ def phase_slice(torch, card):
     grng = np.random.default_rng(1)
     rows = grng.standard_normal((N_ROWS, mc.embed_dim), dtype=np.float32)
     rows /= np.linalg.norm(rows, axis=1, keepdims=True)
-    index.insert([f"gallery/{i:07d}" for i in range(N_ROWS)], rows, np.ones(N_ROWS, np.float32))
+    # magnitudes in [0.5, 4] and a `bucket` attribute for phase 6: the
+    # cosine searches of this phase read neither
+    index.insert([f"gallery/{i:07d}" for i in range(N_ROWS)], rows,
+                 grng.uniform(0.5, 4.0, N_ROWS).astype(np.float32),
+                 attrs={"bucket": np.arange(N_ROWS) % 8})
     del rows
     server = SearchServer(enc, index, max_batch=64, max_wait_ms=2.0)
     answers, serve_s, batches = serve_wave(server, queries)
@@ -458,7 +499,8 @@ def phase_slice(torch, card):
           f"text {ct:.6f} (limit {TOWER_MIN_COS})", flush=True)
     if not (ci >= TOWER_MIN_COS and ct >= TOWER_MIN_COS):
         fail("towers on the card disagree with the CPU towers")
-    return launches, enc, queries, q_emb
+    return launches, enc, queries, q_emb, index
+
 
 def recording_index(base):
     """A ShardedVectorIndex that keeps every search's stage label, query
@@ -811,7 +853,7 @@ def profile_encode(torch, enc, images, card):
 def phase_l14(torch, card, queries):
     """The ViT-L/14 serving slice, counted; then its answers against the
     oracle and its towers against the plain versions. Returns the launches
-    of K1, K2a and K2b in the counted run."""
+    of K1, K2a and K2b in the counted run, the encoder and the index."""
     from image_retrieval_tpu_torch.app.embed import ImageEmbeddingSystem
     from image_retrieval_tpu_torch.app.search import TextImageSearcher
     from image_retrieval_tpu_torch.app.server import SearchServer
@@ -863,7 +905,9 @@ def phase_l14(torch, card, queries):
     if index.device.type != "cuda":
         fail(f"ShardedVectorIndex without device= is on {index.device}")
     t0 = time.perf_counter()
-    index.insert([f"gallery/{i:07d}" for i in range(N5)], rows, np.ones(N5, np.float32))
+    index.insert([f"gallery/{i:07d}" for i in range(N5)], rows,
+                 np.random.default_rng(7).uniform(0.5, 4.0, N5).astype(np.float32),
+                 attrs={"bucket": np.arange(N5) % 8})  # both for phase 6
     index.insert([f"images/{i:04d}.jpg" for i in range(N_IMAGES5)], img_emb)
     index.load()
     torch.cuda.synchronize()
@@ -918,7 +962,561 @@ def phase_l14(torch, card, queries):
 
     towers_vs_plain(torch, enc, images[:N_CHECK5], queries[:8])
     profile_encode(torch, enc, images, card)
-    return launches
+    return launches, enc, index
+
+
+# ---- phase 6: the weighted and multi-metric path -----------------------------
+
+W_REF = dict(w_angle=1.0, w_l1=1.0, w_l2=1.0, w_inf=0.0, w_mag=0.5)  # reference-style
+W_ALL = dict(w_angle=0.3, w_l1=0.2, w_l2=0.5, w_inf=0.7, w_mag=0.1)  # every term live
+W_COS = dict(w_angle=1.0, w_l1=0.0, w_l2=0.0, w_inf=0.0, w_mag=0.0)  # the default weights
+W_KEYS = ("w_angle", "w_l1", "w_l2", "w_inf", "w_mag")
+SLICE6 = 1 << 18  # rows of the kernel-vs-plain comparisons
+# A wave: N_PLAIN6 unfiltered requests, the rest of the queries under FLT6,
+# and N_OTHER6 more under a second weight set.
+N_PLAIN6, N_OTHER6, FLT6 = 48, 8, "bucket == 3"
+# Served answers against the float64 oracle: f32 sums over D = 512..768 and
+# f32 norms against float64 ones, on scores whose size follows ||q||.
+WEIGHTED_ATOL, WEIGHTED_RTOL = 1e-5, 1e-5
+
+
+def wtuple(w):
+    return tuple(float(w[k]) for k in W_KEYS)
+
+
+class Best:
+    """Running best-`depth` (score, row) per query over score chunks, float64,
+    lowest row first among equal scores within a chunk."""
+
+    def __init__(self, torch, nq, depth, descending):
+        self.torch, self.depth, self.desc = torch, depth, descending
+        self.worst = float("-inf") if descending else float("inf")
+        self.v = torch.full((nq, depth), self.worst, dtype=torch.float64, device="cuda")
+        self.i = torch.full((nq, depth), -1, dtype=torch.int64, device="cuda")
+
+    def add(self, scores, lo, keep=None):
+        torch = self.torch
+        if keep is not None:
+            scores = scores.masked_fill(~keep, self.worst)
+        v, i = torch.topk(scores, min(self.depth, scores.shape[1]), dim=1, largest=self.desc)
+        v, j = torch.topk(torch.cat([self.v, v], 1), self.depth, dim=1, largest=self.desc)
+        self.v, self.i = v, torch.gather(torch.cat([self.i, i + lo], 1), 1, j)
+
+
+def f64_planes(torch, q, rows, mags):
+    """The five metric planes in float64: q (Q, D) against unit rows (n, D)
+    scaled by their magnitudes (n,), all double."""
+    d = q.shape[1]
+    qn = torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    cos = torch.where(qn > 0, (q @ rows.t()) / torch.where(qn > 0, qn, 1.0), 0.0)
+    diff = (rows * mags[:, None])[None, :, :] - q[:, None, :]
+    ad = diff.abs()
+    return {"cosine_similarity": cos, "l1_distance": ad.sum(-1) / d,
+            "l2_distance": (diff * diff).sum(-1).sqrt() / d ** 0.5,
+            "linf_distance": ad.amax(-1), "magnitude_difference": (mags[None, :] - qn).abs()}
+
+
+def weighted_f64(planes, w):
+    return (w[0] * planes["cosine_similarity"] - w[1] * planes["l1_distance"]
+            - w[2] * planes["l2_distance"] - w[3] * planes["linf_distance"]
+            - w[4] * planes["magnitude_difference"])
+
+
+def int8_definition_f64(torch, q, g8, sc, m, w):
+    """The int8 scorer's definition in float64 sums: bf16 query, exact
+    products, rec = bf16(int8 * bf16(scale * mag)), |bf16(rec - q16)| for
+    L1/Linf, the Gram-form L2 through the norm-preserving scales. Only the
+    order and width of the sums separate it from the kernel. Returns the
+    scores and the Gram sq (both (Q, n) double)."""
+    d = q.shape[1]
+    qn = torch.linalg.vector_norm(q.double(), dim=1, keepdim=True)
+    q16 = q.to(torch.bfloat16)
+    udots = (q16.double() @ g8.double().t()) * sc.double()[None, :]
+    md = m.double()[None, :]
+    sq = (md * md - 2.0 * md * udots + qn * qn).clamp_min(0.0)
+    rec = g8.to(torch.bfloat16) * (sc * m).to(torch.bfloat16)[:, None]
+    ad = (rec[None, :, :] - q16[:, None, :]).abs()
+    score = (w[0] * torch.where(qn > 0, udots / torch.where(qn > 0, qn, 1.0), 0.0)
+             - w[2] * sq.sqrt() / d ** 0.5 - w[1] * ad.sum(-1, dtype=torch.float64) / d
+             - w[3] * ad.amax(-1).double() - w[4] * (md - qn).abs())
+    return score, sq
+
+
+def oracle_pass(torch, index, q, w, depth, chunk=2048):
+    """One float64 pass over the index's host rows for queries q (Q, D) f32
+    on the card: the best-`depth` of the weighted score (for an int8 index by
+    the int8 scorer's definition, else from the planes) and of each metric
+    plane (int8 rows dequantized in f32 as the index does), unfiltered and
+    under FLT6. Returns {(name, filtered): Best}, the weighted scores of
+    every row (Q, N) double, and their squared distances ||m g - q||^2."""
+    nq, n = q.shape[0], len(index)
+    quantized = index.config.dtype == "int8"
+    live = torch.from_numpy(index.live_mask()).cuda()
+    flt = torch.from_numpy(index.filter_mask(FLT6)).cuda()
+    names = ("optimized_similarity", "cosine_similarity", "l1_distance", "l2_distance",
+             "linf_distance", "magnitude_difference")
+    best = {(name, f): Best(torch, nq, depth, name in ("optimized_similarity",
+                                                       "cosine_similarity"))
+            for name in names for f in (False, True)}
+    full = torch.empty((nq, n), dtype=torch.float64, device="cuda")
+    full_sq = torch.empty((nq, n), dtype=torch.float64, device="cuda")
+    qd = q.double()
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        m = torch.from_numpy(index._host_mags[lo:hi]).cuda()
+        if quantized:
+            g8 = torch.from_numpy(index._host_gallery[lo:hi]).cuda()
+            sc = torch.from_numpy(index._host_scales[lo:hi]).cuda()
+            rows = (g8.to(torch.float32) * sc[:, None]).double()
+        else:
+            rows = torch.from_numpy(index._host_gallery[lo:hi]).cuda().double()
+        planes = f64_planes(torch, qd, rows, m.double())
+        if quantized:
+            planes["optimized_similarity"], full_sq[:, lo:hi] = int8_definition_f64(
+                torch, q, g8, sc, m, w)
+        else:
+            planes["optimized_similarity"] = weighted_f64(planes, w)
+            full_sq[:, lo:hi] = planes["l2_distance"] ** 2 * q.shape[1]
+        full[:, lo:hi] = planes["optimized_similarity"]
+        for name in names:
+            best[(name, False)].add(planes[name], lo, live[lo:hi])
+            best[(name, True)].add(planes[name], lo, flt[lo:hi])
+    return best, full, full_sq
+
+
+def check_ranked(what, vals, idx, best, rows=None, slack=None):
+    """Served (scores, ids) of queries `rows` (default: all) against an
+    oracle Best one deeper: every score within the limit of the oracle's at
+    its rank, ids identical except where the oracle's neighbouring scores
+    differ by no more than the limit. `slack` (Q, depth) widens the limit
+    (the Gram-form L2 at a cancellation). Returns (worst |diff|, swaps)."""
+    ov, oi = best.v.cpu().numpy(), best.i.cpu().numpy()
+    sl = None if slack is None else slack.cpu().numpy()
+    rows = range(len(vals)) if rows is None else rows
+    worst, swaps = 0.0, 0
+    for a, qrow in enumerate(rows):
+        k = vals.shape[1]
+        if not np.isfinite(vals[a]).all() or (idx[a] < 0).any():
+            fail(f"{what} query {qrow}: padding or non-finite scores in a full answer")
+        lim = WEIGHTED_ATOL + WEIGHTED_RTOL * np.abs(ov[qrow, :k + 1])
+        if sl is not None:
+            lim = lim + sl[qrow, :k + 1]
+        diff = np.abs(vals[a] - ov[qrow, :k])
+        worst = max(worst, float(diff.max()))
+        if (diff > lim[:k]).any():
+            fail(f"{what} query {qrow}: scores {vals[a]} vs oracle {ov[qrow, :k]} "
+                 f"(limit {lim[:k]})")
+        for r in np.flatnonzero(idx[a] != oi[qrow, :k]):
+            gaps = [abs(ov[qrow, r] - ov[qrow, o]) for o in (r - 1, r + 1) if o >= 0]
+            if min(gaps) > 2 * lim[r]:
+                fail(f"{what} query {qrow} rank {r}: id {idx[a][r]} != oracle {oi[qrow, r]} "
+                     f"with gaps {gaps} (limit {lim[r]:.3g})")
+            swaps += 1
+    return worst, swaps
+
+
+def answers_to_arrays(index, answers):
+    """Served [{'path', 'score'}] lists -> (scores, row ids) arrays."""
+    path_id = {p: i for i, p in enumerate(index.paths)}
+    vals = np.array([[h["score"] for h in a] for a in answers], np.float64)
+    return vals, np.array([[path_id[h["path"]] for h in a] for a in answers])
+
+
+def gram_slack(fm, sq, m, qn, d, w_l2):
+    """|w_l2| x how far a Gram-form L2 / sqrt(d) may move where its float64
+    sq, row magnitude and query norm are (sq, m, qn): fused_metrics'
+    gram_l2_slack for gathered entries."""
+    delta = fm.GRAM_SQ_RTOL * (m ** 2 + qn ** 2)
+    return abs(w_l2) * ((sq + delta).sqrt() - (sq - delta).clamp_min(0.0).sqrt()) / d ** 0.5
+
+
+def plant_rows(torch, index, q_emb, seed):
+    """Append to `index`, per query embedding: one row equal to it (an image
+    searched by its own embedding) and PLANTED4 neighbours at cosines
+    0.3-0.95 with magnitudes in [0.5, 4]. Returns the first planted row."""
+    rng = np.random.default_rng(seed)
+    first = len(index)
+    index.insert([f"self/{i:02d}" for i in range(len(q_emb))], q_emb,
+                 attrs={"bucket": (first + np.arange(len(q_emb))) % 8})
+    _, near = planted_rows(q_emb, rng, len(q_emb) * PLANTED4)
+    at = len(index) + np.arange(len(near))
+    index.insert([f"near/{i:04d}" for i in range(len(near))], near,
+                 rng.uniform(0.5, 4.0, len(near)).astype(np.float32),
+                 attrs={"bucket": at % 8})
+    index.load()
+    torch.cuda.synchronize()
+    return first
+
+
+def metric_kernels_vs_plain(torch, g32, m32, q32, g8, sc8, m8, q8):
+    """K7, K6, K4 and K5 against their plain versions on the card, on the
+    last SLICE6 rows of the two galleries (they hold the planted rows, one
+    equal to each query), at Q = 1 and 64. Returns the worst |kernel - plain|
+    per kernel."""
+    from image_retrieval_tpu_torch.index.vector_index import quantize_int8
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops import metrics as M
+
+    worst = dict.fromkeys(("fused_all_metrics", "fused_optimized_scores",
+                           "fused_optimized_topk", "fused_optimized_scores_int8"), 0.0)
+
+    def slack(q, unit_dots, m, d):
+        qn = torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        return fm.gram_l2_slack(M.gram_sq(m, unit_dots, qn), m, qn, d)
+
+    def agree(kernel, case, got, want, limit):
+        torch.cuda.synchronize()
+        r = fm.scores_agree(got, want, limit)
+        print(f"kernel-vs-plain {kernel} {case}: max_abs_err {r['max_abs_err']:.3g}, "
+              f"worst error/limit {r['worst_ratio']:.3g} (limit 1)", flush=True)
+        if not r["ok"]:
+            fail(f"{kernel} {case} disagrees with its plain version")
+        worst[kernel] = max(worst[kernel], r["max_abs_err"])
+
+    g, m = g32[-SLICE6:], m32[-SLICE6:]
+    d = g.shape[1]
+    for nq in (1, 64):
+        q = q32[-nq:].contiguous()  # the planted rows equal to these queries are in the slice
+        l2s = slack(q, q @ g.t(), m, d)
+        want = fm.fused_all_metrics_reference(q, g, m)
+        got = fm.fused_all_metrics(q, g, m)
+        agree("fused_all_metrics", f"Q={nq} {SLICE6}x{d} f32", got, want, fm.score_limit(want))
+        if not (torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])):
+            fail("fused_all_metrics: Linf and |dmag| are not the plain version's bits")
+        del got, want
+        for name, w in (("all-live", W_ALL), ("reference", W_REF)):
+            wt = torch.tensor(wtuple(w), device="cuda")
+            want = fm.fused_optimized_scores_reference(q, g, m, wt)
+            agree("fused_optimized_scores", f"Q={nq} {SLICE6}x{d} f32 {name}",
+                  fm.fused_optimized_scores(q, g, m, wt), want,
+                  fm.score_limit(want, w["w_l2"], l2s))
+        # K4: a gallery that is no multiple of the tile, f32 and bf16 rows
+        n4 = SLICE6 - 37
+        for rows_name, rows in (("f32", g[-n4:]), ("bf16", g[-n4:].to(torch.bfloat16))):
+            unit = rows.float()
+            l2k = slack(q, q @ unit.t(), m[-n4:], d)
+            for name, w in (("all-live", W_ALL), ("reference", W_REF), ("cosine-only", W_COS)):
+                plain = M.fused_optimized_scores_xla(q, rows, m[-n4:], wtuple(w), exact_l2=False)
+                lim = fm.score_limit(plain, w["w_l2"], l2k)
+                for k in (10, 64):
+                    got_v, got_i = fm.fused_optimized_topk(q, rows, m[-n4:], wtuple(w), k=k)
+                    want_v, want_i = fm.fused_optimized_topk_reference(q, rows, m[-n4:],
+                                                                       wtuple(w), k=k)
+                    torch.cuda.synchronize()
+                    r = fm.topk_agree(got_v, got_i, want_v, want_i.to(torch.int64), plain, lim)
+                    print(f"kernel-vs-plain fused_optimized_topk Q={nq} {n4}x{d} {rows_name} "
+                          f"{name} k={k}: max_abs_err {r['max_abs_err']:.3g}, {r['swaps']} "
+                          f"near-tie swaps", flush=True)
+                    if not r["ok"]:
+                        fail(f"fused_optimized_topk Q={nq} {rows_name} {name} k={k}: {r['why']}")
+                    worst["fused_optimized_topk"] = max(worst["fused_optimized_topk"],
+                                                        r["max_abs_err"])
+                del plain, lim
+        # fewer finite scores than k: rows of infinite magnitude score -inf
+        # and are still returned under their own row numbers, lowest first
+        minf = m[-n4:].clone()
+        minf[40:] = float("inf")
+        w = (1.0, 0.0, 0.0, 0.0, 0.5)
+        got_v, got_i = fm.fused_optimized_topk(q, g[-n4:], minf, w, k=64)
+        want_v, want_i = fm.fused_optimized_topk_reference(q, g[-n4:], minf, w, k=64)
+        if not (torch.equal(got_i, want_i) and bool(torch.isneginf(got_v[:, 40:]).all())
+                and torch.equal(torch.isneginf(got_v), torch.isneginf(want_v))):
+            fail(f"fused_optimized_topk Q={nq}: rows scoring -inf are not returned as the "
+                 "plain version returns them")
+    # K5 at D = 768 (the int8 gallery) and D = 512 (the f32 slice, quantized)
+    h8, hs = quantize_int8(g.cpu().numpy())
+    for d8, rows8, sc, m, qs in ((g8.shape[1], g8[-SLICE6:], sc8[-SLICE6:], m8[-SLICE6:], q8),
+                                 (d, torch.from_numpy(h8).cuda(), torch.from_numpy(hs).cuda(),
+                                  m, q32)):
+        for nq in (1, 64):
+            q = qs[-nq:].contiguous()
+            q16 = q.to(torch.bfloat16).float()
+            l2s = slack(q, (q16 @ rows8.float().t()) * sc, m, d8)
+            for name, w in (("reference", W_REF), ("default", W_COS), ("all-live", W_ALL)):
+                want = fm.fused_optimized_scores_int8_reference(q, rows8, sc, m, wtuple(w))
+                agree("fused_optimized_scores_int8", f"Q={nq} {SLICE6}x{d8} {name}",
+                      fm.fused_optimized_scores_int8_pallas(q, rows8, sc, m, wtuple(w)), want,
+                      fm.score_limit(want, w["w_l2"], l2s))
+            linf = (0.0, 0.0, 0.0, 1.0, 0.0)
+            if not torch.equal(
+                    fm.fused_optimized_scores_int8_pallas(q, rows8, sc, m, linf),
+                    fm.fused_optimized_scores_int8_reference(q, rows8, sc, m, linf)):
+                fail(f"fused_optimized_scores_int8 Q={nq} D={d8}: Linf is not the plain "
+                     "version's bits")
+    print("fused_optimized_scores_int8: Linf alone equals the plain version bit for bit at "
+          "D = 768 and 512, Q = 1 and 64", flush=True)
+    return worst
+
+
+def sweep_slots(w, int8=False):
+    """f32 CUDA-core slots per (query, row, dim) that the weighted score
+    needs under weights `w` (a dict; None: weights read at run time, so every
+    term is computed): one FMA for the product where the cosine or the
+    Gram-form L2 is live; where L1 or Linf is live one subtract, then one add
+    for L1 and one max for Linf, each only if its weight is not 0. Over int8
+    rows the product is tensor-core work and is not counted here, and the
+    subtract (with its rounding) and the max are bf16 operations at the
+    packed rate, BF16_SLOT each; the L1 sum is an f32 add."""
+    live = [True] * 5 if w is None else [x != 0.0 for x in wtuple(w)]
+    slots = 0.0 if int8 or not (live[0] or live[2]) else 1.0
+    if live[1] or live[3]:
+        narrow = BF16_SLOT if int8 else 1.0
+        slots += narrow + (1.0 if live[1] else 0.0) + (narrow if live[3] else 0.0)
+    return slots
+
+
+def time_metric_kernels(torch, card, g32, m32, q32, g8, sc8, m8, q8):
+    """The four kernels beside their plain versions and their bounds over the
+    whole galleries. Bytes: rows, magnitudes (and scales), queries and the
+    output once. Operations per (query, row, dim): sweep_slots of the live
+    weights on the f32 CUDA cores (K6: and an FMA for the direct L2); K5's
+    product at the bf16 tensor-core peak."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops.topk import exact_topk_wide
+
+    out = {}
+
+    def run(kernel, case, fns, nq, n, d, row_bytes, out_bytes, slots, bf16_flops=0.0):
+        big = nq * n * d > 1 << 32
+        t = time_pair(torch, fns, samples=4 if big else 12, reps=1 if big else 3,
+                      warm=1 if big else 2)
+        b = bound(0.0, bf16_flops, n * (d * row_bytes + 4) + nq * d * 4 + out_bytes,
+                  slots * nq * n * d)
+        out.setdefault(kernel, {})[case] = dict(t, **b, shape=f"Q{nq} x {n} rows x {d}")
+        print(f"time {kernel} {case} Q={nq} over {n} x {d}: kernel {t['kernel']:.4f} ms, "
+              f"plain {t['plain']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) "
+              f"[{card}]", flush=True)
+
+    n, d = g32.shape
+    w_all = torch.tensor(wtuple(W_ALL), device="cuda")
+    for nq in (1, 64):
+        q = q32[:nq].contiguous()
+        run("fused_optimized_scores", f"q{nq}-all-live", {
+            "kernel": lambda: fm.fused_optimized_scores(q, g32, m32, w_all),
+            "plain": lambda: fm.fused_optimized_scores_reference(q, g32, m32, w_all),
+        }, nq, n, d, 4, nq * n * 4, sweep_slots(None))
+        run("fused_all_metrics", f"q{nq}", {
+            "kernel": lambda: fm.fused_all_metrics(q, g32, m32),
+            "plain": lambda: fm.fused_all_metrics_reference(q, g32, m32),
+        }, nq, n, d, 4, 5 * nq * n * 4, sweep_slots(None) + 1.0)
+        for name, w in (("cosine-only", W_COS), ("reference", W_REF)):
+            run("fused_optimized_topk", f"q{nq}-{name}", {
+                "kernel": lambda: fm.fused_optimized_topk(q, g32, m32, wtuple(w), k=TOP_K),
+                "plain": lambda: fm.fused_optimized_topk_reference(q, g32, m32, wtuple(w),
+                                                                   k=TOP_K),
+            }, nq, n, d, 4, 2 * nq * TOP_K * 4, sweep_slots(w))
+        # a note, used by nothing: the index's own cosine sweep (one product
+        # and the wide top-k: two calls) beside K4 with the cosine-only weights
+        qn = torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        t = time_pair(torch, {
+            "kernel": lambda: fm.fused_optimized_topk(q, g32, m32, wtuple(W_COS), k=TOP_K),
+            "plain": lambda: exact_topk_wide((q @ g32.t()) / qn, TOP_K),
+        }, samples=12, reps=3, warm=2)
+        print(f"note: cosine top-{TOP_K} at Q={nq} over {n} x {d} f32: K4 {t['kernel']:.4f} ms, "
+              f"the index's sweep (q @ rows.T, exact_topk_wide) {t['plain']:.4f} ms [{card}]",
+              flush=True)
+    n, d = g8.shape
+    for nq, name, w in ((1, "default", W_COS), (64, "default", W_COS),
+                        (64, "reference", W_REF)):
+        q = q8[:nq].contiguous()
+        run("fused_optimized_scores_int8", f"q{nq}-{name}", {
+            "kernel": lambda: fm.fused_optimized_scores_int8_pallas(q, g8, sc8, m8, wtuple(w)),
+            "plain": lambda: fm.fused_optimized_scores_int8_reference(q, g8, sc8, m8,
+                                                                      wtuple(w)),
+        }, nq, n, d, 1, nq * n * 4 + n * 4, sweep_slots(w, int8=True),
+            bf16_flops=2.0 * nq * n * d)
+    return out
+
+
+def phase_weighted(torch, card, enc32, index32, enc14, index14, queries):
+    """Phase 6: weighted and multi-metric retrieval through the normal entry
+    points on the f32 gallery of phase 3 and the int8 gallery of phase 5,
+    counted; every answer against a float64 oracle; the four metric kernels
+    against their plain versions and beside their bounds. Returns
+    (launches, worst kernel-vs-plain errors, times)."""
+    from image_retrieval_tpu_torch.app.search import TextImageSearcher
+    from image_retrieval_tpu_torch.app.server import SearchServer
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.parallel.collectives import ROW_BLOCK
+
+    emb = {32: enc32.encode_texts(queries), 14: enc14.encode_texts(queries)}  # unnormalized
+    index14.stage = "phase 6"
+    first = {32: plant_rows(torch, index32, emb[32], 61),
+             14: plant_rows(torch, index14, emb[14], 62)}
+    qdev = {k: torch.from_numpy(v).cuda() for k, v in emb.items()}
+    norms = np.linalg.norm(emb[32], axis=1)
+    print(f"phase 6 galleries: f32 {len(index32)} x {index32.dim}, int8 {len(index14)} x "
+          f"{index14.dim}, magnitudes in [0.5, 4]; per query one planted row equal to its "
+          f"embedding and {PLANTED4} neighbours; query norms {norms.min():.3g}-{norms.max():.3g}",
+          flush=True)
+    kernels = {"fused_optimized_topk": fm.fused_optimized_topk,
+               "fused_optimized_scores_int8": fm.fused_optimized_scores_int8_pallas,
+               "fused_all_metrics": fm.fused_all_metrics,
+               "fused_optimized_scores": fm.fused_optimized_scores}
+    small = {}
+    for key, ix in ((32, index32), (14, index14)):  # analysis-scale copies for scores()
+        small[key] = ShardedVectorIndex(dim=ix.dim, config=IndexConfig(
+            embedding_dim=ix.dim, dtype=ix.config.dtype, capacity_step=2048))
+        at = np.arange(len(ix) - 2048, len(ix))
+        small[key].insert([ix.paths[i] for i in at], ix.get_vectors(at), ix.get_magnitudes(at))
+
+    # ---- the main path, counted ------------------------------------------
+    for k in kernels.values():
+        k.launches = 0
+    # one mixed wave per tier: N_PLAIN6 requests under W_REF, the rest of the
+    # queries under W_REF and FLT6, N_OTHER6 more under W_ALL, all enqueued
+    # together so that a micro-batch holds several (metric, weights, filter)
+    # groups
+    wave = list(queries) + list(queries[:N_OTHER6])
+    requests = ([dict(metric="optimized_similarity", weights=W_REF,
+                      flt=None if i < N_PLAIN6 else FLT6) for i in range(len(queries))]
+                + [dict(metric="optimized_similarity", weights=W_ALL)] * N_OTHER6)
+    served, batches, groups = {}, {}, {}
+    for key, enc, ix in ((14, enc14, index14), (32, enc32, index32)):
+        server = SearchServer(enc, ix, max_batch=2 * len(wave), max_wait_ms=50.0)
+        served[key], seconds, batches[key] = serve_wave(server, wave, requests)
+        groups[key] = int(server.stats["groups"])
+        print(f"weighted serving, {ix.config.dtype} tier: {len(wave)} concurrent text queries "
+              f"(optimized_similarity: {N_PLAIN6} under {W_REF}, {len(queries) - N_PLAIN6} "
+              f"under the same and {FLT6!r}, {N_OTHER6} under {W_ALL}) in {seconds:.3f} s = "
+              f"{len(wave) / seconds:.1f} QPS over {len(ix)} x {ix.dim}, {batches[key]} "
+              f"micro-batches of {groups[key]} groups (first calls included) [{card}]",
+              flush=True)
+        if groups[key] <= batches[key]:
+            fail(f"{ix.config.dtype}: no micro-batch held two groups")
+    multi = {(key, f): ix.multi_metric_topk(emb[key], TOP_K, flt=FLT6 if f else None)
+             for key, ix in ((32, index32), (14, index14)) for f in (False, True)}
+    l1 = index32.search(emb[32], TOP_K, "l1_distance")
+    few = np.zeros(len(index32), bool)
+    few[[first[32] + 1, 1000, 2000, len(index32) // 2]] = True
+    l1_few = index32.search(emb[32][:4], TOP_K, "l1_distance", flt=few)
+    scored = {key: small[key].scores(emb[key], "optimized_similarity", W_REF) for key in small}
+    analysis = TextImageSearcher(enc32, index32).search_with_multiple_metrics(queries[0], top_k=5)
+    # K4 and K7 serve no index tier (the f32 tiers' weighted score takes the
+    # direct L2); their entry points are called as a user of ops/ would, over
+    # the whole f32 gallery
+    k4 = fm.fused_optimized_topk(qdev[32], index32._gallery, index32._mags, wtuple(W_REF), k=TOP_K)
+    k7 = fm.fused_optimized_scores(qdev[32], index32._gallery, index32._mags,
+                                   torch.tensor(wtuple(W_REF), device="cuda"))
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    # ---- end of the counted run ------------------------------------------
+    blocks14 = -(-len(index14) // ROW_BLOCK)
+    expected = {"fused_optimized_topk": 1, "fused_optimized_scores": 1,
+                "fused_optimized_scores_int8": groups[14], "fused_all_metrics": 2 + 2 * blocks14}
+    print(f"launches in the weighted main path: {launches} (expected: K5 one per micro-batch "
+          f"group of the int8 tier = {groups[14]}; K6 one per f32 multi-metric call and one "
+          f"per {ROW_BLOCK}-row block of the int8 tier = 2 + 2 x {blocks14}; K4 and K7 one "
+          f"call each)", flush=True)
+    if launches != expected:
+        fail("the weighted path did not launch the metric kernels as expected")
+
+    # ---- every answer against the float64 oracle -------------------------
+    w = wtuple(W_REF)
+    for key, ix in ((32, index32), (14, index14)):
+        tier = ix.config.dtype
+        best, full, full_sq = oracle_pass(torch, ix, qdev[key], w, TOP_K + 1)
+        mags = torch.from_numpy(ix._host_mags[: len(ix)]).cuda().double()
+        qn = torch.linalg.vector_norm(qdev[key].double(), dim=1, keepdim=True)
+
+        def slack_of(b):
+            return gram_slack(fm, torch.gather(full_sq, 1, b.i), mags[b.i], qn, ix.dim, w[2])
+
+        gram = tier == "int8"  # the f32 tier's served score takes the direct L2
+        vals, idx = answers_to_arrays(ix, served[key][: len(queries)])
+        ov, oi = ix.search(emb[key][:N_OTHER6], TOP_K, "optimized_similarity", W_ALL)
+        sv, si = answers_to_arrays(ix, served[key][len(queries):])
+        if not (np.array_equal(si, oi) and np.allclose(sv, ov, rtol=0.0, atol=WEIGHTED_ATOL)):
+            fail(f"{tier}: the requests under {W_ALL} did not get their own group's answers")
+        print(f"{tier} tier: the {N_OTHER6} requests under the second weight set got the "
+              f"index's answers for it (ids equal, scores within {WEIGHTED_ATOL})", flush=True)
+        for f, rows in ((False, range(N_PLAIN6)), (True, range(N_PLAIN6, len(queries)))):
+            b = best[("optimized_similarity", f)]
+            part = slice(rows.start, rows.stop)
+            worst, swaps = check_ranked(f"{tier} weighted{' filtered' if f else ''}",
+                                        vals[part], idx[part], b, rows,
+                                        slack_of(b) if gram else None)
+            print(f"{tier} tier, optimized_similarity{' under ' + FLT6 if f else ''}: "
+                  f"{len(rows)} served answers vs the float64 oracle: max score diff "
+                  f"{worst:.3g} (limit {WEIGHTED_ATOL} + {WEIGHTED_RTOL} |score|), ids "
+                  f"identical except {swaps} near-tie swaps", flush=True)
+        own = sum(int(idx[i, 0] == first[key] + i) for i in range(N_PLAIN6))
+        print(f"{tier} tier: {own} of {N_PLAIN6} unfiltered queries rank the row equal to "
+              f"their embedding first", flush=True)
+        if own != N_PLAIN6:
+            fail(f"{tier}: a query did not find the row equal to its embedding")
+        if not ix.filter_mask(FLT6)[idx[N_PLAIN6:]].all():
+            fail(f"{tier}: a filtered answer left the filter")
+        for f in (False, True):
+            for name, (mv, mi) in multi[(key, f)].items():
+                worst, swaps = check_ranked(f"{tier} multi-metric {name}", mv, mi, best[(name, f)])
+                print(f"{tier} tier, multi_metric_topk {name}{' under ' + FLT6 if f else ''}: "
+                      f"max score diff {worst:.3g}, {swaps} near-tie swaps", flush=True)
+        if key == 32:
+            worst, swaps = check_ranked("f32 l1_distance search", l1[0], l1[1],
+                                        best[("l1_distance", False)])
+            print(f"f32 tier, search(metric='l1_distance'), ascending: max score diff "
+                  f"{worst:.3g}, {swaps} near-tie swaps", flush=True)
+            fv, fi = l1_few
+            if not ((fi[:, 4:] == -1).all() and np.isposinf(fv[:, 4:]).all()
+                    and all(set(r[:4]) == set(np.flatnonzero(few)) for r in fi)
+                    and (np.diff(fv[:, :4]) >= 0).all()):
+                fail(f"f32 l1_distance under a 4-row filter: {fi} {fv}")
+            print("f32 tier, l1_distance under a 4-row mask: the 4 rows ascending, then "
+                  "(+inf, -1) padding", flush=True)
+            # K4 and K7 over the whole gallery take the Gram-form L2: their
+            # limit carries its slack (wide at the rows equal to a query)
+            b = best[("optimized_similarity", False)]
+            worst, swaps = check_ranked("K4 over the f32 gallery",
+                                        k4[0].cpu().numpy().astype(np.float64),
+                                        k4[1].cpu().numpy(), b, slack=slack_of(b))
+            print(f"fused_optimized_topk over the whole f32 gallery, Q=64 k={TOP_K}: max score "
+                  f"diff vs the float64 oracle {worst:.3g}, {swaps} near-tie swaps", flush=True)
+            err = (k7.double() - full).abs()
+            lim = (WEIGHTED_ATOL + WEIGHTED_RTOL * full.abs()
+                   + gram_slack(fm, full_sq, mags[None, :], qn, ix.dim, w[2]))
+            if not bool((err <= lim).all()):
+                fail(f"fused_optimized_scores over the f32 gallery: worst error/limit "
+                     f"{float((err / lim).max()):.3g}")
+            print(f"fused_optimized_scores over the whole f32 gallery, Q=64: max diff vs the "
+                  f"float64 oracle {float(err.max()):.3g} over {err.numel()} scores, worst "
+                  f"error/limit {float((err / lim).max()):.3g}", flush=True)
+            del err, lim
+        # scores() of the analysis-scale copy (int8: the f32 scorer on the
+        # dequantized rows, not the int8 fast path)
+        sm = small[key]
+        rows = torch.from_numpy(sm._host_gallery[: len(sm)]).cuda()
+        if tier == "int8":
+            rows = rows.float() * torch.from_numpy(sm._host_scales[: len(sm)]).cuda()[:, None]
+        want = weighted_f64(f64_planes(
+            torch, qdev[key].double(), rows.double(),
+            torch.from_numpy(sm._host_mags[: len(sm)]).cuda().double()), w)
+        err = (torch.from_numpy(scored[key]).cuda().double() - want).abs()
+        print(f"{tier} tier, scores() over a {len(sm)}-row index: max diff vs float64 "
+              f"{float(err.max()):.3g} (limit {WEIGHTED_ATOL} + {WEIGHTED_RTOL} |score|)",
+              flush=True)
+        if not bool((err <= WEIGHTED_ATOL + WEIGHTED_RTOL * want.abs()).all()):
+            fail(f"{tier}: scores() disagrees with the float64 oracle")
+        del best, full, full_sq, want, err, rows
+        torch.cuda.empty_cache()
+    cos5 = index32.search(emb[32][0] / np.linalg.norm(emb[32][0]), 5)[1]
+    if ([h["path"] for h in analysis["cosine_similarity"]] != [index32.paths[i] for i in cos5]
+            or set(analysis) != {"cosine_similarity", "l1_distance", "l2_distance",
+                                 "linf_distance", "magnitude_difference",
+                                 "optimized_similarity", "analysis"}
+            or any(len(analysis[k]) != 5 for k in analysis if k != "analysis")):
+        fail(f"search_with_multiple_metrics returned {analysis!r:.300}")
+    print("search_with_multiple_metrics: six rankings of 5 with their analysis; the cosine "
+          "ranking is the index's", flush=True)
+
+    # ---- the kernels against their plain versions, then their times ------
+    args = (index32._gallery, index32._mags, qdev[32], index14._gallery, index14._scales,
+            index14._mags, qdev[14])
+    worst = metric_kernels_vs_plain(torch, *args)
+    times = time_metric_kernels(torch, card, *args)
+    return launches, worst, times
 
 
 def main() -> int:
@@ -954,11 +1552,13 @@ def main() -> int:
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     kernels = phase_kernels(torch, card)
-    launches, enc, queries, q_emb = phase_slice(torch, card)
+    launches, enc, queries, q_emb, index32 = phase_slice(torch, card)
     int4_launches, k3 = phase_int4(torch, card, enc, queries, q_emb)
-    del enc
     torch.cuda.empty_cache()
-    l14_launches = phase_l14(torch, card, queries)
+    l14_launches, enc14, index14 = phase_l14(torch, card, queries)
+    torch.cuda.empty_cache()
+    w_launches, w_err, w_times = phase_weighted(torch, card, enc, index32, enc14, index14,
+                                                queries)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "image_retrieval_tpu")]
     if loaded:
@@ -978,6 +1578,22 @@ def main() -> int:
             entry.update({f"{key}_ms": o["kernel"], f"{key}_plain_ms": o["plain"],
                           f"{key}_bound_ms": o["bound_ms"]})
         return entry
+
+    def metric_entry(name, entry, lines, main, extra):
+        t = w_times[name]
+        out = {"name": name, "route": "cuda",
+               "source": "image_retrieval_tpu_torch/csrc/fused_metrics.cu",
+               "replaces": " and ".join(f"image_retrieval_tpu/ops/pallas_kernels.py:{n}"
+                                        for n in lines),
+               "entry": entry, "launches": w_launches[name], "max_abs_err": w_err[name],
+               "ms": t[main]["kernel"], "plain_ms": t[main]["plain"],
+               "bound_ms": t[main]["bound_ms"], "bound_by": t[main]["bound_by"],
+               "library_ms": None, "shape": f"{main}: {t[main]['shape']}"}
+        for key, case in extra.items():
+            out.update({f"{key}_ms": t[case]["kernel"], f"{key}_plain_ms": t[case]["plain"],
+                        f"{key}_bound_ms": t[case]["bound_ms"],
+                        f"{key}_bound_by": t[case]["bound_by"]})
+        return out
 
     # int4_screen at Q = 64 over one segment: 2 Q N D multiply-adds' worth of
     # bf16 operations; bytes: the packed rows, scales, validity, queries, scores
@@ -1002,6 +1618,16 @@ def main() -> int:
                     l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
         block_entry("mlp_block_int8", "mlp_block_int8.cu", 671,
                     l14_launches["mlp_block_int8"], big, {"b4": "l14-vision-B4"}),
+        # no single PyTorch call computes any of the four: library_ms is null
+        metric_entry("fused_optimized_topk", "fused_optimized_topk", (399,),
+                     "q64-cosine-only", {"q64_reference": "q64-reference",
+                                         "q1": "q1-cosine-only", "q1_reference": "q1-reference"}),
+        metric_entry("fused_optimized_scores_int8",
+                     "fused_optimized_scores_int8_pallas, ..._pallas_v2", (162, 275),
+                     "q64-reference", {"q64_default": "q64-default", "q1_default": "q1-default"}),
+        metric_entry("fused_all_metrics", "fused_all_metrics", (45,), "q64", {"q1": "q1"}),
+        metric_entry("fused_optimized_scores", "fused_optimized_scores", (124,),
+                     "q64-all-live", {"q1": "q1-all-live"}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

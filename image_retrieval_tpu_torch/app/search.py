@@ -2,8 +2,10 @@
 
 Candidates are a cosine top-(k * overfetch) from the index, optionally
 under an attribute filter, followed by the same optional optimized rerank,
-threshold and dedup as the JAX searcher. The IVF candidate path (ann=) and
-image queries are not ported yet (ROADMAP.md).
+threshold and dedup as the JAX searcher; ``search_with_multiple_metrics``
+ranks the candidates by every metric on the host and compares the rankings.
+The IVF candidate path (ann=) and image queries are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -75,6 +77,11 @@ class TextImageSearcher:
             raise ValueError("Text query cannot be empty")
         return self.encoder.encode_texts([text])[0]
 
+    def _candidates(self, text_embedding: np.ndarray, limit: int, filter_expr=None):
+        """Cosine top-`limit` of the unit query: (scores, indices)."""
+        qn = text_embedding / max(float(np.linalg.norm(text_embedding)), 1e-12)
+        return self.index.search(qn, top_k=min(limit, len(self.index)), flt=filter_expr)
+
     def search(self, text_query: str, top_k: int = 5,
                score_threshold: float = SCORE_THRESHOLD,
                use_optimized_similarity: bool = False,
@@ -94,10 +101,7 @@ class TextImageSearcher:
         threshold (min-max-relative when reranked) -> dedup -> top_k."""
         self.index.load()
         try:
-            limit = top_k * 3
-            qn = embedding / max(float(np.linalg.norm(embedding)), 1e-12)
-            cos_scores, idx = self.index.search(
-                qn, top_k=min(limit, len(self.index)), flt=filter_expr)
+            cos_scores, idx = self._candidates(embedding, top_k * 3, filter_expr)
             if filter_expr is not None:
                 # sub-overfetch matches pad with (-inf, -1); drop them so no
                 # -1 picks the last path, nor skews the min-max rerank
@@ -132,6 +136,86 @@ class TextImageSearcher:
             return unique
         finally:
             self.index.release()
+
+    def search_with_multiple_metrics(self, text_query: str, top_k: int = 5) -> dict:
+        """Per-metric rankings of the cosine top-(5 * top_k) candidates plus
+        the intersection / unique-contribution analysis: {metric: [candidate
+        dicts, best first], "analysis": {...}}."""
+        text_embedding = self.generate_text_embedding(text_query)
+        self.index.load()
+        try:
+            _, idx = self._candidates(text_embedding, top_k * 5)
+            m = _all_metrics_rows(text_embedding, self.index.get_vectors(idx))
+            opt = _optimized_rows(m, self.similarity_params)
+            shown = ("cosine_similarity", "angular_distance", "l1_distance", "l2_distance",
+                     "linf_distance", "magnitude_difference")
+            candidates = [
+                {"path": self.index.paths[int(i)],
+                 **{name: float(m[name][r]) for name in shown},
+                 "optimized_similarity": float(opt[r])}
+                for r, i in enumerate(idx)
+            ]
+            descending = ("cosine_similarity", "optimized_similarity")
+            metric_results = {
+                name: sorted(candidates, key=lambda x: x[name],
+                             reverse=name in descending)[:top_k]
+                for name in ("cosine_similarity", "l1_distance", "l2_distance",
+                             "linf_distance", "magnitude_difference", "optimized_similarity")
+            }
+            metric_results["analysis"] = self._analyze_metric_results(metric_results)
+            return metric_results
+        finally:
+            self.index.release()
+
+    @staticmethod
+    def _analyze_metric_results(metric_results: dict) -> dict:
+        """Pairwise intersections and unique contributions of the metrics'
+        result lists."""
+        paths_by_metric = {metric: [r["path"] for r in results]
+                           for metric, results in metric_results.items()
+                           if metric != "analysis"}
+        intersections = {}
+        for m1, p1 in paths_by_metric.items():
+            for m2, p2 in paths_by_metric.items():
+                if m1 < m2:
+                    inter = set(p1) & set(p2)
+                    intersections[f"{m1}_vs_{m2}"] = {
+                        "intersection_size": len(inter),
+                        "intersection_ratio": len(inter) / len(p1) if p1 else 0,
+                        "common_items": list(inter),
+                    }
+        unique_contributions = {}
+        for metric, paths in paths_by_metric.items():
+            others = set()
+            for om, op in paths_by_metric.items():
+                if om != metric:
+                    others.update(op)
+            uniq = set(paths) - others
+            unique_contributions[metric] = {
+                "unique_count": len(uniq),
+                "unique_ratio": len(uniq) / len(paths) if paths else 0,
+                "unique_items": list(uniq),
+            }
+        return {"intersections": intersections,
+                "unique_contributions": unique_contributions}
+
+    def compare_search_methods(self, text_query: str, top_k: int = 5) -> dict:
+        """Standard (cosine) against optimized search of one query."""
+        standard = self.search(text_query, top_k, use_optimized_similarity=False)
+        optimized = self.search(text_query, top_k, use_optimized_similarity=True)
+        sp = [r["path"] for r in standard]
+        op = [r["path"] for r in optimized]
+        inter = set(sp) & set(op)
+        return {
+            "standard_results": standard,
+            "optimized_results": optimized,
+            "metrics": {
+                "intersection_size": len(inter),
+                "intersection_ratio": len(inter) / top_k if top_k > 0 else 0,
+                "unique_to_standard": list(set(sp) - set(op)),
+                "unique_to_optimized": list(set(op) - set(sp)),
+            },
+        }
 
     def search_batch(self, text_queries: List[str], top_k: int = 5) -> List[List[dict]]:
         """Encode all queries at once and score them in one gallery sweep."""

@@ -12,9 +12,12 @@ Usage:
     results = server.search("a brown dog", top_k=10)   # thread-safe
     server.stop()
 
-Scores are exact cosine over the index. Not ported yet (ROADMAP.md): the
-IVF candidate path (ann=), live ingest and delete, image queries, other and
-weighted metrics, filters and approximate selection.
+A request names its metric (any the index searches by, or
+"optimized_similarity" with the five weights) and an optional attribute
+filter; a micro-batch is split into groups of equal (metric, weights,
+filter), each one exact sweep of the index. Not ported yet (ROADMAP.md): the
+IVF candidate path (ann=), live ingest and delete, image queries and
+approximate selection.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 
 from image_retrieval_tpu_torch.index import ShardedVectorIndex
 from image_retrieval_tpu_torch.models.encoder import Encoder
+from image_retrieval_tpu_torch.ops.metrics import WEIGHT_KEYS
 
 logger = logging.getLogger(__name__)
 
@@ -38,6 +42,9 @@ logger = logging.getLogger(__name__)
 class _Request:
     query: str
     top_k: int
+    metric: str = "cosine_similarity"
+    weights: Optional[tuple] = None  # (w_angle, w_l1, w_l2, w_inf, w_mag)
+    flt: Optional[str] = None  # boolean attribute expression (index/filters.py)
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[List[dict]] = None
     error: Optional[Exception] = None
@@ -60,6 +67,7 @@ class SearchServer:
         self._stop = threading.Event()
         self.stats: Dict[str, float] = {
             "requests": 0, "batches": 0, "max_observed_batch": 0,
+            "groups": 0,  # index sweeps: one per (metric, weights, filter) of a batch
         }
 
     # -- lifecycle -----------------------------------------------------------
@@ -105,10 +113,23 @@ class SearchServer:
 
     # -- client API ----------------------------------------------------------
 
-    def search(self, query: str, top_k: int = 10, timeout: float = 30.0) -> List[dict]:
+    @staticmethod
+    def _weights(weights: Optional[dict]) -> Optional[tuple]:
+        """The request's hashable weights: the index's 5-tuple, or None."""
+        return None if weights is None else ShardedVectorIndex._weights_tuple(weights)
+
+    def search(self, query: str, top_k: int = 10, timeout: float = 30.0,
+               metric: str = "cosine_similarity", weights: Optional[dict] = None,
+               flt: Optional[str] = None) -> List[dict]:
         """Blocking search; safe to call from many threads concurrently.
-        Returns [{'path', 'score'}] best first."""
-        req = _Request(query=query, top_k=top_k)
+        Returns [{'path', 'score'}] best first.
+
+        metric: "cosine_similarity" (default), another metric of the index,
+        or "optimized_similarity" with the 5-weight params dict `weights`.
+        flt: boolean attribute expression (index/filters.py); requests with
+        the same filter share a micro-batch group and the cached mask."""
+        req = _Request(query=query, top_k=top_k, metric=metric,
+                       weights=self._weights(weights), flt=flt)
         self._enqueue(req)
         if not req.done.wait(timeout):
             raise TimeoutError(f"search timed out after {timeout}s")
@@ -117,10 +138,14 @@ class SearchServer:
         return req.result
 
     def search_many(self, queries: Sequence[str], top_k: int = 10,
-                    timeout: float = 30.0) -> List[List[dict]]:
+                    timeout: float = 30.0, metric: str = "cosine_similarity",
+                    weights: Optional[dict] = None,
+                    flt: Optional[str] = None) -> List[List[dict]]:
         """Enqueue all queries before waiting, so they share micro-batches.
         Results are in input order; per-request errors re-raise."""
-        reqs = [_Request(query=q, top_k=top_k) for q in queries]
+        wt = self._weights(weights)
+        reqs = [_Request(query=q, top_k=top_k, metric=metric, weights=wt, flt=flt)
+                for q in queries]
         for r in reqs:
             self._enqueue(r)
         deadline = time.perf_counter() + timeout
@@ -158,19 +183,40 @@ class SearchServer:
             if not batch:
                 continue
             try:
-                # one batched text encode and one gallery sweep per batch
+                # one batched text encode per batch
                 embs = np.asarray(self.encoder.encode_texts([r.query for r in batch]),
                                   np.float32)
                 norms = np.linalg.norm(embs, axis=1, keepdims=True)
                 qn = embs / np.where(norms > 0, norms, 1.0)
-                k = max(r.top_k for r in batch)
-                vals, idx = self.index.search(qn, top_k=min(k, len(self.index)))
-                for row, r in enumerate(batch):
-                    r.result = [
-                        {"path": self.index.paths[int(j)], "score": float(v)}
-                        for v, j in zip(vals[row][: r.top_k], idx[row][: r.top_k])
-                    ]
-                    r.done.set()
+                # one index sweep per (metric, weights, filter) group
+                groups: Dict[tuple, List[int]] = {}
+                for i, r in enumerate(batch):
+                    groups.setdefault((r.metric, r.weights, r.flt), []).append(i)
+                for (metric, weights, flt), rows in groups.items():
+                    self.stats["groups"] += 1
+                    try:
+                        k = max(batch[i].top_k for i in rows)
+                        # the optimized metric scores the unnormalized query
+                        q_in = embs[rows] if metric == "optimized_similarity" else qn[rows]
+                        params = dict(zip(WEIGHT_KEYS, weights)) if weights is not None else None
+                        vals, idx = self.index.search(
+                            q_in, top_k=min(k, len(self.index)), metric=metric,
+                            params=params, flt=flt)
+                        for row, i in enumerate(rows):
+                            r = batch[i]
+                            # index -1 pads a filter's short tail: fewer
+                            # hits, never a bogus path
+                            r.result = [
+                                {"path": self.index.paths[int(j)], "score": float(v)}
+                                for v, j in zip(vals[row], idx[row]) if j >= 0
+                            ][: r.top_k]
+                            r.done.set()
+                    except Exception as e:
+                        # a bad metric/weights group fails only its own requests
+                        logger.exception("group failed")
+                        for i in rows:
+                            batch[i].error = e
+                            batch[i].done.set()
                 self.stats["requests"] += len(batch)
                 self.stats["batches"] += 1
                 self.stats["max_observed_batch"] = max(

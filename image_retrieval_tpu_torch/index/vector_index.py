@@ -25,10 +25,18 @@ tail pads with (-inf, -1). Tombstoned and filtered rows score -inf before
 an exact top-k with lowest-index ties (``ops/topk.py``), the semantics of
 ``parallel/collectives.py``'s ``sharded_search_topk`` on one shard.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP.md): metrics
-other than cosine, ``multi_metric_topk``, ``scores``, approximate selection,
-``l1_shadow``, the streamed beyond-HBM tier, save/``load_from``/``open`` and
-the journal, and multi-device sharding.
+The f32, bf16 and int8 tiers search by every metric of ``ops/metrics.py``
+and by ``optimized_similarity`` (the weighted combination, against the
+magnitude-reconstructed rows), return all five metrics' top-k from one pass
+(``multi_metric_topk``) and full score matrices (``scores``); ascending
+metrics pad with (+inf, -1). The sweeps are ``parallel/collectives.py``'s:
+on the card the int8 tier's weighted score and the multi-metric planes run
+through the hand-written kernels of ``ops/fused_metrics.py``. The int4 tier
+is cosine-only and raises ValueError for the rest.
+
+Not ported yet (each raises NotImplementedError naming ROADMAP.md):
+approximate selection, ``l1_shadow``, the streamed beyond-HBM tier,
+save/``load_from``/``open`` and the journal, and multi-device sharding.
 """
 
 from __future__ import annotations
@@ -50,32 +58,24 @@ from image_retrieval_tpu_torch.device import (
     resolve_device,
 )
 from image_retrieval_tpu_torch.index.filters import AttributeStore, parse_filter
-from image_retrieval_tpu_torch.ops.int4 import (
-    quantize_pack_int4,
-    rerank_int8_topk,
-    unit_queries,
-)
-from image_retrieval_tpu_torch.ops.topk import exact_topk_wide
+from image_retrieval_tpu_torch.ops.int4 import quantize_pack_int4, rerank_int8_topk
+from image_retrieval_tpu_torch.ops.metrics import WEIGHT_KEYS
 from image_retrieval_tpu_torch.parallel.collectives import (
+    _not_ported,
     sharded_int4_screen_topk,
     sharded_int4_two_phase_topk,
+    sharded_multimetric_topk,
+    sharded_scores,
+    sharded_search_topk,
 )
 
 logger = logging.getLogger(__name__)
 
 DTYPES = ("float32", "bfloat16", "int8", "int4")
-# Rows upcast to f32 per block in the bf16/int8 sweeps: no (N, D) f32 copy
-# of the gallery is made (a 2^16 x 512 block is 128 MiB).
-ROW_BLOCK = 1 << 16
 # Rows per task of the host quantization. Every step of it is row-wise, so
 # its bits do not depend on how the rows are split; a large insert spreads
 # the tasks over the host's cores (numpy releases the GIL in its loops).
 QUANT_ROWS = 1 << 16
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to image_retrieval_tpu_torch yet (see ROADMAP.md)")
 
 
 def _locked(fn):
@@ -113,36 +113,8 @@ def quantize_int8(unit: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return qrows, (unorm / np.where(qnorm > 0, qnorm, 1.0)).astype(np.float32)
 
 
-def _row_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """(Q, D) f32 x (N, D) rows of any dtype -> (Q, N) f32 products of the
-    rows upcast to f32, ROW_BLOCK rows at a time."""
-    if rows.dtype == torch.float32:
-        return q @ rows.t()
-    out = torch.empty((q.shape[0], rows.shape[0]), dtype=torch.float32, device=q.device)
-    for off in range(0, rows.shape[0], ROW_BLOCK):
-        out[:, off: off + ROW_BLOCK] = q @ rows[off: off + ROW_BLOCK].to(torch.float32).t()
-    return out
-
-
-def _cosine_scores(queries: torch.Tensor, unit_rows: torch.Tensor,
-                   scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(Q, D) raw queries x (N, D) unit rows -> (Q, N) cosine, f32.
-
-    f32/bf16 rows: <q, g> / ||q|| directly (the rows are unit norm). int8
-    rows (with `scales`): the unit query rounded to bf16, x the rows, x the
-    norm-preserving scale (collectives.py:80-91, 126-137). A zero-norm query
-    scores 0 against every row."""
-    q = queries.to(torch.float32)
-    if scales is not None:
-        qu = unit_queries(q).to(torch.bfloat16).to(torch.float32)
-        return _row_dots(qu, unit_rows) * scales
-    qn = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
-    dots = _row_dots(q, unit_rows)
-    return torch.where(qn > 0, dots / torch.where(qn > 0, qn, 1.0), 0.0)
-
-
 class ShardedVectorIndex:
-    """Exact cosine index over (unit row, magnitude) pairs on `device`
+    """Exact multi-metric index over (unit row, magnitude) pairs on `device`
     (the card unless the caller names the CPU)."""
 
     def __init__(self, dim: int = 512, config: Optional[IndexConfig] = None,
@@ -172,6 +144,7 @@ class ShardedVectorIndex:
         self._host_scales4 = None  # (capacity,) f32, int4 tier only
         self._gallery = None  # (count, D) device rows (int4: latency mode only)
         self._valid = None  # (count,) device bool
+        self._mags = None  # (count,) device f32 (not in the int4 tier)
         self._scales = None  # (count,) device f32, int8 (and int4 latency mode)
         self._packed = None  # (count, D/2) device uint8, int4 tier
         self._scales4 = None  # (count,) device f32, int4 tier
@@ -427,7 +400,7 @@ class ShardedVectorIndex:
             return torch.from_numpy(a[:n]).to(self.device)
 
         # drop the old copies first: a re-upload never holds two galleries
-        self._gallery = self._valid = self._scales = None
+        self._gallery = self._valid = self._scales = self._mags = None
         self._packed = self._scales4 = None
         self._valid = up(self._host_valid)
         if self._packed4:
@@ -441,10 +414,12 @@ class ShardedVectorIndex:
             if self.config.rerank_device:
                 self._gallery = up(self._host_gallery)
                 self._scales = up(self._host_scales)
-        elif self.config.dtype == "bfloat16":
-            self._gallery = up(self._host_gallery.view(np.int16)).view(torch.bfloat16)
         else:
-            self._gallery = up(self._host_gallery)
+            self._mags = up(self._host_mags)
+            if self.config.dtype == "bfloat16":
+                self._gallery = up(self._host_gallery.view(np.int16)).view(torch.bfloat16)
+            else:
+                self._gallery = up(self._host_gallery)
             if self._quantized:
                 self._scales = up(self._host_scales)
         self._device_dirty = False
@@ -485,15 +460,34 @@ class ShardedVectorIndex:
             q = q[None]
         return torch.from_numpy(q).to(self.device), single
 
+    @staticmethod
+    def _weights_tuple(params: Optional[Dict[str, float]]) -> Tuple[float, ...]:
+        """(w_angle, w_l1, w_l2, w_inf, w_mag) as Python floats; w_angle
+        defaults to 1, the rest to 0."""
+        params = params or {}
+        return tuple(float(params.get(k, 1.0 if k == "w_angle" else 0.0))
+                     for k in WEIGHT_KEYS)
+
     @_locked
     def search(self, queries: np.ndarray, top_k: int = 5,
-               metric: str = "cosine_similarity", flt=None,
+               metric: str = "cosine_similarity",
+               params: Optional[Dict[str, float]] = None, flt=None,
                approx: Optional[bool] = None) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k cosine. Returns numpy (scores (Q, k) f32, indices (Q, k)
+        """Exact top-k. Returns numpy (scores (Q, k) f32, indices (Q, k)
         int32), or 1-D for a single 1-D query; k = min(top_k, live rows).
-        Equal scores rank by ascending row index. With `flt` (an attribute
-        expression or a (count,) bool mask), rows outside the filter never
-        appear, and a tail the filter cannot fill pads with (-inf, -1)."""
+        Equal scores rank by ascending row index.
+
+        metric: any name of ops.metrics.METRIC_NAMES, or
+        "optimized_similarity": the weighted combination with `params`
+        ({"w_angle", "w_l1", "w_l2", "w_inf", "w_mag"}), computed against
+        the magnitude-reconstructed stored vectors, for which the query is
+        passed unnormalized. Similarities rank descending, distances
+        ascending. The int4 tier is cosine-only.
+
+        flt: an attribute expression or a (count,) bool mask; rows outside
+        it never appear, and a tail the filter cannot fill pads with index
+        -1 and the metric's worst score (-inf descending, +inf ascending):
+        check `idx < 0`, not the score."""
         if self.count == 0:
             raise ValueError("index is empty")
         if metric == "cosine":
@@ -504,16 +498,15 @@ class ShardedVectorIndex:
         self._sync_device()
         if self._packed4:  # cosine-only by design; ignores approx, as in JAX
             return self._search_int4(queries, top_k, metric, flt)
-        if metric != "cosine_similarity":
-            raise _not_ported(f"metric {metric!r}")
         if approx:
             raise _not_ported("search(approx=True)")
         valid = self._valid if flt is None else self._filtered_valid(flt)
         q, single = self._prep_queries(queries)
+        weights = self._weights_tuple(params) if metric == "optimized_similarity" else None
         with torch.inference_mode():
-            scores = _cosine_scores(q, self._gallery, self._scales)
-            scores = scores.masked_fill(~valid, float("-inf"))
-            vals, idx = exact_topk_wide(scores, min(top_k, self.live_count))
+            vals, idx = sharded_search_topk(
+                q, self._gallery, valid, self._mags, min(top_k, self.live_count),
+                metric, weights, self._scales)
             vals, idx = vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
         if flt is not None:
             idx = np.where(np.isfinite(vals), idx, -1)
@@ -568,19 +561,64 @@ class ShardedVectorIndex:
         return vals, idx
 
     @_locked
-    def multi_metric_topk(self, queries: np.ndarray, top_k: int = 5, flt=None):
+    def multi_metric_topk(self, queries: np.ndarray, top_k: int = 5,
+                          flt=None) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+        """Exact per-metric top-k for all five metrics in one gallery pass:
+        {metric: (scores (Q, k), indices (Q, k))} for cosine_similarity
+        (descending) and the l1/l2/linf/magnitude distances (ascending).
+        `flt` filters rows like search()."""
+        if self.count == 0:
+            raise ValueError("index is empty")
         if self._packed4:
             raise ValueError("multi-metric search is not available in the int4 "
                              "capacity tier (cosine-only); use dtype='int8'")
-        raise _not_ported("multi_metric_topk")
+        require_full_f32(self.device)
+        self._sync_device()
+        valid = self._valid if flt is None else self._filtered_valid(flt)
+        q, single = self._prep_queries(queries)
+        with torch.inference_mode():
+            out = sharded_multimetric_topk(q, self._gallery, valid, self._mags,
+                                           min(top_k, self.live_count), self._scales)
+        result = {}
+        for name, (vals, idx) in out.items():
+            vals, idx = vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
+            if flt is not None:
+                idx = np.where(np.isfinite(vals), idx, -1)
+            result[name] = (vals[0], idx[0]) if single else (vals, idx)
+        return result
+
+    @_locked
+    def search_paths(self, queries: np.ndarray, top_k: int = 5,
+                     metric: str = "cosine_similarity",
+                     params: Optional[Dict[str, float]] = None) -> List[Dict[str, float]]:
+        """Single-query search returning [{'path': ..., 'score': ...}]."""
+        vals, idx = self.search(queries, top_k, metric, params)
+        if vals.ndim != 1:
+            raise ValueError("search_paths takes a single query vector")
+        return [{"path": self.paths[int(i)], "score": float(v)} for v, i in zip(vals, idx)]
 
     @_locked
     def scores(self, queries: np.ndarray, metric: str = "cosine_similarity",
-               params=None) -> np.ndarray:
+               params: Optional[Dict[str, float]] = None) -> np.ndarray:
+        """Full (Q, count) score matrix (for analysis-scale galleries),
+        tombstoned rows included. The int8 tier dequantizes its rows and
+        scores them with the f32 functions, so these scores differ from
+        search()'s int8 fast paths at the int8/bf16 rounding level."""
+        if self.count == 0:
+            raise ValueError("index is empty")
         if self._packed4:
             raise ValueError("scores() is not available in the int4 capacity "
                              "tier (two-phase top-k only); use dtype='int8'")
-        raise _not_ported("scores")
+        if metric == "cosine":
+            metric = "cosine_similarity"
+        require_full_f32(self.device)
+        self._sync_device()
+        q, single = self._prep_queries(queries)
+        weights = self._weights_tuple(params) if metric == "optimized_similarity" else None
+        with torch.inference_mode():
+            s = sharded_scores(q, self._gallery, self._mags, metric, weights,
+                               self._scales).cpu().numpy()
+        return s[0] if single else s
 
     def _rows_f32(self, indices) -> np.ndarray:
         """Dequantized f32 unit rows of the given global indices only."""

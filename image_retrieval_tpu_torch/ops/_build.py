@@ -27,9 +27,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu",
-           "quant_dense.cu", "int4_screen.cu")
+           "quant_dense.cu", "int4_screen.cu", "fused_metrics.cu")
 HEADERS = ("int8_common.cuh", "layer_block_int8.cuh", "attention_block_int8.cuh",
-           "mlp_block_int8.cuh", "quant_dense.cuh", "int4_screen.cuh")
+           "mlp_block_int8.cuh", "quant_dense.cuh", "int4_screen.cuh", "fused_metrics.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -131,6 +131,21 @@ def load_library() -> ctypes.CDLL:
             lib.irt_quant_dense.restype = i
             lib.irt_int4_screen_scores.argtypes = [p] * 5 + [i, i, ctypes.c_longlong, i, p]
             lib.irt_int4_screen_scores.restype = i
+            f = ctypes.c_float
+            lib.irt_fused_metrics_tile_rows.argtypes = []
+            lib.irt_fused_metrics_tile_rows.restype = i
+            lib.irt_fused_metrics_max_k.argtypes = []
+            lib.irt_fused_metrics_max_k.restype = i
+            lib.irt_fused_all_metrics.argtypes = [p] * 5 + [i] * 3 + [p]
+            lib.irt_fused_all_metrics.restype = i
+            lib.irt_fused_optimized_scores.argtypes = [p] * 6 + [i] * 3 + [p]
+            lib.irt_fused_optimized_scores.restype = i
+            lib.irt_fused_optimized_scores_int8.argtypes = (
+                [p] * 6 + [i] * 3 + [f] * 5 + [i, p])
+            lib.irt_fused_optimized_scores_int8.restype = i
+            lib.irt_fused_optimized_topk.argtypes = (
+                [p] * 3 + [i] + [p] * 3 + [i] * 5 + [f] * 5 + [i, p])
+            lib.irt_fused_optimized_topk.restype = i
             lib.irt_error_string.argtypes = [i]
             lib.irt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -327,3 +327,181 @@ def test_int4_index_cuda_modes_match_cpu(cuda, d):
             np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-6)
     (_, _), (fv, fi) = out["host"]
     assert ((fi % 8 == 3) & (fi % 11 != 0)).all()
+
+
+# ---- the fused metric kernels (K4, K5, K6, K7) -------------------------------
+
+FUSED_WEIGHTS = [(1.0, 1.0, 1.0, 0.0, 0.5), (1.0, 0.0, 0.0, 0.0, 0.0),
+                 (0.3, 0.2, 0.5, 0.7, 0.1), (0.0, 0.0, 0.0, 1.0, 0.0),
+                 (0.0, 0.0, 0.0, 0.0, 1.0)]
+
+
+def _fused_inputs(cuda, n, nq, d, seed=0):
+    """Unit rows with magnitudes in [0.5, 4], rows 3 and 70 identical, and
+    unnormalized queries, the last equal to stored row 5."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    m = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    g[70], m[70] = g[3], m[3]
+    q = (rng.standard_normal((nq, d)) * 0.4).astype(np.float32)
+    q[-1] = g[5] * m[5]
+    return tuple(torch.from_numpy(a).to(cuda) for a in (q, g, m))
+
+
+def _fused_limit(fm, want, q, g, m, w_l2, scales=None):
+    from image_retrieval_tpu_torch.ops import metrics as M
+
+    qn = torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    unit = g.float() if scales is None else g.float() * scales[:, None]
+    sq = M.gram_sq(m, q @ unit.t(), qn)
+    return fm.score_limit(want, w_l2, fm.gram_l2_slack(sq, m, qn, q.shape[1]))
+
+
+@pytest.mark.parametrize("d", [512, 768, 40])
+@pytest.mark.parametrize("nq", [1, 3, 64, 70])
+def test_fused_all_metrics_kernel_matches_plain(cuda, d, nq):
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g, m = _fused_inputs(cuda, 1000, nq, d)
+    before = fm.fused_all_metrics.launches
+    got = fm.fused_all_metrics(q, g, m)
+    want = fm.fused_all_metrics_reference(q, g, m)
+    torch.cuda.synchronize()
+    assert fm.fused_all_metrics.launches == before + 1
+    r = fm.scores_agree(got, want, fm.score_limit(want))
+    assert r["ok"], r
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])  # Linf, |dmag|
+
+
+@pytest.mark.parametrize("d", [512, 768, 40])
+@pytest.mark.parametrize("nq", [1, 64, 70])
+@pytest.mark.parametrize("w", FUSED_WEIGHTS[:3])
+def test_fused_optimized_scores_kernel_matches_plain(cuda, d, nq, w):
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g, m = _fused_inputs(cuda, 1000, nq, d)
+    before = fm.fused_optimized_scores.launches
+    got = fm.fused_optimized_scores(q, g, m, torch.tensor(w, device=cuda))
+    want = fm.fused_optimized_scores_reference(q, g, m, w)
+    torch.cuda.synchronize()
+    assert fm.fused_optimized_scores.launches == before + 1
+    r = fm.scores_agree(got, want, _fused_limit(fm, want, q, g, m, w[2]))
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("d", [512, 768, 40])
+@pytest.mark.parametrize("nq", [1, 64, 70])
+@pytest.mark.parametrize("w", FUSED_WEIGHTS)
+def test_fused_int8_kernel_matches_plain(cuda, d, nq, w):
+    from image_retrieval_tpu_torch.index.vector_index import quantize_int8
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g, m = _fused_inputs(cuda, 1000, nq, d)
+    g8, sc = (torch.from_numpy(a).to(cuda) for a in quantize_int8(g.cpu().numpy()))
+    before = fm.fused_optimized_scores_int8_pallas.launches
+    got = fm.fused_optimized_scores_int8_pallas_v2(q, g8, sc, m, w)
+    want = fm.fused_optimized_scores_int8_reference(q, g8, sc, m, w)
+    torch.cuda.synchronize()
+    assert fm.fused_optimized_scores_int8_pallas.launches == before + 1
+    r = fm.scores_agree(got, want, _fused_limit(fm, want, q, g8, m, w[2], sc))
+    assert r["ok"], r
+    if w[:3] == (0.0, 0.0, 0.0):  # Linf or |dmag| alone: the same operations, bit for bit
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,k", [(1, 10), (64, 10), (70, 64), (3, 1)])
+@pytest.mark.parametrize("w", FUSED_WEIGHTS)
+def test_fused_topk_kernel_matches_plain(cuda, rows, nq, k, w):
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops import metrics as M
+
+    n = 70_001  # not a multiple of the tile; 1094 tiles over 528 blocks
+    q, g, m = _fused_inputs(cuda, n, nq, 512)
+    g = g.to(getattr(torch, rows))
+    before = fm.fused_optimized_topk.launches
+    got_v, got_i = fm.fused_optimized_topk(q, g, m, w, k=k)
+    want_v, want_i = fm.fused_optimized_topk_reference(q, g, m, w, k=k)
+    torch.cuda.synchronize()
+    assert fm.fused_optimized_topk.launches == before + 1
+    assert got_i.dtype == torch.int32 and got_v.shape == (nq, k)
+    plain = M.fused_optimized_scores_xla(q, g, m, w, exact_l2=False)
+    lim = _fused_limit(fm, plain, q, g, m, w[2])
+    r = fm.topk_agree(got_v, got_i, want_v, want_i.to(torch.int64), plain, lim)
+    assert r["ok"], r
+
+
+def test_fused_topk_kernel_small_gallery_and_limits(cuda):
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g, m = _fused_inputs(cuda, 100, 2, 64)
+    v, i = fm.fused_optimized_topk(q, g[:7], m[:7], FUSED_WEIGHTS[0], k=10)  # kk = N = 7
+    wv, wi = fm.fused_optimized_topk_reference(q, g[:7], m[:7], FUSED_WEIGHTS[0], k=10)
+    assert v.shape == (2, 7) and torch.equal(i, wi)
+    np.testing.assert_allclose(v.cpu().numpy(), wv.cpu().numpy(), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="limit"):
+        fm.fused_optimized_topk(q, g, m, FUSED_WEIGHTS[0], k=65)
+    # all magnitudes equal and only |dmag| live: every row ties, lowest rows first
+    v, i = fm.fused_optimized_topk(q, g, torch.ones_like(m), FUSED_WEIGHTS[4], k=5)
+    assert i.tolist() == [[0, 1, 2, 3, 4]] * 2
+
+
+@pytest.mark.parametrize("n,k", [(300, 64), (70_001, 10)])
+def test_fused_topk_kernel_returns_rows_that_score_minus_inf(cuda, n, k):
+    """Fewer finite scores than k: a row of infinite magnitude scores -inf
+    and is returned under its own row number, lowest rows first, as the
+    plain version returns it; a NaN query ranks every row at -inf."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g, m = _fused_inputs(cuda, n, 3, 512)
+    finite = [2, 9, n // 2, n - 1]
+    minf = torch.full_like(m, float("inf"))
+    minf[finite] = m[finite]
+    w = (1.0, 0.0, 0.0, 0.0, 0.5)  # no L2: inf - inf would make it NaN
+    v, i = fm.fused_optimized_topk(q, g, minf, w, k=k)
+    wv, wi = fm.fused_optimized_topk_reference(q, g, minf, w, k=k)
+    assert torch.equal(i, wi)
+    assert sorted(i[0, :4].tolist()) == finite and bool(torch.isfinite(v[:, :4]).all())
+    assert bool(torch.isneginf(v[:, 4:]).all())
+    rest = [r for r in range(k) if r not in finite][: k - 4]
+    assert i[:, 4:].tolist() == [rest] * 3
+    q[1] = float("nan")
+    v, i = fm.fused_optimized_topk(q, g, m, w, k=k)
+    assert i[1].tolist() == list(range(k)) and bool(torch.isneginf(v[1]).all())
+    assert bool(((i >= 0) & (i < n)).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_index_metrics_cuda_match_cpu(cuda, dtype):
+    """Every metric of the index on the card (the int8 weighted score and the
+    multi-metric planes through the kernels) against the same index on CPU
+    tensors (their plain versions)."""
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops.metrics import METRIC_NAMES
+
+    rng = np.random.default_rng(3)
+    emb = (rng.normal(size=(3000, 64)) * rng.uniform(0.5, 4, size=(3000, 1))).astype(np.float32)
+    q = (rng.normal(size=(5, 64)) * 0.5).astype(np.float32)
+    cfg = IndexConfig(embedding_dim=64, dtype=dtype, capacity_step=1024)
+    both = [ShardedVectorIndex(dim=64, config=cfg, device=dev) for dev in ("cpu", cuda)]
+    for ix in both:
+        ix.insert([str(i) for i in range(3000)], emb, attrs={"bucket": np.arange(3000) % 4})
+        ix.delete_rows([5, 6])
+    k5, k6 = fm.fused_optimized_scores_int8_pallas.launches, fm.fused_all_metrics.launches
+    params = dict(w_angle=1.0, w_l1=1.0, w_l2=1.0, w_mag=0.5)
+    for flt in (None, "bucket == 1"):
+        for metric in METRIC_NAMES + ("optimized_similarity",):
+            (cv, ci), (gv, gi) = (ix.search(q, 8, metric, params, flt=flt) for ix in both)
+            np.testing.assert_allclose(gv, cv, rtol=1e-5, atol=1e-5, err_msg=metric)
+            assert (gi == ci).mean() > 0.95, metric
+        cm, gm = (ix.multi_metric_topk(q, 8, flt=flt) for ix in both)
+        for name in cm:
+            np.testing.assert_allclose(gm[name][0], cm[name][0], rtol=1e-5, atol=1e-5)
+            assert (gm[name][1] == cm[name][1]).mean() > 0.95, name
+    np.testing.assert_allclose(both[1].scores(q, "l1_distance"), both[0].scores(q, "l1_distance"),
+                               rtol=1e-5, atol=1e-5)
+    assert fm.fused_all_metrics.launches == k6 + 2
+    assert fm.fused_optimized_scores_int8_pallas.launches == k5 + (2 if dtype == "int8" else 0)

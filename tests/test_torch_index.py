@@ -140,11 +140,19 @@ def test_journal_not_ported(tmp_path):
         ShardedVectorIndex.open(str(tmp_path / "journal"), device="cpu")
 
 
+def _collective(ix, **kwargs):
+    from image_retrieval_tpu_torch.parallel.collectives import sharded_search_topk
+
+    ix.load()
+    return sharded_search_topk(torch.ones(1, 8), ix._gallery, ix._valid, ix._mags, 1,
+                               **kwargs)
+
+
 @pytest.mark.parametrize("call", [
-    lambda ix: ix.search(np.ones(8, np.float32), metric="l2_distance"),
-    lambda ix: ix.scores(np.ones(8, np.float32), metric="optimized_similarity"),
+    lambda ix: ix.search(np.ones(8, np.float32), metric="l2_distance", approx=True),
+    lambda ix: _collective(ix, selector="approx"),
     lambda ix: ix.search(np.ones(8, np.float32), approx=True),
-    lambda ix: ix.multi_metric_topk(np.ones(8, np.float32)),
+    lambda ix: _collective(ix, shadow=torch.ones(1, 8, dtype=torch.bfloat16)),
     lambda ix: ix.save("index_dir"),
     lambda ix: ix.load_from("index_dir"),
 ])
