@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and search paths once on one GPU.
 
-    python3 chip_smoke.py             # needs one CUDA card and nvcc
-    python3 chip_smoke.py --time-k1   # build, then only K1's times (phase 2)
+    python3 chip_smoke.py                   # needs one CUDA card and nvcc
+    python3 chip_smoke.py --time-k1         # build, then only K1's times (phase 2)
+    python3 chip_smoke.py --dense-readings  # build, then what dense_agreement reads
+                                            # for K8, K9a, K9b and for wrong layers
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
      port's kernels compiled from image_retrieval_tpu_torch/csrc with nvcc
-     for sm_90a (one nvcc per source, six in parallel).
+     for sm_90a (one nvcc per source, ten in parallel).
   2. kernel vs plain: layer_block_int8 (K1), attention_block_int8 (K2a) and
      mlp_block_int8 (K2b) on the card against their plain PyTorch versions
      on the same inputs, in bf16 and f32, by kernel_agreement: K1 at the
@@ -18,6 +20,14 @@ Phases (any failure exits non-zero):
      against its plain version. Then timings (CUDA events, medians of samples
      taken in turns plain/kernel/kernel/plain) at B=8 and at the main paths'
      batches, each beside the least time the card could take for the work.
+     The same for the kernels in the compute dtype: layer_block (K8),
+     attention_block (K9a), mlp_block (K9b) and multihead_attention (K10)
+     against their plain versions in bf16 and f32 at the four tower shapes and
+     a ragged one (3, 13, 128, causal), by dense_agreement per part of a
+     layer (K10: by a max-abs limit); K9a then K9b against K8, bitwise, at
+     both B/32 shapes; their times at B=8, at the B/32 batches (vision B=256,
+     text B=64) and at the L/14 batch (B=128), and for K10 the time of one
+     scaled_dot_product_attention call on the same q, k, v beside it.
   3. the ViT-B/32 slice: CLIPEncoder(vit_b32_serving, seed 0) at full width
      on the card encodes 256 seeded uint8 images; they and 1,000,000 seeded
      unit rows go into the f32 ShardedVectorIndex; SearchServer answers 64
@@ -74,6 +84,21 @@ Phases (any failure exits non-zero):
      of ops/fused_metrics.py, and
      their times over the whole galleries beside the plain versions' and the
      bounds.
+
+  7. the encoder under the flags that select the compute-dtype kernels, in
+     bf16. A, CLIPEncoder(replace(vit_b32(), fused_layer_block=True), seed
+     0), whole: the 256 images and 1,000,000 rows of phase 3 into a new f32
+     index, SearchServer answers the 64 queries, each held against the
+     float64 oracle; K8's counter must show 12 launches per image batch and
+     12 per text batch and no other kernel of the family; every block against
+     its plain version and the towers against the plain route vit_b32() by
+     row cosine. C, replace(vit_b32(), pallas_attention=True): one image
+     batch (12 K10 launches) and one text batch (none), towers against the
+     plain route. B, replace(vit_l14(), fused_layer_block=True): 64 images
+     padded to 128 (24 K9a + 24 K9b launches), one wave of 64 queries over
+     phase 5's int8 gallery (12 K8 launches per text batch) against the
+     int8-exact oracle, every block against its plain version, and a
+     torch.profiler window over the image batch.
 
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
@@ -138,25 +163,26 @@ def bound(int8_ops: float, bf16_flops: float, nbytes: float, f32_slots: float = 
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def block_bound(kind: str, x, wts, heads: int, causal: bool) -> dict:
-    """Bound of one K1 / K2a / K2b call on these inputs. Operations: the
-    int8 projections (2 per multiply-add: 8 W^2 per token in the attention
-    half, 4 W hidden in the MLP half) at the int8 peak, and the attention's
+def block_bound(kind: str, x, wts, heads: int, causal: bool, int8: bool = True) -> dict:
+    """Bound of one call of a layer kernel or one of its halves on these
+    inputs. Operations: the projections (2 per multiply-add: 8 W^2 per token
+    in the attention half, 4 W hidden in the MLP half) at the int8 peak for
+    K1 / K2a / K2b, at the bf16 peak for K8 / K9a / K9b, and the attention's
     QK^T and PV (4 hd per query-key pair and head; with the causal mask only
     the pairs j <= i) at the bf16 peak. Bytes: x, the output, and every
     weight, scale and bias tensor once."""
     b, t, w = x.shape
     m = b * t
     pairs = t * (t + 1) // 2 if causal else t * t
-    int8_ops = flops = 0.0
+    proj = flops = 0.0
     if kind in ("layer", "attn"):
-        int8_ops += 8.0 * w * w * m
+        proj += 8.0 * w * w * m
         flops += 4.0 * b * pairs * w
     if kind in ("layer", "mlp"):
-        int8_ops += 4.0 * w * wts.hidden * m
+        proj += 4.0 * w * wts.hidden * m
     nbytes = 2 * x.numel() * x.element_size() + sum(
         a.numel() * a.element_size() for a in wts.tensors())
-    return bound(int8_ops, flops, nbytes)
+    return bound(proj, flops, nbytes) if int8 else bound(0.0, proj + flops, nbytes)
 
 
 def card_line() -> str:
@@ -172,22 +198,28 @@ def row_cos(a, b):
     return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-30))
 
 
+def layer_params(torch, w, rng, scale=1.0):
+    """Seeded f32 layer parameters at the CLIP-like scales of
+    models/weights.py init_params (the weight matrices times `scale`), in the
+    order of quantize_layer and prepare_layer, on the card."""
+    nrm = lambda std, *s: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32))
+    in_std = scale * w ** -0.5 * 24 ** -0.5
+    params = [1.0 + nrm(0.02, w), nrm(0.02, w),
+              nrm(in_std, w, w), nrm(0.02, w), nrm(in_std, w, w), nrm(0.02, w),
+              nrm(in_std, w, w), nrm(0.02, w), nrm(scale * w ** -0.5, w, w), nrm(0.02, w),
+              1.0 + nrm(0.02, w), nrm(0.02, w),
+              nrm(scale * (2 * w) ** -0.5, w, 4 * w), nrm(0.02, 4 * w),
+              nrm(in_std, 4 * w, w), nrm(0.02, w)]
+    return [p.cuda() for p in params]
+
+
 def layer_inputs(torch, b, t, w, heads, seed):
-    """Seeded layer weights at the CLIP-like scales of models/weights.py
-    init_params, and an input of unit scale."""
+    """Seeded int8 layer weights and an f32 input of unit scale (on the host)."""
     from image_retrieval_tpu_torch.ops.flash_attention import quantize_layer
 
     rng = np.random.default_rng(seed)
-    nrm = lambda std, *s: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32))
-    in_std = w ** -0.5 * 24 ** -0.5
-    params = [1.0 + nrm(0.02, w), nrm(0.02, w),
-              nrm(in_std, w, w), nrm(0.02, w), nrm(in_std, w, w), nrm(0.02, w),
-              nrm(in_std, w, w), nrm(0.02, w), nrm(w ** -0.5, w, w), nrm(0.02, w),
-              1.0 + nrm(0.02, w), nrm(0.02, w),
-              nrm((2 * w) ** -0.5, w, 4 * w), nrm(0.02, 4 * w),
-              nrm(in_std, 4 * w, w), nrm(0.02, w)]
-    x = nrm(1.0, b, t, w)
-    return x, quantize_layer(*[p.cuda() for p in params])
+    wts = quantize_layer(*layer_params(torch, w, rng))
+    return torch.from_numpy(rng.standard_normal((b, t, w)).astype(np.float32)), wts
 
 
 def time_pair(torch, fns, samples=24, reps=5, warm=3):
@@ -229,6 +261,96 @@ def _agree(fa, torch, name, case, got, want, x):
     return r["max_abs_err"]
 
 
+def dense_layer_inputs(torch, b, t, w, heads, seed, dtype, scale=1.0):
+    """The same seeded parameters prepared for the kernels in the compute
+    `dtype`, and an input of unit scale in that dtype on the card."""
+    from image_retrieval_tpu_torch.ops.flash_attention import prepare_layer
+
+    rng = np.random.default_rng(seed)
+    wts = prepare_layer(*layer_params(torch, w, rng, scale), dtype=dtype)
+    x = torch.from_numpy(rng.standard_normal((b, t, w)).astype(np.float32))
+    return x.to(device="cuda", dtype=dtype), wts
+
+
+def dense_runs(fa):
+    """As kernel_runs, for the kernels in the compute dtype."""
+    return {
+        "layer_block": (
+            lambda x, w, h, c: fa.layer_block(x, w, h, c),
+            lambda x, w, h, c: fa.layer_block_reference(x, w, h, c), "layer"),
+        "attention_block": (
+            lambda x, w, h, c: fa.attention_block(x, w.attn, h, c),
+            lambda x, w, h, c: fa.attention_block_reference(x, w.attn, h, c), "attn"),
+        "mlp_block": (
+            lambda x, w, h, c: fa.mlp_block(x, w.mlp),
+            lambda x, w, h, c: fa.mlp_block_reference(x, w.mlp), "mlp"),
+    }
+
+
+RAGGED = (3, 13, 128, 2, True)
+
+
+def dense_readings(torch):
+    """--dense-readings: what dense_agreement reads between each compute-dtype
+    kernel and its plain version (both tower shapes, the L/14 one and a
+    ragged one; bf16 and f32; weights at CLIP-like and 3x larger scales;
+    three seeds), and what it reads for two wrong layers computed by the
+    plain versions on the card: a dropped bias and, in bf16, fc1 cast before
+    quick_gelu. The limits in ops/flash_attention.py were set from these."""
+    import dataclasses
+
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    def gelu_after_cast(x, wt):
+        b, t, w = x.shape
+        xb = x.reshape(b * t, w)
+        h = fa.fast_layernorm_f32(xb.float(), wt.ln_s, wt.ln_b).to(x.dtype)
+        a = fa.quick_gelu(fa._dense_proj(h, wt.w1_t, wt.b1).to(x.dtype)).to(x.dtype)
+        return (xb + fa._dense_proj(a, wt.w2_t, wt.b2).to(x.dtype)).reshape(b, t, w)
+
+    keys = ("max_abs_err", "max_abs_limit", "diff_share", "min_update_cos")
+    worst = {}
+    shapes = {"b32-vision": B32_VISION, "b32-text": B32_TEXT, "l14-vision": L14_VISION,
+              "ragged": RAGGED}
+    for case, (b, t, w, heads, causal) in shapes.items():
+        for dt in (torch.bfloat16, torch.float32):
+            for scale in (1.0, 3.0):
+                for seed in (0, 1, 2):
+                    x, wts = dense_layer_inputs(torch, b, t, w, heads, seed, dt, scale)
+                    for name, (kernel, plain, kind) in dense_runs(fa).items():
+                        want = plain(x, wts, heads, causal)
+                        r = fa.dense_agreement(kernel(x, wts, heads, causal), want, x, kind)
+                        print(f"reading {name} {case} {str(dt)[6:]} scale {scale} seed {seed}: "
+                              + ", ".join(f"{k} {r[k]:.6g}" for k in keys) + f" ok {r['ok']}",
+                              flush=True)
+                        w_ = worst.setdefault((name, str(dt)[6:]), dict(r))
+                        w_["diff_share"] = max(w_["diff_share"], r["diff_share"])
+                        w_["rel_limit"] = max(w_.get("rel_limit", 0.0),
+                                              r["max_abs_err"] / r["max_abs_limit"])
+                        w_["min_update_cos"] = min(w_["min_update_cos"], r["min_update_cos"])
+                    want = fa.layer_block_reference(x, wts, heads, causal)
+                    for bias in ("bqkv", "bo", "b1", "b2"):
+                        bad = dataclasses.replace(wts, **{bias: torch.zeros_like(getattr(wts, bias))})
+                        r = fa.dense_agreement(fa.layer_block_reference(x, bad, heads, causal),
+                                               want, x, "layer")
+                        print(f"wrong layer_block without {bias} {case} {str(dt)[6:]} scale {scale} "
+                              f"seed {seed}: " + ", ".join(f"{k} {r[k]:.6g}" for k in keys)
+                              + f" ok {r['ok']}", flush=True)
+                    if dt == torch.bfloat16:
+                        x1 = fa.attention_block_reference(x, wts.attn, heads, causal)
+                        for what, base, kind in (("mlp_block", x1, "mlp"),
+                                                 ("layer_block", x, "layer")):
+                            r = fa.dense_agreement(gelu_after_cast(x1, wts.mlp), want, base, kind)
+                            print(f"wrong {what} with the gelu after the cast {case} bfloat16 "
+                                  f"scale {scale} seed {seed}: "
+                                  + ", ".join(f"{k} {r[k]:.6g}" for k in keys) + f" ok {r['ok']}",
+                                  flush=True)
+    for (name, dt), w_ in worst.items():
+        print(f"worst {name} {dt}: max_abs_err/limit {w_['rel_limit']:.4g}, diff_share "
+              f"{w_['diff_share']:.4g}, min_update_cos "
+              f"{w_['min_update_cos']:.8f}", flush=True)
+
+
 def kernel_runs(fa):
     """name -> (kernel, plain version, which part of a layer) with one
     calling convention: (x, whole-layer weights, heads, causal)."""
@@ -262,23 +384,26 @@ TIME_SHAPES = {
 }
 
 
-def time_kernels(torch, card, fa, names):
-    """{name: {case: {"kernel", "plain", "bound_ms", "bound_by"}}} at
-    TIME_SHAPES, kernel beside plain version beside the bound."""
+def time_kernels(torch, card, runs, shapes, int8=True):
+    """{name: {case: {"kernel", "plain", "bound_ms", "bound_by"}}} for the
+    layer kernels `runs` (kernel_runs or dense_runs) at `shapes`, in bf16,
+    kernel beside plain version beside the bound."""
     out = {}
-    for name in names:
-        kernel, plain, kind = kernel_runs(fa)[name]
+    for name, (kernel, plain, kind) in runs.items():
         out[name] = {}
-        for case, (b, t, w, heads, causal) in TIME_SHAPES[name].items():
-            x32, wts = layer_inputs(torch, b, t, w, heads, seed=len(case))
-            xb = x32.to(device="cuda", dtype=torch.bfloat16)
+        for case, (b, t, w, heads, causal) in shapes[name].items():
+            if int8:
+                x32, wts = layer_inputs(torch, b, t, w, heads, seed=len(case))
+                xb = x32.to(device="cuda", dtype=torch.bfloat16)
+            else:
+                xb, wts = dense_layer_inputs(torch, b, t, w, heads, len(case), torch.bfloat16)
             big = b * t > 4096
             r = time_pair(torch, {"kernel": lambda: kernel(xb, wts, heads, causal),
                                   "plain": lambda: plain(xb, wts, heads, causal)},
                           samples=8 if big else 24, reps=2 if big else 5)
             part = {"attn": getattr(wts, "attn", None), "mlp": getattr(wts, "mlp", None),
                     "layer": wts}[kind]
-            r.update(block_bound(kind, xb, part, heads, causal))
+            r.update(block_bound(kind, xb, part, heads, causal, int8))
             out[name][case] = r
             print(f"time {name} {case} bf16 B={b} T={t} W={w}: kernel {r['kernel']:.4f} ms, "
                   f"plain {r['plain']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -342,8 +467,118 @@ def phase_kernels(torch, card):
         if not (torch.isfinite(got).all() and err == 0.0):
             fail("quant_dense disagrees with its plain version")
 
-    for name, times in time_kernels(torch, card, fa, list(runs)).items():
+    for name, times in time_kernels(torch, card, runs, TIME_SHAPES).items():
         out[name]["times"] = times
+    return out
+
+
+B32_BATCH, B32_TEXT_BATCH = (256, 50, 768, 12, False), (64, 77, 512, 8, True)
+DENSE_TIME_SHAPES = {
+    "layer_block": {"b32-vision-B8": B32_VISION, "b32-text-B8": B32_TEXT,
+                    "b32-vision-B256": B32_BATCH, "b32-text-B64": B32_TEXT_BATCH,
+                    "l14-text-B64": (64, 77, 768, 12, True)},
+    "attention_block": {"l14-vision-B4": L14_VISION, f"l14-vision-B{ENC_BUCKET5}": L14_BATCH,
+                        "b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH},
+    "mlp_block": {"l14-vision-B4": L14_VISION, f"l14-vision-B{ENC_BUCKET5}": L14_BATCH,
+                  "b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH},
+}
+MHA_TIME_SHAPES = {"b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH}
+
+
+def _dense_agree(fa, torch, name, case, got, want, x, kind):
+    """dense_agreement of one case, printed; fails the run if it is not ok."""
+    torch.cuda.synchronize()
+    r = fa.dense_agreement(got, want, x, kind)
+    share = (f"{r['diff_share']:.4%} of outputs differ (limit "
+             f"{fa.DENSE_BF16_DIFF_SHARE[kind]:.0%}), " if x.dtype == torch.bfloat16 else "")
+    print(f"kernel-vs-plain {name} {case} {str(x.dtype)[6:]}: max_abs_err "
+          f"{r['max_abs_err']:.6g} (limit {r['max_abs_limit']:.6g}), {share}min per-token cos "
+          f"of the update {r['min_update_cos']:.8f} (limit {fa.DENSE_MIN_UPDATE_COS})",
+          flush=True)
+    if not r["ok"]:
+        fail(f"{name} {case} {x.dtype} disagrees with its plain version")
+    return r["max_abs_err"]
+
+
+def mha_inputs(torch, b, t, w, seed, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, t, w), generator=g, device="cuda").to(dtype) for _ in range(3)]
+
+
+def phase_dense_kernels(torch, card):
+    """K8, K9a, K9b and K10 against their plain versions in bf16 and f32, K9a
+    then K9b against K8, then their times beside the plain versions' and the
+    bounds; for K10 also the time of one scaled_dot_product_attention call
+    on the same q, k, v (the same function: its library_ms; the port never
+    calls it). Returns, per kernel, {"max_abs_err", "times"}."""
+    import torch.nn.functional as F
+
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    runs = dense_runs(fa)
+    shapes = {"b32-vision": B32_VISION, "b32-text": B32_TEXT, "b16-vision": B16_VISION,
+              "l14-vision": L14_VISION, "ragged": RAGGED}
+    out = {name: {"max_abs_err": 0.0, "times": {}} for name in (*runs, "multihead_attention")}
+    for case, (b, t, w, heads, causal) in shapes.items():
+        for dt in (torch.bfloat16, torch.float32):
+            x, wts = dense_layer_inputs(torch, b, t, w, heads, len(case) + w, dt)
+            for name, (kernel, plain, kind) in runs.items():
+                err = _dense_agree(fa, torch, name, case, kernel(x, wts, heads, causal),
+                                   plain(x, wts, heads, causal), x, kind)
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            # K10: the same order of operations per row on both sides; they
+            # differ by the f32 sum order of the dots, and in bf16 by a
+            # probability or an output rounding to its neighbour
+            q, k, v = mha_inputs(torch, b, t, w, len(case), dt)
+            got = fa.multihead_attention(q, k, v, heads)
+            want = fa.multihead_attention_reference(q, k, v, heads)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            limit = (2 * float(want.float().abs().max()) * 2.0 ** -8
+                     if dt == torch.bfloat16 else 1e-5)
+            print(f"kernel-vs-plain multihead_attention {case} {str(dt)[6:]}: max_abs_err "
+                  f"{err:.6g} (limit {limit:.6g})", flush=True)
+            if not (torch.isfinite(got).all() and err <= limit):
+                fail(f"multihead_attention {case} {dt} disagrees with its plain version")
+            out["multihead_attention"]["max_abs_err"] = max(
+                out["multihead_attention"]["max_abs_err"], err)
+
+    # K9a then K9b run K8's launches on K8's values: equal bit for bit
+    for case, (b, t, w, heads, causal) in (("b32-vision", B32_VISION), ("b32-text", B32_TEXT)):
+        for dt in (torch.bfloat16, torch.float32):
+            x, wts = dense_layer_inputs(torch, b, t, w, heads, 21, dt)
+            two = fa.mlp_block(fa.attention_block(x, wts.attn, heads, causal), wts.mlp)
+            one = fa.layer_block(x, wts, heads, causal)
+            torch.cuda.synchronize()
+            if not torch.equal(two, one):
+                fail(f"attention_block then mlp_block differs from layer_block ({case}, {dt})")
+    print("K9a then K9b equals K8 bit for bit at (8, 50, 768) and (8, 77, 512, causal), "
+          "bf16 and f32", flush=True)
+
+    for name, times in time_kernels(torch, card, runs, DENSE_TIME_SHAPES, int8=False).items():
+        out[name]["times"] = times
+    for case, (b, t, w, heads, _) in MHA_TIME_SHAPES.items():
+        q, k, v = mha_inputs(torch, b, t, w, 5, torch.bfloat16)
+        r = time_pair(torch, {"kernel": lambda: fa.multihead_attention(q, k, v, heads),
+                              "plain": lambda: fa.multihead_attention_reference(q, k, v, heads)})
+        split = lambda a: a.view(b, t, heads, w // heads).transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
+        # the library call computes the same function (it keeps its
+        # probabilities unrounded: a few bf16 steps of the output apart)
+        want = fa.multihead_attention_reference(q, k, v, heads).float()
+        off = float((sdpa().transpose(1, 2).reshape(b, t, w).float() - want).abs().max())
+        if not off <= 4 * float(want.abs().max()) * 2.0 ** -8:
+            fail(f"scaled_dot_product_attention is {off:.3g} from multihead_attention's plain "
+                 f"version at {case}: not the same function")
+        lib = time_pair(torch, {"kernel": sdpa, "plain": lambda: None}, samples=12)["kernel"]
+        # QK^T and PV: 4 hd per query-key pair and head; q, k, v read, out written
+        r.update(bound(0.0, 4.0 * b * t * t * w, 4 * q.numel() * q.element_size()),
+                 library_ms=lib)
+        out["multihead_attention"]["times"][case] = r
+        print(f"time multihead_attention {case} bf16 B={b} T={t} W={w}: kernel "
+              f"{r['kernel']:.4f} ms, plain {r['plain']:.4f} ms, one "
+              f"scaled_dot_product_attention call {lib:.4f} ms (within {off:.3g} of the plain "
+              f"version), bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]", flush=True)
     return out
 
 
@@ -398,6 +633,36 @@ def serve_wave(server, queries, requests=None):
     if errors:
         fail(f"server errors: {errors[:3]}")
     return answers, seconds, int(server.stats["batches"] - batches)
+
+
+def check_f32_answers(index, q_emb, answers):
+    """Served top-10 answers of an f32 index against the float64 oracle for
+    the query embeddings `q_emb`: scores within ORACLE_SCORE_ATOL, ranked ids
+    identical except where the oracle's neighbours are closer than that."""
+    path_id = {p: i for i, p in enumerate(index.paths)}
+    ovals, oids = oracle_topk(index.get_vectors(np.arange(len(index))), q_emb, TOP_K)
+    worst, swaps = 0.0, 0
+    for i, ans in enumerate(answers):
+        if ans is None or len(ans) != TOP_K:
+            fail(f"query {i}: expected {TOP_K} hits, got {ans!r:.200}")
+        sv = np.array([h["score"] for h in ans], np.float64)
+        sid = np.array([path_id[h["path"]] for h in ans])
+        if not np.isfinite(sv).all():
+            fail(f"query {i}: non-finite scores")
+        worst = max(worst, float(np.abs(sv - ovals[i, :TOP_K]).max()))
+        for r in range(TOP_K):
+            gap_prev = np.inf if r == 0 else ovals[i, r - 1] - ovals[i, r]
+            gap_next = ovals[i, r] - ovals[i, r + 1]
+            if sid[r] != oids[i, r]:
+                if min(gap_prev, gap_next) > ORACLE_SCORE_ATOL:
+                    fail(f"query {i} rank {r}: id {sid[r]} != oracle {oids[i, r]} "
+                         f"with score gaps {gap_prev:.3g}/{gap_next:.3g}")
+                swaps += 1
+    print(f"server vs float64 oracle: max score diff {worst:.3g} (limit "
+          f"{ORACLE_SCORE_ATOL}), ranked ids identical except {swaps} near-tie "
+          f"swaps within {ORACLE_SCORE_ATOL}", flush=True)
+    if worst > ORACLE_SCORE_ATOL:
+        fail("server scores disagree with the oracle")
 
 
 def phase_slice(torch, card):
@@ -462,32 +727,8 @@ def phase_slice(torch, card):
           f"{qps:.1f} QPS over {len(index)} x {mc.embed_dim} f32 rows, "
           f"{batches} micro-batches [{card}]", flush=True)
 
-    # ---- answers vs the float64 oracle -----------------------------------
-    path_id = {p: i for i, p in enumerate(index.paths)}
     q_emb = enc.encode_texts(queries)
-    ovals, oids = oracle_topk(index.get_vectors(np.arange(len(index))), q_emb, TOP_K)
-    worst, swaps = 0.0, 0
-    for i, ans in enumerate(answers):
-        if ans is None or len(ans) != TOP_K:
-            fail(f"query {i}: expected {TOP_K} hits, got {ans!r:.200}")
-        sv = np.array([h["score"] for h in ans], np.float64)
-        sid = np.array([path_id[h["path"]] for h in ans])
-        if not np.isfinite(sv).all():
-            fail(f"query {i}: non-finite scores")
-        worst = max(worst, float(np.abs(sv - ovals[i, :TOP_K]).max()))
-        for r in range(TOP_K):
-            gap_prev = np.inf if r == 0 else ovals[i, r - 1] - ovals[i, r]
-            gap_next = ovals[i, r] - ovals[i, r + 1]
-            if sid[r] != oids[i, r]:
-                if min(gap_prev, gap_next) > ORACLE_SCORE_ATOL:
-                    fail(f"query {i} rank {r}: id {sid[r]} != oracle {oids[i, r]} "
-                         f"with score gaps {gap_prev:.3g}/{gap_next:.3g}")
-                swaps += 1
-    print(f"server vs float64 oracle: max score diff {worst:.3g} (limit "
-          f"{ORACLE_SCORE_ATOL}), ranked ids identical except {swaps} near-tie "
-          f"swaps within {ORACLE_SCORE_ATOL}", flush=True)
-    if worst > ORACLE_SCORE_ATOL:
-        fail("server scores disagree with the oracle")
+    check_f32_answers(index, q_emb, answers)
 
     # ---- towers on the card vs the same model on CPU tensors -------------
     cpu = CLIPEncoder(cfg, params={k: v.cpu() for k, v in enc.model.state_dict().items()},
@@ -778,10 +1019,12 @@ def phase_int4(torch, card, enc, queries, q_emb):
 
 def towers_vs_plain(torch, enc, images, texts):
     """Every block of both towers on the card against its plain version on
-    the same card and the same input (kernel_agreement), and the chain of
+    the same card and the same input (kernel_agreement for the int8 routes,
+    dense_agreement for the routes in the compute dtype), and the chain of
     plain versions from the first block's input against the chain of
     kernels (per-token cosine of the last block's output). Returns the
     smallest cosine per tower."""
+    from image_retrieval_tpu_torch.models.clip import KERNEL, LAYER
     from image_retrieval_tpu_torch.ops import flash_attention as fa
 
     seen = []
@@ -795,6 +1038,12 @@ def towers_vs_plain(torch, enc, images, texts):
     finally:
         for h in hooks:
             h.remove()
+
+    def plain(blk, x):
+        if blk.mode[0] in (LAYER, KERNEL):
+            return fa.layer_block_int8_reference(x, blk.int8_weights(), blk.heads, blk.causal)
+        return fa.layer_block_reference(x, blk.dense_weights(x.dtype), blk.heads, blk.causal)
+
     cos = {}
     with torch.inference_mode():
         for name, tower in towers.items():
@@ -803,31 +1052,33 @@ def towers_vs_plain(torch, enc, images, texts):
                 fail(f"{name}: {len(blocks)} block calls for {len(tower.blocks)} blocks")
             chain, worst = blocks[0][2], 0.0
             for i, (_, blk, x, out) in enumerate(blocks):
-                wts = blk.int8_weights()
-                want = fa.layer_block_int8_reference(x, wts, blk.heads, blk.causal)
-                r = fa.kernel_agreement(out, want, x)
+                want = plain(blk, x)
+                r = (fa.kernel_agreement(out, want, x) if blk.mode[0] in (LAYER, KERNEL)
+                     else fa.dense_agreement(out, want, x, "layer"))
                 if not r["ok"]:
                     fail(f"{name} block {i} on the card disagrees with its plain version: {r}")
                 worst = max(worst, r["max_abs_err"])
-                chain = fa.layer_block_int8_reference(chain, wts, blk.heads, blk.causal)
+                chain = plain(blk, chain)
             cos[name] = float(row_cos(blocks[-1][3], chain).min())
             print(f"{name} tower, {len(blocks)} blocks {tuple(blocks[0][2].shape)} "
-                  f"{str(chain.dtype)[6:]}: every block within kernel_agreement of its plain "
-                  f"version (max_abs_err {worst:.4g}); plain chain vs kernel chain min "
-                  f"per-token cos {cos[name]:.6f} (limit {TOWER_MIN_COS})", flush=True)
+                  f"{str(chain.dtype)[6:]} routed {blocks[0][1].mode}: every block within the "
+                  f"limits of its plain version (max_abs_err {worst:.4g}); plain chain vs "
+                  f"kernel chain min per-token cos {cos[name]:.6f} (limit {TOWER_MIN_COS})",
+                  flush=True)
             if not cos[name] >= TOWER_MIN_COS:
                 fail(f"the {name} tower through the kernels left its plain version")
     return cos
 
 
-def profile_encode(torch, enc, images, card):
+def profile_encode(torch, enc, images, card, label="L/14"):
     """One warm encode_pixels call under torch.profiler: wall time, and the
     device's self time by kernel family (the launches are serial on one
     stream, so their sum is the device's busy time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    families = (("gemm_s8", "int8 GEMMs"), ("attention_tiled", "attention"),
-                ("ln_rowquant", "LayerNorm/rowquant passes"), ("Memcpy", "copies"))
+    families = (("gemm_s8_kernel", "int8 GEMMs"), ("gemm_bf16_kernel", "bf16 GEMMs"),
+                ("attention_tiled", "attention"), ("ln_rowquant", "LayerNorm/rowquant passes"),
+                ("ln_cast", "LayerNorm passes"), ("Memcpy", "copies"))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         enc.encode_pixels(images)
@@ -837,15 +1088,15 @@ def profile_encode(torch, enc, images, card):
     for e in prof.key_averages():
         if e.device_type.name != "CUDA":
             continue
-        family = next((label for pat, label in families if pat in e.key), "other kernels")
+        family = next((fam for pat, fam in families if pat in e.key), "other kernels")
         ms[family] = ms.get(family, 0.0) + e.self_device_time_total / 1e3
     busy = sum(ms.values())
     if busy <= 0:
-        print("L/14 encode profile: torch.profiler recorded no device time; "
+        print(f"{label} encode profile: torch.profiler recorded no device time; "
               "device time by kernel not measured", flush=True)
         return
     parts = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(ms.items(), key=lambda kv: -kv[1]))
-    print(f"L/14 encode profile, one batch of {len(images)} images (padded to {ENC_BUCKET5}), "
+    print(f"{label} encode profile, one batch of {len(images)} images (padded to {ENC_BUCKET5}), "
           f"torch.profiler on: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms (idle share "
           f"{max(0.0, 1 - busy / wall_ms):.1%}): {parts} [{card}]", flush=True)
 
@@ -1519,6 +1770,175 @@ def phase_weighted(torch, card, enc32, index32, enc14, index14, queries):
     return launches, worst, times
 
 
+# ---- phase 7: the encoder under the flags of the compute-dtype kernels --------
+
+DENSE_KERNELS = ("layer_block", "attention_block", "mlp_block", "multihead_attention")
+
+
+def dense_counts(fa, reset=False):
+    if reset:
+        for name in DENSE_KERNELS:
+            getattr(fa, name).launches = 0
+    return {name: getattr(fa, name).launches for name in DENSE_KERNELS}
+
+
+def towers_vs_route(torch, enc, other, images, texts, what):
+    """Embeddings of `enc` against those of `other` (the same weights under
+    another routing) by row cosine, held to TOWER_MIN_COS."""
+    ci = float(row_cos(torch.from_numpy(enc.encode_pixels(images)),
+                       torch.from_numpy(other.encode_pixels(images))).min())
+    ct = float(row_cos(torch.from_numpy(enc.encode_texts(texts)),
+                       torch.from_numpy(other.encode_texts(texts))).min())
+    print(f"{what}: min row cos image {ci:.6f} ({len(images)} images), text {ct:.6f} "
+          f"({len(texts)} texts) (limit {TOWER_MIN_COS})", flush=True)
+    if not (ci >= TOWER_MIN_COS and ct >= TOWER_MIN_COS):
+        fail(f"{what}: the towers disagree")
+
+
+def phase_dense(torch, card, queries, index14):
+    """Phase 7: configuration A whole (ViT-B/32 under fused_layer_block, no
+    int8: ingest, a 1M-row f32 index, served queries), then configurations B
+    (ViT-L/14 under fused_layer_block) and C (ViT-B/32 under
+    pallas_attention), each counted. Returns the launches of K8, K9a, K9b
+    and K10 summed over the three counted runs."""
+    import dataclasses
+
+    from image_retrieval_tpu_torch.app.server import SearchServer
+    from image_retrieval_tpu_torch.config import Config, vit_b32, vit_l14
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.clip import DENSE_KERNEL, DENSE_LAYER, PLAIN
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    total = dict.fromkeys(DENSE_KERNELS, 0)
+
+    def build(name, model, modes):
+        t0 = time.perf_counter()
+        enc = CLIPEncoder(Config(model=model), seed=0)  # no device=: the card
+        got = (enc.model.vision.blocks[0].mode, enc.model.text.blocks[0].mode)
+        if enc.device.type != "cuda" or got != modes:
+            fail(f"{name}: on {enc.device}, towers routed {got}")
+        print(f"CLIPEncoder {name} on {enc.device}: {model.vision_layers}+{model.text_layers} "
+              f"layers, widths {model.vision_width}/{model.text_width}, compute dtype "
+              f"{model.dtype}, routed {got}, {time.perf_counter() - t0:.1f} s to build",
+              flush=True)
+        return enc
+
+    def counted(name, launches, expected, how):
+        print(f"launches in the main path of {name}: {launches} (expected {how})", flush=True)
+        if launches != expected:
+            fail(f"{name}: the main path did not launch the kernels as expected: {expected}")
+        for k, v in launches.items():
+            total[k] += v
+
+    # ---- configuration A: ViT-B/32, fused_layer_block, whole ----------------
+    mc = dataclasses.replace(vit_b32(), fused_layer_block=True)
+    cfg = Config(model=mc)
+    enc = build("A = replace(vit_b32(), fused_layer_block=True)", mc,
+                ((DENSE_LAYER, DENSE_LAYER), (DENSE_LAYER, DENSE_LAYER)))
+    images = np.random.default_rng(0).integers(
+        0, 256, size=(N_IMAGES, mc.image_size, mc.image_size, 3), dtype=np.uint8)
+    enc.encode_pixels(images)  # warm-up (weight casts, cuBLAS handles): not counted
+    enc.encode_texts(queries[:8])
+    torch.cuda.synchronize()
+    dense_counts(fa, reset=True)
+    t0 = time.perf_counter()
+    img_emb = enc.encode_pixels(images)
+    embed_s = time.perf_counter() - t0
+    index = ShardedVectorIndex(dim=mc.embed_dim, config=cfg.index)
+    index.insert([f"images/{i:04d}.jpg" for i in range(N_IMAGES)], img_emb)
+    grng = np.random.default_rng(1)  # the rows of phase 3
+    rows = grng.standard_normal((N_ROWS, mc.embed_dim), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    index.insert([f"gallery/{i:07d}" for i in range(N_ROWS)], rows)
+    del rows
+    server = SearchServer(enc, index, max_batch=64, max_wait_ms=2.0)
+    answers, serve_s, batches = serve_wave(server, queries)
+    launches = dense_counts(fa)
+    image_chunks = -(-N_IMAGES // 256)
+    counted("A", launches, dict.fromkeys(DENSE_KERNELS, 0) | {
+        "layer_block": mc.vision_layers * image_chunks + mc.text_layers * batches},
+            f"K8: {mc.vision_layers} x {image_chunks} image batch + {mc.text_layers} x {batches} "
+            "text batches; no other kernel")
+    print(f"A image embed throughput: {N_IMAGES / embed_s:.1f} img/s (one batch of {N_IMAGES}, "
+          f"uint8 in, embeddings back on the host); server: {N_CLIENTS} concurrent clients "
+          f"answered in {serve_s:.3f} s = {N_CLIENTS / serve_s:.1f} QPS over {len(index)} x "
+          f"{mc.embed_dim} f32 rows, {batches} micro-batches [{card}]", flush=True)
+    if img_emb.shape != (N_IMAGES, mc.embed_dim) or not np.isfinite(img_emb).all():
+        fail(f"A: image embeddings {img_emb.shape} are not finite ({N_IMAGES}, {mc.embed_dim})")
+    check_f32_answers(index, enc.encode_texts(queries), answers)
+    del index, server
+    towers_vs_plain(torch, enc, images[:8], queries[:8])
+    plain32 = CLIPEncoder(Config(model=vit_b32()), seed=0)
+    towers_vs_route(torch, enc, plain32, images[:64], queries,
+                    "A through layer_block vs the plain route vit_b32() (bf16)")
+    del enc
+    torch.cuda.empty_cache()
+
+    # ---- configuration C: ViT-B/32, pallas_attention -------------------------
+    mc = dataclasses.replace(vit_b32(), pallas_attention=True)
+    enc = build("C = replace(vit_b32(), pallas_attention=True)", mc,
+                ((PLAIN, PLAIN), (PLAIN, PLAIN)))
+    enc.encode_pixels(images[:8])
+    torch.cuda.synchronize()
+    dense_counts(fa, reset=True)
+    img_emb = enc.encode_pixels(images)
+    after_images = dense_counts(fa)
+    enc.encode_texts(queries)
+    launches = dense_counts(fa)
+    counted("C", launches, dict.fromkeys(DENSE_KERNELS, 0) | {
+        "multihead_attention": mc.vision_layers * image_chunks},
+            f"K10: {mc.vision_layers} x {image_chunks} image batch, none in the text batch "
+            "(its mask keeps the plain attention)")
+    if after_images != launches or not np.isfinite(img_emb).all():
+        fail("C: the text batch launched a kernel, or the embeddings are not finite")
+    towers_vs_route(torch, enc, plain32, images[:64], queries,
+                    "C through multihead_attention vs the plain route vit_b32() (bf16)")
+    del enc, plain32
+    torch.cuda.empty_cache()
+
+    # ---- configuration B: ViT-L/14, fused_layer_block ------------------------
+    mc = dataclasses.replace(vit_l14(), fused_layer_block=True)
+    enc = build("B = replace(vit_l14(), fused_layer_block=True)", mc,
+                ((DENSE_KERNEL, DENSE_KERNEL), (DENSE_LAYER, DENSE_LAYER)))
+    images = np.random.default_rng(5).integers(
+        0, 256, size=(N_IMAGES5, mc.image_size, mc.image_size, 3), dtype=np.uint8)
+    enc.encode_pixels(images[:8])
+    enc.encode_texts(queries[:8])
+    torch.cuda.synchronize()
+    index14.calls, index14.stage = [], "wave"
+    dense_counts(fa, reset=True)
+    t0 = time.perf_counter()
+    img_emb = enc.encode_pixels(images)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    server = SearchServer(enc, index14, max_batch=64, max_wait_ms=2.0)
+    wave = serve_wave(server, queries)
+    launches = dense_counts(fa)
+    counted("B", launches, dict.fromkeys(DENSE_KERNELS, 0) | {
+        "attention_block": mc.vision_layers, "mlp_block": mc.vision_layers,
+        "layer_block": mc.text_layers * wave[2]},
+            f"{mc.vision_layers} K9a + {mc.vision_layers} K9b for the one image batch, "
+            f"{mc.text_layers} K8 x {wave[2]} text batches")
+    if img_emb.shape != (N_IMAGES5, mc.embed_dim) or not np.isfinite(img_emb).all():
+        fail(f"B: image embeddings {img_emb.shape} are not finite")
+    print(f"B image embed: {N_IMAGES5} images (one batch of {ENC_BUCKET5} with padding, "
+          f"{ENC_BUCKET5 * 257} token rows) in {embed_s:.3f} s = {N_IMAGES5 / embed_s:.1f} img/s; "
+          f"{N_CLIENTS} concurrent text queries over {len(index14)} x {index14.dim} int8 rows: "
+          f"{N_CLIENTS / wave[1]:.1f} QPS ({wave[2]} micro-batches) [{card}]", flush=True)
+    check_clients_got_the_indexs_answers("B", index14, [wave])
+    worst, recall = check_answers(index14, int8_exact_oracle(torch, index14, 3 * TOP_K))
+    for stage, (n, misses) in recall.items():
+        print(f"B over the int8 tier, {stage}: recall@10 vs the oracle {1 - misses / n:.4f} "
+              f"over {n} answers ({misses} misses; limit {RECALL_MIN}); max score diff "
+              f"{worst:.3g} (limit {INT4_ORACLE_ATOL})", flush=True)
+        if 1 - misses / n < RECALL_MIN:
+            fail(f"B {stage}: recall@10 below {RECALL_MIN}")
+    towers_vs_plain(torch, enc, images[:N_CHECK5], queries[:8])
+    profile_encode(torch, enc, images, card, "B (L/14, fused_layer_block, bf16)")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1547,11 +1967,16 @@ def main() -> int:
         # card, copy this script into each and run it there in turns
         from image_retrieval_tpu_torch.ops import flash_attention as fa
 
-        time_kernels(torch, card, fa, ["layer_block_int8"])
+        time_kernels(torch, card, {"layer_block_int8": kernel_runs(fa)["layer_block_int8"]},
+                     TIME_SHAPES)
+        return 0
+    if sys.argv[1:] == ["--dense-readings"]:
+        dense_readings(torch)
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     kernels = phase_kernels(torch, card)
+    kernels.update(phase_dense_kernels(torch, card))
     launches, enc, queries, q_emb, index32 = phase_slice(torch, card)
     int4_launches, k3 = phase_int4(torch, card, enc, queries, q_emb)
     torch.cuda.empty_cache()
@@ -1559,6 +1984,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     w_launches, w_err, w_times = phase_weighted(torch, card, enc, index32, enc14, index14,
                                                 queries)
+    del enc, enc14, index32
+    torch.cuda.empty_cache()
+    d_launches = phase_dense(torch, card, queries, index14)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "image_retrieval_tpu")]
     if loaded:
@@ -1572,7 +2000,7 @@ def main() -> int:
                  "replaces": f"image_retrieval_tpu/ops/flash_attention.py:{line}",
                  "launches": n_launches, "max_abs_err": k["max_abs_err"],
                  "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
-                 "bound_by": t["bound_by"], "library_ms": None, "shape": case}
+                 "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), "shape": case}
         for key, other in extra.items():
             o = k["times"][other]
             entry.update({f"{key}_ms": o["kernel"], f"{key}_plain_ms": o["plain"],
@@ -1628,6 +2056,21 @@ def main() -> int:
         metric_entry("fused_all_metrics", "fused_all_metrics", (45,), "q64", {"q1": "q1"}),
         metric_entry("fused_optimized_scores", "fused_optimized_scores", (124,),
                      "q64-all-live", {"q1": "q1-all-live"}),
+        # K8-K9b: no single PyTorch call computes a layer or a half of one.
+        # K10: one scaled_dot_product_attention call computes the same function
+        block_entry("layer_block", "layer_block.cu", 931, d_launches["layer_block"],
+                    "b32-vision-B256",
+                    {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
+                     "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
+        block_entry("attention_block", "attention_block.cu", 346, d_launches["attention_block"],
+                    big, {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
+                          "b32_vision_b8": "b32-vision-B8"}),
+        block_entry("mlp_block", "mlp_block.cu", 457, d_launches["mlp_block"], big,
+                    {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
+                     "b32_vision_b8": "b32-vision-B8"}),
+        block_entry("multihead_attention", "multihead_attention.cu", 87,
+                    d_launches["multihead_attention"], "b32-vision-B256",
+                    {"b32_vision_b8": "b32-vision-B8"}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,10 +71,10 @@ int irt_attention(const void* qkv, void* out, int batch, int seq, int width,
   }
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    return launch_attention<__nv_bfloat16>((const __nv_bfloat16*)qkv, (__nv_bfloat16*)out, batch,
+    return launch_attention_packed<__nv_bfloat16>((const __nv_bfloat16*)qkv, (__nv_bfloat16*)out, batch,
                                            seq, width, heads, causal, attn_scale, st);
   }
-  return launch_attention<float>((const float*)qkv, (float*)out, batch, seq, width, heads,
+  return launch_attention_packed<float>((const float*)qkv, (float*)out, batch, seq, width, heads,
                                  causal, attn_scale, st);
 }
 

@@ -1,0 +1,366 @@
+// Device code shared by the Hopper (sm_90a) transformer-layer kernels that
+// keep their projections in the compute type (bf16 or f32, no quantization):
+// layer_block.cu (whole layer), attention_block.cu and mlp_block.cu (its two
+// halves). multihead_attention.cu needs block_common.cuh alone. Each is a
+// chain of simple kernels, every one reading its operands once from device
+// memory (the 50 MB L2 holds a layer's weights and activations between
+// launches):
+//   (a) ln_cast_kernel          LayerNorm (f32, fast variance) cast to the
+//                               compute type; one block per row.
+//   (b) gemm_bf16_kernel        bf16 GEMM on the tensor cores (mma.sync
+//                               m16n8k16, f32 accumulate), 64x64 tiles,
+//                               cp.async double buffering.
+//       gemm_f32_kernel         f32 GEMM on the CUDA cores: every product an
+//                               exact f32 FMA (never TF32), one accumulator
+//                               per output over ascending k. Slow, and only
+//                               the f32 compute type takes it.
+//       Both end in one fused epilogue: acc + bias in f32, then the cast, or
+//       quick_gelu in f32 and the cast, or the cast and the residual add in
+//       the compute type.
+//   (c) attention_tiled_kernel  of block_common.cuh, on packed [q | k | v]
+//                               rows.
+//
+// Numerics follow the JAX kernels (_layer_block_kernel, _attn_block_kernel,
+// _mlp_block_kernel): the LayerNorm output is cast to the compute type
+// before the projection; q, k and v are f32 sums that hold the bias, each
+// cast once; projection outputs are cast before the residual add, which is
+// taken in the compute type; fc1 stays f32 through quick_gelu and is cast
+// after it; attention scales after the QK dot in f32.
+#pragma once
+
+#include <type_traits>
+
+#include "block_common.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// (a) LayerNorm cast to the compute type
+// ---------------------------------------------------------------------------
+
+constexpr int kLnThreads = 256;
+// a row of f32 values sits in dynamic shared memory; the default limit
+constexpr int kMaxLnWidth = 48 * 1024 / (int)sizeof(float);
+
+// One block per row of `width` values:
+// T((x - mu) * rsqrt(max(E[x^2] - mu^2, 0) + 1e-5) * gamma + beta).
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads) ln_cast_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+    T* __restrict__ h, int width) {
+  extern __shared__ float row[];
+  __shared__ float red[32];
+  const size_t base = (size_t)blockIdx.x * width;
+  float sum = 0.f, sq = 0.f;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    const float v = to_f32(x[base + i]);
+    row[i] = v;  // each thread later reads back only its own elements
+    sum += v;
+    sq = fmaf(v, v, sq);
+  }
+  sum = block_sum(sum, red);
+  sq = block_sum(sq, red);
+  const float mu = __fdiv_rn(sum, (float)width);
+  const float ms = __fdiv_rn(sq, (float)width);
+  const float var = fmaxf(__fsub_rn(ms, __fmul_rn(mu, mu)), 0.f);
+  const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, 1e-5f)));
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    const float v = __fmul_rn(__fmul_rn(__fsub_rn(row[i], mu), inv), gamma[i]);
+    h[base + i] = from_f32<T>(__fadd_rn(v, beta[i]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (b) GEMMs with the fused epilogue
+// ---------------------------------------------------------------------------
+
+enum DenseEpilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2 };
+
+// One output value from its f32 sum: + bias, then by kEpi. `res` is the
+// residual stream's value at the same place (kBiasResidual only).
+template <typename T, int kEpi>
+__device__ __forceinline__ float finish(float acc, float bias, float res) {
+  float v = __fadd_rn(acc, bias);
+  if (kEpi == kBiasGelu) {  // quick_gelu in f32: v * sigmoid(1.702 v), cast after
+    const float z = __fmul_rn(1.702f, v);
+    return __fmul_rn(v, __frcp_rn(__fadd_rn(1.f, expf(-z))));
+  }
+  if (kEpi == kBiasResidual) {  // cast, then add in the compute type
+    return __fadd_rn(res, round_to<T>(v));
+  }
+  return v;
+}
+
+// ---- bf16 on the tensor cores ----------------------------------------------
+
+constexpr int TBM = 64, TBN = 64, TBK = 32;
+// 80-byte shared rows (40 bf16): the 8 rows a fragment load touches land on
+// distinct banks (row * 20 words mod 32 = 0, 20, 8, 28, 16, 4, 24, 12), and
+// rows stay 16-byte aligned for cp.async.
+constexpr int TLD = TBK + 8;
+constexpr int kTensorGemmThreads = 128;  // 4 warps, 2 x 2, each a 32 x 32 tile
+
+// D = A(16x16 bf16, row) * B(16x8 bf16, col) + D, f32.
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned lds_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// C[m, n] = epilogue(sum_k A[m, k] * Bt[n, k] + bias[n]). A (M, K) bf16
+// row-major, Bt (N, K) bf16 (output-major weights). N % 64 == 0,
+// K % 32 == 0; rows past M are zero-filled on load and not stored.
+template <int kEpi>
+__global__ void __launch_bounds__(kTensorGemmThreads) gemm_bf16_kernel(
+    const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ Bt,
+    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ residual,
+    __nv_bfloat16* __restrict__ C, int M, int N, int K) {
+  __shared__ __align__(16) __nv_bfloat16 As[2][TBM][TLD];
+  __shared__ __align__(16) __nv_bfloat16 Bs[2][TBN][TLD];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
+
+  auto load_tile = [&](int stage, int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * kTensorGemmThreads;  // 256 chunks of 16 bytes per tile
+      const int r = c >> 2, col = (c & 3) * 8;
+      const int gm = m0 + r;
+      const bool in = gm < M;
+      cp_async16(&As[stage][r][col], A + (size_t)(in ? gm : 0) * K + k0 + col, in ? 16 : 0);
+      cp_async16(&Bs[stage][r][col], Bt + (size_t)(n0 + r) * K + k0 + col, 16);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  const int kt_count = K / TBK;
+  load_tile(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < kt_count; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < kt_count) {
+      load_tile(st ^ 1, (kt + 1) * TBK);  // stage st^1 was released by the
+      cp_async_commit();                  // barrier ending iteration kt-1
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TBK; kk += 16) {
+      unsigned af[2][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm + mi * 16 + g;
+        af[mi][0] = lds_pair(&As[st][r][kk + tig * 2]);
+        af[mi][1] = lds_pair(&As[st][r + 8][kk + tig * 2]);
+        af[mi][2] = lds_pair(&As[st][r][kk + 8 + tig * 2]);
+        af[mi][3] = lds_pair(&As[st][r + 8][kk + 8 + tig * 2]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = wn + ni * 8 + g;
+        bf[ni][0] = lds_pair(&Bs[st][n][kk + tig * 2]);
+        bf[ni][1] = lds_pair(&Bs[st][n][kk + 8 + tig * 2]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
+    }
+    __syncthreads();
+  }
+
+  // Accumulator fragment: elements 2 * half and 2 * half + 1 sit at row
+  // g + 8 * half, columns 2 * tig and 2 * tig + 1 of their 16 x 8 tile: one
+  // 4-byte store of two bf16 values.
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mi * 16 + g + half * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = n0 + wn + ni * 8 + tig * 2;
+        const size_t o = (size_t)m * N + n;
+        float r0 = 0.f, r1 = 0.f;
+        if (kEpi == kBiasResidual) {
+          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(residual + o);
+          r0 = __bfloat162float(r.x);
+          r1 = __bfloat162float(r.y);
+        }
+        __nv_bfloat162 out;
+        out.x = __float2bfloat16(
+            finish<__nv_bfloat16, kEpi>(acc[mi][ni][half * 2], bias[n], r0));
+        out.y = __float2bfloat16(
+            finish<__nv_bfloat16, kEpi>(acc[mi][ni][half * 2 + 1], bias[n + 1], r1));
+        *reinterpret_cast<__nv_bfloat162*>(C + o) = out;
+      }
+    }
+  }
+}
+
+// ---- f32 on the CUDA cores -------------------------------------------------
+
+constexpr int FBM = 64, FBN = 64, FBK = 16;
+constexpr int FLD = FBM + 4;  // rows of 68 floats stay 16-byte aligned
+constexpr int kF32GemmThreads = 256;  // 16 x 16 threads, each a 4 x 4 tile
+
+// The same function in f32: A (M, K), Bt (N, K), N % 64 == 0, K % 16 == 0.
+// Each output is one chain of fmaf over ascending k.
+template <int kEpi>
+__global__ void __launch_bounds__(kF32GemmThreads) gemm_f32_kernel(
+    const float* __restrict__ A, const float* __restrict__ Bt, const float* __restrict__ bias,
+    const float* __restrict__ residual, float* __restrict__ C, int M, int N, int K) {
+  __shared__ __align__(16) float As[FBK][FLD];  // k-major: a thread reads 4 rows at once
+  __shared__ __align__(16) float Bs[FBK][FLD];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
+  const int lr = tid >> 2, lc = (tid & 3) * 4;  // the 4 values of a tile this thread loads
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += FBK) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m0 + lr < M) a = *reinterpret_cast<const float4*>(A + (size_t)(m0 + lr) * K + k0 + lc);
+    const float4 b = *reinterpret_cast<const float4*>(Bt + (size_t)(n0 + lr) * K + k0 + lc);
+    As[lc][lr] = a.x, As[lc + 1][lr] = a.y, As[lc + 2][lr] = a.z, As[lc + 3][lr] = a.w;
+    Bs[lc][lr] = b.x, Bs[lc + 1][lr] = b.y, Bs[lc + 2][lr] = b.z, Bs[lc + 3][lr] = b.w;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      const size_t o = (size_t)m * N + n;
+      const float res = kEpi == kBiasResidual ? residual[o] : 0.f;
+      C[o] = finish<float, kEpi>(acc[i][j], bias[n], res);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+template <typename T>
+int launch_ln_cast(const T* x, const float* gamma, const float* beta, T* h, int m, int width,
+                   cudaStream_t st) {
+  IRT_TRY(ln_cast_kernel<T><<<m, kLnThreads, width * sizeof(float), st>>>(x, gamma, beta, h,
+                                                                         width));
+  return 0;
+}
+
+template <typename T, int kEpi>
+int launch_gemm(const T* a, const T* bt, const float* bias, const T* residual, T* c, int m,
+                int n, int k, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value) {
+    IRT_TRY(gemm_f32_kernel<kEpi><<<dim3(n / FBN, (m + FBM - 1) / FBM), kF32GemmThreads, 0, st>>>(
+        a, bt, bias, residual, c, m, n, k));
+  } else {
+    IRT_TRY(gemm_bf16_kernel<kEpi>
+            <<<dim3(n / TBN, (m + TBM - 1) / TBM), kTensorGemmThreads, 0, st>>>(
+                a, bt, bias, residual, c, m, n, k));
+  }
+  return 0;
+}
+
+// The attention sub-block: LN1 -> cast -> QKV (+ bias, cast) -> attention ->
+// out-projection (+ bias, cast) -> x + out. Four launches.
+struct DenseAttnWorkspace {
+  void* h;     // (m, width)   LN1 rows, compute type
+  void* qkv;   // (m, 3 width)
+  void* attn;  // (m, width)
+};
+
+inline void carve_dense_attn(Carver& c, int m, int width, int eb, DenseAttnWorkspace* w) {
+  const size_t mw = (size_t)m * width;
+  w->h = c.take(mw * eb);
+  w->qkv = c.take(3 * mw * eb);
+  w->attn = c.take(mw * eb);
+}
+
+template <typename T>
+int run_dense_attn_block(const T* x, T* out, const float* ln_s, const float* ln_b,
+                         const T* wqkv_t, const float* bqkv, const T* wo_t, const float* bo,
+                         const DenseAttnWorkspace& w, int batch, int seq, int width, int heads,
+                         int causal, float scale, cudaStream_t st) {
+  const int m = batch * seq;
+  T* h = (T*)w.h;
+  T* qkv = (T*)w.qkv;
+  T* attn = (T*)w.attn;
+  IRT_CHECK(launch_ln_cast<T>(x, ln_s, ln_b, h, m, width, st));
+  IRT_CHECK((launch_gemm<T, kBias>(h, wqkv_t, bqkv, nullptr, qkv, m, 3 * width, width, st)));
+  IRT_CHECK(launch_attention_packed<T>(qkv, attn, batch, seq, width, heads, causal, scale, st));
+  IRT_CHECK((launch_gemm<T, kBiasResidual>(attn, wo_t, bo, x, out, m, width, width, st)));
+  return 0;
+}
+
+// The MLP sub-block: LN2 -> cast -> fc1 (+ bias, f32) -> quick_gelu in f32 ->
+// cast -> fc2 (+ bias, cast) -> x + out. Three launches.
+struct DenseMlpWorkspace {
+  void* h;  // (m, width)  LN2 rows, compute type
+  void* a;  // (m, hidden) quick_gelu(fc1), compute type
+};
+
+inline void carve_dense_mlp(Carver& c, int m, int width, int hidden, int eb,
+                            DenseMlpWorkspace* w) {
+  w->h = c.take((size_t)m * width * eb);
+  w->a = c.take((size_t)m * hidden * eb);
+}
+
+template <typename T>
+int run_dense_mlp_block(const T* x, T* out, const float* ln_s, const float* ln_b, const T* w1_t,
+                        const float* b1, const T* w2_t, const float* b2,
+                        const DenseMlpWorkspace& w, int m, int width, int hidden,
+                        cudaStream_t st) {
+  T* h = (T*)w.h;
+  T* a = (T*)w.a;
+  IRT_CHECK(launch_ln_cast<T>(x, ln_s, ln_b, h, m, width, st));
+  IRT_CHECK((launch_gemm<T, kBiasGelu>(h, w1_t, b1, nullptr, a, m, hidden, width, st)));
+  IRT_CHECK((launch_gemm<T, kBiasResidual>(a, w2_t, b2, x, out, m, width, hidden, st)));
+  return 0;
+}
+
+inline bool dense_shape_ok(int batch, int seq, int width, int hidden, int dtype) {
+  return batch > 0 && seq > 0 && width > 0 && width % 64 == 0 && hidden > 0 &&
+         hidden % 64 == 0 && width <= kMaxLnWidth && (dtype == 0 || dtype == 1) &&
+         rows_ok((long long)batch * seq);
+}
+
+}  // namespace

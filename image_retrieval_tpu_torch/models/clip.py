@@ -13,20 +13,27 @@ Each half of a transformer layer takes one of the routes that the Flax
 (``layer_mode`` below):
 
 - plain: unfused, compute-dtype projections (the default ``ModelConfig``);
-- ``fused_layer_block + int8_matmuls`` (``serving_config``): the whole layer
-  is one ``layer_block_int8`` call up to width 768; wider towers (ViT-L/14
-  vision) take ``attention_block_int8`` then ``mlp_block_int8``; a vision
+- ``fused_layer_block``: the whole layer is one kernel call up to width 768
+  (``layer_block_int8`` with ``int8_matmuls``, as in ``serving_config``, else
+  ``layer_block`` in the compute dtype); wider towers (ViT-L/14 vision) take
+  the pair ``attention_block[_int8]`` then ``mlp_block[_int8]``; a vision
   sequence padded by ``vision_seq_pad`` keeps its masked attention unfused
-  over int8 projections (``quant_dense``) and takes ``mlp_block_int8``;
-- ``fused_attn_block`` / ``fused_mlp_block`` with ``int8_matmuls``: that half
-  through its sub-block kernel, the other unfused over ``quant_dense``;
-- ``int8_matmuls`` alone: ``quant_dense`` projections everywhere.
+  and takes the MLP kernel;
+- ``fused_attn_block`` / ``fused_mlp_block``: that half through its sub-block
+  kernel, the other unfused;
+- ``int8_matmuls``: every unfused projection is ``quant_dense``;
+- ``pallas_attention``: the unfused attention of an input without a mask
+  (the vision tower without ``vision_seq_pad``) runs ``multihead_attention``
+  between its projections; the text tower's mask keeps the plain path;
+- ``fused_attention``: the unfused attention in the order of XLA's
+  ``jax.nn.dot_product_attention`` (f32 scores scaled after the dot), written
+  out in tensor operations; no kernel, as in the JAX package.
 
-All four are hand-written Hopper kernels on a CUDA tensor
-(``ops/flash_attention.py``). The flags that need the bf16 kernels
-(``fused_*`` without ``int8_matmuls``, ``pallas_attention``,
-``fused_train_vjp``) and ``fused_attention`` raise NotImplementedError
-rather than silently taking the plain path; ROADMAP.md lists them.
+All eight kernels are hand-written Hopper kernels on a CUDA tensor
+(``ops/flash_attention.py``). ``fused_train_vjp`` (the attention sub-block
+that saves its intermediates for a hand-written backward) raises
+NotImplementedError rather than silently taking another path; ROADMAP.md
+lists it.
 """
 
 from __future__ import annotations
@@ -38,21 +45,28 @@ from torch import nn
 
 from image_retrieval_tpu_torch.config import ModelConfig
 from image_retrieval_tpu_torch.ops.flash_attention import (
+    attention_block,
     attention_block_int8,
     fast_layernorm_f32,
+    layer_block,
     layer_block_int8,
+    mlp_block,
     mlp_block_int8,
+    multihead_attention,
+    prepare_layer,
     quant_dense,
     quantize_layer,
     quick_gelu,
 )
 
-# widest tower the whole-layer kernel serves; above it the JAX package takes
+# widest tower the whole-layer kernels serve; above it the JAX package takes
 # the sub-block pair on purpose (models/clip.py:268-286), and so does the port
 _LAYER_KERNEL_MAX_WIDTH = 768
 
-# routes of a layer's halves
+# routes of a layer's halves: the int8 kernels, the kernels in the compute
+# dtype, and the two unfused forms
 LAYER, KERNEL, QUANT, PLAIN = "int8_layer", "int8_block", "quant_dense", "plain"
+DENSE_LAYER, DENSE_KERNEL = "layer", "block"
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -67,25 +81,36 @@ def layer_mode(cfg: ModelConfig, width: int, causal: bool = False,
     Block.__call__ decides them (models/clip.py:266-354). `causal` marks the
     text tower, whose mask the kernels apply themselves; `masked` a vision
     sequence padded by vision_seq_pad, whose mask only the unfused
-    attention honours. Routes: LAYER (both halves in one layer_block_int8
-    call), KERNEL (attention_block_int8 / mlp_block_int8), QUANT (unfused
-    over quant_dense), PLAIN. Raises on the strategies not ported yet."""
-    for flag in ("pallas_attention", "fused_train_vjp", "fused_attention"):
-        if getattr(cfg, flag):
-            raise _unsupported(f"ModelConfig.{flag}")
-    if not cfg.int8_matmuls:
-        for flag, kernel in (("fused_layer_block", "layer_block"),
-                             ("fused_attn_block", "attention_block"),
-                             ("fused_mlp_block", "mlp_block")):
-            if getattr(cfg, flag):
-                raise _unsupported(f"{flag} without int8_matmuls ({kernel})")
-        return PLAIN, PLAIN
+    attention honours. Routes with int8_matmuls: LAYER (both halves in one
+    layer_block_int8 call), KERNEL (attention_block_int8 / mlp_block_int8),
+    QUANT (unfused over quant_dense). Without: DENSE_LAYER (layer_block),
+    DENSE_KERNEL (attention_block / mlp_block), PLAIN.
+
+    The rule, for either family: fused_layer_block takes the whole-layer
+    kernel up to width 768 where the kernel can apply the mask (none, or the
+    causal one), else the sub-block pair; a padded vision sequence keeps
+    unfused attention and takes the MLP kernel; fused_attn_block /
+    fused_mlp_block ask for one half each. The JAX package decides the same
+    way but also asks a table of shapes its TPU compiler accepted
+    (ops/shape_support.py): without int8 it admits the whole-layer kernel
+    only up to width 512, or at the (768, 50) it swept, and drops a
+    sub-block kernel at a swept shape the compiler rejected. That is a
+    question of TPU memory and lowering which this card does not pose, and
+    the routes compute the same function, so the port carries no table: it
+    parts from the JAX routing only at those shapes (e.g. layer_block at
+    width 768 with 197 tokens, where JAX takes the pair).
+
+    Raises on fused_train_vjp, whose kernel is not ported yet."""
+    if cfg.fused_train_vjp:
+        raise _unsupported("ModelConfig.fused_train_vjp (attention_block_train)")
+    layer, kernel, unfused = ((LAYER, KERNEL, QUANT) if cfg.int8_matmuls
+                              else (DENSE_LAYER, DENSE_KERNEL, PLAIN))
     mask_ok = causal or not masked
     if cfg.fused_layer_block and width <= _LAYER_KERNEL_MAX_WIDTH and mask_ok:
-        return LAYER, LAYER
+        return layer, layer
     subblocks = cfg.fused_layer_block  # too wide, or a mask the kernel lacks
-    attn = KERNEL if (cfg.fused_attn_block or subblocks) and mask_ok else QUANT
-    mlp = KERNEL if cfg.fused_mlp_block or subblocks else QUANT
+    attn = kernel if (cfg.fused_attn_block or subblocks) and mask_ok else unfused
+    mlp = kernel if cfg.fused_mlp_block or subblocks else unfused
     return attn, mlp
 
 
@@ -124,19 +149,27 @@ class Dense(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, width: int, heads: int):
+    """Unfused attention. `kernel` (ModelConfig.pallas_attention) sends an
+    input without a mask through multihead_attention; `scale_scores`
+    (ModelConfig.fused_attention) takes the order of XLA's
+    jax.nn.dot_product_attention, f32 scores scaled after the dot, where the
+    default scales q in the compute dtype first, as Flax does."""
+
+    def __init__(self, width: int, heads: int, kernel: bool = False,
+                 scale_scores: bool = False):
         super().__init__()
         self.width, self.heads = width, heads
+        self.kernel, self.scale_scores = kernel, scale_scores
         self.q_proj = Dense(width, width)
         self.k_proj = Dense(width, width)
         self.v_proj = Dense(width, width)
         self.out_proj = Dense(width, width)
 
     def forward(self, h, dt, mask: Optional[torch.Tensor], int8=None):
-        """Unfused attention on the f32 LayerNorm output `h`. With `int8`
-        (Int8AttnWeights) the projections are QuantDense: q, k, v as one
-        int8 product over the concatenated weights, which per-channel scales
-        make bitwise equal to three."""
+        """On the f32 LayerNorm output `h`. With `int8` (Int8AttnWeights) the
+        projections are QuantDense: q, k, v as one int8 product over the
+        concatenated weights, which per-channel scales make bitwise equal to
+        three."""
         b, t, _ = h.shape
         hd = self.width // self.heads
         split = lambda a: a.reshape(b, t, self.heads, hd).transpose(1, 2)
@@ -145,12 +178,19 @@ class Attention(nn.Module):
         else:
             q, k, v = quant_dense(h.contiguous(), int8.wqkv_t, int8.wqkv_s, int8.bqkv,
                                   dt).split(self.width, dim=-1)
-        q = split(q) * (hd ** -0.5)  # scaled in dt, as Flax
-        logits = q.float() @ split(k).float().transpose(-1, -2)
-        if mask is not None:
-            logits = logits + mask
-        probs = torch.softmax(logits, dim=-1).to(dt)
-        out = (probs @ split(v)).transpose(1, 2).reshape(b, t, self.width)
+        if self.kernel and mask is None:
+            out = multihead_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                      self.heads)
+        else:
+            if self.scale_scores:
+                logits = (split(q).float() @ split(k).float().transpose(-1, -2)) * (hd ** -0.5)
+            else:
+                q = split(q) * (hd ** -0.5)  # scaled in dt, as Flax
+                logits = q.float() @ split(k).float().transpose(-1, -2)
+            if mask is not None:
+                logits = logits + mask
+            probs = torch.softmax(logits, dim=-1).to(dt)
+            out = (probs @ split(v)).transpose(1, 2).reshape(b, t, self.width)
         if int8 is None:
             return self.out_proj(out, dt)
         return quant_dense(out.contiguous(), int8.wo_t, int8.wo_s, int8.bo, dt)
@@ -176,14 +216,16 @@ class Block(nn.Module):
     """Pre-LN transformer layer; `mode` is layer_mode()'s answer, the routes
     of its attention and MLP halves."""
 
-    def __init__(self, width: int, heads: int, causal: bool, mode: Tuple[str, str]):
+    def __init__(self, width: int, heads: int, causal: bool, mode: Tuple[str, str],
+                 attention_kernel: bool = False, scale_scores: bool = False):
         super().__init__()
         self.heads, self.causal, self.mode = heads, causal, mode
         self.ln1 = LayerNorm(width)
-        self.attn = Attention(width, heads)
+        self.attn = Attention(width, heads, attention_kernel, scale_scores)
         self.ln2 = LayerNorm(width)
         self.mlp = MLP(width)
         self._int8 = None
+        self._dense = {}
 
     def _layer_params(self):
         a, m = self.attn, self.mlp
@@ -203,12 +245,29 @@ class Block(nn.Module):
                 self._int8 = quantize_layer(*self._layer_params())
         return self._int8
 
-    def _load_from_state_dict(self, *args, **kwargs):
+    def dense_weights(self, dt: torch.dtype):
+        """The layer's weights cast to the compute dtype `dt` for the kernels
+        that keep it (prepare_layer), made on first use and cached like
+        int8_weights. While gradients are being recorded they are made anew
+        on every call instead, as part of the graph, so that a backward pass
+        reaches the parameters."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self._layer_params()):
+            return prepare_layer(*self._layer_params(), dtype=dt)
+        if dt not in self._dense:
+            with torch.no_grad():
+                self._dense[dt] = prepare_layer(*self._layer_params(), dtype=dt)
+        return self._dense[dt]
+
+    def _drop_caches(self):
         self._int8 = None
+        self._dense = {}
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._drop_caches()
         super()._load_from_state_dict(*args, **kwargs)
 
     def _apply(self, fn, *args, **kwargs):
-        self._int8 = None
+        self._drop_caches()
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x, dt, mask=None):
@@ -216,14 +275,22 @@ class Block(nn.Module):
         if attn == LAYER:
             return layer_block_int8(x.to(dt).contiguous(), self.int8_weights(),
                                     self.heads, self.causal)
+        if attn == DENSE_LAYER:
+            return layer_block(x.to(dt).contiguous(), self.dense_weights(dt),
+                               self.heads, self.causal)
         int8 = self.int8_weights() if QUANT in self.mode or KERNEL in self.mode else None
+        dense = self.dense_weights(dt) if DENSE_KERNEL in self.mode else None
         if attn == KERNEL:
             x = attention_block_int8(x.to(dt).contiguous(), int8.attn, self.heads,
                                      self.causal)
+        elif attn == DENSE_KERNEL:
+            x = attention_block(x.to(dt).contiguous(), dense.attn, self.heads, self.causal)
         else:
             x = x + self.attn(self.ln1(x), dt, mask, int8.attn if attn == QUANT else None)
         if mlp == KERNEL:
             return mlp_block_int8(x.to(dt).contiguous(), int8.mlp)
+        if mlp == DENSE_KERNEL:
+            return mlp_block(x.to(dt).contiguous(), dense.mlp)
         return x + self.mlp(self.ln2(x), dt, int8.mlp if mlp == QUANT else None)
 
 
@@ -259,7 +326,8 @@ class CLIPVisionTower(nn.Module):
         self.position_embedding = _param(n + 1, cfg.vision_width)
         self.pre_ln = LayerNorm(cfg.vision_width)
         self.blocks = nn.ModuleList(
-            Block(cfg.vision_width, cfg.vision_heads, False, mode)
+            Block(cfg.vision_width, cfg.vision_heads, False, mode,
+                  cfg.pallas_attention, cfg.fused_attention)
             for _ in range(cfg.vision_layers))
         self.post_ln = LayerNorm(cfg.vision_width)
         self.proj = _param(cfg.vision_width, cfg.embed_dim)
@@ -292,7 +360,8 @@ class CLIPTextTower(nn.Module):
         self.token_embedding = _param(cfg.vocab_size, cfg.text_width)
         self.position_embedding = _param(cfg.context_length, cfg.text_width)
         self.blocks = nn.ModuleList(
-            Block(cfg.text_width, cfg.text_heads, True, mode)
+            Block(cfg.text_width, cfg.text_heads, True, mode,
+                  cfg.pallas_attention, cfg.fused_attention)
             for _ in range(cfg.text_layers))
         self.final_ln = LayerNorm(cfg.text_width)
         self.proj = _param(cfg.text_width, cfg.embed_dim)

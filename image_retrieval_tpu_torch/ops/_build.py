@@ -27,9 +27,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu",
-           "quant_dense.cu", "int4_screen.cu", "fused_metrics.cu")
-HEADERS = ("int8_common.cuh", "layer_block_int8.cuh", "attention_block_int8.cuh",
-           "mlp_block_int8.cuh", "quant_dense.cuh", "int4_screen.cuh", "fused_metrics.cuh")
+           "quant_dense.cu", "int4_screen.cu", "fused_metrics.cu", "layer_block.cu",
+           "attention_block.cu", "mlp_block.cu", "multihead_attention.cu")
+HEADERS = ("block_common.cuh", "int8_common.cuh", "layer_block_int8.cuh",
+           "attention_block_int8.cuh", "mlp_block_int8.cuh", "quant_dense.cuh",
+           "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -129,6 +131,22 @@ def load_library() -> ctypes.CDLL:
             lib.irt_quant_dense_workspace_bytes.restype = ctypes.c_size_t
             lib.irt_quant_dense.argtypes = [p] * 6 + [i] * 5 + [p]
             lib.irt_quant_dense.restype = i
+            lib.irt_layer_block_workspace_bytes.argtypes = [i, i, i, i]
+            lib.irt_layer_block_workspace_bytes.restype = ctypes.c_size_t
+            lib.irt_layer_block.argtypes = (
+                [p] * 2 + [p] * 12 + [p] + [i] * 7 + [ctypes.c_float, p])
+            lib.irt_layer_block.restype = i
+            lib.irt_attention_block_workspace_bytes.argtypes = [i, i, i]
+            lib.irt_attention_block_workspace_bytes.restype = ctypes.c_size_t
+            lib.irt_attention_block.argtypes = (
+                [p] * 2 + [p] * 6 + [p] + [i] * 6 + [ctypes.c_float, p])
+            lib.irt_attention_block.restype = i
+            lib.irt_mlp_block_workspace_bytes.argtypes = [i, i, i, i]
+            lib.irt_mlp_block_workspace_bytes.restype = ctypes.c_size_t
+            lib.irt_mlp_block.argtypes = [p] * 2 + [p] * 6 + [p] + [i] * 4 + [p]
+            lib.irt_mlp_block.restype = i
+            lib.irt_multihead_attention.argtypes = [p] * 4 + [i] * 5 + [ctypes.c_float, p]
+            lib.irt_multihead_attention.restype = i
             lib.irt_int4_screen_scores.argtypes = [p] * 5 + [i, i, ctypes.c_longlong, i, p]
             lib.irt_int4_screen_scores.restype = i
             f = ctypes.c_float

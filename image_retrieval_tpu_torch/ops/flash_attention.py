@@ -1,11 +1,12 @@
-"""The int8 serving kernels and their plain PyTorch versions.
+"""The transformer-layer kernels and their plain PyTorch versions.
 
-Port of the serving family of ``image_retrieval_tpu/ops/flash_attention.py``:
-``_fast_layernorm_f32`` (l.199), ``_quantize_weight`` (l.532),
-``_rowquant`` (l.539), ``layer_block_int8`` (l.879, TPU kernel
-``_layer_block_int8_kernel`` l.772) and its two halves
+Port of ``image_retrieval_tpu/ops/flash_attention.py``. Two families:
+
+**The int8 serving family**: ``_fast_layernorm_f32`` (l.199),
+``_quantize_weight`` (l.532), ``_rowquant`` (l.539), ``layer_block_int8``
+(l.879, TPU kernel ``_layer_block_int8_kernel`` l.772) and its two halves
 ``attention_block_int8`` (l.643, ``_attn_block_int8_kernel`` l.554) and
-``mlp_block_int8`` (l.745, ``_mlp_block_int8_kernel`` l.671); and of
+``mlp_block_int8`` (l.745, ``_mlp_block_int8_kernel`` l.671); and
 ``QuantDense`` / ``_quant_matmul`` (``models/clip.py`` l.37-110). One whole
 pre-LN transformer layer is:
 
@@ -19,16 +20,39 @@ pre-LN transformer layer is:
 ``attention_block_int8`` returns x1, ``mlp_block_int8`` takes it to out, and
 ``layer_block_int8`` does both; x1 passes in the compute dtype either way,
 so the plain versions of the halves compose to the plain whole layer bit
-for bit. ``quant_dense`` is one such projection on its own.
+for bit. ``quant_dense`` is one such projection on its own. Weights are
+quantized once per layer (``quantize_layer``) from the f32 parameters,
+bitwise as the JAX package's ``_quantize_weight`` does. There is no backward
+(serving only).
+
+**The family in the compute dtype** (bf16 or f32, nothing quantized):
+``layer_block`` (l.1003, TPU kernel ``_layer_block_kernel`` l.931), its halves
+``attention_block`` (l.396, ``_attn_block_kernel`` l.346) and ``mlp_block``
+(l.502, ``_mlp_block_kernel`` l.457), and the bare ``multihead_attention``
+(l.171, ``_attn_kernel`` l.87). With dt the dtype of x:
+
+    h   = dt(LN1_f32(x))
+    qkv = dt(f32 sum(h, dt(Wqkv)) + b)              three casts of f32 sums
+    a   = per-image MHA(q, k, v): f32 scores scaled after the dot, f32
+          softmax, probabilities cast to dt, PV summed in f32, cast to dt
+    x1  = x + dt(f32 sum(a, dt(Wo)) + b)            the add in dt
+    g   = dt(quick_gelu(f32 sum(dt(LN2_f32(x1)), dt(W1)) + b))   gelu in f32
+    out = x1 + dt(f32 sum(g, dt(W2)) + b)
+
+``attention_block`` returns x1, ``mlp_block`` takes it to out, ``layer_block``
+does both, and again the plain halves compose to the plain layer bit for
+bit. Weights are cast to the compute dtype once per layer
+(``prepare_layer``), where the JAX entries cast them on every call. Each of
+the four is differentiable: on a CUDA tensor the forward is the kernel and
+the backward differentiates the plain version on the saved inputs (the JAX
+entries' custom VJPs recompute through their XLA mirrors the same way); on a
+CPU tensor autograd runs through the plain version.
 
 Each wrapper launches its hand-written Hopper kernel chain (csrc/) for a
 CUDA tensor and runs its ``*_reference`` for a CPU tensor; none falls back
-from the card to the plain version. There is no backward yet (serving only).
-
-Weights are quantized once per layer (``quantize_layer``) from the f32
-parameters, bitwise as the JAX package's ``_quantize_weight`` does, and kept
-output-major ((N, K), K contiguous) because that is the operand layout of the
-kernel's int8 ``mma.sync``.
+from the card to the plain version. Weight matrices are kept output-major
+((N, K), K contiguous) because that is the operand layout of the kernels'
+``mma.sync``.
 """
 
 from __future__ import annotations
@@ -209,13 +233,17 @@ def _int8_proj(hq, hs, w_t, ws, b, dt):
     return (acc.to(torch.float32) * hs * ws + b).to(dt)
 
 
-def _attention_reference(qkv, b, t, w, heads, causal, dt):
-    """Per-(image, head) attention as the TPU kernel computes it
-    (_inkernel_attention, flash_attention.py:258): QK^T in f32, scaled after
-    the dot, f32 softmax, probabilities cast to the compute type, PV
-    accumulated in f32."""
-    hd = w // heads
-    q, k, v = qkv.reshape(b, t, 3, heads, hd).permute(2, 0, 3, 1, 4).float()
+def multihead_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  heads: int, causal: bool = False) -> torch.Tensor:
+    """Per-(image, head) attention on (B, T, W) q, k, v as the TPU kernels
+    compute it (_attn_kernel, flash_attention.py:87; _inkernel_attention,
+    :258): QK^T in f32, scaled after the dot, f32 softmax, probabilities cast
+    to the compute type, PV accumulated in f32 and cast. The plain version of
+    multihead_attention (which has no mask; `causal` serves the layer
+    kernels' attention step)."""
+    b, t, w = q.shape
+    hd, dt = w // heads, q.dtype
+    q, k, v = (a.reshape(b, t, heads, hd).permute(0, 2, 1, 3).float() for a in (q, k, v))
     s = torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5)
     if causal:
         s = s + torch.triu(
@@ -224,7 +252,13 @@ def _attention_reference(qkv, b, t, w, heads, causal, dt):
     p = torch.exp(s)
     p = (p / p.sum(-1, keepdim=True)).to(dt)
     o = torch.matmul(p.float(), v).to(dt)
-    return o.permute(0, 2, 1, 3).reshape(b * t, w)
+    return o.permute(0, 2, 1, 3).reshape(b, t, w)
+
+
+def _attention_reference(qkv, b, t, w, heads, causal, dt):
+    """The same on packed (B * T, 3 W) [q | k | v] rows -> (B * T, W)."""
+    q, k, v = qkv.reshape(b, t, 3, w).unbind(2)
+    return multihead_attention_reference(q, k, v, heads, causal).reshape(b * t, w)
 
 
 def attention_block_int8_reference(x: torch.Tensor, weights: Int8AttnWeights,
@@ -595,3 +629,406 @@ def tiled_attention(qkv: torch.Tensor, batch: int, heads: int,
 
 
 tiled_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The family in the compute dtype: layer_block, attention_block, mlp_block,
+# multihead_attention
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerWeights:
+    """One layer's parameters in the form of the kernels that keep their
+    projections in the compute dtype. Matrices are in that dtype,
+    output-major (N, K); biases and LayerNorm parameters f32."""
+
+    ln1_s: torch.Tensor
+    ln1_b: torch.Tensor
+    wqkv_t: torch.Tensor  # (3W, W): [q | k | v] output channels
+    bqkv: torch.Tensor
+    wo_t: torch.Tensor  # (W, W)
+    bo: torch.Tensor
+    ln2_s: torch.Tensor
+    ln2_b: torch.Tensor
+    w1_t: torch.Tensor  # (4W, W)
+    b1: torch.Tensor
+    w2_t: torch.Tensor  # (W, 4W)
+    b2: torch.Tensor
+
+    @property
+    def width(self) -> int:
+        return self.wo_t.shape[0]
+
+    @property
+    def hidden(self) -> int:
+        return self.w1_t.shape[0]
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    @property
+    def attn(self) -> "AttnWeights":
+        return AttnWeights(self.ln1_s, self.ln1_b, self.wqkv_t, self.bqkv, self.wo_t, self.bo)
+
+    @property
+    def mlp(self) -> "MlpWeights":
+        return MlpWeights(self.ln2_s, self.ln2_b, self.w1_t, self.b1, self.w2_t, self.b2)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnWeights:
+    """The attention half of LayerWeights (the same tensors)."""
+
+    ln_s: torch.Tensor
+    ln_b: torch.Tensor
+    wqkv_t: torch.Tensor  # (3W, W): [q | k | v] output channels
+    bqkv: torch.Tensor
+    wo_t: torch.Tensor  # (W, W)
+    bo: torch.Tensor
+
+    @property
+    def width(self) -> int:
+        return self.wo_t.shape[0]
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpWeights:
+    """The MLP half of LayerWeights (the same tensors)."""
+
+    ln_s: torch.Tensor
+    ln_b: torch.Tensor
+    w1_t: torch.Tensor  # (4W, W)
+    b1: torch.Tensor
+    w2_t: torch.Tensor  # (W, 4W)
+    b2: torch.Tensor
+
+    @property
+    def width(self) -> int:
+        return self.w2_t.shape[0]
+
+    @property
+    def hidden(self) -> int:
+        return self.w1_t.shape[0]
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+
+def prepare_layer(ln1_s, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_s, ln2_b,
+                  w1, b1, w2, b2, dtype: torch.dtype) -> LayerWeights:
+    """Layer parameters (JAX (in, out) kernel layout) -> LayerWeights in the
+    compute `dtype`: the casts the JAX entries make on every call
+    (wq.astype(dt), flash_attention.py:389-391, :497, :995-998), made once.
+    Every step is differentiable, so gradients taken through the four
+    wrappers reach the parameters given here."""
+    m = lambda w: w.to(dtype).t().contiguous()
+    v = lambda a: a.to(torch.float32).reshape(-1).contiguous()
+    return LayerWeights(
+        v(ln1_s), v(ln1_b), m(torch.cat([wq, wk, wv], dim=1)),
+        torch.cat([v(bq), v(bk), v(bv)]), m(wo), v(bo),
+        v(ln2_s), v(ln2_b), m(w1), v(b1), m(w2), v(b2))
+
+
+def _dense_proj(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.dot(h, w, preferred_element_type=f32) + b on operands already in
+    the compute type: exact products summed in f32, the bias added in f32."""
+    return h.float() @ w_t.float().t() + b
+
+
+def _check_compute_dtype(fn: str, x: torch.Tensor, *mats: torch.Tensor) -> None:
+    for m in mats:
+        if m.dtype != x.dtype:
+            raise ValueError(f"{fn}: weights are {m.dtype} but x is {x.dtype}; "
+                             "prepare_layer casts them to the compute dtype")
+
+
+def attention_block_reference(x: torch.Tensor, weights: AttnWeights, heads: int,
+                              causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the attention sub-block, on x's device. Every
+    product is a full f32 product of values in the compute dtype, so on a
+    CUDA tensor it raises if the caller has turned TF32 on."""
+    require_full_f32(x.device)
+    wt = weights
+    _check_compute_dtype("attention_block", x, wt.wqkv_t, wt.wo_t)
+    b, t, w = x.shape
+    dt = x.dtype
+    xb = x.reshape(b * t, w)
+    h = fast_layernorm_f32(xb.float(), wt.ln_s, wt.ln_b).to(dt)
+    qkv = _dense_proj(h, wt.wqkv_t, wt.bqkv).to(dt)  # three casts of f32 sums with their bias
+    attn = _attention_reference(qkv, b, t, w, heads, causal, dt)
+    # the projection is cast to the compute type BEFORE the residual add
+    return (xb + _dense_proj(attn, wt.wo_t, wt.bo).to(dt)).reshape(b, t, w)
+
+
+def mlp_block_reference(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
+    """Plain PyTorch version of the MLP sub-block, on x's device (full f32
+    products, as attention_block_reference)."""
+    require_full_f32(x.device)
+    wt = weights
+    _check_compute_dtype("mlp_block", x, wt.w1_t, wt.w2_t)
+    b, t, w = x.shape
+    dt = x.dtype
+    xb = x.reshape(b * t, w)
+    h = fast_layernorm_f32(xb.float(), wt.ln_s, wt.ln_b).to(dt)
+    # fc1 stays f32 through quick_gelu and is cast only after it
+    a = quick_gelu(_dense_proj(h, wt.w1_t, wt.b1)).to(dt)
+    return (xb + _dense_proj(a, wt.w2_t, wt.b2).to(dt)).reshape(b, t, w)
+
+
+def layer_block_reference(x: torch.Tensor, weights: LayerWeights, heads: int,
+                          causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the whole layer: the two halves, with the
+    mid-layer activation in the compute dtype as in the kernel."""
+    x1 = attention_block_reference(x, weights.attn, heads, causal)
+    return mlp_block_reference(x1, weights.mlp)
+
+
+# Kernel and plain version make the same casts in the same places and differ
+# only by the order of their f32 sums (LayerNorm moments, the K loops of the
+# products, QK^T, PV, the softmax's sum) and by expf / rsqrt against
+# PyTorch's. In f32 that is rounding noise on the layer's update (out - x).
+# In bf16 a sum that lands on the other side of a bf16 rounding boundary
+# moves one value to its neighbour, which perturbs everything computed from
+# it, so the share of outputs that differ (each by one bf16 step) grows with
+# the number of casts chained in front of the output: two in the MLP half,
+# four in the attention half, seven in the whole layer. Readings on an
+# NVIDIA H100 80GB HBM3 (700 W; `chip_smoke.py --dense-readings`: 144 cases:
+# 3 seeds, both ViT-B/32 tower shapes, the ViT-L/14 vision shape and a ragged
+# one, weights at CLIP-like and 3x larger scales, bf16 and f32): f32 max abs
+# error <= 4.2e-6 x max|out - x|; bf16 max abs error 1 bf16 step of
+# max|out|, differing outputs <= 1.0 % (MLP), 3.1 % (attention), 27.9 %
+# (layer), per-token cosine of the update >= 0.99982. The limits sit 1.6-5x
+# beyond. Wrong layers computed on the same card: a dropped bias add (|b| ~
+# 0.02) moves 67-97 % of the bf16 outputs and errs by 200-1000x the f32
+# limit; fc1 cast to bf16 before quick_gelu moves 18-42 % of the MLP half's
+# outputs. That last mistake is caught at the MLP half (6x its limit) but
+# not at the whole layer, whose own roundings move as many: the layer kernel
+# is therefore also held bit for bit against the two half kernels in turn,
+# which run the same device code.
+DENSE_F32_MAX_ABS_REL = 2e-5  # x max|want - x|
+DENSE_BF16_ULPS = 2  # bf16 steps at max|want|
+DENSE_BF16_DIFF_SHARE = {"mlp": 0.03, "attn": 0.08, "layer": 0.45}
+DENSE_MIN_UPDATE_COS = 0.9995
+
+
+def dense_agreement(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor,
+                    kind: str) -> dict:
+    """Hold a compute-dtype kernel's output `got` against the plain
+    version's `want` on the same input `x` (B, T, W); `kind` says which part
+    of a layer they compute ("layer", "attn" or "mlp"). Returns the
+    readings, the max-abs limit for x's dtype, and `ok`."""
+    got, want, xf = got.double(), want.double(), x.double()
+    err = (got - want).abs()
+    du = (got - xf).reshape(-1, x.shape[-1])
+    dw = (want - xf).reshape(-1, x.shape[-1])
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        top = max(float(want.abs().max()), 1e-30)
+        limit = DENSE_BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    else:
+        limit = DENSE_F32_MAX_ABS_REL * float(dw.abs().max())
+    cos = (du * dw).sum(-1) / (du.norm(dim=-1) * dw.norm(dim=-1)).clamp_min(1e-300)
+    r = {"max_abs_err": float(err.max()), "max_abs_limit": limit,
+         "diff_share": float((err > 0).double().mean()),
+         "min_update_cos": float(cos.min())}
+    r["ok"] = (bool(torch.isfinite(got).all()) and r["max_abs_err"] <= limit
+               and (not bf16 or r["diff_share"] <= DENSE_BF16_DIFF_SHARE[kind])
+               and r["min_update_cos"] >= DENSE_MIN_UPDATE_COS)
+    return r
+
+
+class _KernelFunction(torch.autograd.Function):
+    """A kernel forward with the plain version's backward: `launch(*tensors)`
+    runs the kernel; the backward differentiates `plain(*tensors)` on the
+    saved inputs (the JAX entries' custom VJPs recompute through their XLA
+    mirrors in the same way: there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*ins)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, needs) if n], grad, allow_unused=True))
+        return (None, None, *(next(grads) if n else None for n in needs))
+
+
+def _check_dense_weights(fn: str, x: torch.Tensor, wt, shapes) -> None:
+    for name, shape in shapes:
+        dtype = x.dtype if name.endswith("_t") else torch.float32
+        _check_tensor(fn, name, getattr(wt, name), shape, dtype, x.device)
+
+
+def _attn_shapes(w: int):
+    return (("ln_s", (w,)), ("ln_b", (w,)), ("wqkv_t", (3 * w, w)), ("bqkv", (3 * w,)),
+            ("wo_t", (w, w)), ("bo", (w,)))
+
+
+def _mlp_shapes(w: int, hidden: int):
+    return (("ln_s", (w,)), ("ln_b", (w,)), ("w1_t", (hidden, w)), ("b1", (hidden,)),
+            ("w2_t", (w, hidden)), ("b2", (w,)))
+
+
+def _layer_block_cuda(x, weights, heads, causal):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "layer_block"
+    _check_x(fn, x)
+    b, t, w = x.shape
+    hidden = weights.hidden
+    _check_dense_weights(fn, x, weights.attn, _attn_shapes(w))
+    _check_dense_weights(fn, x, weights.mlp, _mlp_shapes(w, hidden))
+    _check_gemm_dims(fn, w, hidden)
+    lib = load_library()
+    hd = _check_attention_shape(fn, lib, t, w, heads)
+    out = torch.empty_like(x)
+    ws = _workspace(lib.irt_layer_block_workspace_bytes(b * t, w, hidden, x.element_size()),
+                    x.device)
+    _run(layer_block, lib, x.device, lambda stream: lib.irt_layer_block(
+        x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
+        ws.data_ptr(), b, t, w, hidden, heads, int(bool(causal)), _DTYPE_CODES[x.dtype],
+        ctypes.c_float(hd ** -0.5), stream))
+    return out
+
+
+def layer_block(x: torch.Tensor, weights: LayerWeights, heads: int,
+                causal: bool = False) -> torch.Tensor:
+    """Whole transformer layer in the compute dtype on (B, T, W) x.
+
+    A CUDA tensor goes through the Hopper kernel chain (or this raises), with
+    the plain version's backward; a CPU tensor takes the plain version.
+    ``layer_block.launches`` counts kernel launches."""
+    if x.device.type == "cuda":
+        return _KernelFunction.apply(
+            lambda x, *ts: _layer_block_cuda(x, LayerWeights(*ts), heads, causal),
+            lambda x, *ts: layer_block_reference(x, LayerWeights(*ts), heads, causal),
+            x, *weights.tensors())
+    if x.device.type == "cpu":
+        return layer_block_reference(x, weights, heads, causal)
+    raise ValueError(f"layer_block: unsupported device {x.device}")
+
+
+layer_block.launches = 0
+
+
+def _attention_block_cuda(x, weights, heads, causal):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "attention_block"
+    _check_x(fn, x)
+    b, t, w = x.shape
+    _check_dense_weights(fn, x, weights, _attn_shapes(w))
+    _check_gemm_dims(fn, w)
+    lib = load_library()
+    hd = _check_attention_shape(fn, lib, t, w, heads)
+    out = torch.empty_like(x)
+    ws = _workspace(lib.irt_attention_block_workspace_bytes(b * t, w, x.element_size()),
+                    x.device)
+    _run(attention_block, lib, x.device, lambda stream: lib.irt_attention_block(
+        x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
+        ws.data_ptr(), b, t, w, heads, int(bool(causal)), _DTYPE_CODES[x.dtype],
+        ctypes.c_float(hd ** -0.5), stream))
+    return out
+
+
+def attention_block(x: torch.Tensor, weights: AttnWeights, heads: int,
+                    causal: bool = False) -> torch.Tensor:
+    """The attention sub-block in the compute dtype, x + out_proj(MHA(LN1(x))),
+    on (B, T, W) x. CUDA: the Hopper kernel chain (or this raises), with the
+    plain version's backward; CPU: the plain version.
+    ``attention_block.launches`` counts kernel launches."""
+    if x.device.type == "cuda":
+        return _KernelFunction.apply(
+            lambda x, *ts: _attention_block_cuda(x, AttnWeights(*ts), heads, causal),
+            lambda x, *ts: attention_block_reference(x, AttnWeights(*ts), heads, causal),
+            x, *weights.tensors())
+    if x.device.type == "cpu":
+        return attention_block_reference(x, weights, heads, causal)
+    raise ValueError(f"attention_block: unsupported device {x.device}")
+
+
+attention_block.launches = 0
+
+
+def _mlp_block_cuda(x, weights):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "mlp_block"
+    _check_x(fn, x)
+    b, t, w = x.shape
+    hidden = weights.hidden
+    _check_dense_weights(fn, x, weights, _mlp_shapes(w, hidden))
+    _check_gemm_dims(fn, w, hidden)
+    lib = load_library()
+    out = torch.empty_like(x)
+    ws = _workspace(lib.irt_mlp_block_workspace_bytes(b * t, w, hidden, x.element_size()),
+                    x.device)
+    _run(mlp_block, lib, x.device, lambda stream: lib.irt_mlp_block(
+        x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
+        ws.data_ptr(), b * t, w, hidden, _DTYPE_CODES[x.dtype], stream))
+    return out
+
+
+def mlp_block(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
+    """The MLP sub-block in the compute dtype, x + fc2(quick_gelu(fc1(LN2(x)))),
+    on (B, T, W) x. CUDA: the Hopper kernel chain (or this raises), with the
+    plain version's backward; CPU: the plain version. ``mlp_block.launches``
+    counts kernel launches."""
+    if x.device.type == "cuda":
+        return _KernelFunction.apply(
+            lambda x, *ts: _mlp_block_cuda(x, MlpWeights(*ts)),
+            lambda x, *ts: mlp_block_reference(x, MlpWeights(*ts)),
+            x, *weights.tensors())
+    if x.device.type == "cpu":
+        return mlp_block_reference(x, weights)
+    raise ValueError(f"mlp_block: unsupported device {x.device}")
+
+
+mlp_block.launches = 0
+
+
+def _multihead_attention_cuda(q, k, v, heads):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "multihead_attention"
+    _check_x(fn, q)
+    for name, a in (("k", k), ("v", v)):
+        _check_tensor(fn, name, a, q.shape, q.dtype, q.device)
+    b, t, w = q.shape
+    lib = load_library()
+    hd = _check_attention_shape(fn, lib, t, w, heads)
+    out = torch.empty_like(q)
+    _run(multihead_attention, lib, q.device, lambda stream: lib.irt_multihead_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, w, heads,
+        _DTYPE_CODES[q.dtype], ctypes.c_float(hd ** -0.5), stream))
+    return out
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        heads: int) -> torch.Tensor:
+    """Self-attention per image on (B, T, W) q, k, v in the compute dtype, no
+    mask. CUDA: the tiled attention kernel on contiguous tensors (or this
+    raises), with the plain version's backward; CPU: the plain version.
+    ``multihead_attention.launches`` counts kernel launches."""
+    if q.device.type == "cuda":
+        return _KernelFunction.apply(
+            lambda q, k, v: _multihead_attention_cuda(q, k, v, heads),
+            lambda q, k, v: multihead_attention_reference(q, k, v, heads),
+            q, k, v)
+    if q.device.type == "cpu":
+        return multihead_attention_reference(q, k, v, heads)
+    raise ValueError(f"multihead_attention: unsupported device {q.device}")
+
+
+multihead_attention.launches = 0

@@ -505,3 +505,223 @@ def test_index_metrics_cuda_match_cpu(cuda, dtype):
                                rtol=1e-5, atol=1e-5)
     assert fm.fused_all_metrics.launches == k6 + 2
     assert fm.fused_optimized_scores_int8_pallas.launches == k5 + (2 if dtype == "int8" else 0)
+
+
+# ---------------------------------------------------------------------------
+# The kernels in the compute dtype: layer_block, attention_block, mlp_block,
+# multihead_attention
+# ---------------------------------------------------------------------------
+
+
+def _dense_weights(rng, w, device, dtype, scale=1.0):
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    hidden = 4 * w
+    params = [
+        1 + 0.1 * f(w), 0.1 * f(w),
+        scale * f(w, w) / math.sqrt(w), 0.02 * f(w), scale * f(w, w) / math.sqrt(w), 0.02 * f(w),
+        scale * f(w, w) / math.sqrt(w), 0.02 * f(w), scale * f(w, w) / math.sqrt(w), 0.02 * f(w),
+        1 + 0.1 * f(w), 0.1 * f(w),
+        scale * f(w, hidden) / math.sqrt(w), 0.02 * f(hidden),
+        scale * f(hidden, w) / math.sqrt(hidden), 0.02 * f(w),
+    ]
+    return fa.prepare_layer(*[p.to(device) for p in params], dtype=getattr(torch, dtype))
+
+
+def _dense_entries():
+    """name -> (wrapper, kernel call, plain call, part of a layer) on (x,
+    whole-layer weights, heads, causal)."""
+    return {
+        "layer_block": (
+            fa.layer_block, lambda x, w, h, c: fa.layer_block(x, w, h, c),
+            lambda x, w, h, c: fa.layer_block_reference(x, w, h, c), "layer"),
+        "attention_block": (
+            fa.attention_block, lambda x, w, h, c: fa.attention_block(x, w.attn, h, c),
+            lambda x, w, h, c: fa.attention_block_reference(x, w.attn, h, c), "attn"),
+        "mlp_block": (
+            fa.mlp_block, lambda x, w, h, c: fa.mlp_block(x, w.mlp),
+            lambda x, w, h, c: fa.mlp_block_reference(x, w.mlp), "mlp"),
+    }
+
+
+DENSE_SHAPES = [
+    (8, 50, 768, 12, False),   # ViT-B/32 vision layer
+    (8, 77, 512, 8, True),     # ViT-B/32 text layer
+    (4, 197, 768, 12, False),  # ViT-B/16 vision layer
+    (4, 257, 1024, 16, False),  # ViT-L/14 vision layer
+    (3, 13, 128, 2, True),     # ragged token rows (M % 64 != 0)
+    (1, 1, 64, 2, False),      # one token
+]
+
+
+@pytest.mark.parametrize("b,t,w,heads,causal", DENSE_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("entry", ["layer_block", "attention_block", "mlp_block"])
+def test_dense_kernel_matches_plain(cuda, entry, b, t, w, heads, causal, dtype):
+    wrapper, kernel, plain, kind = _dense_entries()[entry]
+    rng = np.random.default_rng(t * w + b)
+    wts = _dense_weights(rng, w, cuda, dtype)
+    x = _x(rng, (b, t, w), cuda, dtype)
+    before = wrapper.launches
+    got = kernel(x, wts, heads, causal)
+    want = plain(x, wts, heads, causal)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    r = fa.dense_agreement(got, want, x, kind)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("scale", [1.0, 3.0])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dense_layer_kernel_matches_plain_over_seeds(cuda, seed, scale, dtype):
+    """More seeds and larger weights at the ViT-B/32 vision shape: the limits
+    of dense_agreement hold beyond the cases they were read from."""
+    rng = np.random.default_rng(100 + seed)
+    wts = _dense_weights(rng, 768, cuda, dtype, scale)
+    x = _x(rng, (8, 50, 768), cuda, dtype)
+    got = fa.layer_block(x, wts, 12)
+    r = fa.dense_agreement(got, fa.layer_block_reference(x, wts, 12), x, "layer")
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dense_subblocks_compose_to_the_layer_kernel(cuda, dtype, causal):
+    """attention_block then mlp_block run the same launches as layer_block
+    on the same values: bitwise."""
+    rng = np.random.default_rng(12)
+    wts = _dense_weights(rng, 768, cuda, dtype)
+    x = _x(rng, (3, 50, 768), cuda, dtype)
+    two = fa.mlp_block(fa.attention_block(x, wts.attn, 12, causal), wts.mlp)
+    one = fa.layer_block(x, wts, 12, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(two, one)
+
+
+@pytest.mark.parametrize("t", [1, 50, 197, 257])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_multihead_attention_kernel_matches_plain(cuda, t, hd, b, dtype):
+    """The tiled attention on separate q, k, v: same order of operations per
+    row on both sides; the bounds of test_tiled_attention_matches_plain."""
+    rng = np.random.default_rng(t * hd + b)
+    heads = 4
+    q, k, v = (_x(rng, (b, t, heads * hd), cuda, dtype) for _ in range(3))
+    before = fa.multihead_attention.launches
+    got = fa.multihead_attention(q, k, v, heads)
+    want = fa.multihead_attention_reference(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert fa.multihead_attention.launches == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    top = float(want.float().abs().max())
+    atol = 2 * top * 2.0 ** -8 if dtype == "bfloat16" else 1e-5
+    assert float((got.float() - want.float()).abs().max()) <= atol
+    # the packed entry of the int8 family is the same device function
+    packed = fa.tiled_attention(torch.cat([q, k, v], -1).reshape(b * t, -1), b, heads)
+    assert torch.equal(packed.reshape(b, t, -1), got)
+
+
+@pytest.mark.parametrize("entry", ["layer_block", "attention_block", "mlp_block"])
+def test_dense_kernel_gradients_are_the_plain_versions(cuda, entry):
+    """On the card the forward is the kernel and the backward differentiates
+    the plain version on the saved inputs: the gradients equal autograd
+    through the plain version (same operations on the same inputs), and the
+    backward launches nothing."""
+    wrapper, kernel, plain, _ = _dense_entries()[entry]
+    rng = np.random.default_rng(13)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+    w = 128
+    shapes = [(w,), (w,), (w, w), (w,), (w, w), (w,), (w, w), (w,), (w, w), (w,),
+              (w,), (w,), (w, 4 * w), (4 * w,), (4 * w, w), (w,)]
+    x = f(2, 9, w)
+    g = f(2, 9, w)
+    grads = []
+    for run in (kernel, plain):
+        rng = np.random.default_rng(15)  # the same parameters for both runs
+        params = [(0.05 * f(*s) + (1.0 if i in (0, 10) else 0.0)).requires_grad_(True)
+                  for i, s in enumerate(shapes)]
+        xr = x.clone().requires_grad_(True)
+        out = run(xr, fa.prepare_layer(*params, dtype=torch.float32), 2, True)
+        before = wrapper.launches
+        (out * g).sum().backward()
+        assert wrapper.launches == before
+        grads.append([xr.grad] + [p.grad for p in params])
+    for a, b in zip(*grads):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_multihead_attention_kernel_gradient(cuda):
+    rng = np.random.default_rng(14)
+    qkv = [_x(rng, (2, 9, 128), cuda, "float32") for _ in range(3)]
+    g = _x(rng, (2, 9, 128), cuda, "float32")
+    grads = []
+    for run in (fa.multihead_attention, fa.multihead_attention_reference):
+        ins = [a.clone().requires_grad_(True) for a in qkv]
+        (run(*ins, 2) * g).sum().backward()
+        grads.append([a.grad for a in ins])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_dense_wrappers_reject_bad_input(cuda):
+    wts = _dense_weights(np.random.default_rng(2), 128, cuda, "float32")
+    x = torch.zeros(2, 6, 128, device=cuda)
+    for fn, args in ((fa.layer_block, (wts, 2)), (fa.attention_block, (wts.attn, 2)),
+                     (fa.mlp_block, (wts.mlp,))):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.transpose(0, 1), *args)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            fn(x.half(), *args)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(torch.zeros(2 * 6 * 128 + 1, device=cuda)[1:].reshape(2, 6, 128), *args)
+        with pytest.raises(ValueError, match="expected"):  # f32 weights, bf16 x
+            fn(x.to(torch.bfloat16), *args)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.attention_block(x, wts.attn, 64)  # head_dim 2
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.multihead_attention(*(torch.zeros(1, 600, 64, device=cuda),) * 3, 1)
+    with pytest.raises(ValueError, match="expected"):
+        fa.multihead_attention(x, x[:, :3].contiguous(), x, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.multihead_attention(x, x, x.transpose(0, 1).contiguous().transpose(0, 1), 2)
+    narrow = _dense_weights(np.random.default_rng(1), 96, cuda, "float32")
+    with pytest.raises(ValueError, match="divisible by 64"):
+        fa.layer_block(torch.zeros(2, 5, 96, device=cuda), narrow, 3)
+    bad = dataclasses.replace(wts.mlp, w1_t=wts.mlp.w1_t.cpu())
+    with pytest.raises(ValueError, match="must be contiguous on"):
+        fa.mlp_block(x, bad)
+
+
+@pytest.mark.parametrize("flags,expected", [
+    (dict(fused_layer_block=True), dict(layer_block=4)),
+    (dict(fused_attn_block=True, fused_mlp_block=True), dict(attention_block=4, mlp_block=4)),
+    (dict(pallas_attention=True), dict(multihead_attention=2)),
+    (dict(pallas_attention=True, int8_matmuls=True), dict(multihead_attention=2)),
+])
+def test_dense_towers_cuda_vs_cpu(cuda, flags, expected):
+    """The towers under the flags that select the compute-dtype kernels, on
+    the card through the kernels and on the CPU through the plain versions."""
+    from image_retrieval_tpu_torch.config import Config, ModelConfig
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+    from image_retrieval_tpu_torch.models.tokenizer import get_tokenizer
+
+    cfg = Config(model=ModelConfig(
+        image_size=64, patch_size=32, vision_width=128, vision_layers=2,
+        vision_heads=2, text_width=64, text_layers=2, text_heads=1,
+        vocab_size=get_tokenizer().vocab_size, context_length=16, embed_dim=32,
+        dtype="bfloat16", **flags))
+    gpu_enc = CLIPEncoder(cfg, seed=4, device=cuda)
+    cpu_enc = CLIPEncoder(cfg, seed=4, device="cpu")
+    px = np.random.default_rng(2).integers(0, 256, size=(5, 64, 64, 3), dtype=np.uint8)
+    texts = ["a red car", "two dogs", "an empty street at night"]
+    names = ("layer_block", "attention_block", "mlp_block", "multihead_attention")
+    before = {n: getattr(fa, n).launches for n in names}
+    got_i, got_t = gpu_enc.encode_pixels(px), gpu_enc.encode_texts(texts)
+    took = {n: getattr(fa, n).launches - before[n] for n in names}
+    assert took == {n: expected.get(n, 0) for n in names}
+    for got, want in ((got_i, cpu_enc.encode_pixels(px)), (got_t, cpu_enc.encode_texts(texts))):
+        cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+        assert cos.min() >= 0.999

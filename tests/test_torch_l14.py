@@ -247,13 +247,6 @@ def test_preset_routes_shapes_and_encode(arch):
     assert np.abs(img[0] - img[1]).max() > 0
 
 
-@pytest.mark.parametrize("flag", ["fused_layer_block", "fused_attn_block", "fused_mlp_block"])
-def test_bf16_kernel_flags_raise_without_int8(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        layer_mode(ModelConfig(**SMALL, **{flag: True}), 48)
-    assert layer_mode(ModelConfig(**SMALL, **{flag: True}, int8_matmuls=True), 48)
-
-
 def test_entry_points_default_to_the_card():
     """No device= means the card; without one the entry point raises
     instead of running on the CPU."""
