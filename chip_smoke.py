@@ -9,7 +9,7 @@
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
      port's kernels compiled from image_retrieval_tpu_torch/csrc with nvcc
-     for sm_90a (one nvcc per source, ten in parallel).
+     for sm_90a (one nvcc per source, eleven in parallel).
   2. kernel vs plain: layer_block_int8 (K1), attention_block_int8 (K2a) and
      mlp_block_int8 (K2b) on the card against their plain PyTorch versions
      on the same inputs, in bf16 and f32, by kernel_agreement: K1 at the
@@ -28,6 +28,13 @@ Phases (any failure exits non-zero):
      both B/32 shapes; their times at B=8, at the B/32 batches (vision B=256,
      text B=64) and at the L/14 batch (B=128), and for K10 the time of one
      scaled_dot_product_attention call on the same q, k, v beside it.
+     attention_block_train's saving forward (K11) against its plain version
+     in bf16 and f32 at both B/32 shapes, at B = 8 and at B = 128 (the
+     trainer's batch), and at the ragged one: the five outputs in the compute
+     dtype by dense_agreement, the f32 probabilities by a max-abs limit with
+     exact zeros above a causal diagonal, its output against K9a's bit for
+     bit; its times at B = 128 beside K9a's, the plain version's and the
+     bound.
   3. the ViT-B/32 slice: CLIPEncoder(vit_b32_serving, seed 0) at full width
      on the card encodes 256 seeded uint8 images; they and 1,000,000 seeded
      unit rows go into the f32 ShardedVectorIndex; SearchServer answers 64
@@ -44,7 +51,11 @@ Phases (any failure exits non-zero):
      oracle computed on the card from the index's host int8 rows, for the
      exact query each search was given; the int4 screen kernel's launch
      counter must show one launch per 2^21-row segment per search. Then the
-     kernel against its plain version on one segment, at Q = 1 and 64.
+     kernel against its plain version on one segment, at Q = 1 and 64. The
+     int8-query screen (K12) on the same segment against its plain version,
+     bit for bit, its times beside K3's; then, counted, one
+     int4_screen_topc(qform="i8") sweep over the 2^23 rows (one K12 launch
+     per segment) whose top-128 is held against the bf16 sweep's by recall.
   5. the ViT-L/14 slice: CLIPEncoder(serving_config(vit_l14()), seed 0) at
      full width (24 + 12 layers, widths 1024 / 768, embedding 768), on the
      card by default, encodes 64 seeded uint8 images (one batch, padded to
@@ -100,6 +111,22 @@ Phases (any failure exits non-zero):
      int8-exact oracle, every block against its plain version, and a
      torch.profiler window over the image batch.
 
+  8. the trainer at full width: CLIPTrainer(replace(vit_b32(),
+     fused_attn_block=True, fused_mlp_block=True, fused_train_vjp=True), seed
+     0) on the card in bf16, at the trainer's default learning rate, takes a
+     warm step and then ten counted steps
+     through fit() on one repeated batch of 128 seeded image/token pairs (K11
+     and K9b: 24 launches a step each), then embeds the batch without
+     gradients (K9a and K9b: 24 each). Beside it the same steps from the same
+     seed under plain vit_b32(), autograd through the unfused route. Every
+     loss must be finite, the first near ln 128, the last lower, the first
+     HELD_STEPS losses of the two curves within TRAIN_LOSS_ATOL (later the
+     loss collapses and the curves are printed, not held); the gradients of
+     one step through the
+     kernels are held against the same step through the plain versions on
+     the card by cosine per parameter. Then the time of K11's hand-written
+     backward beside the backward that recomputes through the plain version.
+
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
 line. Imports no JAX and nothing of the JAX package.
@@ -133,6 +160,26 @@ N_IMAGES5, ENC_BUCKET5, N5, N_SINGLE5, N_CHECK5 = 64, 128, CHUNK4, 4, 4
 INT4_ORACLE_ATOL = 1e-5  # f32 sums vs float64 int8-exact oracle, same bf16 query
 LATENCY_ATOL = 1e-6  # latency mode vs capacity mode, same rows and queries
 RECALL_MIN = 0.99  # recall@10 of the two-phase tier vs the oracle's top-10
+# The int8-query screen against the bf16-query screen over the same rows:
+# share of the bf16 sweep's top-128 that the i8 sweep's top-128 holds (around
+# the 128th of 2^23 scores neighbours lie 1e-4 apart, the int8 query grid
+# moves a score by a few 1e-4: ranks near the boundary swap), and of its
+# top-10 (the planted neighbours, far from the boundary).
+I8_TOP128_MIN, I8_TOP10_MIN = 0.95, 1.0
+# Phase 8, at the trainer's default learning rate: pairs in the batch, counted
+# steps, the leading losses (the warm step's included) over which the two
+# routes are held together, and by how much. On a repeated batch of seeded
+# noise the loss falls slowly for eight steps, then by 0.5-1 a step, then
+# rebounds, and a rounding difference between two bf16 routes grows with the
+# slope: the routes read within 0.001 over the first eight losses and 0.067
+# apart at the eleventh, so the limit holds the slow stretch and the whole
+# curves are printed. Then |first loss - ln(pairs)| and the cosine of each
+# parameter's gradient through the kernels vs through the plain versions.
+N_PAIRS, TRAIN_STEPS, HELD_STEPS = 128, 10, 8
+FIRST_LOSS_ATOL, TRAIN_LOSS_ATOL, GRAD_MIN_COS = 0.3, 0.005, 0.99
+# f32 probabilities, kernel vs plain (tests/test_torch_gpu.py): sum order and
+# expf in f32; in bf16 a q or k value that rounds to its neighbour moves a score
+PROBS_ATOL = {"float32": 1e-6, "bfloat16": 2e-2}
 
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet): the bound of
@@ -582,6 +629,139 @@ def phase_dense_kernels(torch, card):
     return out
 
 
+TRAIN_TIME_SHAPES = {f"b32-vision-B{N_PAIRS}": (N_PAIRS, 50, 768, 12, False),
+                     f"b32-text-B{N_PAIRS}": (N_PAIRS, 77, 512, 8, True)}
+
+
+def saved_bound(x, wts, heads, causal) -> dict:
+    """Bound of one attention_block_train forward: attention_block's
+    operations (block_bound) and its bytes plus the extra outputs, q, k, v
+    and attn in the compute dtype and the (B, H, T, T) f32 probabilities."""
+    b, t, w = x.shape
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 8.0 * w * w * b * t + 4.0 * b * pairs * w
+    nbytes = (6 * x.numel() * x.element_size() + 4 * b * heads * t * t
+              + sum(a.numel() * a.element_size() for a in wts.tensors()))
+    return bound(0.0, flops, nbytes)
+
+
+def phase_train_kernel(torch, card):
+    """K11, the forward that saves for its backward, against its plain
+    version in bf16 and f32, at B = 8, at the trainer's batch and at a ragged
+    shape; its output against K9a's, bit for bit; then its times at the
+    trainer's batch beside K9a's, the plain version's and the bound. Returns
+    {"attention_block_train": {"max_abs_err", "times"}}."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    name = "attention_block_train"
+    out = {"max_abs_err": 0.0, "times": {}}
+    shapes = {"b32-vision-B8": B32_VISION, "b32-text-B8": B32_TEXT, "ragged": RAGGED,
+              **TRAIN_TIME_SHAPES}  # the last two: what the trainer's steps give it
+    for case, (b, t, w, heads, causal) in shapes.items():
+        for dt in (torch.bfloat16, torch.float32):
+            x, wts = dense_layer_inputs(torch, b, t, w, heads, len(case) + w, dt)
+            got = fa.attention_block_saved(x, wts.attn, heads, causal)
+            want = fa.attention_block_saved_reference(x, wts.attn, heads, causal)
+            for part, g, wn in zip(("o", "q", "k", "v", "attn"), got, want):
+                # q, k, v and attn are no residual updates: judged as outputs
+                # of the attention half on a zero input
+                ref_x = x if part == "o" else torch.zeros_like(x)
+                err = _dense_agree(fa, torch, f"{name}.{part}", case, g.contiguous(),
+                                   wn.contiguous(), ref_x, "attn")
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            probs, pwant = got[5], want[5]
+            perr = float((probs - pwant).abs().max())
+            rows = float((probs.sum(-1) - 1).abs().max())
+            above = torch.triu(torch.ones(t, t, dtype=torch.bool, device="cuda"), diagonal=1)
+            upper = float(probs[..., above].abs().max()) if causal else 0.0
+            same = torch.equal(got[0], fa.attention_block(x, wts.attn, heads, causal))
+            limit = PROBS_ATOL[str(dt)[6:]]
+            print(f"kernel-vs-plain {name}.probs {case} {str(dt)[6:]}: {tuple(probs.shape)} f32, "
+                  f"max_abs_err {perr:.3g} (limit {limit}), rows sum to 1 within {rows:.3g}, "
+                  f"largest entry above a causal diagonal {upper} (limit 0); output equals "
+                  f"attention_block's bit for bit: {same}", flush=True)
+            if not (probs.dtype == torch.float32 and perr <= limit and rows <= 1e-5
+                    and upper == 0.0 and same):
+                fail(f"{name} {case} {dt}: probabilities or output disagree")
+            del x, wts, got, want, probs, pwant
+        torch.cuda.empty_cache()
+
+    for case, (b, t, w, heads, causal) in TRAIN_TIME_SHAPES.items():
+        x, wts = dense_layer_inputs(torch, b, t, w, heads, len(case), torch.bfloat16)
+        a = wts.attn
+        r = time_pair(torch, {
+            "kernel": lambda: fa.attention_block_saved(x, a, heads, causal),
+            "plain": lambda: fa.attention_block_saved_reference(x, a, heads, causal)},
+            samples=8, reps=2)
+        # K9a beside it, in turns with K11 ("plain" is K9a here)
+        k9a = time_pair(torch, {
+            "kernel": lambda: fa.attention_block_saved(x, a, heads, causal),
+            "plain": lambda: fa.attention_block(x, a, heads, causal)}, samples=12, reps=3)
+        r.update(saved_bound(x, a, heads, causal), k9a_ms=k9a["plain"],
+                 beside_k9a_ms=k9a["kernel"])
+        out["times"][case] = r
+        print(f"time {name} {case} bf16 B={b} T={t} W={w}: kernel {r['kernel']:.4f} ms, plain "
+              f"{r['plain']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); in turns "
+              f"with attention_block (K9a): {k9a['kernel']:.4f} vs {k9a['plain']:.4f} ms "
+              f"[{card}]", flush=True)
+        del x, wts, a
+        torch.cuda.empty_cache()
+    return {name: out}
+
+
+def time_train_backward(torch, card):
+    """The backward of the attention half at the trainer's batch, bf16: the
+    hand-written one over what K11 saved beside the one that recomputes the
+    forward through the plain version (K9a's autograd Function). Both start
+    from a finished forward; samples in turns recompute/saved/saved/recompute.
+    Returns {case: {"saved_ms", "recompute_ms"}}."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for case, (b, t, w, heads, causal) in TRAIN_TIME_SHAPES.items():
+        rng = np.random.default_rng(len(case))
+        params = [p.requires_grad_(True) for p in layer_params(torch, w, rng)]
+        x = torch.from_numpy(rng.standard_normal((b, t, w)).astype(np.float32)).to(
+            device="cuda", dtype=torch.bfloat16).requires_grad_(True)
+        g = torch.from_numpy(rng.standard_normal((b, t, w)).astype(np.float32)).to(
+            device="cuda", dtype=torch.bfloat16)
+        grads = {}
+
+        def one(fn, key):
+            # the weight casts are part of the graph, as in Block.dense_weights
+            y = fn(x, fa.prepare_layer(*params, dtype=torch.bfloat16).attn, heads, causal)
+            for p in (x, *params):
+                p.grad = None
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            y.backward(g)
+            e.record()
+            e.synchronize()
+            grads[key] = [x.grad] + [p.grad for p in params[:10]]
+            return s.elapsed_time(e)
+
+        fns = {"saved": fa.attention_block_train, "recompute": fa.attention_block}
+        for key, fn in fns.items():
+            one(fn, key)
+        ms = {k: [] for k in fns}
+        for _ in range(4):
+            for key in ("recompute", "saved", "saved", "recompute"):
+                ms[key].append(one(fns[key], key))
+        cos = min(float(row_cos(a.float().reshape(1, -1), c.float().reshape(1, -1)))
+                  for i, (a, c) in enumerate(zip(grads["saved"], grads["recompute"]))
+                  if i != 6)  # the key bias: zero in exact arithmetic, noise in both
+        out[case] = {f"{k}_ms": float(np.median(v)) for k, v in ms.items()}
+        print(f"backward of the attention half {case} bf16 B={b} T={t} W={w}: hand-written over "
+              f"the saved tensors {out[case]['saved_ms']:.4f} ms, recompute through the plain "
+              f"version {out[case]['recompute_ms']:.4f} ms; gradients' min cosine {cos:.6f} "
+              f"(limit {GRAD_MIN_COS}) [{card}]", flush=True)
+        if not cos >= GRAD_MIN_COS:
+            fail(f"{case}: the hand-written backward left the recomputing one")
+        del params, x, g, grads
+        torch.cuda.empty_cache()
+    return out
+
+
 def oracle_topk(gallery: np.ndarray, queries: np.ndarray, k: int):
     """float64 cosine of raw queries against unit rows; top-(k+1) with
     lowest-index ties. Returns (scores (Q, k+1) f64, ids (Q, k+1))."""
@@ -909,9 +1089,75 @@ def kernel_vs_plain_int4(torch, card, index, qu64):
     return out
 
 
+def kernel_vs_plain_int4_i8(torch, card, index, qu64):
+    """K12, the int8-query screen, on K3's segment: bit for bit against its
+    plain version at Q = 1 and 64, its times beside K3's (in turns). Then,
+    counted, one int4_screen_topc(qform="i8") sweep of the whole gallery,
+    whose top-128 is held against the bf16 sweep's by recall. Returns
+    {1: times, 64: times, "rows", "launches", "top128", "top10"}."""
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    seg = k3.SEGMENT_ROWS
+    packed, scales = index._packed[:seg], index._scales4[:seg]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    valid = torch.rand(seg, generator=g, device="cuda") >= 0.01
+    out = {}
+    for nq in (1, 64):
+        qu = qu64[:nq].contiguous()
+        q8, _ = k3.quantize_queries_i8(qu)
+        got = k3.int4_screen_scores_i8(q8, packed, scales, valid)
+        want = k3.int4_screen_scores_i8_reference(q8, packed, scales, valid)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        same = torch.equal(got, want)
+        err = float((got[fin] - want[fin]).abs().max())
+        del got, want, fin
+        t = time_pair(torch, {
+            "kernel": lambda: k3.int4_screen_scores_i8(q8, packed, scales, valid),
+            "plain": lambda: k3.int4_screen_scores_i8_reference(q8, packed, scales, valid),
+        }, samples=8, reps=2)
+        beside = time_pair(torch, {  # "plain" is K3 here
+            "kernel": lambda: k3.int4_screen_scores_i8(q8, packed, scales, valid),
+            "plain": lambda: k3.int4_screen_scores(qu, packed, scales, valid)})
+        print(f"int4_screen i8 kernel-vs-plain Q={nq}, {seg} rows x 512: equal bit for bit: "
+              f"{same} (max_abs_err {err:.3g}, limit 0); kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms; in turns with the bf16-query kernel (K3): "
+              f"{beside['kernel']:.4f} vs {beside['plain']:.4f} ms [{card}]", flush=True)
+        if not same:
+            fail(f"int4_screen i8 Q={nq} is not its plain version bit for bit")
+        out[nq] = dict(t, max_abs_err=err, k3_ms=beside["plain"], beside_k3_ms=beside["kernel"])
+        torch.cuda.empty_cache()
+    out["rows"] = seg
+
+    # ---- the ops-level entry over the whole gallery, counted ---------------
+    k3.int4_screen_scores_i8.launches = 0
+    v8, i8 = k3.int4_screen_topc(qu64, index._packed, index._scales4, index._valid, RERANK_C,
+                                 qform="i8")
+    torch.cuda.synchronize()
+    out["launches"] = k3.int4_screen_scores_i8.launches
+    # ---- end of the counted run --------------------------------------------
+    vb, ib = k3.int4_screen_topc(qu64, index._packed, index._scales4, index._valid, RERANK_C)
+    segments = -(-index._packed.shape[0] // seg)
+    i8l, ibl = i8.tolist(), ib.tolist()
+    out["top128"] = float(np.mean([len(set(a) & set(b)) / RERANK_C for a, b in zip(i8l, ibl)]))
+    out["top10"] = float(np.mean([len(set(a) & set(b[:TOP_K])) / TOP_K
+                                  for a, b in zip(i8l, ibl)]))
+    top1 = float((v8[:, 0] - vb[:, 0]).abs().max())
+    print(f"int4_screen_topc(qform=\"i8\") over {index._packed.shape[0]} rows, Q=64, c={RERANK_C}: "
+          f"{out['launches']} kernel launches (expected {segments} segments); its top-{RERANK_C} "
+          f"holds {out['top128']:.4f} of the bf16 sweep's top-{RERANK_C} (limit {I8_TOP128_MIN}) "
+          f"and {out['top10']:.4f} of its top-{TOP_K} (limit {I8_TOP10_MIN}); best scores "
+          f"within {top1:.3g} [{card}]", flush=True)
+    if out["launches"] != segments or not bool(torch.isfinite(v8).all()):
+        fail("the i8 sweep did not run the int8-query kernel once per segment")
+    if out["top128"] < I8_TOP128_MIN or out["top10"] < I8_TOP10_MIN or top1 > 5e-3:
+        fail("the i8 sweep's candidates left the bf16 sweep's")
+    return out
+
+
 def phase_int4(torch, card, enc, queries, q_emb):
     """The int4 capacity tier, counted; then its checks, single-query
-    latency, and K3 against its plain version."""
+    latency, K3 against its plain version, and K12 beside it."""
     import dataclasses
 
     from image_retrieval_tpu_torch.app.search import TextImageSearcher
@@ -1014,7 +1260,8 @@ def phase_int4(torch, card, enc, queries, q_emb):
     qu64 = torch.from_numpy(qbatch).cuda()
     qu64 = (qu64 / torch.linalg.vector_norm(qu64, dim=-1, keepdim=True)).to(torch.bfloat16)
     kernel = kernel_vs_plain_int4(torch, card, cap, qu64)
-    return launches, kernel
+    kernel_i8 = kernel_vs_plain_int4_i8(torch, card, cap, qu64)
+    return launches, kernel, kernel_i8
 
 
 def towers_vs_plain(torch, enc, images, texts):
@@ -1939,6 +2186,200 @@ def phase_dense(torch, card, queries, index14):
     return total
 
 
+# ---- phase 8: the trainer at full width ---------------------------------------
+
+TRAIN_KERNELS = ("attention_block_train", *DENSE_KERNELS)
+
+
+def train_batch(mc):
+    """One seeded batch of N_PAIRS (pixels, tokens) pairs as train/data.py
+    yields them: normalized f32 pixels, int32 ids with a start token, a
+    caption of 4-20 ids, the end token (the largest id) and zero padding."""
+    rng = np.random.default_rng(8)
+    pixels = rng.standard_normal((N_PAIRS, mc.image_size, mc.image_size, 3), dtype=np.float32)
+    tokens = np.zeros((N_PAIRS, mc.context_length), np.int32)
+    for row in tokens:
+        n = int(rng.integers(4, 21))
+        row[0] = mc.vocab_size - 2
+        row[1: 1 + n] = rng.integers(1, mc.vocab_size - 2, size=n)
+        row[1 + n] = mc.vocab_size - 1
+    return pixels, tokens
+
+
+def profile_step(torch, tr, pixels, tokens, card, label):
+    """One warm train step under torch.profiler: wall time, the device's busy
+    time (the launches are serial on one stream) and its split by kernel
+    family, the library's f32 products apart from the port's own kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    families = (("gemm_bf16_kernel", "the port's bf16 GEMMs"), ("attention_tiled", "attention"),
+                ("ln_cast", "LayerNorm passes"), ("sgemm", "library f32 GEMMs"),
+                ("f32f32", "library f32 GEMMs"), ("multi_tensor_apply", "AdamW"),
+                ("Memcpy", "copies"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(pixels, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ms, other = {}, {}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or "#" in e.key:  # a "#" marks an annotation, no kernel
+            continue
+        family = next((fam for pat, fam in families if pat in e.key), "other kernels")
+        ms[family] = ms.get(family, 0.0) + e.self_device_time_total / 1e3
+        if family == "other kernels":
+            other[e.key] = e.self_device_time_total / 1e3
+    busy = sum(ms.values())
+    if busy <= 0:
+        print(f"{label} step profile: torch.profiler recorded no device time; device time "
+              "by kernel not measured", flush=True)
+        return
+    parts = ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(ms.items(), key=lambda kv: -kv[1]))
+    largest = "; ".join(f"{k[:60]} {v:.1f} ms"
+                        for k, v in sorted(other.items(), key=lambda kv: -kv[1])[:4])
+    print(f"{label} step profile at batch {N_PAIRS}, torch.profiler on: wall {wall_ms:.1f} ms, "
+          f"device busy {busy:.1f} ms (idle share {max(0.0, 1 - busy / wall_ms):.1%}): {parts}; "
+          f"the largest of the other kernels: {largest} [{card}]", flush=True)
+
+
+def phase_train(torch, card):
+    """Phase 8. Returns the launches of the compute-dtype kernels in the
+    counted run (ten steps through fit, then one embedding pass without
+    gradients) and the readings for the kernels line."""
+    import dataclasses
+    import itertools
+    import math
+
+    from image_retrieval_tpu_torch.config import vit_b32
+    from image_retrieval_tpu_torch.models import clip as tclip
+    from image_retrieval_tpu_torch.models.clip import DENSE_KERNEL, PLAIN
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+    from image_retrieval_tpu_torch.train import CLIPTrainer
+
+    tcfg = dataclasses.replace(vit_b32(), fused_attn_block=True, fused_mlp_block=True,
+                               fused_train_vjp=True)
+    pixels, tokens = train_batch(tcfg)
+    layers = tcfg.vision_layers + tcfg.text_layers
+
+    def build(name, cfg, modes):
+        t0 = time.perf_counter()
+        tr = CLIPTrainer(cfg, seed=0)  # no device=: the card; the default learning rate
+        got = (tr.model.vision.blocks[0].mode, tr.model.text.blocks[0].mode)
+        if tr.device.type != "cuda" or got != modes or cfg.dtype != "bfloat16":
+            fail(f"{name}: on {tr.device}, towers routed {got}, dtype {cfg.dtype}")
+        n = sum(p.numel() for p in tr.model.parameters())
+        print(f"CLIPTrainer {name} on {tr.device}: {cfg.vision_layers}+{cfg.text_layers} layers, "
+              f"widths {cfg.vision_width}/{cfg.text_width}, {n / 1e6:.1f} M f32 parameters, "
+              f"compute dtype {cfg.dtype}, routed {got}, AdamW lr "
+              f"{tr.optimizer.param_groups[0]['lr']}, "
+              f"{time.perf_counter() - t0:.1f} s to build", flush=True)
+        return tr
+
+    def run(tr):
+        first = tr.train_step(pixels, tokens)  # warm (allocator, cuBLAS handles): not counted
+        torch.cuda.synchronize()
+        for k in TRAIN_KERNELS:
+            getattr(fa, k).launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = tr.fit(itertools.repeat((pixels, tokens)), steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        return first, losses, (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+
+    # ---- the main path, counted ------------------------------------------
+    tk = build("replace(vit_b32(), fused_attn_block, fused_mlp_block, fused_train_vjp)", tcfg,
+               ((DENSE_KERNEL, DENSE_KERNEL), (DENSE_KERNEL, DENSE_KERNEL)))
+    first_k, losses_k, step_k = run(tk)
+    peak_k = torch.cuda.max_memory_allocated() / 2 ** 30
+    after_fit = {k: getattr(fa, k).launches for k in TRAIN_KERNELS}
+    px, tok = tk._to_device(pixels, tokens)
+    with torch.no_grad():
+        emb_i, emb_t = tk.model.encode_image(px), tk.model.encode_text(tok)
+    torch.cuda.synchronize()
+    launches = {k: getattr(fa, k).launches for k in TRAIN_KERNELS}
+    # ---- end of the counted run ------------------------------------------
+    want_fit = dict.fromkeys(TRAIN_KERNELS, 0) | {
+        "attention_block_train": layers * TRAIN_STEPS, "mlp_block": layers * TRAIN_STEPS}
+    want = dict(want_fit) | {"attention_block": layers,
+                             "mlp_block": layers * TRAIN_STEPS + layers}
+    print(f"launches in the main path of phase 8: after {TRAIN_STEPS} steps {after_fit}, after "
+          f"the embedding pass without gradients {launches} (expected {layers} K11 + {layers} "
+          f"K9b a step, then {layers} K9a + {layers} K9b)", flush=True)
+    if after_fit != want_fit or launches != want:
+        fail("the trainer did not launch K11 and K9b once per layer per step")
+    for name, e in (("image", emb_i), ("text", emb_t)):
+        if e.shape != (N_PAIRS, tcfg.embed_dim) or not bool(torch.isfinite(e).all()):
+            fail(f"phase 8: {name} embeddings {tuple(e.shape)} are not finite")
+
+    tp = build("vit_b32() (the unfused route)", vit_b32(), ((PLAIN, PLAIN), (PLAIN, PLAIN)))
+    first_p, losses_p, step_p = run(tp)
+    peak_p = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(getattr(fa, k).launches for k in TRAIN_KERNELS):
+        fail("the unfused route launched a kernel")
+    profile_step(torch, tp, pixels, tokens, card, "unfused route")
+    del tp
+    torch.cuda.empty_cache()
+    ln_b = math.log(N_PAIRS)
+    curve_k, curve_p = [first_k] + losses_k, [first_p] + losses_p
+    apart = [abs(a - b) for a, b in zip(curve_k, curve_p)]
+    held = max(apart[:HELD_STEPS])
+    print(f"phase 8 losses, {N_PAIRS} pairs repeated, through the kernels: "
+          f"{' '.join(f'{v:.4f}' for v in curve_k)}", flush=True)
+    print(f"phase 8 losses, the same steps through the unfused route: "
+          f"{' '.join(f'{v:.4f}' for v in curve_p)}; ln {N_PAIRS} = {ln_b:.4f} (first loss within "
+          f"{FIRST_LOSS_ATOL}); the first {HELD_STEPS} losses differ by at most {held:.4f} "
+          f"(limit {TRAIN_LOSS_ATOL}), all {len(apart)} by at most {max(apart):.4f} (not held)",
+          flush=True)
+    if not all(math.isfinite(v) for v in curve_k + curve_p):
+        fail("phase 8: a loss is not finite")
+    if abs(first_k - ln_b) > FIRST_LOSS_ATOL or not curve_k[-1] < curve_k[0]:
+        fail("phase 8: the first loss is not near ln(batch), or the loss did not fall")
+    if held > TRAIN_LOSS_ATOL:
+        fail("phase 8: the kernel route's losses left the unfused route's")
+    upload = time_pair(torch, {"kernel": lambda: tk._to_device(pixels, tokens),
+                               "plain": lambda: None}, samples=8, reps=1)["kernel"]
+    print(f"phase 8 step time, {TRAIN_STEPS} steps through fit() at batch {N_PAIRS} (host clock, "
+          f"numpy batches uploaded each step: {upload:.1f} ms of it): kernels {step_k:.1f} ms = "
+          f"{N_PAIRS * 1e3 / step_k:.0f} pairs/s, peak {peak_k:.2f} GiB allocated; unfused "
+          f"{step_p:.1f} ms = {N_PAIRS * 1e3 / step_p:.0f} pairs/s, peak {peak_p:.2f} GiB "
+          f"[{card}]", flush=True)
+
+    profile_step(torch, tk, pixels, tokens, card, "kernel route")
+
+    # ---- one step's gradients: through the kernels vs the plain versions --
+    def gradients():
+        tk.optimizer.zero_grad(set_to_none=True)
+        tk.loss(px, tok).backward()
+        return {k: p.grad.clone() for k, p in tk.model.named_parameters()}
+
+    through_kernels = gradients()
+    kernels = tclip.attention_block_train, tclip.mlp_block
+    # the plain versions on the card: autograd through
+    # attention_block_reference and mlp_block_reference
+    tclip.attention_block_train = fa.attention_block_reference
+    tclip.mlp_block = fa.mlp_block_reference
+    try:
+        before = {k: getattr(fa, k).launches for k in TRAIN_KERNELS}
+        through_plain = gradients()
+        if before != {k: getattr(fa, k).launches for k in TRAIN_KERNELS}:
+            fail("the plain step launched a kernel")
+    finally:
+        tclip.attention_block_train, tclip.mlp_block = kernels
+    cos = {k: float(row_cos(g.reshape(1, -1), through_plain[k].reshape(1, -1)))
+           for k, g in through_kernels.items() if not k.endswith("k_proj.bias")}
+    low = min(cos, key=cos.get)
+    print(f"phase 8 gradients of one step, kernels vs plain versions on the card: "
+          f"{len(cos)} parameters, min cosine {cos[low]:.6f} at {low} (limit {GRAD_MIN_COS}; "
+          f"the {layers} key biases, whose gradient is zero in exact arithmetic, left out)",
+          flush=True)
+    if not cos[low] >= GRAD_MIN_COS:
+        fail("phase 8: a gradient through the kernels left the plain versions'")
+    del tk, through_kernels, through_plain, px, tok
+    torch.cuda.empty_cache()
+    backward = time_train_backward(torch, card)
+    return launches, {"step_ms": step_k, "plain_step_ms": step_p, "backward": backward}
+
+
 def main() -> int:
     import torch
 
@@ -1977,8 +2418,9 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     kernels = phase_kernels(torch, card)
     kernels.update(phase_dense_kernels(torch, card))
+    kernels.update(phase_train_kernel(torch, card))
     launches, enc, queries, q_emb, index32 = phase_slice(torch, card)
-    int4_launches, k3 = phase_int4(torch, card, enc, queries, q_emb)
+    int4_launches, k3, k12 = phase_int4(torch, card, enc, queries, q_emb)
     torch.cuda.empty_cache()
     l14_launches, enc14, index14 = phase_l14(torch, card, queries)
     torch.cuda.empty_cache()
@@ -1987,6 +2429,11 @@ def main() -> int:
     del enc, enc14, index32
     torch.cuda.empty_cache()
     d_launches = phase_dense(torch, card, queries, index14)
+    del index14
+    torch.cuda.empty_cache()
+    t_launches, train = phase_train(torch, card)
+    for name in DENSE_KERNELS:  # K9a and K9b also run on the trainer's path
+        d_launches[name] += t_launches[name]
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "image_retrieval_tpu")]
     if loaded:
@@ -2027,6 +2474,9 @@ def main() -> int:
     # bf16 operations; bytes: the packed rows, scales, validity, queries, scores
     seg, d, nq = k3["rows"], q_emb.shape[1], 64
     k3_bound = bound(0.0, 2.0 * nq * seg * d, seg * (d // 2 + 4 + 1) + nq * d * 2 + nq * seg * 4)
+    # the int8-query form: the same multiply-adds at the int8 peak, queries of one byte
+    k12_bound = bound(2.0 * nq * seg * d, 0.0, seg * (d // 2 + 4 + 1) + nq * d + nq * seg * 4)
+    vision_b, text_b = TRAIN_TIME_SHAPES
     big = f"l14-vision-B{ENC_BUCKET5}"
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -2071,6 +2521,26 @@ def main() -> int:
         block_entry("multihead_attention", "multihead_attention.cu", 87,
                     d_launches["multihead_attention"], "b32-vision-B256",
                     {"b32_vision_b8": "b32-vision-B8"}),
+        # K11 and K12: no single PyTorch call computes either
+        dict(block_entry("attention_block_train", "attention_block_train.cu", 1051,
+                         t_launches["attention_block_train"], vision_b, {"b32_text": text_b}),
+             k9a_ms=kernels["attention_block_train"]["times"][vision_b]["k9a_ms"],
+             b32_text_k9a_ms=kernels["attention_block_train"]["times"][text_b]["k9a_ms"],
+             backward_ms=train["backward"][vision_b]["saved_ms"],
+             backward_recompute_ms=train["backward"][vision_b]["recompute_ms"],
+             b32_text_backward_ms=train["backward"][text_b]["saved_ms"],
+             b32_text_backward_recompute_ms=train["backward"][text_b]["recompute_ms"],
+             step_ms=train["step_ms"], unfused_step_ms=train["plain_step_ms"]),
+        {"name": "int4_screen_i8", "route": "cuda",
+         "source": "image_retrieval_tpu_torch/csrc/int4_screen.cu",
+         "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:636",
+         "launches": k12["launches"],
+         "max_abs_err": max(k12[1]["max_abs_err"], k12[64]["max_abs_err"]),
+         "ms": k12[64]["kernel"], "plain_ms": k12[64]["plain"], **k12_bound,
+         "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
+         "q1_ms": k12[1]["kernel"], "q1_plain_ms": k12[1]["plain"],
+         "k3_ms": k12[64]["k3_ms"], "q1_k3_ms": k12[1]["k3_ms"],
+         "top128_of_bf16": k12["top128"], "top10_of_bf16": k12["top10"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

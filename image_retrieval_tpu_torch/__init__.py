@@ -10,6 +10,7 @@ jax. The port covers the text->image serving slice so far:
 - exact top-k with lowest-index ties                           -> ops/topk.py
 - the resident f32 exact index                                 -> index/
 - ingest, search and the micro-batching server                 -> app/
+- contrastive training on one device                           -> train/
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise, and nothing falls back to the CPU.

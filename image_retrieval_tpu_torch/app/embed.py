@@ -22,16 +22,21 @@ logger = logging.getLogger(__name__)
 
 class ImageEmbeddingSystem:
     """Generate and store image embeddings. Without an `index`, one is
-    created on `device` (the card unless the caller names the CPU)."""
+    created on `device` (the card unless the caller names the CPU).
+    `attrs_fn`, paths -> {field: [values]}, attaches scalar attribute
+    columns to every insert, for searches with a filter expression
+    (index/filters.py); without it inserts carry no attributes."""
 
     def __init__(self, encoder: Encoder, index: Optional[ShardedVectorIndex] = None,
-                 config: Optional[Config] = None, device: DeviceLike = "cuda"):
+                 config: Optional[Config] = None, attrs_fn=None,
+                 device: DeviceLike = "cuda"):
         self.encoder = encoder
         self.config = config or Config()
         if index is None:
             index = ShardedVectorIndex(dim=encoder.dim, config=self.config.index,
                                        device=device)
         self.index = index
+        self.attrs_fn = attrs_fn
 
     def generate_embedding(self, image_path) -> Tuple[np.ndarray, float]:
         """(unit_embedding, magnitude) for one image; a zero embedding stays
@@ -61,7 +66,8 @@ class ImageEmbeddingSystem:
             ok_paths.extend(good_paths)
             ok_embs.extend(embs)
         if ok_paths:
-            self.index.insert(ok_paths, np.stack(ok_embs))
+            attrs = self.attrs_fn(ok_paths) if self.attrs_fn else None
+            self.index.insert(ok_paths, np.stack(ok_embs), attrs=attrs)
             self.index.flush()
             logger.info(f"Inserted batch of {len(ok_paths)} images into index.")
         return len(ok_paths), fail_count[0]

@@ -1,6 +1,6 @@
 // Device and host code shared by the Hopper (sm_90a) transformer-layer kernel
 // chains: the int8 serving family (int8_common.cuh) and the family in the
-// compute type (dt_common.cuh). Type helpers, warp and block reductions,
+// compute type (dense_common.cuh). Type helpers, warp and block reductions,
 // cp.async, the workspace carver, the launch checks, and
 //   attention_tiled_kernel  one block per (head, image, tile of query rows):
 //                           the (image, head)'s K and V and the tile's Q and
@@ -128,11 +128,15 @@ inline int attention_tile_rows(int seq, int head_dim) {
 // (image, head) against keys [0, kv): all of them, or with `causal` those
 // up to the tile's last row. Per row the order of operations is: dot over
 // d (fmaf, ascending), times scale, mask, max, exp(s - max), sum, divide,
-// round to T, then PV over ascending j (fmaf).
-template <typename T>
+// round to T, then PV over ascending j (fmaf). With kSaveProbs the quotient
+// is also written, in f32 and before that rounding, to `probs` (batch, heads,
+// seq, seq): whole rows, with exact zeros at the keys a causal block never
+// visits. The flag adds stores only: the other outputs are the same bits.
+template <typename T, bool kSaveProbs>
 __global__ void __launch_bounds__(kAttnThreads) attention_tiled_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, size_t ld,
-    T* __restrict__ out, int seq, int width, int head_dim, int tile, int causal, float scale) {
+    T* __restrict__ out, float* __restrict__ probs, int seq, int width, int head_dim, int tile,
+    int causal, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int ldk = head_dim + 4;
   const int ldp = round4(seq);
@@ -215,8 +219,16 @@ __global__ void __launch_bounds__(kAttnThreads) attention_tiled_kernel(
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < kv4; j += 32)
-      pr[j] = j < kv ? round_to<T>(__fdiv_rn(pr[j], sum)) : 0.f;
+    float* saved = nullptr;
+    if (kSaveProbs) {
+      saved = probs + (((size_t)blockIdx.y * gridDim.x + h) * seq + q0 + i) * seq;
+      for (int j = kv + lane; j < seq; j += 32) saved[j] = 0.f;
+    }
+    for (int j = lane; j < kv4; j += 32) {
+      const float p = j < kv ? __fdiv_rn(pr[j], sum) : 0.f;
+      if (kSaveProbs && j < kv) saved[j] = p;
+      pr[j] = round_to<T>(p);
+    }
   }
   __syncthreads();
 
@@ -285,28 +297,45 @@ inline bool attention_shape_ok(int seq, int width, int heads) {
   return hd % 4 == 0 && hd <= 128 && attention_tile_rows(seq, hd) > 0;
 }
 
-template <typename T>
-int launch_attention(const T* q, const T* k, const T* v, size_t ld, T* out, int batch, int seq,
-                     int width, int heads, int causal, float scale, cudaStream_t st) {
+template <typename T, bool kSaveProbs>
+int launch_attention_as(const T* q, const T* k, const T* v, size_t ld, T* out, float* probs,
+                        int batch, int seq, int width, int heads, int causal, float scale,
+                        cudaStream_t st) {
   const int hd = width / heads;
   const int tile = attention_tile_rows(seq, hd);
   if (tile <= 0 || batch > 65535) return IRT_BAD_ARGS;  // gridDim.y carries the images
   const size_t smem = attention_smem_floats(seq, hd, tile) * sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(attention_tiled_kernel<T, kSaveProbs>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  IRT_TRY(attention_tiled_kernel<T>
+  IRT_TRY(attention_tiled_kernel<T, kSaveProbs>
           <<<dim3(heads, batch, (seq + tile - 1) / tile), kAttnThreads, smem, st>>>(
-              q, k, v, ld, out, seq, width, hd, tile, causal, scale));
+              q, k, v, ld, out, probs, seq, width, hd, tile, causal, scale));
   return 0;
 }
 
-// The attention step on packed (batch * seq, 3 * width) [q | k | v] rows.
+template <typename T>
+int launch_attention(const T* q, const T* k, const T* v, size_t ld, T* out, int batch, int seq,
+                     int width, int heads, int causal, float scale, cudaStream_t st) {
+  return launch_attention_as<T, false>(q, k, v, ld, out, nullptr, batch, seq, width, heads,
+                                       causal, scale, st);
+}
+
+// The attention step on packed (batch * seq, 3 * width) [q | k | v] rows;
+// a non-null `probs` (batch, heads, seq, seq) also receives the f32
+// probabilities.
 template <typename T>
 int launch_attention_packed(const T* qkv, T* out, int batch, int seq, int width, int heads,
-                            int causal, float scale, cudaStream_t st) {
-  return launch_attention<T>(qkv, qkv + width, qkv + 2 * width, (size_t)3 * width, out, batch,
-                             seq, width, heads, causal, scale, st);
+                            int causal, float scale, cudaStream_t st, float* probs = nullptr) {
+  const T *k = qkv + width, *v = qkv + 2 * width;
+  const size_t ld = (size_t)3 * width;
+  if (probs != nullptr) {
+    return launch_attention_as<T, true>(qkv, k, v, ld, out, probs, batch, seq, width, heads,
+                                        causal, scale, st);
+  }
+  return launch_attention_as<T, false>(qkv, k, v, ld, out, nullptr, batch, seq, width, heads,
+                                       causal, scale, st);
 }
 
 #define IRT_CHECK(call)          \

@@ -1,6 +1,6 @@
 // Plain C interface of the Hopper transformer-layer kernels in the compute
-// type (layer_block.cu, attention_block.cu, mlp_block.cu,
-// multihead_attention.cu). Bound from Python with ctypes
+// type (layer_block.cu, attention_block.cu, attention_block_train.cu,
+// mlp_block.cu, multihead_attention.cu). Bound from Python with ctypes
 // (image_retrieval_tpu_torch/ops/_build.py): every pointer and the stream
 // are passed as void*, sizes as int.
 //
@@ -38,6 +38,17 @@ int irt_attention_block(
     const void* wqkv_t, const void* bqkv, const void* wo_t, const void* bo,
     void* workspace, int batch, int seq, int width, int heads, int causal,
     int dtype, float attn_scale, void* stream);
+
+// The same function for training (see attention_block_train.cu): it also
+// writes the packed [q | k | v] rows (batch * seq, 3 width) and the attention
+// output (batch * seq, width) in the compute type, and the softmax
+// probabilities (batch, heads, seq, seq) in f32 before their cast.
+size_t irt_attention_block_train_workspace_bytes(int m, int width, int elem_bytes);
+int irt_attention_block_train(
+    const void* x, void* out, void* qkv, void* attn, void* probs, const void* ln_s,
+    const void* ln_b, const void* wqkv_t, const void* bqkv, const void* wo_t, const void* bo,
+    void* workspace, int batch, int seq, int width, int heads, int causal, int dtype,
+    float attn_scale, void* stream);
 
 // Its second half: x + fc2(quick_gelu(fc1(LN2(x)))) (see mlp_block.cu).
 int irt_mlp_block(

@@ -301,11 +301,14 @@ int launch_gemm(const T* a, const T* bt, const float* bias, const T* residual, T
 }
 
 // The attention sub-block: LN1 -> cast -> QKV (+ bias, cast) -> attention ->
-// out-projection (+ bias, cast) -> x + out. Four launches.
+// out-projection (+ bias, cast) -> x + out. Four launches. The training
+// entry hands in tensors of its own for qkv and attn, which it keeps, and a
+// plane for the f32 probabilities.
 struct DenseAttnWorkspace {
   void* h;     // (m, width)   LN1 rows, compute type
   void* qkv;   // (m, 3 width)
   void* attn;  // (m, width)
+  float* probs = nullptr;  // (batch, heads, seq, seq) f32, or none
 };
 
 inline void carve_dense_attn(Carver& c, int m, int width, int eb, DenseAttnWorkspace* w) {
@@ -326,7 +329,8 @@ int run_dense_attn_block(const T* x, T* out, const float* ln_s, const float* ln_
   T* attn = (T*)w.attn;
   IRT_CHECK(launch_ln_cast<T>(x, ln_s, ln_b, h, m, width, st));
   IRT_CHECK((launch_gemm<T, kBias>(h, wqkv_t, bqkv, nullptr, qkv, m, 3 * width, width, st)));
-  IRT_CHECK(launch_attention_packed<T>(qkv, attn, batch, seq, width, heads, causal, scale, st));
+  IRT_CHECK(launch_attention_packed<T>(qkv, attn, batch, seq, width, heads, causal, scale, st,
+                                       w.probs));
   IRT_CHECK((launch_gemm<T, kBiasResidual>(attn, wo_t, bo, x, out, m, width, width, st)));
   return 0;
 }

@@ -38,6 +38,22 @@
 //     writes -inf for invalid rows.
 // Fusing the top-c selection into the kernel, so that the score plane never
 // reaches device memory, wgmma and TMA are later work.
+//
+// A second entry, irt_int4_screen_scores_i8, replaces _int4_screen_kernel_i8
+// (l.636, selected at l.751 of the same file): the same screen with queries
+// quantized to int8 per query (int4_query_planes_i8, l.664; here a plain
+// (Q, D) int8 tensor, without the TPU's zero-extended planes),
+//
+//   score[q, n] = scale4[n] * float(sum_d q8[q, d] * (nibble(packed[n], d) - 8))
+//
+// The per-query scale is not applied: it is positive, cannot change a
+// query's ranking, and the caller multiplies the selected values by it. The
+// sum is an int32 and exact (|sum| <= 127 * 8 * D < 2^24 for D <= 2048, so
+// its conversion to f32 is exact too): kernel and plain version agree bit
+// for bit. Same tiling and the same bytes bound as above; two packed bytes
+// expand in registers into the four int8 values of one register of an
+// mma.sync m16n8k32 s8 x s8 -> s32 B fragment (nibble - 8 by a per-byte
+// subtract), and one k step covers 32 dims instead of 16.
 
 #include "int4_screen.cuh"
 
@@ -75,6 +91,151 @@ __device__ __forceinline__ uint32_t expand_byte(uint32_t b) {
   const __nv_bfloat162 v =
       __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x), __float2bfloat162_rn(136.f));
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two packed bytes (dims 4i .. 4i + 3 in nibble order) -> the four int8
+// values nibble - 8, the lowest dim in the lowest byte.
+__device__ __forceinline__ uint32_t expand_pair_i8(uint32_t x) {
+  const uint32_t y =
+      (x & 0x000Fu) | ((x & 0x00F0u) << 4) | ((x & 0x0F00u) << 8) | ((x & 0xF000u) << 12);
+  return __vsub4(y, 0x08080808u);
+}
+
+// D = A(16x32 s8, row) * B(32x8 s8, col) + D, s32.
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// int8 query rows in shared memory: 144 bytes = 36 words (4 mod 32), so the
+// 8 x 4 words of an A fragment load fall on distinct banks.
+constexpr int kQStrideI8 = kChunkDims + 16;
+
+// The int8-query screen. qu: (nq, d) int8. `qvec` says that a query row may
+// be read by 4-byte words (d % 4 == 0 and an aligned base).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) int4_screen_i8_kernel(
+    const int8_t* __restrict__ qu, const uint8_t* __restrict__ packed,
+    const float* __restrict__ scales, const uint8_t* __restrict__ valid,
+    float* __restrict__ out, int nq, int d, long long row_offset, int rows, int qvec) {
+  __shared__ __align__(16) uint8_t sp[kRows * kPStride];
+  __shared__ __align__(16) int8_t sq[kQ * kQStrideI8];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int tile0 = blockIdx.x * kRows;
+  const int tile_rows = min(kRows, rows - tile0);
+  const int rb = d >> 1;  // packed bytes per row
+  const uint8_t* pbase = packed + (size_t)(row_offset + tile0) * rb;
+  const int nchunks = (rb + kChunkBytes - 1) / kChunkBytes;
+
+  // 0x88 decodes to zeros, and query dims past D are staged as zeros
+  for (int i = tid; i < kRows * kPStride / 4; i += kThreads) {
+    reinterpret_cast<uint32_t*>(sp)[i] = 0x88888888u;
+  }
+
+  for (int qbase = 0; qbase < nq; qbase += kQ) {
+    const int nqt = min(kQ / 16, (nq - qbase + 15) / 16);
+    int acc[kQ / 16][2][4];
+#pragma unroll
+    for (int qt = 0; qt < kQ / 16; ++qt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[qt][nt][j] = 0;
+
+    for (int kc = 0; kc < nchunks; ++kc) {
+      const int cb = min(kChunkBytes, rb - kc * kChunkBytes);
+      __syncthreads();  // the previous step's fragments are read
+      if (kVec) {
+        const int per = cb / 16;
+        for (int i = tid; i < tile_rows * per; i += kThreads) {
+          const int r = i / per, v = i - r * per;
+          *reinterpret_cast<uint4*>(sp + r * kPStride + v * 16) =
+              *reinterpret_cast<const uint4*>(pbase + (size_t)r * rb + kc * kChunkBytes + v * 16);
+        }
+      } else {
+        for (int i = tid; i < tile_rows * cb; i += kThreads) {
+          const int r = i / cb, b = i - r * cb;
+          sp[r * kPStride + b] = pbase[(size_t)r * rb + kc * kChunkBytes + b];
+        }
+      }
+      for (int i = tid; i < nqt * 16 * (kChunkDims / 4); i += kThreads) {
+        const int qi = i / (kChunkDims / 4), p = i - qi * (kChunkDims / 4);
+        const int dim = kc * kChunkDims + 4 * p;
+        uint32_t v = 0;
+        if (qbase + qi < nq && dim < d) {
+          const int8_t* src = qu + (size_t)(qbase + qi) * d + dim;
+          if (qvec) {
+            v = *reinterpret_cast<const uint32_t*>(src);
+          } else {
+            for (int b = 0; b < 4 && dim + b < d; ++b) v |= (uint32_t)(uint8_t)src[b] << (8 * b);
+          }
+        }
+        *reinterpret_cast<uint32_t*>(sq + qi * kQStrideI8 + 4 * p) = v;
+      }
+      __syncthreads();
+
+      const int nks = (2 * cb + 31) / 32;
+      for (int ks = 0; ks < nks; ++ks) {
+        uint32_t bf[2][2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint8_t* prow = sp + (warp * 16 + nt * 8 + gid) * kPStride + ks * 16;
+          bf[nt][0] = expand_pair_i8(*reinterpret_cast<const uint16_t*>(prow + 2 * t));
+          bf[nt][1] = expand_pair_i8(*reinterpret_cast<const uint16_t*>(prow + 8 + 2 * t));
+        }
+#pragma unroll
+        for (int qt = 0; qt < kQ / 16; ++qt) {
+          if (qt < nqt) {
+            const int8_t* qa = sq + (qt * 16 + gid) * kQStrideI8 + ks * 32 + 4 * t;
+            uint32_t af[4];
+            af[0] = *reinterpret_cast<const uint32_t*>(qa);
+            af[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * kQStrideI8);
+            af[2] = *reinterpret_cast<const uint32_t*>(qa + 16);
+            af[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * kQStrideI8 + 16);
+            mma_s8(acc[qt][0], af, bf[0]);
+            mma_s8(acc[qt][1], af, bf[1]);
+          }
+        }
+      }
+    }
+
+    // Epilogue: the C fragment's places are those of the bf16 kernel.
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int r0 = tile0 + warp * 16 + nt * 8 + 2 * t;
+      float sc[2];
+      bool ok[2], in[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        in[j] = r0 + j < rows;
+        sc[j] = in[j] ? scales[row_offset + r0 + j] : 0.f;
+        ok[j] = in[j] && valid[row_offset + r0 + j] != 0;
+      }
+#pragma unroll
+      for (int qt = 0; qt < kQ / 16; ++qt) {
+        if (qt < nqt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int q = qbase + qt * 16 + gid + 8 * h;
+            if (q < nq) {
+              float* orow = out + (size_t)q * rows;
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                if (in[j]) {
+                  orow[r0 + j] =
+                      ok[j] ? __fmul_rn(__int2float_rn(acc[qt][nt][2 * h + j]), sc[j]) : -INFINITY;
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  }
 }
 
 template <bool kVec>
@@ -214,6 +375,29 @@ extern "C" int irt_int4_screen_scores(const void* qu, const void* packed, const 
     int4_screen_kernel<true><<<grid, kThreads, 0, st>>>(IRT_ARGS);
   } else {
     int4_screen_kernel<false><<<grid, kThreads, 0, st>>>(IRT_ARGS);
+  }
+#undef IRT_ARGS
+  return (int)cudaGetLastError();
+}
+
+extern "C" int irt_int4_screen_scores_i8(const void* qu, const void* packed, const void* scales,
+                                         const void* valid, void* out, int nq, int d,
+                                         long long row_offset, int rows, void* stream) {
+  // d <= 2048 keeps |sum| below 2^24: the int32 -> f32 conversion is exact
+  if (nq <= 0 || d <= 0 || d % 2 || d > 2048 || rows <= 0 || row_offset < 0) {
+    return IRT_BAD_ARGS;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((rows + kRows - 1) / kRows);
+  const bool vec = (d / 2) % 16 == 0 && (uintptr_t)packed % 16 == 0;
+  const int qvec = d % 4 == 0 && (uintptr_t)qu % 4 == 0;
+#define IRT_ARGS                                                                  \
+  (const int8_t*)qu, (const uint8_t*)packed, (const float*)scales,               \
+      (const uint8_t*)valid, (float*)out, nq, d, row_offset, rows, qvec
+  if (vec) {
+    int4_screen_i8_kernel<true><<<grid, kThreads, 0, st>>>(IRT_ARGS);
+  } else {
+    int4_screen_i8_kernel<false><<<grid, kThreads, 0, st>>>(IRT_ARGS);
   }
 #undef IRT_ARGS
   return (int)cudaGetLastError();

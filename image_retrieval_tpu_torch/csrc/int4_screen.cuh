@@ -1,4 +1,4 @@
-// Plain C interface of the Hopper int4 screen kernel (int4_screen.cu).
+// Plain C interface of the Hopper int4 screen kernels (int4_screen.cu).
 // Bound from Python with ctypes (image_retrieval_tpu_torch/ops/_build.py):
 // every pointer and the stream are passed as void*, sizes as int, the row
 // offset as long long.
@@ -22,6 +22,14 @@ extern "C" {
 int irt_int4_screen_scores(const void* qu, const void* packed, const void* scales,
                            const void* valid, void* out, int nq, int d,
                            long long row_offset, int rows, void* stream);
+
+// The same screen with int8 queries (nq, d), quantized per query by the
+// caller, whose positive scale is left out:
+//   out[q, r] = scales[o + r] * float(sum_d qu[q, d] * (nibble(packed[o + r], d) - 8))
+// The sum is an exact int32; d <= 2048.
+int irt_int4_screen_scores_i8(const void* qu, const void* packed, const void* scales,
+                              const void* valid, void* out, int nq, int d,
+                              long long row_offset, int rows, void* stream);
 
 #ifdef __cplusplus
 }

@@ -29,11 +29,15 @@ Each half of a transformer layer takes one of the routes that the Flax
   ``jax.nn.dot_product_attention`` (f32 scores scaled after the dot), written
   out in tensor operations; no kernel, as in the JAX package.
 
-All eight kernels are hand-written Hopper kernels on a CUDA tensor
-(``ops/flash_attention.py``). ``fused_train_vjp`` (the attention sub-block
-that saves its intermediates for a hand-written backward) raises
-NotImplementedError rather than silently taking another path; ROADMAP.md
-lists it.
+- ``fused_train_vjp``: where the attention half takes ``attention_block``
+  (no int8), it takes ``attention_block_train`` instead, whose forward keeps
+  its intermediates for a hand-written backward; the whole-layer kernel and
+  the int8 kernels win over it, as in the Flax ``Block``;
+- ``remat``: each layer is recomputed in the backward pass
+  (``torch.utils.checkpoint``) instead of keeping its activations.
+
+All nine kernels are hand-written Hopper kernels on a CUDA tensor
+(``ops/flash_attention.py``).
 """
 
 from __future__ import annotations
@@ -42,11 +46,13 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from image_retrieval_tpu_torch.config import ModelConfig
 from image_retrieval_tpu_torch.ops.flash_attention import (
     attention_block,
     attention_block_int8,
+    attention_block_train,
     fast_layernorm_f32,
     layer_block,
     layer_block_int8,
@@ -67,12 +73,6 @@ _LAYER_KERNEL_MAX_WIDTH = 768
 # dtype, and the two unfused forms
 LAYER, KERNEL, QUANT, PLAIN = "int8_layer", "int8_block", "quant_dense", "plain"
 DENSE_LAYER, DENSE_KERNEL = "layer", "block"
-
-
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to image_retrieval_tpu_torch yet "
-        "(see ROADMAP.md, queue 2)")
 
 
 def layer_mode(cfg: ModelConfig, width: int, causal: bool = False,
@@ -100,9 +100,8 @@ def layer_mode(cfg: ModelConfig, width: int, causal: bool = False,
     parts from the JAX routing only at those shapes (e.g. layer_block at
     width 768 with 197 tokens, where JAX takes the pair).
 
-    Raises on fused_train_vjp, whose kernel is not ported yet."""
-    if cfg.fused_train_vjp:
-        raise _unsupported("ModelConfig.fused_train_vjp (attention_block_train)")
+    fused_train_vjp changes no route: a Block whose attention route is
+    DENSE_KERNEL runs attention_block_train in place of attention_block."""
     layer, kernel, unfused = ((LAYER, KERNEL, QUANT) if cfg.int8_matmuls
                               else (DENSE_LAYER, DENSE_KERNEL, PLAIN))
     mask_ok = causal or not masked
@@ -214,12 +213,16 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer layer; `mode` is layer_mode()'s answer, the routes
-    of its attention and MLP halves."""
+    of its attention and MLP halves. `train_vjp` (ModelConfig.fused_train_vjp)
+    sends a DENSE_KERNEL attention half through attention_block_train; every
+    other route ignores it (models/clip.py:308-335 of the JAX package)."""
 
     def __init__(self, width: int, heads: int, causal: bool, mode: Tuple[str, str],
-                 attention_kernel: bool = False, scale_scores: bool = False):
+                 attention_kernel: bool = False, scale_scores: bool = False,
+                 train_vjp: bool = False):
         super().__init__()
         self.heads, self.causal, self.mode = heads, causal, mode
+        self.train_vjp = train_vjp
         self.ln1 = LayerNorm(width)
         self.attn = Attention(width, heads, attention_kernel, scale_scores)
         self.ln2 = LayerNorm(width)
@@ -259,6 +262,8 @@ class Block(nn.Module):
         return self._dense[dt]
 
     def _drop_caches(self):
+        """Forget the cached weights: whoever edits a parameter in place (the
+        trainer, after each optimizer step) calls this."""
         self._int8 = None
         self._dense = {}
 
@@ -284,7 +289,8 @@ class Block(nn.Module):
             x = attention_block_int8(x.to(dt).contiguous(), int8.attn, self.heads,
                                      self.causal)
         elif attn == DENSE_KERNEL:
-            x = attention_block(x.to(dt).contiguous(), dense.attn, self.heads, self.causal)
+            block_fn = attention_block_train if self.train_vjp else attention_block
+            x = block_fn(x.to(dt).contiguous(), dense.attn, self.heads, self.causal)
         else:
             x = x + self.attn(self.ln1(x), dt, mask, int8.attn if attn == QUANT else None)
         if mlp == KERNEL:
@@ -292,6 +298,20 @@ class Block(nn.Module):
         if mlp == DENSE_KERNEL:
             return mlp_block(x.to(dt).contiguous(), dense.mlp)
         return x + self.mlp(self.ln2(x), dt, int8.mlp if mlp == QUANT else None)
+
+
+def _run_blocks(blocks, x, dt, mask, remat: bool):
+    """The tower's layers in turn. With `remat` (ModelConfig.remat, nn.remat
+    in the JAX package) a pass that records gradients keeps only each layer's
+    input and runs the layer again in the backward pass."""
+    if remat and torch.is_grad_enabled():
+        for blk in blocks:
+            x = checkpoint(blk, x, dt, mask, use_reentrant=False,
+                           preserve_rng_state=False)  # the layers draw nothing
+        return x
+    for blk in blocks:
+        x = blk(x, dt, mask)
+    return x
 
 
 class PatchEmbed(nn.Module):
@@ -327,7 +347,7 @@ class CLIPVisionTower(nn.Module):
         self.pre_ln = LayerNorm(cfg.vision_width)
         self.blocks = nn.ModuleList(
             Block(cfg.vision_width, cfg.vision_heads, False, mode,
-                  cfg.pallas_attention, cfg.fused_attention)
+                  cfg.pallas_attention, cfg.fused_attention, cfg.fused_train_vjp)
             for _ in range(cfg.vision_layers))
         self.post_ln = LayerNorm(cfg.vision_width)
         self.proj = _param(cfg.vision_width, cfg.embed_dim)
@@ -347,8 +367,7 @@ class CLIPVisionTower(nn.Module):
             x = torch.nn.functional.pad(x, (0, 0, 0, self.seq_pad))
             mask = torch.zeros(t + self.seq_pad, device=x.device)
             mask[t:] = float("-inf")
-        for blk in self.blocks:
-            x = blk(x, dt, mask)
+        x = _run_blocks(self.blocks, x, dt, mask, self.cfg.remat)
         return _f32_product(self.post_ln(x[:, 0]), self.proj, dt)
 
 
@@ -361,7 +380,7 @@ class CLIPTextTower(nn.Module):
         self.position_embedding = _param(cfg.context_length, cfg.text_width)
         self.blocks = nn.ModuleList(
             Block(cfg.text_width, cfg.text_heads, True, mode,
-                  cfg.pallas_attention, cfg.fused_attention)
+                  cfg.pallas_attention, cfg.fused_attention, cfg.fused_train_vjp)
             for _ in range(cfg.text_layers))
         self.final_ln = LayerNorm(cfg.text_width)
         self.proj = _param(cfg.text_width, cfg.embed_dim)
@@ -374,8 +393,7 @@ class CLIPTextTower(nn.Module):
         x = self.token_embedding.to(dt)[token_ids] + self.position_embedding.to(dt)[:t]
         mask = torch.triu(torch.full((t, t), float("-inf"), device=x.device),
                           diagonal=1)
-        for blk in self.blocks:
-            x = blk(x, dt, mask)
+        x = _run_blocks(self.blocks, x, dt, mask, self.cfg.remat)
         x = self.final_ln(x)
         pooled = x[torch.arange(b, device=x.device), token_ids.argmax(-1)]
         return _f32_product(pooled, self.proj, dt)

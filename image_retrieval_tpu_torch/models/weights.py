@@ -1,9 +1,10 @@
 """Weights for the port's CLIP: carried across from the JAX package, mapped
 from a Hugging Face checkpoint, or initialized from a numpy seed.
 
-Every function returns a state dict (name -> f32 tensor) for
-``models.clip.CLIP.load_state_dict``. Names follow the Flax tree, so the
-JAX->port mapping is a rename of the tower-block keys only.
+Every function but ``params_to_jax`` returns a state dict (name -> f32
+tensor) for ``models.clip.CLIP.load_state_dict``. Names follow the Flax
+tree, so the JAX->port mapping is a rename of the tower-block keys only;
+``params_to_jax`` is its inverse.
 """
 
 from __future__ import annotations
@@ -51,6 +52,32 @@ def params_from_jax(flax_params, cfg: ModelConfig) -> StateDict:
             raise ValueError(f"{tower} tower has blocks {sorted(have)}, "
                              f"config says {layers}")
     return sd
+
+
+def params_to_jax(state_dict: Mapping, cfg: ModelConfig) -> Dict:
+    """The inverse of params_from_jax: a state dict of the port's CLIP ->
+    the JAX package's parameter tree ``{"params": {...}}`` with f32 numpy
+    leaves, so that a model trained here loads there. `cfg` must describe
+    the same model; its tower depths are checked."""
+    for tower, layers in (("vision", cfg.vision_layers), ("text", cfg.text_layers)):
+        have = {int(m.group(1)) for k in state_dict
+                if (m := re.match(rf"{tower}\.blocks\.(\d+)\.", k))}
+        if have != set(range(layers)):
+            raise ValueError(f"{tower} tower has blocks {sorted(have)}, "
+                             f"config says {layers}")
+    tree: Dict = {}
+    for name, v in state_dict.items():
+        name = re.sub(r"\.blocks\.(\d+)\.", r".block_\1.", name)
+        if name == "text.token_embedding":
+            name = "text.token_embedding.embedding"
+        *parents, leaf = name.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        if isinstance(v, torch.Tensor):
+            v = v.detach().float().cpu().numpy()
+        node[leaf] = np.array(v, dtype=np.float32)
+    return {"params": tree}
 
 
 def _dense(sd, prefix):

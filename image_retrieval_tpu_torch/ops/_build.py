@@ -28,7 +28,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu",
            "quant_dense.cu", "int4_screen.cu", "fused_metrics.cu", "layer_block.cu",
-           "attention_block.cu", "mlp_block.cu", "multihead_attention.cu")
+           "attention_block.cu", "mlp_block.cu", "multihead_attention.cu",
+           "attention_block_train.cu")
 HEADERS = ("block_common.cuh", "int8_common.cuh", "layer_block_int8.cuh",
            "attention_block_int8.cuh", "mlp_block_int8.cuh", "quant_dense.cuh",
            "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh")
@@ -141,6 +142,11 @@ def load_library() -> ctypes.CDLL:
             lib.irt_attention_block.argtypes = (
                 [p] * 2 + [p] * 6 + [p] + [i] * 6 + [ctypes.c_float, p])
             lib.irt_attention_block.restype = i
+            lib.irt_attention_block_train_workspace_bytes.argtypes = [i, i, i]
+            lib.irt_attention_block_train_workspace_bytes.restype = ctypes.c_size_t
+            lib.irt_attention_block_train.argtypes = (
+                [p] * 5 + [p] * 6 + [p] + [i] * 6 + [ctypes.c_float, p])
+            lib.irt_attention_block_train.restype = i
             lib.irt_mlp_block_workspace_bytes.argtypes = [i, i, i, i]
             lib.irt_mlp_block_workspace_bytes.restype = ctypes.c_size_t
             lib.irt_mlp_block.argtypes = [p] * 2 + [p] * 6 + [p] + [i] * 4 + [p]
@@ -149,6 +155,8 @@ def load_library() -> ctypes.CDLL:
             lib.irt_multihead_attention.restype = i
             lib.irt_int4_screen_scores.argtypes = [p] * 5 + [i, i, ctypes.c_longlong, i, p]
             lib.irt_int4_screen_scores.restype = i
+            lib.irt_int4_screen_scores_i8.argtypes = lib.irt_int4_screen_scores.argtypes
+            lib.irt_int4_screen_scores_i8.restype = i
             f = ctypes.c_float
             lib.irt_fused_metrics_tile_rows.argtypes = []
             lib.irt_fused_metrics_tile_rows.restype = i

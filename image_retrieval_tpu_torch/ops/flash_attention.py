@@ -48,6 +48,15 @@ the backward differentiates the plain version on the saved inputs (the JAX
 entries' custom VJPs recompute through their XLA mirrors the same way); on a
 CPU tensor autograd runs through the plain version.
 
+**The training form of the attention half**: ``attention_block_train``
+(l.1225, TPU kernel ``_attn_block_saved_kernel`` l.1051). Its forward is
+``attention_block``'s and also keeps q, k, v and a in the compute dtype and
+the f32 probabilities before their cast (``attention_block_saved``); its
+backward is written out by hand over those tensors
+(``attention_block_saved_backward``, the port of ``_attn_block_saved_bwd``
+l.1165 and ``_ln_bwd_f32`` l.1148) and recomputes only the LayerNorm. A call
+that records no gradient is ``attention_block``.
+
 Each wrapper launches its hand-written Hopper kernel chain (csrc/) for a
 CUDA tensor and runs its ``*_reference`` for a CPU tensor; none falls back
 from the card to the plain version. Weight matrices are kept output-major
@@ -233,14 +242,9 @@ def _int8_proj(hq, hs, w_t, ws, b, dt):
     return (acc.to(torch.float32) * hs * ws + b).to(dt)
 
 
-def multihead_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                  heads: int, causal: bool = False) -> torch.Tensor:
-    """Per-(image, head) attention on (B, T, W) q, k, v as the TPU kernels
-    compute it (_attn_kernel, flash_attention.py:87; _inkernel_attention,
-    :258): QK^T in f32, scaled after the dot, f32 softmax, probabilities cast
-    to the compute type, PV accumulated in f32 and cast. The plain version of
-    multihead_attention (which has no mask; `causal` serves the layer
-    kernels' attention step)."""
+def _attention_with_probs(q, k, v, heads, causal):
+    """multihead_attention_reference and, beside its output, the (B, H, T, T)
+    f32 probabilities before their cast to the compute type."""
     b, t, w = q.shape
     hd, dt = w // heads, q.dtype
     q, k, v = (a.reshape(b, t, heads, hd).permute(0, 2, 1, 3).float() for a in (q, k, v))
@@ -250,9 +254,20 @@ def multihead_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
             torch.full((t, t), float("-inf"), device=s.device), diagonal=1)
     s = s - s.amax(-1, keepdim=True)
     p = torch.exp(s)
-    p = (p / p.sum(-1, keepdim=True)).to(dt)
-    o = torch.matmul(p.float(), v).to(dt)
-    return o.permute(0, 2, 1, 3).reshape(b, t, w)
+    p = p / p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(dt).float(), v).to(dt)
+    return o.permute(0, 2, 1, 3).reshape(b, t, w), p
+
+
+def multihead_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  heads: int, causal: bool = False) -> torch.Tensor:
+    """Per-(image, head) attention on (B, T, W) q, k, v as the TPU kernels
+    compute it (_attn_kernel, flash_attention.py:87; _inkernel_attention,
+    :258): QK^T in f32, scaled after the dot, f32 softmax, probabilities cast
+    to the compute type, PV accumulated in f32 and cast. The plain version of
+    multihead_attention (which has no mask; `causal` serves the layer
+    kernels' attention step)."""
+    return _attention_with_probs(q, k, v, heads, causal)[0]
 
 
 def _attention_reference(qkv, b, t, w, heads, causal, dt):
@@ -764,6 +779,98 @@ def attention_block_reference(x: torch.Tensor, weights: AttnWeights, heads: int,
     return (xb + _dense_proj(attn, wt.wo_t, wt.bo).to(dt)).reshape(b, t, w)
 
 
+def attention_block_saved_reference(x: torch.Tensor, weights: AttnWeights, heads: int,
+                                    causal: bool = False):
+    """Plain PyTorch version of the training forward (_attn_block_saved_kernel,
+    flash_attention.py:1051): attention_block_reference's output, operation
+    for operation, and what its backward needs: (o, q, k, v, a, probs) with
+    q, k, v, a (B, T, W) in the compute dtype (q, k, v are views of one
+    packed (B, T, 3 W) tensor) and probs (B, H, T, T) in f32 before the cast
+    that the PV product takes; under `causal` exact zeros above the
+    diagonal."""
+    require_full_f32(x.device)
+    wt = weights
+    _check_compute_dtype("attention_block_train", x, wt.wqkv_t, wt.wo_t)
+    b, t, w = x.shape
+    dt = x.dtype
+    xb = x.reshape(b * t, w)
+    h = fast_layernorm_f32(xb.float(), wt.ln_s, wt.ln_b).to(dt)
+    qkv = _dense_proj(h, wt.wqkv_t, wt.bqkv).to(dt)
+    q, k, v = qkv.reshape(b, t, 3, w).unbind(2)
+    attn, probs = _attention_with_probs(q, k, v, heads, causal)
+    o = (xb + _dense_proj(attn.reshape(b * t, w), wt.wo_t, wt.bo).to(dt)).reshape(b, t, w)
+    return o, q, k, v, attn, probs
+
+
+def _ln_bwd_f32(dh: torch.Tensor, x32: torch.Tensor, ln_scale: torch.Tensor,
+                eps: float = 1e-5):
+    """Backward of fast_layernorm_f32 to its input and (scale, bias), the
+    JAX package's _ln_bwd_f32 (flash_attention.py:1148) line by line."""
+    mu = x32.mean(-1, keepdim=True)
+    ms = (x32 * x32).mean(-1, keepdim=True)
+    var = torch.clamp(ms - mu * mu, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mu) * rstd
+    dxhat = dh * ln_scale.float()
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    lead = tuple(range(dh.dim() - 1))
+    return dx, (dh * xhat).sum(lead), dh.sum(lead)
+
+
+def attention_block_saved_backward(g: torch.Tensor, x: torch.Tensor, weights: AttnWeights,
+                                   q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   attn: torch.Tensor, probs: torch.Tensor, heads: int):
+    """The hand-written backward of the attention sub-block over what
+    attention_block_saved kept: _attn_block_saved_bwd (flash_attention.py:1165)
+    in tensor operations, every product in f32, nothing of the forward
+    recomputed but the LayerNorm. `g` is the gradient of the output.
+    Returns the gradients of (x, ln_s, ln_b, wqkv_t, bqkv, wo_t, bo) in the
+    dtypes of those tensors. The weights here are the ones the forward
+    multiplied by (already in the compute dtype), where the JAX function
+    reads its f32 parameters: in f32 the two are the same numbers."""
+    require_full_f32(x.device)
+    wt = weights
+    b, t, w = x.shape
+    hd = w // heads
+    scale = hd ** -0.5
+    dt = x.dtype
+    g32 = g.float()
+    x32 = x.float()
+
+    # out projection + residual: out = attn @ wo + bo ; y = x + out
+    g2 = g32.reshape(b * t, w)
+    attn2 = attn.float().reshape(b * t, w)
+    dwo_t = g2.t() @ attn2
+    dbo = g2.sum(0)
+    dattn = (g2 @ wt.wo_t.float()).reshape(b, t, heads, hd)
+
+    # attention: per-head softmax(q k^T scale) @ v over the saved f32 probs
+    qh, kh, vh = (a.float().reshape(b, t, heads, hd) for a in (q, k, v))
+    # the forward mixed with the probabilities cast to the compute dtype, so
+    # dv takes the cast values; the softmax itself ran in f32
+    probs_mix = probs.to(dt).float()
+    dv_h = torch.einsum("bhqk,bqhd->bkhd", probs_mix, dattn)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dattn, vh)
+    ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    dq_h = torch.einsum("bhqk,bkhd->bqhd", ds, kh) * scale
+    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qh) * scale
+
+    # projections: [q | k | v] = h @ wqkv + bqkv, h = LN(x) cast to dt
+    h2 = fast_layernorm_f32(x32, wt.ln_s.float(), wt.ln_b.float()).to(dt).float()
+    h2 = h2.reshape(b * t, w)
+    dqkv2 = torch.cat([a.reshape(b * t, w) for a in (dq_h, dk_h, dv_h)], dim=1)
+    dwqkv_t = dqkv2.t() @ h2
+    dbqkv = dqkv2.sum(0)
+    dh = (dqkv2 @ wt.wqkv_t.float()).reshape(b, t, w)
+
+    dx_ln, dls, dlb = _ln_bwd_f32(dh, x32, wt.ln_s)
+    dx = (g32 + dx_ln).to(dt)
+    cast = lambda grad, prim: grad.to(prim.dtype)
+    return (dx, cast(dls, wt.ln_s), cast(dlb, wt.ln_b), cast(dwqkv_t, wt.wqkv_t),
+            cast(dbqkv, wt.bqkv), cast(dwo_t, wt.wo_t), cast(dbo, wt.bo))
+
+
 def mlp_block_reference(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
     """Plain PyTorch version of the MLP sub-block, on x's device (full f32
     products, as attention_block_reference)."""
@@ -959,6 +1066,84 @@ def attention_block(x: torch.Tensor, weights: AttnWeights, heads: int,
 
 
 attention_block.launches = 0
+
+
+def _attention_block_train_cuda(x, weights, heads, causal):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "attention_block_train"
+    _check_x(fn, x)
+    b, t, w = x.shape
+    _check_dense_weights(fn, x, weights, _attn_shapes(w))
+    _check_gemm_dims(fn, w)
+    lib = load_library()
+    hd = _check_attention_shape(fn, lib, t, w, heads)
+    out = torch.empty_like(x)
+    # outputs of their own, not scratch: the backward reads them later
+    qkv = torch.empty((b, t, 3 * w), dtype=x.dtype, device=x.device)
+    attn = torch.empty_like(x)
+    probs = torch.empty((b, heads, t, t), dtype=torch.float32, device=x.device)
+    ws = _workspace(lib.irt_attention_block_train_workspace_bytes(b * t, w, x.element_size()),
+                    x.device)
+    _run(attention_block_train, lib, x.device, lambda stream: lib.irt_attention_block_train(
+        x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(), probs.data_ptr(),
+        *(a.data_ptr() for a in weights.tensors()), ws.data_ptr(), b, t, w, heads,
+        int(bool(causal)), _DTYPE_CODES[x.dtype], ctypes.c_float(hd ** -0.5), stream))
+    q, k, v = qkv.reshape(b, t, 3, w).unbind(2)
+    return out, q, k, v, attn, probs
+
+
+def attention_block_saved(x: torch.Tensor, weights: AttnWeights, heads: int,
+                          causal: bool = False):
+    """The training forward on (B, T, W) x: (o, q, k, v, a, probs) as
+    attention_block_saved_reference describes them. CUDA: the Hopper kernel
+    chain (or this raises), counted in ``attention_block_train.launches``;
+    CPU: the plain version. Not differentiable by itself:
+    attention_block_train is."""
+    if x.device.type == "cuda":
+        return _attention_block_train_cuda(x, weights, heads, causal)
+    if x.device.type == "cpu":
+        return attention_block_saved_reference(x, weights, heads, causal)
+    raise ValueError(f"attention_block_train: unsupported device {x.device}")
+
+
+class _SavedAttentionFunction(torch.autograd.Function):
+    """attention_block_saved forward, attention_block_saved_backward over
+    what it kept (the JAX entry's custom VJP, flash_attention.py:1238-1248)."""
+
+    @staticmethod
+    def forward(ctx, heads, causal, x, *tensors):
+        o, q, k, v, attn, probs = attention_block_saved(x, AttnWeights(*tensors), heads, causal)
+        ctx.heads = heads
+        ctx.save_for_backward(x, *tensors, q, k, v, attn, probs)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *rest = ctx.saved_tensors
+        grads = attention_block_saved_backward(
+            g, x, AttnWeights(*rest[:6]), *rest[6:], ctx.heads)
+        return (None, None, *(gr if need else None
+                              for gr, need in zip(grads, ctx.needs_input_grad[2:])))
+
+
+def attention_block_train(x: torch.Tensor, weights: AttnWeights, heads: int,
+                          causal: bool = False) -> torch.Tensor:
+    """attention_block with a backward that recomputes no forward: while a
+    gradient is being recorded the forward keeps q, k, v, a and the f32
+    probabilities (CUDA: the Hopper kernel chain of attention_block_saved, or
+    this raises; CPU: the plain version) and the backward is
+    attention_block_saved_backward over them. A call that records no
+    gradient takes attention_block and keeps nothing, as the JAX entry's
+    primal does. ``attention_block_train.launches`` counts launches of the
+    saving kernel only."""
+    if not (torch.is_grad_enabled()
+            and any(a.requires_grad for a in (x, *weights.tensors()))):
+        return attention_block(x, weights, heads, causal)
+    return _SavedAttentionFunction.apply(heads, causal, x, *weights.tensors())
+
+
+attention_block_train.launches = 0
 
 
 def _mlp_block_cuda(x, weights):

@@ -1,4 +1,4 @@
-"""The int4 screen kernel (K3) and its plain PyTorch version.
+"""The int4 screen kernels (K3, K12) and their plain PyTorch versions.
 
 Port of ``image_retrieval_tpu/ops/pallas_kernels.py``'s int4 screen:
 ``_int4_screen_kernel`` (l.602) under ``int4_screen_scores_pallas`` (l.783)
@@ -12,7 +12,20 @@ whose ``valid`` flag is False score -inf.
 ``int4_screen_scores`` launches the hand-written Hopper kernel
 (csrc/int4_screen.cu) for CUDA tensors and runs
 ``int4_screen_scores_reference`` for CPU tensors; it never falls back from
-the card to the plain version. ``int4_screen_topc`` sweeps a gallery in
+the card to the plain version.
+
+The int8-query form (``_int4_screen_kernel_i8``, l.636, selected by
+``qform="i8"`` at l.751): ``quantize_queries_i8`` is ``int4_query_planes_i8``
+(l.664) without its TPU-only zero-extended planes, per query absmax / 127,
+round half to even, clip to +-127; ``int4_screen_scores_i8`` computes
+
+    score[q, n] = scale4[n] * float(sum_d q8[q, d] * (nibble(packed[n], d) - 8))
+
+with an exact int32 sum and without the per-query scale, which
+``int4_screen_topc(qform="i8")`` multiplies into the selected values, as the
+JAX package does (l.876-882). Kernel and plain version agree bit for bit.
+
+``int4_screen_topc`` sweeps a gallery in
 segments of ``SEGMENT_ROWS`` rows and merges each segment's top-c, exact
 with lowest-index ties (``ops/topk.py::exact_topk_wide``). The JAX
 package's TPU selection is ``approx_max_k``; on the CPU that lowers to the
@@ -37,6 +50,9 @@ SEGMENT_ROWS = 1 << 21
 # score by ~1e-6 at most; a swapped nibble order or a dropped scale moves
 # it by ~1e-1 (tests/test_torch_int4.py shows both).
 SCREEN_MAX_ABS = 1e-5
+
+
+QFORMS = ("bf16", "i8")
 
 
 def _check(qu, packed, scales, valid, row_offset, rows):
@@ -69,32 +85,40 @@ def int4_screen_scores_reference(qu: torch.Tensor, packed: torch.Tensor,
     return s.masked_fill(~valid[seg], float("-inf"))
 
 
-def _int4_screen_scores_cuda(qu, packed, scales, valid, row_offset, rows):
+def _launch(entry, symbol, queries, packed, scales, valid, row_offset, rows):
+    """One launch of the library's `symbol` (either screen kernel: the same
+    arguments) on PyTorch's current stream, counted on the wrapper `entry`;
+    raises on operands the kernels do not take and on a refused launch."""
     from image_retrieval_tpu_torch.ops._build import load_library
 
-    if qu.dtype != torch.bfloat16:
-        raise TypeError(f"int4_screen kernel takes bfloat16 queries, got {qu.dtype}")
-    for name, a in (("queries", qu), ("packed", packed), ("scales", scales),
+    for name, a in (("queries", queries), ("packed", packed), ("scales", scales),
                     ("valid", valid)):
         if a.device != packed.device or not a.is_contiguous():
-            raise ValueError(f"int4_screen kernel: {name} must be contiguous on "
+            raise ValueError(f"{entry.__name__} kernel: {name} must be contiguous on "
                              f"{packed.device}")
-    if qu.data_ptr() % 4:
-        raise ValueError("int4_screen kernel: queries must be 4-byte aligned")
-    out = torch.empty((qu.shape[0], rows), dtype=torch.float32, device=packed.device)
-    if qu.shape[0] == 0 or rows == 0:
+    out = torch.empty((queries.shape[0], rows), dtype=torch.float32, device=packed.device)
+    if queries.shape[0] == 0 or rows == 0:
         return out
     lib = load_library()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
-        rc = lib.irt_int4_screen_scores(
-            qu.data_ptr(), packed.data_ptr(), scales.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), qu.shape[0], qu.shape[1], row_offset, rows, stream)
+        rc = getattr(lib, symbol)(
+            queries.data_ptr(), packed.data_ptr(), scales.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), queries.shape[0], queries.shape[1], row_offset, rows, stream)
     if rc != 0:
-        raise RuntimeError("int4_screen kernel failed: "
+        raise RuntimeError(f"{entry.__name__} kernel failed: "
                            + lib.irt_error_string(rc).decode())
-    int4_screen_scores.launches += 1
+    entry.launches += 1
     return out
+
+
+def _int4_screen_scores_cuda(qu, packed, scales, valid, row_offset, rows):
+    if qu.dtype != torch.bfloat16:
+        raise TypeError(f"int4_screen kernel takes bfloat16 queries, got {qu.dtype}")
+    if qu.data_ptr() % 4:
+        raise ValueError("int4_screen kernel: queries must be 4-byte aligned")
+    return _launch(int4_screen_scores, "irt_int4_screen_scores", qu, packed, scales, valid,
+                   row_offset, rows)
 
 
 def int4_screen_scores(qu: torch.Tensor, packed: torch.Tensor,
@@ -119,14 +143,88 @@ def int4_screen_scores(qu: torch.Tensor, packed: torch.Tensor,
 int4_screen_scores.launches = 0
 
 
+def quantize_queries_i8(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Q, D) f32 or bf16 queries -> ((Q, D) int8, (Q, 1) f32 scales): the
+    symmetric per-query quantization of int4_query_planes_i8, bit for bit.
+    The divisors are tensors: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which is not the rounded quotient."""
+    qf = queries.to(torch.float32)
+    amax = torch.clamp(qf.abs().amax(1, keepdim=True), min=1e-12)
+    qs = amax / torch.full_like(amax, 127.0)
+    return torch.clamp(torch.round(qf / qs), -127, 127).to(torch.int8), qs
+
+
+def int4_screen_scores_i8_reference(q8: torch.Tensor, packed: torch.Tensor,
+                                    scales: torch.Tensor, valid: torch.Tensor,
+                                    row_offset: int = 0, rows=None) -> torch.Tensor:
+    """Plain PyTorch version of the int8-query screen over the segment
+    [row_offset, row_offset + rows): float(int dot) * scales, invalid rows
+    -inf, (Q, rows) f32. The dot is summed in float64, which is exact for
+    integers of this size on any device (|sum| <= 127 * 8 * D)."""
+    rows = packed.shape[0] - row_offset if rows is None else rows
+    _check(q8, packed, scales, valid, row_offset, rows)
+    seg = slice(row_offset, row_offset + rows)
+    q = q8.to(torch.float64)
+    lo = ((packed[seg] & 0xF).to(torch.int16) - 8).to(torch.float64)
+    hi = ((packed[seg] >> 4).to(torch.int16) - 8).to(torch.float64)
+    dots = q[:, 0::2] @ lo.t() + q[:, 1::2] @ hi.t()
+    s = dots.to(torch.float32) * scales[seg]
+    return s.masked_fill(~valid[seg], float("-inf"))
+
+
+def _int4_screen_scores_i8_cuda(q8, packed, scales, valid, row_offset, rows):
+    if q8.shape[1] > 2048:
+        raise ValueError("int4_screen i8 kernel: D <= 2048 keeps the int32 sum "
+                         f"exact in f32, got {q8.shape[1]}")
+    return _launch(int4_screen_scores_i8, "irt_int4_screen_scores_i8", q8, packed, scales,
+                   valid, row_offset, rows)
+
+
+def int4_screen_scores_i8(q8: torch.Tensor, packed: torch.Tensor,
+                          scales: torch.Tensor, valid: torch.Tensor,
+                          row_offset: int = 0, rows=None) -> torch.Tensor:
+    """The int8-query screen of the gallery segment [row_offset, row_offset
+    + rows): (Q, rows) f32 = float(int32 dot) * scales, -inf where ``valid``
+    is False, without the queries' own scales.
+
+    q8: (Q, D) int8 (``quantize_queries_i8``); the rest as
+    ``int4_screen_scores``. A CUDA tensor goes through the Hopper kernel (or
+    this raises); a CPU tensor takes the plain version.
+    ``int4_screen_scores_i8.launches`` counts kernel launches."""
+    rows = packed.shape[0] - row_offset if rows is None else rows
+    _check(q8, packed, scales, valid, row_offset, rows)
+    if q8.dtype != torch.int8:
+        raise TypeError(f"int4_screen_scores_i8 takes int8 queries, got {q8.dtype}")
+    if packed.device.type == "cuda":
+        return _int4_screen_scores_i8_cuda(q8, packed, scales, valid, row_offset, rows)
+    if packed.device.type == "cpu":
+        return int4_screen_scores_i8_reference(q8, packed, scales, valid, row_offset, rows)
+    raise ValueError(f"int4_screen_scores_i8: unsupported device {packed.device}")
+
+
+int4_screen_scores_i8.launches = 0
+
+
 def int4_screen_topc(qu: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                     valid: torch.Tensor, c: int,
-                     seg_rows: int = SEGMENT_ROWS) -> Tuple[torch.Tensor, torch.Tensor]:
+                     valid: torch.Tensor, c: int, seg_rows: int = SEGMENT_ROWS,
+                     qform: str = "bf16") -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-c of the int4 screen over the whole gallery: one
     ``int4_screen_scores`` call per segment of `seg_rows` rows, each
     segment's exact top-c merged into a running list (lowest index first
     among ties). Returns (scores f32, indices int64), each (Q, min(c, N));
-    -inf entries are padding (fewer valid rows than c)."""
+    -inf entries are padding (fewer valid rows than c).
+
+    qform "i8" quantizes the queries to int8 once, screens every segment
+    with ``int4_screen_scores_i8`` and multiplies the selected values by the
+    queries' scales (positive, so no ranking changes; -inf stays -inf)."""
+    if qform not in QFORMS:
+        raise ValueError(f"int4_screen_topc: qform must be one of {QFORMS}, got {qform!r}")
+    if qform == "i8":
+        q8, qs = quantize_queries_i8(qu)
+        vals, idx = segmented_topc(
+            lambda off, rows: int4_screen_scores_i8(q8, packed, scales, valid, off, rows),
+            packed.shape[0], c, seg_rows)
+        return vals * qs, idx
 
     def seg(off, rows):
         return int4_screen_scores(qu, packed, scales, valid, off, rows)

@@ -18,7 +18,8 @@ card and the kernel's plain version on the CPU:
 - the five planes of ``sharded_multimetric_topk``: ``fused_all_metrics``
   (K6), over bf16 and int8 galleries ``ROW_BLOCK`` dequantized rows at a
   time;
-- the int4 screen: ``int4_screen_topc`` (K3).
+- the int4 screen: ``int4_screen_topc`` (K3; K12 under the query form
+  ``"i8"``, which no tier selects).
 
 Everything else is plain tensor operations in row blocks, as the JAX
 package leaves it to XLA: the f32/bf16 weighted score uses the direct L2
@@ -56,6 +57,13 @@ from image_retrieval_tpu_torch.ops.topk import (
 # Rows upcast or dequantized to f32 per block in the bf16/int8 sweeps: no
 # (N, D) f32 copy of the gallery is made (a 2^16 x 512 block is 128 MiB).
 ROW_BLOCK = 1 << 16
+
+# Query form of the int4 screen on the index's sweeps
+# (ops/int4_screen.py::int4_screen_topc): "bf16" scores as unpack2_dots does;
+# "i8" quantizes each query to int8 and takes the integer kernel. As in the
+# JAX package it stays "bf16" until "i8" is measured faster on the card at
+# equal recall.
+INT4_SCREEN_QFORM = "bf16"
 
 _ANGLE_FAMILY = ("cosine_similarity", "cosine_distance", "angular_distance")
 
@@ -233,7 +241,7 @@ def sharded_int4_screen_topk(queries: torch.Tensor, packed: torch.Tensor,
     queue 1 item 7."""
     cc = min(c, packed.shape[0])
     qu = unit_queries(queries).to(torch.bfloat16)
-    return int4_screen_topc(qu, packed, scales, valid, cc)
+    return int4_screen_topc(qu, packed, scales, valid, cc, qform=INT4_SCREEN_QFORM)
 
 
 def sharded_int4_two_phase_topk(queries: torch.Tensor, packed: torch.Tensor,
@@ -251,7 +259,7 @@ def sharded_int4_two_phase_topk(queries: torch.Tensor, packed: torch.Tensor,
     cc = min(c, packed.shape[0])
     kk = min(k, cc)
     qu = unit_queries(queries).to(torch.bfloat16)
-    sv, sidx = int4_screen_topc(qu, packed, scales, valid, cc)
+    sv, sidx = int4_screen_topc(qu, packed, scales, valid, cc, qform=INT4_SCREEN_QFORM)
     cand = rows8[sidx].to(torch.float32)  # (Q, cc, D)
     ex = torch.bmm(cand, qu.to(torch.float32)[:, :, None])[..., 0] * scales8[sidx]
     ex = torch.where(torch.isfinite(sv), ex, float("-inf"))

@@ -3,8 +3,6 @@ package's: same weights carried across with params_from_jax, same inputs
 from a numpy seed, both towers, on the default path and the int8 serving
 path. Also the HF weight mapping and the tokenizer copy."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,17 +78,6 @@ def test_serving_path_matches_jax(jax_params, inputs):
     for got, want in _towers(cfg, jax_params, inputs):
         assert got.shape == want.shape
         assert _row_cos(got, want).min() >= 0.9999
-
-
-@pytest.mark.parametrize("flag", ["fused_train_vjp"])
-def test_unported_flags_raise(flag):
-    """fused_train_vjp (the attention sub-block that saves its intermediates
-    for a hand-written backward) goes on raising; every other flag runs now:
-    the int8 routes are held against the JAX towers in
-    tests/test_torch_l14.py, the compute-dtype kernels, pallas_attention and
-    fused_attention in tests/test_torch_dense_towers.py."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CLIP(dataclasses.replace(SMALL, **{flag: True}))
 
 
 def _hf_configs():

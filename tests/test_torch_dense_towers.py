@@ -230,14 +230,6 @@ def test_where_the_routing_parts_from_the_jax_table(calls, monkeypatch, tmp_path
     np.testing.assert_allclose(text[0], text[1], rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("flags", [
-    dict(fused_train_vjp=True), dict(fused_train_vjp=True, fused_attn_block=True),
-    dict(fused_train_vjp=True, int8_matmuls=True, fused_layer_block=True)])
-def test_fused_train_vjp_still_raises(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        layer_mode(ModelConfig(**SMALL, **flags), 48)
-
-
 @pytest.mark.parametrize("flag", ["fused_layer_block", "fused_attn_block", "fused_mlp_block",
                                   "pallas_attention", "fused_attention"])
 def test_the_fused_parameter_tree_is_the_unfused_one(flag, small_params):

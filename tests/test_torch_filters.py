@@ -135,3 +135,49 @@ def test_searcher_drops_filter_padding(dtype, optimized):
     assert [h["path"] for h in got] == [h["path"] for h in want]
     np.testing.assert_allclose([h["score"] for h in got], [h["score"] for h in want],
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_facade_attrs_fn_reaches_filtered_search(tmp_path, dtype):
+    """Both facades ingest the same images with the same attrs_fn: a gallery
+    built through ImageEmbeddingSystem answers a search with filter_expr, and
+    the port's paths and scores are the JAX package's."""
+    from PIL import Image
+
+    from image_retrieval_tpu.app.embed import ImageEmbeddingSystem as JaxSystem
+    from image_retrieval_tpu.config import Config
+    from image_retrieval_tpu_torch.app.embed import ImageEmbeddingSystem
+
+    rng = np.random.default_rng(9)
+    paths = []
+    for i in range(12):
+        p = tmp_path / f"img_{i:02d}.png"
+        Image.fromarray(rng.integers(0, 256, size=(40, 40, 3), dtype=np.uint8)).save(p)
+        paths.append(str(p))
+    paths.append(str(tmp_path / "missing.png"))  # fails to decode: no attribute row for it
+
+    def attrs_fn(ok_paths):
+        nums = [int(pathlib.Path(p).stem.split("_")[1]) for p in ok_paths]
+        return {"num": nums, "parity": ["even" if n % 2 == 0 else "odd" for n in nums]}
+
+    cfg = Config(index=IndexConfig(embedding_dim=64, dtype=dtype, capacity_step=64),
+                 batch_size=5)
+    mine = ImageEmbeddingSystem(FakeEncoder(dim=64), config=cfg, attrs_fn=attrs_fn,
+                                device="cpu")
+    ref = JaxSystem(JaxFake(dim=64), config=cfg, attrs_fn=attrs_fn)
+    assert mine.process_and_store_images(paths) == ref.process_and_store_images(paths) == (12, 1)
+    np.testing.assert_array_equal(mine.index.filter_mask("parity == 'even' and num >= 4"),
+                                  ref.index.filter_mask("parity == 'even' and num >= 4"))
+    kw = dict(top_k=5, score_threshold=float("-inf"),
+              filter_expr="parity == 'even' and num >= 4")
+    got = TextImageSearcher(FakeEncoder(dim=64), mine.index).search("a red car", **kw)
+    want = JaxSearcher(JaxFake(dim=64), ref.index).search("a red car", **kw)
+    assert {h["path"] for h in got} == {paths[i] for i in (4, 6, 8, 10)}
+    assert [h["path"] for h in got] == [h["path"] for h in want]
+    np.testing.assert_allclose([h["score"] for h in got], [h["score"] for h in want],
+                               rtol=0, atol=1e-5)
+    # without attrs_fn the facade inserts no attributes, as before
+    bare = ImageEmbeddingSystem(FakeEncoder(dim=64), config=cfg, device="cpu")
+    bare.process_and_store_images(paths[:3])
+    with pytest.raises(filters.FilterError):
+        bare.index.filter_mask("num >= 4")

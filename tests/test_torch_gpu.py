@@ -286,6 +286,58 @@ def test_int4_screen_kernel_matches_plain(cuda, d, nq):
         assert float(got[nq // 2][fin[nq // 2]].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("d", [64, 512, 768, 40, 42])
+@pytest.mark.parametrize("nq", [1, 3, 64, 130])
+def test_int4_screen_i8_kernel_matches_plain_bitwise(cuda, d, nq):
+    """The int8-query screen: an exact int32 sum, converted exactly, times
+    the row scale in one f32 multiply on both sides: bit for bit."""
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    rng = np.random.default_rng(d * 1000 + nq)
+    n = 3 * 128 + 37
+    packed, scales, valid = _int4_gallery(rng, n, d, cuda)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    if nq > 1:
+        q[nq // 2] = 0.0  # an all-zero query quantizes to zeros and scores 0
+    q8, qs = k3.quantize_queries_i8(torch.from_numpy(q).to(cuda))
+    assert q8.dtype == torch.int8 and int(q8.abs().max()) == 127 and qs.shape == (nq, 1)
+    for off, rows in ((0, n), (131, n - 131 - 5)):
+        before = k3.int4_screen_scores_i8.launches, k3.int4_screen_scores.launches
+        got = k3.int4_screen_scores_i8(q8, packed, scales, valid, off, rows)
+        want = k3.int4_screen_scores_i8_reference(q8, packed, scales, valid, off, rows)
+        torch.cuda.synchronize()
+        assert k3.int4_screen_scores_i8.launches == before[0] + 1
+        assert k3.int4_screen_scores.launches == before[1]
+        assert got.shape == (nq, rows) and torch.equal(got, want)
+        assert torch.equal(torch.isfinite(got)[0], valid[off: off + rows])
+    # extreme values: every query entry +-127 against every nibble
+    q8 = torch.from_numpy(rng.choice([-127, 127], size=(nq, d)).astype(np.int8)).to(cuda)
+    assert torch.equal(k3.int4_screen_scores_i8(q8, packed, scales, valid),
+                       k3.int4_screen_scores_i8_reference(q8, packed, scales, valid))
+
+
+def test_int4_screen_topc_i8_ranks_like_bf16(cuda):
+    """qform="i8" through the kernel: the plain version's ids and values, and
+    the bf16 form's neighbours up to the int8 query grid."""
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    rng = np.random.default_rng(5)
+    n, d, nq, c = 5000, 512, 7, 32
+    packed, scales, valid = _int4_gallery(rng, n, d, cuda)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qu = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    v8, i8 = k3.int4_screen_topc(qu, packed, scales, valid, c, seg_rows=2048, qform="i8")
+    vc, ic = k3.int4_screen_topc(qu.cpu(), packed.cpu(), scales.cpu(), valid.cpu(), c,
+                                 seg_rows=2048, qform="i8")
+    assert torch.equal(i8.cpu(), ic) and torch.equal(v8.cpu(), vc)
+    vb, ib = k3.int4_screen_topc(qu, packed, scales, valid, c, seg_rows=2048)
+    overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / c
+                       for a, b in zip(i8.cpu(), ib.cpu())])
+    assert overlap >= 0.9, overlap
+    assert float((v8[:, 0] - vb[:, 0]).abs().max()) <= 5e-3
+
+
 def test_int4_screen_kernel_rejects_bad_input(cuda):
     from image_retrieval_tpu_torch.ops import int4_screen as k3
 
@@ -666,6 +718,105 @@ def test_multihead_attention_kernel_gradient(cuda):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
+# ---------------------------------------------------------------------------
+# attention_block_train: the saving forward and its hand-written backward
+# ---------------------------------------------------------------------------
+
+# Kernel vs plain on the f32 probabilities (values in [0, 1]). In f32 both
+# sides differ by the order of the QK^T sums and expf against torch.exp. In
+# bf16 a q or k value that rounds to its neighbour moves a score by up to a
+# bf16 step of |q| |k| scale, and the probability with it.
+PROBS_ATOL = {"float32": 1e-6, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("b,t,w,heads,causal", DENSE_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_block_train_kernel_matches_plain(cuda, b, t, w, heads, causal, dtype):
+    """All six outputs of the saving forward against its plain version, the
+    output bit for bit against attention_block's kernel (the same launches on
+    the same values), exact zeros above a causal diagonal."""
+    rng = np.random.default_rng(t * w + b)
+    wts = _dense_weights(rng, w, cuda, dtype).attn
+    x = _x(rng, (b, t, w), cuda, dtype)
+    before = fa.attention_block_train.launches, fa.attention_block.launches
+    got = fa.attention_block_saved(x, wts, heads, causal)
+    want = fa.attention_block_saved_reference(x, wts, heads, causal)
+    torch.cuda.synchronize()
+    assert fa.attention_block_train.launches == before[0] + 1
+    assert fa.attention_block.launches == before[1]
+    for name, g, wnt in zip(("o", "q", "k", "v", "attn"), got, want):
+        assert g.shape == (b, t, w) and g.dtype == x.dtype, name
+        r = fa.dense_agreement(g, wnt, x, "attn")
+        assert r["ok"], (name, r)
+    probs, pwant = got[5], want[5]
+    assert probs.shape == (b, heads, t, t) and probs.dtype == torch.float32
+    assert float((probs - pwant).abs().max()) <= PROBS_ATOL[dtype]
+    assert float((probs.sum(-1) - 1).abs().max()) <= 1e-5
+    if causal:
+        above = torch.triu(torch.ones(t, t, dtype=torch.bool, device=cuda), diagonal=1)
+        assert float(probs[..., above].abs().max() if t > 1 else 0.0) == 0.0
+    assert torch.equal(got[0], fa.attention_block(x, wts, heads, causal))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_block_train_gradients(cuda, dtype, causal):
+    """Gradients through the kernel and the hand-written backward against
+    autograd through the plain version of the sub-block. f32: both are the
+    same derivative, in other orders of f32 sums. bf16: autograd rounds the
+    gradient to bf16 at every cast it passes while the hand-written backward
+    stays in f32 between them, so they agree to a few bf16 steps of the
+    largest entry of each gradient; where they do not (the key bias, whose
+    gradient is zero in exact arithmetic and rounding noise under autograd)
+    the hand-written one is the closer to the f32 derivative."""
+    rng = np.random.default_rng(21)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+    w, heads = 128, 2
+    shapes = [(w,), (w,), (w, w), (w,), (w, w), (w,), (w, w), (w,), (w, w), (w,)]
+    dt = getattr(torch, dtype)
+    x, g = f(3, 13, w).to(dt), f(3, 13, w).to(dt)
+    base = [0.05 * f(*s) + (1.0 if i == 0 else 0.0) for i, s in enumerate(shapes)]
+    mlp = [torch.zeros(w, device=cuda), torch.zeros(w, device=cuda),
+           torch.zeros(w, 4 * w, device=cuda), torch.zeros(4 * w, device=cuda),
+           torch.zeros(4 * w, w, device=cuda), torch.zeros(w, device=cuda)]
+
+    def gradients(run, run_dt):
+        params = [p.clone().requires_grad_(True) for p in base]
+        xr = x.detach().to(run_dt).clone().requires_grad_(True)
+        wts = fa.prepare_layer(*params, *mlp, dtype=run_dt).attn
+        before = fa.attention_block_train.launches
+        out = run(xr, wts, heads, causal)
+        took = fa.attention_block_train.launches - before
+        assert took == (1 if run is fa.attention_block_train else 0)
+        (out.float() * g.float()).sum().backward()
+        assert fa.attention_block_train.launches == before + took  # backward launches nothing
+        return [xr.grad.float()] + [p.grad.float() for p in params]
+
+    got = gradients(fa.attention_block_train, dt)
+    plain = gradients(fa.attention_block_reference, dt)
+    if dtype == "float32":
+        for a, b in zip(got, plain):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        return
+    exact = gradients(fa.attention_block_reference, torch.float32)
+    for i, (a, b, e) in enumerate(zip(got, plain, exact)):
+        near = float((a - b).abs().max()) <= 4 * 2.0 ** -8 * float(b.abs().max())
+        assert near or float((a - e).abs().max()) <= float((b - e).abs().max()), i
+
+
+def test_attention_block_train_without_a_gradient_is_attention_block(cuda):
+    rng = np.random.default_rng(22)
+    wts = _dense_weights(rng, 128, cuda, "bfloat16").attn
+    x = _x(rng, (2, 9, 128), cuda, "bfloat16")
+    before = fa.attention_block_train.launches, fa.attention_block.launches
+    out = fa.attention_block_train(x, wts, 2, True)  # nothing requires a gradient
+    with torch.no_grad():
+        out2 = fa.attention_block_train(x.clone().requires_grad_(True), wts, 2, True)
+    assert fa.attention_block_train.launches == before[0]
+    assert fa.attention_block.launches == before[1] + 2
+    assert out.grad_fn is None and torch.equal(out, out2)
+
+
 def test_dense_wrappers_reject_bad_input(cuda):
     wts = _dense_weights(np.random.default_rng(2), 128, cuda, "float32")
     x = torch.zeros(2, 6, 128, device=cuda)
@@ -725,3 +876,41 @@ def test_dense_towers_cuda_vs_cpu(cuda, flags, expected):
     for got, want in ((got_i, cpu_enc.encode_pixels(px)), (got_t, cpu_enc.encode_texts(texts))):
         cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
         assert cos.min() >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# The trainer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_trainer_defaults_to_the_card_and_matches_the_cpu(cuda, remat):
+    """CLIPTrainer without device= trains on the card; under the training
+    kernel configuration each step launches attention_block_train and
+    mlp_block once per layer (twice with remat: the backward runs each layer
+    again), and in f32 three steps' losses are the CPU trainer's (the plain
+    versions) to f32 summation order."""
+    from image_retrieval_tpu_torch.config import ModelConfig
+    from image_retrieval_tpu_torch.train import CLIPTrainer
+
+    cfg = ModelConfig(
+        image_size=64, patch_size=32, vision_width=128, vision_layers=2,
+        vision_heads=2, text_width=64, text_layers=2, text_heads=1,
+        vocab_size=1000, context_length=16, embed_dim=32, dtype="float32",
+        fused_attn_block=True, fused_mlp_block=True, fused_train_vjp=True, remat=remat)
+    rng = np.random.default_rng(3)
+    px = rng.normal(size=(8, 64, 64, 3)).astype(np.float32)
+    toks = rng.integers(1, 999, size=(8, 16)).astype(np.int32)
+    toks[:, 9] = 999
+    gpu, cpu = CLIPTrainer(cfg, learning_rate=1e-3, seed=2), \
+        CLIPTrainer(cfg, learning_rate=1e-3, seed=2, device="cpu")
+    assert gpu.device.type == "cuda" and next(gpu.model.parameters()).is_cuda
+    names = ("attention_block_train", "mlp_block", "attention_block", "layer_block")
+    before = {n: getattr(fa, n).launches for n in names}
+    got = gpu.fit([(px, toks)] * 3)
+    took = {n: getattr(fa, n).launches - before[n] for n in names}
+    per_step = 8 if remat else 4
+    assert took == {"attention_block_train": 3 * per_step, "mlp_block": 3 * per_step,
+                    "attention_block": 0, "layer_block": 0}
+    want = cpu.fit([(px, toks)] * 3)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[2] < got[0]
