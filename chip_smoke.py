@@ -27,7 +27,10 @@ Phases (any failure exits non-zero):
      layer (K10: by a max-abs limit); K9a then K9b against K8, bitwise, at
      both B/32 shapes; their times at B=8, at the B/32 batches (vision B=256,
      text B=64) and at the L/14 batch (B=128), and for K10 the time of one
-     scaled_dot_product_attention call on the same q, k, v beside it.
+     scaled_dot_product_attention call on the same q, k, v beside it (at
+     the B/32 vision B=8 and B=256 and L/14 vision B=128 shapes, and at the
+     B/32 text B=64 shape with the causal mask, through the packed
+     tiled_attention entry and is_causal=True).
      attention_block_train's saving forward (K11) against its plain version
      in bf16 and f32 at both B/32 shapes, at B = 8 and at B = 128 (the
      trainer's batch), and at the ragged one: the five outputs in the compute
@@ -293,6 +296,25 @@ def time_pair(torch, fns, samples=24, reps=5, warm=3):
     return {k: float(np.median(v)) for k, v in got.items()}
 
 
+def device_ms(torch, fn, calls=20):
+    """Device time of one call of fn: the kernels' self time under
+    torch.profiler over `calls` calls, divided by `calls` (no host time and
+    no gaps between launches), after three warm calls; None when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA")
+    return total / 1e3 / calls if total > 0 else None
+
+
 def _agree(fa, torch, name, case, got, want, x):
     """kernel_agreement of one case, printed; fails the run if it is not ok."""
     torch.cuda.synchronize()
@@ -529,7 +551,11 @@ DENSE_TIME_SHAPES = {
     "mlp_block": {"l14-vision-B4": L14_VISION, f"l14-vision-B{ENC_BUCKET5}": L14_BATCH,
                   "b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH},
 }
-MHA_TIME_SHAPES = {"b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH}
+# K10 at the image batches of phases 3, 7 and 5 (multihead_attention has no
+# mask) and, through the packed entry, the causal attention step of a text
+# batch.
+MHA_TIME_SHAPES = {"b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH,
+                   f"l14-vision-B{ENC_BUCKET5}": L14_BATCH, "b32-text-B64": B32_TEXT_BATCH}
 
 
 def _dense_agree(fa, torch, name, case, got, want, x, kind):
@@ -604,28 +630,47 @@ def phase_dense_kernels(torch, card):
 
     for name, times in time_kernels(torch, card, runs, DENSE_TIME_SHAPES, int8=False).items():
         out[name]["times"] = times
-    for case, (b, t, w, heads, _) in MHA_TIME_SHAPES.items():
+    for case, (b, t, w, heads, causal) in MHA_TIME_SHAPES.items():
         q, k, v = mha_inputs(torch, b, t, w, 5, torch.bfloat16)
-        r = time_pair(torch, {"kernel": lambda: fa.multihead_attention(q, k, v, heads),
-                              "plain": lambda: fa.multihead_attention_reference(q, k, v, heads)})
+        if causal:  # the same device function under the packed entry
+            qkv = torch.cat([q, k, v], -1).reshape(b * t, 3 * w)
+            kernel = lambda: fa.tiled_attention(qkv, b, heads, causal=True).view(b, t, w)
+        else:
+            kernel = lambda: fa.multihead_attention(q, k, v, heads)
+        plain = lambda: fa.multihead_attention_reference(q, k, v, heads, causal)
+        want = plain().float()
+        top = float(want.abs().max())
+        err = float((kernel().float() - want).abs().max())
+        if not err <= 2 * top * 2.0 ** -8:
+            fail(f"the attention kernel disagrees with its plain version at {case}: {err:.3g}")
+        r = time_pair(torch, {"kernel": kernel, "plain": plain})
         split = lambda a: a.view(b, t, heads, w // heads).transpose(1, 2)
-        sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
+        sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                                      is_causal=causal)
         # the library call computes the same function (it keeps its
         # probabilities unrounded: a few bf16 steps of the output apart)
-        want = fa.multihead_attention_reference(q, k, v, heads).float()
         off = float((sdpa().transpose(1, 2).reshape(b, t, w).float() - want).abs().max())
-        if not off <= 4 * float(want.abs().max()) * 2.0 ** -8:
+        if not off <= 4 * top * 2.0 ** -8:
             fail(f"scaled_dot_product_attention is {off:.3g} from multihead_attention's plain "
                  f"version at {case}: not the same function")
         lib = time_pair(torch, {"kernel": sdpa, "plain": lambda: None}, samples=12)["kernel"]
-        # QK^T and PV: 4 hd per query-key pair and head; q, k, v read, out written
-        r.update(bound(0.0, 4.0 * b * t * t * w, 4 * q.numel() * q.element_size()),
-                 library_ms=lib)
+        # QK^T and PV: 4 hd per query-key pair visited and head; q, k, v
+        # read, out written
+        pairs = t * (t + 1) // 2 if causal else t * t
+        r.update(bound(0.0, 4.0 * b * pairs * w, 4 * q.numel() * q.element_size()),
+                 library_ms=lib, device_ms=device_ms(torch, kernel),
+                 library_device_ms=device_ms(torch, sdpa))
         out["multihead_attention"]["times"][case] = r
-        print(f"time multihead_attention {case} bf16 B={b} T={t} W={w}: kernel "
+        entry = "tiled_attention(causal=True)" if causal else "multihead_attention"
+        print(f"time {entry} {case} bf16 B={b} T={t} W={w}: kernel "
               f"{r['kernel']:.4f} ms, plain {r['plain']:.4f} ms, one "
-              f"scaled_dot_product_attention call {lib:.4f} ms (within {off:.3g} of the plain "
-              f"version), bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]", flush=True)
+              f"scaled_dot_product_attention{'(is_causal=True)' if causal else ''} call "
+              f"{lib:.4f} ms (within {off:.3g} of the plain version; kernel within {err:.3g}), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel / library "
+              f"{r['kernel'] / lib:.3f}; device time alone (torch.profiler): kernel "
+              f"{r['device_ms']} ms, library {r['library_device_ms']} ms [{card}]", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2448,10 +2493,16 @@ def main() -> int:
                  "launches": n_launches, "max_abs_err": k["max_abs_err"],
                  "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), "shape": case}
+        for lib_key in ("device_ms", "library_device_ms"):
+            if lib_key in t:
+                entry[lib_key] = t[lib_key]
         for key, other in extra.items():
             o = k["times"][other]
             entry.update({f"{key}_ms": o["kernel"], f"{key}_plain_ms": o["plain"],
                           f"{key}_bound_ms": o["bound_ms"]})
+            for lib_key in ("library_ms", "device_ms", "library_device_ms"):
+                if lib_key in o:
+                    entry[f"{key}_{lib_key}"] = o[lib_key]
         return entry
 
     def metric_entry(name, entry, lines, main, extra):
@@ -2520,7 +2571,8 @@ def main() -> int:
                      "b32_vision_b8": "b32-vision-B8"}),
         block_entry("multihead_attention", "multihead_attention.cu", 87,
                     d_launches["multihead_attention"], "b32-vision-B256",
-                    {"b32_vision_b8": "b32-vision-B8"}),
+                    {"b32_vision_b8": "b32-vision-B8", "l14_vision_b128": big,
+                     "b32_text_b64_causal": "b32-text-B64"}),
         # K11 and K12: no single PyTorch call computes either
         dict(block_entry("attention_block_train", "attention_block_train.cu", 1051,
                          t_launches["attention_block_train"], vision_b, {"b32_text": text_b}),

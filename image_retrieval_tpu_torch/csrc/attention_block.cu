@@ -19,11 +19,11 @@
 //
 // What the design does about it. Four launches of dense_common.cuh's
 // kernels: LN + cast, one GEMM for q, k and v together (three products over
-// the concatenated output channels), the tiled attention of block_common.cuh
-// (query rows in tiles of up to 64, whole score rows in shared memory,
-// because the probabilities are rounded to the compute type before PV), and
-// the out-projection GEMM with the residual add in its epilogue. Weights and
-// activations pass between launches through L2. Simple and right first.
+// the concatenated output channels), the attention of block_common.cuh
+// (whole score rows, because the probabilities are rounded to the compute
+// type before PV: in bf16 in registers, QK^T and PV on the tensor cores; in
+// f32 in shared memory), and the out-projection GEMM with the residual add
+// in its epilogue. Weights and activations pass between launches through L2.
 
 #include "dense_blocks.cuh"
 
@@ -43,7 +43,8 @@ int irt_attention_block(
     const void* wqkv_t, const void* bqkv, const void* wo_t, const void* bo,
     void* workspace, int batch, int seq, int width, int heads, int causal,
     int dtype, float attn_scale, void* stream) {
-  if (!dense_shape_ok(batch, seq, width, 64, dtype) || !attention_shape_ok(seq, width, heads)) {
+  if (!dense_shape_ok(batch, seq, width, 64, dtype) ||
+      !attention_shape_ok(seq, width, heads, dtype)) {
     return IRT_BAD_ARGS;
   }
   const cudaStream_t st = (cudaStream_t)stream;

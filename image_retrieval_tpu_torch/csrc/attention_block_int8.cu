@@ -10,7 +10,7 @@
 // heads of 64).
 //
 // What bounds it on this card. Per token the projections are 8 W^2 int8
-// operations and the attention 4 T W f32 ones; the int8 weights are 4 W^2
+// operations and the attention 4 T W bf16 or f32 ones; the int8 weights are 4 W^2
 // bytes (4 MB at W = 1024), read once per call. At W = 1024 and T = 257
 // one image is 2.2 G int8 operations, so past a few images the call is
 // bound by operations, not bytes. The TPU kernel keeps the four weight
@@ -20,12 +20,12 @@
 // What the design does about it. Five launches of int8_common.cuh's
 // kernels: LN + rowquant, one int8 mma.sync GEMM for q, k and v together
 // (per-channel scales make the concatenation bitwise equal to three
-// products), the tiled attention (query rows in tiles of up to 64, so that
-// T = 257 fits: K, V, the tile's Q and its score rows take 216 KB of
-// shared memory at head_dim 64), rowquant, and the out-projection GEMM
-// with the residual add in its epilogue. Weights and activations pass
-// between launches through L2. Simple and right first; wgmma, TMA, an
-// attention on the tensor cores and one fused launch are later work.
+// products), the attention of block_common.cuh (bf16: QK^T and PV on the
+// tensor cores, K and V of an (image, head) staged once in bf16; f32: query
+// rows in tiles of up to 64 beside K and V in shared memory), rowquant, and
+// the out-projection GEMM with the residual add in its epilogue. Weights and
+// activations pass between launches through L2. wgmma, TMA and one fused
+// launch are later work.
 
 #include "attention_block_int8.cuh"
 
@@ -46,7 +46,8 @@ int irt_attention_block_int8(
     const void* wo_t, const void* wo_s, const void* bo,
     void* workspace, int batch, int seq, int width, int heads, int causal,
     int dtype, float attn_scale, void* stream) {
-  if (!block_shape_ok(batch, seq, width, 64, dtype) || !attention_shape_ok(seq, width, heads)) {
+  if (!block_shape_ok(batch, seq, width, 64, dtype) ||
+      !attention_shape_ok(seq, width, heads, dtype)) {
     return IRT_BAD_ARGS;
   }
   const cudaStream_t st = (cudaStream_t)stream;
@@ -66,7 +67,7 @@ int irt_attention_block_int8(
 int irt_attention(const void* qkv, void* out, int batch, int seq, int width,
                   int heads, int causal, int dtype, float attn_scale, void* stream) {
   if (batch <= 0 || batch > 65535 || (dtype != 0 && dtype != 1) ||
-      !attention_shape_ok(seq, width, heads)) {
+      !attention_shape_ok(seq, width, heads, dtype)) {
     return IRT_BAD_ARGS;
   }
   const cudaStream_t st = (cudaStream_t)stream;

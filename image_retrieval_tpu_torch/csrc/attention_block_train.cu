@@ -21,10 +21,10 @@
 // launch (LN + cast, one q/k/v GEMM, the tiled attention, the out-projection
 // with the residual add), so the sub-block's output is bit for bit that
 // kernel's. The packed [q | k | v] rows and the attention output go to
-// tensors of the caller instead of scratch, and the tiled attention is
-// instantiated with kSaveProbs: it already holds whole score rows in shared
-// memory, so each quotient is stored once, in f32, as it is computed, and a
-// causal block fills the keys it never visits with zeros. The TPU kernel's
+// tensors of the caller instead of scratch, and the attention is
+// instantiated with kSaveProbs: it already holds whole score rows (bf16: in
+// registers; f32: in shared memory), so each quotient is stored once, in
+// f32, as it is computed, and a causal row's keys it never visits get zeros. The TPU kernel's
 // halved image block (its VMEM budget) has no counterpart here.
 
 #include "dense_blocks.cuh"
@@ -42,7 +42,8 @@ int irt_attention_block_train(
     const void* ln_b, const void* wqkv_t, const void* bqkv, const void* wo_t, const void* bo,
     void* workspace, int batch, int seq, int width, int heads, int causal, int dtype,
     float attn_scale, void* stream) {
-  if (!dense_shape_ok(batch, seq, width, 64, dtype) || !attention_shape_ok(seq, width, heads) ||
+  if (!dense_shape_ok(batch, seq, width, 64, dtype) ||
+      !attention_shape_ok(seq, width, heads, dtype) ||
       qkv == nullptr || attn == nullptr || probs == nullptr) {
     return IRT_BAD_ARGS;
   }

@@ -1,14 +1,20 @@
 // Device and host code shared by the Hopper (sm_90a) transformer-layer kernel
 // chains: the int8 serving family (int8_common.cuh) and the family in the
 // compute type (dense_common.cuh). Type helpers, warp and block reductions,
-// cp.async, the workspace carver, the launch checks, and
-//   attention_tiled_kernel  one block per (head, image, tile of query rows):
-//                           the (image, head)'s K and V and the tile's Q and
-//                           score rows stay in shared memory; exact two-pass
-//                           f32 softmax, probabilities cast to the compute
-//                           type, PV accumulated in f32. It is the attention
-//                           step of every layer kernel here and, on separate
-//                           q, k and v, multihead_attention itself.
+// cp.async, the bf16 mma, the workspace carver, the launch checks, and the
+// attention step of every layer kernel here and, on separate q, k and v,
+// multihead_attention itself. The kernel is chosen by the compute type:
+//   attention_tiled_mma_kernel  bf16 (attention_mma.cuh): QK^T and PV on the
+//                               tensor cores, scores in registers.
+//   attention_tiled_kernel      f32: one block per (head, image, tile of
+//                               query rows), K, V, Q and score rows in
+//                               shared memory, every product an exact f32
+//                               FMA on the CUDA cores. The port's f32 paths
+//                               never use TF32 (device.require_full_f32),
+//                               so f32 stays off the tensor cores; no bf16
+//                               path reaches this kernel.
+// Both: exact two-pass f32 softmax, probabilities cast to the compute type,
+// PV accumulated in f32.
 // Everything sits in an anonymous namespace: each source that includes this
 // file gets its own copy and instantiates only the kernels it launches.
 // Built without --use_fast_math.
@@ -19,6 +25,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef IRT_BAD_ARGS
 #define IRT_BAD_ARGS 100000
@@ -91,8 +99,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// D = A(16x16 bf16, row) * B(16x8 bf16, col) + D, f32.
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // ---------------------------------------------------------------------------
-// Attention, tiled over the query rows
+// Attention in f32, tiled over the query rows
 // ---------------------------------------------------------------------------
 
 constexpr int kAttnThreads = 256;
@@ -137,6 +154,8 @@ __global__ void __launch_bounds__(kAttnThreads) attention_tiled_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, size_t ld,
     T* __restrict__ out, float* __restrict__ probs, int seq, int width, int head_dim, int tile,
     int causal, float scale) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 attention runs on the tensor cores (attention_mma.cuh)");
   extern __shared__ __align__(16) float sm[];
   const int ldk = head_dim + 4;
   const int ldp = round4(seq);
@@ -291,28 +310,41 @@ constexpr size_t kMaxRows = (size_t)65535 * 64;
 
 inline bool rows_ok(long long m) { return m > 0 && (size_t)m <= kMaxRows; }
 
-inline bool attention_shape_ok(int seq, int width, int heads) {
+}  // namespace
+
+#include "attention_mma.cuh"
+
+namespace {
+
+// dtype 0 = bf16 (the tensor-core kernel), 1 = f32 (the scalar one).
+inline bool attention_shape_ok(int seq, int width, int heads, int dtype) {
   if (seq <= 0 || heads <= 0 || width <= 0 || width % heads) return false;
   const int hd = width / heads;
-  return hd % 4 == 0 && hd <= 128 && attention_tile_rows(seq, hd) > 0;
+  if (hd % 4 || hd > 128) return false;
+  return dtype == 0 ? mma_smem_bytes(seq, hd) <= IRT_MAX_SMEM : attention_tile_rows(seq, hd) > 0;
 }
 
 template <typename T, bool kSaveProbs>
 int launch_attention_as(const T* q, const T* k, const T* v, size_t ld, T* out, float* probs,
                         int batch, int seq, int width, int heads, int causal, float scale,
                         cudaStream_t st) {
-  const int hd = width / heads;
-  const int tile = attention_tile_rows(seq, hd);
-  if (tile <= 0 || batch > 65535) return IRT_BAD_ARGS;  // gridDim.y carries the images
-  const size_t smem = attention_smem_floats(seq, hd, tile) * sizeof(float);
-  const cudaError_t e =
-      cudaFuncSetAttribute(attention_tiled_kernel<T, kSaveProbs>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  IRT_TRY(attention_tiled_kernel<T, kSaveProbs>
-          <<<dim3(heads, batch, (seq + tile - 1) / tile), kAttnThreads, smem, st>>>(
-              q, k, v, ld, out, probs, seq, width, hd, tile, causal, scale));
-  return 0;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_attention_mma<kSaveProbs>(q, k, v, ld, out, probs, batch, seq, width, heads,
+                                            causal, scale, st);
+  } else {
+    const int hd = width / heads;
+    const int tile = attention_tile_rows(seq, hd);
+    if (tile <= 0 || batch > 65535) return IRT_BAD_ARGS;  // gridDim.y carries the images
+    const size_t smem = attention_smem_floats(seq, hd, tile) * sizeof(float);
+    const cudaError_t e =
+        cudaFuncSetAttribute(attention_tiled_kernel<T, kSaveProbs>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    IRT_TRY(attention_tiled_kernel<T, kSaveProbs>
+            <<<dim3(heads, batch, (seq + tile - 1) / tile), kAttnThreads, smem, st>>>(
+                q, k, v, ld, out, probs, seq, width, hd, tile, causal, scale));
+    return 0;
+  }
 }
 
 template <typename T>

@@ -17,8 +17,9 @@
 //       Both end in one fused epilogue: acc + bias in f32, then the cast, or
 //       quick_gelu in f32 and the cast, or the cast and the residual add in
 //       the compute type.
-//   (c) attention_tiled_kernel  of block_common.cuh, on packed [q | k | v]
-//                               rows.
+//   (c) the attention of block_common.cuh (bf16: attention_tiled_mma_kernel
+//       on the tensor cores; f32: attention_tiled_kernel), on packed
+//       [q | k | v] rows.
 //
 // Numerics follow the JAX kernels (_layer_block_kernel, _attn_block_kernel,
 // _mlp_block_kernel): the LayerNorm output is cast to the compute type
@@ -99,15 +100,6 @@ constexpr int TBM = 64, TBN = 64, TBK = 32;
 // rows stay 16-byte aligned for cp.async.
 constexpr int TLD = TBK + 8;
 constexpr int kTensorGemmThreads = 128;  // 4 warps, 2 x 2, each a 32 x 32 tile
-
-// D = A(16x16 bf16, row) * B(16x8 bf16, col) + D, f32.
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ unsigned lds_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const unsigned*>(p);

@@ -12,8 +12,9 @@
 //                               epilogue: acc * row_scale * col_scale + bias,
 //                               then quick_gelu in f32 or the residual add in
 //                               the compute type.
-//   (c) attention_tiled_kernel  of block_common.cuh, on packed [q | k | v]
-//                               rows.
+//   (c) the attention of block_common.cuh (bf16: attention_tiled_mma_kernel
+//       on the tensor cores; f32: attention_tiled_kernel), on packed
+//       [q | k | v] rows.
 // Everything sits in an anonymous namespace: each source that includes this
 // file gets its own copy and instantiates only the kernels it launches.
 //

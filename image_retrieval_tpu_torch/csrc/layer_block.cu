@@ -21,9 +21,8 @@
 // that the two halves run alone (attention_block.cu, mlp_block.cu) compose to
 // this layer bit for bit. In bf16 the products run on the tensor cores
 // (mma.sync, f32 accumulation); in f32 they are exact f32 FMAs on the CUDA
-// cores, slow and never TF32. Making it fast (wgmma, TMA, attention on the
-// tensor cores, fewer launches) is later work; this version is written to be
-// right first.
+// cores, slow and never TF32; so does the attention (attention_mma.cuh in
+// bf16). Making the GEMMs fast (wgmma, TMA, fewer launches) is later work.
 
 #include "dense_blocks.cuh"
 
@@ -73,7 +72,7 @@ int irt_layer_block(
     void* workspace, int batch, int seq, int width, int hidden, int heads,
     int causal, int dtype, float attn_scale, void* stream) {
   if (!dense_shape_ok(batch, seq, width, hidden, dtype) ||
-      !attention_shape_ok(seq, width, heads)) {
+      !attention_shape_ok(seq, width, heads, dtype)) {
     return IRT_BAD_ARGS;
   }
   const cudaStream_t st = (cudaStream_t)stream;

@@ -16,9 +16,10 @@
 //
 // What the design does about it. The chain of int8_common.cuh: the
 // attention sub-block's five launches, then the MLP sub-block's four, with
-// the mid-layer activation x1 kept in the workspace. The attention kernel
-// tiles the query rows, so a sequence need not fit in shared memory with
-// its whole score plane (T = 197 and 257 run). Making it fast (wgmma, TMA,
+// the mid-layer activation x1 kept in the workspace. The attention of
+// block_common.cuh keeps an (image, head)'s K and V in shared memory and
+// the score rows in registers (bf16) or tiles the query rows (f32), so
+// T = 197 and 257 run. Making it fast (wgmma, TMA,
 // fusing the chain) is later work; this version is written to be right
 // first.
 
@@ -50,6 +51,27 @@ int run_layer(const T* x, T* out, const float* ln1_s, const float* ln1_b,
                           hidden, st);
 }
 
+// Self-check of div_rn_by against __fdiv_rn over its range: n pseudo-random
+// pairs (a in [2^-90, 2), b in [1, 2^9)) and a = 1 against each b; adds the
+// count of quotients that differ to *mismatches.
+__global__ void attention_division_check_kernel(unsigned long long* mismatches, long long n) {
+  unsigned long long bad = 0;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    unsigned long long h = (unsigned long long)i * 0x9e3779b97f4a7c15ull;  // splitmix64
+    h = (h ^ (h >> 30)) * 0xbf58476d1ce4e5b9ull;
+    h = (h ^ (h >> 27)) * 0x94d049bb133111ebull;
+    h ^= h >> 31;
+    const unsigned lo = (unsigned)h, hi = (unsigned)(h >> 32);
+    const float a = __int_as_float((int)(((127u - (hi >> 23) % 91u) << 23) | (lo & 0x7fffffu)));
+    const float b = __int_as_float((int)(((127u + (lo >> 23) % 9u) << 23) | (hi & 0x7fffffu)));
+    const float y = __frcp_rn(b);
+    bad += __fdiv_rn(a, b) != div_rn_by(a, b, y);
+    bad += __fdiv_rn(1.f, b) != div_rn_by(1.f, b, y);
+  }
+  atomicAdd(mismatches, bad);
+}
+
 }  // namespace
 
 extern "C" {
@@ -64,14 +86,30 @@ size_t irt_layer_block_int8_workspace_bytes(int m, int width, int hidden, int el
   return c.off;
 }
 
-int irt_attention_tile_rows(int seq, int head_dim) {
-  if (seq <= 0 || head_dim <= 0) return 0;
+int irt_attention_tile_rows(int seq, int head_dim, int dtype, int pairs) {
+  if (seq <= 0 || head_dim <= 0 || pairs <= 0 || head_dim % 4 || head_dim > 128) return 0;
+  if (dtype == 0) {
+    return mma_smem_bytes(seq, head_dim) <= IRT_MAX_SMEM
+               ? 16 * mma_tiles_per_block(seq, pairs) : 0;
+  }
   return attention_tile_rows(seq, head_dim);
 }
 
-size_t irt_attention_smem_bytes(int seq, int head_dim) {
-  const int tile = irt_attention_tile_rows(seq, head_dim);
+size_t irt_attention_smem_bytes(int seq, int head_dim, int dtype) {
+  if (dtype == 0) return mma_smem_bytes(seq, head_dim);
+  const int tile = seq > 0 && head_dim > 0 ? attention_tile_rows(seq, head_dim) : 0;
   return attention_smem_floats(seq, head_dim, tile > 0 ? tile : 1) * sizeof(float);
+}
+
+int irt_attention_route(int seq, int head_dim, int dtype) {
+  return dtype == 0 ? mma_route(seq, head_dim) : kRouteScalarF32;
+}
+
+int irt_attention_division_check(void* mismatches, long long n, void* stream) {
+  if (mismatches == nullptr || n < 0) return IRT_BAD_ARGS;
+  IRT_TRY(attention_division_check_kernel<<<4 * 132, 256, 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)mismatches, n));
+  return 0;
 }
 
 int irt_layer_block_int8(
@@ -85,7 +123,7 @@ int irt_layer_block_int8(
     void* workspace, int batch, int seq, int width, int hidden, int heads,
     int causal, int dtype, float attn_scale, void* stream) {
   if (!block_shape_ok(batch, seq, width, hidden, dtype) ||
-      !attention_shape_ok(seq, width, heads)) {
+      !attention_shape_ok(seq, width, heads, dtype)) {
     return IRT_BAD_ARGS;
   }
   const cudaStream_t st = (cudaStream_t)stream;

@@ -15,13 +15,27 @@ extern "C" {
 size_t irt_layer_block_int8_workspace_bytes(int m, int width, int hidden,
                                             int elem_bytes);
 
-// Query rows one attention block takes for (seq, head_dim), chosen so that
-// the block's shared memory fits; 0 when the (image, head)'s K and V do not
-// fit beside a single query row. The attention of every int8 kernel here.
-int irt_attention_tile_rows(int seq, int head_dim);
+// The launch plan of the attention step of every layer kernel here, in the
+// compute type (dtype 0 = bf16, 1 = f32), for `pairs` = batch * heads
+// (image, head) pairs; ops/flash_attention.py::attention_plan mirrors it.
+// Query rows one block takes (a multiple of 16 in bf16), 0 when the shape
+// is refused: head_dim not a multiple of 4 or above 128, or the
+// (image, head)'s K and V not fitting in shared memory beside one query
+// tile.
+int irt_attention_tile_rows(int seq, int head_dim, int dtype, int pairs);
 
-// Dynamic shared memory of one attention block at that tile.
-size_t irt_attention_smem_bytes(int seq, int head_dim);
+// Dynamic shared memory of one attention block at that plan.
+size_t irt_attention_smem_bytes(int seq, int head_dim, int dtype);
+
+// The kernel form: 0 the f32 kernel on the CUDA cores; bf16 on the tensor
+// cores with the scores computed once, 1 (up to 80 keys) or 2 (up to 272 at
+// head_dim <= 64), or 3 in three passes over 80-key chunks.
+int irt_attention_route(int seq, int head_dim, int dtype);
+
+// Adds to *mismatches (one uint64 on the device) the count of quotients of
+// n pseudo-random pairs in the attention's range where its branch-free
+// division differs from __fdiv_rn; a self-check for the tests.
+int irt_attention_division_check(void* mismatches, long long n, void* stream);
 
 // One pre-LN transformer layer, int8 projections (see layer_block_int8.cu).
 // x/out: (batch, seq, width) in the compute type (dtype 0 = bf16, 1 = f32).

@@ -8,20 +8,20 @@
 // probabilities are cast to the compute type, PV is summed in f32 and cast.
 //
 // What bounds it on this card. 4 T W flops per token against 8 W bytes
-// (bf16: q, k, v read, the output written): at T = 50 that is 25 flops a
-// byte, far below the card's 295, so the call is bound by bytes; the score
-// tensor never leaves the SM.
+// (bf16: q, k, v read, the output written): T / 2 flops a byte, 25 at
+// T = 50, far below the card's 295, so the call is bound by bytes; the
+// score tensor never leaves the SM.
 //
-// What the design does about it. It is the tiled attention kernel of
-// block_common.cuh, the attention step of every layer kernel of this
-// package, launched with three pointers and a row stride of `width` instead
-// of the thirds of packed [q | k | v] rows: one device function under two
-// entries. One block per (head, image, tile of query rows) keeps the
-// (image, head)'s K and V and the tile's score rows in shared memory. The
-// TPU kernel packs several images into one score matmul under a
-// block-diagonal mask to fill its matrix unit; here the images are
-// independent blocks. The products run in f32 on the CUDA cores; tensor
-// cores are later work.
+// What the design does about it. It is the attention of block_common.cuh,
+// the attention step of every layer kernel of this package, launched with
+// three pointers and a row stride of `width` instead of the thirds of
+// packed [q | k | v] rows: one device function under two entries. In bf16
+// (attention_mma.cuh) one block of four warps per (head, image) stages K and
+// V once with 16-byte cp.async copies and keeps the scores in registers;
+// QK^T and PV run on the tensor cores (mma.sync, f32 accumulation). The TPU
+// kernel packs several images into one score matmul under a block-diagonal
+// mask to fill its matrix unit; here the images are independent blocks. In
+// f32 the products are exact FMAs on the CUDA cores.
 
 #include "dense_blocks.cuh"
 
@@ -33,7 +33,7 @@ int irt_multihead_attention(const void* q, const void* k, const void* v, void* o
                             int batch, int seq, int width, int heads, int dtype,
                             float attn_scale, void* stream) {
   if (batch <= 0 || batch > 65535 || (dtype != 0 && dtype != 1) ||
-      !attention_shape_ok(seq, width, heads)) {
+      !attention_shape_ok(seq, width, heads, dtype)) {
     return IRT_BAD_ARGS;
   }
   const cudaStream_t st = (cudaStream_t)stream;

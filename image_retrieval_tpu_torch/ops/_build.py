@@ -32,7 +32,8 @@ SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu"
            "attention_block_train.cu")
 HEADERS = ("block_common.cuh", "int8_common.cuh", "layer_block_int8.cuh",
            "attention_block_int8.cuh", "mlp_block_int8.cuh", "quant_dense.cuh",
-           "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh")
+           "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh",
+           "attention_mma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -110,10 +111,14 @@ def load_library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.irt_layer_block_int8_workspace_bytes.argtypes = [i, i, i, i]
             lib.irt_layer_block_int8_workspace_bytes.restype = ctypes.c_size_t
-            lib.irt_attention_smem_bytes.argtypes = [i, i]
+            lib.irt_attention_smem_bytes.argtypes = [i, i, i]
             lib.irt_attention_smem_bytes.restype = ctypes.c_size_t
-            lib.irt_attention_tile_rows.argtypes = [i, i]
+            lib.irt_attention_tile_rows.argtypes = [i, i, i, i]
             lib.irt_attention_tile_rows.restype = i
+            lib.irt_attention_route.argtypes = [i, i, i]
+            lib.irt_attention_route.restype = i
+            lib.irt_attention_division_check.argtypes = [p, ctypes.c_longlong, p]
+            lib.irt_attention_division_check.restype = i
             lib.irt_layer_block_int8.argtypes = (
                 [p] * 2 + [p] * 16 + [p] + [i] * 7 + [ctypes.c_float, p])
             lib.irt_layer_block_int8.restype = i

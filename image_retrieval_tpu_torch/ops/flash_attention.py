@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -431,20 +432,94 @@ def _check_gemm_dims(fn: str, *dims: int) -> None:
                          f"hidden divisible by 64, got {', '.join(map(str, dims))}")
 
 
-def _check_attention_shape(fn: str, lib, t: int, w: int, heads: int) -> int:
-    """The tiled attention keeps one (image, head)'s K and V in shared
-    memory beside a tile of query rows; returns head_dim."""
+# The attention step's launch plan, mirrored from csrc/ (attention_mma.cuh in
+# bf16, block_common.cuh's attention_tile_rows in f32) so that a shape is
+# judged, and refused with its reason, before any launch; the C side's
+# irt_attention_tile_rows / irt_attention_smem_bytes / irt_attention_route
+# answer the same (tests/test_torch_gpu.py holds them equal).
+_MAX_SMEM = 232448  # dynamic shared memory one block may ask for on sm_90 (227 KB)
+_MMA_WARPS, _MMA_CHUNK_KEYS, _MMA_HALF_KEYS, _MMA_FILL_BLOCKS = 4, 80, 144, 2 * 132
+ATTENTION_ROUTES = ("f32 on the CUDA cores", "bf16 tensor cores, scores computed once",
+                    "bf16 tensor cores, scores computed once, two warps to a tile",
+                    "bf16 tensor cores, three passes over 80-key chunks")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    route: int           # index into ATTENTION_ROUTES
+    rows_per_block: int  # query rows one block takes; 0 when refused
+    blocks: int          # blocks of one launch over `pairs` (image, head) pairs
+    smem_bytes: int      # dynamic shared memory of one block
+    refused: str | None  # why the kernel does not take the shape
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _f32_smem_bytes(t: int, hd: int, tile: int) -> int:
+    s4, t4 = _up(t, 4), _up(tile, 4)
+    return 4 * (s4 * (hd + 4) + s4 * hd + t4 * (hd + 4) + t4 * s4)
+
+
+def _f32_tile_rows(t: int, hd: int) -> int:
+    tile = 64
+    while tile > 1 and tile // 2 >= t:
+        tile //= 2
+    while tile > 1 and _f32_smem_bytes(t, hd, tile) > _MAX_SMEM:
+        tile //= 2
+    return 0 if _f32_smem_bytes(t, hd, tile) > _MAX_SMEM else tile
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_plan(t: int, hd: int, dtype: torch.dtype, pairs: int = 1) -> AttentionPlan:
+    """How the attention kernel runs t tokens at head_dim hd in `dtype` over
+    `pairs` = batch * heads (image, head) pairs. bf16: four row groups of
+    16-row query tiles a block (one warp each, two with keys split in halves
+    for 81-288 keys at hd <= 64), K and V of the (image, head) in shared
+    memory at head_dim padded to 16, 32, 64 or 128 (+ 8), the scores in
+    registers; the query tiles are split over blocks only until the launch
+    has 264 blocks (two per SM). f32: the scalar kernel's power-of-two row
+    tiles."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the attention kernel takes bfloat16 or float32, got {dtype}")
+    refused = None
+    if hd % 4 or hd > 128 or hd <= 0:
+        refused = f"head_dim {hd} must be a multiple of 4, at most 128"
+    if dtype == torch.bfloat16:
+        kd = 1 if hd <= 16 else 2 if hd <= 32 else 4 if hd <= 64 else 8
+        keys = _up(t, 16)
+        route = (1 if keys <= _MMA_CHUNK_KEYS
+                 else 2 if keys <= 2 * _MMA_HALF_KEYS and hd <= 64 else 3)
+        smem = (2 * keys + 16 * _MMA_WARPS) * (16 * kd + 8) * 2
+        if route == 2:  # per row group: two halves' maxima and sums, one half's PV sums
+            smem += _MMA_WARPS * (2 * 2 * 16 + 2 * kd * 4 * 32) * 4
+        tiles = -(-t // 16)
+        groups = max(1, min(-(-_MMA_FILL_BLOCKS // pairs), -(-tiles // _MMA_WARPS)))
+        per_block = -(-tiles // groups)
+        rows, blocks, what = 16 * per_block, pairs * -(-tiles // per_block), "query tile"
+    else:
+        tile = _f32_tile_rows(t, hd)
+        smem = _f32_smem_bytes(t, hd, max(tile, 1))
+        route, rows, blocks, what = 0, tile, pairs * -(-t // max(tile, 1)), "query row"
+    if refused is None and smem > _MAX_SMEM:
+        refused = (f"K and V of one (image, head) at t={t}, head_dim={hd} do not fit in a "
+                   f"block's 227 KB of shared memory beside one {what} in "
+                   f"{str(dtype)[6:]} ({smem} bytes)")
+    if refused is not None:
+        rows = blocks = 0
+    return AttentionPlan(route, rows, blocks, smem, refused)
+
+
+def _check_attention_shape(fn: str, t: int, w: int, heads: int, dtype: torch.dtype) -> int:
+    """Raises with the reason when the attention kernel does not take the
+    shape (attention_plan); returns head_dim."""
     if w % heads:
         raise ValueError(f"{fn}: width {w} is not a multiple of heads {heads}")
-    hd = w // heads
-    if hd % 4 or hd > 128:
-        raise ValueError(f"{fn}: head_dim {hd} must be a multiple of 4, at most 128")
-    if lib.irt_attention_tile_rows(t, hd) <= 0:
-        raise ValueError(
-            f"{fn}: K and V of one (image, head) at t={t}, head_dim={hd} do not "
-            "fit in a block's 227 KB of shared memory beside one query row "
-            f"({lib.irt_attention_smem_bytes(t, hd)} bytes)")
-    return hd
+    plan = attention_plan(t, w // heads, dtype)
+    if plan.refused is not None:
+        raise ValueError(f"{fn}: {plan.refused}")
+    return w // heads
 
 
 def _run(fn, lib, device, call):
@@ -472,7 +547,7 @@ def _layer_block_int8_cuda(x, weights, heads, causal):
     hidden = _check_mlp_weights(fn, weights.mlp, w, x.device)
     _check_gemm_dims(fn, w, hidden)
     lib = load_library()
-    hd = _check_attention_shape(fn, lib, t, w, heads)
+    hd = _check_attention_shape(fn, t, w, heads, x.dtype)
     out = torch.empty_like(x)
     ws = _workspace(lib.irt_layer_block_int8_workspace_bytes(
         b * t, w, hidden, x.element_size()), x.device)
@@ -509,7 +584,7 @@ def _attention_block_int8_cuda(x, weights, heads, causal):
     _check_attn_weights(fn, weights, w, x.device)
     _check_gemm_dims(fn, w)
     lib = load_library()
-    hd = _check_attention_shape(fn, lib, t, w, heads)
+    hd = _check_attention_shape(fn, t, w, heads, x.dtype)
     out = torch.empty_like(x)
     ws = _workspace(lib.irt_attention_block_int8_workspace_bytes(
         b * t, w, x.element_size()), x.device)
@@ -622,7 +697,7 @@ def _attention_cuda(qkv, batch, heads, causal):
         raise ValueError(f"{fn}: qkv is not 16-byte aligned")
     t, w = qkv.shape[0] // batch, qkv.shape[1] // 3
     lib = load_library()
-    hd = _check_attention_shape(fn, lib, t, w, heads)
+    hd = _check_attention_shape(fn, t, w, heads, qkv.dtype)
     out = torch.empty((qkv.shape[0], w), dtype=qkv.dtype, device=qkv.device)
     _run(tiled_attention, lib, qkv.device, lambda stream: lib.irt_attention(
         qkv.data_ptr(), out.data_ptr(), batch, t, w, heads, int(bool(causal)),
@@ -971,6 +1046,15 @@ class _KernelFunction(torch.autograd.Function):
         return (None, None, *(next(grads) if n else None for n in needs))
 
 
+def _kernel_call(launch, plain, *tensors):
+    """launch(*tensors) with the plain version's backward (_KernelFunction)
+    while a gradient is being recorded; a call that records none launches
+    directly and skips the autograd Function's host time."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _KernelFunction.apply(launch, plain, *tensors)
+    return launch(*tensors)
+
+
 def _check_dense_weights(fn: str, x: torch.Tensor, wt, shapes) -> None:
     for name, shape in shapes:
         dtype = x.dtype if name.endswith("_t") else torch.float32
@@ -998,7 +1082,7 @@ def _layer_block_cuda(x, weights, heads, causal):
     _check_dense_weights(fn, x, weights.mlp, _mlp_shapes(w, hidden))
     _check_gemm_dims(fn, w, hidden)
     lib = load_library()
-    hd = _check_attention_shape(fn, lib, t, w, heads)
+    hd = _check_attention_shape(fn, t, w, heads, x.dtype)
     out = torch.empty_like(x)
     ws = _workspace(lib.irt_layer_block_workspace_bytes(b * t, w, hidden, x.element_size()),
                     x.device)
@@ -1017,7 +1101,7 @@ def layer_block(x: torch.Tensor, weights: LayerWeights, heads: int,
     the plain version's backward; a CPU tensor takes the plain version.
     ``layer_block.launches`` counts kernel launches."""
     if x.device.type == "cuda":
-        return _KernelFunction.apply(
+        return _kernel_call(
             lambda x, *ts: _layer_block_cuda(x, LayerWeights(*ts), heads, causal),
             lambda x, *ts: layer_block_reference(x, LayerWeights(*ts), heads, causal),
             x, *weights.tensors())
@@ -1038,7 +1122,7 @@ def _attention_block_cuda(x, weights, heads, causal):
     _check_dense_weights(fn, x, weights, _attn_shapes(w))
     _check_gemm_dims(fn, w)
     lib = load_library()
-    hd = _check_attention_shape(fn, lib, t, w, heads)
+    hd = _check_attention_shape(fn, t, w, heads, x.dtype)
     out = torch.empty_like(x)
     ws = _workspace(lib.irt_attention_block_workspace_bytes(b * t, w, x.element_size()),
                     x.device)
@@ -1056,7 +1140,7 @@ def attention_block(x: torch.Tensor, weights: AttnWeights, heads: int,
     plain version's backward; CPU: the plain version.
     ``attention_block.launches`` counts kernel launches."""
     if x.device.type == "cuda":
-        return _KernelFunction.apply(
+        return _kernel_call(
             lambda x, *ts: _attention_block_cuda(x, AttnWeights(*ts), heads, causal),
             lambda x, *ts: attention_block_reference(x, AttnWeights(*ts), heads, causal),
             x, *weights.tensors())
@@ -1077,7 +1161,7 @@ def _attention_block_train_cuda(x, weights, heads, causal):
     _check_dense_weights(fn, x, weights, _attn_shapes(w))
     _check_gemm_dims(fn, w)
     lib = load_library()
-    hd = _check_attention_shape(fn, lib, t, w, heads)
+    hd = _check_attention_shape(fn, t, w, heads, x.dtype)
     out = torch.empty_like(x)
     # outputs of their own, not scratch: the backward reads them later
     qkv = torch.empty((b, t, 3 * w), dtype=x.dtype, device=x.device)
@@ -1171,7 +1255,7 @@ def mlp_block(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
     plain version's backward; CPU: the plain version. ``mlp_block.launches``
     counts kernel launches."""
     if x.device.type == "cuda":
-        return _KernelFunction.apply(
+        return _kernel_call(
             lambda x, *ts: _mlp_block_cuda(x, MlpWeights(*ts)),
             lambda x, *ts: mlp_block_reference(x, MlpWeights(*ts)),
             x, *weights.tensors())
@@ -1192,7 +1276,7 @@ def _multihead_attention_cuda(q, k, v, heads):
         _check_tensor(fn, name, a, q.shape, q.dtype, q.device)
     b, t, w = q.shape
     lib = load_library()
-    hd = _check_attention_shape(fn, lib, t, w, heads)
+    hd = _check_attention_shape(fn, t, w, heads, q.dtype)
     out = torch.empty_like(q)
     _run(multihead_attention, lib, q.device, lambda stream: lib.irt_multihead_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, w, heads,
@@ -1207,7 +1291,7 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises), with the plain version's backward; CPU: the plain version.
     ``multihead_attention.launches`` counts kernel launches."""
     if q.device.type == "cuda":
-        return _KernelFunction.apply(
+        return _kernel_call(
             lambda q, k, v: _multihead_attention_cuda(q, k, v, heads),
             lambda q, k, v: multihead_attention_reference(q, k, v, heads),
             q, k, v)

@@ -125,8 +125,11 @@ def test_subblocks_compose_to_the_layer_kernel(cuda, dtype):
     assert torch.equal(two, one)
 
 
-@pytest.mark.parametrize("t", [1, 50, 77, 197, 257])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+# Token counts of the presets (50, 77, 197, 257), of one, around the 16-row
+# tiles and the 80-key chunk (13, 17, 65) and past the 288 keys whose scores
+# stay in registers (300); head widths that are and are not powers of two.
+@pytest.mark.parametrize("t", [1, 13, 17, 50, 65, 77, 197, 257, 300])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 128])
 @pytest.mark.parametrize("b,causal", [(1, False), (3, True)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_tiled_attention_matches_plain(cuda, t, hd, b, causal, dtype):
@@ -137,7 +140,8 @@ def test_tiled_attention_matches_plain(cuda, t, hd, b, causal, dtype):
     rng = np.random.default_rng(t * hd + b)
     heads = 2
     qkv = _x(rng, (b * t, 3 * heads * hd), cuda, dtype)
-    if t == 257 and hd == 128:  # K and V alone are 257 KB in f32: the wrapper raises
+    if dtype == "float32" and hd == 128 and t >= 257:
+        # f32 K and V alone are 257 KB: the wrapper raises. bf16 K and V fit.
         with pytest.raises(ValueError, match="do not fit"):
             fa.tiled_attention(qkv, b, heads, causal)
         return
@@ -150,6 +154,81 @@ def test_tiled_attention_matches_plain(cuda, t, hd, b, causal, dtype):
     top = float(want.float().abs().max())
     atol = 2 * top * 2.0 ** -8 if dtype == "bfloat16" else 1e-5
     assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("t,hd,causal", [
+    (13, 48, True), (17, 80, False), (50, 64, False), (77, 20, True), (257, 64, True),
+    (300, 64, False)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tiled_attention_reads_nothing_past_its_rows(cuda, t, hd, causal, dtype):
+    """A NaN guard band: packed qkv as a view into a larger buffer that holds
+    NaN after its last row. A read past the rows (a padded query tile, keys
+    rounded up to 16) would reach the output as NaN; rows and columns past
+    the shape are zero-filled instead, so the view gives the bits of a
+    tensor of its own."""
+    rng = np.random.default_rng(t + hd)
+    b, heads = 2, 2
+    qkv = _x(rng, (b * t, 3 * heads * hd), cuda, dtype)
+    buf = torch.full((b * t + 64, 3 * heads * hd), float("nan"), dtype=qkv.dtype, device=cuda)
+    buf[: b * t] = qkv
+    got = fa.tiled_attention(buf[: b * t], b, heads, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, fa.tiled_attention(qkv, b, heads, causal))
+
+
+@pytest.mark.parametrize("t,causal", [(50, False), (77, True), (257, False), (300, True)])
+def test_tiled_attention_with_scores_far_apart(cuda, t, causal):
+    """q and k 12 x larger: scores hundreds apart, exponentials that
+    underflow to 0 or fall below 2^-90, so that the bf16 kernel divides by
+    __fdiv_rn; the limits of test_tiled_attention_matches_plain."""
+    rng = np.random.default_rng(t)
+    b, heads, hd = 2, 2, 64
+    qkv = torch.from_numpy(rng.normal(size=(b * t, 3 * heads * hd)).astype(np.float32))
+    qkv[:, : 2 * heads * hd] *= 12
+    qkv = qkv.to(cuda, torch.bfloat16)
+    got = fa.tiled_attention(qkv, b, heads, causal)
+    want = fa._attention_reference(qkv, b, t, heads * hd, heads, causal, qkv.dtype)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2 * top * 2.0 ** -8
+
+
+def test_attention_division_is_fdiv_rn(cuda):
+    """The bf16 attention divides each exponential by its row's sum without a
+    branch (two corrections of e times the correctly rounded 1 / sum) and
+    takes __fdiv_rn only for a tile where a score lies 62 or more below its
+    row's max, so that no exponential it divides lies below 2^-90: over that
+    range the two give the same bits. 2^32 pseudo-random pairs."""
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    rc = lib.irt_attention_division_check(bad.data_ptr(), 1 << 32,
+                                          torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and int(bad.item()) == 0
+
+
+def test_attention_plan_matches_the_kernels(cuda):
+    """ops/flash_attention.py::attention_plan is the C side's launch plan:
+    rows per block, shared memory and kernel form for every dtype, over
+    token counts at the edges of each form and of shared memory."""
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    for t in (1, 13, 16, 17, 50, 65, 77, 80, 81, 197, 257, 272, 273, 300, 384, 385, 600, 768,
+              769):
+        for hd in (2, 4, 16, 20, 48, 64, 80, 128, 132):
+            for dtype, code in ((torch.bfloat16, 0), (torch.float32, 1)):
+                for pairs in (1, 64, 96, 2048, 3072):
+                    plan = fa.attention_plan(t, hd, dtype, pairs)
+                    case = (t, hd, dtype, pairs)
+                    assert lib.irt_attention_tile_rows(t, hd, code, pairs) == \
+                        plan.rows_per_block, case
+                    assert lib.irt_attention_smem_bytes(t, hd, code) == plan.smem_bytes, case
+                    assert lib.irt_attention_route(t, hd, code) == plan.route, case
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 64, 64), (150, 768, 2304), (514, 1024, 4096),
@@ -191,6 +270,8 @@ def test_wrappers_reject_bad_input(cuda):
         fa.attention_block_int8(x, wts.attn, 64)  # head_dim 2
     with pytest.raises(ValueError, match="do not fit"):
         fa.tiled_attention(torch.zeros(600, 3 * 64, device=cuda), 1, 1)
+    with pytest.raises(ValueError, match="do not fit"):  # bf16 K and V fit up to 768 tokens
+        fa.tiled_attention(torch.zeros(800, 3 * 64, dtype=torch.bfloat16, device=cuda), 1, 1)
     with pytest.raises(ValueError, match="contiguous"):
         fa.quant_dense(x[:, :, ::2], wts.wo_t, wts.wo_s, wts.bo, torch.float32)
     with pytest.raises(ValueError, match="expected"):
@@ -729,7 +810,10 @@ def test_multihead_attention_kernel_gradient(cuda):
 PROBS_ATOL = {"float32": 1e-6, "bfloat16": 2e-2}
 
 
-@pytest.mark.parametrize("b,t,w,heads,causal", DENSE_SHAPES)
+# and the L/14 vision width with a causal mask, and 300 tokens (bf16: the
+# three-pass form)
+@pytest.mark.parametrize("b,t,w,heads,causal", DENSE_SHAPES + [
+    (2, 257, 1024, 16, True), (1, 300, 128, 2, True)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_attention_block_train_kernel_matches_plain(cuda, b, t, w, heads, causal, dtype):
     """All six outputs of the saving forward against its plain version, the
