@@ -5,11 +5,13 @@
     python3 chip_smoke.py --time-k1         # build, then only K1's times (phase 2)
     python3 chip_smoke.py --dense-readings  # build, then what dense_agreement reads
                                             # for K8, K9a, K9b and for wrong layers
+    python3 chip_smoke.py --gemm-stages     # build, then only fc1 and fc2 of K9b and
+                                            # K2b alone (the wgmma GEMM, phase 2)
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
      port's kernels compiled from image_retrieval_tpu_torch/csrc with nvcc
-     for sm_90a (one nvcc per source, eleven in parallel).
+     for sm_90a (one nvcc per source, twelve in parallel).
   2. kernel vs plain: layer_block_int8 (K1), attention_block_int8 (K2a) and
      mlp_block_int8 (K2b) on the card against their plain PyTorch versions
      on the same inputs, in bf16 and f32, by kernel_agreement: K1 at the
@@ -26,11 +28,20 @@ Phases (any failure exits non-zero):
      a ragged one (3, 13, 128, causal), by dense_agreement per part of a
      layer (K10: by a max-abs limit); K9a then K9b against K8, bitwise, at
      both B/32 shapes; their times at B=8, at the B/32 batches (vision B=256,
-     text B=64) and at the L/14 batch (B=128), and for K10 the time of one
-     scaled_dot_product_attention call on the same q, k, v beside it (at
-     the B/32 vision B=8 and B=256 and L/14 vision B=128 shapes, and at the
-     B/32 text B=64 shape with the causal mask, through the packed
-     tiled_attention entry and is_causal=True).
+     text B=64) and at the L/14 batch (B=128), K9b also at the trainer's
+     batch (B/32 vision B=128), K2b also at B/32 vision B=8 and 256, and for
+     K10 the time of one scaled_dot_product_attention call on the same q, k,
+     v beside it (at the B/32 vision B=8 and B=256 and L/14 vision B=128
+     shapes, and at the B/32 text B=64 shape with the causal mask, through
+     the packed tiled_attention entry and is_causal=True).
+     fc1 and fc2 of K9b and K2b alone (the wgmma GEMM of
+     csrc/gemm_sm90.cuh through gemm_bf16 / gemm_s8, with the epilogues the
+     two chains give it) at the L/14 vision B=128 and B/32 vision B=256
+     shapes: each against its plain version (int8 bit for bit, bf16 by
+     gemm_bf16_agreement's float64 limit), its time beside the plain
+     version's, the bound's and one library call's on the same operands
+     (torch.nn.functional.linear in bf16, torch._int_mm in int8; the port
+     never calls either), and the device time alone.
      attention_block_train's saving forward (K11) against its plain version
      in bf16 and f32 at both B/32 shapes, at B = 8 and at B = 128 (the
      trainer's batch), and at the ragged one: the five outputs in the compute
@@ -449,7 +460,9 @@ TIME_SHAPES = {
                          "l14-text-B64": (64, 77, 768, 12, True)},
     "attention_block_int8": {"l14-vision-B4": L14_VISION,
                              f"l14-vision-B{ENC_BUCKET5}": L14_BATCH},
-    "mlp_block_int8": {"l14-vision-B4": L14_VISION, f"l14-vision-B{ENC_BUCKET5}": L14_BATCH},
+    "mlp_block_int8": {"l14-vision-B4": L14_VISION, f"l14-vision-B{ENC_BUCKET5}": L14_BATCH,
+                       "b32-vision-B8": B32_VISION,
+                       "b32-vision-B256": (256, 50, 768, 12, False)},
 }
 
 
@@ -549,7 +562,8 @@ DENSE_TIME_SHAPES = {
     "attention_block": {"l14-vision-B4": L14_VISION, f"l14-vision-B{ENC_BUCKET5}": L14_BATCH,
                         "b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH},
     "mlp_block": {"l14-vision-B4": L14_VISION, f"l14-vision-B{ENC_BUCKET5}": L14_BATCH,
-                  "b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH},
+                  "b32-vision-B8": B32_VISION, "b32-vision-B256": B32_BATCH,
+                  f"b32-vision-B{N_PAIRS}": (N_PAIRS, 50, 768, 12, False)},
 }
 # K10 at the image batches of phases 3, 7 and 5 (multihead_attention has no
 # mask) and, through the packed entry, the causal attention step of a text
@@ -671,6 +685,107 @@ def phase_dense_kernels(torch, card):
               f"{r['device_ms']} ms, library {r['library_device_ms']} ms [{card}]", flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+    return out
+
+
+# fc1 and fc2 of K9b and K2b alone at the main paths' image batches
+STAGE_SHAPES = {f"l14-vision-B{ENC_BUCKET5}": L14_BATCH, "b32-vision-B256": B32_BATCH}
+
+
+def mlp_stage_calls(torch, fa, shape, int8, seed):
+    """{stage: (kernel, plain, library, check, bound)} for fc1 and fc2 of one
+    MLP half on seeded weights and inputs: the GEMM wrappers with the
+    epilogues K9b (bf16) or K2b (int8) give them, on the operands K9b's and
+    K2b's chains hand them. `library` is one PyTorch call on the same
+    operands (torch.nn.functional.linear in bf16, torch._int_mm in int8) as a
+    yardstick: it computes the product and not the epilogue, and the port
+    never calls it. `check` holds the kernel against its plain version: bit
+    for bit in int8, by gemm_bf16_agreement's float64 limit in bf16."""
+    import torch.nn.functional as F
+
+    b, t, w, heads, _ = shape
+    m = b * t
+    if int8:
+        x32, wts = layer_inputs(torch, b, t, w, heads, seed)
+        mw, x = wts.mlp, x32.reshape(m, w).to(device="cuda", dtype=torch.bfloat16)
+        hq, hs = fa.rowquant(fa.fast_layernorm_f32(x.float(), mw.ln_s, mw.ln_b))
+        args1 = (hq, mw.w1_t, hs.reshape(-1), mw.w1_s, mw.b1, torch.float32, "gelu")
+        gq, gs = fa.rowquant(fa.gemm_s8(*args1))
+        args2 = (gq, mw.w2_t, gs.reshape(-1), mw.w2_s, mw.b2, torch.bfloat16, "residual", x)
+        hidden = mw.w1_t.shape[0]
+        calls = {"fc1": (args1, lambda: torch._int_mm(hq, mw.w1_t.t()), m * hidden * 4),
+                 "fc2": (args2, lambda: torch._int_mm(gq, mw.w2_t.t()), m * w * 2)}
+
+        def bitwise(args):
+            got, want = fa.gemm_s8(*args), fa.gemm_s8_reference(*args)
+            return {"max_abs_err": float((got.double() - want.double()).abs().max()),
+                    "ok": bool(torch.equal(got, want))}
+
+        out = {}
+        for stage, (args, lib, out_bytes) in calls.items():
+            a, bt = args[0], args[1]
+            n, k = bt.shape
+            # operands, row and column scales, bias, output and (fc2) residual
+            nbytes = (a.numel() + bt.numel() + 4 * m + 8 * n + out_bytes
+                      + (2 * m * n if stage == "fc2" else 0))
+            out[stage] = (lambda args=args: fa.gemm_s8(*args),
+                          lambda args=args: fa.gemm_s8_reference(*args), lib,
+                          lambda args=args: bitwise(args), bound(2.0 * m * n * k, 0.0, nbytes))
+        return out
+    x, wts = dense_layer_inputs(torch, b, t, w, heads, seed, torch.bfloat16)
+    mw, x = wts.mlp, x.reshape(m, w)
+    h = fa.fast_layernorm_f32(x.float(), mw.ln_s, mw.ln_b).to(torch.bfloat16)
+    args1 = (h, mw.w1_t, mw.b1, "gelu")
+    a1 = fa.gemm_bf16(*args1)
+    args2 = (a1, mw.w2_t, mw.b2, "residual", x)
+    out = {}
+    for stage, args in (("fc1", args1), ("fc2", args2)):
+        a, bt, bias = args[:3]
+        n, k = bt.shape
+        nbytes = 2 * (a.numel() + bt.numel() + m * n * (2 if stage == "fc2" else 1)) + 4 * n
+        check = lambda args=args: fa.gemm_bf16_agreement(fa.gemm_bf16(*args), *args)
+        out[stage] = (lambda args=args: fa.gemm_bf16(*args),
+                      lambda args=args: fa.gemm_bf16_reference(*args),
+                      lambda a=a, bt=bt, bb=bias.to(torch.bfloat16): F.linear(a, bt, bb),
+                      check, bound(0.0, 2.0 * m * n * k, nbytes))
+    return out
+
+
+def phase_gemm_stages(torch, card):
+    """fc1 and fc2 of K9b and K2b alone (the GEMM of csrc/gemm_sm90.cuh with
+    their epilogues) at the L/14 and B/32 image batches: each against its
+    plain version, then its time beside the plain version's, one library
+    call's on the same operands, the device time alone and the bound.
+    Returns {"mlp_block" | "mlp_block_int8": {case: {stage: readings}}}."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    out = {"mlp_block": {}, "mlp_block_int8": {}}
+    for name, int8 in (("mlp_block", False), ("mlp_block_int8", True)):
+        for case, shape in STAGE_SHAPES.items():
+            out[name][case] = {}
+            for stage, (kernel, plain, lib, check, bnd) in mlp_stage_calls(
+                    torch, fa, shape, int8, seed=len(case)).items():
+                agree = check()
+                torch.cuda.synchronize()
+                limit = "bit for bit" if int8 else (
+                    f"{agree['max_share_of_limit']:.4f} of the float64 limit")
+                print(f"kernel-vs-plain {name} {stage} {case}: max_abs_err "
+                      f"{agree['max_abs_err']:.6g} ({limit})", flush=True)
+                if not agree["ok"]:
+                    fail(f"the GEMM of {name} {stage} {case} disagrees with its plain version")
+                r = time_pair(torch, {"kernel": kernel, "plain": plain}, samples=8, reps=3)
+                r["library_ms"] = time_pair(torch, {"kernel": lib, "plain": lambda: None},
+                                            samples=8, reps=3)["kernel"]
+                r.update(bnd, device_ms=device_ms(torch, kernel),
+                         library_device_ms=device_ms(torch, lib))
+                out[name][case][stage] = r
+                print(f"time {name} {stage} {case}: kernel {r['kernel']:.4f} ms (device "
+                      f"{r['device_ms']} ms), plain {r['plain']:.4f} ms, library "
+                      f"{'F.linear' if not int8 else 'torch._int_mm'} {r['library_ms']:.4f} ms "
+                      f"(device {r['library_device_ms']} ms), bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}); kernel at {r['bound_ms'] / r['kernel']:.1%} of its "
+                      f"bound [{card}]", flush=True)
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1368,8 +1483,9 @@ def profile_encode(torch, enc, images, card, label="L/14"):
     stream, so their sum is the device's busy time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    families = (("gemm_s8_kernel", "int8 GEMMs"), ("gemm_bf16_kernel", "bf16 GEMMs"),
-                ("attention_tiled", "attention"), ("ln_rowquant", "LayerNorm/rowquant passes"),
+    families = (("gemm_wgmma_s8", "int8 GEMMs (wgmma)"),
+                ("gemm_wgmma_bf16", "bf16 GEMMs (wgmma)"), ("attention_tiled", "attention"),
+                ("ln_rowquant", "LayerNorm/rowquant passes"),
                 ("ln_cast", "LayerNorm passes"), ("Memcpy", "copies"))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2257,7 +2373,8 @@ def profile_step(torch, tr, pixels, tokens, card, label):
     family, the library's f32 products apart from the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    families = (("gemm_bf16_kernel", "the port's bf16 GEMMs"), ("attention_tiled", "attention"),
+    families = (("gemm_wgmma_bf16", "the port's bf16 GEMMs (wgmma)"),
+                ("attention_tiled", "attention"),
                 ("ln_cast", "LayerNorm passes"), ("sgemm", "library f32 GEMMs"),
                 ("f32f32", "library f32 GEMMs"), ("multi_tensor_apply", "AdamW"),
                 ("Memcpy", "copies"))
@@ -2456,6 +2573,9 @@ def main() -> int:
         time_kernels(torch, card, {"layer_block_int8": kernel_runs(fa)["layer_block_int8"]},
                      TIME_SHAPES)
         return 0
+    if sys.argv[1:] == ["--gemm-stages"]:
+        phase_gemm_stages(torch, card)
+        return 0
     if sys.argv[1:] == ["--dense-readings"]:
         dense_readings(torch)
         return 0
@@ -2463,6 +2583,7 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     kernels = phase_kernels(torch, card)
     kernels.update(phase_dense_kernels(torch, card))
+    stages = phase_gemm_stages(torch, card)
     kernels.update(phase_train_kernel(torch, card))
     launches, enc, queries, q_emb, index32 = phase_slice(torch, card)
     int4_launches, k3, k12 = phase_int4(torch, card, enc, queries, q_emb)
@@ -2505,6 +2626,20 @@ def main() -> int:
                     entry[f"{key}_{lib_key}"] = o[lib_key]
         return entry
 
+    def stage_entries(by_case):
+        """fc1 and fc2 alone: at the L/14 batch as fc1_ms, fc2_ms, ...; at
+        the B/32 batch under a b32_vision_b256_ prefix."""
+        out = {}
+        for case, prefix in ((big, ""), ("b32-vision-B256", "b32_vision_b256_")):
+            for stage, r in by_case[case].items():
+                out.update({f"{prefix}{stage}_ms": r["kernel"],
+                            f"{prefix}{stage}_plain_ms": r["plain"],
+                            f"{prefix}{stage}_library_ms": r["library_ms"],
+                            f"{prefix}{stage}_device_ms": r["device_ms"],
+                            f"{prefix}{stage}_library_device_ms": r["library_device_ms"],
+                            f"{prefix}{stage}_bound_ms": r["bound_ms"]})
+        return out
+
     def metric_entry(name, entry, lines, main, extra):
         t = w_times[name]
         out = {"name": name, "route": "cuda",
@@ -2545,8 +2680,11 @@ def main() -> int:
          "q1_ms": k3[1]["kernel"], "q1_plain_ms": k3[1]["plain"]},
         block_entry("attention_block_int8", "attention_block_int8.cu", 554,
                     l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
-        block_entry("mlp_block_int8", "mlp_block_int8.cu", 671,
-                    l14_launches["mlp_block_int8"], big, {"b4": "l14-vision-B4"}),
+        dict(block_entry("mlp_block_int8", "mlp_block_int8.cu", 671,
+                         l14_launches["mlp_block_int8"], big,
+                         {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
+                          "b32_vision_b8": "b32-vision-B8"}),
+             **stage_entries(stages["mlp_block_int8"])),
         # no single PyTorch call computes any of the four: library_ms is null
         metric_entry("fused_optimized_topk", "fused_optimized_topk", (399,),
                      "q64-cosine-only", {"q64_reference": "q64-reference",
@@ -2566,9 +2704,11 @@ def main() -> int:
         block_entry("attention_block", "attention_block.cu", 346, d_launches["attention_block"],
                     big, {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
                           "b32_vision_b8": "b32-vision-B8"}),
-        block_entry("mlp_block", "mlp_block.cu", 457, d_launches["mlp_block"], big,
-                    {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
-                     "b32_vision_b8": "b32-vision-B8"}),
+        dict(block_entry("mlp_block", "mlp_block.cu", 457, d_launches["mlp_block"], big,
+                         {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
+                          "b32_vision_b8": "b32-vision-B8",
+                          f"b32_vision_b{N_PAIRS}": f"b32-vision-B{N_PAIRS}"}),
+             **stage_entries(stages["mlp_block"])),
         block_entry("multihead_attention", "multihead_attention.cu", 87,
                     d_launches["multihead_attention"], "b32-vision-B256",
                     {"b32_vision_b8": "b32-vision-B8", "l14_vision_b128": big,

@@ -18,14 +18,15 @@
 // shared memory, so that does not transfer.
 //
 // What the design does about it. Five launches of int8_common.cuh's
-// kernels: LN + rowquant, one int8 mma.sync GEMM for q, k and v together
+// kernels: LN + rowquant, one int8 GEMM (gemm_sm90.cuh: wgmma fed by TMA)
+// for q, k and v together
 // (per-channel scales make the concatenation bitwise equal to three
 // products), the attention of block_common.cuh (bf16: QK^T and PV on the
 // tensor cores, K and V of an (image, head) staged once in bf16; f32: query
 // rows in tiles of up to 64 beside K and V in shared memory), rowquant, and
 // the out-projection GEMM with the residual add in its epilogue. Weights and
-// activations pass between launches through L2. wgmma, TMA and one fused
-// launch are later work.
+// activations pass between launches through L2. One fused launch is later
+// work.
 
 #include "attention_block_int8.cuh"
 

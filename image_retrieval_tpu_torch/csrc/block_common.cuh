@@ -305,7 +305,8 @@ struct Carver {
     if (e_ != cudaSuccess) return (int)e_;        \
   } while (0)
 
-// Both GEMM families tile 64 rows per block, and gridDim.y carries the row tiles.
+// The GEMM (gemm_sm90.cuh) tiles at least 64 rows per block, and gridDim.y
+// carries the row tiles.
 constexpr size_t kMaxRows = (size_t)65535 * 64;
 
 inline bool rows_ok(long long m) { return m > 0 && (size_t)m <= kMaxRows; }

@@ -7,9 +7,11 @@
 // launches):
 //   (a) ln_cast_kernel          LayerNorm (f32, fast variance) cast to the
 //                               compute type; one block per row.
-//   (b) gemm_bf16_kernel        bf16 GEMM on the tensor cores (mma.sync
-//                               m16n8k16, f32 accumulate), 64x64 tiles,
-//                               cp.async double buffering.
+//   (b) gemm_wgmma_bf16_kernel  bf16 GEMM on the tensor cores
+//                               (gemm_sm90.cuh: wgmma m64n128k16 with f32
+//                               sums fed by TMA through a shared-memory
+//                               ring, tiles of 128 columns and 256, 128 or
+//                               64 rows).
 //       gemm_f32_kernel         f32 GEMM on the CUDA cores: every product an
 //                               exact f32 FMA (never TF32), one accumulator
 //                               per output over ascending k. Slow, and only
@@ -32,6 +34,7 @@
 #include <type_traits>
 
 #include "block_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -92,121 +95,28 @@ __device__ __forceinline__ float finish(float acc, float bias, float res) {
   return v;
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
+// ---- bf16 on the tensor cores (gemm_sm90.cuh) ------------------------------
 
-constexpr int TBM = 64, TBN = 64, TBK = 32;
-// 80-byte shared rows (40 bf16): the 8 rows a fragment load touches land on
-// distinct banks (row * 20 words mod 32 = 0, 20, 8, 28, 16, 4, 24, 12), and
-// rows stay 16-byte aligned for cp.async.
-constexpr int TLD = TBK + 8;
-constexpr int kTensorGemmThreads = 128;  // 4 warps, 2 x 2, each a 32 x 32 tile
-
-__device__ __forceinline__ unsigned lds_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// C[m, n] = epilogue(sum_k A[m, k] * Bt[n, k] + bias[n]). A (M, K) bf16
-// row-major, Bt (N, K) bf16 (output-major weights). N % 64 == 0,
-// K % 32 == 0; rows past M are zero-filled on load and not stored.
+// The epilogue of the bf16 GEMM: two neighbouring outputs of one row from
+// their f32 sums, by finish<bf16, kEpi>, as one 4-byte store.
 template <int kEpi>
-__global__ void __launch_bounds__(kTensorGemmThreads) gemm_bf16_kernel(
-    const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ Bt,
-    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ residual,
-    __nv_bfloat16* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][TBM][TLD];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][TBN][TLD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-
-  auto load_tile = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kTensorGemmThreads;  // 256 chunks of 16 bytes per tile
-      const int r = c >> 2, col = (c & 3) * 8;
-      const int gm = m0 + r;
-      const bool in = gm < M;
-      cp_async16(&As[stage][r][col], A + (size_t)(in ? gm : 0) * K + k0 + col, in ? 16 : 0);
-      cp_async16(&Bs[stage][r][col], Bt + (size_t)(n0 + r) * K + k0 + col, 16);
+struct DenseEpilogueBf16 {
+  const float* bias;
+  const __nv_bfloat16* residual;  // kBiasResidual only
+  __nv_bfloat16* c;
+  int m, n;
+  __device__ __forceinline__ void operator()(int row, int col, float a0, float a1) const {
+    const size_t o = (size_t)row * n + col;
+    float r0 = 0.f, r1 = 0.f;
+    if (kEpi == kBiasResidual) {
+      const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(residual + o);
+      r0 = __bfloat162float(r.x);
+      r1 = __bfloat162float(r.y);
     }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  const int kt_count = K / TBK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < kt_count; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < kt_count) {
-      load_tile(st ^ 1, (kt + 1) * TBK);  // stage st^1 was released by the
-      cp_async_commit();                  // barrier ending iteration kt-1
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      unsigned af[2][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm + mi * 16 + g;
-        af[mi][0] = lds_pair(&As[st][r][kk + tig * 2]);
-        af[mi][1] = lds_pair(&As[st][r + 8][kk + tig * 2]);
-        af[mi][2] = lds_pair(&As[st][r][kk + 8 + tig * 2]);
-        af[mi][3] = lds_pair(&As[st][r + 8][kk + 8 + tig * 2]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn + ni * 8 + g;
-        bf[ni][0] = lds_pair(&Bs[st][n][kk + tig * 2]);
-        bf[ni][1] = lds_pair(&Bs[st][n][kk + 8 + tig * 2]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
+    store_pair(c + o, finish<__nv_bfloat16, kEpi>(a0, bias[col], r0),
+               finish<__nv_bfloat16, kEpi>(a1, bias[col + 1], r1));
   }
-
-  // Accumulator fragment: elements 2 * half and 2 * half + 1 sit at row
-  // g + 8 * half, columns 2 * tig and 2 * tig + 1 of their 16 x 8 tile: one
-  // 4-byte store of two bf16 values.
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + mi * 16 + g + half * 8;
-      if (m >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn + ni * 8 + tig * 2;
-        const size_t o = (size_t)m * N + n;
-        float r0 = 0.f, r1 = 0.f;
-        if (kEpi == kBiasResidual) {
-          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(residual + o);
-          r0 = __bfloat162float(r.x);
-          r1 = __bfloat162float(r.y);
-        }
-        __nv_bfloat162 out;
-        out.x = __float2bfloat16(
-            finish<__nv_bfloat16, kEpi>(acc[mi][ni][half * 2], bias[n], r0));
-        out.y = __float2bfloat16(
-            finish<__nv_bfloat16, kEpi>(acc[mi][ni][half * 2 + 1], bias[n + 1], r1));
-        *reinterpret_cast<__nv_bfloat162*>(C + o) = out;
-      }
-    }
-  }
-}
+};
 
 // ---- f32 on the CUDA cores -------------------------------------------------
 
@@ -285,9 +195,8 @@ int launch_gemm(const T* a, const T* bt, const float* bias, const T* residual, T
     IRT_TRY(gemm_f32_kernel<kEpi><<<dim3(n / FBN, (m + FBM - 1) / FBM), kF32GemmThreads, 0, st>>>(
         a, bt, bias, residual, c, m, n, k));
   } else {
-    IRT_TRY(gemm_bf16_kernel<kEpi>
-            <<<dim3(n / TBN, (m + TBM - 1) / TBM), kTensorGemmThreads, 0, st>>>(
-                a, bt, bias, residual, c, m, n, k));
+    return launch_gemm_wgmma<__nv_bfloat16>(
+        a, bt, k, DenseEpilogueBf16<kEpi>{bias, residual, c, m, n}, st);
   }
   return 0;
 }

@@ -6,10 +6,12 @@
 // activations between launches):
 //   (a) ln_rowquant_kernel      LayerNorm (f32, fast variance) fused with the
 //                               per-row int8 quantization; one block per row.
-//   (b) gemm_s8_kernel          int8 GEMM on the tensor cores (mma.sync
-//                               m16n8k32, int32 accumulate), 64x64 tiles,
-//                               cp.async double buffering, and a fused
-//                               epilogue: acc * row_scale * col_scale + bias,
+//   (b) gemm_wgmma_s8_kernel    int8 GEMM on the tensor cores
+//                               (gemm_sm90.cuh: wgmma m64n128k32 with int32
+//                               sums fed by TMA through a shared-memory
+//                               ring, tiles of 128 columns and 256, 128 or
+//                               64 rows) and a fused epilogue:
+//                               acc * row_scale * col_scale + bias,
 //                               then quick_gelu in f32 or the residual add in
 //                               the compute type.
 //   (c) the attention of block_common.cuh (bf16: attention_tiled_mma_kernel
@@ -27,6 +29,7 @@
 #pragma once
 
 #include "block_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -84,135 +87,36 @@ __global__ void __launch_bounds__(kRowThreads) ln_rowquant_kernel(
 // (b) int8 GEMM with fused dequant epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64, BN = 64, BK = 64;
-// 80-byte shared rows: the 8 rows a fragment load touches land on distinct
-// banks (row * 20 words mod 32 = 0, 20, 8, 28, 16, 4, 24, 12), and rows
-// stay 16-byte aligned for cp.async.
-constexpr int LDS = BK + 16;
-constexpr int kGemmThreads = 128;  // 4 warps, 2 x 2, each a 32 x 32 tile
-
 enum Epilogue { kStore = 0, kGelu = 1, kResidual = 2 };
 
-
-// D = A(16x32 s8, row) * B(32x8 s8, col) + D, int32.
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ unsigned lds32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// C[m, n] = epilogue(sum_k A[m, k] * Bt[n, k]). A (M, K) int8 row-major,
-// Bt (N, K) int8 (output-major weights). N % 64 == 0, K % 64 == 0; rows
-// past M are zero-filled on load and not stored.
+// The epilogue of the int8 GEMM (gemm_sm90.cuh): two neighbouring outputs of
+// one row from their int32 sums, acc * row_scale * col_scale + bias in f32,
+// then quick_gelu in f32, or the cast and the residual add in the compute
+// type; one 4-byte (bf16) or 8-byte (f32) store.
 template <typename OutT, int kEpi>
-__global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(
-    const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
-    const float* __restrict__ row_scale, const float* __restrict__ col_scale,
-    const float* __restrict__ bias, const OutT* __restrict__ residual,
-    OutT* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) int8_t As[2][BM][LDS];
-  __shared__ __align__(16) int8_t Bs[2][BN][LDS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  auto load_tile = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kGemmThreads;  // 256 chunks of 16 bytes per tile
-      const int r = c >> 2, col = (c & 3) * 16;
-      const int gm = m0 + r;
-      const bool in = gm < M;
-      cp_async16(&As[stage][r][col], A + (size_t)(in ? gm : 0) * K + k0 + col, in ? 16 : 0);
-      cp_async16(&Bs[stage][r][col], Bt + (size_t)(n0 + r) * K + k0 + col, 16);
+struct Int8Epilogue {
+  const float* row_scale;
+  const float* col_scale;
+  const float* bias;
+  const OutT* residual;  // kResidual only
+  OutT* c;
+  int m, n;
+  __device__ __forceinline__ float finish(int acc, float rs, int col, size_t o) const {
+    float v = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), col_scale[col]), bias[col]);
+    if (kEpi == kGelu) {  // quick_gelu in f32: v * sigmoid(1.702 v)
+      const float z = __fmul_rn(1.702f, v);
+      v = __fmul_rn(v, __frcp_rn(__fadd_rn(1.f, expf(-z))));
+    } else if (kEpi == kResidual) {  // cast, then add in the compute type
+      v = __fadd_rn(to_f32(residual[o]), round_to<OutT>(v));
     }
-  };
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  const int kt_count = K / BK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < kt_count; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < kt_count) {
-      load_tile(st ^ 1, (kt + 1) * BK);  // stage st^1 was released by the
-      cp_async_commit();                 // barrier ending iteration kt-1
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned af[2][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm + mi * 16 + g;
-        af[mi][0] = lds32(&As[st][r][kk + tig * 4]);
-        af[mi][1] = lds32(&As[st][r + 8][kk + tig * 4]);
-        af[mi][2] = lds32(&As[st][r][kk + 16 + tig * 4]);
-        af[mi][3] = lds32(&As[st][r + 8][kk + 16 + tig * 4]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn + ni * 8 + g;
-        bf[ni][0] = lds32(&Bs[st][n][kk + tig * 4]);
-        bf[ni][1] = lds32(&Bs[st][n][kk + 16 + tig * 4]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
+    return v;
   }
-
-  // Accumulator fragment: element e sits at row g + 8 * (e >> 1), column
-  // 2 * tig + (e & 1) of its 16 x 8 tile.
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + mi * 16 + g + half * 8;
-      if (m >= M) continue;
-      const float rs = row_scale[m];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int n = n0 + wn + ni * 8 + tig * 2 + j;
-          const size_t o = (size_t)m * N + n;
-          float v = __fadd_rn(
-              __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][half * 2 + j]), rs), col_scale[n]),
-              bias[n]);
-          if (kEpi == kGelu) {  // quick_gelu in f32: v * sigmoid(1.702 v)
-            const float z = __fmul_rn(1.702f, v);
-            v = __fmul_rn(v, __frcp_rn(__fadd_rn(1.f, expf(-z))));
-            C[o] = from_f32<OutT>(v);
-          } else if (kEpi == kResidual) {  // cast, then add in the compute type
-            C[o] = from_f32<OutT>(__fadd_rn(to_f32(residual[o]), round_to<OutT>(v)));
-          } else {
-            C[o] = from_f32<OutT>(v);
-          }
-        }
-      }
-    }
+  __device__ __forceinline__ void operator()(int row, int col, int a0, int a1) const {
+    const size_t o = (size_t)row * n + col;
+    const float rs = row_scale[row];
+    store_pair(c + o, finish(a0, rs, col, o), finish(a1, rs, col + 1, o + 1));
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // Host side
@@ -230,9 +134,8 @@ template <typename OutT, int kEpi>
 int launch_gemm_s8(const int8_t* a, const int8_t* bt, const float* row_scale,
                    const float* col_scale, const float* bias, const OutT* residual,
                    OutT* c, int m, int n, int k, cudaStream_t st) {
-  IRT_TRY(gemm_s8_kernel<OutT, kEpi><<<dim3(n / BN, (m + BM - 1) / BM), kGemmThreads, 0, st>>>(
-      a, bt, row_scale, col_scale, bias, residual, c, m, n, k));
-  return 0;
+  return launch_gemm_wgmma<int8_t>(
+      a, bt, k, Int8Epilogue<OutT, kEpi>{row_scale, col_scale, bias, residual, c, m, n}, st);
 }
 
 // The attention sub-block: LN1 -> rowquant -> int8 QKV -> attention ->

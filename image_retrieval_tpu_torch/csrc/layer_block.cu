@@ -20,9 +20,9 @@
 // the mid-layer activation x1 kept in the workspace in the compute type, so
 // that the two halves run alone (attention_block.cu, mlp_block.cu) compose to
 // this layer bit for bit. In bf16 the products run on the tensor cores
-// (mma.sync, f32 accumulation); in f32 they are exact f32 FMAs on the CUDA
-// cores, slow and never TF32; so does the attention (attention_mma.cuh in
-// bf16). Making the GEMMs fast (wgmma, TMA, fewer launches) is later work.
+// (gemm_sm90.cuh: wgmma fed by TMA, f32 accumulation); in f32 they are exact
+// f32 FMAs on the CUDA cores, slow and never TF32; so does the attention
+// (attention_mma.cuh in bf16). Fewer launches are later work.
 
 #include "dense_blocks.cuh"
 

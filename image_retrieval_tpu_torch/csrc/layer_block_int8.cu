@@ -19,9 +19,8 @@
 // the mid-layer activation x1 kept in the workspace. The attention of
 // block_common.cuh keeps an (image, head)'s K and V in shared memory and
 // the score rows in registers (bf16) or tiles the query rows (f32), so
-// T = 197 and 257 run. Making it fast (wgmma, TMA,
-// fusing the chain) is later work; this version is written to be right
-// first.
+// T = 197 and 257 run. The GEMMs are gemm_sm90.cuh's (wgmma fed by TMA);
+// fusing the chain is later work.
 
 #include "layer_block_int8.cuh"
 

@@ -17,13 +17,14 @@
 // the image grid) does not transfer.
 //
 // What the design does about it. Four launches of int8_common.cuh's
-// kernels: LN + rowquant, the fc1 GEMM (int8 mma.sync) with quick_gelu in
-// f32 in its epilogue, a rowquant over the f32 hidden rows (16 KB of
-// shared memory per row at hidden 4096), and the fc2 GEMM with the
-// residual add in its epilogue. The f32 hidden activation (m x hidden x 4
-// bytes) is the largest intermediate and passes through device memory;
-// fusing the requantization into fc1's epilogue, wgmma and TMA are later
-// work.
+// kernels: LN + rowquant, the fc1 GEMM with quick_gelu in f32 in its
+// epilogue, a rowquant over the f32 hidden rows (16 KB of shared memory per
+// row at hidden 4096), and the fc2 GEMM with the residual add in its
+// epilogue. Both GEMMs are gemm_sm90.cuh's int8 form: wgmma m64n128k32 with
+// int32 sums, fed by TMA through a shared-memory ring, a producer warp and
+// one consumer warpgroup per 64 rows. The f32 hidden activation (m x hidden
+// x 4 bytes) is the largest intermediate and passes through device memory;
+// fusing the requantization into fc1's epilogue is later work.
 
 #include "mlp_block_int8.cuh"
 

@@ -3,9 +3,10 @@
 // JAX package leaves to XLA as an int8 x int8 -> int32 dot_general. Here it
 // is the two kernels of int8_common.cuh that the layer kernels are built
 // from: a per-row int8 quantization of the input (taken in f32), then the
-// int8 mma.sync GEMM whose epilogue computes acc * xscale * wscale + bias in
-// f32 and casts. It serves the routings of the model that fuse nothing or
-// only half a layer (int8_matmuls alone, a masked vision sequence).
+// int8 GEMM (gemm_sm90.cuh: wgmma fed by TMA) whose epilogue computes
+// acc * xscale * wscale + bias in f32 and casts. It serves the routings of
+// the model that fuse nothing or only half a layer (int8_matmuls alone, a
+// masked vision sequence).
 //
 // Bound: 2 k n int8 operations per row against k n bytes of weights read
 // once; operations past a few hundred rows, the weight read below that.

@@ -29,11 +29,11 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu",
            "quant_dense.cu", "int4_screen.cu", "fused_metrics.cu", "layer_block.cu",
            "attention_block.cu", "mlp_block.cu", "multihead_attention.cu",
-           "attention_block_train.cu")
+           "attention_block_train.cu", "gemm_sm90.cu")
 HEADERS = ("block_common.cuh", "int8_common.cuh", "layer_block_int8.cuh",
            "attention_block_int8.cuh", "mlp_block_int8.cuh", "quant_dense.cuh",
            "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh",
-           "attention_mma.cuh")
+           "attention_mma.cuh", "gemm_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -177,6 +177,12 @@ def load_library() -> ctypes.CDLL:
             lib.irt_fused_optimized_topk.argtypes = (
                 [p] * 3 + [i] + [p] * 3 + [i] * 5 + [f] * 5 + [i, p])
             lib.irt_fused_optimized_topk.restype = i
+            lib.irt_gemm_plan.argtypes = [i, i, i, i, p]
+            lib.irt_gemm_plan.restype = i
+            lib.irt_gemm_bf16.argtypes = [p] * 5 + [i] * 4 + [p]
+            lib.irt_gemm_bf16.restype = i
+            lib.irt_gemm_s8.argtypes = [p] * 7 + [i] * 5 + [p]
+            lib.irt_gemm_s8.restype = i
             lib.irt_error_string.argtypes = [i]
             lib.irt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -61,7 +61,8 @@ Each wrapper launches its hand-written Hopper kernel chain (csrc/) for a
 CUDA tensor and runs its ``*_reference`` for a CPU tensor; none falls back
 from the card to the plain version. Weight matrices are kept output-major
 ((N, K), K contiguous) because that is the operand layout of the kernels'
-``mma.sync``.
+GEMM (``wgmma``, which takes 8-bit operands K-major only). ``gemm_bf16`` and
+``gemm_s8`` run that GEMM alone, with ``gemm_plan`` its launch plan.
 """
 
 from __future__ import annotations
@@ -522,6 +523,52 @@ def _check_attention_shape(fn: str, t: int, w: int, heads: int, dtype: torch.dty
     return w // heads
 
 
+# The GEMM's launch plan, mirrored from csrc/gemm_sm90.cuh (irt_gemm_plan
+# answers the same; tests/test_torch_gpu.py holds them equal). Every chain's
+# projections in bf16 and int8 run on it.
+_GEMM_DTYPES = {torch.bfloat16: 0, torch.int8: 1}
+_GEMM_TILE_N, _GEMM_ROW_BYTES, _GEMM_SMS, _GEMM_ALIGN = 128, 128, 132, 1024
+# ring depth by tile rows: two blocks of 64 or 128 rows share an SM, one of 256
+_GEMM_STAGES = {256: 4, 128: 3, 64: 4}
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    rows: int                # output rows of a block: 256, 128 or 64 (one consumer
+                             # warpgroup per 64)
+    stages: int              # depth of the shared-memory ring of TMA loads
+    smem_bytes: int          # dynamic shared memory of one block
+    grid: Tuple[int, int]    # (column tiles of 128, row tiles)
+    threads: int             # 128 per consumer warpgroup and one producer warp
+    refused: str | None      # why the kernel does not take the shape
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(m: int, n: int, k: int, dtype: torch.dtype) -> GemmPlan:
+    """How the GEMM of every chain runs C (m, n) = A (m, k) Bt (n, k)^T with
+    operands of `dtype` (bf16 or int8): output tiles of 128 columns and 256
+    rows where those give the card's 132 SMs a block each, else 128 rows
+    where those do, else 64; K steps of 128 bytes; a ring of four stages of
+    (rows + 128) rows of 128 bytes at 256 rows (one block an SM), three at
+    128 and four at 64 (two blocks an SM)."""
+    if dtype not in _GEMM_DTYPES:
+        raise TypeError(f"the GEMM takes bfloat16 or int8 operands, got {dtype}")
+    refused = None
+    if m < 1:
+        refused = f"M = {m}: the GEMM needs at least one row"
+    elif n < 64 or k < 64 or n % 64 or k % 64:
+        refused = f"N = {n} and K = {k} must be positive multiples of 64"
+    cols = -(-n // _GEMM_TILE_N)
+    rows = next((r for r in (256, 128) if -(-max(m, 0) // r) * cols >= _GEMM_SMS), 64)
+    if refused is None and -(-m // rows) > 65535:
+        refused = f"M = {m} needs more than 65535 row tiles of {rows}"
+    if refused is not None:
+        return GemmPlan(0, 0, 0, (0, 0), 0, refused)
+    smem = _GEMM_STAGES[rows] * (rows + _GEMM_TILE_N) * _GEMM_ROW_BYTES + _GEMM_ALIGN
+    return GemmPlan(rows, _GEMM_STAGES[rows], smem, (cols, -(-m // rows)), 128 * (rows // 64) + 32,
+                    None)
+
+
 def _run(fn, lib, device, call):
     """`call(stream)` on PyTorch's current stream of `device`; raises on a
     refused launch, counts an accepted one."""
@@ -719,6 +766,186 @@ def tiled_attention(qkv: torch.Tensor, batch: int, heads: int,
 
 
 tiled_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The GEMM alone (csrc/gemm_sm90.cu): for tests and timing; the chains above
+# and below launch the same kernels inside their own entries
+# ---------------------------------------------------------------------------
+
+GEMM_EPILOGUES = ("bias", "gelu", "residual")
+
+
+def _gelu_f32(v: torch.Tensor) -> torch.Tensor:
+    """quick_gelu in the kernels' own f32 operations: v * (1 / (1 + exp(-(1.702 v))))."""
+    return v * torch.reciprocal(1.0 + torch.exp(-(1.702 * v)))
+
+
+def gemm_bf16_reference(a: torch.Tensor, bt: torch.Tensor, bias: torch.Tensor,
+                        epilogue: str = "bias", residual: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of the bf16 GEMM: the f32 sum of a (m, k) bf16
+    times bt (n, k) bf16 plus bias (n,) f32, then the cast ("bias"),
+    quick_gelu in f32 and the cast ("gelu"), or the cast and residual + it in
+    bf16 ("residual"): the projections of mlp_block_reference."""
+    require_full_f32(a.device)
+    v = _dense_proj(a, bt, bias)
+    if epilogue == "gelu":
+        return quick_gelu(v).to(a.dtype)
+    if epilogue == "residual":
+        return residual + v.to(a.dtype)
+    return v.to(a.dtype)
+
+
+def gemm_s8_reference(a: torch.Tensor, bt: torch.Tensor, row_scale: torch.Tensor,
+                      col_scale: torch.Tensor, bias: torch.Tensor, out_dtype: torch.dtype,
+                      epilogue: str = "bias", residual: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of the int8 GEMM: the exact int32 sum of a (m, k)
+    int8 times bt (n, k) int8, times row_scale (m,) and col_scale (n,), plus
+    bias (n,), in f32 (_int8_proj's order), then the cast ("bias"), quick_gelu
+    in f32 and the cast ("gelu"), or the cast and residual + it in out_dtype
+    ("residual"). The same correctly rounded f32 operations as the kernel's
+    epilogue, in its order."""
+    acc = a.to(torch.float64) @ bt.to(torch.float64).t()
+    v = acc.to(torch.float32) * row_scale.reshape(-1, 1) * col_scale + bias
+    if epilogue == "gelu":
+        return _gelu_f32(v).to(out_dtype)
+    if epilogue == "residual":
+        return residual + v.to(out_dtype)
+    return v.to(out_dtype)
+
+
+def gemm_bf16_agreement(got: torch.Tensor, a: torch.Tensor, bt: torch.Tensor,
+                        bias: torch.Tensor, epilogue: str = "bias",
+                        residual: torch.Tensor | None = None) -> dict:
+    """Hold the bf16 GEMM's output `got` against the float64 value of its
+    function on the same operands (the int8 GEMM is held bit for bit instead:
+    its sums are exact). The limit per output is an error bound: the f32 sum
+    v' of K products and the bias errs by e <= (K S + |v|) u32 (S = sum |a b|
+    + |bias|, u32 = 2^-24, taken twice over); rounding to bf16 moves a value
+    by at most u = 2^-8 of itself; quick_gelu's slope stays below 1.2 and its
+    f32 operations (expf, the reciprocal) add under 2^-20 |v|; the residual
+    add rounds the projection and then the sum. Returns the largest error,
+    the largest ratio of error to limit, and `ok`."""
+    u, u32 = 2.0 ** -8, 2.0 ** -23
+    a64, bt64 = a.double(), bt.double()
+    v = a64 @ bt64.t() + bias.double()
+    e = u32 * (a.shape[1] * (a64.abs() @ bt64.abs().t() + bias.double().abs()) + v.abs())
+    if epilogue == "gelu":
+        want = v * torch.sigmoid(1.702 * v)
+        e1 = 1.2 * e + 2.0 ** -20 * v.abs()
+        limit = u * (want.abs() + e1) + e1
+    elif epilogue == "residual":
+        want = residual.double() + v
+        e1 = u * v.abs() + (1 + u) * e
+        limit = u * (want.abs() + e1) + e1 + u32 * want.abs()
+    else:
+        want = v
+        limit = u * (v.abs() + e) + e
+    err = (got.double() - want).abs()
+    ratio = float((err / limit).max())
+    return {"max_abs_err": float(err.max()), "max_share_of_limit": ratio,
+            "ok": bool(torch.isfinite(got).all()) and ratio <= 1.0}
+
+
+def _check_gemm_call(fn: str, a, bt, dtype, epilogue, residual, out_dtype, out):
+    """Shapes, dtypes and placement of one GEMM call; returns (m, n, k, the
+    epilogue's code, out)."""
+    if a.dtype != dtype or bt.dtype != dtype:
+        raise TypeError(f"{fn} takes {dtype} operands, got {a.dtype} and {bt.dtype}")
+    if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1]:
+        raise ValueError(f"{fn} takes a (m, k) and bt (n, k), got {tuple(a.shape)} and "
+                         f"{tuple(bt.shape)}")
+    (m, k), n = a.shape, bt.shape[0]
+    _check_tensor(fn, "a", a, (m, k), dtype, a.device)
+    _check_tensor(fn, "bt", bt, (n, k), dtype, a.device)
+    plan = gemm_plan(m, n, k, dtype)
+    if plan.refused is not None:
+        raise ValueError(f"{fn}: {plan.refused}")
+    if epilogue not in GEMM_EPILOGUES:
+        raise ValueError(f"{fn}: epilogue {epilogue!r} is not one of {GEMM_EPILOGUES}")
+    if (epilogue == "residual") != (residual is not None):
+        raise ValueError(f"{fn}: a residual goes with the 'residual' epilogue and no other")
+    if residual is not None:
+        _check_tensor(fn, "residual", residual, (m, n), out_dtype, a.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    _check_tensor(fn, "out", out, (m, n), out_dtype, a.device)
+    return m, n, k, GEMM_EPILOGUES.index(epilogue), out
+
+
+def _gemm_bf16_cuda(a, bt, bias, epilogue, residual, out):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "gemm_bf16"
+    m, n, k, ep, out = _check_gemm_call(fn, a, bt, torch.bfloat16, epilogue, residual,
+                                        torch.bfloat16, out)
+    _check_tensor(fn, "bias", bias, (n,), torch.float32, a.device)
+    lib = load_library()
+    _run(gemm_bf16, lib, a.device, lambda stream: lib.irt_gemm_bf16(
+        a.data_ptr(), bt.data_ptr(), bias.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(), m, n, k, ep,
+        stream))
+    return out
+
+
+def gemm_bf16(a: torch.Tensor, bt: torch.Tensor, bias: torch.Tensor, epilogue: str = "bias",
+              residual: torch.Tensor | None = None, out: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """The bf16 GEMM of the compute-dtype chains alone: a (m, k) bf16, bt
+    (n, k) bf16, bias (n,) f32 -> (m, n) bf16 by `epilogue`
+    (gemm_bf16_reference), into `out` if given. CUDA: the wgmma kernel (or
+    this raises); CPU: the plain version. ``gemm_bf16.launches`` counts
+    kernel launches."""
+    if a.device.type == "cuda":
+        return _gemm_bf16_cuda(a, bt, bias, epilogue, residual, out)
+    if a.device.type == "cpu":
+        return gemm_bf16_reference(a, bt, bias, epilogue, residual)
+    raise ValueError(f"gemm_bf16: unsupported device {a.device}")
+
+
+gemm_bf16.launches = 0
+
+
+def _gemm_s8_cuda(a, bt, row_scale, col_scale, bias, out_dtype, epilogue, residual, out):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "gemm_s8"
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} writes bfloat16 or float32, got {out_dtype}")
+    m, n, k, ep, out = _check_gemm_call(fn, a, bt, torch.int8, epilogue, residual,
+                                        out_dtype, out)
+    _check_tensor(fn, "row_scale", row_scale, (m,), torch.float32, a.device)
+    for name, v in (("col_scale", col_scale), ("bias", bias)):
+        _check_tensor(fn, name, v, (n,), torch.float32, a.device)
+    lib = load_library()
+    _run(gemm_s8, lib, a.device, lambda stream: lib.irt_gemm_s8(
+        a.data_ptr(), bt.data_ptr(), row_scale.data_ptr(), col_scale.data_ptr(),
+        bias.data_ptr(), None if residual is None else residual.data_ptr(), out.data_ptr(),
+        m, n, k, ep, _DTYPE_CODES[out_dtype], stream))
+    return out
+
+
+def gemm_s8(a: torch.Tensor, bt: torch.Tensor, row_scale: torch.Tensor,
+            col_scale: torch.Tensor, bias: torch.Tensor, out_dtype: torch.dtype,
+            epilogue: str = "bias", residual: torch.Tensor | None = None,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """The int8 GEMM of the int8 chains alone: a (m, k) int8, bt (n, k) int8,
+    row_scale (m,), col_scale (n,), bias (n,) f32 -> (m, n) in out_dtype
+    (bf16 or f32) by `epilogue` (gemm_s8_reference), into `out` if given.
+    CUDA: the wgmma kernel (or this raises); CPU: the plain version.
+    ``gemm_s8.launches`` counts kernel launches."""
+    if a.device.type == "cuda":
+        return _gemm_s8_cuda(a, bt, row_scale, col_scale, bias, out_dtype, epilogue,
+                             residual, out)
+    if a.device.type == "cpu":
+        return gemm_s8_reference(a, bt, row_scale, col_scale, bias, out_dtype, epilogue,
+                                 residual)
+    raise ValueError(f"gemm_s8: unsupported device {a.device}")
+
+
+gemm_s8.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -256,6 +256,134 @@ def test_quant_dense_kernel_matches_plain(cuda, m, k, n, in_dtype, out_dtype):
     assert got.dtype == od and torch.equal(got, want)
 
 
+# ---------------------------------------------------------------------------
+# The GEMM every chain runs (csrc/gemm_sm90.cuh), alone
+# ---------------------------------------------------------------------------
+
+# ragged M on every tile form: 1-400 and N < 4096 take 64-row tiles, 1000 at
+# N = 4096 takes 128 rows, 4928 at N >= 1024 256 rows (gemm_plan)
+GEMM_M = (1, 63, 65, 400, 1000, 4928)
+GEMM_N = GEMM_K = (64, 192, 1024, 4096)
+
+
+def test_gemm_plan_matches_the_kernels(cuda):
+    """ops/flash_attention.py::gemm_plan is the C side's launch plan: tile
+    rows, stages, shared memory, grid and threads for both operand types,
+    and the same shapes refused."""
+    import ctypes
+
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    got = (ctypes.c_int * 6)()
+    for m in (0, 1, 63, 64, 65, 400, 1024, 4928, 16448, 32896, 65535 * 64, 65535 * 64 + 1,
+              65535 * 128, 65535 * 128 + 1, 65535 * 256, 65535 * 256 + 1):
+        for n in (0, 32, 64, 96, 192, 768, 1024, 2304, 3072, 4096):
+            for k in (0, 32, 64, 100, 192, 768, 1024, 4096):
+                for dtype, code in ((torch.bfloat16, 0), (torch.int8, 1)):
+                    plan = fa.gemm_plan(m, n, k, dtype)
+                    rc = lib.irt_gemm_plan(m, n, k, code, got)
+                    case = (m, n, k, dtype)
+                    assert (rc != 0) == (plan.refused is not None), case
+                    if rc == 0:
+                        assert tuple(got) == (plan.rows, plan.stages, plan.smem_bytes,
+                                              *plan.grid, plan.threads), case
+
+
+def _gemm_operands(m, n, k, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype == torch.int8:
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        # scales of the size rowquant and quantize_weight give
+        rs = 0.02 * torch.rand(m, generator=g, device="cuda") + 1e-3
+        cs = (0.02 * torch.rand(n, generator=g, device="cuda") + 1e-3) / math.sqrt(k)
+        bias = 0.02 * torch.randn(n, generator=g, device="cuda")
+        return a, bt, rs, cs, bias
+    a = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    bt = (torch.randn((n, k), generator=g, device="cuda") / math.sqrt(k)).to(dtype)
+    return a, bt, 0.02 * torch.randn(n, generator=g, device="cuda")
+
+
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("n", GEMM_N)
+@pytest.mark.parametrize("k", GEMM_K)
+def test_gemm_s8_kernel_matches_plain_bitwise(cuda, m, n, k):
+    """The int32 sums are exact on both sides (every K, no split, zero-filled
+    tails add nothing) and the epilogue runs the same correctly rounded f32
+    operations in the same order: every epilogue, both output types, bit for
+    bit."""
+    a, bt, rs, cs, bias = _gemm_operands(m, n, k, torch.int8, m * n + k)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        residual = torch.randn((m, n), device=cuda).to(out_dtype)
+        for epilogue in fa.GEMM_EPILOGUES:
+            r = residual if epilogue == "residual" else None
+            before = fa.gemm_s8.launches
+            got = fa.gemm_s8(a, bt, rs, cs, bias, out_dtype, epilogue, r)
+            want = fa.gemm_s8_reference(a, bt, rs, cs, bias, out_dtype, epilogue, r)
+            torch.cuda.synchronize()
+            assert fa.gemm_s8.launches == before + 1
+            assert got.dtype == out_dtype and torch.equal(got, want), (epilogue, out_dtype)
+
+
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("n", GEMM_N)
+@pytest.mark.parametrize("k", GEMM_K)
+def test_gemm_bf16_kernel_within_the_float64_limit(cuda, m, n, k):
+    """Every epilogue against the float64 value of its function, by
+    gemm_bf16_agreement's limit (derived from K and the bf16 roundings)."""
+    a, bt, bias = _gemm_operands(m, n, k, torch.bfloat16, m * n + k)
+    residual = torch.randn((m, n), device=cuda).to(torch.bfloat16)
+    for epilogue in fa.GEMM_EPILOGUES:
+        r = residual if epilogue == "residual" else None
+        before = fa.gemm_bf16.launches
+        got = fa.gemm_bf16(a, bt, bias, epilogue, r)
+        torch.cuda.synchronize()
+        assert fa.gemm_bf16.launches == before + 1
+        assert got.dtype == torch.bfloat16
+        agree = fa.gemm_bf16_agreement(got, a, bt, bias, epilogue, r)
+        assert agree["ok"], (epilogue, agree)
+
+
+@pytest.mark.parametrize("m,n", [(1, 64), (63, 192), (65, 64), (400, 192), (129, 1024)])
+def test_gemm_writes_nothing_past_row_m(cuda, m, n):
+    """TMA reads whole tiles, zero-filled past M; the epilogue stores rows
+    below M only: a guard band after the output keeps its bits."""
+    k = 192
+    a, bt, bias = _gemm_operands(m, n, k, torch.bfloat16, 3)
+    buf = torch.full((m + 64, n), 7.0, dtype=torch.bfloat16, device=cuda)
+    fa.gemm_bf16(a, bt, bias, "gelu", out=buf[:m])
+    a8, bt8, rs, cs, b8 = _gemm_operands(m, n, k, torch.int8, 3)
+    buf32 = torch.full((m + 64, n), 7.0, device=cuda)
+    fa.gemm_s8(a8, bt8, rs, cs, b8, torch.float32, "bias", out=buf32[:m])
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:m], fa.gemm_bf16(a, bt, bias, "gelu"))
+    assert torch.equal(buf32[:m], fa.gemm_s8_reference(a8, bt8, rs, cs, b8, torch.float32))
+    assert bool((buf[m:] == 7.0).all()) and bool((buf32[m:] == 7.0).all())
+
+
+def test_gemm_wrappers_reject_what_the_kernel_refuses(cuda):
+    a, bt, bias = _gemm_operands(8, 128, 128, torch.bfloat16, 1)
+    a8, bt8, rs, cs, b8 = _gemm_operands(8, 128, 128, torch.int8, 1)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fa.gemm_bf16(a[:, :96].contiguous(), bt[:, :96].contiguous(), bias)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fa.gemm_s8(a8, bt8[:96].contiguous(), rs, cs[:96], b8[:96], torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.gemm_bf16(torch.zeros(8 * 128 + 1, dtype=torch.bfloat16, device=cuda)[1:]
+                     .view(8, 128), bt, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.gemm_bf16(a, bt.t().contiguous().t(), bias)
+    with pytest.raises(ValueError, match="residual"):
+        fa.gemm_bf16(a, bt, bias, "residual")
+    with pytest.raises(ValueError, match="residual"):
+        fa.gemm_s8(a8, bt8, rs, cs, b8, torch.float32, "bias", torch.zeros(8, 128, device=cuda))
+    with pytest.raises(TypeError, match="int8"):
+        fa.gemm_s8(a, bt, rs, cs, b8, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.gemm_s8(a8, bt8, rs, cs, b8, torch.float16)
+
+
 def test_wrappers_reject_bad_input(cuda):
     wts = _layer_weights(np.random.default_rng(2), 128, cuda)
     x = torch.zeros(2, 6, 128, device=cuda)
