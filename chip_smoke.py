@@ -7,6 +7,8 @@
                                             # for K8, K9a, K9b and for wrong layers
     python3 chip_smoke.py --gemm-stages     # build, then only fc1 and fc2 of K9b and
                                             # K2b alone (the wgmma GEMM, phase 2)
+    python3 chip_smoke.py --time-k5         # build, then only K5 (the int8 weighted
+                                            # sweep): registers, vs plain, times
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
@@ -108,7 +110,9 @@ Phases (any failure exits non-zero):
      against their plain versions on 2^18 rows at Q = 1 and 64 by the limits
      of ops/fused_metrics.py, and
      their times over the whole galleries beside the plain versions' and the
-     bounds.
+     bounds (K5 also beside its bound as counted before its L1 sum moved to
+     the tensor cores, with its share of the bound and, from ptxas in
+     build.log, the registers and spills of its instantiations).
 
   7. the encoder under the flags that select the compute-dtype kernels, in
      bf16. A, CLIPEncoder(replace(vit_b32(), fused_layer_block=True), seed
@@ -1913,23 +1917,159 @@ def sweep_slots(w, int8=False):
     term is computed): one FMA for the product where the cosine or the
     Gram-form L2 is live; where L1 or Linf is live one subtract, then one add
     for L1 and one max for Linf, each only if its weight is not 0. Over int8
-    rows the product is tensor-core work and is not counted here, and the
-    subtract (with its rounding) and the max are bf16 operations at the
-    packed rate, BF16_SLOT each; the L1 sum is an f32 add."""
+    rows (K5) the product and the L1 sum are tensor-core work (k5_bounds) and
+    are not counted here, and the subtract (with its rounding) and the max
+    are bf16 operations at the packed rate, BF16_SLOT each."""
     live = [True] * 5 if w is None else [x != 0.0 for x in wtuple(w)]
     slots = 0.0 if int8 or not (live[0] or live[2]) else 1.0
     if live[1] or live[3]:
         narrow = BF16_SLOT if int8 else 1.0
-        slots += narrow + (1.0 if live[1] else 0.0) + (narrow if live[3] else 0.0)
+        slots += narrow + (1.0 if live[1] and not int8 else 0.0) + (narrow if live[3] else 0.0)
     return slots
+
+
+def k5_bounds(w, nq, n, d):
+    """K5's bound on these shapes, and the bound as PRs 4-10 counted it.
+    Bytes: the int8 rows, scales, magnitudes, f32 queries and the (Q, N) f32
+    output once. Operations per (query, row, dim): sweep_slots(int8=True) on
+    the CUDA cores; at the bf16 tensor-core peak 2 for the product where the
+    cosine or the L2 is live and 2 for the L1 sum where L1 is (a multiply-add
+    by one: K5 sums |u - q| on the tensor cores). The old count took the L1
+    sum as one f32 add on the CUDA cores."""
+    live = [x != 0.0 for x in wtuple(w)]
+    el = float(nq) * n * d
+    nbytes = n * (d + 4 + 4) + nq * d * 4 + nq * n * 4
+    dot = 2.0 * el if live[0] or live[2] else 0.0
+    new = bound(0.0, dot + (2.0 * el if live[1] else 0.0), nbytes, sweep_slots(w, True) * el)
+    old = bound(0.0, dot, nbytes, (sweep_slots(w, True) + (1.0 if live[1] else 0.0)) * el)
+    return new, old
+
+
+# K5's three timed cases (the int8 tier's served weight sets at Q = 1 and 64)
+K5_CASES = ((1, "default", W_COS), (64, "default", W_COS), (64, "reference", W_REF))
+
+
+def time_k5(torch, card, g8, sc8, m8, q8, device=False):
+    """K5 beside its plain version over the whole int8 gallery in its three
+    cases: ms (CUDA events, in turns with the plain version), the bound now
+    and as counted before, the share of the bound, and with `device` the
+    device time of one call (torch.profiler: the kernel and the query norms;
+    only in --time-k5, so that no profiler runs between the phases)."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    out = {}
+    n, d = g8.shape
+    for nq, name, w in K5_CASES:
+        q = q8[:nq].contiguous()
+        fns = {"kernel": lambda: fm.fused_optimized_scores_int8_pallas(q, g8, sc8, m8, wtuple(w)),
+               "plain": lambda: fm.fused_optimized_scores_int8_reference(q, g8, sc8, m8,
+                                                                         wtuple(w))}
+        big = nq * n * d > 1 << 32
+        t = time_pair(torch, fns, samples=4 if big else 12, reps=1 if big else 3,
+                      warm=1 if big else 2)
+        b, old = k5_bounds(w, nq, n, d)
+        out[f"q{nq}-{name}"] = dict(t, **b, old_bound_ms=old["bound_ms"],
+                                    shape=f"Q{nq} x {n} rows x {d}")
+        dev = ""
+        if device:
+            ms = out[f"q{nq}-{name}"]["device_ms"] = device_ms(torch, fns["kernel"])
+            dev = f" (device {ms if ms is None else round(ms, 4)})"
+        print(f"time fused_optimized_scores_int8 q{nq}-{name} Q={nq} over {n} x {d}: kernel "
+              f"{t['kernel']:.4f} ms{dev}, plain "
+              f"{t['plain']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+              f"{100 * b['bound_ms'] / t['kernel']:.1f} % of it), bound as counted before "
+              f"{old['bound_ms']:.4f} ms ({old['bound_by']}) [{card}]", flush=True)
+    return out
+
+
+def k5_registers(lib_path):
+    """ptxas's registers and spills of each K5 instantiation from build.log,
+    as {(dot, l1, linf, queries of a unit): line}."""
+    import re
+
+    found, name = {}, None
+    with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
+        for line in f:
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                name = m.group(1)
+                continue
+            k = re.search(r"optimized_scores_int8_kernelILb(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?",
+                          name or "")
+            if k and ("registers" in line or "spill" in line):
+                key = tuple(int(x or 0) for x in k.groups())
+                found[key] = (found.get(key, "") + " " + line.strip()).strip()
+    return found
+
+
+def print_k5_registers(lib_path):
+    regs = k5_registers(lib_path)
+    for key in sorted(regs):
+        print(f"K5 <dot={key[0]}, l1={key[1]}, linf={key[2]}, {key[3]} queries a unit> ptxas: "
+              f"{regs[key]}", flush=True)
+    if not regs:
+        fail("build.log holds no K5 instantiation")
+
+
+def k5_gallery(torch, n=1_049_728, d=768, nq=64, seed=11):
+    """A seeded gallery of the L/14 int8 tier's shape on the card: unit rows
+    quantized as the index quantizes them (absmax/127 grid, norm-preserving
+    scales), magnitudes in [0.5, 4], and nq unnormalized queries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g8 = torch.empty((n, d), dtype=torch.int8, device="cuda")
+    sc = torch.empty(n, dtype=torch.float32, device="cuda")
+    for lo in range(0, n, 1 << 17):
+        x = torch.randn((min(n, lo + (1 << 17)) - lo, d), generator=gen, device="cuda")
+        x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        grid = x.abs().amax(dim=1, keepdim=True) / 127.0
+        r = torch.clamp(torch.round(x / grid), -127, 127)
+        g8[lo:lo + len(x)] = r.to(torch.int8)
+        sc[lo:lo + len(x)] = 1.0 / torch.linalg.vector_norm(r, dim=1)
+    m = torch.rand(n, generator=gen, device="cuda") * 3.5 + 0.5
+    q = torch.randn((nq, d), generator=gen, device="cuda") * 0.4
+    return g8, sc, m, q
+
+
+def phase_time_k5(torch, card, lib_path):
+    """--time-k5: K5's registers and spills, K5 against its plain version on
+    2^16 rows of a seeded gallery (every weight set of phase 6, Q = 1 and 64,
+    Linf alone bit for bit), then its three timed cases over the whole
+    gallery. To compare two checkouts in one call, copy this script into each
+    and run it there in turns."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops import metrics as M
+
+    print_k5_registers(lib_path)
+    g8, sc, m, q = k5_gallery(torch)
+    rows, s, mm = g8[-(1 << 16):], sc[-(1 << 16):], m[-(1 << 16):]
+    for nq in (1, 64):
+        qq = q[:nq].contiguous()
+        qn = torch.linalg.vector_norm(qq, dim=1, keepdim=True)
+        unit = (qq.to(torch.bfloat16).float() @ rows.float().t()) * s
+        slack = fm.gram_l2_slack(M.gram_sq(mm, unit, qn), mm, qn, rows.shape[1])
+        for name, w in (("reference", W_REF), ("default", W_COS), ("all-live", W_ALL)):
+            want = fm.fused_optimized_scores_int8_reference(qq, rows, s, mm, wtuple(w))
+            got = fm.fused_optimized_scores_int8_pallas(qq, rows, s, mm, wtuple(w))
+            torch.cuda.synchronize()
+            r = fm.scores_agree(got, want, fm.score_limit(want, w["w_l2"], slack))
+            print(f"kernel-vs-plain fused_optimized_scores_int8 Q={nq} {len(rows)}x768 {name}: "
+                  f"max_abs_err {r['max_abs_err']:.3g}, worst error/limit "
+                  f"{r['worst_ratio']:.3g}", flush=True)
+            if not r["ok"]:
+                fail(f"fused_optimized_scores_int8 Q={nq} {name} disagrees with its plain version")
+        linf = (0.0, 0.0, 0.0, 1.0, 0.0)
+        if not torch.equal(fm.fused_optimized_scores_int8_pallas(qq, rows, s, mm, linf),
+                           fm.fused_optimized_scores_int8_reference(qq, rows, s, mm, linf)):
+            fail(f"fused_optimized_scores_int8 Q={nq}: Linf is not the plain version's bits")
+    time_k5(torch, card, g8, sc, m, q, device=True)
 
 
 def time_metric_kernels(torch, card, g32, m32, q32, g8, sc8, m8, q8):
     """The four kernels beside their plain versions and their bounds over the
     whole galleries. Bytes: rows, magnitudes (and scales), queries and the
     output once. Operations per (query, row, dim): sweep_slots of the live
-    weights on the f32 CUDA cores (K6: and an FMA for the direct L2); K5's
-    product at the bf16 tensor-core peak."""
+    weights on the f32 CUDA cores (K6: and an FMA for the direct L2); K5 by
+    k5_bounds (time_k5)."""
     from image_retrieval_tpu_torch.ops import fused_metrics as fm
     from image_retrieval_tpu_torch.ops.topk import exact_topk_wide
 
@@ -1974,16 +2114,7 @@ def time_metric_kernels(torch, card, g32, m32, q32, g8, sc8, m8, q8):
         print(f"note: cosine top-{TOP_K} at Q={nq} over {n} x {d} f32: K4 {t['kernel']:.4f} ms, "
               f"the index's sweep (q @ rows.T, exact_topk_wide) {t['plain']:.4f} ms [{card}]",
               flush=True)
-    n, d = g8.shape
-    for nq, name, w in ((1, "default", W_COS), (64, "default", W_COS),
-                        (64, "reference", W_REF)):
-        q = q8[:nq].contiguous()
-        run("fused_optimized_scores_int8", f"q{nq}-{name}", {
-            "kernel": lambda: fm.fused_optimized_scores_int8_pallas(q, g8, sc8, m8, wtuple(w)),
-            "plain": lambda: fm.fused_optimized_scores_int8_reference(q, g8, sc8, m8,
-                                                                      wtuple(w)),
-        }, nq, n, d, 1, nq * n * 4 + n * 4, sweep_slots(w, int8=True),
-            bf16_flops=2.0 * nq * n * d)
+    out["fused_optimized_scores_int8"] = time_k5(torch, card, g8, sc8, m8, q8)
     return out
 
 
@@ -2175,6 +2306,9 @@ def phase_weighted(torch, card, enc32, index32, enc14, index14, queries):
             index14._mags, qdev[14])
     worst = metric_kernels_vs_plain(torch, *args)
     times = time_metric_kernels(torch, card, *args)
+    from image_retrieval_tpu_torch.ops import _build
+
+    print_k5_registers(_build.build())
     return launches, worst, times
 
 
@@ -2579,6 +2713,9 @@ def main() -> int:
     if sys.argv[1:] == ["--dense-readings"]:
         dense_readings(torch)
         return 0
+    if sys.argv[1:] == ["--time-k5"]:
+        phase_time_k5(torch, card, lib_path)
+        return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     kernels = phase_kernels(torch, card)
@@ -2654,6 +2791,10 @@ def main() -> int:
             out.update({f"{key}_ms": t[case]["kernel"], f"{key}_plain_ms": t[case]["plain"],
                         f"{key}_bound_ms": t[case]["bound_ms"],
                         f"{key}_bound_by": t[case]["bound_by"]})
+        for key, case in {"": main, **{f"{k}_": c for k, c in extra.items()}}.items():
+            for field in ("old_bound_ms", "device_ms"):  # K5: the bound as counted before
+                if field in t[case]:
+                    out[f"{key}{field}"] = t[case][field]
         return out
 
     # int4_screen at Q = 64 over one segment: 2 Q N D multiply-adds' worth of
@@ -2662,6 +2803,9 @@ def main() -> int:
     k3_bound = bound(0.0, 2.0 * nq * seg * d, seg * (d // 2 + 4 + 1) + nq * d * 2 + nq * seg * 4)
     # the int8-query form: the same multiply-adds at the int8 peak, queries of one byte
     k12_bound = bound(2.0 * nq * seg * d, 0.0, seg * (d // 2 + 4 + 1) + nq * d + nq * seg * 4)
+    # the same at Q = 1
+    k3_q1 = bound(0.0, 2.0 * seg * d, seg * (d // 2 + 4 + 1) + d * 2 + seg * 4)["bound_ms"]
+    k12_q1 = bound(2.0 * seg * d, 0.0, seg * (d // 2 + 4 + 1) + d + seg * 4)["bound_ms"]
     vision_b, text_b = TRAIN_TIME_SHAPES
     big = f"l14-vision-B{ENC_BUCKET5}"
     print(card, flush=True)
@@ -2677,7 +2821,7 @@ def main() -> int:
          "max_abs_err": max(k3[1]["max_abs_err"], k3[64]["max_abs_err"]),
          "ms": k3[64]["kernel"], "plain_ms": k3[64]["plain"], **k3_bound,
          "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
-         "q1_ms": k3[1]["kernel"], "q1_plain_ms": k3[1]["plain"]},
+         "q1_ms": k3[1]["kernel"], "q1_plain_ms": k3[1]["plain"], "q1_bound_ms": k3_q1},
         block_entry("attention_block_int8", "attention_block_int8.cu", 554,
                     l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
         dict(block_entry("mlp_block_int8", "mlp_block_int8.cu", 671,
@@ -2730,7 +2874,7 @@ def main() -> int:
          "max_abs_err": max(k12[1]["max_abs_err"], k12[64]["max_abs_err"]),
          "ms": k12[64]["kernel"], "plain_ms": k12[64]["plain"], **k12_bound,
          "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
-         "q1_ms": k12[1]["kernel"], "q1_plain_ms": k12[1]["plain"],
+         "q1_ms": k12[1]["kernel"], "q1_plain_ms": k12[1]["plain"], "q1_bound_ms": k12_q1,
          "k3_ms": k12[64]["k3_ms"], "q1_k3_ms": k12[1]["k3_ms"],
          "top128_of_bf16": k12["top128"], "top10_of_bf16": k12["top10"]},
     ]}), flush=True)

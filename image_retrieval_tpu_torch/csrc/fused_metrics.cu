@@ -17,12 +17,13 @@
 //
 // What bounds them on this card. At Q = 1 the read of the rows (2 KB per
 // f32 row at D = 512, 768 B per int8 row at D = 768). From a few queries on,
-// the CUDA cores: per (query, row, dim) one FMA for the product and, where
-// L1/Linf (or K6's direct L2) are live, a subtract, an add, a max (and an
-// FMA), against 33.5 T such operations a second; the planes K6 writes
-// (20 B per query and row) stay under that.
+// for K4, K6 and K7 the CUDA cores: per (query, row, dim) one FMA for the
+// product and, where L1/Linf (or K6's direct L2) are live, a subtract, an
+// add, a max (and an FMA), against 33.5 T such operations a second; the
+// planes K6 writes (20 B per query and row) stay under that. K5 has its own
+// sweep (int8_sweep_sm90.cuh, which says what bounds it).
 //
-// What the design does about it. Simple and right first:
+// What the design of K4, K6 and K7 does about it. Simple and right first:
 //   * a block of 128 threads takes a tile of 64 rows; the tile comes into
 //     shared memory 64 dims at a time, converted to f32 on the way (16-byte
 //     loads), beside the same 64 dims of 32 queries;
@@ -41,12 +42,6 @@
 //     the product, without the L1 sum or without the Linf max, so a dead
 //     term costs nothing (with L1 and Linf dead no difference is formed and
 //     the kernel is one FMA per element);
-//   * K5 rounds where the int8 scorer rounds: the query and the
-//     reconstruction bf16(int8 * bf16(scale*mag)) once each, the difference
-//     once more, every product and difference taken exactly in f32 first
-//     (the f32 difference of two bf16 values is exact unless their exponents
-//     are more than 16 apart, and then rounding twice gives the larger value,
-//     as rounding once does);
 //   * K4 writes a tile's scores into shared memory (over the staged rows),
 //     and one warp per query merges them into the query's running top-k:
 //     kk rounds of extracting the best (score, then lowest row) of the 64
@@ -55,10 +50,20 @@
 //     there are few candidate lists to merge afterwards. A NaN score counts
 //     as -inf, and a row whose score is -inf is still a candidate under its
 //     own row number: only columns past N are never returned.
-// cp.async or TMA rings, tensor-core products and packed bf16 arithmetic for
-// K5's sweep are later work.
+// K5 rounds where the int8 scorer rounds: the query and the reconstruction
+// bf16(int8 * bf16(scale*mag)) once each, the difference u - q once more
+// (one bf16 fma: the exact difference rounded once; the plain version's
+// f32 difference of two bf16 values is exact unless their exponents are more
+// than 16 apart, and then rounding twice gives the larger value, as rounding
+// once does), every product exact, the sums in f32. Its sweep streams the
+// rows through a TMA ring once for all queries, takes the product and the
+// L1 sum on the tensor cores and the differences in packed bf16
+// (int8_sweep_sm90.cuh).
 
 #include "fused_metrics.cuh"
+#include "int8_sweep_sm90.cuh"
+
+#include <string.h>
 
 namespace {
 
@@ -103,7 +108,7 @@ __global__ void __launch_bounds__(kThreads, 3) all_metrics_kernel(
   float m[kRT];
   row_values(c, mags, m);
   Acc tot;
-  sweep_tile<float, true, true, true, true, false>(s_rows, s_q, rows + (size_t)c.row0 * d, c.tile_rows,
+  sweep_tile<float, true, true, true, true>(s_rows, s_q, rows + (size_t)c.row0 * d, c.tile_rows,
                                              q, c.q0, nq, d, vec, qvec, c.r, c.grp, c.qcount, m,
                                              tot);
   const size_t plane = (size_t)nq * n;
@@ -141,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 4) optimized_scores_kernel(
   for (int i = 0; i < 5; ++i) w.w[i] = wdev[i];
   w.live = 31;
   Acc tot;
-  sweep_tile<float, true, true, true, false, false>(s_rows, s_q, rows + (size_t)c.row0 * d,
+  sweep_tile<float, true, true, true, false>(s_rows, s_q, rows + (size_t)c.row0 * d,
                                               c.tile_rows, q, c.q0, nq, d, vec, qvec, c.r, c.grp,
                                               c.qcount, m, tot);
 #pragma unroll
@@ -153,40 +158,6 @@ __global__ void __launch_bounds__(kThreads, 4) optimized_scores_kernel(
         if (c.in[t]) {
           out[(size_t)(c.qbase + j) * n + c.row0 + c.r + 32 * t] =
               weighted<false>(w, tot.dot[t][j], tot.l1[t][j], tot.linf[t][j], m[t], qnj, d);
-        }
-      }
-    }
-  }
-}
-
-// K5: int8 rows, the int8 scorer's rounding points.
-template <bool kDot, bool kL1, bool kLinf>
-__global__ void __launch_bounds__(kThreads, 4) optimized_scores_int8_kernel(
-    const float* __restrict__ q, const float* __restrict__ qn, const int8_t* __restrict__ rows,
-    const float* __restrict__ scales, const float* __restrict__ mags, float* __restrict__ out,
-    int nq, int n, int d, Weights w, bool vec, bool qvec) {
-  __shared__ __align__(16) float s_rows[kRows * kRStride];
-  __shared__ __align__(16) float s_q[kQP * kDC];
-  const TileCtx c = tile_ctx(blockIdx.x, n, nq);
-  float m[kRT], sc[kRT], row_scale[kRT];
-  row_values(c, mags, m);
-  row_values(c, scales, sc);
-#pragma unroll
-  for (int t = 0; t < kRT; ++t) row_scale[t] = bf16r(__fmul_rn(sc[t], m[t]));
-  Acc tot;
-  sweep_tile<int8_t, kDot, kL1, kLinf, false, true>(s_rows, s_q, rows + (size_t)c.row0 * d,
-                                                    c.tile_rows, q, c.q0, nq, d, vec, qvec, c.r,
-                                                    c.grp, c.qcount, row_scale, tot);
-#pragma unroll
-  for (int j = 0; j < kQT; ++j) {
-    if (j < c.qcount) {
-      const float qnj = qn[c.qbase + j];
-#pragma unroll
-      for (int t = 0; t < kRT; ++t) {
-        if (c.in[t]) {
-          out[(size_t)(c.qbase + j) * n + c.row0 + c.r + 32 * t] =
-              weighted<true>(w, __fmul_rn(tot.dot[t][j], sc[t]), tot.l1[t][j], tot.linf[t][j],
-                             m[t], qnj, d);
         }
       }
     }
@@ -282,7 +253,7 @@ __global__ void __launch_bounds__(kThreads, 4) optimized_topk_kernel(
     float m[kRT];
     row_values(c, mags, m);
     Acc tot;
-    sweep_tile<RowT, kDot, kL1, kLinf, false, false>(s_rows, s_q, rows + (size_t)c.row0 * d,
+    sweep_tile<RowT, kDot, kL1, kLinf, false>(s_rows, s_q, rows + (size_t)c.row0 * d,
                                                      c.tile_rows, q, c.q0, nq, d, vec, qvec, c.r,
                                                      c.grp, c.qcount, m, tot);
     __syncthreads();  // the staged rows are read, the last tile's scores merged
@@ -358,6 +329,227 @@ Weights make_weights(float w0, float w1, float w2, float w3, float w4, int live)
   return w;
 }
 
+// K5: the weighted score over int8 rows in the int8 scorer's arithmetic, on
+// the sweep of int8_sweep_sm90.cuh. Block b walks tiles b, b + grid, ...;
+// per tile and pass, warp w takes row unit w % (8 / groups) and query group
+// w / (8 / groups). The producer warp and the consumers walk the same
+// sequence of (tile, pass, box) stages.
+template <bool kDot, bool kL1, bool kLinf, int kQW>
+__global__ void __launch_bounds__(kSwThreads, 1) optimized_scores_int8_kernel(
+    const __grid_constant__ CUtensorMap map, const int8_t* __restrict__ rows,
+    const float* __restrict__ q, const float* __restrict__ qn, const float* __restrict__ scales,
+    const float* __restrict__ mags, float* __restrict__ out, int nq, int n, int d, Weights w,
+    Int8SweepPlan p) {
+  constexpr bool kSweep = kDot || kL1 || kLinf;
+  constexpr int kNG = kQW / 8;
+  extern __shared__ __align__(16) uint8_t sweep_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kSwMaxStages];  // full[s], then empty[s]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t base = smem_u32(sweep_smem);
+  const uint32_t ring = (base + kSwAlign - 1) & ~(uint32_t)(kSwAlign - 1);
+  uint8_t* const ring_ptr = sweep_smem + (ring - base);
+  __nv_bfloat16* const sq =
+      reinterpret_cast<__nv_bfloat16*>(ring_ptr + (size_t)p.stages * p.stage_bytes);
+  float* const s_qn = reinterpret_cast<float*>(sq + (size_t)p.q_rows * p.q_pitch);
+  constexpr int kPitch = kQW + 1, kPlane = kSwUnitRows * kPitch;
+  float* const scratch = s_qn + p.q_rows + warp * kPlane * sweep_planes(kQW);
+  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[kSwMaxStages]);
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full0 + 8 * s, p.tma ? 1 : 32);  // the expect-tx arrival, or every copying lane
+      mbar_init(empty0 + 8 * s, kSwWarps);       // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kSwWarps) {  // the producer
+    if constexpr (kSweep) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        for (int pass = 0; pass < p.passes; ++pass) {
+          for (int b = 0; b < p.boxes; ++b, ++it) {
+            const int s = it % p.stages;
+            const uint32_t full = full0 + 8 * s, empty = empty0 + 8 * s;
+            // the stage's previous use released; parity 1 passes at once on
+            // the first round
+            const uint32_t parity = ((it / p.stages) & 1) ^ 1;
+            if (p.tma) {
+              if (lane == 0) {
+                mbar_wait(empty, parity);
+                mbar_arrive_expect_tx(full, p.stage_bytes);
+                tma_load_2d(ring + s * p.stage_bytes, &map, full, b * kSwBoxDims,
+                            tile * p.tile_rows);
+              }
+            } else {
+              mbar_wait(empty, parity);
+              copy_box(ring_ptr + (size_t)s * p.stage_bytes, rows, n, d, tile * p.tile_rows,
+                       p.tile_rows, b, lane);
+              mbar_arrive(full);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const int units = kSwWarps / p.groups;
+  const int ru = warp % units, grp = warp / units;
+  const int pass_q = p.groups * kQW;
+  uint32_t sel[4][2];  // the L1 mma's B operand for query pair pp (columns 2 pp, 2 pp + 1)
+#pragma unroll
+  for (int pp = 0; pp < 4; ++pp) {
+    sel[pp][0] = g == 2 * pp ? kBf16One2 : 0u;
+    sel[pp][1] = g == 2 * pp + 1 ? kBf16One2 : 0u;
+  }
+  if (p.resident) {
+    load_query_rows(sq, s_qn, q, qn, 0, p.q_rows, nq, d, p.boxes, p.q_pitch);
+    consumers_sync();
+  }
+  int it = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int row0 = tile * p.tile_rows + kSwUnitRows * ru;  // the unit's first row
+    // lane l's row row0 + l: its magnitude and scale, and bf16(scale * mag)
+    const float mrow = row0 + lane < n ? mags[row0 + lane] : 0.f;
+    const float srow = row0 + lane < n ? scales[row0 + lane] : 0.f;
+    const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(srow, mrow)));
+    uint32_t rs2[4];  // bf16(scale * mag) of rows row0 + g + 8 i, in both halves
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t hi = __shfl_sync(0xffffffffu, h, g + 8 * i);
+      rs2[i] = hi | (hi << 16);
+    }
+    for (int pass = 0; pass < p.passes; ++pass) {
+      const int qg = pass * pass_q + grp * kQW;  // the unit's first query
+      int qs = qg;                               // its row in shared memory
+      if (!p.resident) {
+        consumers_sync();  // every warp is done with the last pass's queries
+        load_query_rows(sq, s_qn, q, qn, pass * pass_q, pass_q, nq, d, p.boxes, p.q_pitch);
+        consumers_sync();
+        qs = grp * kQW;
+      }
+      const bool active = qg < nq && row0 < n;  // the same for the whole warp
+      const int live_q = nq - qg;                // queries of the unit: those below kQW
+      SweepAcc<kQW> acc;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc.l1[m][k] = 0.f;
+#pragma unroll
+          for (int nn = 0; nn < kNG; ++nn) acc.dot[m][nn][k] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc.lin[i][j] = 0u;
+      }
+      if constexpr (kSweep) {
+        for (int b = 0; b < p.boxes; ++b, ++it) {
+          const int s = it % p.stages;
+          mbar_wait(full0 + 8 * s, (it / p.stages) & 1);
+          if (active) {
+            const uint8_t* unit =
+                ring_ptr + (size_t)s * p.stage_bytes + kSwUnitRows * ru * kSwBoxDims;
+            const __nv_bfloat16* qbox = sq + (size_t)qs * p.q_pitch + b * kSwBoxDims;
+            if constexpr (kL1 || kLinf) {
+              if (live_q >= kQW) {
+                sweep_box_diff<kDot, kL1, kLinf, true>(unit, qbox, p.q_pitch, live_q, g, t, rs2,
+                                                       sel, acc);
+              } else {
+                sweep_box_diff<kDot, kL1, kLinf, false>(unit, qbox, p.q_pitch, live_q, g, t, rs2,
+                                                        sel, acc);
+              }
+            } else if (live_q >= kQW) {
+              sweep_box_dot<kQW, true>(unit, qbox, p.q_pitch, live_q, g, t, acc);
+            } else {
+              sweep_box_dot<kQW, false>(unit, qbox, p.q_pitch, live_q, g, t, acc);
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);
+        }
+      }
+      if (!active) continue;
+      // the sums into the warp's scratch, [row][query] per plane: product,
+      // L1, Linf
+      float linf[4][2] = {};
+      if constexpr (kLinf) linf_of_lane(acc.lin, t, linf);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float* at = scratch + (g + 8 * i) * kPitch + 2 * t + c;
+          const int k = (i & 1) * 2 + c;
+#pragma unroll
+          for (int nn = 0; nn < kNG; ++nn) at[8 * nn] = acc.dot[i >> 1][nn][k];
+          if constexpr (kL1) at[kPlane] = acc.l1[i >> 1][k];
+          if constexpr (kLinf) at[2 * kPlane] = linf[i][c];
+        }
+      }
+      __syncwarp();
+      // lane l scores row row0 + l against the unit's queries: 128
+      // contiguous bytes of the (Q, N) plane a query
+      if (row0 + lane < n) {
+        const float* mine = scratch + lane * kPitch;
+        const int count = live_q < kQW ? live_q : kQW;
+#pragma unroll 2
+        for (int j = 0; j < count; ++j) {
+          const float l1 = kL1 ? mine[kPlane + j] : 0.f;
+          const float lmax = kLinf ? mine[2 * kPlane + j] : 0.f;
+          out[(size_t)(qg + j) * n + row0 + lane] =
+              weighted<true>(w, __fmul_rn(mine[j], srow), l1, lmax, mrow, s_qn[qs + j], d);
+        }
+      }
+      __syncwarp();  // the scratch is read before the next unit writes it
+    }
+  }
+}
+
+// K5's plan on the current device; false where int8_sweep_plan refuses.
+bool k5_plan(int nq, int n, int d, int live, const void* rows, Int8SweepPlan* p) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return false;
+  }
+  return int8_sweep_plan(nq, n, d, live, (uintptr_t)rows % 16 == 0, sms, p);
+}
+
+template <bool kDot, bool kL1, bool kLinf, int kQW>
+int launch_int8_sweep_as(const CUtensorMap& map, const void* q, const void* qn, const void* rows,
+                         const void* scales, const void* mags, void* out, int nq, int n, int d,
+                         const Weights& w, const Int8SweepPlan& p, cudaStream_t st) {
+  auto kernel = optimized_scores_int8_kernel<kDot, kL1, kLinf, kQW>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  IRT_TRY(kernel<<<p.grid, kSwThreads, p.smem, st>>>(
+      map, (const int8_t*)rows, (const float*)q, (const float*)qn, (const float*)scales,
+      (const float*)mags, (float*)out, nq, n, d, w, p));
+  return 0;
+}
+
+// The instantiation of the plan's unit width: 8 queries with L1 or Linf
+// live, 32 or 16 with only the product, 16 with no sum at all.
+template <bool kDot, bool kL1, bool kLinf>
+int launch_int8_sweep(const CUtensorMap& map, const void* q, const void* qn, const void* rows,
+                      const void* scales, const void* mags, void* out, int nq, int n, int d,
+                      const Weights& w, const Int8SweepPlan& p, cudaStream_t st) {
+  constexpr int kQW = (kL1 || kLinf) ? 8 : 16;
+  if (kDot && !kL1 && !kLinf && p.qw == 32) {
+    return launch_int8_sweep_as<true, false, false, 32>(map, q, qn, rows, scales, mags, out, nq,
+                                                        n, d, w, p, st);
+  }
+  if (p.qw != kQW) return IRT_BAD_ARGS;
+  return launch_int8_sweep_as<kDot, kL1, kLinf, kQW>(map, q, qn, rows, scales, mags, out, nq, n,
+                                                     d, w, p, st);
+}
+
 }  // namespace
 
 extern "C" int irt_fused_metrics_tile_rows(void) { return kRows; }
@@ -389,18 +581,46 @@ extern "C" int irt_fused_optimized_scores_int8(const void* q, const void* qn, co
                                                int nq, int n, int d, float w0, float w1,
                                                float w2, float w3, float w4, int live,
                                                void* stream) {
-  if (bad_shape(nq, n, d)) return IRT_BAD_ARGS;
   const Weights w = make_weights(w0, w1, w2, w3, w4, live);
-  const dim3 grid = tile_grid(n, nq);
+  Int8SweepPlan p;
+  if (!k5_plan(nq, n, d, w.live, rows, &p)) return IRT_BAD_ARGS;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (p.tma) {
+    if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+    // (d, n) int8 as boxes of (128 dims, tile rows), 128-byte swizzle, zeros
+    // past its edges
+    const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
+    const cuuint64_t strides[1] = {(cuuint64_t)d};
+    const cuuint32_t box[2] = {(cuuint32_t)kSwBoxDims, (cuuint32_t)p.tile_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    if (encode_tiled()(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(rows), dims,
+                       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return IRT_BAD_ARGS;
+    }
+  }
   const cudaStream_t st = (cudaStream_t)stream;
-  const bool vec = can_vec<int8_t>(rows, d), qvec = can_vec<float>(q, d);
-#define IRT_LAUNCH(dot, l1, linf)                                                      \
-  optimized_scores_int8_kernel<dot, l1, linf><<<grid, kThreads, 0, st>>>(              \
-      (const float*)q, (const float*)qn, (const int8_t*)rows, (const float*)scales,    \
-      (const float*)mags, (float*)out, nq, n, d, w, vec, qvec)
+#define IRT_LAUNCH(dot, l1, linf) \
+  return launch_int8_sweep<dot, l1, linf>(map, q, qn, rows, scales, mags, out, nq, n, d, w, p, st)
   IRT_LIVE_CASES(live_case(w))
 #undef IRT_LAUNCH
-  return (int)cudaGetLastError();
+  return IRT_BAD_ARGS;
+}
+
+// K5's launch plan as the kernel would take it on the current device: 0 and
+// out[14] = (qw, groups, tile_rows, passes, resident, q_rows, q_pitch, boxes,
+// stages, stage_bytes, tma, tiles, grid, smem), or IRT_BAD_ARGS where the
+// kernel refuses the shape. `aligned`: the rows' base is 16-byte aligned.
+extern "C" int irt_int8_sweep_plan(int nq, int n, int d, int live, int aligned, int sms,
+                                   int* out) {
+  Int8SweepPlan p;
+  if (!int8_sweep_plan(nq, n, d, live & 31, aligned != 0, sms, &p)) return IRT_BAD_ARGS;
+  const int v[14] = {p.qw,   p.groups, p.tile_rows,   p.passes, p.resident, p.q_rows, p.q_pitch,
+                     p.boxes, p.stages, p.stage_bytes, p.tma,    p.tiles,    p.grid,   p.smem};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
+  return 0;
 }
 
 namespace {

@@ -1,10 +1,10 @@
 // The fused metric kernels for Hopper (fused_metrics.cu): their plain C
 // interface, bound from Python with ctypes
 // (image_retrieval_tpu_torch/ops/_build.py), and, for CUDA translation
-// units, the device code the four kernels share: the row-tile load with
-// on-the-fly conversion from f32 / bf16 / int8, the per-(query, row)
-// accumulators, and the epilogue that turns them into metric planes or a
-// weighted score.
+// units, the device code K4, K6 and K7 share: the row-tile load with
+// on-the-fly conversion from f32 / bf16, the per-(query, row) accumulators,
+// and the epilogue that turns them into metric planes or a weighted score
+// (K5's too; its sweep is int8_sweep_sm90.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,11 +44,19 @@ int irt_fused_optimized_scores(const void* q, const void* qn, const void* weight
 // products summed in f32, the L1/Linf differences rounded to bf16 as the
 // reconstruction bf16(int8 * bf16(scale*mag)) minus the bf16 query. Bit t
 // of `live` says that weight t takes part; a term whose bit is clear costs
-// nothing (the L1 sum and the Linf max are dropped one by one).
+// nothing (the L1 sum and the Linf max are dropped one by one). Its sweep
+// is its own (int8_sweep_sm90.cuh); IRT_BAD_ARGS for a shape its plan
+// refuses (irt_int8_sweep_plan).
 int irt_fused_optimized_scores_int8(const void* q, const void* qn, const void* rows,
                                     const void* scales, const void* mags, void* out, int nq,
                                     int n, int d, float w0, float w1, float w2, float w3,
                                     float w4, int live, void* stream);
+
+// K5's launch plan for (nq, n, d, live) with `aligned` (the rows' base is
+// 16-byte aligned) on a card of `sms` SMs: 0 and out[14] = (qw, groups,
+// tile_rows, passes, resident, q_rows, q_pitch, boxes, stages, stage_bytes,
+// tma, tiles, grid, smem), or IRT_BAD_ARGS for a shape the kernel refuses.
+int irt_int8_sweep_plan(int nq, int n, int d, int live, int aligned, int sms, int* out);
 
 // K4. The weighted score of K7 (live bits as in K5) with the selection
 // inside the kernel: block b sweeps tiles [b*tpb, (b+1)*tpb), tpb =
@@ -102,19 +110,14 @@ struct Weights {
 
 // Sums of the thread's (row, query) pairs.
 struct Acc {
-  float dot[kRT][kQT];   // <row, q> (int8: <int8 values, bf16 q>)
+  float dot[kRT][kQT];   // <row, q>
   float l1[kRT][kQT];    // sum |u - q|, u the row scaled by its magnitude
   float sq[kRT][kQT];    // sum (u - q)^2
   float linf[kRT][kQT];  // max |u - q|
 };
 
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 // One chunk (kDC dims from d0) of a tile's rows into shared memory as f32;
 // rows past the tile and dims past d become zeros. `vec`: 16-byte loads
@@ -152,9 +155,8 @@ __device__ __forceinline__ void load_rows(float* s_rows, const RowT* tile, int t
   }
 }
 
-// The same chunk of one pass's queries (kQP from q0), zeros past nq and d;
-// rounded to bf16 for the int8 scorer. `vec`: 16-byte loads.
-template <bool kRound>
+// The same chunk of one pass's queries (kQP from q0), zeros past nq and d.
+// `vec`: 16-byte loads.
 __device__ __forceinline__ void load_queries(float* s_q, const float* q, int q0, int nq, int d,
                                              int d0, bool vec) {
   if (vec && d - d0 >= kDC) {
@@ -165,7 +167,6 @@ __device__ __forceinline__ void load_queries(float* s_q, const float* q, int q0,
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (q0 + qi < nq) {
         v = *reinterpret_cast<const float4*>(q + (size_t)(q0 + qi) * d + d0 + c);
-        if (kRound) v = make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w));
       }
       *reinterpret_cast<float4*>(s_q + qi * kDC + c) = v;
     }
@@ -173,19 +174,16 @@ __device__ __forceinline__ void load_queries(float* s_q, const float* q, int q0,
     for (int i = threadIdx.x; i < kQP * kDC; i += kThreads) {
       const int qi = i / kDC, c = i - qi * kDC;
       float v = 0.f;
-      if (q0 + qi < nq && d0 + c < d) {
-        v = q[(size_t)(q0 + qi) * d + d0 + c];
-        if (kRound) v = bf16r(v);
-      }
+      if (q0 + qi < nq && d0 + c < d) v = q[(size_t)(q0 + qi) * d + d0 + c];
       s_q[qi * kDC + c] = v;
     }
   }
 }
 
 // One staged chunk into the thread's sums: rows r and r + 32 against the
-// `qcount` queries of group `grp`. u = row * rowmul, rounded once (and once
-// more to bf16 for int8 rows); the difference u - q is rounded before it is
-// used (to bf16 for int8 rows), never contracted into the product. Per four
+// `qcount` queries of group `grp`. u = row * rowmul, rounded once; the
+// difference u - q is rounded before it is used, never contracted into the
+// product. Per four
 // dims a thread makes one 16-byte read per row and one per query for
 // 4 x kRT x kQT products: the reads of shared memory, not the FMAs, would
 // limit a thread that held one row. The chunk's products and |u - q| are
@@ -196,7 +194,7 @@ __device__ __forceinline__ void load_queries(float* s_q, const float* q, int q0,
 // instruction. `kFull`: the group has all kQT queries, so nothing in the
 // loop is conditional and the compiler is free to interleave the queries'
 // reads and sums; a smaller group tests each query.
-template <bool kDot, bool kL1, bool kLinf, bool kSq, bool kInt8, bool kFull>
+template <bool kDot, bool kL1, bool kLinf, bool kSq, bool kFull>
 __device__ __forceinline__ void accumulate_chunk(const float* s_rows, const float* s_q, int r,
                                                  int grp, int qcount, const float* rowmul,
                                                  Acc& tot) {
@@ -217,11 +215,7 @@ __device__ __forceinline__ void accumulate_chunk(const float* s_rows, const floa
       g[t][0] = gv.x, g[t][1] = gv.y, g[t][2] = gv.z, g[t][3] = gv.w;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        u[t][e] = 0.f;
-        if (kDiff) {
-          u[t][e] = __fmul_rn(g[t][e], rowmul[t]);
-          if (kInt8) u[t][e] = bf16r(u[t][e]);
-        }
+        u[t][e] = kDiff ? __fmul_rn(g[t][e], rowmul[t]) : 0.f;
       }
     }
 #pragma unroll
@@ -235,8 +229,7 @@ __device__ __forceinline__ void accumulate_chunk(const float* s_rows, const floa
           for (int e = 0; e < 4; ++e) {
             if (kDot) dot[t][j] = fmaf(g[t][e], qe[e], dot[t][j]);
             if (kDiff) {
-              float df = __fsub_rn(u[t][e], qe[e]);
-              if (kInt8) df = bf16r(df);
+              const float df = __fsub_rn(u[t][e], qe[e]);
               if (kL1) l1[t][j] += fabsf(df);
               if (kLinf) tot.linf[t][j] = fmaxf(tot.linf[t][j], fabsf(df));
               if (kSq) tot.sq[t][j] = fmaf(df, df, tot.sq[t][j]);
@@ -258,7 +251,7 @@ __device__ __forceinline__ void accumulate_chunk(const float* s_rows, const floa
 
 // All of d for one tile: stage, synchronise, accumulate. Every thread of
 // the block calls it (it synchronises the block).
-template <typename RowT, bool kDot, bool kL1, bool kLinf, bool kSq, bool kInt8>
+template <typename RowT, bool kDot, bool kL1, bool kLinf, bool kSq>
 __device__ __forceinline__ void sweep_tile(float* s_rows, float* s_q, const RowT* tile,
                                            int tile_rows, const float* q, int q0, int nq, int d,
                                            bool vec, bool qvec, int r, int grp, int qcount,
@@ -273,14 +266,12 @@ __device__ __forceinline__ void sweep_tile(float* s_rows, float* s_q, const RowT
     for (int d0 = 0; d0 < d; d0 += kDC) {
       __syncthreads();  // the previous chunk has been read
       load_rows<RowT>(s_rows, tile, tile_rows, d, d0, vec);
-      load_queries<kInt8>(s_q, q, q0, nq, d, d0, qvec);
+      load_queries(s_q, q, q0, nq, d, d0, qvec);
       __syncthreads();
       if (qcount == kQT) {
-        accumulate_chunk<kDot, kL1, kLinf, kSq, kInt8, true>(s_rows, s_q, r, grp, qcount, rowmul,
-                                                         tot);
+        accumulate_chunk<kDot, kL1, kLinf, kSq, true>(s_rows, s_q, r, grp, qcount, rowmul, tot);
       } else if (qcount > 0) {
-        accumulate_chunk<kDot, kL1, kLinf, kSq, kInt8, false>(s_rows, s_q, r, grp, qcount, rowmul,
-                                                          tot);
+        accumulate_chunk<kDot, kL1, kLinf, kSq, false>(s_rows, s_q, r, grp, qcount, rowmul, tot);
       }
     }
   }

@@ -33,7 +33,7 @@ SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu"
 HEADERS = ("block_common.cuh", "int8_common.cuh", "layer_block_int8.cuh",
            "attention_block_int8.cuh", "mlp_block_int8.cuh", "quant_dense.cuh",
            "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh",
-           "attention_mma.cuh", "gemm_sm90.cuh")
+           "attention_mma.cuh", "gemm_sm90.cuh", "int8_sweep_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -174,6 +174,8 @@ def load_library() -> ctypes.CDLL:
             lib.irt_fused_optimized_scores_int8.argtypes = (
                 [p] * 6 + [i] * 3 + [f] * 5 + [i, p])
             lib.irt_fused_optimized_scores_int8.restype = i
+            lib.irt_int8_sweep_plan.argtypes = [i] * 6 + [p]
+            lib.irt_int8_sweep_plan.restype = i
             lib.irt_fused_optimized_topk.argtypes = (
                 [p] * 3 + [i] + [p] * 3 + [i] * 5 + [f] * 5 + [i, p])
             lib.irt_fused_optimized_topk.restype = i

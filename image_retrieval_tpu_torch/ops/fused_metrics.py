@@ -17,7 +17,11 @@ package's names (the int4 screen of that file is ``ops/int4_screen.py``):
       (K5, ``_make_int8_combo_kernel`` l.162 and ``..._v2`` l.275)
       the weighted similarity over int8 rows in one read. The two JAX bodies
       share one contract and differ in how they schedule the TPU's vector
-      unit, so here they are two names of one kernel.
+      unit, so here they are two names of one kernel. It has a sweep of its
+      own (csrc/int8_sweep_sm90.cuh): persistent blocks stream the rows once
+      for all queries through a TMA ring, the products and the L1 sum run on
+      the tensor cores and the differences in packed bf16; ``int8_sweep_plan``
+      is its launch plan.
 
 Rows are (unit vector, magnitude) pairs, queries unnormalized; a metric
 compares the query with ``row * magnitude``. The JAX entries' ``block_n`` is
@@ -30,15 +34,18 @@ launches.
 
 Kernel against plain version: both compute every product and difference
 with the same roundings, and the epilogue repeats the plain version's
-operations in its order, so only the order of the f32 sums over D
-separates them: ``score_limit`` / ``scores_agree`` / ``topk_agree`` state
-what that allows, and tests/test_torch_fused_metrics.py shows that the
-limits reject a dropped magnitude, an L2 without its 1/sqrt(D), an int8
-difference left in f32 and ties broken towards the higher row.
+operations in its order, so only the order of the f32 sums over D (for K5
+also the tensor cores' f32 sums inside one 128-dim box) separates them:
+``score_limit`` / ``scores_agree`` / ``topk_agree`` state what that allows,
+and tests/test_torch_fused_metrics.py shows that the limits reject a
+dropped magnitude, an L2 without its 1/sqrt(D), an int8 difference left in
+f32 and ties broken towards the higher row.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -280,6 +287,112 @@ fused_optimized_scores.launches = 0
 
 # ---- K5 ---------------------------------------------------------------------
 
+# K5's sweep (csrc/int8_sweep_sm90.cuh): eight consumer warps and a producer
+# warp a block, one block an SM; a warp's unit is 32 rows; stages are
+# 128-dim boxes; at most 16 of them; dynamic shared memory up to 227 KB less
+# 1 KB for the barriers, the ring aligned to 1 KB.
+SWEEP_WARPS, SWEEP_UNIT_ROWS, SWEEP_BOX_DIMS, SWEEP_MAX_STAGES = 8, 32, 128, 16
+SWEEP_ALIGN, SWEEP_SMEM_MAX = 1024, 232448 - 1024
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class Int8SweepPlan:
+    """K5's launch plan: the fields of the C side's Int8SweepPlan, in its order."""
+    qw: int           # queries of a warp's unit: 8, 16 or 32 (int8_sweep_plan)
+    groups: int       # query groups of one pass (1, 2, 4 or 8)
+    tile_rows: int    # rows of a tile: 32 * 8 / groups
+    passes: int       # ceil(nq / (groups * qw))
+    resident: int     # 1: every pass's queries in shared memory at once; 0: one pass's
+    q_rows: int       # query rows in shared memory
+    q_pitch: int      # bf16 elements from one query row to the next
+    boxes: int        # 128-dim boxes of a row
+    stages: int       # ring depth
+    stage_bytes: int  # tile_rows * 128
+    tma: int          # 1: TMA loads; 0: the producer warp copies
+    tiles: int        # ceil(n / tile_rows)
+    grid: int         # persistent blocks: min(tiles, SMs)
+    smem: int         # dynamic shared memory of a block, bytes
+
+    def block_tiles(self, block: int) -> range:
+        """The row tiles block `block` walks: block, block + grid, ..."""
+        return range(block, self.tiles, self.grid)
+
+
+def int8_sweep_plan(nq: int, n: int, d: int, weights, aligned: bool = True,
+                    sms: int = H100_SMS) -> Int8SweepPlan:
+    """How K5 sweeps nq queries against n int8 rows of d values under the
+    static `weights` (zeros dead) on a card of `sms` SMs; `aligned`: the rows'
+    base is 16-byte aligned. A warp's unit is 32 rows and 8 queries where L1
+    or Linf is live, 32 where only the product is (16 if 32 do not fit),
+    else 16. A pass holds as many query groups as the queries need
+    (a power of two, at most one per consumer warp); the tile's rows are the
+    row units of the warps a group leaves. All queries (rounded up to 8) stay
+    in shared memory where they fit beside two stages, else one pass's
+    (reloaded before each pass), else fewer groups a pass; the ring takes the
+    rest, beside the epilogue's scratch (sweep_epilogue_bytes). TMA loads
+    where d % 16 == 0 and the base is aligned, else the producer warp
+    copies. Raises ValueError for a shape the kernel does not take."""
+    return _sweep_plan(nq, n, d, _live_bits(_static_weights(weights)), bool(aligned), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _sweep_plan(nq: int, n: int, d: int, live: int, aligned: bool, sms: int) -> Int8SweepPlan:
+    if nq < 1 or n < 1 or d < 1 or sms < 1:
+        raise ValueError(f"K5 needs at least one query, row, dim and SM: nq={nq}, n={n}, "
+                         f"d={d}, sms={sms}")
+    dot_only = bool(live & (1 | 4)) and not live & (2 | 8)
+    qw = 8 if live & (2 | 8) else 32 if dot_only else 16
+    plan = _sweep_plan_as(qw, nq, n, d, aligned, sms)
+    if plan is None and qw == 32:
+        plan = _sweep_plan_as(16, nq, n, d, aligned, sms)
+    if plan is None:
+        unit = 8 if qw == 8 else 16
+        raise ValueError(f"K5 cannot take d = {d}: {unit} query rows of "
+                         f"{2 * (-(-d // SWEEP_BOX_DIMS) * SWEEP_BOX_DIMS + 16)} bytes and two "
+                         f"stages exceed {SWEEP_SMEM_MAX} bytes of shared memory")
+    return plan
+
+
+def sweep_epilogue_bytes(qw: int) -> int:
+    """The epilogue's scratch: per consumer warp 32 rows of qw + 1 floats for
+    the product, and for the L1 sum and the Linf max with 8-query units."""
+    return SWEEP_WARPS * SWEEP_UNIT_ROWS * (qw + 1) * 4 * (3 if qw == 8 else 1)
+
+
+def _sweep_plan_as(qw: int, nq: int, n: int, d: int, aligned: bool,
+                   sms: int) -> Optional[Int8SweepPlan]:
+    boxes = -(-d // SWEEP_BOX_DIMS)
+    q_pitch = boxes * SWEEP_BOX_DIMS + 16
+    q_row_bytes = 2 * q_pitch + 4  # the bf16 row and its norm
+    epi = sweep_epilogue_bytes(qw)
+    all_q = -(-nq // 8) * 8
+    groups = 1
+    while groups < SWEEP_WARPS and groups * qw < nq:
+        groups *= 2
+    while True:
+        tile_rows = SWEEP_UNIT_ROWS * (SWEEP_WARPS // groups)
+        stage = tile_rows * SWEEP_BOX_DIMS
+        pass_q = groups * qw
+        room = SWEEP_SMEM_MAX - SWEEP_ALIGN - epi - 2 * stage
+        if all_q * q_row_bytes <= room:
+            resident, q_rows = 1, all_q
+        elif pass_q * q_row_bytes <= room:
+            resident, q_rows = 0, pass_q
+        elif groups > 1:
+            groups //= 2
+            continue
+        else:
+            return None
+        break
+    q_bytes = q_rows * q_row_bytes
+    stages = min(SWEEP_MAX_STAGES, (SWEEP_SMEM_MAX - SWEEP_ALIGN - q_bytes - epi) // stage)
+    tiles = -(-n // tile_rows)
+    return Int8SweepPlan(qw, groups, tile_rows, -(-nq // pass_q), resident, q_rows, q_pitch,
+                         boxes, stages, stage, int(aligned and d % 16 == 0), tiles,
+                         min(tiles, sms), SWEEP_ALIGN + stages * stage + q_bytes + epi)
+
+
 def fused_optimized_scores_int8_reference(queries: torch.Tensor, gallery_int8: torch.Tensor,
                                           scales: torch.Tensor, magnitudes: torch.Tensor,
                                           weights) -> torch.Tensor:
@@ -312,6 +425,9 @@ def fused_optimized_scores_int8_pallas(queries: torch.Tensor, gallery_int8: torc
     qn = torch.linalg.vector_norm(q, dim=1)
     out = torch.empty((q.shape[0], g.shape[0]), dtype=torch.float32, device=q.device)
     if out.numel():
+        int8_sweep_plan(q.shape[0], g.shape[0], q.shape[1], w,  # raises for a refused shape
+                        g.data_ptr() % 16 == 0,
+                        torch.cuda.get_device_properties(q.device).multi_processor_count)
         _launch(name, "irt_fused_optimized_scores_int8", q.device,
                 q.data_ptr(), qn.data_ptr(), g.data_ptr(), sc.data_ptr(), m.data_ptr(),
                 out.data_ptr(), q.shape[0], g.shape[0], q.shape[1], *w, _live_bits(w))

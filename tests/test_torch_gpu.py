@@ -733,6 +733,175 @@ def test_fused_topk_kernel_returns_rows_that_score_minus_inf(cuda, n, k):
     assert bool(((i >= 0) & (i < n)).all())
 
 
+# ---------------------------------------------------------------------------
+# K5's sweep (csrc/int8_sweep_sm90.cuh): every live case, query count, row
+# count and width against the plain version
+# ---------------------------------------------------------------------------
+
+
+def _live_case_weights(case):
+    """Weights whose live sums are those of the kernel's case: bit 0 the
+    product (cosine and the Gram-form L2), bit 1 the L1 sum, bit 2 the Linf
+    max; |dmag| is always live."""
+    dot, l1, linf = case & 1, case & 2, case & 4
+    return (0.8 if dot else 0.0, 0.6 if l1 else 0.0, 0.4 if dot else 0.0,
+            0.7 if linf else 0.0, 0.3)
+
+
+def _int8_inputs(cuda, n, nq, d, seed=0):
+    from image_retrieval_tpu_torch.index.vector_index import quantize_int8
+
+    q, g, m = _fused_inputs(cuda, n, nq, d, seed)
+    g8, sc = (torch.from_numpy(a).to(cuda) for a in quantize_int8(g.cpu().numpy()))
+    return q, g8, sc, m
+
+
+def _k5_agrees(fm, q, g8, sc, m, w):
+    """One K5 launch against the plain version: within score_limit, Linf and
+    |dmag| alone bit for bit; returns the kernel's scores."""
+    before = fm.fused_optimized_scores_int8_pallas.launches
+    got = fm.fused_optimized_scores_int8_pallas(q, g8, sc, m, w)
+    want = fm.fused_optimized_scores_int8_reference(q, g8, sc, m, w)
+    torch.cuda.synchronize()
+    assert fm.fused_optimized_scores_int8_pallas.launches == before + 1
+    assert got.shape == want.shape == (q.shape[0], g8.shape[0])
+    r = fm.scores_agree(got, want, _fused_limit(fm, want, q, g8, m, w[2], sc))
+    assert r["ok"], r
+    if w[:3] == (0.0, 0.0, 0.0):  # Linf or |dmag| alone: the same operations, bit for bit
+        assert torch.equal(got, want)
+    return got
+
+
+def test_int8_sweep_plan_matches_the_kernel(cuda):
+    """ops/fused_metrics.py::int8_sweep_plan is the C side's launch plan,
+    field by field, and both refuse the same shapes."""
+    import ctypes
+
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    got = (ctypes.c_int * 14)()
+    for nq in (0, 1, 8, 9, 33, 64, 65, 128, 129, 300, 1000):
+        for d in (0, 40, 64, 512, 768, 1024, 2048, 5248, 8192):
+            for case in range(8):
+                w = _live_case_weights(case)
+                for aligned in (True, False):
+                    for n, sms in ((0, 132), (1, 132), (1000, 132), (1_049_728, 132),
+                                   (5000, 114)):
+                        rc = lib.irt_int8_sweep_plan(nq, n, d, fm._live_bits(w), int(aligned),
+                                                     sms, got)
+                        try:
+                            plan = fm.int8_sweep_plan(nq, n, d, w, aligned, sms)
+                        except ValueError:
+                            plan = None
+                        assert (rc == 0) == (plan is not None), (nq, n, d, w, aligned)
+                        if plan is not None:
+                            assert tuple(got) == dataclasses.astuple(plan), (nq, n, d, w)
+
+
+@pytest.mark.parametrize("d", [512, 768, 40])
+@pytest.mark.parametrize("nq", [1, 8, 33, 64])
+@pytest.mark.parametrize("case", range(8))
+def test_int8_sweep_matches_plain(cuda, d, nq, case):
+    """Every live case (the instantiation without the product, the L1 sum or
+    the Linf max of a dead term) at a row count no tile size divides; D = 40
+    takes the copying producer (rows of 40 bytes are no TMA stride)."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    w = _live_case_weights(case)
+    q, g8, sc, m = _int8_inputs(cuda, 1000, nq, d)
+    plan = fm.int8_sweep_plan(nq, 1000, d, w)
+    assert plan.tma == (d % 16 == 0) and 1000 % plan.tile_rows != 0
+    _k5_agrees(fm, q, g8, sc, m, w)
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 33])
+@pytest.mark.parametrize("case", [1, 3, 7, 4])
+def test_int8_sweep_gallery_smaller_than_a_tile(cuda, n, case):
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g8, sc, m = _int8_inputs(cuda, 80, 5, 768)
+    _k5_agrees(fm, q, g8[:n].contiguous(), sc[:n].contiguous(), m[:n].contiguous(),
+               _live_case_weights(case))
+
+
+@pytest.mark.parametrize("d", [768, 40])
+@pytest.mark.parametrize("case", [1, 3, 7])
+def test_int8_sweep_queries_above_the_resident_limit(cuda, d, case):
+    """The first query count whose passes do not all fit in shared memory:
+    the consumers load each pass's queries before it, over the same tile."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    w = _live_case_weights(case)
+    nq = next(k for k in range(9, 4096) if not fm.int8_sweep_plan(k, 700, d, w).resident)
+    plan = fm.int8_sweep_plan(nq, 700, d, w)
+    assert plan.resident == 0 and plan.passes > 1
+    q, g8, sc, m = _int8_inputs(cuda, 700, nq, d)
+    _k5_agrees(fm, q, g8, sc, m, w)
+
+
+@pytest.mark.parametrize("d", [64, 768])
+@pytest.mark.parametrize("case", [1, 7])
+def test_int8_sweep_unaligned_rows_and_a_narrow_box(cuda, d, case):
+    """Rows whose base is not 16-byte aligned take the copying producer at
+    any d; d = 64 is a TMA box wider than the rows."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    w = _live_case_weights(case)
+    q, g8, sc, m = _int8_inputs(cuda, 300, 9, d)
+    _k5_agrees(fm, q, g8, sc, m, w)
+    flat = torch.empty(g8.numel() + 1, dtype=torch.int8, device=cuda)
+    odd = flat[1:].view(g8.shape)
+    odd.copy_(g8)
+    assert odd.data_ptr() % 16 != 0 and fm.int8_sweep_plan(9, 300, d, w, False).tma == 0
+    assert torch.equal(fm.fused_optimized_scores_int8_pallas(q, odd, sc, m, w),
+                       fm.fused_optimized_scores_int8_pallas(q, g8, sc, m, w))
+
+
+@pytest.mark.parametrize("case", [1, 3, 5])
+def test_int8_sweep_wide_rows(cuda, case):
+    """3072-dim rows: the product alone takes 16-query units (32 do not fit
+    beside the stages), and every live case takes several passes, each
+    pass's queries loaded before it."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    w = _live_case_weights(case)
+    plan = fm.int8_sweep_plan(64, 300, 3072, w)
+    assert plan.qw == (16 if case == 1 else 8) and plan.resident == 0 and plan.passes > 1
+    q, g8, sc, m = _int8_inputs(cuda, 300, 64, 3072)
+    _k5_agrees(fm, q, g8, sc, m, w)
+
+
+@pytest.mark.parametrize("case", [2, 4, 6, 7])
+def test_int8_sweep_far_apart_exponents(cuda, case):
+    """Query values 2^-30 and 2^20 times the rows' (and a zero query): the
+    bf16 difference of values whose exponents lie more than 16 apart rounds
+    once in the kernel and twice in the plain version, to the same value."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g8, sc, m = _int8_inputs(cuda, 500, 8, 768)
+    q[0] *= 2.0 ** -30
+    q[1] *= 2.0 ** 20
+    q[2, ::2] *= 2.0 ** -24
+    q[3] = 0.0
+    w = _live_case_weights(case)
+    got = _k5_agrees(fm, q, g8, sc, m, w)
+    linf = (0.0, 0.0, 0.0, 1.0, 0.0)
+    assert torch.equal(fm.fused_optimized_scores_int8_pallas(q, g8, sc, m, linf),
+                       fm.fused_optimized_scores_int8_reference(q, g8, sc, m, linf))
+    assert bool(torch.isfinite(got).all())
+
+
+def test_int8_sweep_zero_norm_query_scores_cosine_zero(cuda):
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g8, sc, m = _int8_inputs(cuda, 400, 3, 512)
+    q[1] = 0.0
+    got = _k5_agrees(fm, q, g8, sc, m, (1.0, 0.0, 0.0, 0.0, 0.0))
+    assert bool((got[1] == 0.0).all())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_index_metrics_cuda_match_cpu(cuda, dtype):
     """Every metric of the index on the card (the int8 weighted score and the
