@@ -2,18 +2,24 @@
 """Drive the PyTorch/CUDA port's serving and search paths once on one GPU.
 
     python3 chip_smoke.py                   # needs one CUDA card and nvcc
-    python3 chip_smoke.py --time-k1         # build, then only K1's times (phase 2)
+    python3 chip_smoke.py --time-k1         # build, then only K1's, K2a's and K2b's
+                                            # times and K1's launch breakdown (phase 2)
     python3 chip_smoke.py --dense-readings  # build, then what dense_agreement reads
                                             # for K8, K9a, K9b and for wrong layers
     python3 chip_smoke.py --gemm-stages     # build, then only fc1 and fc2 of K9b and
-                                            # K2b alone (the wgmma GEMM, phase 2)
+                                            # K2b alone (the wgmma GEMM, phase 2) and
+                                            # K2b's fused fc1 -> quick_gelu -> rowquant
+    python3 chip_smoke.py --rowquant-variants  # build and run the design experiments of
+                                            # K2b's fused fc1 -> quick_gelu -> rowquant
+                                            # (csrc/experiments/rowquant_gemm_variants.cu)
     python3 chip_smoke.py --time-k5         # build, then only K5 (the int8 weighted
                                             # sweep): registers, vs plain, times
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
      port's kernels compiled from image_retrieval_tpu_torch/csrc with nvcc
-     for sm_90a (one nvcc per source, twelve in parallel).
+     for sm_90a (one nvcc per source, twelve in parallel); ptxas's registers
+     and spills of the fused fc1 stage and the row pass (a spill fails).
   2. kernel vs plain: layer_block_int8 (K1), attention_block_int8 (K2a) and
      mlp_block_int8 (K2b) on the card against their plain PyTorch versions
      on the same inputs, in bf16 and f32, by kernel_agreement: K1 at the
@@ -21,9 +27,15 @@ Phases (any failure exits non-zero):
      causal) and at the ViT-B/16 shape (B=4 T=197 W=768), K2a and K2b at the
      ViT-L/14 vision shape (B=4 T=257 W=1024 16 heads) and at the two B/32
      shapes; K2a then K2b against K1 at (8, 50, 768), bitwise; QuantDense
-     against its plain version. Then timings (CUDA events, medians of samples
-     taken in turns plain/kernel/kernel/plain) at B=8 and at the main paths'
-     batches, each beside the least time the card could take for the work.
+     against its plain version; the MLP half's fc1 -> quick_gelu -> rowquant
+     (one clustered GEMM launch) against its plain version bit for bit at
+     every hidden width of the main paths (2048, 3072, 4096), with its plan
+     and the clusters the card holds at once. Then timings (CUDA events,
+     medians of samples taken in turns plain/kernel/kernel/plain) at B=8 and
+     at the main paths' batches, each beside the least time the card could
+     take for the work, and the device time of each launch kind of K1 at
+     B/32 vision B=256 and of K2a + K2b at the L/14 image batch
+     (torch.profiler).
      The same for the kernels in the compute dtype: layer_block (K8),
      attention_block (K9a), mlp_block (K9b) and multihead_attention (K10)
      against their plain versions in bf16 and f32 at the four tower shapes and
@@ -43,7 +55,9 @@ Phases (any failure exits non-zero):
      gemm_bf16_agreement's float64 limit), its time beside the plain
      version's, the bound's and one library call's on the same operands
      (torch.nn.functional.linear in bf16, torch._int_mm in int8; the port
-     never calls either), and the device time alone.
+     never calls either), and the device time alone; K2b's fused fc1 ->
+     quick_gelu -> rowquant the same way, also in turns with the two
+     launches it replaces (fc1 writing f32, then the rowquant pass).
      attention_block_train's saving forward (K11) against its plain version
      in bf16 and f32 at both B/32 shapes, at B = 8 and at B = 128 (the
      trainer's batch), and at the ragged one: the five outputs in the compute
@@ -535,6 +549,7 @@ def phase_kernels(torch, card):
         if not torch.equal(two, one):
             fail(f"attention_block_int8 then mlp_block_int8 differs from layer_block_int8 ({dt})")
     print("K2a then K2b equals K1 bit for bit at (8, 50, 768), bf16 and f32", flush=True)
+    check_fused_stage(torch, card)
 
     # QuantDense: the int32 sums are exact and the rowquant and the rescale
     # run the same f32 operations in the same order on both sides: equal
@@ -555,6 +570,7 @@ def phase_kernels(torch, card):
 
     for name, times in time_kernels(torch, card, runs, TIME_SHAPES).items():
         out[name]["times"] = times
+    launch_breakdown(torch, card)
     return out
 
 
@@ -717,11 +733,19 @@ def mlp_stage_calls(torch, fa, shape, int8, seed):
         gq, gs = fa.rowquant(fa.gemm_s8(*args1))
         args2 = (gq, mw.w2_t, gs.reshape(-1), mw.w2_s, mw.b2, torch.bfloat16, "residual", x)
         hidden = mw.w1_t.shape[0]
+        args_rq = (*args1[:5], torch.int8, fa.GELU_ROWQUANT)
+        # fc1 -> quick_gelu -> rowquant: int8 rows and one f32 scale a row out
         calls = {"fc1": (args1, lambda: torch._int_mm(hq, mw.w1_t.t()), m * hidden * 4),
+                 "fc1_rowquant": (args_rq, lambda: torch._int_mm(hq, mw.w1_t.t()),
+                                  m * hidden + 4 * m),
                  "fc2": (args2, lambda: torch._int_mm(gq, mw.w2_t.t()), m * w * 2)}
 
         def bitwise(args):
             got, want = fa.gemm_s8(*args), fa.gemm_s8_reference(*args)
+            if isinstance(got, tuple):  # (int8 rows, scales)
+                return {"max_abs_err": max(float((g.double() - v.double()).abs().max())
+                                           for g, v in zip(got, want)),
+                        "ok": all(bool(torch.equal(g, v)) for g, v in zip(got, want))}
             return {"max_abs_err": float((got.double() - want.double()).abs().max()),
                     "ok": bool(torch.equal(got, want))}
 
@@ -735,6 +759,9 @@ def mlp_stage_calls(torch, fa, shape, int8, seed):
             out[stage] = (lambda args=args: fa.gemm_s8(*args),
                           lambda args=args: fa.gemm_s8_reference(*args), lib,
                           lambda args=args: bitwise(args), bound(2.0 * m * n * k, 0.0, nbytes))
+        # the two launches the fused stage replaces: fc1 writing f32, then the
+        # rowquant pass over those rows
+        out["fc1_rowquant"] += (lambda: fa.ln_rowquant(fa.gemm_s8(*args1)),)
         return out
     x, wts = dense_layer_inputs(torch, b, t, w, heads, seed, torch.bfloat16)
     mw, x = wts.mlp, x.reshape(m, w)
@@ -755,6 +782,152 @@ def mlp_stage_calls(torch, fa, shape, int8, seed):
     return out
 
 
+def print_rowquant_plan(fa, lib, case, m, n, k, card):
+    """The fused fc1 stage's plan for (m, n, k) and how many of its clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters); fails where the
+    plan does not fuse a main-path shape or no cluster fits."""
+    plan = fa.rowquant_gemm_plan(m, n, k)
+    clusters = lib.irt_rowquant_gemm_max_clusters(m, n, k)
+    print(f"fc1 -> quick_gelu -> rowquant plan {case} (m {m}, n {n}, k {k}): route "
+          f"{plan.route} ({plan.why}); blocks of {plan.rows} x {plan.cols}, {plan.stages} "
+          f"stages, {plan.smem_bytes} bytes of shared memory, {plan.threads} threads, grid "
+          f"{plan.grid}; clusters the card holds at once: {clusters} "
+          f"({clusters * plan.cluster} of its SMs) [{card}]", flush=True)
+    if plan.route != "fused" or clusters < 1:
+        fail(f"the fused fc1 stage does not run at {case}: {plan.why}, {clusters} clusters")
+
+
+# fc1 of every tower of the main paths at its batch: (m, hidden, width)
+FUSED_STAGE_SHAPES = {"b32-text-B64": (64 * 77, 2048, 512), "b32-vision-B256": (12800, 3072, 768),
+                      "l14-text-B64": (64 * 77, 3072, 768),
+                      f"l14-vision-B{ENC_BUCKET5}": (ENC_BUCKET5 * 257, 4096, 1024)}
+
+
+def check_fused_stage(torch, card):
+    """fc1 -> quick_gelu -> rowquant as one clustered launch against its plain
+    version, bit for bit (int8 rows and scales), at every hidden width of
+    the main paths; seeded int8 operands with scales of rowquant's size."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    for case, (m, n, k) in FUSED_STAGE_SHAPES.items():
+        print_rowquant_plan(fa, lib, case, m, n, k, card)
+        g = torch.Generator(device="cuda").manual_seed(m + n)
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        rs = 0.02 * torch.rand(m, generator=g, device="cuda") + 1e-3
+        cs = (0.02 * torch.rand(n, generator=g, device="cuda") + 1e-3) / k ** 0.5
+        bias = 0.02 * torch.randn(n, generator=g, device="cuda")
+        got = fa.gemm_s8(a, bt, rs, cs, bias, torch.int8, fa.GELU_ROWQUANT)
+        want = fa.gemm_s8_reference(a, bt, rs, cs, bias, torch.int8, fa.GELU_ROWQUANT)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(x, y) for x, y in zip(got, want))
+        print(f"kernel-vs-plain fc1 -> quick_gelu -> rowquant {case} (m {m}, n {n}, k {k}): "
+              f"int8 rows and scales {'equal bit for bit' if ok else 'DIFFER'}", flush=True)
+        if not ok:
+            fail(f"the fused fc1 stage differs from its plain version at {case}")
+        del a, bt, got, want
+        torch.cuda.empty_cache()
+
+
+def ptxas_report(lib_path, pattern):
+    """{kernel: ptxas's registers and spill line} from build.log for the
+    kernels whose mangled name holds `pattern`."""
+    import re
+
+    found, name = {}, None
+    with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
+        for line in f:
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                name = m.group(1)
+                continue
+            if name and pattern in name and ("registers" in line or "spill" in line):
+                found[name] = (found.get(name, "") + " " + line.strip()).strip()
+    return found
+
+
+def print_new_kernel_registers(lib_path):
+    """Registers and spills of the fused fc1 stage and of the row pass; fails
+    on a spill."""
+    import re
+
+    for pattern in ("gemm_wgmma_s8_rowquant_kernel", "ln_rowquant_kernel"):
+        found = ptxas_report(lib_path, pattern)
+        if not found:
+            fail(f"build.log holds no {pattern} instantiation")
+        for name, line in sorted(found.items()):
+            print(f"ptxas {pattern} {name[-60:]}: {line}", flush=True)
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            if any(spills):
+                fail(f"{name} spills: {line}")
+
+
+def rowquant_variants(card):
+    """--rowquant-variants: build csrc/experiments/rowquant_gemm_variants.cu
+    (a standalone program, not part of the library) with the library's nvcc
+    flags and run it: the fused fc1 stage, the two launches it replaces and
+    the variants its design was chosen from, timed at the L/14 and B/32 fc1
+    shapes and held bit for bit against it."""
+    from image_retrieval_tpu_torch.ops import _build
+
+    src = os.path.join(_build.CSRC, "experiments", "rowquant_gemm_variants.cu")
+    out_dir = os.path.join(_build.BUILD_ROOT, "experiments")
+    os.makedirs(out_dir, exist_ok=True)
+    exe = os.path.join(out_dir, "rowquant_gemm_variants")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    cc = subprocess.run([_build.find_nvcc(), *flags, src, "-o", exe], capture_output=True,
+                        text=True)
+    if cc.returncode != 0:
+        fail(f"nvcc failed on {src}:\n{cc.stdout[-4000:]}{cc.stderr[-4000:]}")
+    run = subprocess.run([exe], capture_output=True, text=True, timeout=600)
+    for line in run.stdout.splitlines():
+        print(f"rowquant variants: {line} [{card}]", flush=True)
+    if run.returncode != 0 or "NO" in run.stdout.split():
+        fail(f"the rowquant variants failed or differ from the production kernel: {run.stderr}")
+
+
+def launch_breakdown(torch, card):
+    """Device time of each launch kind of K1 at B/32 vision B = 256 and of
+    the L/14 int8 image batch's layer (K2a then K2b at B = 128), bf16,
+    torch.profiler over ten calls after three warm ones. Uses only entries
+    that earlier checkouts also have, so that --time-k1 reads both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    cases = {"K1 b32-vision-B256": (B32_BATCH, lambda x, w: fa.layer_block_int8(x, w, 12)),
+             f"K2a+K2b l14-vision-B{ENC_BUCKET5}": (
+                 L14_BATCH, lambda x, w: fa.mlp_block_int8(
+                     fa.attention_block_int8(x, w.attn, 16), w.mlp))}
+    calls = 10
+    for case, ((b, t, w, heads, _), call) in cases.items():
+        x32, wts = layer_inputs(torch, b, t, w, heads, seed=3)
+        x = x32.to(device="cuda", dtype=torch.bfloat16)
+        for _ in range(3):
+            call(x, wts)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call(x, wts)
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
+                for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        total = sum(r[1] for r in rows)
+        if total <= 0:
+            print(f"launch breakdown {case}: torch.profiler recorded no device time; not "
+                  f"measured", flush=True)
+            continue
+        for key, ms, n in sorted(rows, key=lambda r: -r[1]):
+            print(f"launch breakdown {case} bf16: {n:g} launch(es) a call of {key[:110]}: "
+                  f"device {ms:.4f} ms a call ({ms / total:.1%}) [{card}]", flush=True)
+        print(f"launch breakdown {case} bf16: {sum(r[2] for r in rows):g} launches a call, "
+              f"device {total:.4f} ms a call [{card}]", flush=True)
+        del x, x32, wts
+        torch.cuda.empty_cache()
+
+
 def phase_gemm_stages(torch, card):
     """fc1 and fc2 of K9b and K2b alone (the GEMM of csrc/gemm_sm90.cuh with
     their epilogues) at the L/14 and B/32 image batches: each against its
@@ -763,11 +936,16 @@ def phase_gemm_stages(torch, card):
     Returns {"mlp_block" | "mlp_block_int8": {case: {stage: readings}}}."""
     from image_retrieval_tpu_torch.ops import flash_attention as fa
 
+    from image_retrieval_tpu_torch.ops._build import load_library
+
     out = {"mlp_block": {}, "mlp_block_int8": {}}
     for name, int8 in (("mlp_block", False), ("mlp_block_int8", True)):
         for case, shape in STAGE_SHAPES.items():
             out[name][case] = {}
-            for stage, (kernel, plain, lib, check, bnd) in mlp_stage_calls(
+            if int8:
+                b, t, w = shape[:3]
+                print_rowquant_plan(fa, load_library(), case, b * t, 4 * w, w, card)
+            for stage, (kernel, plain, lib, check, bnd, *pair) in mlp_stage_calls(
                     torch, fa, shape, int8, seed=len(case)).items():
                 agree = check()
                 torch.cuda.synchronize()
@@ -782,6 +960,15 @@ def phase_gemm_stages(torch, card):
                                             samples=8, reps=3)["kernel"]
                 r.update(bnd, device_ms=device_ms(torch, kernel),
                          library_device_ms=device_ms(torch, lib))
+                if pair:  # the fused stage in turns with the two launches it replaces
+                    two = time_pair(torch, {"kernel": kernel, "plain": pair[0]}, samples=8,
+                                    reps=3)
+                    r.update(pair_ms=two["plain"], in_turns_ms=two["kernel"],
+                             pair_device_ms=device_ms(torch, pair[0]))
+                    print(f"time {name} {stage} {case}: the fused stage {two['kernel']:.4f} "
+                          f"ms in turns with the two launches it replaces (fc1 writing f32, "
+                          f"then rowquant) {two['plain']:.4f} ms (device "
+                          f"{r['pair_device_ms']} ms) [{card}]", flush=True)
                 out[name][case][stage] = r
                 print(f"time {name} {stage} {case}: kernel {r['kernel']:.4f} ms (device "
                       f"{r['device_ms']} ms), plain {r['plain']:.4f} ms, library "
@@ -1487,7 +1674,8 @@ def profile_encode(torch, enc, images, card, label="L/14"):
     stream, so their sum is the device's busy time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    families = (("gemm_wgmma_s8", "int8 GEMMs (wgmma)"),
+    families = (("gemm_wgmma_s8_rowquant", "fc1 + quick_gelu + rowquant (clustered GEMM)"),
+                ("gemm_wgmma_s8", "int8 GEMMs (wgmma)"),
                 ("gemm_wgmma_bf16", "bf16 GEMMs (wgmma)"), ("attention_tiled", "attention"),
                 ("ln_rowquant", "LayerNorm/rowquant passes"),
                 ("ln_cast", "LayerNorm passes"), ("Memcpy", "copies"))
@@ -1987,18 +2175,11 @@ def k5_registers(lib_path):
     as {(dot, l1, linf, queries of a unit): line}."""
     import re
 
-    found, name = {}, None
-    with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
-        for line in f:
-            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
-            if m:
-                name = m.group(1)
-                continue
-            k = re.search(r"optimized_scores_int8_kernelILb(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?",
-                          name or "")
-            if k and ("registers" in line or "spill" in line):
-                key = tuple(int(x or 0) for x in k.groups())
-                found[key] = (found.get(key, "") + " " + line.strip()).strip()
+    found = {}
+    for name, line in ptxas_report(lib_path, "optimized_scores_int8_kernel").items():
+        k = re.search(r"optimized_scores_int8_kernelILb(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?", name)
+        if k:
+            found[tuple(int(x or 0) for x in k.groups())] = line
     return found
 
 
@@ -2700,21 +2881,27 @@ def main() -> int:
                 print("  ptxas:", line.strip(), flush=True)
 
     if sys.argv[1:] == ["--time-k1"]:
-        # only K1's times: to compare two checkouts inside one call on one
-        # card, copy this script into each and run it there in turns
+        # only the int8 layer kernels' times and K1's launch breakdown: to
+        # compare two checkouts inside one call on one card, copy this script
+        # into each and run it there in turns
         from image_retrieval_tpu_torch.ops import flash_attention as fa
 
-        time_kernels(torch, card, {"layer_block_int8": kernel_runs(fa)["layer_block_int8"]},
-                     TIME_SHAPES)
+        time_kernels(torch, card, kernel_runs(fa), TIME_SHAPES)
+        launch_breakdown(torch, card)
         return 0
-    if sys.argv[1:] == ["--gemm-stages"]:
-        phase_gemm_stages(torch, card)
+    if sys.argv[1:] == ["--time-k5"]:
+        phase_time_k5(torch, card, lib_path)
+        return 0
+    if sys.argv[1:] == ["--rowquant-variants"]:
+        rowquant_variants(card)
         return 0
     if sys.argv[1:] == ["--dense-readings"]:
         dense_readings(torch)
         return 0
-    if sys.argv[1:] == ["--time-k5"]:
-        phase_time_k5(torch, card, lib_path)
+    print_new_kernel_registers(lib_path)
+    if sys.argv[1:] == ["--gemm-stages"]:
+        check_fused_stage(torch, card)
+        phase_gemm_stages(torch, card)
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -2775,6 +2962,9 @@ def main() -> int:
                             f"{prefix}{stage}_device_ms": r["device_ms"],
                             f"{prefix}{stage}_library_device_ms": r["library_device_ms"],
                             f"{prefix}{stage}_bound_ms": r["bound_ms"]})
+                for key in ("pair_ms", "in_turns_ms", "pair_device_ms"):
+                    if key in r:  # the fused stage beside the two launches it replaces
+                        out[f"{prefix}{stage}_{key}"] = r[key]
         return out
 
     def metric_entry(name, entry, lines, main, extra):

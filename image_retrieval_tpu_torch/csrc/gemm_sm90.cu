@@ -1,6 +1,8 @@
 // The Hopper (sm_90a) GEMM of gemm_sm90.cuh on its own, for tests and
-// timing: the bf16 GEMM with the epilogues of dense_common.cuh and the int8
-// GEMM with those of int8_common.cuh, and the launch plan both follow.
+// timing: the bf16 GEMM with the epilogues of dense_common.cuh, the int8
+// GEMM with those of int8_common.cuh, the int8 MLP's fc1 -> quick_gelu ->
+// rowquant stage, the row pass (LayerNorm and rowquant) of the int8 chains,
+// and the launch plans they follow.
 // Nothing on the main path calls these entries; the layer chains launch the
 // same kernels through launch_gemm and launch_gemm_s8. It replaces no TPU
 // kernel of its own: the JAX package's kernels keep their projections inside
@@ -21,6 +23,59 @@ int irt_gemm_plan(int m, int n, int k, int dtype, int* plan) {
   const int out[6] = {p.rows, p.stages, p.smem, p.grid_x, p.grid_y, p.threads};
   for (int i = 0; i < 6; ++i) plan[i] = out[i];
   return 0;
+}
+
+// plan: {fused, cluster, rows, cols, stages, smem bytes, grid x, grid y,
+// threads} of the fc1 -> quick_gelu -> rowquant stage for (m, n, k); fused =
+// 0 names the two-launch route (the other fields then 0). IRT_BAD_ARGS for a
+// shape the int8 GEMM refuses.
+int irt_rowquant_gemm_plan(int m, int n, int k, int* plan) {
+  RowquantGemmPlan p;
+  if (plan == nullptr || !rowquant_gemm_plan(m, n, k, &p)) return IRT_BAD_ARGS;
+  const int out[9] = {p.fused, p.cluster, p.rows, p.cols, p.stages,
+                      p.smem, p.grid_x, p.grid_y, p.threads};
+  for (int i = 0; i < 9; ++i) plan[i] = out[i];
+  return 0;
+}
+
+// Clusters of the fused stage the card holds at once for (m, n, k)
+// (cudaOccupancyMaxActiveClusters), or minus an error code.
+int irt_rowquant_gemm_max_clusters(int m, int n, int k) {
+  return rowquant_max_clusters<GeluFinish>(m, n, k);
+}
+
+// q (m, n) int8, qs (m,) f32 = rowquant(quick_gelu(a (m, k) int8 x bt (n, k)
+// int8 as int32, times row_scale (m,) and col_scale (n,), + bias (n,))), by
+// the plan's route; workspace: the f32 (m, n) rows on the two-launch route,
+// none (null) on the fused one.
+int irt_gemm_s8_gelu_rowquant(const void* a, const void* bt, const void* row_scale,
+                              const void* col_scale, const void* bias, void* workspace,
+                              void* q, void* qs, int m, int n, int k, void* stream) {
+  return launch_gemm_s8_gelu_rowquant(
+      (const int8_t*)a, (const int8_t*)bt, (const float*)row_scale, (const float*)col_scale,
+      (const float*)bias, (float*)workspace, (int8_t*)q, (float*)qs, m, n, k,
+      (cudaStream_t)stream);
+}
+
+// q (m, width) int8, qs (m,) f32 = rowquant(LN(x)) (ln = 1, gamma and beta
+// (width,) f32) or rowquant(x) (ln = 0) for x (m, width) of dtype 0 = bf16,
+// 1 = f32: ln_rowquant_kernel, a warp per row.
+int irt_ln_rowquant(const void* x, const void* gamma, const void* beta, void* q, void* qs,
+                    int m, int width, int dtype, int ln, void* stream) {
+  if (!block_shape_ok(m, 1, width, 64, dtype) || (ln && (gamma == nullptr || beta == nullptr))) {
+    return IRT_BAD_ARGS;
+  }
+  const float *g = (const float*)gamma, *b = (const float*)beta;
+  int8_t* Q = (int8_t*)q;
+  float* S = (float*)qs;
+  const cudaStream_t st = (cudaStream_t)stream;
+  typedef __nv_bfloat16 bf16;
+  if (dtype == 0) {
+    return ln ? launch_ln_rowquant<bf16, true>((const bf16*)x, g, b, Q, S, m, width, st)
+              : launch_ln_rowquant<bf16, false>((const bf16*)x, g, b, Q, S, m, width, st);
+  }
+  return ln ? launch_ln_rowquant<float, true>((const float*)x, g, b, Q, S, m, width, st)
+            : launch_ln_rowquant<float, false>((const float*)x, g, b, Q, S, m, width, st);
 }
 
 // c (m, n) bf16 = epilogue(a (m, k) bf16 x bt (n, k) bf16 + bias (n,) f32):

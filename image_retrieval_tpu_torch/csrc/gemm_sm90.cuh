@@ -37,6 +37,12 @@
 //   - No split-K and no atomics: each output's sum has one fixed order that
 //     depends only on K, so launches on the same operands give the same
 //     bits whatever M is.
+//   - gemm_wgmma_s8_rowquant_kernel is the int8 GEMM with a per-row
+//     requantization in its epilogue (the int8 MLP's fc1 -> quick_gelu ->
+//     rowquant): blocks of 64 rows x 512 columns, four warpgroups on one A
+//     tile, in a thread block cluster that covers a whole row tile, so that
+//     the f32 hidden rows never reach device memory (rowquant_gemm_plan;
+//     its design is set out beside it).
 //   - TMA descriptors are encoded on the host per launch
 //     (cuTensorMapEncodeTiled, reached through the runtime's entry-point
 //     query: the library does not link libcuda) and passed as
@@ -247,81 +253,104 @@ template <> struct GemmOperand<int8_t> {
 };
 
 // ---------------------------------------------------------------------------
-// The kernel body
+// The products
 // ---------------------------------------------------------------------------
 
-// Epi: a functor with fields m and n (the output's rows and columns) and
-// operator()(row, col, acc[col], acc[col + 1]) storing two neighbouring
-// outputs of one row. kGroups consumer warpgroups, 64 rows each.
-template <typename In, int kGroups, typename Epi>
-__device__ __forceinline__ void gemm_wgmma_body(const CUtensorMap* map_a, const CUtensorMap* map_b,
-                                                int k_steps, const Epi& epi) {
+// The block's products into d: kRowGroups x kColGroups consumer warpgroups,
+// warpgroup g computing the 64 rows m0 + 64 (g / kColGroups) by the 128
+// columns n0 + 128 (g % kColGroups) of the block's tile, fed by one producer
+// warp through a ring of kStages stages (the A tile of 64 kRowGroups rows,
+// then kColGroups B boxes of 128 rows). True in a consumer thread, whose d
+// then holds its 64 sums; false in the producer warp once its loads are
+// issued.
+template <typename In, int kRowGroups, int kColGroups, int kStages>
+__device__ __forceinline__ bool gemm_wgmma_mainloop(const CUtensorMap* map_a,
+                                                    const CUtensorMap* map_b, int k_steps,
+                                                    int m0, int n0,
+                                                    typename GemmOperand<In>::Acc* d) {
   typedef GemmOperand<In> Op;
-  typedef typename Op::Acc Acc;
-  constexpr int kRows = kGemmWarpGroupRows * kGroups;
-  constexpr int kATile = kRows * kGemmRowBytes;
-  constexpr int kStage = kATile + kGemmTileN * kGemmRowBytes;
+  constexpr int kGroups = kRowGroups * kColGroups;
+  constexpr int kATile = kGemmWarpGroupRows * kRowGroups * kGemmRowBytes;
+  constexpr int kBBox = kGemmTileN * kGemmRowBytes;
+  constexpr int kStage = kATile + kColGroups * kBBox;
   constexpr int kSliceBytes = Op::kMmaK * (int)sizeof(In);  // 32 bytes of one K slice
-  constexpr int kGemmStages = GemmStages<kGroups>::value;
   extern __shared__ uint8_t gemm_smem[];
-  __shared__ __align__(8) uint64_t bars[2 * kGemmStages];  // full[s], then empty[s]
+  __shared__ __align__(8) uint64_t bars[2 * kStages];  // full[s], then empty[s]
 
   const int tid = threadIdx.x;
   const uint32_t ring =
       (smem_u32(gemm_smem) + kGemmSmemAlign - 1) & ~(uint32_t)(kGemmSmemAlign - 1);
-  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[kGemmStages]);
+  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[kStages]);
   if (tid == 0) {
-    for (int s = 0; s < kGemmStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 1);                // the producer's expect-tx arrival
       mbar_init(empty0 + 8 * s, 128 * kGroups);   // every consumer thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int m0 = blockIdx.y * kRows, n0 = blockIdx.x * kGemmTileN;
   const int group = tid / 128;
 
   if (group == kGroups) {  // the producer warp: one thread issues every load
     if (tid % 32 == 0) {
       for (int kt = 0; kt < k_steps; ++kt) {
-        const int s = kt % kGemmStages;
-        // the stage's previous use (kt - kGemmStages) released; parity 1
+        const int s = kt % kStages;
+        // the stage's previous use (kt - kStages) released; parity 1
         // passes at once on the first round
-        mbar_wait(empty0 + 8 * s, ((kt / kGemmStages) & 1) ^ 1);
+        mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);
         const uint32_t full = full0 + 8 * s, a = ring + s * kStage;
         mbar_arrive_expect_tx(full, kStage);
         const int k0 = kt * (kGemmRowBytes / (int)sizeof(In));
         tma_load_2d(a, map_a, full, k0, m0);
-        tma_load_2d(a + kATile, map_b, full, k0, n0);
+#pragma unroll
+        for (int c = 0; c < kColGroups; ++c) {
+          tma_load_2d(a + kATile + c * kBBox, map_b, full, k0, n0 + c * kGemmTileN);
+        }
       }
     }
-    return;
+    return false;
   }
 
-  Acc d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0;
   fence_acc(d);
-  const uint32_t a_rows = group * kGemmWarpGroupRows * kGemmRowBytes;
+  const uint32_t a_rows = (group / kColGroups) * kGemmWarpGroupRows * kGemmRowBytes;
+  const uint32_t b_rows = kATile + (group % kColGroups) * kBBox;
   for (int kt = 0; kt < k_steps; ++kt) {
-    const int s = kt % kGemmStages;
-    mbar_wait(full0 + 8 * s, (kt / kGemmStages) & 1);
+    const int s = kt % kStages;
+    mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
     const uint32_t a = ring + s * kStage;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kGemmRowBytes / kSliceBytes; ++kk) {
       Op::mma(d, wgmma_desc(a + a_rows + kk * kSliceBytes),
-              wgmma_desc(a + kATile + kk * kSliceBytes));
+              wgmma_desc(a + b_rows + kk * kSliceBytes));
     }
     wgmma_commit();
     if (kt > 0) {  // the previous stage's products are done: hand it back
       wgmma_wait<1>();
-      mbar_arrive(empty0 + 8 * ((kt - 1) % kGemmStages));
+      mbar_arrive(empty0 + 8 * ((kt - 1) % kStages));
     }
   }
   wgmma_wait<0>();
   fence_acc(d);
+  return true;
+}
 
+// Epi: a functor with fields m and n (the output's rows and columns) and
+// operator()(row, col, acc[col], acc[col + 1]) storing two neighbouring
+// outputs of one row. kGroups consumer warpgroups, 64 rows each, one column
+// tile of 128.
+template <typename In, int kGroups, typename Epi>
+__device__ __forceinline__ void gemm_wgmma_body(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                                int k_steps, const Epi& epi) {
+  typename GemmOperand<In>::Acc d[64];
+  const int m0 = blockIdx.y * kGemmWarpGroupRows * kGroups, n0 = blockIdx.x * kGemmTileN;
+  if (!gemm_wgmma_mainloop<In, kGroups, 1, GemmStages<kGroups>::value>(map_a, map_b, k_steps,
+                                                                        m0, n0, d)) {
+    return;
+  }
+  const int tid = threadIdx.x, group = tid / 128;
   const int w = (tid % 128) / 32, lane = tid % 32;
   const int r0 = m0 + group * kGemmWarpGroupRows + 16 * w + lane / 4;
   const int c0 = n0 + 2 * (lane % 4);
@@ -348,6 +377,213 @@ __global__ void __launch_bounds__(128 * kGroups + 32, GemmBlocksPerSm<kGroups>::
     gemm_wgmma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
                          const __grid_constant__ CUtensorMap map_b, int k_steps, Epi epi) {
   gemm_wgmma_body<int8_t, kGroups>(&map_a, &map_b, k_steps, epi);
+}
+
+// ---------------------------------------------------------------------------
+// The int8 GEMM with a per-row requantization in its epilogue
+// ---------------------------------------------------------------------------
+//
+// q, qs = rowquant(fin(A Bt^T)): every output finished to f32 by `fin`, then
+// each row quantized to int8 by its absmax, s = max(absmax, 1e-12) / 127 and
+// q = round_half_even(v / s), as ln_rowquant_kernel does. Only q (int8) and
+// s (f32, one a row) reach device memory. The absmax spans the whole row,
+// wider than a block, so the blocks that share a row tile form a thread
+// block cluster: a block computes 64 rows x 512 columns with four consumer
+// warpgroups of 128 columns on one A tile, and the cluster's N / 512 blocks
+// (at most 8, the portable cluster size) cover all N columns. In the
+// epilogue each thread finishes its two rows' 32 values in registers (the
+// columns' scales and biases staged in shared memory before the products)
+// and takes their |max|; the quad that shares a row reduces it by shuffles,
+// the warpgroups through shared memory, and each block pushes its 64 row
+// maxima into every block of the cluster (distributed shared memory)
+// before one cluster barrier, after which each block reads them locally.
+// The int8 rows go out through the idle ring as 16-byte stores. A max does
+// not depend on the order of its inputs, so q and s equal the two launches
+// this replaces (the GEMM writing f32, then ln_rowquant_kernel) bit for bit.
+// One block an SM (a ring of three 72 KB stages); the sums keep the order
+// that depends only on K.
+
+constexpr int kRqColGroups = 4;                       // warpgroups of 128 columns a block
+constexpr int kRqCols = kRqColGroups * kGemmTileN;    // 512 columns a block
+constexpr int kRqRows = kGemmWarpGroupRows;           // 64 rows a block
+constexpr int kRqStages = 3;
+constexpr int kRqMaxCluster = 8;                      // portable cluster size
+constexpr int kRqThreads = 128 * kRqColGroups + 32;
+constexpr int kRqStagedRow = kRqCols + 16;            // bytes of a staged int8 row
+
+// The launch plan of the fused stage (mirrored by
+// ops/flash_attention.py::rowquant_gemm_plan). fused = 0 names the other
+// route, the GEMM writing f32 and then a rowquant launch, taken where no
+// cluster covers a row: N not a multiple of 512, more than 8 blocks, or more
+// row tiles than gridDim.y holds.
+struct RowquantGemmPlan {
+  int fused;    // 1: one clustered launch; 0: two launches
+  int cluster;  // blocks of a cluster, N / 512
+  int rows;     // rows of a block (64)
+  int cols;     // columns of a block (512)
+  int stages;   // shared-memory ring depth
+  int smem;     // dynamic shared memory of a block, bytes
+  int grid_x;   // = cluster
+  int grid_y;   // row tiles
+  int threads;  // four consumer warpgroups and one producer warp
+};
+
+// False for a shape the int8 GEMM refuses (gemm_plan).
+inline bool rowquant_gemm_plan(int m, int n, int k, RowquantGemmPlan* p) {
+  GemmPlan g;
+  if (!gemm_plan(m, n, k, 1, &g)) return false;
+  *p = RowquantGemmPlan{};
+  const long long row_tiles = ((long long)m + kRqRows - 1) / kRqRows;
+  if (n % kRqCols || n / kRqCols > kRqMaxCluster || row_tiles > 65535) return true;
+  p->fused = 1;
+  p->cluster = n / kRqCols;
+  p->rows = kRqRows;
+  p->cols = kRqCols;
+  p->stages = kRqStages;
+  p->smem = kRqStages * (kRqRows + kRqCols) * kGemmRowBytes + kGemmSmemAlign;
+  p->grid_x = p->cluster;
+  p->grid_y = (int)row_tiles;
+  p->threads = kRqThreads;
+  return true;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// Every thread of every block of the cluster arrives; the wait returns once
+// all have. The arrive releases and the wait acquires (their default
+// semantics): shared-memory writes before the arrive, to this block's
+// shared memory or a peer's, are seen by reads after the wait. The relaxed
+// arrive orders nothing: its wait only says that every block has started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// Stores v at this block's shared address `p` in block `rank` of the cluster.
+__device__ __forceinline__ void st_cluster_f32(float* p, uint32_t rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+// The consumer warpgroups alone (the producer warp does not take part).
+__device__ __forceinline__ void rowquant_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kRqColGroups) : "memory");
+}
+
+// Fin: fields row_scale, col_scale, bias, m and n, and finish(acc,
+// row_scale[row], col_scale[col], bias[col]) -> f32 (Int8Epilogue<float,
+// kGelu> of int8_common.cuh). q (m, n) int8, qs (m,).
+template <typename Fin>
+__global__ void __launch_bounds__(kRqThreads, 1)
+    gemm_wgmma_s8_rowquant_kernel(const __grid_constant__ CUtensorMap map_a,
+                                  const __grid_constant__ CUtensorMap map_b, int k_steps,
+                                  Fin fin, int8_t* __restrict__ q, float* __restrict__ qs) {
+  __shared__ __align__(16) float col_scale[kRqCols];
+  __shared__ __align__(16) float col_bias[kRqCols];
+  __shared__ float group_max[kRqColGroups][kRqRows];
+  __shared__ float row_max[kRqMaxCluster][kRqRows];  // [block of the cluster][row]
+  extern __shared__ uint8_t gemm_smem[];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kRqRows, n0 = blockIdx.x * kRqCols;
+  cluster_arrive_relaxed();  // its wait, before the first push, says all blocks started
+  if (tid < kRqCols / 4) {   // visible once the products' first barrier has passed
+    reinterpret_cast<float4*>(col_scale)[tid] =
+        reinterpret_cast<const float4*>(fin.col_scale + n0)[tid];
+    reinterpret_cast<float4*>(col_bias)[tid] = reinterpret_cast<const float4*>(fin.bias + n0)[tid];
+  }
+  int d[64];
+  const bool consumer =
+      gemm_wgmma_mainloop<int8_t, 1, kRqColGroups, kRqStages>(&map_a, &map_b, k_steps, m0, n0, d);
+  const int group = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+  const int lr = 16 * w + lane / 4;  // the thread's rows: lr and lr + 8 of the block
+  const int lc = group * kGemmTileN + 2 * (lane % 4);  // its first column in the block
+  const uint32_t rank = cluster_rank(), blocks = cluster_blocks();
+  float amax[2] = {0.f, 0.f};
+  if (consumer) {
+    float rs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + lr + 8 * h;
+      rs[h] = r < fin.m ? fin.row_scale[r] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kGemmTileN / 8; ++i) {
+      // the pair of columns this thread holds in slice i, for both its rows
+      const float2 cs = *reinterpret_cast<const float2*>(&col_scale[lc + 8 * i]);
+      const float2 cb = *reinterpret_cast<const float2*>(&col_bias[lc + 8 * i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = fin.finish(d[4 * i + 2 * h], rs[h], cs.x, cb.x);
+        const float v1 = fin.finish(d[4 * i + 2 * h + 1], rs[h], cs.y, cb.y);
+        d[4 * i + 2 * h] = __float_as_int(v0);
+        d[4 * i + 2 * h + 1] = __float_as_int(v1);
+        amax[h] = fmaxf(amax[h], fmaxf(fabsf(v0), fabsf(v1)));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the four lanes of a quad hold one row
+      amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], 1));
+      amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], 2));
+      if (lane % 4 == 0) group_max[group][lr + 8 * h] = amax[h];
+    }
+    rowquant_consumers_sync();  // also: every warpgroup's products are done, the ring idle
+  }
+  __syncwarp();
+  cluster_wait();  // every block of the cluster has started: its shared memory is there
+  if (consumer && group == 0 && lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float a = group_max[0][lr + 8 * h];
+#pragma unroll
+      for (int g = 1; g < kRqColGroups; ++g) a = fmaxf(a, group_max[g][lr + 8 * h]);
+      for (uint32_t b = 0; b < blocks; ++b) st_cluster_f32(&row_max[rank][lr + 8 * h], b, a);
+    }
+  }
+  __syncwarp();
+  cluster_arrive();  // this block's maxima pushed to every block
+  cluster_wait();    // every block's maxima here; no peer writes here any more
+  if (!consumer) return;
+  uint8_t* staged =
+      gemm_smem + ((smem_u32(gemm_smem) + kGemmSmemAlign - 1) & ~(uint32_t)(kGemmSmemAlign - 1)) -
+      smem_u32(gemm_smem);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float a = row_max[0][lr + 8 * h];
+    for (uint32_t b = 1; b < blocks; ++b) a = fmaxf(a, row_max[b][lr + 8 * h]);
+    const float s = __fdiv_rn(fmaxf(a, 1e-12f), 127.f);
+#pragma unroll
+    for (int i = 0; i < kGemmTileN / 8; ++i) {
+      char2 pair;
+      pair.x = (signed char)__float2int_rn(__fdiv_rn(__int_as_float(d[4 * i + 2 * h]), s));
+      pair.y = (signed char)__float2int_rn(__fdiv_rn(__int_as_float(d[4 * i + 2 * h + 1]), s));
+      *reinterpret_cast<char2*>(staged + (lr + 8 * h) * kRqStagedRow + lc + 8 * i) = pair;
+    }
+    const int r = m0 + lr + 8 * h;
+    if (rank == 0 && group == 0 && lane % 4 == 0 && r < fin.m) qs[r] = s;
+  }
+  rowquant_consumers_sync();
+  // the block's int8 tile, 16 bytes a thread, whole rows of 512 bytes a warp
+#pragma unroll
+  for (int c = tid; c < kRqRows * (kRqCols / 16); c += 128 * kRqColGroups) {
+    const int row = c / (kRqCols / 16), col = 16 * (c % (kRqCols / 16));
+    if (m0 + row < fin.m) {
+      *reinterpret_cast<uint4*>(q + (size_t)(m0 + row) * fin.n + n0 + col) =
+          *reinterpret_cast<const uint4*>(staged + row * kRqStagedRow + col);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -428,6 +664,67 @@ int launch_gemm_wgmma(const In* a, const In* bt, int k, const Epi& epi, cudaStre
   if (p.rows == 256) return launch_gemm_wgmma_as<In, 4>(ma, mb, k_steps, epi, p, st);
   return p.rows == 128 ? launch_gemm_wgmma_as<In, 2>(ma, mb, k_steps, epi, p, st)
                        : launch_gemm_wgmma_as<In, 1>(ma, mb, k_steps, epi, p, st);
+}
+
+// The launch of the fused stage on the plan's cluster. IRT_BAD_ARGS for a
+// shape whose plan takes the two-launch route: the caller follows the plan,
+// and nothing falls back from one route to the other. A cluster the card
+// cannot schedule fails the launch.
+inline cudaLaunchConfig_t rowquant_launch_config(const RowquantGemmPlan& p, cudaStream_t st,
+                                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid_x, p.grid_y);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename Fin>
+int launch_gemm_s8_rowquant(const int8_t* a, const int8_t* bt, int k, const Fin& fin,
+                            int8_t* q, float* qs, cudaStream_t st) {
+  RowquantGemmPlan p;
+  if (!rowquant_gemm_plan(fin.m, fin.n, k, &p) || !p.fused) return IRT_BAD_ARGS;
+  if ((uintptr_t)a % 16 || (uintptr_t)bt % 16) return IRT_BAD_ARGS;
+  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap ma, mb;
+  if (!encode_operand(&ma, a, fin.m, k, p.rows) ||
+      !encode_operand(&mb, bt, fin.n, k, kGemmTileN)) {
+    return IRT_BAD_ARGS;
+  }
+  const int k_steps = (k + kGemmRowBytes - 1) / kGemmRowBytes;
+  void (*kernel)(const CUtensorMap, const CUtensorMap, int, Fin, int8_t*, float*) =
+      gemm_wgmma_s8_rowquant_kernel<Fin>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = rowquant_launch_config(p, st, &attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, ma, mb, k_steps, fin, q, qs);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of the fused stage the card holds at once for this
+// shape (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+template <typename Fin>
+int rowquant_max_clusters(int m, int n, int k) {
+  RowquantGemmPlan p;
+  if (!rowquant_gemm_plan(m, n, k, &p) || !p.fused) return -IRT_BAD_ARGS;
+  void (*kernel)(const CUtensorMap, const CUtensorMap, int, Fin, int8_t*, float*) =
+      gemm_wgmma_s8_rowquant_kernel<Fin>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = rowquant_launch_config(p, nullptr, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
 }
 
 // Two neighbouring outputs of one row, as one 4-byte (bf16) or 8-byte (f32)

@@ -10,17 +10,21 @@
 // the serving batches (256 images of 50 tokens, 64 texts of 77) that is
 // 181 G and 31 G operations against ~2 us of weight traffic at 3.35 TB/s,
 // so the layer is bound by operations (tensor-core rate), and at small
-// batches by launch latency and the serial chain of nine launches. The TPU
+// batches by launch latency and the serial chain of eight launches. The TPU
 // design (all layer weights resident in VMEM across the image grid) does
 // not transfer: 7 MB is ~30x one SM's 227 KB of shared memory.
 //
 // What the design does about it. The chain of int8_common.cuh: the
-// attention sub-block's five launches, then the MLP sub-block's four, with
-// the mid-layer activation x1 kept in the workspace. The attention of
-// block_common.cuh keeps an (image, head)'s K and V in shared memory and
-// the score rows in registers (bf16) or tiles the query rows (f32), so
-// T = 197 and 257 run. The GEMMs are gemm_sm90.cuh's (wgmma fed by TMA);
-// fusing the chain is later work.
+// attention sub-block's five launches, then the MLP sub-block's three (four
+// where no cluster covers the hidden row), with the mid-layer activation x1
+// kept in the workspace. The row passes (LayerNorm and rowquant) take a
+// warp per row. The attention of block_common.cuh keeps an (image, head)'s
+// K and V in shared memory and the score rows in registers (bf16) or tiles
+// the query rows (f32), so T = 197 and 257 run. The GEMMs are
+// gemm_sm90.cuh's (wgmma fed by TMA); fc1, quick_gelu and the
+// requantization of the hidden rows are one clustered launch, so the f32
+// hidden rows never reach device memory. Fusing the rest of the chain is
+// later work.
 
 #include "layer_block_int8.cuh"
 

@@ -16,15 +16,19 @@
 // shared memory, so the TPU design (both matrices resident in VMEM across
 // the image grid) does not transfer.
 //
-// What the design does about it. Four launches of int8_common.cuh's
-// kernels: LN + rowquant, the fc1 GEMM with quick_gelu in f32 in its
-// epilogue, a rowquant over the f32 hidden rows (16 KB of shared memory per
-// row at hidden 4096), and the fc2 GEMM with the residual add in its
-// epilogue. Both GEMMs are gemm_sm90.cuh's int8 form: wgmma m64n128k32 with
-// int32 sums, fed by TMA through a shared-memory ring, a producer warp and
-// one consumer warpgroup per 64 rows. The f32 hidden activation (m x hidden
-// x 4 bytes) is the largest intermediate and passes through device memory;
-// fusing the requantization into fc1's epilogue is later work.
+// What the design does about it. Three launches of int8_common.cuh's
+// kernels: LN + rowquant (a warp per row), fc1 with quick_gelu in f32 and
+// the requantization in its epilogue, and the fc2 GEMM with the residual
+// add in its epilogue. fc2 is gemm_sm90.cuh's int8 GEMM: wgmma m64n128k32
+// with int32 sums, fed by TMA through a shared-memory ring, a producer warp
+// and one consumer warpgroup per 64 rows. fc1 is its clustered form: blocks
+// of 64 rows x 512 columns, hidden / 512 of them in a thread block cluster,
+// exchange their rows' |max| through distributed shared memory, so that the
+// f32 hidden activation (m x hidden x 4 bytes, the largest intermediate)
+// never reaches device memory; only its int8 rows and their scales do. A
+// hidden width no cluster covers (not a multiple of 512, or above 4,096)
+// takes four launches, the f32 rows passing through the workspace
+// (rowquant_gemm_plan says which).
 
 #include "mlp_block_int8.cuh"
 

@@ -185,6 +185,14 @@ def load_library() -> ctypes.CDLL:
             lib.irt_gemm_bf16.restype = i
             lib.irt_gemm_s8.argtypes = [p] * 7 + [i] * 5 + [p]
             lib.irt_gemm_s8.restype = i
+            lib.irt_rowquant_gemm_plan.argtypes = [i, i, i, p]
+            lib.irt_rowquant_gemm_plan.restype = i
+            lib.irt_rowquant_gemm_max_clusters.argtypes = [i, i, i]
+            lib.irt_rowquant_gemm_max_clusters.restype = i
+            lib.irt_gemm_s8_gelu_rowquant.argtypes = [p] * 8 + [i] * 3 + [p]
+            lib.irt_gemm_s8_gelu_rowquant.restype = i
+            lib.irt_ln_rowquant.argtypes = [p] * 5 + [i] * 4 + [p]
+            lib.irt_ln_rowquant.restype = i
             lib.irt_error_string.argtypes = [i]
             lib.irt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -62,7 +62,10 @@ CUDA tensor and runs its ``*_reference`` for a CPU tensor; none falls back
 from the card to the plain version. Weight matrices are kept output-major
 ((N, K), K contiguous) because that is the operand layout of the kernels'
 GEMM (``wgmma``, which takes 8-bit operands K-major only). ``gemm_bf16`` and
-``gemm_s8`` run that GEMM alone, with ``gemm_plan`` its launch plan.
+``gemm_s8`` run that GEMM alone, with ``gemm_plan`` its launch plan. The int8
+MLP's fc1 -> quick_gelu -> rowquant is one clustered launch of it where
+``rowquant_gemm_plan`` says so (``gemm_s8(..., "gelu_rowquant")`` alone), and
+``ln_rowquant`` is the int8 chains' row pass alone.
 """
 
 from __future__ import annotations
@@ -569,6 +572,84 @@ def gemm_plan(m: int, n: int, k: int, dtype: torch.dtype) -> GemmPlan:
                     None)
 
 
+# The launch plan of fc1 -> quick_gelu -> rowquant as one clustered GEMM,
+# mirrored from csrc/gemm_sm90.cuh (irt_rowquant_gemm_plan answers the same;
+# tests/test_torch_gpu.py holds them equal). The int8 MLP halves (K1, K2b)
+# and gemm_s8(..., "gelu_rowquant") follow it.
+ROWQUANT_GEMM_ROUTES = ("fused", "two launches")
+_RQ_ROWS, _RQ_COLS, _RQ_STAGES, _RQ_MAX_CLUSTER = 64, 512, 3, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class RowquantGemmPlan:
+    route: str               # "fused": one clustered launch; "two launches": the
+                             # GEMM writing f32 rows, then a rowquant launch
+    why: str                 # why the shape takes that route
+    cluster: int             # blocks of a cluster, N / 512 (0 on the two-launch route)
+    rows: int                # rows of a block (64)
+    cols: int                # columns of a block (512: four warpgroups of 128)
+    stages: int              # depth of the shared-memory ring of TMA loads
+    smem_bytes: int          # dynamic shared memory of one block
+    grid: Tuple[int, int]    # (cluster, row tiles)
+    threads: int             # four consumer warpgroups and one producer warp
+    refused: str | None      # why the int8 GEMM does not take the shape
+
+
+@functools.lru_cache(maxsize=1024)
+def rowquant_gemm_plan(m: int, n: int, k: int) -> RowquantGemmPlan:
+    """How the int8 MLP computes rowquant(quick_gelu(fc1)) for m rows of k
+    values into n hidden columns. The absmax of a row spans all n columns,
+    so the blocks of 64 rows x 512 columns that share a row tile form a
+    thread block cluster of n / 512 blocks, which exchange their rows' |max|
+    in distributed shared memory: one launch, no f32 row in device memory.
+    Where no portable cluster (at most 8 blocks) covers a row, or the rows
+    need more than 65535 row tiles, the plan takes two launches: the GEMM
+    writing f32, then the rowquant pass. Both give the same bits."""
+    refused = gemm_plan(m, n, k, torch.int8).refused
+    if refused is not None:
+        return RowquantGemmPlan("", "", 0, 0, 0, 0, 0, (0, 0), 0, refused)
+    two = functools.partial(RowquantGemmPlan, "two launches", cluster=0, rows=0, cols=0,
+                            stages=0, smem_bytes=0, grid=(0, 0), threads=0, refused=None)
+    if n % _RQ_COLS:
+        return two(f"N = {n} is not a multiple of the {_RQ_COLS} columns of a block")
+    if n // _RQ_COLS > _RQ_MAX_CLUSTER:
+        return two(f"N = {n} needs a cluster of {n // _RQ_COLS} blocks, more than the "
+                   f"{_RQ_MAX_CLUSTER} of a portable cluster")
+    row_tiles = -(-m // _RQ_ROWS)
+    if row_tiles > 65535:
+        return two(f"M = {m} needs more than 65535 row tiles of {_RQ_ROWS}")
+    cluster = n // _RQ_COLS
+    return RowquantGemmPlan(
+        "fused", f"a cluster of {cluster} blocks of {_RQ_ROWS} x {_RQ_COLS} covers the {n} "
+        f"columns of a row tile", cluster, _RQ_ROWS, _RQ_COLS, _RQ_STAGES,
+        _RQ_STAGES * (_RQ_ROWS + _RQ_COLS) * _GEMM_ROW_BYTES + _GEMM_ALIGN,
+        (cluster, row_tiles), 128 * (_RQ_COLS // _GEMM_TILE_N) + 32, None)
+
+
+# The chains' workspaces, mirrored from csrc/int8_common.cuh (carve_attn,
+# carve_mlp: 256-byte aligned pieces). The MLP half holds the f32 hidden
+# rows only on the two-launch route of rowquant_gemm_plan.
+def _align256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def attention_block_int8_workspace_bytes(m: int, w: int, elem_bytes: int) -> int:
+    mw = m * w
+    return (2 * _align256(mw) + 2 * _align256(4 * m) + _align256(3 * mw * elem_bytes)
+            + _align256(mw * elem_bytes))
+
+
+def mlp_block_int8_workspace_bytes(m: int, w: int, hidden: int) -> int:
+    f32_rows = 0 if rowquant_gemm_plan(m, hidden, w).route == "fused" else 4 * m * hidden
+    return (_align256(m * w) + 2 * _align256(4 * m) + _align256(m * hidden)
+            + _align256(f32_rows))
+
+
+def layer_block_int8_workspace_bytes(m: int, w: int, hidden: int, elem_bytes: int) -> int:
+    return (attention_block_int8_workspace_bytes(m, w, elem_bytes)
+            + _align256(m * w * elem_bytes) + mlp_block_int8_workspace_bytes(m, w, hidden))
+
+
 def _run(fn, lib, device, call):
     """`call(stream)` on PyTorch's current stream of `device`; raises on a
     refused launch, counts an accepted one."""
@@ -596,8 +677,8 @@ def _layer_block_int8_cuda(x, weights, heads, causal):
     lib = load_library()
     hd = _check_attention_shape(fn, t, w, heads, x.dtype)
     out = torch.empty_like(x)
-    ws = _workspace(lib.irt_layer_block_int8_workspace_bytes(
-        b * t, w, hidden, x.element_size()), x.device)
+    ws = _workspace(layer_block_int8_workspace_bytes(b * t, w, hidden, x.element_size()),
+                    x.device)
     _run(layer_block_int8, lib, x.device, lambda stream: lib.irt_layer_block_int8(
         x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
         ws.data_ptr(), b, t, w, hidden, heads, int(bool(causal)),
@@ -633,8 +714,8 @@ def _attention_block_int8_cuda(x, weights, heads, causal):
     lib = load_library()
     hd = _check_attention_shape(fn, t, w, heads, x.dtype)
     out = torch.empty_like(x)
-    ws = _workspace(lib.irt_attention_block_int8_workspace_bytes(
-        b * t, w, x.element_size()), x.device)
+    ws = _workspace(attention_block_int8_workspace_bytes(b * t, w, x.element_size()),
+                    x.device)
     _run(attention_block_int8, lib, x.device, lambda stream: lib.irt_attention_block_int8(
         x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
         ws.data_ptr(), b, t, w, heads, int(bool(causal)), _DTYPE_CODES[x.dtype],
@@ -668,7 +749,7 @@ def _mlp_block_int8_cuda(x, weights):
     _check_gemm_dims(fn, w, hidden)
     lib = load_library()
     out = torch.empty_like(x)
-    ws = _workspace(lib.irt_mlp_block_int8_workspace_bytes(b * t, w, hidden), x.device)
+    ws = _workspace(mlp_block_int8_workspace_bytes(b * t, w, hidden), x.device)
     _run(mlp_block_int8, lib, x.device, lambda stream: lib.irt_mlp_block_int8(
         x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in weights.tensors()),
         ws.data_ptr(), b * t, w, hidden, _DTYPE_CODES[x.dtype], stream))
@@ -688,6 +769,59 @@ def mlp_block_int8(x: torch.Tensor, weights: Int8MlpWeights) -> torch.Tensor:
 
 
 mlp_block_int8.launches = 0
+
+
+def ln_rowquant_reference(x: torch.Tensor, ln_s: torch.Tensor | None = None,
+                          ln_b: torch.Tensor | None = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the row pass, on x's device: rowquant of
+    fast_layernorm_f32(x) (or of x in f32), with (m,) row scales."""
+    require_full_f32(x.device)
+    xf = x.float()
+    q, s = rowquant(xf if ln_s is None else fast_layernorm_f32(xf, ln_s, ln_b))
+    return q, s.reshape(-1)
+
+
+def _ln_rowquant_cuda(x, ln_s, ln_b):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "ln_rowquant"
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} kernel takes bfloat16 or float32, got {x.dtype}")
+    if x.dim() != 2 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{fn} kernel takes a contiguous, 16-byte aligned (m, width) x")
+    m, width = x.shape
+    _check_gemm_dims(fn, width)
+    if ln_s is not None:
+        for name, v in (("ln_s", ln_s), ("ln_b", ln_b)):
+            _check_tensor(fn, name, v, (width,), torch.float32, x.device)
+    lib = load_library()
+    q = torch.empty((m, width), dtype=torch.int8, device=x.device)
+    qs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    _run(ln_rowquant, lib, x.device, lambda stream: lib.irt_ln_rowquant(
+        x.data_ptr(), None if ln_s is None else ln_s.data_ptr(),
+        None if ln_b is None else ln_b.data_ptr(), q.data_ptr(), qs.data_ptr(), m, width,
+        _DTYPE_CODES[x.dtype], int(ln_s is not None), stream))
+    return q, qs
+
+
+def ln_rowquant(x: torch.Tensor, ln_s: torch.Tensor | None = None,
+                ln_b: torch.Tensor | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 chains' row pass alone, for tests and timing: (m, width) x in
+    bf16 or f32 -> rowquant(fast_layernorm_f32(x)) with ln_s and ln_b, else
+    rowquant(x): (int8 (m, width), f32 (m,) row scales). CUDA: the warp-per-row
+    kernel of csrc/int8_common.cuh (or this raises); CPU: the plain version.
+    ``ln_rowquant.launches`` counts kernel launches."""
+    if (ln_s is None) != (ln_b is None):
+        raise ValueError("ln_rowquant: give both LayerNorm parameters or neither")
+    if x.device.type == "cuda":
+        return _ln_rowquant_cuda(x, ln_s, ln_b)
+    if x.device.type == "cpu":
+        return ln_rowquant_reference(x, ln_s, ln_b)
+    raise ValueError(f"ln_rowquant: unsupported device {x.device}")
+
+
+ln_rowquant.launches = 0
 
 
 def _quant_dense_cuda(x, w_t, w_s, bias, out_dtype):
@@ -774,6 +908,9 @@ tiled_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 GEMM_EPILOGUES = ("bias", "gelu", "residual")
+# gemm_s8 only: quick_gelu in f32, then each row requantized to int8 with its
+# f32 scale (the int8 MLP's fc1 stage, rowquant_gemm_plan)
+GELU_ROWQUANT = "gelu_rowquant"
 
 
 def _gelu_f32(v: torch.Tensor) -> torch.Tensor:
@@ -806,7 +943,12 @@ def gemm_s8_reference(a: torch.Tensor, bt: torch.Tensor, row_scale: torch.Tensor
     bias (n,), in f32 (_int8_proj's order), then the cast ("bias"), quick_gelu
     in f32 and the cast ("gelu"), or the cast and residual + it in out_dtype
     ("residual"). The same correctly rounded f32 operations as the kernel's
-    epilogue, in its order."""
+    epilogue, in its order. "gelu_rowquant" (out_dtype int8) is "gelu" in f32
+    followed by rowquant: (int8 (m, n), f32 (m,) row scales)."""
+    if epilogue == GELU_ROWQUANT:
+        gq, gs = rowquant(gemm_s8_reference(a, bt, row_scale, col_scale, bias, torch.float32,
+                                            "gelu"))
+        return gq, gs.reshape(-1)
     acc = a.to(torch.float64) @ bt.to(torch.float64).t()
     v = acc.to(torch.float32) * row_scale.reshape(-1, 1) * col_scale + bias
     if epilogue == "gelu":
@@ -849,9 +991,8 @@ def gemm_bf16_agreement(got: torch.Tensor, a: torch.Tensor, bt: torch.Tensor,
             "ok": bool(torch.isfinite(got).all()) and ratio <= 1.0}
 
 
-def _check_gemm_call(fn: str, a, bt, dtype, epilogue, residual, out_dtype, out):
-    """Shapes, dtypes and placement of one GEMM call; returns (m, n, k, the
-    epilogue's code, out)."""
+def _check_gemm_operands(fn: str, a, bt, dtype):
+    """Shapes, dtypes and placement of one GEMM's operands; returns (m, n, k)."""
     if a.dtype != dtype or bt.dtype != dtype:
         raise TypeError(f"{fn} takes {dtype} operands, got {a.dtype} and {bt.dtype}")
     if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1]:
@@ -863,6 +1004,13 @@ def _check_gemm_call(fn: str, a, bt, dtype, epilogue, residual, out_dtype, out):
     plan = gemm_plan(m, n, k, dtype)
     if plan.refused is not None:
         raise ValueError(f"{fn}: {plan.refused}")
+    return m, n, k
+
+
+def _check_gemm_call(fn: str, a, bt, dtype, epilogue, residual, out_dtype, out):
+    """Shapes, dtypes and placement of one GEMM call; returns (m, n, k, the
+    epilogue's code, out)."""
+    m, n, k = _check_gemm_operands(fn, a, bt, dtype)
     if epilogue not in GEMM_EPILOGUES:
         raise ValueError(f"{fn}: epilogue {epilogue!r} is not one of {GEMM_EPILOGUES}")
     if (epilogue == "residual") != (residual is not None):
@@ -908,10 +1056,36 @@ def gemm_bf16(a: torch.Tensor, bt: torch.Tensor, bias: torch.Tensor, epilogue: s
 gemm_bf16.launches = 0
 
 
+def _gemm_s8_rowquant_cuda(a, bt, row_scale, col_scale, bias, residual, out):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "gemm_s8"
+    if residual is not None or out is not None:
+        raise ValueError(f"{fn}: the {GELU_ROWQUANT!r} epilogue returns its int8 rows and "
+                         f"their scales, and takes no residual and no out")
+    m, n, k = _check_gemm_operands(fn, a, bt, torch.int8)
+    _check_tensor(fn, "row_scale", row_scale, (m,), torch.float32, a.device)
+    for name, v in (("col_scale", col_scale), ("bias", bias)):
+        _check_tensor(fn, name, v, (n,), torch.float32, a.device)
+    lib = load_library()
+    # the f32 rows pass through device memory on the two-launch route only
+    ws = None if rowquant_gemm_plan(m, n, k).route == "fused" else _workspace(4 * m * n,
+                                                                              a.device)
+    gq = torch.empty((m, n), dtype=torch.int8, device=a.device)
+    gs = torch.empty((m,), dtype=torch.float32, device=a.device)
+    _run(gemm_s8, lib, a.device, lambda stream: lib.irt_gemm_s8_gelu_rowquant(
+        a.data_ptr(), bt.data_ptr(), row_scale.data_ptr(), col_scale.data_ptr(),
+        bias.data_ptr(), None if ws is None else ws.data_ptr(), gq.data_ptr(), gs.data_ptr(),
+        m, n, k, stream))
+    return gq, gs
+
+
 def _gemm_s8_cuda(a, bt, row_scale, col_scale, bias, out_dtype, epilogue, residual, out):
     from image_retrieval_tpu_torch.ops._build import load_library
 
     fn = "gemm_s8"
+    if epilogue == GELU_ROWQUANT:
+        return _gemm_s8_rowquant_cuda(a, bt, row_scale, col_scale, bias, residual, out)
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"{fn} writes bfloat16 or float32, got {out_dtype}")
     m, n, k, ep, out = _check_gemm_call(fn, a, bt, torch.int8, epilogue, residual,
@@ -934,8 +1108,13 @@ def gemm_s8(a: torch.Tensor, bt: torch.Tensor, row_scale: torch.Tensor,
     """The int8 GEMM of the int8 chains alone: a (m, k) int8, bt (n, k) int8,
     row_scale (m,), col_scale (n,), bias (n,) f32 -> (m, n) in out_dtype
     (bf16 or f32) by `epilogue` (gemm_s8_reference), into `out` if given.
-    CUDA: the wgmma kernel (or this raises); CPU: the plain version.
-    ``gemm_s8.launches`` counts kernel launches."""
+    With epilogue "gelu_rowquant" and out_dtype int8: the int8 MLP's fc1
+    stage, returning (int8 (m, n), f32 (m,) row scales) by the route of
+    rowquant_gemm_plan. CUDA: the wgmma kernel (or this raises); CPU: the
+    plain version. ``gemm_s8.launches`` counts wrapper calls that launched."""
+    if epilogue == GELU_ROWQUANT and out_dtype != torch.int8:
+        raise ValueError(f"gemm_s8: the {GELU_ROWQUANT!r} epilogue writes int8, not "
+                         f"{out_dtype}")
     if a.device.type == "cuda":
         return _gemm_s8_cuda(a, bt, row_scale, col_scale, bias, out_dtype, epilogue,
                              residual, out)

@@ -345,6 +345,183 @@ def test_gemm_bf16_kernel_within_the_float64_limit(cuda, m, n, k):
         assert agree["ok"], (epilogue, agree)
 
 
+# ---------------------------------------------------------------------------
+# fc1 -> quick_gelu -> rowquant as one clustered GEMM, and the row pass
+# ---------------------------------------------------------------------------
+
+# (n, k): the main path's hidden widths with their K (B/32 text, B/32 vision
+# and L/14 text, L/14 vision), then widths that take the two-launch route
+ROWQUANT_NK = [(2048, 512), (3072, 768), (4096, 1024), (256, 64), (640, 128), (5120, 1280)]
+
+
+def test_rowquant_gemm_plan_matches_the_kernel(cuda):
+    """ops/flash_attention.py::rowquant_gemm_plan is irt_rowquant_gemm_plan:
+    route, cluster, tile, stages, shared memory, grid and threads, the same
+    shapes refused; the workspace mirrors are the C functions; and the card
+    holds at least one cluster of every fused main-path shape."""
+    import ctypes
+
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    got = (ctypes.c_int * 9)()
+    for m in (0, 1, 63, 64, 65, 616, 4928, 12800, 32896, 65535 * 64, 65535 * 64 + 1):
+        for n in (0, 96, 256, 512, 640, 1024, 2048, 3072, 4096, 4608, 5120):
+            for k in (0, 64, 100, 512, 768, 1024):
+                plan = fa.rowquant_gemm_plan(m, n, k)
+                rc = lib.irt_rowquant_gemm_plan(m, n, k, got)
+                case = (m, n, k)
+                assert (rc != 0) == (plan.refused is not None), case
+                if rc:
+                    continue
+                fused = plan.route == "fused"
+                assert tuple(got) == (int(fused), plan.cluster, plan.rows, plan.cols, plan.stages,
+                                      plan.smem_bytes, *plan.grid, plan.threads), case
+    for m in (1, 65, 616, 12800, 32896):
+        for w, hidden in ((64, 256), (512, 2048), (768, 3072), (1024, 4096), (1280, 5120)):
+            for eb in (2, 4):
+                assert lib.irt_layer_block_int8_workspace_bytes(m, w, hidden, eb) == \
+                    fa.layer_block_int8_workspace_bytes(m, w, hidden, eb)
+                assert lib.irt_attention_block_int8_workspace_bytes(m, w, eb) == \
+                    fa.attention_block_int8_workspace_bytes(m, w, eb)
+            assert lib.irt_mlp_block_int8_workspace_bytes(m, w, hidden) == \
+                fa.mlp_block_int8_workspace_bytes(m, w, hidden)
+    for n, k in ROWQUANT_NK[:3]:
+        assert lib.irt_rowquant_gemm_max_clusters(32896, n, k) >= 1
+
+
+@pytest.mark.parametrize("m", (1, 63, 65, 4928))
+@pytest.mark.parametrize("n,k", ROWQUANT_NK)
+def test_gelu_rowquant_kernel_matches_plain_bitwise(cuda, m, n, k):
+    """The int32 sums are exact, the finish runs the plain version's f32
+    operations in its order, and a max does not depend on the order of its
+    inputs: the int8 rows and their scales equal rowquant(gemm_s8_reference
+    (..., "gelu", f32)) bit for bit, on the fused route and on the two-launch
+    one alike."""
+    a, bt, rs, cs, bias = _gemm_operands(m, n, k, torch.int8, m + n + k)
+    before = fa.gemm_s8.launches
+    gq, gs = fa.gemm_s8(a, bt, rs, cs, bias, torch.int8, fa.GELU_ROWQUANT)
+    wq, ws = fa.gemm_s8_reference(a, bt, rs, cs, bias, torch.int8, fa.GELU_ROWQUANT)
+    torch.cuda.synchronize()
+    assert fa.gemm_s8.launches == before + 1
+    assert gq.dtype == torch.int8 and torch.equal(gq, wq), fa.rowquant_gemm_plan(m, n, k).route
+    assert gs.shape == (m,) and torch.equal(gs, ws)
+
+
+def test_gelu_rowquant_zero_rows_and_one_large_column(cuda):
+    """Rows of zeros (the 1e-12 floor of the scale) and rows whose absmax
+    sits in one block of the cluster (a large column in the fourth of six),
+    bit for bit."""
+    m, n, k = 130, 3072, 768
+    a, bt, rs, cs, bias = _gemm_operands(m, n, k, torch.int8, 7)
+    a[::3] = 0
+    bias = torch.zeros_like(bias)
+    cs = cs.clone()
+    cs[2000] *= 50
+    gq, gs = fa.gemm_s8(a, bt, rs, cs, bias, torch.int8, fa.GELU_ROWQUANT)
+    wq, ws = fa.gemm_s8_reference(a, bt, rs, cs, bias, torch.int8, fa.GELU_ROWQUANT)
+    torch.cuda.synchronize()
+    assert torch.equal(gq, wq) and torch.equal(gs, ws)
+    assert float(gs[0]) == float(torch.tensor(1e-12) / torch.tensor(127.0))
+
+
+# The row pass at the widths of the layers (64 in tests; 512, 768, 1024 in
+# the presets), at widths that are not a multiple of a warp's 16-byte vectors
+# (192, 320, 832) and at rows of several warps (4160, 12288: quant_dense's K
+# and the two-launch route's hidden rows).
+ROW_WIDTHS = (64, 192, 320, 512, 768, 832, 1024, 4160, 12288)
+
+
+@pytest.mark.parametrize("width", ROW_WIDTHS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_pass_matches_plain(cuda, width, dtype):
+    """rowquant alone is bit for bit (the same correctly rounded division and
+    the same max); with the LayerNorm the f32 sums run in another order than
+    torch's mean, so a value on an int8 rounding boundary may land one level
+    away: at most one level, on at most 0.1 % of the elements, and row scales
+    within 2^-20 of each other (readings: none of either at these sizes)."""
+    rng = np.random.default_rng(width)
+    m = 77
+    x = _x(rng, (m, width), cuda, dtype)
+    ln_s = torch.from_numpy(1 + 0.1 * rng.normal(size=width).astype(np.float32)).to(cuda)
+    ln_b = torch.from_numpy(0.1 * rng.normal(size=width).astype(np.float32)).to(cuda)
+    before = fa.ln_rowquant.launches
+    q, qs = fa.ln_rowquant(x, None, None)
+    wq, ws = fa.ln_rowquant_reference(x)
+    torch.cuda.synchronize()
+    assert fa.ln_rowquant.launches == before + 1
+    assert torch.equal(q, wq) and torch.equal(qs, ws)
+    q, qs = fa.ln_rowquant(x, ln_s, ln_b)
+    wq, ws = fa.ln_rowquant_reference(x, ln_s, ln_b)
+    torch.cuda.synchronize()
+    off = (q.int() - wq.int()).abs()
+    assert int(off.max()) <= 1 and float((off > 0).float().mean()) <= 1e-3
+    assert float(((qs - ws).abs() / ws).max()) <= 2.0 ** -20
+
+
+def test_row_pass_writes_nothing_past_its_rows(cuda):
+    """Eight rows a block: the last block's rows past m store nothing."""
+    x = _x(np.random.default_rng(1), (13, 768), cuda, "bfloat16")
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    q = torch.full((16, 768), 7, dtype=torch.int8, device=cuda)
+    s = torch.full((16,), 7.0, device=cuda)
+    want_q, want_s = fa.ln_rowquant_reference(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert load_library().irt_ln_rowquant(x.data_ptr(), None, None, q.data_ptr(), s.data_ptr(),
+                                          13, 768, 0, 0, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(q[:13], want_q) and torch.equal(s[:13], want_s)
+    assert bool((q[13:] == 7).all()) and bool((s[13:] == 7.0).all())
+
+
+# K1, K2a and K2b at the presets' tower shapes (a few images or texts each):
+# the MLP half on the fused route at every hidden width of the presets
+TOWER_SHAPES = [(4, 50, 768, 12, False), (4, 77, 512, 8, True), (2, 257, 1024, 16, False),
+                (4, 77, 768, 12, True)]
+
+
+@pytest.mark.parametrize("b,t,w,heads,causal", TOWER_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("entry", ["layer_block_int8", "attention_block_int8",
+                                   "mlp_block_int8"])
+def test_int8_chains_match_plain_at_the_tower_shapes(cuda, entry, b, t, w, heads, causal,
+                                                     dtype):
+    rng = np.random.default_rng(w + t)
+    wts = _layer_weights(rng, w, cuda)
+    x = _x(rng, (b, t, w), cuda, dtype)
+    if entry == "layer_block_int8":
+        got = fa.layer_block_int8(x, wts, heads, causal)
+        want = fa.layer_block_int8_reference(x, wts, heads, causal)
+    elif entry == "attention_block_int8":
+        got = fa.attention_block_int8(x, wts.attn, heads, causal)
+        want = fa.attention_block_int8_reference(x, wts.attn, heads, causal)
+    else:
+        got = fa.mlp_block_int8(x, wts.mlp)
+        want = fa.mlp_block_int8_reference(x, wts.mlp)
+    torch.cuda.synchronize()
+    r = fa.kernel_agreement(got, want, x)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("b,t,w,heads,causal", [(3, 50, 768, 12, False),
+                                                (3, 77, 512, 8, True),
+                                                (2, 257, 1024, 16, False),
+                                                (3, 13, 64, 2, True)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_subblocks_compose_to_the_layer_kernel_on_both_routes(cuda, b, t, w, heads, causal,
+                                                              dtype):
+    """K2a then K2b equal K1 bit for bit where fc1 is one clustered launch
+    (hidden 2048-4096) and where it is two (hidden 256)."""
+    rng = np.random.default_rng(w)
+    wts = _layer_weights(rng, w, cuda)
+    x = _x(rng, (b, t, w), cuda, dtype)
+    two = fa.mlp_block_int8(fa.attention_block_int8(x, wts.attn, heads, causal), wts.mlp)
+    one = fa.layer_block_int8(x, wts, heads, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(two, one)
+
+
 @pytest.mark.parametrize("m,n", [(1, 64), (63, 192), (65, 64), (400, 192), (129, 1024)])
 def test_gemm_writes_nothing_past_row_m(cuda, m, n):
     """TMA reads whole tiles, zero-filled past M; the epilogue stores rows
