@@ -14,6 +14,11 @@
                                             # (csrc/experiments/rowquant_gemm_variants.cu)
     python3 chip_smoke.py --time-k5         # build, then only K5 (the int8 weighted
                                             # sweep): registers, vs plain, times
+    python3 chip_smoke.py --time-k3         # build, then only K3 and K12 (the int4
+                                            # screen): registers, vs plain, times at
+                                            # Q = 1, 8, 64, a segment's breakdown
+    python3 chip_smoke.py --k3-variants     # the int4 screen's design against the
+                                            # variants it was chosen over, in turns
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
@@ -81,11 +86,17 @@ Phases (any failure exits non-zero):
      oracle computed on the card from the index's host int8 rows, for the
      exact query each search was given; the int4 screen kernel's launch
      counter must show one launch per 2^21-row segment per search. Then the
-     kernel against its plain version on one segment, at Q = 1 and 64. The
-     int8-query screen (K12) on the same segment against its plain version,
-     bit for bit, its times beside K3's; then, counted, one
-     int4_screen_topc(qform="i8") sweep over the 2^23 rows (one K12 launch
-     per segment) whose top-128 is held against the bf16 sweep's by recall.
+     kernel against its plain version on one segment, at Q = 1 and 64, its
+     times beside the plain version's and the bound. The int8-query screen
+     (K12) on the same segment against its plain version, bit for bit, its
+     times beside K3's; then, counted, one int4_screen_topc(qform="i8")
+     sweep over the 2^23 rows (one K12 launch per segment) whose top-128 is
+     held against the bf16 sweep's by recall. --time-k3 runs the screens
+     alone on a seeded segment of the same shape: ptxas's registers and
+     spills of every screen kernel (a spill fails), K3 and K12 against their
+     plain versions at Q = 1, 8 and 64 with their times, device times and
+     bounds, and where a segment's time goes (the screen, the selection
+     segmented_topc runs on its plane, the latency mode's rerank).
   5. the ViT-L/14 slice: CLIPEncoder(serving_config(vit_l14()), seed 0) at
      full width (24 + 12 layers, widths 1024 / 768, embedding 768), on the
      card by default, encodes 64 seeded uint8 images (one batch, padded to
@@ -190,6 +201,7 @@ N4, CHUNK4, PLANTED4, RERANK_C, N_SINGLE = 1 << 23, 1 << 20, 16, 128, 50
 # rows, single searches through TextImageSearcher, images of the tower check.
 N_IMAGES5, ENC_BUCKET5, N5, N_SINGLE5, N_CHECK5 = 64, 128, CHUNK4, 4, 4
 INT4_ORACLE_ATOL = 1e-5  # f32 sums vs float64 int8-exact oracle, same bf16 query
+K3_QUERIES = (1, 8, 64)  # --time-k3: a single query, a few, a SearchServer micro-batch
 LATENCY_ATOL = 1e-6  # latency mode vs capacity mode, same rows and queries
 RECALL_MIN = 0.99  # recall@10 of the two-phase tier vs the oracle's top-10
 # The int8-query screen against the bf16-query screen over the same rows:
@@ -1396,18 +1408,35 @@ def check_clients_got_the_indexs_answers(name, ix, waves):
                 fail(f"{name}: a client's answer is not what the index returned")
 
 
-def kernel_vs_plain_int4(torch, card, index, qu64):
-    """K3 against its plain version on the first 2^21-row segment of the
-    card's packed rows, 1 % of rows invalid, at Q = 1 and Q = 64."""
+def screen_bound(nq, rows, d, i8=False) -> dict:
+    """The least time of one screen launch: 2 Q rows D multiply-adds at the
+    bf16 (K3) or int8 (K12) peak; bytes: the packed rows, their scales and
+    validity, the queries and the f32 score plane, each once."""
+    ops = 2.0 * nq * rows * d
+    nbytes = rows * (d // 2 + 4 + 1) + nq * d * (1 if i8 else 2) + nq * rows * 4
+    return bound(ops if i8 else 0.0, 0.0 if i8 else ops, nbytes)
+
+
+def device_note(t) -> str:
+    """' (device X)' for a timing dict that holds a device time, else ''."""
+    if "device_ms" not in t:
+        return ""
+    ms = t["device_ms"]
+    return f" (device {ms if ms is None else round(ms, 4)})"
+
+
+def screen_vs_plain(torch, card, packed, scales, valid, qu64, counts=(1, 64), device=False):
+    """K3 against its plain version on one segment at each Q of `counts`: the
+    same -inf pattern, scores within SCREEN_MAX_ABS, the same top-128 sets
+    except boundary near-ties; then both timed in turns, beside the bound,
+    and with `device` the kernel's device time (torch.profiler). Returns
+    {nq: {"kernel", "plain", "max_abs_err", "bound_ms", ...}}."""
     from image_retrieval_tpu_torch.ops import int4_screen as k3
     from image_retrieval_tpu_torch.ops.topk import exact_topk_wide
 
-    seg = k3.SEGMENT_ROWS
-    packed, scales = index._packed[:seg], index._scales4[:seg]
-    g = torch.Generator(device="cuda").manual_seed(7)
-    valid = torch.rand(seg, generator=g, device="cuda") >= 0.01
+    seg, d = packed.shape[0], 2 * packed.shape[1]
     out = {}
-    for nq in (1, 64):
+    for nq in counts:
         qu = qu64[:nq].contiguous()
         got = k3.int4_screen_scores(qu, packed, scales, valid)
         want = k3.int4_screen_scores_reference(qu, packed, scales, valid)
@@ -1424,19 +1453,84 @@ def kernel_vs_plain_int4(torch, card, index, qu64):
                 if abs(float(want[r, j] - want_v[r, -1])) > k3.SCREEN_MAX_ABS:
                     fail(f"int4_screen Q={nq}: top-{RERANK_C} differs away from the boundary")
                 swaps += 1
-        del got, want
-        t = time_pair(torch, {
-            "kernel": lambda: k3.int4_screen_scores(qu, packed, scales, valid),
-            "plain": lambda: k3.int4_screen_scores_reference(qu, packed, scales, valid),
-        })
-        print(f"int4_screen kernel-vs-plain Q={nq}, {seg} rows x 512: max_abs_err "
+        del got, want, fin
+        fns = {"kernel": lambda: k3.int4_screen_scores(qu, packed, scales, valid),
+               "plain": lambda: k3.int4_screen_scores_reference(qu, packed, scales, valid)}
+        t = dict(time_pair(torch, fns), **screen_bound(nq, seg, d), max_abs_err=err)
+        if device:
+            t["device_ms"] = device_ms(torch, fns["kernel"])
+        dev = device_note(t)
+        print(f"int4_screen kernel-vs-plain Q={nq}, {seg} rows x {d}: max_abs_err "
               f"{err:.3g} (limit {k3.SCREEN_MAX_ABS}), top-{RERANK_C} sets identical "
-              f"except {swaps} boundary near-ties; kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms [{card}]", flush=True)
+              f"except {swaps} boundary near-ties; kernel {t['kernel']:.4f} ms{dev}, plain "
+              f"{t['plain']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+              f"{100 * t['bound_ms'] / t['kernel']:.1f} % of it) [{card}]", flush=True)
         if not err <= k3.SCREEN_MAX_ABS:
             fail(f"int4_screen Q={nq} disagrees with its plain version")
-        out[nq] = dict(t, max_abs_err=err)
-    out["rows"] = seg
+        out[nq] = t
+        torch.cuda.empty_cache()
+    return out
+
+
+def screen_i8_vs_plain(torch, card, packed, scales, valid, qu64, counts=(1, 64), device=False):
+    """K12, the int8-query screen, on one segment at each Q of `counts`: bit
+    for bit against its plain version; its times beside the plain version's,
+    in turns with K3's, beside its bound, and with `device` its device time."""
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    seg, d = packed.shape[0], 2 * packed.shape[1]
+    out = {}
+    for nq in counts:
+        qu = qu64[:nq].contiguous()
+        q8, _ = k3.quantize_queries_i8(qu)
+        got = k3.int4_screen_scores_i8(q8, packed, scales, valid)
+        want = k3.int4_screen_scores_i8_reference(q8, packed, scales, valid)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        same = torch.equal(got, want)
+        err = float((got[fin] - want[fin]).abs().max())
+        del got, want, fin
+        fns = {"kernel": lambda: k3.int4_screen_scores_i8(q8, packed, scales, valid),
+               "plain": lambda: k3.int4_screen_scores_i8_reference(q8, packed, scales, valid)}
+        t = time_pair(torch, fns, samples=8, reps=2)
+        beside = time_pair(torch, {  # "plain" is K3 here
+            "kernel": fns["kernel"],
+            "plain": lambda: k3.int4_screen_scores(qu, packed, scales, valid)})
+        t = dict(t, **screen_bound(nq, seg, d, i8=True), max_abs_err=err,
+                 k3_ms=beside["plain"], beside_k3_ms=beside["kernel"])
+        if device:
+            t["device_ms"] = device_ms(torch, fns["kernel"])
+        dev = device_note(t)
+        print(f"int4_screen i8 kernel-vs-plain Q={nq}, {seg} rows x {d}: equal bit for bit: "
+              f"{same} (max_abs_err {err:.3g}, limit 0); kernel {t['kernel']:.4f} ms{dev}, "
+              f"plain {t['plain']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+              f"{100 * t['bound_ms'] / t['kernel']:.1f} % of it); in turns with the "
+              f"bf16-query kernel (K3): {beside['kernel']:.4f} vs {beside['plain']:.4f} ms "
+              f"[{card}]", flush=True)
+        if not same:
+            fail(f"int4_screen i8 Q={nq} is not its plain version bit for bit")
+        out[nq] = t
+        torch.cuda.empty_cache()
+    return out
+
+
+def first_segment(torch, index):
+    """The first SEGMENT_ROWS rows of an int4 index on the card, 1 % of them
+    invalid (seeded)."""
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    seg = k3.SEGMENT_ROWS
+    g = torch.Generator(device="cuda").manual_seed(7)
+    valid = torch.rand(seg, generator=g, device="cuda") >= 0.01
+    return index._packed[:seg], index._scales4[:seg], valid
+
+
+def kernel_vs_plain_int4(torch, card, index, qu64):
+    """K3 against its plain version on the first 2^21-row segment of the
+    card's packed rows, 1 % of rows invalid, at Q = 1 and Q = 64."""
+    packed, scales, valid = first_segment(torch, index)
+    out = screen_vs_plain(torch, card, packed, scales, valid, qu64)
+    out["rows"] = packed.shape[0]
     return out
 
 
@@ -1449,35 +1543,7 @@ def kernel_vs_plain_int4_i8(torch, card, index, qu64):
     from image_retrieval_tpu_torch.ops import int4_screen as k3
 
     seg = k3.SEGMENT_ROWS
-    packed, scales = index._packed[:seg], index._scales4[:seg]
-    g = torch.Generator(device="cuda").manual_seed(7)
-    valid = torch.rand(seg, generator=g, device="cuda") >= 0.01
-    out = {}
-    for nq in (1, 64):
-        qu = qu64[:nq].contiguous()
-        q8, _ = k3.quantize_queries_i8(qu)
-        got = k3.int4_screen_scores_i8(q8, packed, scales, valid)
-        want = k3.int4_screen_scores_i8_reference(q8, packed, scales, valid)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(want)
-        same = torch.equal(got, want)
-        err = float((got[fin] - want[fin]).abs().max())
-        del got, want, fin
-        t = time_pair(torch, {
-            "kernel": lambda: k3.int4_screen_scores_i8(q8, packed, scales, valid),
-            "plain": lambda: k3.int4_screen_scores_i8_reference(q8, packed, scales, valid),
-        }, samples=8, reps=2)
-        beside = time_pair(torch, {  # "plain" is K3 here
-            "kernel": lambda: k3.int4_screen_scores_i8(q8, packed, scales, valid),
-            "plain": lambda: k3.int4_screen_scores(qu, packed, scales, valid)})
-        print(f"int4_screen i8 kernel-vs-plain Q={nq}, {seg} rows x 512: equal bit for bit: "
-              f"{same} (max_abs_err {err:.3g}, limit 0); kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms; in turns with the bf16-query kernel (K3): "
-              f"{beside['kernel']:.4f} vs {beside['plain']:.4f} ms [{card}]", flush=True)
-        if not same:
-            fail(f"int4_screen i8 Q={nq} is not its plain version bit for bit")
-        out[nq] = dict(t, max_abs_err=err, k3_ms=beside["plain"], beside_k3_ms=beside["kernel"])
-        torch.cuda.empty_cache()
+    out = screen_i8_vs_plain(torch, card, *first_segment(torch, index), qu64)
     out["rows"] = seg
 
     # ---- the ops-level entry over the whole gallery, counted ---------------
@@ -1504,6 +1570,205 @@ def kernel_vs_plain_int4_i8(torch, card, index, qu64):
     if out["top128"] < I8_TOP128_MIN or out["top10"] < I8_TOP10_MIN or top1 > 5e-3:
         fail("the i8 sweep's candidates left the bf16 sweep's")
     return out
+
+
+def event_ms(torch, fn, samples=11, reps=3, warm=2):
+    """Median ms per call of fn over `samples` runs of `reps` calls between
+    CUDA events, after `warm` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(samples):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        got.append(s.elapsed_time(e) / reps)
+    return float(np.median(got))
+
+
+def seeded_int4_segment(torch, rows=1 << 21, d=512, nq=64, seed=13):
+    """One segment of an int4 gallery on the card as the index quantizes it
+    (unit rows, absmax / 7 grid, values in -7..7, norm-preserving scales),
+    1 % of rows invalid, its int8 rows as the int8 tier holds them (absmax /
+    127, norm-preserving scales), and nq unit bf16 queries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    packed = torch.empty((rows, d // 2), dtype=torch.uint8, device="cuda")
+    scales = torch.empty(rows, dtype=torch.float32, device="cuda")
+    rows8 = torch.empty((rows, d), dtype=torch.int8, device="cuda")
+    scales8 = torch.empty(rows, dtype=torch.float32, device="cuda")
+    for lo in range(0, rows, 1 << 17):
+        x = torch.randn((min(rows, lo + (1 << 17)) - lo, d), generator=gen, device="cuda")
+        x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        amax = x.abs().amax(dim=1, keepdim=True)
+        q4 = torch.clamp(torch.round(x / (amax / 7.0)), -7, 7)
+        u = (q4 + 8).to(torch.uint8)
+        packed[lo:lo + len(x)] = u[:, 0::2] | (u[:, 1::2] << 4)
+        scales[lo:lo + len(x)] = 1.0 / torch.linalg.vector_norm(q4, dim=1)
+        r8 = torch.clamp(torch.round(x / (amax / 127.0)), -127, 127)
+        rows8[lo:lo + len(x)] = r8.to(torch.int8)
+        scales8[lo:lo + len(x)] = 1.0 / torch.linalg.vector_norm(r8, dim=1)
+    valid = torch.rand(rows, generator=gen, device="cuda") >= 0.01
+    q = torch.randn((nq, d), generator=gen, device="cuda")
+    qu = (q / torch.linalg.vector_norm(q, dim=1, keepdim=True)).to(torch.bfloat16)
+    return packed, scales, valid, rows8, scales8, qu
+
+
+def int4_breakdown(torch, card, packed, scales, valid, rows8, scales8, qu64, counts=(1, 64)):
+    """Where a segment's time goes in the int4 tier, at each Q: the screen
+    launch, the selection segmented_topc runs on its plane (wide_candidates
+    and resolve_ties, c = RERANK_C), and per search the latency mode's exact
+    rerank of the c candidates (their int8 rows gathered on the card, as
+    sharded_int4_two_phase_topk does after the screen), each by CUDA events."""
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+    from image_retrieval_tpu_torch.ops.topk import (exact_topk, resolve_ties, two_key_topk,
+                                                    wide_candidates)
+
+    out = {}
+    for nq in counts:
+        qu = qu64[:nq].contiguous()
+        plane = k3.int4_screen_scores(qu, packed, scales, valid)
+        sv, sidx = resolve_ties(plane, *wide_candidates(plane, RERANK_C))
+
+        def rerank():
+            cand = rows8[sidx].to(torch.float32)
+            ex = torch.bmm(cand, qu.to(torch.float32)[:, :, None])[..., 0] * scales8[sidx]
+            ex = torch.where(torch.isfinite(sv), ex, float("-inf"))
+            vals, pos = exact_topk(ex, TOP_K)
+            return two_key_topk(vals, torch.gather(sidx, 1, pos), TOP_K, True)
+
+        out[nq] = {
+            "screen_ms": event_ms(torch, lambda: k3.int4_screen_scores(qu, packed, scales, valid)),
+            "select_ms": event_ms(torch, lambda: resolve_ties(
+                plane, *wide_candidates(plane, RERANK_C))),
+            "rerank_ms": event_ms(torch, rerank)}
+        r = out[nq]
+        print(f"int4 tier per {packed.shape[0]}-row segment, Q={nq}: screen {r['screen_ms']:.4f} "
+              f"ms, wide_candidates + resolve_ties (c={RERANK_C}) {r['select_ms']:.4f} ms; per "
+              f"search the exact rerank of the {RERANK_C} candidates {r['rerank_ms']:.4f} ms "
+              f"[{card}]", flush=True)
+        del plane
+        torch.cuda.empty_cache()
+    return out
+
+
+def print_screen_registers(lib_path):
+    """Registers and spills of every int4 screen kernel in build.log; fails on
+    a spill."""
+    import re
+
+    found = ptxas_report(lib_path, "int4_screen")
+    if not found:
+        fail("build.log holds no int4 screen kernel")
+    for name, line in sorted(found.items()):
+        print(f"ptxas int4 screen {name[-70:]}: {line}", flush=True)
+        if any(int(x) for x in re.findall(r"(\d+) bytes spill", line)):
+            fail(f"{name} spills: {line}")
+
+
+# --k3-variants: the sweep's design against what it was chosen over, each a
+# copy of the port's package with csrc/int4_screen_sm90.cuh edited: every
+# unit width one block an SM (before 8- and 16-query units took two), the
+# 64-query units on mma.sync (before they took wgmma), and the consumers
+# skipping the products (the ring, the queries and the epilogue alone: what
+# the memory side takes; 64-query units then skip their wgmma as well).
+K3_VARIANTS = {
+    "one-block-an-SM": (("screen_blocks_per_sm(int qw) { return qw <= 16 ? 2 : 1; }",
+                         "screen_blocks_per_sm(int qw) { return 1; }"),),
+    "mma.sync-for-64": (("screen_uses_wgmma(bool i8, int qw) { return !i8 && qw == 64; }",
+                         "screen_uses_wgmma(bool i8, int qw) { return false; }"),),
+    "ring-only": (("screen_box_bf16<kNT>(unit, qbox, p.q_pitch, live_q, g, t, acc);",
+                   "acc[0][0][0] += (float)(unit[lane] + qbox[lane]);"),
+                  ("screen_box_i8<kNT>(unit, qbox, p.q_pitch, live_q, g, t, acc);",
+                   "acc[0][0][0] += (int)(unit[lane] + qbox[lane]);"),
+                  ("          screen_box_bf16_wg(unit,",
+                   "          acc[0][0][0] += (float)unit[lane];\n"
+                   "          if (lane < 0) screen_box_bf16_wg(unit,")),
+}
+
+
+def time_screens(torch, card, label):
+    """K3 at Q = 1, 8, 64 and K12 at Q = 1, 64 on the seeded segment, timed
+    alone (CUDA events, then device time), with no check: the variants of
+    --k3-variants run this in their own copies of the package."""
+    from image_retrieval_tpu_torch.ops import _build
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    _build.build()
+    _build.load_library()
+    packed, scales, valid, _, _, qu = seeded_int4_segment(torch)
+    for form, counts in (("bf16", K3_QUERIES), ("i8", (1, 64))):
+        for nq in counts:
+            q = qu[:nq].contiguous()
+            if form == "i8":
+                q8, _ = k3.quantize_queries_i8(q)
+                fn = lambda: k3.int4_screen_scores_i8(q8, packed, scales, valid)
+            else:
+                fn = lambda: k3.int4_screen_scores(q, packed, scales, valid)
+            ms, dev = event_ms(torch, fn, samples=21, reps=5), device_ms(torch, fn)
+            print(f"k3 variant {label}: {form} Q={nq}: {ms:.4f} ms, device "
+                  f"{dev if dev is None else round(dev, 4)} ms [{card}]", flush=True)
+
+
+def k3_variants(card):
+    """--k3-variants: build the design and each of K3_VARIANTS in its own
+    copy under .smoke_tree/k3_variants/ (listed in .gitignore), all at once,
+    then time each in turns with the design (design, variants, design)."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, ".smoke_tree", "k3_variants")
+    header = os.path.join("image_retrieval_tpu_torch", "csrc", "int4_screen_sm90.cuh")
+    with open(os.path.join(here, header)) as f:
+        source = f.read()
+    names = ["design", *K3_VARIANTS]
+    for name in names:
+        d = os.path.join(root, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(os.path.join(here, "image_retrieval_tpu_torch"),
+                        os.path.join(d, "image_retrieval_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        shutil.copy(os.path.join(here, "chip_smoke.py"), d)
+        text = source
+        for old, new in K3_VARIANTS.get(name, ()):
+            if old not in text:
+                fail(f"k3 variant {name}: {old!r} is not in {header}")
+            text = text.replace(old, new)
+        with open(os.path.join(d, header), "w") as f:
+            f.write(text)
+    build = "from image_retrieval_tpu_torch.ops import _build; _build.build()"
+    procs = [subprocess.Popen([sys.executable, "-c", build], cwd=os.path.join(root, n),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for n in names]
+    for name, proc in zip(names, procs):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"k3 variant {name} did not build:\n{out[-4000:]}")
+    run = ("import torch, chip_smoke as c; torch.backends.cuda.matmul.allow_tf32 = False; "
+           "c.time_screens(torch, {card!r}, {name!r})")
+    for name in (*names, "design"):
+        proc = subprocess.run([sys.executable, "-c", run.format(card=card, name=name)],
+                              cwd=os.path.join(root, name), capture_output=True, text=True)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            fail(f"k3 variant {name} failed:\n{proc.stderr[-4000:]}")
+
+
+def phase_time_k3(torch, card, lib_path):
+    """--time-k3: the screen kernels' registers and spills; K3 and K12 against
+    their plain versions on a seeded 2^21 x 512 segment at Q = 1, 8 and 64,
+    their times beside the plain versions' and the bounds, with device time;
+    then the segment's breakdown (screen, selection, rerank). It uses only
+    entries earlier checkouts have: to compare two, copy this script into
+    each and run it there in turns."""
+    print_screen_registers(lib_path)
+    packed, scales, valid, rows8, scales8, qu = seeded_int4_segment(torch)
+    screen_vs_plain(torch, card, packed, scales, valid, qu, K3_QUERIES, device=True)
+    screen_i8_vs_plain(torch, card, packed, scales, valid, qu, K3_QUERIES, device=True)
+    int4_breakdown(torch, card, packed, scales, valid, rows8, scales8, qu)
 
 
 def phase_int4(torch, card, enc, queries, q_emb):
@@ -2892,6 +3157,12 @@ def main() -> int:
     if sys.argv[1:] == ["--time-k5"]:
         phase_time_k5(torch, card, lib_path)
         return 0
+    if sys.argv[1:] == ["--time-k3"]:
+        phase_time_k3(torch, card, lib_path)
+        return 0
+    if sys.argv[1:] == ["--k3-variants"]:
+        k3_variants(card)
+        return 0
     if sys.argv[1:] == ["--rowquant-variants"]:
         rowquant_variants(card)
         return 0
@@ -2987,15 +3258,8 @@ def main() -> int:
                     out[f"{key}{field}"] = t[case][field]
         return out
 
-    # int4_screen at Q = 64 over one segment: 2 Q N D multiply-adds' worth of
-    # bf16 operations; bytes: the packed rows, scales, validity, queries, scores
-    seg, d, nq = k3["rows"], q_emb.shape[1], 64
-    k3_bound = bound(0.0, 2.0 * nq * seg * d, seg * (d // 2 + 4 + 1) + nq * d * 2 + nq * seg * 4)
-    # the int8-query form: the same multiply-adds at the int8 peak, queries of one byte
-    k12_bound = bound(2.0 * nq * seg * d, 0.0, seg * (d // 2 + 4 + 1) + nq * d + nq * seg * 4)
-    # the same at Q = 1
-    k3_q1 = bound(0.0, 2.0 * seg * d, seg * (d // 2 + 4 + 1) + d * 2 + seg * 4)["bound_ms"]
-    k12_q1 = bound(2.0 * seg * d, 0.0, seg * (d // 2 + 4 + 1) + d + seg * 4)["bound_ms"]
+    # the int4 screens at Q = 64 and 1 over one segment (screen_bound)
+    seg, d = k3["rows"], q_emb.shape[1]
     vision_b, text_b = TRAIN_TIME_SHAPES
     big = f"l14-vision-B{ENC_BUCKET5}"
     print(card, flush=True)
@@ -3009,9 +3273,10 @@ def main() -> int:
          "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:602",
          "launches": int4_launches,
          "max_abs_err": max(k3[1]["max_abs_err"], k3[64]["max_abs_err"]),
-         "ms": k3[64]["kernel"], "plain_ms": k3[64]["plain"], **k3_bound,
-         "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
-         "q1_ms": k3[1]["kernel"], "q1_plain_ms": k3[1]["plain"], "q1_bound_ms": k3_q1},
+         "ms": k3[64]["kernel"], "plain_ms": k3[64]["plain"], "bound_ms": k3[64]["bound_ms"],
+         "bound_by": k3[64]["bound_by"], "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
+         "q1_ms": k3[1]["kernel"], "q1_plain_ms": k3[1]["plain"],
+         "q1_bound_ms": k3[1]["bound_ms"]},
         block_entry("attention_block_int8", "attention_block_int8.cu", 554,
                     l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
         dict(block_entry("mlp_block_int8", "mlp_block_int8.cu", 671,
@@ -3062,9 +3327,11 @@ def main() -> int:
          "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:636",
          "launches": k12["launches"],
          "max_abs_err": max(k12[1]["max_abs_err"], k12[64]["max_abs_err"]),
-         "ms": k12[64]["kernel"], "plain_ms": k12[64]["plain"], **k12_bound,
+         "ms": k12[64]["kernel"], "plain_ms": k12[64]["plain"],
+         "bound_ms": k12[64]["bound_ms"], "bound_by": k12[64]["bound_by"],
          "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
-         "q1_ms": k12[1]["kernel"], "q1_plain_ms": k12[1]["plain"], "q1_bound_ms": k12_q1,
+         "q1_ms": k12[1]["kernel"], "q1_plain_ms": k12[1]["plain"],
+         "q1_bound_ms": k12[1]["bound_ms"],
          "k3_ms": k12[64]["k3_ms"], "q1_k3_ms": k12[1]["k3_ms"],
          "top128_of_bf16": k12["top128"], "top10_of_bf16": k12["top10"]},
     ]}), flush=True)

@@ -1,4 +1,4 @@
-// Plain C interface of the Hopper int4 screen kernels (int4_screen.cu).
+// Plain C interface of the Hopper int4 screen (int4_screen.cu).
 // Bound from Python with ctypes (image_retrieval_tpu_torch/ops/_build.py):
 // every pointer and the stream are passed as void*, sizes as int, the row
 // offset as long long.
@@ -30,6 +30,15 @@ int irt_int4_screen_scores(const void* qu, const void* packed, const void* scale
 int irt_int4_screen_scores_i8(const void* qu, const void* packed, const void* scales,
                               const void* valid, void* out, int nq, int d,
                               long long row_offset, int rows, void* stream);
+
+// The launch plan both entries take for nq queries against `rows` rows of d
+// dims from row_offset on (aligned: the packed base is 16-byte aligned; i8:
+// int8 queries) on a card of `sms` SMs: 0 and out[15] = (qw, tile_rows,
+// passes, resident, q_rows, q_boxes, q_pitch, boxes, stages, stage_bytes,
+// tma, tiles, per_sm, grid, smem), or IRT_BAD_ARGS for a shape the kernel
+// refuses.
+int irt_int4_screen_plan(int nq, int d, int rows, long long row_offset, int aligned, int i8,
+                         int sms, int* out);
 
 #ifdef __cplusplus
 }

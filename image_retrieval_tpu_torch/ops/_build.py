@@ -33,7 +33,8 @@ SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu"
 HEADERS = ("block_common.cuh", "int8_common.cuh", "layer_block_int8.cuh",
            "attention_block_int8.cuh", "mlp_block_int8.cuh", "quant_dense.cuh",
            "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh",
-           "attention_mma.cuh", "gemm_sm90.cuh", "int8_sweep_sm90.cuh")
+           "attention_mma.cuh", "gemm_sm90.cuh", "int8_sweep_sm90.cuh",
+           "int4_screen_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -162,6 +163,8 @@ def load_library() -> ctypes.CDLL:
             lib.irt_int4_screen_scores.restype = i
             lib.irt_int4_screen_scores_i8.argtypes = lib.irt_int4_screen_scores.argtypes
             lib.irt_int4_screen_scores_i8.restype = i
+            lib.irt_int4_screen_plan.argtypes = [i, i, i, ctypes.c_longlong, i, i, i, p]
+            lib.irt_int4_screen_plan.restype = i
             f = ctypes.c_float
             lib.irt_fused_metrics_tile_rows.argtypes = []
             lib.irt_fused_metrics_tile_rows.restype = i

@@ -10,9 +10,12 @@ in f32, over the plain (N, D/2) uint8 nibble rows of ``ops/int4.py``; rows
 whose ``valid`` flag is False score -inf.
 
 ``int4_screen_scores`` launches the hand-written Hopper kernel
-(csrc/int4_screen.cu) for CUDA tensors and runs
+(csrc/int4_screen.cu over csrc/int4_screen_sm90.cuh: a persistent sweep, the
+rows through a TMA ring, the queries resident in shared memory, the products
+on the tensor cores) for CUDA tensors and runs
 ``int4_screen_scores_reference`` for CPU tensors; it never falls back from
-the card to the plain version.
+the card to the plain version. ``int4_screen_plan`` mirrors the kernel's
+launch plan.
 
 The int8-query form (``_int4_screen_kernel_i8``, l.636, selected by
 ``qform="i8"`` at l.751): ``quantize_queries_i8`` is ``int4_query_planes_i8``
@@ -34,10 +37,13 @@ exact ``top_k``, which is what this selection reproduces.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
+from image_retrieval_tpu_torch.ops.fused_metrics import H100_SMS
 from image_retrieval_tpu_torch.ops.int4 import segmented_topc, unpack2_dots
 
 # Rows per kernel launch of int4_screen_topc: a (64, 2^21) f32 plane is
@@ -53,6 +59,126 @@ SCREEN_MAX_ABS = 1e-5
 
 
 QFORMS = ("bf16", "i8")
+
+# ---- the kernel's launch plan (csrc/int4_screen_sm90.cuh) --------------------
+# Eight consumer warps and a producer warp a block, two blocks an SM for
+# units of 8 or 16 queries, else one; a warp's unit is 32 rows, a tile 256; a
+# stage is a tile's box of 128 packed bytes (256 dims); at most 16 stages;
+# dynamic shared memory up to the SM's 227 KB shared by its blocks, less 1 KB
+# a block for the barriers, the ring aligned to 1 KB; the epilogue parks 16
+# queries (8 for 8-query units) of 32 rows at a pitch of 36 floats a warp.
+SCREEN_WARPS, SCREEN_UNIT_ROWS, SCREEN_BOX_BYTES, SCREEN_MAX_STAGES = 8, 32, 128, 16
+SCREEN_TILE_ROWS = SCREEN_WARPS * SCREEN_UNIT_ROWS
+SCREEN_BOX_DIMS = 2 * SCREEN_BOX_BYTES
+SCREEN_STAGE_BYTES = SCREEN_TILE_ROWS * SCREEN_BOX_BYTES
+SCREEN_ALIGN, SMEM_PER_SM = 1024, 232448
+SCREEN_EPI_QUERIES, SCREEN_EPI_PITCH = 16, SCREEN_UNIT_ROWS + 4
+I8_MAX_DIM = 2048  # |sum| <= 127 * 8 * D stays below 2^24: exact in f32
+
+
+@dataclass(frozen=True)
+class Int4ScreenPlan:
+    """The screen's launch plan: the fields of the C side's Int4ScreenPlan,
+    in its order."""
+
+    qw: int           # queries of a warp's unit: 8, 16, 32 or 64
+    tile_rows: int    # rows of a tile: 256
+    passes: int       # ceil(nq / qw)
+    resident: int     # 1: every pass's queries over the whole of D loaded once per block
+    q_rows: int       # query rows in shared memory
+    q_boxes: int      # boxes of a query row in shared memory at once
+    q_pitch: int      # bytes from one query row to the next
+    boxes: int        # boxes of a packed row: ceil(D / 256)
+    stages: int       # ring depth
+    stage_bytes: int  # tile_rows * 128
+    tma: int          # 1: TMA loads; 0: the producer warp copies
+    tiles: int        # ceil(rows / tile_rows)
+    per_sm: int       # blocks an SM: 2 for units of 8 or 16 queries, else 1
+    grid: int         # persistent blocks: min(tiles, per_sm * SMs)
+    smem: int         # dynamic shared memory of a block, bytes
+
+
+def screen_smem_max(per_sm: int) -> int:
+    """Dynamic shared memory a block may take beside its static barriers
+    when per_sm blocks share an SM."""
+    return SMEM_PER_SM // per_sm - 1024
+
+
+def screen_epilogue_bytes(qw: int) -> int:
+    """The epilogue's scratch: per consumer warp min(qw, 16) queries of 36 floats."""
+    return SCREEN_WARPS * min(qw, SCREEN_EPI_QUERIES) * SCREEN_EPI_PITCH * 4
+
+
+def screen_uses_wgmma(qform: str, qw: int) -> bool:
+    """Units whose products run on wgmma: bf16 queries, 64 a unit."""
+    return qform == "bf16" and qw == 64
+
+
+def screen_q_row_bytes(q_boxes: int, qform: str, qw: int) -> int:
+    """A query row of q_boxes boxes in shared memory: for mma.sync 64 mod
+    128 bytes in bf16 and 32 mod 128 in int8, so that the B fragments' reads
+    of neighbouring query rows hit distinct banks; for wgmma unpadded (the
+    rows are 128-byte slices of swizzled 64-dim tiles)."""
+    if screen_uses_wgmma(qform, qw):
+        return q_boxes * SCREEN_BOX_DIMS * 2
+    if qform == "i8":
+        return q_boxes * SCREEN_BOX_DIMS + 32
+    return q_boxes * SCREEN_BOX_DIMS * 2 + 64
+
+
+def int4_screen_plan(nq: int, d: int, rows: int, row_offset: int = 0, aligned: bool = True,
+                     qform: str = "bf16", sms: int = H100_SMS) -> Int4ScreenPlan:
+    """How the screen sweeps nq queries against `rows` packed rows of d dims
+    from row `row_offset` on, on a card of `sms` SMs; `aligned`: the packed
+    base is 16-byte aligned; qform "bf16" (K3) or "i8" (K12). A warp's unit
+    is 32 rows x the fewest of 8, 16, 32 or 64 queries that hold nq; more
+    than 64 queries take further passes over each tile. Two blocks share an
+    SM for units of 8 or 16 queries, one takes it for 32 or 64; 64-query
+    units of bf16 queries run their products on wgmma. Every pass's
+    queries stay in shared memory where they fit beside two stages and the
+    epilogue's scratch, else one pass's over as many boxes as fit (reloaded
+    per tile and pass); the ring takes the rest. TMA loads where the row
+    stride and base allow ((D/2) % 16 == 0, aligned) and row coordinates fit
+    an int, else the producer warp copies. Raises ValueError only for a
+    shape neither form takes: nq, rows or d below 1, an odd d, a negative
+    offset, d > 2048 with int8 queries."""
+    if qform not in QFORMS:
+        raise ValueError(f"int4_screen_plan: qform must be one of {QFORMS}, got {qform!r}")
+    return _screen_plan(int(nq), int(d), int(rows), int(row_offset), bool(aligned),
+                        qform, int(sms))
+
+
+@functools.lru_cache(maxsize=256)
+def _screen_plan(nq, d, rows, row_offset, aligned, qform, sms) -> Int4ScreenPlan:
+    if (nq < 1 or d < 2 or d % 2 or rows < 1 or row_offset < 0 or sms < 1
+            or (qform == "i8" and d > I8_MAX_DIM)):
+        raise ValueError(f"the int4 screen takes nq, rows >= 1, an even d >= 2 (<= "
+                         f"{I8_MAX_DIM} with int8 queries) and row_offset >= 0: nq={nq}, "
+                         f"d={d}, rows={rows}, row_offset={row_offset}, qform={qform}")
+    rb = d // 2
+    qw = 8 if nq <= 8 else 16 if nq <= 16 else 32 if nq <= 32 else 64
+    passes = -(-nq // qw)
+    boxes = -(-rb // SCREEN_BOX_BYTES)
+    per_sm = 2 if qw <= 16 else 1
+    smem_max = screen_smem_max(per_sm)
+    epi = screen_epilogue_bytes(qw)
+    room = smem_max - SCREEN_ALIGN - epi - 2 * SCREEN_STAGE_BYTES
+    if passes * qw * screen_q_row_bytes(boxes, qform, qw) <= room:
+        resident, q_rows, q_boxes = 1, passes * qw, boxes
+    else:
+        pad = screen_q_row_bytes(0, qform, qw)
+        fit = (room // qw - pad) // (screen_q_row_bytes(1, qform, qw) - pad)
+        resident, q_rows, q_boxes = 0, qw, min(fit, boxes)
+    q_pitch = screen_q_row_bytes(q_boxes, qform, qw)
+    q_bytes = q_rows * q_pitch
+    stages = min(SCREEN_MAX_STAGES,
+                 (smem_max - SCREEN_ALIGN - q_bytes - epi) // SCREEN_STAGE_BYTES)
+    tma = int(aligned and rb % 16 == 0 and row_offset + rows <= 0x7FFFFFFF)
+    tiles = -(-rows // SCREEN_TILE_ROWS)
+    return Int4ScreenPlan(qw, SCREEN_TILE_ROWS, passes, resident, q_rows, q_boxes, q_pitch,
+                          boxes, stages, SCREEN_STAGE_BYTES, tma, tiles, per_sm,
+                          min(tiles, per_sm * sms),
+                          SCREEN_ALIGN + stages * SCREEN_STAGE_BYTES + q_bytes + epi)
 
 
 def _check(qu, packed, scales, valid, row_offset, rows):
@@ -86,9 +212,10 @@ def int4_screen_scores_reference(qu: torch.Tensor, packed: torch.Tensor,
 
 
 def _launch(entry, symbol, queries, packed, scales, valid, row_offset, rows):
-    """One launch of the library's `symbol` (either screen kernel: the same
+    """One launch of the library's `symbol` (either screen entry: the same
     arguments) on PyTorch's current stream, counted on the wrapper `entry`;
-    raises on operands the kernels do not take and on a refused launch."""
+    raises on operands the kernel does not take and on a refused launch (a
+    shape its plan refuses among them)."""
     from image_retrieval_tpu_torch.ops._build import load_library
 
     for name, a in (("queries", queries), ("packed", packed), ("scales", scales),
@@ -173,8 +300,8 @@ def int4_screen_scores_i8_reference(q8: torch.Tensor, packed: torch.Tensor,
 
 
 def _int4_screen_scores_i8_cuda(q8, packed, scales, valid, row_offset, rows):
-    if q8.shape[1] > 2048:
-        raise ValueError("int4_screen i8 kernel: D <= 2048 keeps the int32 sum "
+    if q8.shape[1] > I8_MAX_DIM:
+        raise ValueError(f"int4_screen i8 kernel: D <= {I8_MAX_DIM} keeps the int32 sum "
                          f"exact in f32, got {q8.shape[1]}")
     return _launch(int4_screen_scores_i8, "irt_int4_screen_scores_i8", q8, packed, scales,
                    valid, row_offset, rows)

@@ -647,7 +647,7 @@ def _int4_gallery(rng, n, d, device):
 
 
 @pytest.mark.parametrize("d", [64, 512, 768, 40])
-@pytest.mark.parametrize("nq", [1, 3, 64, 130])
+@pytest.mark.parametrize("nq", [1, 3, 64, 130, 257])
 def test_int4_screen_kernel_matches_plain(cuda, d, nq):
     from image_retrieval_tpu_torch.ops import int4_screen as k3
 
@@ -673,7 +673,7 @@ def test_int4_screen_kernel_matches_plain(cuda, d, nq):
 
 
 @pytest.mark.parametrize("d", [64, 512, 768, 40, 42])
-@pytest.mark.parametrize("nq", [1, 3, 64, 130])
+@pytest.mark.parametrize("nq", [1, 3, 64, 130, 257])
 def test_int4_screen_i8_kernel_matches_plain_bitwise(cuda, d, nq):
     """The int8-query screen: an exact int32 sum, converted exactly, times
     the row scale in one f32 multiply on both sides: bit for bit."""
@@ -700,6 +700,100 @@ def test_int4_screen_i8_kernel_matches_plain_bitwise(cuda, d, nq):
     q8 = torch.from_numpy(rng.choice([-127, 127], size=(nq, d)).astype(np.int8)).to(cuda)
     assert torch.equal(k3.int4_screen_scores_i8(q8, packed, scales, valid),
                        k3.int4_screen_scores_i8_reference(q8, packed, scales, valid))
+
+
+# The ring's edges, each as (n, d, nq, row_offset, rows, what is special):
+# more tiles than one persistent wave of 132 blocks with a ragged tail; several
+# passes over each tile (the queries reloaded per pass); query rows that do
+# not fit over the whole of D (reloaded per window of boxes, bf16 only: int8
+# rows always do at D <= 2048); a segment whose rows are all invalid; a
+# row_offset whose rows start off 16 bytes at D = 40, and a packed base off
+# 16 bytes at D = 512 (both take the copying producer); the last segment of a
+# gallery; the largest D of the int8 form.
+RING_EDGES = {
+    "waves": (2 * 132 * 256 + 1036, 512, 8, 0, 2 * 132 * 256 + 1036),
+    "waves-offset": (2 * 132 * 256 + 1037, 512, 33, 517, 2 * 132 * 256 + 1037 - 517 - 3),
+    "passes": (3000, 512, 257, 211, 2700),
+    "windows": (700, 2560, 70, 5, 690),
+    "all-invalid": (2000, 512, 16, 256, 1024),
+    "unaligned-rows-d40": (1500, 40, 5, 3, 1400),
+    "unaligned-base-d512": (1500, 512, 9, 0, 1500),
+    "last-segment": (5000, 512, 64, 4096, 5000 - 4096),
+    "d2048": (900, 2048, 40, 100, 777),
+}
+
+
+@pytest.mark.parametrize("case,qform", [(c, f) for c in RING_EDGES for f in ("bf16", "i8")
+                                        if RING_EDGES[c][1] <= 2048 or f == "bf16"])
+def test_int4_screen_ring_edges(cuda, case, qform):
+    """Both forms against their plain versions at the ring's edges: K3 within
+    SCREEN_MAX_ABS with the same -inf pattern, K12 bit for bit; the plan
+    takes the producer and the query mode the case names."""
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    n, d, nq, off, rows = RING_EDGES[case]
+    rng = np.random.default_rng(n + d + nq)
+    packed, scales, valid = _int4_gallery(rng, n, d, cuda)
+    if case == "all-invalid":
+        valid[off: off + rows] = False
+    if case == "unaligned-base-d512":  # the same rows 8 bytes past a 16-byte boundary
+        buf = torch.empty(packed.numel() + 8, dtype=torch.uint8, device=cuda)
+        packed = buf[8:].view(packed.shape).copy_(packed)
+        assert packed.data_ptr() % 16 == 8
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    plan = k3.int4_screen_plan(nq, d, rows, off, packed.data_ptr() % 16 == 0, qform)
+    assert plan.tma == (case not in ("unaligned-rows-d40", "unaligned-base-d512"))
+    assert (plan.tiles > plan.grid) == case.startswith("waves")
+    assert (plan.passes > 1) == (nq > 64)
+    assert plan.q_boxes < plan.boxes or case != "windows"
+    if qform == "i8":
+        q8, _ = k3.quantize_queries_i8(torch.from_numpy(q).to(cuda))
+        got = k3.int4_screen_scores_i8(q8, packed, scales, valid, off, rows)
+        want = k3.int4_screen_scores_i8_reference(q8, packed, scales, valid, off, rows)
+        torch.cuda.synchronize()
+        assert got.shape == (nq, rows) and torch.equal(got, want)
+    else:
+        qu = torch.from_numpy(q).to(cuda, torch.bfloat16)
+        got = k3.int4_screen_scores(qu, packed, scales, valid, off, rows)
+        want = k3.int4_screen_scores_reference(qu, packed, scales, valid, off, rows)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        assert got.shape == (nq, rows) and torch.equal(torch.isfinite(got), fin)
+        if fin.any():
+            assert float((got[fin] - want[fin]).abs().max()) <= k3.SCREEN_MAX_ABS
+    assert torch.equal(torch.isinf(got)[0], ~valid[off: off + rows])
+    if case == "all-invalid":
+        assert bool((got == float("-inf")).all())
+
+
+def test_int4_screen_plan_matches_the_kernel(cuda):
+    """ops/int4_screen.py::int4_screen_plan is the C side's launch plan, field
+    by field, and both refuse the same shapes."""
+    import ctypes
+
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    got = (ctypes.c_int * 15)()
+    for nq in (0, 1, 3, 8, 9, 16, 17, 33, 64, 65, 130, 257, 1000):
+        for d in (0, 1, 2, 40, 42, 64, 512, 768, 2048, 2050, 2560, 8192, 16384, 65536):
+            for rows, off in ((0, 0), (1, 0), (37, 1 << 23), (1 << 21, 0), (1 << 21, 3 << 21),
+                              (5000, -1), (300, (1 << 31) - 200)):
+                for aligned in (True, False):
+                    for qform in k3.QFORMS:
+                        for sms in (132, 114):
+                            rc = lib.irt_int4_screen_plan(nq, d, rows, off, int(aligned),
+                                                          int(qform == "i8"), sms, got)
+                            try:
+                                plan = k3.int4_screen_plan(nq, d, rows, off, aligned, qform, sms)
+                            except ValueError:
+                                plan = None
+                            key = (nq, d, rows, off, aligned, qform, sms)
+                            assert (rc == 0) == (plan is not None), key
+                            if plan is not None:
+                                assert tuple(got) == dataclasses.astuple(plan), key
 
 
 def test_int4_screen_topc_i8_ranks_like_bf16(cuda):
