@@ -6,9 +6,16 @@
                                             # times and K1's launch breakdown (phase 2)
     python3 chip_smoke.py --dense-readings  # build, then what dense_agreement reads
                                             # for K8, K9a, K9b and for wrong layers
-    python3 chip_smoke.py --gemm-stages     # build, then only fc1 and fc2 of K9b and
-                                            # K2b alone (the wgmma GEMM, phase 2) and
-                                            # K2b's fused fc1 -> quick_gelu -> rowquant
+    python3 chip_smoke.py --gemm-stages     # build, then only the GEMM stages alone:
+                                            # q/k/v and out-projection of K9a, fc1 and
+                                            # fc2 of K9b and K2b (phase 2), and K2b's
+                                            # fused fc1 -> quick_gelu -> rowquant
+    python3 chip_smoke.py --time-dense      # build, then only K8, K9a and K11 timed
+                                            # (event and device time), K8's and K9a's
+                                            # launch breakdown, the four bf16 stages
+    python3 chip_smoke.py --gemm-variants   # build and run the bf16 GEMM's design
+                                            # experiments (csrc/experiments/
+                                            # gemm_bf16_variants.cu)
     python3 chip_smoke.py --rowquant-variants  # build and run the design experiments of
                                             # K2b's fused fc1 -> quick_gelu -> rowquant
                                             # (csrc/experiments/rowquant_gemm_variants.cu)
@@ -24,7 +31,8 @@ Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
      port's kernels compiled from image_retrieval_tpu_torch/csrc with nvcc
      for sm_90a (one nvcc per source, twelve in parallel); ptxas's registers
-     and spills of the fused fc1 stage and the row pass (a spill fails).
+     and spills of the bf16 GEMM, the compute-type LayerNorm pass, the fused
+     fc1 stage and the int8 row pass (a spill fails).
   2. kernel vs plain: layer_block_int8 (K1), attention_block_int8 (K2a) and
      mlp_block_int8 (K2b) on the card against their plain PyTorch versions
      on the same inputs, in bf16 and f32, by kernel_agreement: K1 at the
@@ -53,10 +61,11 @@ Phases (any failure exits non-zero):
      v beside it (at the B/32 vision B=8 and B=256 and L/14 vision B=128
      shapes, and at the B/32 text B=64 shape with the causal mask, through
      the packed tiled_attention entry and is_causal=True).
-     fc1 and fc2 of K9b and K2b alone (the wgmma GEMM of
-     csrc/gemm_sm90.cuh through gemm_bf16 / gemm_s8, with the epilogues the
-     two chains give it) at the L/14 vision B=128 and B/32 vision B=256
-     shapes: each against its plain version (int8 bit for bit, bf16 by
+     The GEMM stages alone (the GEMMs of csrc/gemm_sm90.cuh through
+     gemm_bf16 / gemm_s8, with the epilogues their chains give them): q/k/v
+     and the out-projection of K9a, fc1 and fc2 of K9b and K2b, at the L/14
+     vision B=128 and B/32 vision B=256 shapes: each against its plain
+     version (int8 bit for bit, bf16 by
      gemm_bf16_agreement's float64 limit), its time beside the plain
      version's, the bound's and one library call's on the same operands
      (torch.nn.functional.linear in bf16, torch._int_mm in int8; the port
@@ -496,10 +505,11 @@ TIME_SHAPES = {
 }
 
 
-def time_kernels(torch, card, runs, shapes, int8=True):
+def time_kernels(torch, card, runs, shapes, int8=True, device=False):
     """{name: {case: {"kernel", "plain", "bound_ms", "bound_by"}}} for the
     layer kernels `runs` (kernel_runs or dense_runs) at `shapes`, in bf16,
-    kernel beside plain version beside the bound."""
+    kernel beside plain version beside the bound; with `device`, also the
+    device time alone ("device_ms", torch.profiler)."""
     out = {}
     for name, (kernel, plain, kind) in runs.items():
         out[name] = {}
@@ -516,8 +526,11 @@ def time_kernels(torch, card, runs, shapes, int8=True):
             part = {"attn": getattr(wts, "attn", None), "mlp": getattr(wts, "mlp", None),
                     "layer": wts}[kind]
             r.update(block_bound(kind, xb, part, heads, causal, int8))
+            if device:
+                r["device_ms"] = device_ms(torch, lambda: kernel(xb, wts, heads, causal))
             out[name][case] = r
-            print(f"time {name} {case} bf16 B={b} T={t} W={w}: kernel {r['kernel']:.4f} ms, "
+            dev = f" (device {r['device_ms']} ms)" if device else ""
+            print(f"time {name} {case} bf16 B={b} T={t} W={w}: kernel {r['kernel']:.4f} ms{dev}, "
                   f"plain {r['plain']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}) [{card}]", flush=True)
             del xb, wts
@@ -726,9 +739,11 @@ STAGE_SHAPES = {f"l14-vision-B{ENC_BUCKET5}": L14_BATCH, "b32-vision-B256": B32_
 
 def mlp_stage_calls(torch, fa, shape, int8, seed):
     """{stage: (kernel, plain, library, check, bound)} for fc1 and fc2 of one
-    MLP half on seeded weights and inputs: the GEMM wrappers with the
-    epilogues K9b (bf16) or K2b (int8) give them, on the operands K9b's and
-    K2b's chains hand them. `library` is one PyTorch call on the same
+    MLP half on seeded weights and inputs, and in bf16 also the q/k/v and
+    out-projection GEMMs of the attention half: the GEMM wrappers with the
+    epilogues K9a and K9b (bf16) or K2b (int8) give them, on the operands
+    their chains hand them (the out-projection's on a seeded stand-in of unit
+    scale for the attention's output). `library` is one PyTorch call on the same
     operands (torch.nn.functional.linear in bf16, torch._int_mm in int8) as a
     yardstick: it computes the product and not the epilogue, and the port
     never calls it. `check` holds the kernel against its plain version: bit
@@ -776,16 +791,22 @@ def mlp_stage_calls(torch, fa, shape, int8, seed):
         out["fc1_rowquant"] += (lambda: fa.ln_rowquant(fa.gemm_s8(*args1)),)
         return out
     x, wts = dense_layer_inputs(torch, b, t, w, heads, seed, torch.bfloat16)
-    mw, x = wts.mlp, x.reshape(m, w)
+    aw, mw, x = wts.attn, wts.mlp, x.reshape(m, w)
+    h1 = fa.fast_layernorm_f32(x.float(), aw.ln_s, aw.ln_b).to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    attn = torch.randn((m, w), generator=g, device="cuda").to(torch.bfloat16)
     h = fa.fast_layernorm_f32(x.float(), mw.ln_s, mw.ln_b).to(torch.bfloat16)
     args1 = (h, mw.w1_t, mw.b1, "gelu")
     a1 = fa.gemm_bf16(*args1)
     args2 = (a1, mw.w2_t, mw.b2, "residual", x)
     out = {}
-    for stage, args in (("fc1", args1), ("fc2", args2)):
+    for stage, args in (("qkv", (h1, aw.wqkv_t, aw.bqkv, "bias")),
+                        ("out", (attn, aw.wo_t, aw.bo, "residual", x)),
+                        ("fc1", args1), ("fc2", args2)):
         a, bt, bias = args[:3]
         n, k = bt.shape
-        nbytes = 2 * (a.numel() + bt.numel() + m * n * (2 if stage == "fc2" else 1)) + 4 * n
+        residual = args[3] == "residual"
+        nbytes = 2 * (a.numel() + bt.numel() + m * n * (2 if residual else 1)) + 4 * n
         check = lambda args=args: fa.gemm_bf16_agreement(fa.gemm_bf16(*args), *args)
         out[stage] = (lambda args=args: fa.gemm_bf16(*args),
                       lambda args=args: fa.gemm_bf16_reference(*args),
@@ -861,11 +882,13 @@ def ptxas_report(lib_path, pattern):
 
 
 def print_new_kernel_registers(lib_path):
-    """Registers and spills of the fused fc1 stage and of the row pass; fails
-    on a spill."""
+    """Registers and spills of the bf16 GEMM and the LayerNorm pass of the
+    compute-type chains, the fused fc1 stage and the int8 row pass; fails on
+    a spill."""
     import re
 
-    for pattern in ("gemm_wgmma_s8_rowquant_kernel", "ln_rowquant_kernel"):
+    for pattern in ("gemm_bf16_kernel", "ln_cast_kernel", "gemm_wgmma_s8_rowquant_kernel",
+                    "ln_rowquant_kernel"):
         found = ptxas_report(lib_path, pattern)
         if not found:
             fail(f"build.log holds no {pattern} instantiation")
@@ -876,35 +899,59 @@ def print_new_kernel_registers(lib_path):
                 fail(f"{name} spills: {line}")
 
 
-def rowquant_variants(card):
-    """--rowquant-variants: build csrc/experiments/rowquant_gemm_variants.cu
-    (a standalone program, not part of the library) with the library's nvcc
-    flags and run it: the fused fc1 stage, the two launches it replaces and
-    the variants its design was chosen from, timed at the L/14 and B/32 fc1
-    shapes and held bit for bit against it."""
+def run_experiment(card, name, label):
+    """Build csrc/experiments/<name>.cu (a standalone program, not part of
+    the library) with the library's nvcc flags, print ptxas's registers and
+    spills, run it and print its lines; fails when it fails or prints "NO"
+    (a variant that differs from the library's kernel)."""
     from image_retrieval_tpu_torch.ops import _build
 
-    src = os.path.join(_build.CSRC, "experiments", "rowquant_gemm_variants.cu")
+    src = os.path.join(_build.CSRC, "experiments", f"{name}.cu")
     out_dir = os.path.join(_build.BUILD_ROOT, "experiments")
     os.makedirs(out_dir, exist_ok=True)
-    exe = os.path.join(out_dir, "rowquant_gemm_variants")
+    exe = os.path.join(out_dir, name)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     cc = subprocess.run([_build.find_nvcc(), *flags, src, "-o", exe], capture_output=True,
                         text=True)
+    for line in (cc.stdout + cc.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"{label} ptxas: {line.strip()}", flush=True)
     if cc.returncode != 0:
         fail(f"nvcc failed on {src}:\n{cc.stdout[-4000:]}{cc.stderr[-4000:]}")
     run = subprocess.run([exe], capture_output=True, text=True, timeout=600)
     for line in run.stdout.splitlines():
-        print(f"rowquant variants: {line} [{card}]", flush=True)
+        print(f"{label}: {line} [{card}]", flush=True)
     if run.returncode != 0 or "NO" in run.stdout.split():
-        fail(f"the rowquant variants failed or differ from the production kernel: {run.stderr}")
+        fail(f"the {label} failed or differ from the library's kernel: {run.stderr}")
 
 
-def launch_breakdown(torch, card):
-    """Device time of each launch kind of K1 at B/32 vision B = 256 and of
-    the L/14 int8 image batch's layer (K2a then K2b at B = 128), bf16,
-    torch.profiler over ten calls after three warm ones. Uses only entries
-    that earlier checkouts also have, so that --time-k1 reads both."""
+def phase_time_dense(torch, card):
+    """--time-dense: the compute-type chains' times alone, in bf16, each
+    beside its plain version, its bound and its device time (torch.profiler;
+    at B = 8 the event time beside it shows the host side of a call): K8 at
+    its five shapes, K9a at its four, K11 at the trainer's two (in turns with
+    K9a); the device time of each launch kind of K8 at B/32 vision B = 256
+    and of K9a at the L/14 image batch; and the four bf16 GEMM stages (q/k/v,
+    out-projection, fc1, fc2) at the L/14 and B/32 image batches beside
+    F.linear. Uses only entries that earlier checkouts also have, so that a
+    copy of this script in a parent checkout times the parent the same way."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    runs = dense_runs(fa)
+    time_kernels(torch, card, {k: runs[k] for k in ("layer_block", "attention_block")},
+                 DENSE_TIME_SHAPES, int8=False, device=True)
+    time_train_kernel(torch, card, device=True)
+    launch_breakdown(torch, card, dense=True)
+    phase_gemm_stages(torch, card, int8_too=False)
+
+
+def launch_breakdown(torch, card, dense=False):
+    """Device time of each launch kind, bf16, torch.profiler over ten calls
+    after three warm ones: of K1 at B/32 vision B = 256 and of the L/14 int8
+    image batch's layer (K2a then K2b at B = 128), or with `dense` of K8 at
+    B/32 vision B = 256 and of K9a at the L/14 image batch. Uses only entries
+    that earlier checkouts also have, so that --time-k1 and --time-dense read
+    both."""
     from torch.profiler import ProfilerActivity, profile
 
     from image_retrieval_tpu_torch.ops import flash_attention as fa
@@ -913,10 +960,17 @@ def launch_breakdown(torch, card):
              f"K2a+K2b l14-vision-B{ENC_BUCKET5}": (
                  L14_BATCH, lambda x, w: fa.mlp_block_int8(
                      fa.attention_block_int8(x, w.attn, 16), w.mlp))}
+    if dense:
+        cases = {"K8 b32-vision-B256": (B32_BATCH, lambda x, w: fa.layer_block(x, w, 12)),
+                 f"K9a l14-vision-B{ENC_BUCKET5}": (
+                     L14_BATCH, lambda x, w: fa.attention_block(x, w.attn, 16))}
     calls = 10
     for case, ((b, t, w, heads, _), call) in cases.items():
-        x32, wts = layer_inputs(torch, b, t, w, heads, seed=3)
-        x = x32.to(device="cuda", dtype=torch.bfloat16)
+        if dense:
+            x, wts = dense_layer_inputs(torch, b, t, w, heads, 3, torch.bfloat16)
+        else:
+            x32, wts = layer_inputs(torch, b, t, w, heads, seed=3)
+            x = x32.to(device="cuda", dtype=torch.bfloat16)
         for _ in range(3):
             call(x, wts)
         torch.cuda.synchronize()
@@ -936,22 +990,24 @@ def launch_breakdown(torch, card):
                   f"device {ms:.4f} ms a call ({ms / total:.1%}) [{card}]", flush=True)
         print(f"launch breakdown {case} bf16: {sum(r[2] for r in rows):g} launches a call, "
               f"device {total:.4f} ms a call [{card}]", flush=True)
-        del x, x32, wts
+        del x, wts
         torch.cuda.empty_cache()
 
 
-def phase_gemm_stages(torch, card):
-    """fc1 and fc2 of K9b and K2b alone (the GEMM of csrc/gemm_sm90.cuh with
-    their epilogues) at the L/14 and B/32 image batches: each against its
-    plain version, then its time beside the plain version's, one library
-    call's on the same operands, the device time alone and the bound.
-    Returns {"mlp_block" | "mlp_block_int8": {case: {stage: readings}}}."""
+def phase_gemm_stages(torch, card, int8_too=True):
+    """The GEMM stages alone (the GEMMs of csrc/gemm_sm90.cuh with their
+    chains' epilogues) at the L/14 and B/32 image batches: q/k/v and the
+    out-projection of K9a, fc1 and fc2 of K9b (bf16) and, with `int8_too`,
+    of K2b: each against its plain version, then its time beside the plain
+    version's, one library call's on the same operands, the device time
+    alone and the bound. Returns {"attention_block" | "mlp_block" |
+    "mlp_block_int8": {case: {stage: readings}}}."""
     from image_retrieval_tpu_torch.ops import flash_attention as fa
 
     from image_retrieval_tpu_torch.ops._build import load_library
 
-    out = {"mlp_block": {}, "mlp_block_int8": {}}
-    for name, int8 in (("mlp_block", False), ("mlp_block_int8", True)):
+    out = {"attention_block": {}, "mlp_block": {}, "mlp_block_int8": {}}
+    for name, int8 in (("mlp_block", False), ("mlp_block_int8", True))[:2 if int8_too else 1]:
         for case, shape in STAGE_SHAPES.items():
             out[name][case] = {}
             if int8:
@@ -959,14 +1015,15 @@ def phase_gemm_stages(torch, card):
                 print_rowquant_plan(fa, load_library(), case, b * t, 4 * w, w, card)
             for stage, (kernel, plain, lib, check, bnd, *pair) in mlp_stage_calls(
                     torch, fa, shape, int8, seed=len(case)).items():
+                half = "attention_block" if stage in ("qkv", "out") else name
                 agree = check()
                 torch.cuda.synchronize()
                 limit = "bit for bit" if int8 else (
                     f"{agree['max_share_of_limit']:.4f} of the float64 limit")
-                print(f"kernel-vs-plain {name} {stage} {case}: max_abs_err "
+                print(f"kernel-vs-plain {half} {stage} {case}: max_abs_err "
                       f"{agree['max_abs_err']:.6g} ({limit})", flush=True)
                 if not agree["ok"]:
-                    fail(f"the GEMM of {name} {stage} {case} disagrees with its plain version")
+                    fail(f"the GEMM of {half} {stage} {case} disagrees with its plain version")
                 r = time_pair(torch, {"kernel": kernel, "plain": plain}, samples=8, reps=3)
                 r["library_ms"] = time_pair(torch, {"kernel": lib, "plain": lambda: None},
                                             samples=8, reps=3)["kernel"]
@@ -981,8 +1038,8 @@ def phase_gemm_stages(torch, card):
                           f"ms in turns with the two launches it replaces (fc1 writing f32, "
                           f"then rowquant) {two['plain']:.4f} ms (device "
                           f"{r['pair_device_ms']} ms) [{card}]", flush=True)
-                out[name][case][stage] = r
-                print(f"time {name} {stage} {case}: kernel {r['kernel']:.4f} ms (device "
+                out[half].setdefault(case, {})[stage] = r
+                print(f"time {half} {stage} {case}: kernel {r['kernel']:.4f} ms (device "
                       f"{r['device_ms']} ms), plain {r['plain']:.4f} ms, library "
                       f"{'F.linear' if not int8 else 'torch._int_mm'} {r['library_ms']:.4f} ms "
                       f"(device {r['library_device_ms']} ms), bound {r['bound_ms']:.4f} ms "
@@ -1049,6 +1106,17 @@ def phase_train_kernel(torch, card):
             del x, wts, got, want, probs, pwant
         torch.cuda.empty_cache()
 
+    out["times"] = time_train_kernel(torch, card)
+    return {name: out}
+
+
+def time_train_kernel(torch, card, device=False):
+    """K11's times at the trainer's batch beside K9a's (in turns), the plain
+    version's and the bound; with `device`, also the device time alone
+    (torch.profiler). Returns {case: readings}."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    out = {}
     for case, (b, t, w, heads, causal) in TRAIN_TIME_SHAPES.items():
         x, wts = dense_layer_inputs(torch, b, t, w, heads, len(case), torch.bfloat16)
         a = wts.attn
@@ -1062,14 +1130,18 @@ def phase_train_kernel(torch, card):
             "plain": lambda: fa.attention_block(x, a, heads, causal)}, samples=12, reps=3)
         r.update(saved_bound(x, a, heads, causal), k9a_ms=k9a["plain"],
                  beside_k9a_ms=k9a["kernel"])
-        out["times"][case] = r
-        print(f"time {name} {case} bf16 B={b} T={t} W={w}: kernel {r['kernel']:.4f} ms, plain "
+        if device:
+            r["device_ms"] = device_ms(torch, lambda: fa.attention_block_saved(x, a, heads,
+                                                                               causal))
+        out[case] = r
+        print(f"time attention_block_train {case} bf16 B={b} T={t} W={w}: kernel "
+              f"{r['kernel']:.4f} ms (device {r.get('device_ms', 'not measured')} ms), plain "
               f"{r['plain']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); in turns "
               f"with attention_block (K9a): {k9a['kernel']:.4f} vs {k9a['plain']:.4f} ms "
               f"[{card}]", flush=True)
         del x, wts, a
         torch.cuda.empty_cache()
-    return {name: out}
+    return out
 
 
 def time_train_backward(torch, card):
@@ -1941,7 +2013,7 @@ def profile_encode(torch, enc, images, card, label="L/14"):
 
     families = (("gemm_wgmma_s8_rowquant", "fc1 + quick_gelu + rowquant (clustered GEMM)"),
                 ("gemm_wgmma_s8", "int8 GEMMs (wgmma)"),
-                ("gemm_wgmma_bf16", "bf16 GEMMs (wgmma)"), ("attention_tiled", "attention"),
+                ("gemm_bf16_kernel", "bf16 GEMMs (wgmma)"), ("attention_tiled", "attention"),
                 ("ln_rowquant", "LayerNorm/rowquant passes"),
                 ("ln_cast", "LayerNorm passes"), ("Memcpy", "copies"))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2953,7 +3025,7 @@ def profile_step(torch, tr, pixels, tokens, card, label):
     family, the library's f32 products apart from the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    families = (("gemm_wgmma_bf16", "the port's bf16 GEMMs (wgmma)"),
+    families = (("gemm_bf16_kernel", "the port's bf16 GEMMs (wgmma)"),
                 ("attention_tiled", "attention"),
                 ("ln_cast", "LayerNorm passes"), ("sgemm", "library f32 GEMMs"),
                 ("f32f32", "library f32 GEMMs"), ("multi_tensor_apply", "AdamW"),
@@ -3154,6 +3226,14 @@ def main() -> int:
         time_kernels(torch, card, kernel_runs(fa), TIME_SHAPES)
         launch_breakdown(torch, card)
         return 0
+    if sys.argv[1:] == ["--time-dense"]:
+        phase_time_dense(torch, card)
+        return 0
+    if sys.argv[1:] == ["--gemm-variants"]:
+        # the bf16 GEMM as the library plans it beside the variants its
+        # design was chosen from, each held bit for bit against it
+        run_experiment(card, "gemm_bf16_variants", "gemm variants")
+        return 0
     if sys.argv[1:] == ["--time-k5"]:
         phase_time_k5(torch, card, lib_path)
         return 0
@@ -3164,7 +3244,9 @@ def main() -> int:
         k3_variants(card)
         return 0
     if sys.argv[1:] == ["--rowquant-variants"]:
-        rowquant_variants(card)
+        # the fused fc1 stage, the two launches it replaces and the variants
+        # its design was chosen from, held bit for bit against it
+        run_experiment(card, "rowquant_gemm_variants", "rowquant variants")
         return 0
     if sys.argv[1:] == ["--dense-readings"]:
         dense_readings(torch)
@@ -3300,9 +3382,11 @@ def main() -> int:
                     "b32-vision-B256",
                     {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
                      "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
-        block_entry("attention_block", "attention_block.cu", 346, d_launches["attention_block"],
-                    big, {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
+        dict(block_entry("attention_block", "attention_block.cu", 346,
+                         d_launches["attention_block"], big,
+                         {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
                           "b32_vision_b8": "b32-vision-B8"}),
+             **stage_entries(stages["attention_block"])),
         dict(block_entry("mlp_block", "mlp_block.cu", 457, d_launches["mlp_block"], big,
                          {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
                           "b32_vision_b8": "b32-vision-B8",

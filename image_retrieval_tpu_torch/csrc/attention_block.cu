@@ -18,12 +18,19 @@
 // not transfer.
 //
 // What the design does about it. Four launches of dense_common.cuh's
-// kernels: LN + cast, one GEMM for q, k and v together (three products over
-// the concatenated output channels), the attention of block_common.cuh
-// (whole score rows, because the probabilities are rounded to the compute
-// type before PV: in bf16 in registers, QK^T and PV on the tensor cores; in
-// f32 in shared memory), and the out-projection GEMM with the residual add
-// in its epilogue. Weights and activations pass between launches through L2.
+// kernels: LN + cast (a warp per row, 8 rows a block; the LN of the L/14
+// image batch reads and writes 134 MB, a bytes-bound pass), one GEMM for q,
+// k and v together (three products over the concatenated output channels),
+// the attention of block_common.cuh (whole score rows, because the
+// probabilities are rounded to the compute type before PV: in bf16 in
+// registers, QK^T and PV on the tensor cores; in f32 in shared memory), and
+// the out-projection GEMM with the residual add in its epilogue. In bf16
+// both GEMMs are gemm_sm90.cuh's persistent one: a fixed grid of clusters
+// of two blocks walks the output tiles, the producer's TMA loads run ahead
+// across tile boundaries (the fill of a tile hides under its predecessor's
+// epilogue) and the outputs leave by TMA stores; one wgmma shape and one K
+// order on every plan keep the bits of a row independent of the batch.
+// Weights and activations pass between launches through L2.
 
 #include "dense_blocks.cuh"
 

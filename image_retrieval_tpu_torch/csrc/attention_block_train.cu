@@ -18,9 +18,11 @@
 // the line between operations and bytes.
 //
 // What the design does about it. The chain of attention_block.cu, launch for
-// launch (LN + cast, one q/k/v GEMM, the tiled attention, the out-projection
-// with the residual add), so the sub-block's output is bit for bit that
-// kernel's. The packed [q | k | v] rows and the attention output go to
+// launch (LN + cast a warp per row, one q/k/v GEMM and the out-projection
+// with the residual add on the persistent, clustered bf16 GEMM of
+// gemm_sm90.cuh, the tiled attention), so the sub-block's output is bit for
+// bit that kernel's; at the trainer's B = 128 the out-projection takes
+// 192-row tiles, 102 cluster tiles in two waves of 66 clusters. The packed [q | k | v] rows and the attention output go to
 // tensors of the caller instead of scratch, and the attention is
 // instantiated with kSaveProbs: it already holds whole score rows (bf16: in
 // registers; f32: in shared memory), so each quotient is stored once, in

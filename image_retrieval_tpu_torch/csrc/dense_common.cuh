@@ -1,17 +1,22 @@
 // Device code shared by the Hopper (sm_90a) transformer-layer kernels that
 // keep their projections in the compute type (bf16 or f32, no quantization):
-// layer_block.cu (whole layer), attention_block.cu and mlp_block.cu (its two
-// halves). multihead_attention.cu needs block_common.cuh alone. Each is a
-// chain of simple kernels, every one reading its operands once from device
-// memory (the 50 MB L2 holds a layer's weights and activations between
-// launches):
+// layer_block.cu (whole layer, K8), attention_block.cu and mlp_block.cu (its
+// two halves, K9a and K9b) and attention_block_train.cu (K11).
+// multihead_attention.cu needs block_common.cuh alone. Each is a chain of
+// kernels, every one reading its operands once from device memory (the 50
+// MB L2 holds a layer's weights and activations between launches):
 //   (a) ln_cast_kernel          LayerNorm (f32, fast variance) cast to the
-//                               compute type; one block per row.
-//   (b) gemm_wgmma_bf16_kernel  bf16 GEMM on the tensor cores
-//                               (gemm_sm90.cuh: wgmma m64n128k16 with f32
-//                               sums fed by TMA through a shared-memory
-//                               ring, tiles of 128 columns and 256, 128 or
-//                               64 rows).
+//                               compute type; a warp per row, eight rows a
+//                               block, the row in registers up to 1,024
+//                               values (read twice beyond), its sums in
+//                               the order of the block a row it replaced.
+//   (b) gemm_bf16_kernel        bf16 GEMM on the tensor cores
+//                               (gemm_sm90.cuh: persistent clusters of two
+//                               blocks over tiles of 128 columns and 64-192
+//                               rows, wgmma m64n128k16 with f32 sums, the A
+//                               tile multicast by TMA to both blocks, the
+//                               outputs stored by TMA from shared memory
+//                               under the next tile's products).
 //       gemm_f32_kernel         f32 GEMM on the CUDA cores: every product an
 //                               exact f32 FMA (never TF32), one accumulator
 //                               per output over ascending k. Slow, and only
@@ -42,35 +47,88 @@ namespace {
 // (a) LayerNorm cast to the compute type
 // ---------------------------------------------------------------------------
 
-constexpr int kLnThreads = 256;
-// a row of f32 values sits in dynamic shared memory; the default limit
+constexpr int kLnWarps = 8;  // rows of a block
+// the widest row the chains take
 constexpr int kMaxLnWidth = 48 * 1024 / (int)sizeof(float);
 
-// One block per row of `width` values:
-// T((x - mu) * rsqrt(max(E[x^2] - mu^2, 0) + 1e-5) * gamma + beta).
-template <typename T>
-__global__ void __launch_bounds__(kLnThreads) ln_cast_kernel(
+// A warp per row of `width` values:
+// T((x - mu) * rsqrt(max(E[x^2] - mu^2, 0) + 1e-5) * gamma + beta). The sums
+// keep the order of a block of 256 threads, one a row element in turn: the
+// warp stands for eight warps of such a block, lane l for threads t = 32 v
+// + l (v = 0-7), each adding x[t], x[t + 256], ... in order (the squares by
+// fmaf); each group of 32 partials is reduced by warp_sum, then the eight
+// by warp_sum over lanes 0-7 (block_sum's order). The statistics, and so
+// every output, are those of that block, whatever the width, and every
+// chain's pass sums in one order. A warp's loads and stores are 32
+// neighbouring values. kPer: the values a lane holds in registers (per
+// virtual thread 1-4; rows of up to 1,024); 0 reads a wider row twice, once
+// for its sums and once to normalise it.
+constexpr int kLnBlockWarps = 8;  // warps of the block whose order the sums keep
+
+template <typename T, int kPer>
+__global__ void __launch_bounds__(kLnWarps * 32) ln_cast_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-    T* __restrict__ h, int width) {
-  extern __shared__ float row[];
-  __shared__ float red[32];
-  const size_t base = (size_t)blockIdx.x * width;
-  float sum = 0.f, sq = 0.f;
-  for (int i = threadIdx.x; i < width; i += blockDim.x) {
-    const float v = to_f32(x[base + i]);
-    row[i] = v;  // each thread later reads back only its own elements
-    sum += v;
-    sq = fmaf(v, v, sq);
+    T* __restrict__ h, int m, int width) {
+  constexpr int kStride = 32 * kLnBlockWarps;  // 256: one pass of the block over the row
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kLnWarps + threadIdx.x / 32;
+  if (row >= m) return;
+  const T* xr = x + (size_t)row * width;
+  T* hr = h + (size_t)row * width;
+  float v[kLnBlockWarps][kPer > 0 ? kPer : 1];
+  float part_sum[kLnBlockWarps], part_sq[kLnBlockWarps];
+#pragma unroll
+  for (int u = 0; u < kLnBlockWarps; ++u) {
+    float sum = 0.f, sq = 0.f;
+    if constexpr (kPer > 0) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = 32 * u + lane + kStride * i;
+        v[u][i] = e < width ? to_f32(xr[e]) : 0.f;
+        if (e < width) {
+          sum += v[u][i];
+          sq = fmaf(v[u][i], v[u][i], sq);
+        }
+      }
+    } else {
+      for (int e = 32 * u + lane; e < width; e += kStride) {
+        const float a = to_f32(xr[e]);
+        sum += a;
+        sq = fmaf(a, a, sq);
+      }
+    }
+    part_sum[u] = warp_sum(sum);
+    part_sq[u] = warp_sum(sq);
   }
-  sum = block_sum(sum, red);
-  sq = block_sum(sq, red);
+  float sum = 0.f, sq = 0.f;  // lane u < 8 takes the partials of virtual warp u
+#pragma unroll
+  for (int u = 0; u < kLnBlockWarps; ++u) {
+    if (lane == u) {
+      sum = part_sum[u];
+      sq = part_sq[u];
+    }
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
   const float mu = __fdiv_rn(sum, (float)width);
   const float ms = __fdiv_rn(sq, (float)width);
   const float var = fmaxf(__fsub_rn(ms, __fmul_rn(mu, mu)), 0.f);
   const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, 1e-5f)));
-  for (int i = threadIdx.x; i < width; i += blockDim.x) {
-    const float v = __fmul_rn(__fmul_rn(__fsub_rn(row[i], mu), inv), gamma[i]);
-    h[base + i] = from_f32<T>(__fadd_rn(v, beta[i]));
+  auto norm = [&](int e, float a) {
+    const float y = __fmul_rn(__fmul_rn(__fsub_rn(a, mu), inv), gamma[e]);
+    hr[e] = from_f32<T>(__fadd_rn(y, beta[e]));
+  };
+#pragma unroll
+  for (int u = 0; u < kLnBlockWarps; ++u) {
+    if constexpr (kPer > 0) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = 32 * u + lane + kStride * i;
+        if (e < width) norm(e, v[u][i]);
+      }
+    } else {
+      for (int e = 32 * u + lane; e < width; e += kStride) norm(e, to_f32(xr[e]));
+    }
   }
 }
 
@@ -98,23 +156,26 @@ __device__ __forceinline__ float finish(float acc, float bias, float res) {
 // ---- bf16 on the tensor cores (gemm_sm90.cuh) ------------------------------
 
 // The epilogue of the bf16 GEMM: two neighbouring outputs of one row from
-// their f32 sums, by finish<bf16, kEpi>, as one 4-byte store.
+// their f32 sums, by finish<bf16, kEpi>, cast to bf16 (the GEMM stages them
+// in shared memory and stores its tile by TMA).
 template <int kEpi>
 struct DenseEpilogueBf16 {
   const float* bias;
   const __nv_bfloat16* residual;  // kBiasResidual only
-  __nv_bfloat16* c;
   int m, n;
-  __device__ __forceinline__ void operator()(int row, int col, float a0, float a1) const {
-    const size_t o = (size_t)row * n + col;
+  __device__ __forceinline__ __nv_bfloat162 operator()(int row, int col, float a0,
+                                                       float a1) const {
     float r0 = 0.f, r1 = 0.f;
     if (kEpi == kBiasResidual) {
-      const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(residual + o);
+      const __nv_bfloat162 r =
+          *reinterpret_cast<const __nv_bfloat162*>(residual + (size_t)row * n + col);
       r0 = __bfloat162float(r.x);
       r1 = __bfloat162float(r.y);
     }
-    store_pair(c + o, finish<__nv_bfloat16, kEpi>(a0, bias[col], r0),
-               finish<__nv_bfloat16, kEpi>(a1, bias[col + 1], r1));
+    __nv_bfloat162 v;
+    v.x = __float2bfloat16(finish<__nv_bfloat16, kEpi>(a0, bias[col], r0));
+    v.y = __float2bfloat16(finish<__nv_bfloat16, kEpi>(a1, bias[col + 1], r1));
+    return v;
   }
 };
 
@@ -183,8 +244,29 @@ __global__ void __launch_bounds__(kF32GemmThreads) gemm_f32_kernel(
 template <typename T>
 int launch_ln_cast(const T* x, const float* gamma, const float* beta, T* h, int m, int width,
                    cudaStream_t st) {
-  IRT_TRY(ln_cast_kernel<T><<<m, kLnThreads, width * sizeof(float), st>>>(x, gamma, beta, h,
-                                                                         width));
+  const dim3 grid((m + kLnWarps - 1) / kLnWarps);
+  // the values of a virtual thread, 256 apart: 1-4 held in registers, or
+  // the row read twice past 1,024
+  const int per = width > 1024 ? 0 : (width + 255) / 256;
+#define IRT_LN(P) \
+  IRT_TRY(ln_cast_kernel<T, P><<<grid, kLnWarps * 32, 0, st>>>(x, gamma, beta, h, m, width))
+  switch (per) {
+    case 1:
+      IRT_LN(1);
+      break;
+    case 2:
+      IRT_LN(2);
+      break;
+    case 3:
+      IRT_LN(3);
+      break;
+    case 4:
+      IRT_LN(4);
+      break;
+    default:
+      IRT_LN(0);
+  }
+#undef IRT_LN
   return 0;
 }
 
@@ -195,8 +277,7 @@ int launch_gemm(const T* a, const T* bt, const float* bias, const T* residual, T
     IRT_TRY(gemm_f32_kernel<kEpi><<<dim3(n / FBN, (m + FBM - 1) / FBM), kF32GemmThreads, 0, st>>>(
         a, bt, bias, residual, c, m, n, k));
   } else {
-    return launch_gemm_wgmma<__nv_bfloat16>(
-        a, bt, k, DenseEpilogueBf16<kEpi>{bias, residual, c, m, n}, st);
+    return launch_gemm_bf16(a, bt, c, k, DenseEpilogueBf16<kEpi>{bias, residual, m, n}, st);
   }
   return 0;
 }

@@ -1,8 +1,8 @@
-// The Hopper (sm_90a) GEMM of gemm_sm90.cuh on its own, for tests and
+// The Hopper (sm_90a) GEMMs of gemm_sm90.cuh on their own, for tests and
 // timing: the bf16 GEMM with the epilogues of dense_common.cuh, the int8
 // GEMM with those of int8_common.cuh, the int8 MLP's fc1 -> quick_gelu ->
-// rowquant stage, the row pass (LayerNorm and rowquant) of the int8 chains,
-// and the launch plans they follow.
+// rowquant stage, the row passes (the bf16 chains' LayerNorm cast, the int8
+// chains' LayerNorm and rowquant), and the launch plans they follow.
 // Nothing on the main path calls these entries; the layer chains launch the
 // same kernels through launch_gemm and launch_gemm_s8. It replaces no TPU
 // kernel of its own: the JAX package's kernels keep their projections inside
@@ -15,14 +15,49 @@
 
 extern "C" {
 
-// plan: {rows, stages, smem bytes, grid x, grid y, threads}. dtype 0 = bf16,
-// 1 = int8. Returns 0, or IRT_BAD_ARGS for a shape the kernel refuses.
-int irt_gemm_plan(int m, int n, int k, int dtype, int* plan) {
+// plan: {rows, stages, smem bytes, grid x, grid y, threads, cluster, column
+// tiles, row tiles, waves}. dtype 0 = bf16 (gemm_bf16_plan over `clusters`
+// slots: a grid of blocks in clusters of two, persistent over the tiles), 1
+// = int8 (gemm_s8_plan: a block a tile, cluster 1, waves 0; `clusters` is
+// not read). Returns 0, or IRT_BAD_ARGS for a shape the kernel refuses.
+int irt_gemm_plan(int m, int n, int k, int dtype, int clusters, int* plan) {
+  if (plan == nullptr) return IRT_BAD_ARGS;
+  if (dtype == 0) {
+    GemmBf16Plan p;
+    if (!gemm_bf16_plan(m, n, k, clusters, &p)) return IRT_BAD_ARGS;
+    const int out[10] = {p.rows,    p.stages,    p.smem,      p.blocks, 1,
+                         p.threads, kBfCluster, p.col_tiles, p.row_tiles, p.waves};
+    for (int i = 0; i < 10; ++i) plan[i] = out[i];
+    return 0;
+  }
   GemmPlan p;
-  if (plan == nullptr || !gemm_plan(m, n, k, dtype, &p)) return IRT_BAD_ARGS;
-  const int out[6] = {p.rows, p.stages, p.smem, p.grid_x, p.grid_y, p.threads};
-  for (int i = 0; i < 6; ++i) plan[i] = out[i];
+  if (dtype != 1 || !gemm_s8_plan(m, n, k, &p)) return IRT_BAD_ARGS;
+  const int out[10] = {p.rows, p.stages, p.smem, p.grid_x, p.grid_y, p.threads, 1,
+                       p.grid_x, p.grid_y, 0};
+  for (int i = 0; i < 10; ++i) plan[i] = out[i];
   return 0;
+}
+
+// The clusters of two blocks of the bf16 GEMM the card holds at once
+// (cudaOccupancyMaxActiveClusters, the fewest over its block forms): the
+// `clusters` its launches plan with. Minus an error code on failure.
+int irt_gemm_bf16_max_clusters() { return gemm_bf16_slots<DenseEpilogueBf16<kBias>>(); }
+
+// h (m, width) = LN(x) cast to x's type, x (m, width) of dtype 0 = bf16, 1
+// = f32, gamma and beta (width,) f32: ln_cast_kernel, the LayerNorm pass of
+// the compute-type chains (a warp per row).
+int irt_ln_cast(const void* x, const void* gamma, const void* beta, void* h, int m, int width,
+                int dtype, void* stream) {
+  if (!dense_shape_ok(m, 1, width, 64, dtype) || gamma == nullptr || beta == nullptr) {
+    return IRT_BAD_ARGS;
+  }
+  const float *g = (const float*)gamma, *b = (const float*)beta;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    return launch_ln_cast<__nv_bfloat16>((const __nv_bfloat16*)x, g, b, (__nv_bfloat16*)h, m,
+                                         width, st);
+  }
+  return launch_ln_cast<float>((const float*)x, g, b, (float*)h, m, width, st);
 }
 
 // plan: {fused, cluster, rows, cols, stages, smem bytes, grid x, grid y,

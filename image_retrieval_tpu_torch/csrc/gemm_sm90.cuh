@@ -1,22 +1,74 @@
-// The Hopper (sm_90a) GEMM of every transformer-layer chain: one kernel for
-// bf16 and one for int8, both C = epilogue(A Bt^T) with A (M, K) row-major
-// and Bt (N, K) output-major (the weights as the chains keep them). Both
-// operands are K-major, the only layout 8-bit wgmma takes, so no weight is
-// repacked. dense_common.cuh and int8_common.cuh hand it their epilogues;
-// gemm_sm90.cu exposes it alone for tests and timing.
+// The Hopper (sm_90a) GEMMs of every transformer-layer chain, C =
+// epilogue(A Bt^T) with A (M, K) row-major and Bt (N, K) output-major (the
+// weights as the chains keep them). Both operands are K-major, the only
+// layout 8-bit wgmma takes, so no weight is repacked. dense_common.cuh and
+// int8_common.cuh hand them their epilogues; gemm_sm90.cu exposes them alone
+// for tests and timing.
 //
-// What bounds it on this card. 2 M N K operations against (M + N) K bytes of
-// operands and M N outputs: at the chains' shapes (K >= 512, M in the
+// What bounds them on this card. 2 M N K operations against (M + N) K bytes
+// of operands and M N outputs: at the chains' shapes (K >= 512, M in the
 // thousands) far above the 295 operations a byte where the tensor cores, and
-// not memory, set the pace. Only wgmma reaches the tensor cores' full rate.
+// not device memory, set the pace. Only wgmma reaches the tensor cores' full
+// rate, and below it the rate at which the L2 delivers operand tiles to the
+// SMs (6.2-7.9 TB/s on an H100, measured at 128 x 128 tiles) held both
+// GEMMs.
 //
-// The design.
+// The bf16 GEMM (gemm_bf16_kernel; the compute-type chains K8, K9a, K9b,
+// K11):
+//   - Persistent and warp-specialised. The grid is the clusters the card
+//     holds at once (cudaOccupancyMaxActiveClusters: 66 of two blocks on an
+//     H100), at most one per cluster tile. A cluster of two blocks takes
+//     neighbouring column tiles of one row band; the clusters walk the (row
+//     band, column pair) tiles in a static order, a row band's pairs
+//     together, so that a band of A is read once from device memory and
+//     then from L2. In each block one producer thread keeps TMA loads in
+//     flight through a ring of stages across tile boundaries (running stage
+//     counters give the mbarrier parities), so the next tile's stages fill
+//     during this tile's epilogue. The producer is one warp: setmaxnreg
+//     (moving a producer warpgroup's registers to the consumers) draws on
+//     the block's own launch allocation, blocked forever when that was
+//     short, and made ptxas wait on the products before touching the
+//     accumulators (C7517); one block an SM leaves a consumer thread 152 or
+//     more registers at the library's tile heights.
+//   - Tiles of 128 columns and 64 G rows, G consumer warpgroups of 64 rows
+//     (G = 1-3, gemm_bf16_plan). A block of the pair loads half the A tile
+//     and multicasts it to both (cp.async.bulk.tensor ... multicast::
+//     cluster); each loads its own B rows. At G = 3 a K step moves 28 KB from
+//     L2 to an SM for 3.1 MFLOP, 112 flop a byte (79 without the multicast).
+//     Each block's `full` barrier expects the whole stage, the half its
+//     partner multicasts included; a stage goes back to the producers
+//     through `empty` barriers that count a release from every consumer
+//     warp of both blocks (remote arrives through mapa), since either
+//     producer writes into both blocks. On an H100 the multicast moved the
+//     stages' times by under 5 % (csrc/experiments/gemm_bf16_variants.cu):
+//     the L2 no longer holds the products back once the walk is persistent.
+//   - Every consumer warpgroup runs wgmma m64n128k16 (f32 sums) on its 64
+//     rows: one instruction shape and one accumulator per output over
+//     ascending K steps, whatever the plan, with no split-K and no atomics,
+//     so a row's bits depend neither on M nor on the plan.
+//   - The epilogue finishes its values in registers (bias, quick_gelu or the
+//     residual, by the chain's functor) into a 64 x 128 bf16 slab of shared
+//     memory per warpgroup, laid out as the 128-byte swizzle of two TMA
+//     boxes, and one thread stores it by TMA (cp.async.bulk.tensor, global
+//     from shared): the store runs under the next tile's products, and the
+//     warpgroup waits for it to have read the slab only before its next
+//     epilogue writes there. Rows past M and columns past N are not stored;
+//     a partner whose column tile lies past N loads zeros and stores
+//     nothing.
+//   - The plan chooses G for the fewest waves of cluster tiles times the L2
+//     bytes of a tile's K step (gemm_bf16_plan): 192 rows at the large
+//     batches, 128 or 64 where the last wave would leave most clusters idle
+//     or the batch is small. 256-row tiles (four warpgroups of 64 rows, or
+//     two of 128) were slower or spilled (BfBlock).
+//   - The host side of a launch is about 3 microseconds on an H100's host,
+//     of which encoding the three tensor maps and setting the shared-memory
+//     limit take under half a microsecond (gemm_bf16_variants.cu).
+//
+// The int8 GEMM (gemm_wgmma_s8_kernel; K1, K2a, K2b, QuantDense):
 //   - A block computes an output tile of 128 columns and 256 rows (128 or 64
-//     where larger tiles would leave SMs idle, gemm_plan). At 128 x 128 both
-//     GEMMs ran at the rate the L2 delivers operands to the SMs (6.2-7.9 TB/s
-//     on an H100); 256-row tiles move a quarter fewer bytes a product. K
-//     steps are 128 bytes: 64 bf16 or 128 int8 values, so every shared row
-//     is one 128-byte swizzle row.
+//     where larger tiles would leave SMs idle, gemm_s8_plan). K steps are
+//     128 bytes (128 int8 values), so every shared row is one 128-byte
+//     swizzle row.
 //   - A ring of stages (A tile + B tile) in dynamic shared memory: four of
 //     48 KB at 256 rows (one block an SM); three of 32 KB at 128 rows and four
 //     of 24 KB at 64 rows, 97 KB a block, so that two blocks share an SM and
@@ -24,31 +76,26 @@
 //     producer warp issues the TMA loads of a stage against its `full`
 //     mbarrier (expect-tx: the box's bytes, zero-filled rows past M and K
 //     tails included).
-//   - One consumer warpgroup per 64 rows runs wgmma m64n128k16 (bf16, f32
-//     sums) or m64n128k32 (s8, s32 sums), both operands read from shared
-//     memory through descriptors, four per stage. A stage goes back to the
-//     producer through its `empty` mbarrier once wgmma.wait_group says that
-//     the products reading it have finished: the products of one stage
-//     overlap the wait for the next.
+//   - One consumer warpgroup per 64 rows runs wgmma m64n128k32 (s32 sums),
+//     both operands read from shared memory through descriptors, four per
+//     stage. A stage goes back to the producer through its `empty` mbarrier
+//     once wgmma.wait_group says that the products reading it have finished.
 //   - The epilogue reads the accumulators in registers: warp w of a
 //     warpgroup holds rows 16 w + lane / 4 and + 8 at columns
 //     8 i + 2 (lane % 4) + {0, 1} of each n8 slice i, as mma.sync's C
-//     fragment. Rows past M and columns past N are not stored.
-//   - No split-K and no atomics: each output's sum has one fixed order that
-//     depends only on K, so launches on the same operands give the same
-//     bits whatever M is.
+//     fragment. Rows past M and columns past N are not stored. Sums are
+//     exact, so launches on the same operands give the same bits whatever M.
 //   - gemm_wgmma_s8_rowquant_kernel is the int8 GEMM with a per-row
 //     requantization in its epilogue (the int8 MLP's fc1 -> quick_gelu ->
 //     rowquant): blocks of 64 rows x 512 columns, four warpgroups on one A
 //     tile, in a thread block cluster that covers a whole row tile, so that
 //     the f32 hidden rows never reach device memory (rowquant_gemm_plan;
 //     its design is set out beside it).
-//   - TMA descriptors are encoded on the host per launch
-//     (cuTensorMapEncodeTiled, reached through the runtime's entry-point
-//     query: the library does not link libcuda) and passed as
-//     __grid_constant__ parameters.
-//   - An mbarrier wait that has not completed after ~2^34 cycles traps: a
-//     wrong phase parity fails the launch instead of hanging the card.
+//
+// Both: TMA descriptors are encoded on the host (cuTensorMapEncodeTiled,
+// reached through the runtime's entry-point query: the library does not
+// link libcuda) and passed as __grid_constant__ parameters. An mbarrier wait that has not completed after ~2^34 cycles
+// traps: a wrong phase parity fails the launch instead of hanging the card.
 #pragma once
 
 #include <cuda.h>
@@ -62,7 +109,7 @@ namespace {
 
 constexpr int kGemmTileN = 128;     // output columns of a block
 constexpr int kGemmRowBytes = 128;  // bytes of one K step of one row
-// Ring depth by consumer warpgroups (64 rows each): four stages of 48 KB at
+// int8: ring depth by consumer warpgroups (64 rows each): four stages of 48 KB at
 // 256-row tiles (one block an SM), three of 32 KB at 128 rows and four of
 // 24 KB at 64 rows (two blocks an SM: one's loads and epilogue overlap the
 // other's products).
@@ -74,7 +121,8 @@ constexpr int kGemmSmSlots = 132;        // SMs of an H100 SXM
 // the 128-byte swizzle
 constexpr int kGemmSmemAlign = 1024;
 
-// The launch plan of one GEMM (mirrored by ops/flash_attention.py::gemm_plan).
+// The launch plan of one int8 GEMM (mirrored by
+// ops/flash_attention.py::gemm_plan).
 struct GemmPlan {
   int rows;     // output rows of a block: 256, 128 or 64 (a consumer warpgroup per 64)
   int stages;   // shared-memory ring depth
@@ -84,13 +132,13 @@ struct GemmPlan {
   int threads;  // 128 per consumer warpgroup + one producer warp
 };
 
-// Tiles of 256 rows where they give every SM a block (the fewest operand
-// bytes a product: both GEMMs are bound by what the L2 delivers to the SMs
-// at 128 x 128), else 128 rows where those do, else 64. dtype 0 = bf16,
-// 1 = int8. False for a shape the kernel does not take: M < 1, N or K not a
-// multiple of 64, or more row tiles than gridDim.y holds.
-inline bool gemm_plan(int m, int n, int k, int dtype, GemmPlan* p) {
-  if (m < 1 || n < 64 || k < 64 || n % 64 || k % 64 || (dtype != 0 && dtype != 1)) return false;
+// The int8 GEMM's tiles: 256 rows where they give every SM a block (the
+// fewest operand bytes a product: it is bound by what the L2 delivers to the
+// SMs at 128 x 128), else 128 rows where those do, else 64. False for a
+// shape the kernel does not take: M < 1, N or K not a multiple of 64, or
+// more row tiles than gridDim.y holds.
+inline bool gemm_s8_plan(int m, int n, int k, GemmPlan* p) {
+  if (m < 1 || n < 64 || k < 64 || n % 64 || k % 64) return false;
   const long long cols = (n + kGemmTileN - 1) / kGemmTileN;
   const long long tiles128 = ((long long)m + 127) / 128 * cols;
   const long long tiles256 = ((long long)m + 255) / 256 * cols;
@@ -235,13 +283,8 @@ __device__ __forceinline__ void fence_acc(int* d) {
 }
 
 template <typename In> struct GemmOperand;
-template <> struct GemmOperand<__nv_bfloat16> {
-  typedef float Acc;
-  static constexpr int kMmaK = 16;  // values of one wgmma's K
+template <> struct GemmOperand<__nv_bfloat16> {  // the bf16 GEMM's tensor maps
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-    wgmma_bf16(d, da, db);
-  }
 };
 template <> struct GemmOperand<int8_t> {
   typedef int Acc;
@@ -367,13 +410,6 @@ __device__ __forceinline__ void gemm_wgmma_body(const CUtensorMap* map_a, const 
 
 template <int kGroups, typename Epi>
 __global__ void __launch_bounds__(128 * kGroups + 32, GemmBlocksPerSm<kGroups>::value)
-    gemm_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
-                           const __grid_constant__ CUtensorMap map_b, int k_steps, Epi epi) {
-  gemm_wgmma_body<__nv_bfloat16, kGroups>(&map_a, &map_b, k_steps, epi);
-}
-
-template <int kGroups, typename Epi>
-__global__ void __launch_bounds__(128 * kGroups + 32, GemmBlocksPerSm<kGroups>::value)
     gemm_wgmma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
                          const __grid_constant__ CUtensorMap map_b, int k_steps, Epi epi) {
   gemm_wgmma_body<int8_t, kGroups>(&map_a, &map_b, k_steps, epi);
@@ -428,10 +464,10 @@ struct RowquantGemmPlan {
   int threads;  // four consumer warpgroups and one producer warp
 };
 
-// False for a shape the int8 GEMM refuses (gemm_plan).
+// False for a shape the int8 GEMM refuses (gemm_s8_plan).
 inline bool rowquant_gemm_plan(int m, int n, int k, RowquantGemmPlan* p) {
   GemmPlan g;
-  if (!gemm_plan(m, n, k, 1, &g)) return false;
+  if (!gemm_s8_plan(m, n, k, &g)) return false;
   *p = RowquantGemmPlan{};
   const long long row_tiles = ((long long)m + kRqRows - 1) / kRqRows;
   if (n % kRqCols || n / kRqCols > kRqMaxCluster || row_tiles > 65535) return true;
@@ -587,6 +623,336 @@ __global__ void __launch_bounds__(kRqThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// The bf16 GEMM: persistent clusters, a multicast A tile, TMA stores
+// ---------------------------------------------------------------------------
+
+constexpr int kBfCluster = 2;     // blocks of a cluster: two column tiles of one row band
+constexpr int kBfMaxGroups = 3;   // 64-row warpgroups of the library's tallest tile
+constexpr int kBfBox = 64;        // bf16 columns of one 128-byte TMA box (loads and stores)
+constexpr int kBfGroupOut = kGemmWarpGroupRows * kGemmTileN * 2;  // a warpgroup's C tile, bytes
+constexpr int kBfSmemLimit = 232448;  // dynamic shared memory a block may take (227 KB)
+
+// A block of tiles of 64 kG rows: kG / kSub consumer warpgroups of 64 kSub
+// rows (m64 sub-tiles of one wgmma shape) and one producer warp. Each
+// warpgroup stages its outputs through one 64 x 128 slab; the ring takes as
+// many stages as fit beside the slabs (4, 6, 8 for kG = 3, 2, 1). One block
+// an SM. The library takes kG = 1-3 with kSub = 1 (a thread holds 152 or
+// more registers); 256-row tiles (kG = 4) are forms of
+// csrc/experiments/gemm_bf16_variants.cu: four warpgroups of 64 rows spill
+// at 120 registers a thread, and two of 128 rows (kSub = 2) ran fc1 and
+// fc2 slower than 192-row tiles, their 8 warps leaving quick_gelu's
+// epilogue exposed.
+template <int kG, int kSub = 1> struct BfBlock {
+  static constexpr int kRows = kGemmWarpGroupRows * kG;
+  static constexpr int kGroups = kG / kSub;              // consumer warpgroups
+  static constexpr int kATile = kRows * kGemmRowBytes;
+  static constexpr int kBTile = kGemmTileN * kGemmRowBytes;
+  static constexpr int kStage = kATile + kBTile;
+  static constexpr int kOut = kGroups * kBfGroupOut;
+  static constexpr int kFit = (kBfSmemLimit - kOut - kGemmSmemAlign) / kStage;
+  static constexpr int kStages = kFit > 8 ? 8 : kFit;
+  static constexpr int kSmem = kStages * kStage + kOut + kGemmSmemAlign;
+  static constexpr int kThreads = 128 * kGroups + 32;
+};
+
+// The launch plan of one bf16 GEMM (mirrored by
+// ops/flash_attention.py::gemm_plan for bf16 operands).
+struct GemmBf16Plan {
+  int rows;       // output rows of a tile: 64 G, G = 1-3
+  int stages;     // shared-memory ring depth
+  int smem;       // dynamic shared memory of a block, bytes
+  int blocks;     // blocks launched: kBfCluster per cluster
+  int threads;    // 128 per consumer warpgroup and a producer warp
+  int col_tiles;  // column tiles of 128
+  int row_tiles;  // row bands of `rows`
+  int waves;      // cluster tiles per launched cluster, rounded up
+};
+
+template <int kG>
+inline void bf16_plan_block(GemmBf16Plan* p) {
+  typedef BfBlock<kG> B;
+  p->rows = B::kRows;
+  p->stages = B::kStages;
+  p->smem = B::kSmem;
+  p->threads = B::kThreads;
+}
+
+// Tiles of 64 G rows for the G in 1-3 that minimises waves x (G + 4): a K
+// step of a block moves (G / 2 + 2) x 8 KB from L2 (its half of the A tile,
+// the other half multicast by its partner, and its B tile), the GEMM runs
+// at the rate the L2 delivers those, so a tile costs G + 4, and a wave of
+// `slots` clusters (cudaOccupancyMaxActiveClusters) costs one tile. Ties go
+// to the taller tile. A cluster tile is a row band by a pair of column
+// tiles; the launch takes min(slots, cluster tiles) clusters. False for a
+// shape the kernel does not take: M < 1, N or K not a multiple of 64, or
+// more than 65535 row tiles (the chains' bound, rows_ok).
+inline bool gemm_bf16_plan(int m, int n, int k, int slots, GemmBf16Plan* p) {
+  if (m < 1 || n < 64 || k < 64 || n % 64 || k % 64 || slots < 1) return false;
+  const long long cols = (n + kGemmTileN - 1) / kGemmTileN;
+  const long long pairs = (cols + kBfCluster - 1) / kBfCluster;
+  int best = 0;
+  long long best_cost = 0;
+  for (int g = kBfMaxGroups; g >= 1; --g) {
+    const long long bands = ((long long)m + 64 * g - 1) / (64 * g);
+    const long long cost = (bands * pairs + slots - 1) / slots * (g + 4);
+    if (best == 0 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  const long long bands = ((long long)m + 64 * best - 1) / (64 * best);
+  if (bands > 65535) return false;
+  if (best == 3) bf16_plan_block<3>(p);
+  if (best == 2) bf16_plan_block<2>(p);
+  if (best == 1) bf16_plan_block<1>(p);
+  const long long tiles = bands * pairs;
+  p->blocks = kBfCluster * (int)(tiles < slots ? tiles : slots);
+  p->col_tiles = (int)cols;
+  p->row_tiles = (int)bands;
+  p->waves = (int)((tiles + slots - 1) / slots);
+  return true;
+}
+
+// One 2-D TMA box into the shared memory of every block of the cluster in
+// `mask`, at the same offset, completing each one's `bar` (the same offset
+// too) by the box's bytes.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+// One 2-D TMA box from shared memory at `src` to the tensor at (c0, c1);
+// elements past the tensor's edges are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's committed stores have read their shared memory ...
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... or have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// This thread's shared-memory writes, made visible to TMA (the async proxy).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// An arrival on the mbarrier at this block's shared address `bar`, in block
+// `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// C (m, n) bf16 = epi(A Bt^T), persistent over `tiles` cluster tiles (row
+// band, pair of column tiles; `pairs` a band), cluster c taking c, c +
+// clusters, ... kCluster 2 is the design (the A tile multicast to both
+// blocks); 1 walks the same tiles with each block loading all its A rows
+// (csrc/experiments/gemm_bf16_variants.cu). Epi: fields m and n and
+// operator()(row, col, acc[col], acc[col + 1]) -> the two finished bf16
+// outputs (DenseEpilogueBf16, dense_common.cuh). map_c: C as boxes of 64
+// rows x 64 columns under the 128-byte swizzle.
+template <int kG, int kSub, int kCluster, typename Epi>
+__global__ void __launch_bounds__(BfBlock<kG, kSub>::kThreads, 1)
+    gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const __grid_constant__ CUtensorMap map_c, int k_steps, int pairs, int tiles,
+                     Epi epi) {
+  typedef BfBlock<kG, kSub> B;
+  constexpr int kGroups = B::kGroups;
+  constexpr int kS = B::kStages;
+  constexpr int kAPart = B::kATile / kCluster;  // bytes of the A rows this block loads
+  extern __shared__ uint8_t gemm_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kS];  // full[s], then empty[s]
+
+  const int tid = threadIdx.x, group = tid / 128;  // group kGroups: the producer warp
+  const uint32_t ring =
+      (smem_u32(gemm_smem) + kGemmSmemAlign - 1) & ~(uint32_t)(kGemmSmemAlign - 1);
+  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[kS]);
+  // the cluster spans kCluster consecutive blocks of the 1-D grid
+  const uint32_t rank = blockIdx.x % kCluster;
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full0 + 8 * s, 1);                        // the producer's expect-tx
+      mbar_init(empty0 + 8 * s, kCluster * kGroups * 4);  // each consumer warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every block's barriers are initialised before a peer multicasts or arrives
+  if (kCluster > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+
+  if (group == kGroups) {
+    if (tid == 128 * kGroups) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = cluster; t < tiles; t += clusters) {
+        const int band = t / pairs;
+        const int a_row = band * B::kRows + (int)rank * (B::kRows / kCluster);
+        const int n0 = (kCluster * (t - band * pairs) + (int)rank) * kGemmTileN;
+        for (int kt = 0; kt < k_steps; ++kt) {
+          // the consumers of both blocks have released the stage's last
+          // use; parity 1 passes at once on the first round
+          mbar_wait(empty0 + 8 * s, phase ^ 1);
+          const uint32_t full = full0 + 8 * s, stage = ring + s * B::kStage;
+          mbar_arrive_expect_tx(full, B::kStage);  // the partner's half of A included
+          const int k0 = kt * kBfBox;
+          if (kCluster > 1) {
+            tma_load_2d_multicast(stage + rank * kAPart, &map_a, full, k0, a_row,
+                                  (uint16_t)((1 << kCluster) - 1));
+          } else {
+            tma_load_2d(stage, &map_a, full, k0, a_row);
+          }
+          tma_load_2d(stage + B::kATile, &map_b, full, k0, n0);
+          if (++s == kS) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    const int g = group, wt = tid % 128, w = wt / 32, lane = tid % 32;
+    constexpr int kSubBytes = kGemmWarpGroupRows * kGemmRowBytes;  // an m64 slab of A
+    const uint32_t a_rows = g * kSub * kSubBytes;
+    // this warpgroup's C slab of 64 rows x 128 columns
+    const uint32_t out = ring + kS * B::kStage + g * kBfGroupOut;
+    float d[64 * kSub];  // sub-tile j: d[64 j ...]
+    int s = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int t = cluster; t < tiles; t += clusters) {
+      const int band = t / pairs;
+      const int m0 = band * B::kRows + g * kSub * kGemmWarpGroupRows;  // its first row
+      const int n0 = (kCluster * (t - band * pairs) + (int)rank) * kGemmTileN;
+#pragma unroll
+      for (int i = 0; i < 64 * kSub; ++i) d[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) fence_acc(d + 64 * j);
+      for (int kt = 0; kt <= k_steps; ++kt) {
+        if (kt < k_steps) {
+          mbar_wait(full0 + 8 * s, phase);
+          const uint32_t stage = ring + s * B::kStage;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kGemmRowBytes / 32; ++kk) {  // four k16 slices of 32 bytes
+#pragma unroll
+            for (int j = 0; j < kSub; ++j) {
+              wgmma_bf16(d + 64 * j, wgmma_desc(stage + a_rows + j * kSubBytes + kk * 32),
+                         wgmma_desc(stage + B::kATile + kk * 32));
+            }
+          }
+          wgmma_commit();
+        }
+        if (kt > 0) {
+          // the previous stage's products are done: each warp hands it back
+          // to the producers of both blocks
+          if (kt < k_steps) {
+            wgmma_wait<1>();
+          } else {
+            wgmma_wait<0>();
+          }
+          if (lane == 0) {
+#pragma unroll
+            for (int r = 0; r < kCluster; ++r) {
+              if (kCluster > 1) {
+                mbar_arrive_cluster(empty0 + 8 * prev, r);
+              } else {
+                mbar_arrive(empty0 + 8 * prev);
+              }
+            }
+          }
+        }
+        if (kt < k_steps) {
+          prev = s;
+          if (++s == kS) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) fence_acc(d + 64 * j);
+
+      // The epilogue, a slab of 64 rows at a time: finished bf16 pairs into
+      // the warpgroup's C slab (two boxes of 64 rows x 128 bytes; 16-byte
+      // chunk c of row r sits at chunk c ^ (r % 8)), then one TMA store a
+      // box, which runs on under the next slab's epilogue or the next
+      // tile's products.
+      const int lr = 16 * w + lane / 4;  // rows lr and lr + 8 of a slab; lr % 8 = lane / 4
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int r0 = m0 + j * kGemmWarpGroupRows;
+        if (wt == 0) bulk_wait_read();  // the slab's last stores have read it
+        named_bar_sync(1 + g, 128);
+        if (r0 < epi.m) {
+#pragma unroll
+          for (int i = 0; i < kGemmTileN / 8; ++i) {
+            if (n0 + kBfBox * (i / 8) >= epi.n) continue;  // a box past N: not stored
+            const int col = n0 + 8 * i + 2 * (lane % 4);
+            const uint32_t at = out + (i / 8) * (kGemmWarpGroupRows * 128) + lr * 128 +
+                                ((i % 8) ^ (lane / 4)) * 16 + 4 * (lane % 4);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (r0 + lr + 8 * h >= epi.m) continue;
+              const __nv_bfloat162 v = epi(r0 + lr + 8 * h, col, d[64 * j + 4 * i + 2 * h],
+                                           d[64 * j + 4 * i + 2 * h + 1]);
+              const uint32_t bits = (uint32_t)__bfloat16_as_ushort(v.x) |
+                                    ((uint32_t)__bfloat16_as_ushort(v.y) << 16);
+              asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + 8 * h * 128), "r"(bits)
+                           : "memory");
+            }
+          }
+        }
+        fence_proxy_async_shared();
+        named_bar_sync(1 + g, 128);
+        if (wt == 0 && r0 < epi.m) {
+#pragma unroll
+          for (int b = 0; b < kGemmTileN / kBfBox; ++b) {
+            if (n0 + kBfBox * b < epi.n) {
+              tma_store_2d(&map_c, out + b * (kGemmWarpGroupRows * 128), n0 + kBfBox * b, r0);
+            }
+          }
+          bulk_commit();
+        }
+      }
+    }
+    if (wt == 0) bulk_wait();
+  }
+  __syncwarp();
+  // no block leaves while its partner may still multicast into it or
+  // release a stage to it
+  if (kCluster > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -629,15 +995,11 @@ bool encode_operand(CUtensorMap* map, const In* base, int rows, int k, int box_r
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename In, int kGroups, typename Epi>
+template <int kGroups, typename Epi>
 int launch_gemm_wgmma_as(const CUtensorMap& ma, const CUtensorMap& mb, int k_steps, const Epi& epi,
                          const GemmPlan& p, cudaStream_t st) {
-  void (*kernel)(const CUtensorMap, const CUtensorMap, int, Epi);
-  if constexpr (std::is_same<In, int8_t>::value) {
-    kernel = gemm_wgmma_s8_kernel<kGroups, Epi>;
-  } else {
-    kernel = gemm_wgmma_bf16_kernel<kGroups, Epi>;
-  }
+  void (*kernel)(const CUtensorMap, const CUtensorMap, int, Epi) =
+      gemm_wgmma_s8_kernel<kGroups, Epi>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
@@ -645,25 +1007,24 @@ int launch_gemm_wgmma_as(const CUtensorMap& ma, const CUtensorMap& mb, int k_ste
   return 0;
 }
 
-// C = epi(A Bt^T) for A (epi.m, k) and Bt (epi.n, k) of type In (bf16 or
-// int8). IRT_BAD_ARGS for a shape gemm_plan refuses or an operand TMA cannot
-// address (its base not 16-byte aligned).
-template <typename In, typename Epi>
-int launch_gemm_wgmma(const In* a, const In* bt, int k, const Epi& epi, cudaStream_t st) {
+// C = epi(A Bt^T) for int8 A (epi.m, k) and Bt (epi.n, k). IRT_BAD_ARGS for
+// a shape gemm_s8_plan refuses or an operand TMA cannot address (its base
+// not 16-byte aligned).
+template <typename Epi>
+int launch_gemm_wgmma_s8(const int8_t* a, const int8_t* bt, int k, const Epi& epi,
+                         cudaStream_t st) {
   GemmPlan p;
-  if (!gemm_plan(epi.m, epi.n, k, std::is_same<In, int8_t>::value ? 1 : 0, &p)) {
-    return IRT_BAD_ARGS;
-  }
+  if (!gemm_s8_plan(epi.m, epi.n, k, &p)) return IRT_BAD_ARGS;
   if ((uintptr_t)a % 16 || (uintptr_t)bt % 16) return IRT_BAD_ARGS;
   if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap ma, mb;
   if (!encode_operand(&ma, a, epi.m, k, p.rows) || !encode_operand(&mb, bt, epi.n, k, kGemmTileN)) {
     return IRT_BAD_ARGS;
   }
-  const int k_steps = (k * (int)sizeof(In) + kGemmRowBytes - 1) / kGemmRowBytes;
-  if (p.rows == 256) return launch_gemm_wgmma_as<In, 4>(ma, mb, k_steps, epi, p, st);
-  return p.rows == 128 ? launch_gemm_wgmma_as<In, 2>(ma, mb, k_steps, epi, p, st)
-                       : launch_gemm_wgmma_as<In, 1>(ma, mb, k_steps, epi, p, st);
+  const int k_steps = (k + kGemmRowBytes - 1) / kGemmRowBytes;
+  if (p.rows == 256) return launch_gemm_wgmma_as<4>(ma, mb, k_steps, epi, p, st);
+  return p.rows == 128 ? launch_gemm_wgmma_as<2>(ma, mb, k_steps, epi, p, st)
+                       : launch_gemm_wgmma_as<1>(ma, mb, k_steps, epi, p, st);
 }
 
 // The launch of the fused stage on the plan's cluster. IRT_BAD_ARGS for a
@@ -725,6 +1086,117 @@ int rowquant_max_clusters(int m, int n, int k) {
   int clusters = 0;
   e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
+}
+
+// The bf16 GEMM on the block form (kG, kSub) in clusters of kCluster, over
+// col_tiles x row_tiles tiles on `blocks` blocks. IRT_BAD_ARGS where TMA
+// cannot address an operand or C (a base not 16-byte aligned).
+template <int kG, int kSub, int kCluster, typename Epi>
+int launch_gemm_bf16_form(const __nv_bfloat16* a, const __nv_bfloat16* bt, __nv_bfloat16* c,
+                          int k, const Epi& epi, int col_tiles, int row_tiles, int blocks,
+                          cudaStream_t st) {
+  typedef BfBlock<kG, kSub> B;
+  if ((uintptr_t)a % 16 || (uintptr_t)bt % 16 || (uintptr_t)c % 16) return IRT_BAD_ARGS;
+  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap ma, mb, mc;
+  if (!encode_operand(&ma, a, epi.m, k, B::kRows / kCluster) ||
+      !encode_operand(&mb, bt, epi.n, k, kGemmTileN) ||
+      !encode_operand(&mc, (const __nv_bfloat16*)c, epi.m, epi.n, kGemmWarpGroupRows)) {
+    return IRT_BAD_ARGS;
+  }
+  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, int, int, int, Epi) =
+      gemm_bf16_kernel<kG, kSub, kCluster, Epi>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int pairs = (col_tiles + kCluster - 1) / kCluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(B::kThreads);
+  cfg.dynamicSmemBytes = B::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, ma, mb, mc, k / kBfBox, pairs, row_tiles * pairs, epi);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The library's block form of the plan's tile height, clusters of kCluster.
+template <int kCluster, typename Epi>
+int launch_gemm_bf16_plan(const __nv_bfloat16* a, const __nv_bfloat16* bt, __nv_bfloat16* c,
+                          int k, const Epi& epi, const GemmBf16Plan& p, cudaStream_t st) {
+#define IRT_BF_FORM(G) \
+  launch_gemm_bf16_form<G, 1, kCluster>(a, bt, c, k, epi, p.col_tiles, p.row_tiles, p.blocks, st)
+  switch (p.rows) {
+    case 192:
+      return IRT_BF_FORM(3);
+    case 128:
+      return IRT_BF_FORM(2);
+    default:
+      return IRT_BF_FORM(1);
+  }
+#undef IRT_BF_FORM
+}
+
+// How many clusters of kCluster blocks of the form (kG, kSub) the card holds
+// at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+template <int kG, int kSub, int kCluster, typename Epi>
+int gemm_bf16_max_clusters_as() {
+  typedef BfBlock<kG, kSub> B;
+  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, int, int, int, Epi) =
+      gemm_bf16_kernel<kG, kSub, kCluster, Epi>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(B::kThreads);
+  cfg.dynamicSmemBytes = B::kSmem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
+// The plan's `slots`: the clusters of two blocks the card holds at once,
+// the fewest over the three block forms (each takes one block an SM),
+// asked once; or minus a CUDA error code.
+template <typename Epi>
+int gemm_bf16_slots() {
+  static const int slots = [] {
+    const int n[3] = {gemm_bf16_max_clusters_as<1, 1, kBfCluster, Epi>(),
+                      gemm_bf16_max_clusters_as<2, 1, kBfCluster, Epi>(),
+                      gemm_bf16_max_clusters_as<3, 1, kBfCluster, Epi>()};
+    int least = n[0];
+    for (int i = 1; i < 3; ++i) least = n[i] < least ? n[i] : least;
+    return least == 0 ? -(int)cudaErrorInvalidConfiguration : least;
+  }();
+  return slots;
+}
+
+// C (epi.m, epi.n) bf16 = epi(A Bt^T) for bf16 A (epi.m, k) and Bt (epi.n,
+// k), on the plan gemm_bf16_plan gives the shape on this card. IRT_BAD_ARGS
+// for a shape the plan refuses or a base TMA cannot address.
+template <typename Epi>
+int launch_gemm_bf16(const __nv_bfloat16* a, const __nv_bfloat16* bt, __nv_bfloat16* c, int k,
+                     const Epi& epi, cudaStream_t st) {
+  const int slots = gemm_bf16_slots<Epi>();
+  if (slots < 0) return -slots;
+  GemmBf16Plan p;
+  if (!gemm_bf16_plan(epi.m, epi.n, k, slots, &p)) return IRT_BAD_ARGS;
+  return launch_gemm_bf16_plan<kBfCluster>(a, bt, c, k, epi, p, st);
 }
 
 // Two neighbouring outputs of one row, as one 4-byte (bf16) or 8-byte (f32)

@@ -280,7 +280,7 @@ template <typename OutT, int kEpi>
 int launch_gemm_s8(const int8_t* a, const int8_t* bt, const float* row_scale,
                    const float* col_scale, const float* bias, const OutT* residual,
                    OutT* c, int m, int n, int k, cudaStream_t st) {
-  return launch_gemm_wgmma<int8_t>(
+  return launch_gemm_wgmma_s8(
       a, bt, k, Int8Epilogue<OutT, kEpi>{row_scale, col_scale, bias, residual, c, m, n}, st);
 }
 

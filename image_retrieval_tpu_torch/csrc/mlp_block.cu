@@ -16,16 +16,16 @@
 // transfer.
 //
 // What the design does about it. Three launches of dense_common.cuh's
-// kernels: LN + cast, the fc1 GEMM with quick_gelu in f32 and the cast in
-// its epilogue, and the fc2 GEMM with the residual add in its epilogue. Both
-// GEMMs are gemm_sm90.cuh's: wgmma m64n128k16 fed by TMA through a
-// shared-memory ring, a producer warp and one consumer warpgroup per 64 rows
-// of a tile of 128 columns and 256 rows (128 or 64 at small batches), the
-// epilogues reading the accumulators in registers. On an H100 at L/14
-// B = 128 the two stages read 37-57 % of their bound (PERF.md): fc2 is held
-// by the operand bytes the L2 delivers, fc1 by its quick_gelu epilogue. The
-// hidden activation (m x hidden in the compute type) is the largest
-// intermediate and passes through device memory (and mostly the 50 MB L2).
+// kernels: LN + cast (a warp per row), the fc1 GEMM with quick_gelu in f32
+// and the cast in its epilogue, and the fc2 GEMM with the residual add in
+// its epilogue. Both GEMMs are gemm_sm90.cuh's persistent, clustered one:
+// wgmma m64n128k16 fed by TMA through a shared-memory ring that runs ahead
+// across tiles, tiles of 128 columns and 64-192 rows by shape, the
+// epilogues finishing the accumulators in registers and storing them by TMA
+// from shared memory. fc1's epilogue (exp and an IEEE reciprocal an output)
+// is the slowest part of the half on an H100 (PERF.md). The hidden
+// activation (m x hidden in the compute type) is the largest intermediate
+// and passes through device memory (and mostly the 50 MB L2).
 
 #include "dense_blocks.cuh"
 

@@ -182,8 +182,12 @@ def load_library() -> ctypes.CDLL:
             lib.irt_fused_optimized_topk.argtypes = (
                 [p] * 3 + [i] + [p] * 3 + [i] * 5 + [f] * 5 + [i, p])
             lib.irt_fused_optimized_topk.restype = i
-            lib.irt_gemm_plan.argtypes = [i, i, i, i, p]
+            lib.irt_gemm_plan.argtypes = [i, i, i, i, i, p]
             lib.irt_gemm_plan.restype = i
+            lib.irt_gemm_bf16_max_clusters.argtypes = []
+            lib.irt_gemm_bf16_max_clusters.restype = i
+            lib.irt_ln_cast.argtypes = [p] * 4 + [i] * 3 + [p]
+            lib.irt_ln_cast.restype = i
             lib.irt_gemm_bf16.argtypes = [p] * 5 + [i] * 4 + [p]
             lib.irt_gemm_bf16.restype = i
             lib.irt_gemm_s8.argtypes = [p] * 7 + [i] * 5 + [p]

@@ -61,11 +61,13 @@ Each wrapper launches its hand-written Hopper kernel chain (csrc/) for a
 CUDA tensor and runs its ``*_reference`` for a CPU tensor; none falls back
 from the card to the plain version. Weight matrices are kept output-major
 ((N, K), K contiguous) because that is the operand layout of the kernels'
-GEMM (``wgmma``, which takes 8-bit operands K-major only). ``gemm_bf16`` and
-``gemm_s8`` run that GEMM alone, with ``gemm_plan`` its launch plan. The int8
-MLP's fc1 -> quick_gelu -> rowquant is one clustered launch of it where
-``rowquant_gemm_plan`` says so (``gemm_s8(..., "gelu_rowquant")`` alone), and
-``ln_rowquant`` is the int8 chains' row pass alone.
+GEMMs (``wgmma``, which takes 8-bit operands K-major only). ``gemm_bf16``
+(persistent clusters of two blocks) and ``gemm_s8`` (a block a tile) run
+them alone, with ``gemm_plan`` their launch plans. The int8 MLP's fc1 ->
+quick_gelu -> rowquant is one clustered launch of the int8 GEMM where
+``rowquant_gemm_plan`` says so (``gemm_s8(..., "gelu_rowquant")`` alone);
+``ln_rowquant`` and ``ln_cast`` are the int8 and the compute-type chains'
+row passes alone.
 """
 
 from __future__ import annotations
@@ -389,6 +391,7 @@ def kernel_agreement(got: torch.Tensor, want: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_MAX_LN_WIDTH = 12288  # the widest row the compute-type chains take (dense_common.cuh)
 
 
 def _check_tensor(fn: str, name: str, a: torch.Tensor, shape, dtype, device) -> None:
@@ -526,41 +529,94 @@ def _check_attention_shape(fn: str, t: int, w: int, heads: int, dtype: torch.dty
     return w // heads
 
 
-# The GEMM's launch plan, mirrored from csrc/gemm_sm90.cuh (irt_gemm_plan
+# The GEMMs' launch plans, mirrored from csrc/gemm_sm90.cuh (irt_gemm_plan
 # answers the same; tests/test_torch_gpu.py holds them equal). Every chain's
-# projections in bf16 and int8 run on it.
+# projections in bf16 and int8 run on them.
 _GEMM_DTYPES = {torch.bfloat16: 0, torch.int8: 1}
 _GEMM_TILE_N, _GEMM_ROW_BYTES, _GEMM_SMS, _GEMM_ALIGN = 128, 128, 132, 1024
-# ring depth by tile rows: two blocks of 64 or 128 rows share an SM, one of 256
+# int8: ring depth by tile rows: two blocks of 64 or 128 rows share an SM, one of 256
 _GEMM_STAGES = {256: 4, 128: 3, 64: 4}
+# bf16: blocks of a cluster; the clusters of two an H100's 132 SMs hold at
+# once (irt_gemm_bf16_max_clusters reads the card's); a block's dynamic
+# shared memory at most; a warpgroup's 64 x 128 bf16 output tile
+_BF_CLUSTER, GEMM_BF16_CLUSTERS, _BF_SMEM_LIMIT, _BF_GROUP_OUT = 2, 66, 232448, 64 * 128 * 2
 
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
-    rows: int                # output rows of a block: 256, 128 or 64 (one consumer
-                             # warpgroup per 64)
+    rows: int                # output rows of a tile: int8 256, 128 or 64; bf16 192,
+                             # 128 or 64 (one consumer warpgroup per 64)
     stages: int              # depth of the shared-memory ring of TMA loads
     smem_bytes: int          # dynamic shared memory of one block
-    grid: Tuple[int, int]    # (column tiles of 128, row tiles)
+    grid: Tuple[int, int]    # int8: (column tiles of 128, row tiles), a block a tile;
+                             # bf16: (blocks, 1), persistent over the tiles
     threads: int             # 128 per consumer warpgroup and one producer warp
     refused: str | None      # why the kernel does not take the shape
+    cluster: int = 1         # blocks of a thread block cluster (bf16: 2)
+    tiles: Tuple[int, int] = (0, 0)  # (column tiles of 128, row tiles)
+    waves: int = 0           # bf16: cluster tiles per launched cluster, rounded up
+
+
+def _bf16_block(groups: int) -> Tuple[int, int, int]:
+    """(stages, shared memory bytes, threads) of a bf16 GEMM block for tiles
+    of 64 `groups` rows: a consumer warpgroup per 64 rows and a producer
+    warp; as many stages of (64 groups + 128) rows of 128 bytes as fit
+    beside one 64 x 128 bf16 output slab a warpgroup, at most 8."""
+    stage = (64 * groups + _GEMM_TILE_N) * _GEMM_ROW_BYTES
+    out = groups * _BF_GROUP_OUT
+    stages = min(8, (_BF_SMEM_LIMIT - out - _GEMM_ALIGN) // stage)
+    return stages, stages * stage + out + _GEMM_ALIGN, 128 * groups + 32
+
+
+def _gemm_refusal(m: int, n: int, k: int) -> str | None:
+    if m < 1:
+        return f"M = {m}: the GEMM needs at least one row"
+    if n < 64 or k < 64 or n % 64 or k % 64:
+        return f"N = {n} and K = {k} must be positive multiples of 64"
+    return None
+
+
+def gemm_bf16_plan(m: int, n: int, k: int, clusters: int = GEMM_BF16_CLUSTERS) -> GemmPlan:
+    """How the bf16 GEMM runs C (m, n) = A (m, k) Bt (n, k)^T on a card that
+    holds `clusters` clusters of two blocks at once: tiles of 128 columns and
+    64 G rows (G consumer warpgroups, 1-3), a cluster taking a row band by a
+    pair of column tiles and walking such cluster tiles persistently, the A
+    tile multicast to both blocks. G minimises waves x (G + 4), the waves of
+    cluster tiles times the L2 bytes of a block's K step ((G/2 + 2) x 8 KB),
+    ties to the taller tile; min(clusters, cluster tiles) clusters launch."""
+    refused = _gemm_refusal(m, n, k)
+    if refused is None and clusters < 1:
+        refused = f"{clusters} clusters: the card must hold at least one"
+    if refused is not None:
+        return GemmPlan(0, 0, 0, (0, 0), 0, refused)
+    cols = -(-n // _GEMM_TILE_N)
+    pairs = -(-cols // _BF_CLUSTER)
+    groups = min(range(3, 0, -1),
+                 key=lambda g: -(-(-(-m // (64 * g)) * pairs) // clusters) * (g + 4))
+    bands = -(-m // (64 * groups))
+    if bands > 65535:
+        return GemmPlan(0, 0, 0, (0, 0), 0,
+                        f"M = {m} needs more than 65535 row tiles of {64 * groups}")
+    stages, smem, threads = _bf16_block(groups)
+    tiles = bands * pairs
+    return GemmPlan(64 * groups, stages, smem, (_BF_CLUSTER * min(tiles, clusters), 1), threads,
+                    None, _BF_CLUSTER, (cols, bands), -(-tiles // clusters))
 
 
 @functools.lru_cache(maxsize=1024)
-def gemm_plan(m: int, n: int, k: int, dtype: torch.dtype) -> GemmPlan:
-    """How the GEMM of every chain runs C (m, n) = A (m, k) Bt (n, k)^T with
-    operands of `dtype` (bf16 or int8): output tiles of 128 columns and 256
-    rows where those give the card's 132 SMs a block each, else 128 rows
-    where those do, else 64; K steps of 128 bytes; a ring of four stages of
-    (rows + 128) rows of 128 bytes at 256 rows (one block an SM), three at
-    128 and four at 64 (two blocks an SM)."""
+def gemm_plan(m: int, n: int, k: int, dtype: torch.dtype,
+              clusters: int = GEMM_BF16_CLUSTERS) -> GemmPlan:
+    """How the GEMM runs C (m, n) = A (m, k) Bt (n, k)^T with operands of
+    `dtype`. bf16: gemm_bf16_plan on `clusters`. int8: output tiles of 128
+    columns and 256 rows where those give the card's 132 SMs a block each,
+    else 128 rows where those do, else 64; K steps of 128 bytes; a ring of
+    four stages of (rows + 128) rows of 128 bytes at 256 rows (one block an
+    SM), three at 128 and four at 64 (two blocks an SM)."""
     if dtype not in _GEMM_DTYPES:
         raise TypeError(f"the GEMM takes bfloat16 or int8 operands, got {dtype}")
-    refused = None
-    if m < 1:
-        refused = f"M = {m}: the GEMM needs at least one row"
-    elif n < 64 or k < 64 or n % 64 or k % 64:
-        refused = f"N = {n} and K = {k} must be positive multiples of 64"
+    if dtype == torch.bfloat16:
+        return gemm_bf16_plan(m, n, k, clusters)
+    refused = _gemm_refusal(m, n, k)
     cols = -(-n // _GEMM_TILE_N)
     rows = next((r for r in (256, 128) if -(-max(m, 0) // r) * cols >= _GEMM_SMS), 64)
     if refused is None and -(-m // rows) > 65535:
@@ -568,8 +624,9 @@ def gemm_plan(m: int, n: int, k: int, dtype: torch.dtype) -> GemmPlan:
     if refused is not None:
         return GemmPlan(0, 0, 0, (0, 0), 0, refused)
     smem = _GEMM_STAGES[rows] * (rows + _GEMM_TILE_N) * _GEMM_ROW_BYTES + _GEMM_ALIGN
-    return GemmPlan(rows, _GEMM_STAGES[rows], smem, (cols, -(-m // rows)), 128 * (rows // 64) + 32,
-                    None)
+    grid = (cols, -(-m // rows))
+    return GemmPlan(rows, _GEMM_STAGES[rows], smem, grid, 128 * (rows // 64) + 32, None,
+                    tiles=grid)
 
 
 # The launch plan of fc1 -> quick_gelu -> rowquant as one clustered GEMM,
@@ -822,6 +879,51 @@ def ln_rowquant(x: torch.Tensor, ln_s: torch.Tensor | None = None,
 
 
 ln_rowquant.launches = 0
+
+
+def ln_cast_reference(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the compute-type chains' LayerNorm pass:
+    fast_layernorm_f32 of x (m, width) in f32, cast to x's dtype."""
+    require_full_f32(x.device)
+    return fast_layernorm_f32(x.float(), ln_s, ln_b).to(x.dtype)
+
+
+def _ln_cast_cuda(x, ln_s, ln_b):
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "ln_cast"
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} kernel takes bfloat16 or float32, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{fn} kernel takes an (m, width) x, got {tuple(x.shape)}")
+    m, width = x.shape
+    _check_tensor(fn, "x", x, (m, width), x.dtype, x.device)
+    _check_gemm_dims(fn, width)
+    if width > _MAX_LN_WIDTH:
+        raise ValueError(f"{fn}: width {width} is wider than the chains' {_MAX_LN_WIDTH}")
+    for name, v in (("ln_s", ln_s), ("ln_b", ln_b)):
+        _check_tensor(fn, name, v, (width,), torch.float32, x.device)
+    lib = load_library()
+    h = torch.empty_like(x)
+    _run(ln_cast, lib, x.device, lambda stream: lib.irt_ln_cast(
+        x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), h.data_ptr(), m, width,
+        _DTYPE_CODES[x.dtype], stream))
+    return h
+
+
+def ln_cast(x: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor) -> torch.Tensor:
+    """The compute-type chains' LayerNorm pass alone, for tests and timing:
+    (m, width) x in bf16 or f32 -> fast_layernorm_f32(x) cast to x's dtype.
+    CUDA: the warp-per-row kernel of csrc/dense_common.cuh (or this raises);
+    CPU: the plain version. ``ln_cast.launches`` counts kernel launches."""
+    if x.device.type == "cuda":
+        return _ln_cast_cuda(x, ln_s, ln_b)
+    if x.device.type == "cpu":
+        return ln_cast_reference(x, ln_s, ln_b)
+    raise ValueError(f"ln_cast: unsupported device {x.device}")
+
+
+ln_cast.launches = 0
 
 
 def _quant_dense_cuda(x, w_t, w_s, bias, out_dtype):

@@ -268,26 +268,31 @@ GEMM_N = GEMM_K = (64, 192, 1024, 4096)
 
 def test_gemm_plan_matches_the_kernels(cuda):
     """ops/flash_attention.py::gemm_plan is the C side's launch plan: tile
-    rows, stages, shared memory, grid and threads for both operand types,
-    and the same shapes refused."""
+    rows, stages, shared memory, grid, threads, cluster, tiles and waves for
+    both operand types (bf16 on the card's own count of clusters and on
+    others), and the same shapes refused."""
     import ctypes
 
     from image_retrieval_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    got = (ctypes.c_int * 6)()
-    for m in (0, 1, 63, 64, 65, 400, 1024, 4928, 16448, 32896, 65535 * 64, 65535 * 64 + 1,
-              65535 * 128, 65535 * 128 + 1, 65535 * 256, 65535 * 256 + 1):
-        for n in (0, 32, 64, 96, 192, 768, 1024, 2304, 3072, 4096):
+    card = lib.irt_gemm_bf16_max_clusters()
+    assert 1 <= card <= 66, card
+    got = (ctypes.c_int * 10)()
+    for m in (0, 1, 63, 64, 65, 400, 1024, 4928, 6400, 12800, 16448, 32896, 65535 * 64,
+              65535 * 64 + 1, 65535 * 128, 65535 * 128 + 1, 65535 * 256, 65535 * 256 + 1):
+        for n in (0, 32, 64, 96, 192, 320, 768, 1024, 2304, 3072, 4096):
             for k in (0, 32, 64, 100, 192, 768, 1024, 4096):
-                for dtype, code in ((torch.bfloat16, 0), (torch.int8, 1)):
-                    plan = fa.gemm_plan(m, n, k, dtype)
-                    rc = lib.irt_gemm_plan(m, n, k, code, got)
-                    case = (m, n, k, dtype)
+                for dtype, code, clusters in ((torch.bfloat16, 0, card), (torch.bfloat16, 0, 60),
+                                              (torch.int8, 1, 0)):
+                    plan = fa.gemm_plan(m, n, k, dtype, clusters or fa.GEMM_BF16_CLUSTERS)
+                    rc = lib.irt_gemm_plan(m, n, k, code, clusters, got)
+                    case = (m, n, k, dtype, clusters)
                     assert (rc != 0) == (plan.refused is not None), case
                     if rc == 0:
                         assert tuple(got) == (plan.rows, plan.stages, plan.smem_bytes,
-                                              *plan.grid, plan.threads), case
+                                              *plan.grid, plan.threads, plan.cluster,
+                                              *plan.tiles, plan.waves), case
 
 
 def _gemm_operands(m, n, k, dtype, seed):
@@ -343,6 +348,84 @@ def test_gemm_bf16_kernel_within_the_float64_limit(cuda, m, n, k):
         assert got.dtype == torch.bfloat16
         agree = fa.gemm_bf16_agreement(got, a, bt, bias, epilogue, r)
         assert agree["ok"], (epilogue, agree)
+
+
+def _bf16_rows(n, k, m, seed=5):
+    """gemm_bf16 of the first m rows of one seeded (12800, k) A, every epilogue."""
+    a, bt, bias = _gemm_operands(12800, n, k, torch.bfloat16, seed)
+    res = torch.randn((12800, n), generator=torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda").to(torch.bfloat16)
+    return [fa.gemm_bf16(a[:m], bt, bias, e, res[:m] if e == "residual" else None)
+            for e in fa.GEMM_EPILOGUES]
+
+
+@pytest.mark.parametrize("n,k", [(768, 768), (3072, 768), (1024, 4096)])
+def test_gemm_bf16_rows_keep_their_bits_whatever_m_and_plan(cuda, n, k):
+    """One wgmma shape and one ascending K order on every plan: a row's
+    outputs are the same bits at M = 12,800 (256-row tiles), 6,400 (192 at
+    N = 768), 1,000, 400 and 65 (64-row tiles at few tiles), in every
+    epilogue."""
+    full = _bf16_rows(n, k, 12800)
+    heights = set()
+    for m in (6400, 1000, 400, 65):
+        heights.add(fa.gemm_plan(m, n, k, torch.bfloat16).rows)
+        for got, want in zip(_bf16_rows(n, k, m), full):
+            torch.cuda.synchronize()
+            assert torch.equal(got, want[:m]), (m, n, k)
+    assert len(heights | {fa.gemm_plan(12800, n, k, torch.bfloat16).rows}) >= 2
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (1, 64, 64),        # a single tile; the cluster partner's column tile lies past N
+    (200, 320, 192),    # three column tiles: the second pair's partner past N
+    (257, 192, 128),    # a last column tile of 64; M not a multiple of 64
+    (6400, 768, 768),   # 192-row tiles, the trainer's out-projection
+    (6401, 768, 768),   # one row into a new band
+    (4928, 768, 768),   # 256-row tiles, the L/14 text batch (one wave)
+    (12800, 768, 3072),  # three persistent waves, K = 3,072
+    (32896, 1024, 1024),  # the L/14 image batch: a last band of 128 rows on 256-row tiles
+])
+def test_gemm_bf16_within_the_float64_limit_at_the_plan_edges(cuda, m, n, k):
+    """Every epilogue at the new plan's edges, by gemm_bf16_agreement's
+    float64 limit, and nothing written past row M."""
+    a, bt, bias = _gemm_operands(m, n, k, torch.bfloat16, m + n + k)
+    residual = torch.randn((m, n), device=cuda).to(torch.bfloat16)
+    for epilogue in fa.GEMM_EPILOGUES:
+        r = residual if epilogue == "residual" else None
+        buf = torch.full((m + 64, n), 7.0, dtype=torch.bfloat16, device=cuda)
+        got = fa.gemm_bf16(a, bt, bias, epilogue, r, out=buf[:m])
+        torch.cuda.synchronize()
+        agree = fa.gemm_bf16_agreement(got, a, bt, bias, epilogue, r)
+        assert agree["ok"], (epilogue, agree)
+        assert bool((buf[m:] == 7.0).all()), epilogue
+
+
+@pytest.mark.parametrize("width", [512, 768, 1024, 320, 832, 1280, 4160])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ln_cast_matches_plain(cuda, width, dtype):
+    """The compute-type chains' LayerNorm pass, a warp per row (the row in
+    registers up to 1,024 values, streamed twice beyond), against its plain
+    version: the sums differ in order only, so in bf16 an output is at most
+    one rounding step of 2^-8 of its size away (the row's statistics move by
+    a few f32 units), in f32 within 2e-6 of 1 + |value|; rows past m are not
+    written."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(width)
+    m = 1000
+    x = torch.from_numpy(rng.standard_normal((m, width)).astype(np.float32) * 3 + 0.5)
+    x = x.to(device=cuda, dtype=dt)
+    g = torch.from_numpy(1 + 0.1 * rng.standard_normal(width).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(0.1 * rng.standard_normal(width).astype(np.float32)).to(cuda)
+    before = fa.ln_cast.launches
+    got = fa.ln_cast(x, g, b)
+    want = fa.ln_cast_reference(x, g, b)
+    torch.cuda.synchronize()
+    assert fa.ln_cast.launches == before + 1
+    err = (got.double() - want.double()).abs()
+    if dtype == "bfloat16":
+        assert bool((err <= 2.0 ** -7 * want.double().abs() + 1e-6).all()), float(err.max())
+    else:
+        assert bool((err <= 2e-6 * (1 + want.double().abs())).all()), float(err.max())
 
 
 # ---------------------------------------------------------------------------
