@@ -738,12 +738,12 @@ STAGE_SHAPES = {f"l14-vision-B{ENC_BUCKET5}": L14_BATCH, "b32-vision-B256": B32_
 
 
 def mlp_stage_calls(torch, fa, shape, int8, seed):
-    """{stage: (kernel, plain, library, check, bound)} for fc1 and fc2 of one
-    MLP half on seeded weights and inputs, and in bf16 also the q/k/v and
-    out-projection GEMMs of the attention half: the GEMM wrappers with the
-    epilogues K9a and K9b (bf16) or K2b (int8) give them, on the operands
-    their chains hand them (the out-projection's on a seeded stand-in of unit
-    scale for the attention's output). `library` is one PyTorch call on the same
+    """{stage: (kernel, plain, library, check, bound)} for the q/k/v and
+    out-projection GEMMs of the attention half and fc1 and fc2 of the MLP
+    half on seeded weights and inputs: the GEMM wrappers with the epilogues
+    K9a and K9b (bf16) or K2a and K2b (int8) give them, on the operands their
+    chains hand them (the out-projection's on a seeded stand-in of unit scale
+    for the attention's output). `library` is one PyTorch call on the same
     operands (torch.nn.functional.linear in bf16, torch._int_mm in int8) as a
     yardstick: it computes the product and not the epilogue, and the port
     never calls it. `check` holds the kernel against its plain version: bit
@@ -754,7 +754,12 @@ def mlp_stage_calls(torch, fa, shape, int8, seed):
     m = b * t
     if int8:
         x32, wts = layer_inputs(torch, b, t, w, heads, seed)
-        mw, x = wts.mlp, x32.reshape(m, w).to(device="cuda", dtype=torch.bfloat16)
+        aw, mw = wts.attn, wts.mlp
+        x = x32.reshape(m, w).to(device="cuda", dtype=torch.bfloat16)
+        hq1, hs1 = fa.rowquant(fa.fast_layernorm_f32(x.float(), aw.ln_s, aw.ln_b))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        attn = torch.randn((m, w), generator=g, device="cuda").to(torch.bfloat16)
+        aq, as_ = fa.rowquant(attn.float())
         hq, hs = fa.rowquant(fa.fast_layernorm_f32(x.float(), mw.ln_s, mw.ln_b))
         args1 = (hq, mw.w1_t, hs.reshape(-1), mw.w1_s, mw.b1, torch.float32, "gelu")
         gq, gs = fa.rowquant(fa.gemm_s8(*args1))
@@ -762,7 +767,11 @@ def mlp_stage_calls(torch, fa, shape, int8, seed):
         hidden = mw.w1_t.shape[0]
         args_rq = (*args1[:5], torch.int8, fa.GELU_ROWQUANT)
         # fc1 -> quick_gelu -> rowquant: int8 rows and one f32 scale a row out
-        calls = {"fc1": (args1, lambda: torch._int_mm(hq, mw.w1_t.t()), m * hidden * 4),
+        calls = {"qkv": ((hq1, aw.wqkv_t, hs1.reshape(-1), aw.wqkv_s, aw.bqkv, torch.bfloat16,
+                          "bias"), lambda: torch._int_mm(hq1, aw.wqkv_t.t()), m * 3 * w * 2),
+                 "out": ((aq, aw.wo_t, as_.reshape(-1), aw.wo_s, aw.bo, torch.bfloat16,
+                          "residual", x), lambda: torch._int_mm(aq, aw.wo_t.t()), m * w * 2),
+                 "fc1": (args1, lambda: torch._int_mm(hq, mw.w1_t.t()), m * hidden * 4),
                  "fc1_rowquant": (args_rq, lambda: torch._int_mm(hq, mw.w1_t.t()),
                                   m * hidden + 4 * m),
                  "fc2": (args2, lambda: torch._int_mm(gq, mw.w2_t.t()), m * w * 2)}
@@ -780,9 +789,9 @@ def mlp_stage_calls(torch, fa, shape, int8, seed):
         for stage, (args, lib, out_bytes) in calls.items():
             a, bt = args[0], args[1]
             n, k = bt.shape
-            # operands, row and column scales, bias, output and (fc2) residual
+            # operands, row and column scales, bias, output and (out, fc2) residual
             nbytes = (a.numel() + bt.numel() + 4 * m + 8 * n + out_bytes
-                      + (2 * m * n if stage == "fc2" else 0))
+                      + (2 * m * n if stage in ("out", "fc2") else 0))
             out[stage] = (lambda args=args: fa.gemm_s8(*args),
                           lambda args=args: fa.gemm_s8_reference(*args), lib,
                           lambda args=args: bitwise(args), bound(2.0 * m * n * k, 0.0, nbytes))
@@ -882,12 +891,12 @@ def ptxas_report(lib_path, pattern):
 
 
 def print_new_kernel_registers(lib_path):
-    """Registers and spills of the bf16 GEMM and the LayerNorm pass of the
-    compute-type chains, the fused fc1 stage and the int8 row pass; fails on
-    a spill."""
+    """Registers and spills of the GEMM (every bf16 and int8 form the library
+    builds), the LayerNorm pass of the compute-type chains, the fused fc1
+    stage and the int8 row pass; fails on a spill."""
     import re
 
-    for pattern in ("gemm_bf16_kernel", "ln_cast_kernel", "gemm_wgmma_s8_rowquant_kernel",
+    for pattern in ("gemm_persistent_kernel", "ln_cast_kernel", "gemm_wgmma_s8_rowquant_kernel",
                     "ln_rowquant_kernel"):
         found = ptxas_report(lib_path, pattern)
         if not found:
@@ -942,7 +951,7 @@ def phase_time_dense(torch, card):
                  DENSE_TIME_SHAPES, int8=False, device=True)
     time_train_kernel(torch, card, device=True)
     launch_breakdown(torch, card, dense=True)
-    phase_gemm_stages(torch, card, int8_too=False)
+    phase_gemm_stages(torch, card, halves=("mlp_block",))
 
 
 def launch_breakdown(torch, card, dense=False):
@@ -994,28 +1003,34 @@ def launch_breakdown(torch, card, dense=False):
         torch.cuda.empty_cache()
 
 
-def phase_gemm_stages(torch, card, int8_too=True):
+def phase_gemm_stages(torch, card, halves=("mlp_block", "mlp_block_int8"), only=None):
     """The GEMM stages alone (the GEMMs of csrc/gemm_sm90.cuh with their
     chains' epilogues) at the L/14 and B/32 image batches: q/k/v and the
-    out-projection of K9a, fc1 and fc2 of K9b (bf16) and, with `int8_too`,
-    of K2b: each against its plain version, then its time beside the plain
-    version's, one library call's on the same operands, the device time
-    alone and the bound. Returns {"attention_block" | "mlp_block" |
-    "mlp_block_int8": {case: {stage: readings}}}."""
+    out-projection of K9a and K2a, fc1 and fc2 of K9b and K2b (bf16 with
+    "mlp_block" in `halves`, int8 with "mlp_block_int8"), or only the stages
+    named in `only`: each against its plain version, then its time beside
+    the plain version's, one library call's on the same operands, the device
+    time alone and the bound. Returns {"attention_block" | "mlp_block" |
+    "attention_block_int8" | "mlp_block_int8": {case: {stage: readings}}}."""
     from image_retrieval_tpu_torch.ops import flash_attention as fa
 
     from image_retrieval_tpu_torch.ops._build import load_library
 
-    out = {"attention_block": {}, "mlp_block": {}, "mlp_block_int8": {}}
-    for name, int8 in (("mlp_block", False), ("mlp_block_int8", True))[:2 if int8_too else 1]:
+    out = {"attention_block": {}, "mlp_block": {}, "attention_block_int8": {},
+           "mlp_block_int8": {}}
+    for name in halves:
+        int8 = name == "mlp_block_int8"
         for case, shape in STAGE_SHAPES.items():
             out[name][case] = {}
-            if int8:
+            if int8 and (only is None or "fc1_rowquant" in only):
                 b, t, w = shape[:3]
                 print_rowquant_plan(fa, load_library(), case, b * t, 4 * w, w, card)
             for stage, (kernel, plain, lib, check, bnd, *pair) in mlp_stage_calls(
                     torch, fa, shape, int8, seed=len(case)).items():
-                half = "attention_block" if stage in ("qkv", "out") else name
+                if only is not None and stage not in only:
+                    continue
+                half = (("attention_block_int8" if int8 else "attention_block")
+                        if stage in ("qkv", "out") else name)
                 agree = check()
                 torch.cuda.synchronize()
                 limit = "bit for bit" if int8 else (
@@ -2012,8 +2027,8 @@ def profile_encode(torch, enc, images, card, label="L/14"):
     from torch.profiler import ProfilerActivity, profile
 
     families = (("gemm_wgmma_s8_rowquant", "fc1 + quick_gelu + rowquant (clustered GEMM)"),
-                ("gemm_wgmma_s8", "int8 GEMMs (wgmma)"),
-                ("gemm_bf16_kernel", "bf16 GEMMs (wgmma)"), ("attention_tiled", "attention"),
+                ("Int8Epilogue", "int8 GEMMs (wgmma)"),
+                ("DenseEpilogueBf16", "bf16 GEMMs (wgmma)"), ("attention_tiled", "attention"),
                 ("ln_rowquant", "LayerNorm/rowquant passes"),
                 ("ln_cast", "LayerNorm passes"), ("Memcpy", "copies"))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2036,6 +2051,29 @@ def profile_encode(torch, enc, images, card, label="L/14"):
     print(f"{label} encode profile, one batch of {len(images)} images (padded to {ENC_BUCKET5}), "
           f"torch.profiler on: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms (idle share "
           f"{max(0.0, 1 - busy / wall_ms):.1%}): {parts} [{card}]", flush=True)
+
+
+def profile_l14_int8_batch(torch, card, times=3):
+    """`times` profiles (profile_encode) of one warm L/14 int8 image batch,
+    64 seeded images padded to 128, on serving_config(vit_l14()) with seeded
+    weights: the batch's device busy time by kernel family. Uses only
+    entries older checkouts have, for --time-k1's in-turns reading."""
+    from image_retrieval_tpu_torch.config import Config, IndexConfig, serving_config, vit_l14
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+
+    cfg = Config(model=serving_config(vit_l14()),
+                 index=IndexConfig(embedding_dim=768, dtype="int8"))
+    enc = CLIPEncoder(cfg, seed=0)
+    size = cfg.model.image_size
+    images = np.random.default_rng(5).integers(0, 256, size=(N_IMAGES5, size, size, 3),
+                                               dtype=np.uint8)
+    enc.encode_pixels(images[:8])  # the weights' quantization
+    enc.encode_pixels(images)
+    torch.cuda.synchronize()
+    for _ in range(times):
+        profile_encode(torch, enc, images, card)
+    del enc
+    torch.cuda.empty_cache()
 
 
 def phase_l14(torch, card, queries):
@@ -3025,7 +3063,7 @@ def profile_step(torch, tr, pixels, tokens, card, label):
     family, the library's f32 products apart from the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    families = (("gemm_bf16_kernel", "the port's bf16 GEMMs (wgmma)"),
+    families = (("DenseEpilogueBf16", "the port's bf16 GEMMs (wgmma)"),
                 ("attention_tiled", "attention"),
                 ("ln_cast", "LayerNorm passes"), ("sgemm", "library f32 GEMMs"),
                 ("f32f32", "library f32 GEMMs"), ("multi_tensor_apply", "AdamW"),
@@ -3218,13 +3256,17 @@ def main() -> int:
                 print("  ptxas:", line.strip(), flush=True)
 
     if sys.argv[1:] == ["--time-k1"]:
-        # only the int8 layer kernels' times and K1's launch breakdown: to
-        # compare two checkouts inside one call on one card, copy this script
-        # into each and run it there in turns
+        # only the int8 layer kernels' times (event and device), the launch
+        # breakdown of K1 and of K2a + K2b, the int8 GEMM stages alone and
+        # the L/14 int8 image batch's profile: to compare two checkouts
+        # inside one call on one card, copy this script into each and run it
+        # there in turns
         from image_retrieval_tpu_torch.ops import flash_attention as fa
 
-        time_kernels(torch, card, kernel_runs(fa), TIME_SHAPES)
+        time_kernels(torch, card, kernel_runs(fa), TIME_SHAPES, device=True)
         launch_breakdown(torch, card)
+        phase_gemm_stages(torch, card, halves=("mlp_block_int8",), only=("qkv", "out", "fc2"))
+        profile_l14_int8_batch(torch, card)
         return 0
     if sys.argv[1:] == ["--time-dense"]:
         phase_time_dense(torch, card)
@@ -3233,6 +3275,10 @@ def main() -> int:
         # the bf16 GEMM as the library plans it beside the variants its
         # design was chosen from, each held bit for bit against it
         run_experiment(card, "gemm_bf16_variants", "gemm variants")
+        return 0
+    if sys.argv[1:] == ["--gemm-s8-variants"]:
+        # the same for the int8 GEMM, beside the one-tile kernel it replaced
+        run_experiment(card, "gemm_s8_variants", "gemm s8 variants")
         return 0
     if sys.argv[1:] == ["--time-k5"]:
         phase_time_k5(torch, card, lib_path)
@@ -3304,8 +3350,9 @@ def main() -> int:
         return entry
 
     def stage_entries(by_case):
-        """fc1 and fc2 alone: at the L/14 batch as fc1_ms, fc2_ms, ...; at
-        the B/32 batch under a b32_vision_b256_ prefix."""
+        """The GEMM stages alone (q/k/v and out of an attention half, fc1 and
+        fc2 of an MLP half): at the L/14 batch as qkv_ms, fc2_ms, ...; at the
+        B/32 batch under a b32_vision_b256_ prefix."""
         out = {}
         for case, prefix in ((big, ""), ("b32-vision-B256", "b32_vision_b256_")):
             for stage, r in by_case[case].items():
@@ -3359,8 +3406,9 @@ def main() -> int:
          "bound_by": k3[64]["bound_by"], "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
          "q1_ms": k3[1]["kernel"], "q1_plain_ms": k3[1]["plain"],
          "q1_bound_ms": k3[1]["bound_ms"]},
-        block_entry("attention_block_int8", "attention_block_int8.cu", 554,
-                    l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
+        dict(block_entry("attention_block_int8", "attention_block_int8.cu", 554,
+                         l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
+             **stage_entries(stages["attention_block_int8"])),
         dict(block_entry("mlp_block_int8", "mlp_block_int8.cu", 671,
                          l14_launches["mlp_block_int8"], big,
                          {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",

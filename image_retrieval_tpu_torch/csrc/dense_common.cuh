@@ -10,11 +10,10 @@
 //                               block, the row in registers up to 1,024
 //                               values (read twice beyond), its sums in
 //                               the order of the block a row it replaced.
-//   (b) gemm_bf16_kernel        bf16 GEMM on the tensor cores
-//                               (gemm_sm90.cuh: persistent clusters of two
-//                               blocks over tiles of 128 columns and 64-192
-//                               rows, wgmma m64n128k16 with f32 sums, the A
-//                               tile multicast by TMA to both blocks, the
+//   (b) gemm_persistent_kernel  bf16 GEMM on the tensor cores
+//                               (gemm_sm90.cuh: persistent blocks over tiles
+//                               of 128 columns and 64-192 rows, wgmma
+//                               m64n128k16 with f32 sums fed by TMA, the
 //                               outputs stored by TMA from shared memory
 //                               under the next tile's products).
 //       gemm_f32_kernel         f32 GEMM on the CUDA cores: every product an
@@ -155,27 +154,22 @@ __device__ __forceinline__ float finish(float acc, float bias, float res) {
 
 // ---- bf16 on the tensor cores (gemm_sm90.cuh) ------------------------------
 
-// The epilogue of the bf16 GEMM: two neighbouring outputs of one row from
-// their f32 sums, by finish<bf16, kEpi>, cast to bf16 (the GEMM stages them
-// in shared memory and stores its tile by TMA).
+// The epilogue of the bf16 GEMM (gemm_persistent_kernel): one output from
+// its f32 sum by finish<bf16, kEpi>, the bias being the tile's one staged
+// column parameter and the residual read by TMA; the kernel casts it to
+// bf16 and stores its tile by TMA.
 template <int kEpi>
 struct DenseEpilogueBf16 {
+  typedef __nv_bfloat16 Out;
+  static constexpr int kColParams = 1;  // bias
+  static constexpr bool kRowScale = false;
+  static constexpr bool kAddsResidual = kEpi == kBiasResidual;
   const float* bias;
-  const __nv_bfloat16* residual;  // kBiasResidual only
   int m, n;
-  __device__ __forceinline__ __nv_bfloat162 operator()(int row, int col, float a0,
-                                                       float a1) const {
-    float r0 = 0.f, r1 = 0.f;
-    if (kEpi == kBiasResidual) {
-      const __nv_bfloat162 r =
-          *reinterpret_cast<const __nv_bfloat162*>(residual + (size_t)row * n + col);
-      r0 = __bfloat162float(r.x);
-      r1 = __bfloat162float(r.y);
-    }
-    __nv_bfloat162 v;
-    v.x = __float2bfloat16(finish<__nv_bfloat16, kEpi>(a0, bias[col], r0));
-    v.y = __float2bfloat16(finish<__nv_bfloat16, kEpi>(a1, bias[col + 1], r1));
-    return v;
+  __device__ __forceinline__ const float* col_param(int) const { return bias; }
+  __device__ __forceinline__ float operator()(float acc, float, float b, float,
+                                              float res) const {
+    return finish<__nv_bfloat16, kEpi>(acc, b, res);
   }
 };
 
@@ -277,7 +271,8 @@ int launch_gemm(const T* a, const T* bt, const float* bias, const T* residual, T
     IRT_TRY(gemm_f32_kernel<kEpi><<<dim3(n / FBN, (m + FBM - 1) / FBM), kF32GemmThreads, 0, st>>>(
         a, bt, bias, residual, c, m, n, k));
   } else {
-    return launch_gemm_bf16(a, bt, c, k, DenseEpilogueBf16<kEpi>{bias, residual, m, n}, st);
+    return launch_gemm_tc<__nv_bfloat16>(a, bt, residual, c, k,
+                                          DenseEpilogueBf16<kEpi>{bias, m, n}, st);
   }
   return 0;
 }

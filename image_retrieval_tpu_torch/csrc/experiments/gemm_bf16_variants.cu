@@ -1,4 +1,5 @@
-// Design experiments of the bf16 GEMM (gemm_bf16_kernel, gemm_sm90.cuh). Not
+// Design experiments of the bf16 GEMM (gemm_persistent_kernel on bf16
+// operands, gemm_sm90.cuh). Not
 // part of the library: chip_smoke.py --gemm-variants builds this file alone
 // with the library's nvcc flags and runs it on the card.
 //
@@ -9,20 +10,20 @@
 // from, launched in turns, each on the same seeded operands and held bit for
 // bit against the library's output (every variant runs the same wgmma
 // instruction over the same K order, so the bits must not move):
-//   - "256 rows, 2 x 128": 256-row tiles on two consumer warpgroups of 128
-//                     rows (two m64 sub-tiles each, 224 registers a thread,
-//                     four stages) at every shape;
-//   - "256 rows, 4 x 64": 256-row tiles on four warpgroups of 64 rows (120
-//                     registers a thread, which its epilogues spill past;
+//   - "256 rows, 4 x 64": 256-row tiles on four warpgroups of 64 rows (17
+//                     warps, five on one SM sub-partition: ptxas caps a
+//                     thread at 96 registers, which its epilogues spill past;
 //                     three stages beside four output slabs);
 //   - "192 rows", "128 rows": those tile heights at every shape (no tile
 //                     plan by shape);
-//   - "no multicast": 192-row tiles in clusters of one block, each loading
-//                     its whole A tile (79 flop per L2 byte instead of 112),
-//                     as many blocks as the card holds;
-//   - "a cluster a tile": 192-row tiles in clusters of two, one cluster per
-//                     cluster tile (not persistent: no block overlaps its
-//                     epilogue with the next tile's loads).
+//   - "multicast": 192-row tiles in clusters of two blocks on neighbouring
+//                     column tiles, each loading half the A tile and
+//                     multicasting it to both (112 flop per L2 byte instead
+//                     of 79; the design before clusters of one), the
+//                     clusters the card holds;
+//   - "a block a tile": 192-row tiles, one block per tile (not persistent:
+//                     no block overlaps its epilogue with the next tile's
+//                     loads).
 // Prints one line per (shape, variant): ms (CUDA events, median of five
 // samples of ten launches) and "bits equal yes" or "NO". First, the host
 // side of one launch at a small batch's shape (M = 400), in microseconds of
@@ -64,16 +65,17 @@ struct Shape {
   int m, n, k, epi;  // epi: kBias, kBiasGelu or kBiasResidual
 };
 
-// The form (kG, kSub) in clusters of kCluster on min(slots, tiles) clusters
+// The form kG in clusters of kCluster on min(slots, cluster tiles) clusters
 // (slots 0: one cluster a cluster tile).
-template <int kG, int kSub, int kCluster, typename Epi>
-int run_forced(const __nv_bfloat16* a, const __nv_bfloat16* bt, __nv_bfloat16* c, int k,
-               const Epi& epi, int slots) {
+template <int kG, int kCluster, typename Epi>
+int run_forced(const __nv_bfloat16* a, const __nv_bfloat16* bt, const __nv_bfloat16* res,
+               __nv_bfloat16* c, int k, const Epi& epi, int slots) {
   const int cols = (epi.n + kGemmTileN - 1) / kGemmTileN;
   const int bands = (epi.m + 64 * kG - 1) / (64 * kG);
   const int tiles = bands * ((cols + kCluster - 1) / kCluster);
   const int blocks = kCluster * (slots > 0 ? std::min(tiles, slots) : tiles);
-  return launch_gemm_bf16_form<kG, kSub, kCluster>(a, bt, c, k, epi, cols, bands, blocks, 0);
+  return launch_gemm_form<__nv_bfloat16, kG, kCluster>(a, bt, res, c, k, epi, cols, bands,
+                                                      blocks, 0);
 }
 
 template <typename F>
@@ -98,7 +100,7 @@ float time_ms(F f) {
 }
 
 template <int kEpi>
-bool run_shape(const Shape& sh, int slots2, int slots1, int slots4, int slots256) {
+bool run_shape(const Shape& sh, int slots, int slots4, int slots2) {
   const int m = sh.m, n = sh.n, k = sh.k;
   __nv_bfloat16 *a, *bt, *res, *want, *got;
   float* bias;
@@ -112,35 +114,37 @@ bool run_shape(const Shape& sh, int slots2, int slots1, int slots4, int slots256
   fill_bf16<<<1024, 256>>>(bt, (size_t)n * k, 2, 1.f / sqrtf((float)k));
   fill_bf16<<<1024, 256>>>(res, (size_t)m * n, 3, 1.f);
   fill_f32<<<64, 256>>>(bias, n, 4, 0.02f);
-  const DenseEpilogueBf16<kEpi> epi{bias, res, m, n};
-  GemmBf16Plan plan;
-  gemm_bf16_plan(m, n, k, slots2, &plan);
-  int rc = launch_gemm_bf16(a, bt, want, k, epi, 0);
+  const DenseEpilogueBf16<kEpi> epi{bias, m, n};
+  GemmTilePlan plan;
+  gemm_tile_plan(m, n, k, slots, epi.kColParams, &plan);
+  auto library = [&](__nv_bfloat16* out) {
+    return launch_gemm_tc<__nv_bfloat16>(a, bt, res, out, k, epi, 0);
+  };
+  int rc = library(want);
   if (rc != 0 || cudaDeviceSynchronize() != cudaSuccess) {
     printf("%s: the library's launch failed (%d)\n", sh.name, rc);
     return false;
   }
   struct Variant {
     const char* name;
-    int (*run)(const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, int,
-               const DenseEpilogueBf16<kEpi>&, int);
+    int (*run)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+               __nv_bfloat16*, int, const DenseEpilogueBf16<kEpi>&, int);
     int slots;
   };
   const Variant variants[] = {
-      {"256 rows, 2 x 128", run_forced<4, 2, 2, DenseEpilogueBf16<kEpi>>, slots256},
-      {"256 rows, 4 x 64", run_forced<4, 1, 2, DenseEpilogueBf16<kEpi>>, slots4},
-      {"192 rows", run_forced<3, 1, 2, DenseEpilogueBf16<kEpi>>, slots2},
-      {"128 rows", run_forced<2, 1, 2, DenseEpilogueBf16<kEpi>>, slots2},
-      {"no multicast", run_forced<3, 1, 1, DenseEpilogueBf16<kEpi>>, slots1},
-      {"a cluster a tile", run_forced<3, 1, 2, DenseEpilogueBf16<kEpi>>, 0},
+      {"256 rows, 4 x 64", run_forced<4, 1, DenseEpilogueBf16<kEpi>>, slots4},
+      {"192 rows", run_forced<3, 1, DenseEpilogueBf16<kEpi>>, slots},
+      {"128 rows", run_forced<2, 1, DenseEpilogueBf16<kEpi>>, slots},
+      {"multicast", run_forced<3, 2, DenseEpilogueBf16<kEpi>>, slots2},
+      {"a block a tile", run_forced<3, 1, DenseEpilogueBf16<kEpi>>, 0},
   };
   bool ok = true;
-  const float lib_ms = time_ms([&] { launch_gemm_bf16(a, bt, got, k, epi, 0); });
+  const float lib_ms = time_ms([&] { library(got); });
   printf("%-22s m %5d n %4d k %4d library plan (rows %d, %d blocks, %d waves): %.4f ms\n",
          sh.name, m, n, k, plan.rows, plan.blocks, plan.waves, lib_ms);
   for (const Variant& v : variants) {
     cudaMemset(got, 0, (size_t)m * n * 2);
-    rc = v.run(a, bt, got, k, epi, v.slots);
+    rc = v.run(a, bt, res, got, k, epi, v.slots);
     if (rc != 0 || cudaDeviceSynchronize() != cudaSuccess) {
       printf("%-22s %s: launch failed (%d) NO\n", sh.name, v.name, rc);
       ok = false;
@@ -153,8 +157,8 @@ bool run_shape(const Shape& sh, int slots2, int slots1, int slots4, int slots256
     ok = ok && same;
     float ms[2];
     for (int turn = 0; turn < 2; ++turn) {  // in turns with the library's plan
-      ms[turn] = time_ms([&] { v.run(a, bt, got, k, epi, v.slots); });
-      if (turn == 0) time_ms([&] { launch_gemm_bf16(a, bt, got, k, epi, 0); });
+      ms[turn] = time_ms([&] { v.run(a, bt, res, got, k, epi, v.slots); });
+      if (turn == 0) time_ms([&] { library(got); });
     }
     printf("%-22s %-18s %.4f / %.4f ms, bits equal %s\n", sh.name, v.name, ms[0], ms[1],
            same ? "yes" : "NO");
@@ -200,18 +204,19 @@ void host_side() {
   cudaMemset(bias, 0, n * 4);
   cudaMemset(rs, 0, m * 4);
   cudaMemset(cs, 0, n * 4);
-  const DenseEpilogueBf16<kBias> epi{bias, nullptr, m, n};
-  launch_gemm_bf16(a, bt, c, k, epi, 0);
+  const DenseEpilogueBf16<kBias> epi{bias, m, n};
+  launch_gemm_tc<__nv_bfloat16>(a, bt, nullptr, c, k, epi, 0);
   CUtensorMap map;
-  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, int, int, int,
-                 DenseEpilogueBf16<kBias>) = gemm_bf16_kernel<1, 1, 2, DenseEpilogueBf16<kBias>>;
-  auto bf16 = [&] { launch_gemm_bf16(a, bt, c, k, epi, 0); };
+  const GemmKernelFn<__nv_bfloat16, 1, 1, DenseEpilogueBf16<kBias>> kernel =
+      gemm_persistent_kernel<__nv_bfloat16, 1, 1, DenseEpilogueBf16<kBias>>;
+  auto bf16 = [&] { launch_gemm_tc<__nv_bfloat16>(a, bt, nullptr, c, k, epi, 0); };
   auto s8 = [&] {
     launch_gemm_s8<float, kStore>(a8, b8, rs, cs, bias, nullptr, c32, m, n, k, 0);
   };
   auto encode = [&] { encode_operand(&map, a, m, k, 32); };
   auto attribute = [&] {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BfBlock<1>::kSmem);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         GemmBlock<1, 1>::kSmem);
   };
   const double t_bf16 = host_us(bf16), t_s8 = host_us(s8), t_encode = host_us(encode);
   const double t_attr = host_us(attribute);
@@ -227,13 +232,13 @@ void host_side() {
 }  // namespace
 
 int main() {
-  const int slots2 = gemm_bf16_slots<DenseEpilogueBf16<kBias>>();
-  const int slots1 = gemm_bf16_max_clusters_as<3, 1, 1, DenseEpilogueBf16<kBias>>();
-  const int slots4 = gemm_bf16_max_clusters_as<4, 1, 2, DenseEpilogueBf16<kBias>>();
-  const int slots256 = gemm_bf16_max_clusters_as<4, 2, 2, DenseEpilogueBf16<kBias>>();
-  printf("clusters of two the card holds at once: %d; blocks of the 192-row form alone: %d\n",
-         slots2, slots1);
-  if (slots2 < 1 || slots1 < 1 || slots4 < 1 || slots256 < 1) return 1;
+  typedef __nv_bfloat16 bf16;
+  const int slots = gemm_slots<bf16, DenseEpilogueBf16<kBias>>();
+  const int slots4 = gemm_max_blocks_as<bf16, 4, DenseEpilogueBf16<kBias>>();
+  const int slots2 = gemm_max_clusters_as<bf16, 3, 2, DenseEpilogueBf16<kBias>>();
+  printf("blocks the card holds at once: %d; of the 256-row form: %d; clusters of two: %d\n",
+         slots, slots4, slots2);
+  if (slots < 1 || slots4 < 1 || slots2 < 1) return 1;
   host_side();
   const Shape shapes[] = {
       {"l14-vision-B128 qkv", 32896, 3072, 1024, kBias},
@@ -252,9 +257,9 @@ int main() {
   };
   bool ok = true;
   for (const Shape& s : shapes) {
-    if (s.epi == kBias) ok = run_shape<kBias>(s, slots2, slots1, slots4, slots256) && ok;
-    if (s.epi == kBiasGelu) ok = run_shape<kBiasGelu>(s, slots2, slots1, slots4, slots256) && ok;
-    if (s.epi == kBiasResidual) ok = run_shape<kBiasResidual>(s, slots2, slots1, slots4, slots256) && ok;
+    if (s.epi == kBias) ok = run_shape<kBias>(s, slots, slots4, slots2) && ok;
+    if (s.epi == kBiasGelu) ok = run_shape<kBiasGelu>(s, slots, slots4, slots2) && ok;
+    if (s.epi == kBiasResidual) ok = run_shape<kBiasResidual>(s, slots, slots4, slots2) && ok;
   }
   return ok ? 0 : 1;
 }

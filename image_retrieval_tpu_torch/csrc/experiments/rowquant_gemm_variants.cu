@@ -425,7 +425,7 @@ void run_variant(const char* name, Case& c) {
   cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   const int steps = (c.k + 127) / 128;
   cudaMemset(c.q, 0, (size_t)c.m * c.n);
-  auto launch = [&]() { return cudaLaunchKernelEx(&cfg, kernel, ma, mb, steps, GeluFinish{c.rs, c.cs, c.bias, nullptr, nullptr, c.m, c.n}, c.q, c.qs); };
+  auto launch = [&]() { return cudaLaunchKernelEx(&cfg, kernel, ma, mb, steps, GeluFinish{c.rs, c.cs, c.bias, c.m, c.n}, c.q, c.qs); };
   if (launch() != cudaSuccess || cudaDeviceSynchronize() != cudaSuccess) {
     printf("%s: launch failed: %s\n", name, cudaGetErrorString(cudaGetLastError()));
     return;
@@ -457,7 +457,7 @@ void run_persistent(Case& c) {
   int clusters = 0;
   cudaOccupancyMaxActiveClusters(&clusters, persistent_kernel, &cfg);
   cfg.gridDim.y = std::min(p.grid_y, clusters);
-  const GeluFinish fin{c.rs, c.cs, c.bias, nullptr, nullptr, c.m, c.n};
+  const GeluFinish fin{c.rs, c.cs, c.bias, c.m, c.n};
   auto launch = [&]() {
     return cudaLaunchKernelEx(&cfg, persistent_kernel, ma, mb, (c.k + 127) / 128, fin, c.q, c.qs,
                               p.grid_y);
@@ -504,7 +504,7 @@ int main() {
     cudaMemcpy(c.rs, hrs.data(), c.m * 4, cudaMemcpyHostToDevice);
     cudaMemcpy(c.cs, hcs.data(), c.n * 4, cudaMemcpyHostToDevice);
     cudaMemcpy(c.bias, hbias.data(), c.n * 4, cudaMemcpyHostToDevice);
-    const GeluFinish fin{c.rs, c.cs, c.bias, nullptr, nullptr, c.m, c.n};
+    const GeluFinish fin{c.rs, c.cs, c.bias, c.m, c.n};
     const int rc = launch_gemm_s8_rowquant(c.a, c.bt, c.k, fin, c.q, c.qs, 0);
     if (rc != 0 || cudaDeviceSynchronize() != cudaSuccess) {
       printf("the production launch failed: %d\n", rc);

@@ -15,33 +15,31 @@
 
 extern "C" {
 
-// plan: {rows, stages, smem bytes, grid x, grid y, threads, cluster, column
-// tiles, row tiles, waves}. dtype 0 = bf16 (gemm_bf16_plan over `clusters`
-// slots: a grid of blocks in clusters of two, persistent over the tiles), 1
-// = int8 (gemm_s8_plan: a block a tile, cluster 1, waves 0; `clusters` is
-// not read). Returns 0, or IRT_BAD_ARGS for a shape the kernel refuses.
-int irt_gemm_plan(int m, int n, int k, int dtype, int clusters, int* plan) {
-  if (plan == nullptr) return IRT_BAD_ARGS;
-  if (dtype == 0) {
-    GemmBf16Plan p;
-    if (!gemm_bf16_plan(m, n, k, clusters, &p)) return IRT_BAD_ARGS;
-    const int out[10] = {p.rows,    p.stages,    p.smem,      p.blocks, 1,
-                         p.threads, kBfCluster, p.col_tiles, p.row_tiles, p.waves};
-    for (int i = 0; i < 10; ++i) plan[i] = out[i];
-    return 0;
-  }
-  GemmPlan p;
-  if (dtype != 1 || !gemm_s8_plan(m, n, k, &p)) return IRT_BAD_ARGS;
-  const int out[10] = {p.rows, p.stages, p.smem, p.grid_x, p.grid_y, p.threads, 1,
-                       p.grid_x, p.grid_y, 0};
-  for (int i = 0; i < 10; ++i) plan[i] = out[i];
+// plan: {rows, stages, smem bytes, grid x, grid y, threads, column tiles, row
+// tiles, waves} of gemm_tile_plan over `blocks` slots: a grid of blocks
+// persistent over the tiles. dtype 0 = bf16 (one column parameter a tile),
+// 1 = int8 (two). Returns 0, or IRT_BAD_ARGS for a shape the kernel
+// refuses.
+int irt_gemm_plan(int m, int n, int k, int dtype, int blocks, int* plan) {
+  if (plan == nullptr || (dtype != 0 && dtype != 1)) return IRT_BAD_ARGS;
+  GemmTilePlan p;
+  const int params = dtype == 0 ? DenseEpilogueBf16<kBias>::kColParams
+                                : Int8Epilogue<__nv_bfloat16, kStore>::kColParams;
+  if (!gemm_tile_plan(m, n, k, blocks, params, &p)) return IRT_BAD_ARGS;
+  const int out[9] = {p.rows,    p.stages,    p.smem,      p.blocks, 1,
+                      p.threads, p.col_tiles, p.row_tiles, p.waves};
+  for (int i = 0; i < 9; ++i) plan[i] = out[i];
   return 0;
 }
 
-// The clusters of two blocks of the bf16 GEMM the card holds at once
-// (cudaOccupancyMaxActiveClusters, the fewest over its block forms): the
-// `clusters` its launches plan with. Minus an error code on failure.
-int irt_gemm_bf16_max_clusters() { return gemm_bf16_slots<DenseEpilogueBf16<kBias>>(); }
+// The blocks of the GEMM the card holds at once for dtype 0 = bf16 or 1 =
+// int8 (the fewest over its block forms): the `blocks` its launches plan
+// with. Minus an error code on failure.
+int irt_gemm_max_blocks(int dtype) {
+  if (dtype == 0) return gemm_slots<__nv_bfloat16, DenseEpilogueBf16<kBias>>();
+  if (dtype == 1) return gemm_slots<int8_t, Int8Epilogue<__nv_bfloat16, kStore>>();
+  return -IRT_BAD_ARGS;
+}
 
 // h (m, width) = LN(x) cast to x's type, x (m, width) of dtype 0 = bf16, 1
 // = f32, gamma and beta (width,) f32: ln_cast_kernel, the LayerNorm pass of

@@ -7,95 +7,86 @@
 //
 // What bounds them on this card. 2 M N K operations against (M + N) K bytes
 // of operands and M N outputs: at the chains' shapes (K >= 512, M in the
-// thousands) far above the 295 operations a byte where the tensor cores, and
-// not device memory, set the pace. Only wgmma reaches the tensor cores' full
-// rate, and below it the rate at which the L2 delivers operand tiles to the
-// SMs (6.2-7.9 TB/s on an H100, measured at 128 x 128 tiles) held both
-// GEMMs.
+// thousands) far above the 295 operations a byte (590 in int8) where the
+// tensor cores, and not device memory, set the pace. Only wgmma reaches the
+// tensor cores' full rate.
 //
-// The bf16 GEMM (gemm_bf16_kernel; the compute-type chains K8, K9a, K9b,
-// K11):
-//   - Persistent and warp-specialised. The grid is the clusters the card
-//     holds at once (cudaOccupancyMaxActiveClusters: 66 of two blocks on an
-//     H100), at most one per cluster tile. A cluster of two blocks takes
-//     neighbouring column tiles of one row band; the clusters walk the (row
-//     band, column pair) tiles in a static order, a row band's pairs
-//     together, so that a band of A is read once from device memory and
-//     then from L2. In each block one producer thread keeps TMA loads in
-//     flight through a ring of stages across tile boundaries (running stage
-//     counters give the mbarrier parities), so the next tile's stages fill
-//     during this tile's epilogue. The producer is one warp: setmaxnreg
-//     (moving a producer warpgroup's registers to the consumers) draws on
-//     the block's own launch allocation, blocked forever when that was
-//     short, and made ptxas wait on the products before touching the
-//     accumulators (C7517); one block an SM leaves a consumer thread 152 or
-//     more registers at the library's tile heights.
+// The GEMM (gemm_persistent_kernel; one body for bf16 operands, the
+// compute-type chains K8, K9a, K9b, K11, and int8 ones, K1, K2a, K2b and
+// QuantDense):
+//   - Persistent and warp-specialised. The grid is the blocks the card holds
+//     at once (one an SM, 132 on an H100), at most one per tile; the blocks
+//     walk the tiles in a static order, a row band's column tiles together,
+//     so that a band of A is read once from device memory and then from L2.
+//     In each block one producer thread keeps TMA loads in flight through a
+//     ring of stages across tile boundaries (running stage counters give the
+//     mbarrier parities), so the next tile's stages fill during this tile's
+//     epilogue. The producer is one warp: setmaxnreg (moving a producer
+//     warpgroup's registers to the consumers) draws on the block's own
+//     launch allocation, blocked forever when that was short, and made ptxas
+//     wait on the products before touching the accumulators (C7517).
 //   - Tiles of 128 columns and 64 G rows, G consumer warpgroups of 64 rows
-//     (G = 1-3, gemm_bf16_plan). A block of the pair loads half the A tile
-//     and multicasts it to both (cp.async.bulk.tensor ... multicast::
-//     cluster); each loads its own B rows. At G = 3 a K step moves 28 KB from
-//     L2 to an SM for 3.1 MFLOP, 112 flop a byte (79 without the multicast).
-//     Each block's `full` barrier expects the whole stage, the half its
-//     partner multicasts included; a stage goes back to the producers
-//     through `empty` barriers that count a release from every consumer
-//     warp of both blocks (remote arrives through mapa), since either
-//     producer writes into both blocks. On an H100 the multicast moved the
-//     stages' times by under 5 % (csrc/experiments/gemm_bf16_variants.cu):
-//     the L2 no longer holds the products back once the walk is persistent.
-//   - Every consumer warpgroup runs wgmma m64n128k16 (f32 sums) on its 64
-//     rows: one instruction shape and one accumulator per output over
-//     ascending K steps, whatever the plan, with no split-K and no atomics,
-//     so a row's bits depend neither on M nor on the plan.
-//   - The epilogue finishes its values in registers (bias, quick_gelu or the
-//     residual, by the chain's functor) into a 64 x 128 bf16 slab of shared
-//     memory per warpgroup, laid out as the 128-byte swizzle of two TMA
-//     boxes, and one thread stores it by TMA (cp.async.bulk.tensor, global
-//     from shared): the store runs under the next tile's products, and the
-//     warpgroup waits for it to have read the slab only before its next
-//     epilogue writes there. Rows past M and columns past N are not stored;
-//     a partner whose column tile lies past N loads zeros and stores
-//     nothing.
-//   - The plan chooses G for the fewest waves of cluster tiles times the L2
-//     bytes of a tile's K step (gemm_bf16_plan): 192 rows at the large
-//     batches, 128 or 64 where the last wave would leave most clusters idle
-//     or the batch is small. 256-row tiles (four warpgroups of 64 rows, or
-//     two of 128) were slower or spilled (BfBlock).
-//   - The host side of a launch is about 3 microseconds on an H100's host,
-//     of which encoding the three tensor maps and setting the shared-memory
-//     limit take under half a microsecond (gemm_bf16_variants.cu).
+//     (G = 1-3, gemm_tile_plan). A K step is 128 bytes of a row (64 bf16 or
+//     128 int8 values), so every shared row is one 128-byte swizzle row
+//     whatever the operand type. 256-row tiles (four warpgroups) take 17
+//     warps, five of them on one SM sub-partition, which caps a thread at 96
+//     registers: their epilogues spilled and ran slower than 192-row tiles.
+//   - Every consumer warpgroup runs one wgmma shape on its 64 rows (bf16
+//     m64n128k16 with f32 sums, int8 m64n128k32 with s32 sums), one
+//     accumulator per output over ascending K steps, whatever the plan, with
+//     no split-K and no atomics, so a row's bits depend neither on M nor on
+//     the plan (int8 sums are exact; rows past M and K tails are zero-filled
+//     by TMA and add nothing).
+//   - The epilogue's inputs arrive under the tile's products: the tile's
+//     column parameters (the bias, and in int8 the column scales) copied to
+//     shared memory by cp.async, a thread's two row scales (int8) loaded into
+//     registers, and the residual tile loaded by TMA into the warpgroup's
+//     output slab. The epilogue finishes its values in registers by the
+//     chain's functor, bf16 outputs into that 64 x 128 slab (the 128-byte
+//     swizzle of two TMA boxes, each value in place of its residual), and
+//     one thread stores the slab by TMA (cp.async.bulk.tensor, global from
+//     shared): the store runs under the next tile's products, and the
+//     warpgroup waits for it to have read the slab only before the next
+//     tile's residual or outputs land there. f32 outputs (the f32 compute
+//     type, and fc1 on the int8 MLP's two-launch route) are stored from
+//     registers as 8-byte pairs, their residual read likewise. Rows past M
+//     and columns past N are not stored.
+//   - The plan chooses G for the fewest waves of tiles times the L2 bytes of
+//     a tile's K step (gemm_tile_plan): 192 rows at the large batches, 128
+//     or 64 where the last wave would leave most blocks idle or the batch is
+//     small.
+//   - Each block loads its own A tile. The kernel also runs in clusters of
+//     two blocks on neighbouring column tiles, each loading half the A tile
+//     and multicasting it to both (cp.async.bulk.tensor ... multicast::
+//     cluster; each block's `full` barrier expects the partner's half, and a
+//     stage goes back through `empty` barriers that count every consumer
+//     warp of both blocks, by remote arrives through mapa): 112 flop (bf16)
+//     or 224 int8 operations (256-row tiles: 256) per L2 byte against 79 and
+//     154 without. On an H100 clusters of one ran 1-5 % faster at the large
+//     batches and 10-15 % at the small ones (csrc/experiments/), so the
+//     library takes them: once persistent, the L2 no longer holds the
+//     products back.
+//   - The host side of a launch is about 3-5 microseconds on an H100's host,
+//     of which encoding the tensor maps and setting the shared-memory limit
+//     take under half a microsecond.
+//   The design's variants, each bit for bit equal to it, are timed by
+//   csrc/experiments/gemm_bf16_variants.cu and gemm_s8_variants.cu (the
+//   latter also beside the one-tile int8 kernel this replaced).
 //
-// The int8 GEMM (gemm_wgmma_s8_kernel; K1, K2a, K2b, QuantDense):
-//   - A block computes an output tile of 128 columns and 256 rows (128 or 64
-//     where larger tiles would leave SMs idle, gemm_s8_plan). K steps are
-//     128 bytes (128 int8 values), so every shared row is one 128-byte
-//     swizzle row.
-//   - A ring of stages (A tile + B tile) in dynamic shared memory: four of
-//     48 KB at 256 rows (one block an SM); three of 32 KB at 128 rows and four
-//     of 24 KB at 64 rows, 97 KB a block, so that two blocks share an SM and
-//     one's pipeline fill and epilogue overlap the other's products. One
-//     producer warp issues the TMA loads of a stage against its `full`
-//     mbarrier (expect-tx: the box's bytes, zero-filled rows past M and K
-//     tails included).
-//   - One consumer warpgroup per 64 rows runs wgmma m64n128k32 (s32 sums),
-//     both operands read from shared memory through descriptors, four per
-//     stage. A stage goes back to the producer through its `empty` mbarrier
-//     once wgmma.wait_group says that the products reading it have finished.
-//   - The epilogue reads the accumulators in registers: warp w of a
-//     warpgroup holds rows 16 w + lane / 4 and + 8 at columns
-//     8 i + 2 (lane % 4) + {0, 1} of each n8 slice i, as mma.sync's C
-//     fragment. Rows past M and columns past N are not stored. Sums are
-//     exact, so launches on the same operands give the same bits whatever M.
-//   - gemm_wgmma_s8_rowquant_kernel is the int8 GEMM with a per-row
-//     requantization in its epilogue (the int8 MLP's fc1 -> quick_gelu ->
-//     rowquant): blocks of 64 rows x 512 columns, four warpgroups on one A
-//     tile, in a thread block cluster that covers a whole row tile, so that
-//     the f32 hidden rows never reach device memory (rowquant_gemm_plan;
-//     its design is set out beside it).
+// gemm_wgmma_s8_rowquant_kernel is the int8 GEMM with a per-row
+// requantization in its epilogue (the int8 MLP's fc1 -> quick_gelu ->
+// rowquant): blocks of 64 rows x 512 columns, four warpgroups on one A
+// tile, in a thread block cluster that covers a whole row tile, so that the
+// f32 hidden rows never reach device memory (rowquant_gemm_plan; its design
+// is set out beside it). It keeps a block a tile (gemm_wgmma_mainloop):
+// persistent clusters ran it slower
+// (csrc/experiments/rowquant_gemm_variants.cu).
 //
 // Both: TMA descriptors are encoded on the host (cuTensorMapEncodeTiled,
 // reached through the runtime's entry-point query: the library does not
-// link libcuda) and passed as __grid_constant__ parameters. An mbarrier wait that has not completed after ~2^34 cycles
-// traps: a wrong phase parity fails the launch instead of hanging the card.
+// link libcuda) and passed as __grid_constant__ parameters. An mbarrier wait
+// that has not completed after ~2^34 cycles traps: a wrong phase parity
+// fails the launch instead of hanging the card.
 #pragma once
 
 #include <cuda.h>
@@ -107,52 +98,17 @@
 
 namespace {
 
-constexpr int kGemmTileN = 128;     // output columns of a block
+constexpr int kGemmTileN = 128;     // output columns of a tile
 constexpr int kGemmRowBytes = 128;  // bytes of one K step of one row
-// int8: ring depth by consumer warpgroups (64 rows each): four stages of 48 KB at
-// 256-row tiles (one block an SM), three of 32 KB at 128 rows and four of
-// 24 KB at 64 rows (two blocks an SM: one's loads and epilogue overlap the
-// other's products).
-template <int kGroups> struct GemmStages { static constexpr int value = kGroups == 2 ? 3 : 4; };
-template <int kGroups> struct GemmBlocksPerSm { static constexpr int value = kGroups == 4 ? 1 : 2; };
 constexpr int kGemmWarpGroupRows = 64;  // rows of one consumer warpgroup
-constexpr int kGemmSmSlots = 132;        // SMs of an H100 SXM
+constexpr int kGemmMaxGroups = 3;       // 64-row warpgroups of the tallest tile (192 rows)
 // dynamic shared memory is rounded up here to the 1024-byte alignment of
 // the 128-byte swizzle
 constexpr int kGemmSmemAlign = 1024;
 
-// The launch plan of one int8 GEMM (mirrored by
-// ops/flash_attention.py::gemm_plan).
-struct GemmPlan {
-  int rows;     // output rows of a block: 256, 128 or 64 (a consumer warpgroup per 64)
-  int stages;   // shared-memory ring depth
-  int smem;     // dynamic shared memory of a block, bytes
-  int grid_x;   // column tiles
-  int grid_y;   // row tiles
-  int threads;  // 128 per consumer warpgroup + one producer warp
-};
-
-// The int8 GEMM's tiles: 256 rows where they give every SM a block (the
-// fewest operand bytes a product: it is bound by what the L2 delivers to the
-// SMs at 128 x 128), else 128 rows where those do, else 64. False for a
-// shape the kernel does not take: M < 1, N or K not a multiple of 64, or
-// more row tiles than gridDim.y holds.
-inline bool gemm_s8_plan(int m, int n, int k, GemmPlan* p) {
-  if (m < 1 || n < 64 || k < 64 || n % 64 || k % 64) return false;
-  const long long cols = (n + kGemmTileN - 1) / kGemmTileN;
-  const long long tiles128 = ((long long)m + 127) / 128 * cols;
-  const long long tiles256 = ((long long)m + 255) / 256 * cols;
-  p->rows = tiles256 >= kGemmSmSlots ? 256 : tiles128 < kGemmSmSlots ? 64 : 128;
-  const long long row_tiles = ((long long)m + p->rows - 1) / p->rows;
-  if (row_tiles > 65535) return false;
-  p->stages = p->rows == 256   ? GemmStages<4>::value
-              : p->rows == 128 ? GemmStages<2>::value
-                               : GemmStages<1>::value;
-  p->smem = p->stages * (p->rows + kGemmTileN) * kGemmRowBytes + kGemmSmemAlign;
-  p->grid_x = (int)cols;
-  p->grid_y = (int)row_tiles;
-  p->threads = 128 * (p->rows / kGemmWarpGroupRows) + 32;
-  return true;
+// False for a shape no GEMM here takes: M < 1, N or K not a multiple of 64.
+inline bool gemm_shape_ok(int m, int n, int k) {
+  return m >= 1 && n >= 64 && k >= 64 && n % 64 == 0 && k % 64 == 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -282,9 +238,16 @@ __device__ __forceinline__ void fence_acc(int* d) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+// The wgmma, accumulator and tensor-map type of each operand type: a K
+// slice of 32 bytes is one instruction in both.
 template <typename In> struct GemmOperand;
-template <> struct GemmOperand<__nv_bfloat16> {  // the bf16 GEMM's tensor maps
+template <> struct GemmOperand<__nv_bfloat16> {
+  typedef float Acc;
+  static constexpr int kMmaK = 16;
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
+    wgmma_bf16(d, da, db);
+  }
 };
 template <> struct GemmOperand<int8_t> {
   typedef int Acc;
@@ -296,7 +259,7 @@ template <> struct GemmOperand<int8_t> {
 };
 
 // ---------------------------------------------------------------------------
-// The products
+// The products of one tile a block (the clustered rowquant GEMM below)
 // ---------------------------------------------------------------------------
 
 // The block's products into d: kRowGroups x kColGroups consumer warpgroups,
@@ -380,41 +343,6 @@ __device__ __forceinline__ bool gemm_wgmma_mainloop(const CUtensorMap* map_a,
   return true;
 }
 
-// Epi: a functor with fields m and n (the output's rows and columns) and
-// operator()(row, col, acc[col], acc[col + 1]) storing two neighbouring
-// outputs of one row. kGroups consumer warpgroups, 64 rows each, one column
-// tile of 128.
-template <typename In, int kGroups, typename Epi>
-__device__ __forceinline__ void gemm_wgmma_body(const CUtensorMap* map_a, const CUtensorMap* map_b,
-                                                int k_steps, const Epi& epi) {
-  typename GemmOperand<In>::Acc d[64];
-  const int m0 = blockIdx.y * kGemmWarpGroupRows * kGroups, n0 = blockIdx.x * kGemmTileN;
-  if (!gemm_wgmma_mainloop<In, kGroups, 1, GemmStages<kGroups>::value>(map_a, map_b, k_steps,
-                                                                        m0, n0, d)) {
-    return;
-  }
-  const int tid = threadIdx.x, group = tid / 128;
-  const int w = (tid % 128) / 32, lane = tid % 32;
-  const int r0 = m0 + group * kGemmWarpGroupRows + 16 * w + lane / 4;
-  const int c0 = n0 + 2 * (lane % 4);
-#pragma unroll
-  for (int i = 0; i < kGemmTileN / 8; ++i) {
-    if (n0 + 8 * i >= epi.n) break;  // a last tile of 64 columns
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r < epi.m) epi(r, c0 + 8 * i, d[4 * i + 2 * h], d[4 * i + 2 * h + 1]);
-    }
-  }
-}
-
-template <int kGroups, typename Epi>
-__global__ void __launch_bounds__(128 * kGroups + 32, GemmBlocksPerSm<kGroups>::value)
-    gemm_wgmma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
-                         const __grid_constant__ CUtensorMap map_b, int k_steps, Epi epi) {
-  gemm_wgmma_body<int8_t, kGroups>(&map_a, &map_b, k_steps, epi);
-}
-
 // ---------------------------------------------------------------------------
 // The int8 GEMM with a per-row requantization in its epilogue
 // ---------------------------------------------------------------------------
@@ -464,10 +392,12 @@ struct RowquantGemmPlan {
   int threads;  // four consumer warpgroups and one producer warp
 };
 
-// False for a shape the int8 GEMM refuses (gemm_s8_plan).
+// False for a shape the int8 GEMM refuses (gemm_tile_plan: at such M its
+// plan takes its tallest tiles, of which 65535 at most).
 inline bool rowquant_gemm_plan(int m, int n, int k, RowquantGemmPlan* p) {
-  GemmPlan g;
-  if (!gemm_s8_plan(m, n, k, &g)) return false;
+  if (!gemm_shape_ok(m, n, k) || (long long)m > 65535LL * kGemmWarpGroupRows * kGemmMaxGroups) {
+    return false;
+  }
   *p = RowquantGemmPlan{};
   const long long row_tiles = ((long long)m + kRqRows - 1) / kRqRows;
   if (n % kRqCols || n / kRqCols > kRqMaxCluster || row_tiles > 65535) return true;
@@ -623,78 +553,71 @@ __global__ void __launch_bounds__(kRqThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 GEMM: persistent clusters, a multicast A tile, TMA stores
+// The persistent GEMM: clusters over tiles, a multicast A tile, TMA stores
 // ---------------------------------------------------------------------------
 
-constexpr int kBfCluster = 2;     // blocks of a cluster: two column tiles of one row band
-constexpr int kBfMaxGroups = 3;   // 64-row warpgroups of the library's tallest tile
-constexpr int kBfBox = 64;        // bf16 columns of one 128-byte TMA box (loads and stores)
-constexpr int kBfGroupOut = kGemmWarpGroupRows * kGemmTileN * 2;  // a warpgroup's C tile, bytes
-constexpr int kBfSmemLimit = 232448;  // dynamic shared memory a block may take (227 KB)
+constexpr int kGemmGroupOut = kGemmWarpGroupRows * kGemmTileN * 2;  // a warpgroup's bf16 slab
+constexpr int kGemmSmemLimit = 232448;  // shared memory a block may take (227 KB)
+constexpr int kGemmStaticReserve = 256;  // the kernel's static barriers, at most
 
-// A block of tiles of 64 kG rows: kG / kSub consumer warpgroups of 64 kSub
-// rows (m64 sub-tiles of one wgmma shape) and one producer warp. Each
-// warpgroup stages its outputs through one 64 x 128 slab; the ring takes as
-// many stages as fit beside the slabs (4, 6, 8 for kG = 3, 2, 1). One block
-// an SM. The library takes kG = 1-3 with kSub = 1 (a thread holds 152 or
-// more registers); 256-row tiles (kG = 4) are forms of
-// csrc/experiments/gemm_bf16_variants.cu: four warpgroups of 64 rows spill
-// at 120 registers a thread, and two of 128 rows (kSub = 2) ran fc1 and
-// fc2 slower than 192-row tiles, their 8 warps leaving quick_gelu's
-// epilogue exposed.
-template <int kG, int kSub = 1> struct BfBlock {
+// A block of tiles of 64 kG rows: kG consumer warpgroups of 64 rows and one
+// producer warp. Each warpgroup stages its outputs through one 64 x 128
+// bf16 slab and its tile's kParams column parameters (128 f32 each); the
+// ring takes as many stages of (64 kG + 128) rows of 128 bytes as fit beside
+// them, at most 8. One block an SM.
+constexpr int gemm_fixed_smem(int g, int params) {
+  return g * (kGemmGroupOut + params * kGemmTileN * 4) + kGemmSmemAlign;
+}
+constexpr int gemm_stage_bytes(int g) {
+  return (kGemmWarpGroupRows * g + kGemmTileN) * kGemmRowBytes;
+}
+constexpr int gemm_stages(int g, int params) {
+  return (kGemmSmemLimit - kGemmStaticReserve - gemm_fixed_smem(g, params)) /
+                     gemm_stage_bytes(g) > 8
+             ? 8
+             : (kGemmSmemLimit - kGemmStaticReserve - gemm_fixed_smem(g, params)) /
+                   gemm_stage_bytes(g);
+}
+template <int kG, int kParams> struct GemmBlock {
   static constexpr int kRows = kGemmWarpGroupRows * kG;
-  static constexpr int kGroups = kG / kSub;              // consumer warpgroups
   static constexpr int kATile = kRows * kGemmRowBytes;
   static constexpr int kBTile = kGemmTileN * kGemmRowBytes;
   static constexpr int kStage = kATile + kBTile;
-  static constexpr int kOut = kGroups * kBfGroupOut;
-  static constexpr int kFit = (kBfSmemLimit - kOut - kGemmSmemAlign) / kStage;
-  static constexpr int kStages = kFit > 8 ? 8 : kFit;
-  static constexpr int kSmem = kStages * kStage + kOut + kGemmSmemAlign;
-  static constexpr int kThreads = 128 * kGroups + 32;
+  static constexpr int kStages = gemm_stages(kG, kParams);
+  static constexpr int kOut = kG * kGemmGroupOut;  // the output slabs, after the ring
+  static constexpr int kSmem = kStages * kStage + gemm_fixed_smem(kG, kParams);
+  static constexpr int kThreads = 128 * kG + 32;
 };
 
-// The launch plan of one bf16 GEMM (mirrored by
-// ops/flash_attention.py::gemm_plan for bf16 operands).
-struct GemmBf16Plan {
-  int rows;       // output rows of a tile: 64 G, G = 1-3
+// The launch plan of one GEMM (mirrored by ops/flash_attention.py::gemm_plan).
+struct GemmTilePlan {
+  int rows;       // output rows of a tile: 64 G
   int stages;     // shared-memory ring depth
   int smem;       // dynamic shared memory of a block, bytes
-  int blocks;     // blocks launched: kBfCluster per cluster
+  int blocks;     // blocks launched
   int threads;    // 128 per consumer warpgroup and a producer warp
   int col_tiles;  // column tiles of 128
   int row_tiles;  // row bands of `rows`
-  int waves;      // cluster tiles per launched cluster, rounded up
+  int waves;      // tiles per launched block, rounded up
 };
 
-template <int kG>
-inline void bf16_plan_block(GemmBf16Plan* p) {
-  typedef BfBlock<kG> B;
-  p->rows = B::kRows;
-  p->stages = B::kStages;
-  p->smem = B::kSmem;
-  p->threads = B::kThreads;
-}
-
-// Tiles of 64 G rows for the G in 1-3 that minimises waves x (G + 4): a K
-// step of a block moves (G / 2 + 2) x 8 KB from L2 (its half of the A tile,
-// the other half multicast by its partner, and its B tile), the GEMM runs
-// at the rate the L2 delivers those, so a tile costs G + 4, and a wave of
-// `slots` clusters (cudaOccupancyMaxActiveClusters) costs one tile. Ties go
-// to the taller tile. A cluster tile is a row band by a pair of column
-// tiles; the launch takes min(slots, cluster tiles) clusters. False for a
-// shape the kernel does not take: M < 1, N or K not a multiple of 64, or
-// more than 65535 row tiles (the chains' bound, rows_ok).
-inline bool gemm_bf16_plan(int m, int n, int k, int slots, GemmBf16Plan* p) {
-  if (m < 1 || n < 64 || k < 64 || n % 64 || k % 64 || slots < 1) return false;
+// Tiles of 64 G rows for the G in 1-3 that minimises waves x (G + 2): a K
+// step of a block moves (G + 2) x 8 KB from L2 (its A tile and its B tile),
+// the GEMM runs at the rate the L2 delivers those, so a tile costs G + 2,
+// and a wave of the `slots` blocks the card holds at once costs one tile.
+// Ties go to the taller tile. The launch takes min(slots, tiles) blocks.
+// params: the column parameters a tile stages (bf16 1, the bias; int8 2, the
+// column scales too). False for a shape the kernel does not take: M < 1, N
+// or K not a multiple of 64, or more than 65535 row tiles (the chains'
+// bound, rows_ok).
+inline bool gemm_tile_plan(int m, int n, int k, int slots, int params, GemmTilePlan* p) {
+  if (!gemm_shape_ok(m, n, k) || slots < 1) return false;
   const long long cols = (n + kGemmTileN - 1) / kGemmTileN;
-  const long long pairs = (cols + kBfCluster - 1) / kBfCluster;
   int best = 0;
   long long best_cost = 0;
-  for (int g = kBfMaxGroups; g >= 1; --g) {
+  for (int g = kGemmMaxGroups; g >= 1; --g) {
     const long long bands = ((long long)m + 64 * g - 1) / (64 * g);
-    const long long cost = (bands * pairs + slots - 1) / slots * (g + 4);
+    const long long cost = (bands * cols + slots - 1) / slots * (g + 2);
     if (best == 0 || cost < best_cost) {
       best = g;
       best_cost = cost;
@@ -702,11 +625,12 @@ inline bool gemm_bf16_plan(int m, int n, int k, int slots, GemmBf16Plan* p) {
   }
   const long long bands = ((long long)m + 64 * best - 1) / (64 * best);
   if (bands > 65535) return false;
-  if (best == 3) bf16_plan_block<3>(p);
-  if (best == 2) bf16_plan_block<2>(p);
-  if (best == 1) bf16_plan_block<1>(p);
-  const long long tiles = bands * pairs;
-  p->blocks = kBfCluster * (int)(tiles < slots ? tiles : slots);
+  const long long tiles = bands * cols;
+  p->rows = kGemmWarpGroupRows * best;
+  p->stages = gemm_stages(best, params);
+  p->smem = p->stages * gemm_stage_bytes(best) + gemm_fixed_smem(best, params);
+  p->threads = 128 * best + 32;
+  p->blocks = (int)(tiles < slots ? tiles : slots);
   p->col_tiles = (int)cols;
   p->row_tiles = (int)bands;
   p->waves = (int)((tiles + slots - 1) / slots);
@@ -763,40 +687,63 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank)
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+__device__ __forceinline__ uint32_t ld_shared_b32(uint32_t at) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(at) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared_b32(uint32_t at, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(v) : "memory");
+}
 
-// C (m, n) bf16 = epi(A Bt^T), persistent over `tiles` cluster tiles (row
-// band, pair of column tiles; `pairs` a band), cluster c taking c, c +
-// clusters, ... kCluster 2 is the design (the A tile multicast to both
-// blocks); 1 walks the same tiles with each block loading all its A rows
-// (csrc/experiments/gemm_bf16_variants.cu). Epi: fields m and n and
-// operator()(row, col, acc[col], acc[col + 1]) -> the two finished bf16
-// outputs (DenseEpilogueBf16, dense_common.cuh). map_c: C as boxes of 64
-// rows x 64 columns under the 128-byte swizzle.
-template <int kG, int kSub, int kCluster, typename Epi>
-__global__ void __launch_bounds__(BfBlock<kG, kSub>::kThreads, 1)
-    gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_b,
-                     const __grid_constant__ CUtensorMap map_c, int k_steps, int pairs, int tiles,
-                     Epi epi) {
-  typedef BfBlock<kG, kSub> B;
-  constexpr int kGroups = B::kGroups;
+// C (m, n) = epi(A Bt^T) for In (bf16 or int8) operands, persistent over
+// `tiles` cluster tiles (row band, kCluster neighbouring column tiles;
+// `pairs` a band), cluster c taking c, c + clusters, ... With kCluster 2
+// the A tile is multicast to both blocks; with 1 each block loads its own.
+// Epi (DenseEpilogueBf16 of dense_common.cuh, Int8Epilogue of
+// int8_common.cuh): the output type Out, kColParams column parameters
+// (col_param(j), staged a tile in shared memory), kRowScale
+// (row_scale[row], two a thread in registers), kAddsResidual (a residual
+// (m, n) of Out: by TMA into the slab for bf16, read from `residual` for
+// f32), fields m and n, and operator()(acc, row scale, param 0, param 1,
+// residual) -> the finished f32 value before its cast to Out. bf16 outputs:
+// map_c and map_r are C and the residual as boxes of 64 rows x 64 columns
+// under the 128-byte swizzle; f32 outputs: stored at c from registers.
+template <typename In, int kG, int kCluster, typename Epi>
+__global__ void __launch_bounds__(GemmBlock<kG, Epi::kColParams>::kThreads, 1)
+    gemm_persistent_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b,
+                           const __grid_constant__ CUtensorMap map_c,
+                           const __grid_constant__ CUtensorMap map_r,
+                           typename Epi::Out* __restrict__ c,
+                           const typename Epi::Out* __restrict__ residual, int k_steps,
+                           int pairs, int tiles, Epi epi) {
+  typedef GemmBlock<kG, Epi::kColParams> B;
+  typedef GemmOperand<In> Op;
+  typedef typename Epi::Out Out;
+  constexpr bool kSlab = sizeof(Out) == 2;  // bf16 outputs leave by TMA
   constexpr int kS = B::kStages;
+  constexpr int kP = Epi::kColParams;
   constexpr int kAPart = B::kATile / kCluster;  // bytes of the A rows this block loads
+  constexpr int kSliceBytes = Op::kMmaK * (int)sizeof(In);  // 32: one wgmma's K slice
+  constexpr int kBoxBytes = kGemmWarpGroupRows * 128;  // a 64 x 64 bf16 box of a C slab
   extern __shared__ uint8_t gemm_smem[];
-  __shared__ __align__(8) uint64_t bars[2 * kS];  // full[s], then empty[s]
+  __shared__ __align__(8) uint64_t bars[2 * kS + kG];  // full[s], empty[s], residual[g]
 
-  const int tid = threadIdx.x, group = tid / 128;  // group kGroups: the producer warp
-  const uint32_t ring =
-      (smem_u32(gemm_smem) + kGemmSmemAlign - 1) & ~(uint32_t)(kGemmSmemAlign - 1);
+  const int tid = threadIdx.x, group = tid / 128;  // group kG: the producer warp
+  const uint32_t base = smem_u32(gemm_smem);
+  const uint32_t ring = (base + kGemmSmemAlign - 1) & ~(uint32_t)(kGemmSmemAlign - 1);
   const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[kS]);
+  const uint32_t res0 = smem_u32(&bars[2 * kS]);
   // the cluster spans kCluster consecutive blocks of the 1-D grid
   const uint32_t rank = blockIdx.x % kCluster;
   const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
   if (tid == 0) {
     for (int s = 0; s < kS; ++s) {
-      mbar_init(full0 + 8 * s, 1);                        // the producer's expect-tx
-      mbar_init(empty0 + 8 * s, kCluster * kGroups * 4);  // each consumer warp of the cluster
+      mbar_init(full0 + 8 * s, 1);                    // the producer's expect-tx
+      mbar_init(empty0 + 8 * s, kCluster * kG * 4);   // each consumer warp of the cluster
     }
+    for (int g = 0; g < kG; ++g) mbar_init(res0 + 8 * g, 1);  // a warpgroup's residual load
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // every block's barriers are initialised before a peer multicasts or arrives
@@ -807,8 +754,8 @@ __global__ void __launch_bounds__(BfBlock<kG, kSub>::kThreads, 1)
     __syncthreads();
   }
 
-  if (group == kGroups) {
-    if (tid == 128 * kGroups) {
+  if (group == kG) {
+    if (tid == 128 * kG) {
       int s = 0;
       uint32_t phase = 0;
       for (int t = cluster; t < tiles; t += clusters) {
@@ -821,7 +768,7 @@ __global__ void __launch_bounds__(BfBlock<kG, kSub>::kThreads, 1)
           mbar_wait(empty0 + 8 * s, phase ^ 1);
           const uint32_t full = full0 + 8 * s, stage = ring + s * B::kStage;
           mbar_arrive_expect_tx(full, B::kStage);  // the partner's half of A included
-          const int k0 = kt * kBfBox;
+          const int k0 = kt * (kGemmRowBytes / (int)sizeof(In));
           if (kCluster > 1) {
             tma_load_2d_multicast(stage + rank * kAPart, &map_a, full, k0, a_row,
                                   (uint16_t)((1 << kCluster) - 1));
@@ -838,35 +785,70 @@ __global__ void __launch_bounds__(BfBlock<kG, kSub>::kThreads, 1)
     }
   } else {
     const int g = group, wt = tid % 128, w = wt / 32, lane = tid % 32;
-    constexpr int kSubBytes = kGemmWarpGroupRows * kGemmRowBytes;  // an m64 slab of A
-    const uint32_t a_rows = g * kSub * kSubBytes;
-    // this warpgroup's C slab of 64 rows x 128 columns
-    const uint32_t out = ring + kS * B::kStage + g * kBfGroupOut;
-    float d[64 * kSub];  // sub-tile j: d[64 j ...]
+    const uint32_t a_rows = g * kGemmWarpGroupRows * kGemmRowBytes;
+    // this warpgroup's C slab of 64 rows x 128 columns, then its column
+    // parameters [kP][128]
+    const uint32_t out = ring + kS * B::kStage + g * kGemmGroupOut;
+    float* cols = reinterpret_cast<float*>(gemm_smem + (ring - base) + kS * B::kStage +
+                                           B::kOut) +
+                  g * kP * kGemmTileN;
+    const int lr = 16 * w + lane / 4;  // rows lr and lr + 8 of the slab; lr % 8 = lane / 4
+    typename Op::Acc d[64];
     int s = 0, prev = 0;
-    uint32_t phase = 0;
+    uint32_t phase = 0, res_phase = 0;
     for (int t = cluster; t < tiles; t += clusters) {
       const int band = t / pairs;
-      const int m0 = band * B::kRows + g * kSub * kGemmWarpGroupRows;  // its first row
+      const int m0 = band * B::kRows + g * kGemmWarpGroupRows;  // its first row
       const int n0 = (kCluster * (t - band * pairs) + (int)rank) * kGemmTileN;
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 64 * kSub; ++i) d[i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) fence_acc(d + 64 * j);
+      for (int i = 0; i < 64; ++i) d[i] = 0;
+      fence_acc(d);
       for (int kt = 0; kt <= k_steps; ++kt) {
         if (kt < k_steps) {
           mbar_wait(full0 + 8 * s, phase);
           const uint32_t stage = ring + s * B::kStage;
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < kGemmRowBytes / 32; ++kk) {  // four k16 slices of 32 bytes
-#pragma unroll
-            for (int j = 0; j < kSub; ++j) {
-              wgmma_bf16(d + 64 * j, wgmma_desc(stage + a_rows + j * kSubBytes + kk * 32),
-                         wgmma_desc(stage + B::kATile + kk * 32));
-            }
+          for (int kk = 0; kk < kGemmRowBytes / kSliceBytes; ++kk) {
+            Op::mma(d, wgmma_desc(stage + a_rows + kk * kSliceBytes),
+                    wgmma_desc(stage + B::kATile + kk * kSliceBytes));
           }
           wgmma_commit();
+        }
+        // The epilogue's inputs, fetched under the products: the slab and
+        // the parameters are free, since the last epilogue's threads all
+        // passed its closing barrier, and its stores have read the slab
+        // once the waiting thread returns (after one K step's products, so
+        // that the wait overlaps them). No thread waits for a copy before
+        // the epilogue.
+        if (kt == (k_steps > 1 ? 1 : 0)) {
+          if constexpr (Epi::kAddsResidual && kSlab) {
+            if (wt == 0) {
+              bulk_wait_read();
+              mbar_arrive_expect_tx(res0 + 8 * g, kGemmGroupOut);
+#pragma unroll
+              for (int b = 0; b < 2; ++b) {
+                tma_load_2d(out + b * kBoxBytes, &map_r, res0 + 8 * g, n0 + 64 * b, m0);
+              }
+            }
+          }
+        }
+        if (kt == 0) {
+          if (wt < 32 * kP) {  // 16 bytes a thread, zeros past N
+            const int j = wt / 32, c4 = 4 * (wt % 32);
+            const bool in = n0 + c4 < epi.n;
+            cp_async16(&cols[j * kGemmTileN + c4], epi.col_param(j) + (in ? n0 + c4 : 0),
+                       in ? 16 : 0);
+          }
+          cp_async_commit();
+          if constexpr (Epi::kRowScale) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = m0 + lr + 8 * h;
+              rs[h] = r < epi.m ? epi.row_scale[r] : 0.f;
+            }
+          }
         }
         if (kt > 0) {
           // the previous stage's products are done: each warp hands it back
@@ -895,53 +877,90 @@ __global__ void __launch_bounds__(BfBlock<kG, kSub>::kThreads, 1)
           }
         }
       }
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) fence_acc(d + 64 * j);
+      fence_acc(d);
 
-      // The epilogue, a slab of 64 rows at a time: finished bf16 pairs into
-      // the warpgroup's C slab (two boxes of 64 rows x 128 bytes; 16-byte
-      // chunk c of row r sits at chunk c ^ (r % 8)), then one TMA store a
-      // box, which runs on under the next slab's epilogue or the next
-      // tile's products.
-      const int lr = 16 * w + lane / 4;  // rows lr and lr + 8 of a slab; lr % 8 = lane / 4
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const int r0 = m0 + j * kGemmWarpGroupRows;
-        if (wt == 0) bulk_wait_read();  // the slab's last stores have read it
-        named_bar_sync(1 + g, 128);
-        if (r0 < epi.m) {
+      if constexpr (kSlab) {
+        // Finished bf16 pairs into the slab (two boxes of 64 rows x 128
+        // bytes; 16-byte chunk c of row r sits at chunk c ^ (r % 8)), each in
+        // place of its residual, then one TMA store a box, which runs on
+        // under the next tile's products.
+        if constexpr (Epi::kAddsResidual) {
+          mbar_wait(res0 + 8 * g, res_phase);
+          res_phase ^= 1;
+        } else if (wt == 0) {
+          bulk_wait_read();  // the slab's last stores have read it
+        }
+        cp_async_wait<0>();
+        named_bar_sync(1 + g, 128);  // the slab free, the parameters staged
+        if (m0 < epi.m) {
 #pragma unroll
           for (int i = 0; i < kGemmTileN / 8; ++i) {
-            if (n0 + kBfBox * (i / 8) >= epi.n) continue;  // a box past N: not stored
-            const int col = n0 + 8 * i + 2 * (lane % 4);
-            const uint32_t at = out + (i / 8) * (kGemmWarpGroupRows * 128) + lr * 128 +
+            if (n0 + 64 * (i / 8) >= epi.n) continue;  // a box past N: not stored
+            const int cl = 8 * i + 2 * (lane % 4);
+            const float2 p0 = *reinterpret_cast<const float2*>(&cols[cl]);
+            const float2 p1 = kP > 1 ? *reinterpret_cast<const float2*>(&cols[kGemmTileN + cl])
+                                     : make_float2(0.f, 0.f);
+            const uint32_t at = out + (i / 8) * kBoxBytes + lr * 128 +
                                 ((i % 8) ^ (lane / 4)) * 16 + 4 * (lane % 4);
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              if (r0 + lr + 8 * h >= epi.m) continue;
-              const __nv_bfloat162 v = epi(r0 + lr + 8 * h, col, d[64 * j + 4 * i + 2 * h],
-                                           d[64 * j + 4 * i + 2 * h + 1]);
-              const uint32_t bits = (uint32_t)__bfloat16_as_ushort(v.x) |
-                                    ((uint32_t)__bfloat16_as_ushort(v.y) << 16);
-              asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + 8 * h * 128), "r"(bits)
-                           : "memory");
+              if (m0 + lr + 8 * h >= epi.m) continue;
+              float r0 = 0.f, r1 = 0.f;
+              if constexpr (Epi::kAddsResidual) {
+                const uint32_t rb = ld_shared_b32(at + 8 * h * 128);
+                r0 = __uint_as_float(rb << 16);
+                r1 = __uint_as_float(rb & 0xFFFF0000u);
+              }
+              const __nv_bfloat16 v0 =
+                  __float2bfloat16(epi(d[4 * i + 2 * h], rs[h], p0.x, p1.x, r0));
+              const __nv_bfloat16 v1 =
+                  __float2bfloat16(epi(d[4 * i + 2 * h + 1], rs[h], p0.y, p1.y, r1));
+              st_shared_b32(at + 8 * h * 128, (uint32_t)__bfloat16_as_ushort(v0) |
+                                                  ((uint32_t)__bfloat16_as_ushort(v1) << 16));
             }
           }
         }
         fence_proxy_async_shared();
         named_bar_sync(1 + g, 128);
-        if (wt == 0 && r0 < epi.m) {
+        if (wt == 0 && m0 < epi.m) {
 #pragma unroll
-          for (int b = 0; b < kGemmTileN / kBfBox; ++b) {
-            if (n0 + kBfBox * b < epi.n) {
-              tma_store_2d(&map_c, out + b * (kGemmWarpGroupRows * 128), n0 + kBfBox * b, r0);
-            }
+          for (int b = 0; b < 2; ++b) {
+            if (n0 + 64 * b < epi.n) tma_store_2d(&map_c, out + b * kBoxBytes, n0 + 64 * b, m0);
           }
           bulk_commit();
         }
+      } else {
+        // f32 outputs: 8-byte pairs from registers, as wgmma's C fragment
+        // holds them (rows lr and lr + 8, columns 8 i + 2 (lane % 4) + {0, 1})
+        cp_async_wait<0>();
+        named_bar_sync(1 + g, 128);  // the parameters staged
+#pragma unroll
+        for (int i = 0; i < kGemmTileN / 8; ++i) {
+          if (n0 + 8 * i >= epi.n) break;  // the partner's tile or a last one of 64
+          const int cl = 8 * i + 2 * (lane % 4);
+          const float2 p0 = *reinterpret_cast<const float2*>(&cols[cl]);
+          const float2 p1 = kP > 1 ? *reinterpret_cast<const float2*>(&cols[kGemmTileN + cl])
+                                   : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = m0 + lr + 8 * h;
+            if (r >= epi.m) continue;
+            const size_t o = (size_t)r * epi.n + n0 + cl;
+            float2 res = make_float2(0.f, 0.f);
+            if constexpr (Epi::kAddsResidual) {
+              res = *reinterpret_cast<const float2*>(reinterpret_cast<const float*>(residual) + o);
+            }
+            *reinterpret_cast<float2*>(reinterpret_cast<float*>(c) + o) =
+                make_float2(epi(d[4 * i + 2 * h], rs[h], p0.x, p1.x, res.x),
+                            epi(d[4 * i + 2 * h + 1], rs[h], p0.y, p1.y, res.y));
+          }
+        }
+        named_bar_sync(1 + g, 128);  // every thread done with the parameters
       }
     }
-    if (wt == 0) bulk_wait();
+    // the block's shared memory outlives its stores' reads (their writes
+    // complete before the grid does)
+    if (kSlab && wt == 0) bulk_wait_read();
   }
   __syncwarp();
   // no block leaves while its partner may still multicast into it or
@@ -993,38 +1012,6 @@ bool encode_operand(CUtensorMap* map, const In* base, int rows, int k, int box_r
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int kGroups, typename Epi>
-int launch_gemm_wgmma_as(const CUtensorMap& ma, const CUtensorMap& mb, int k_steps, const Epi& epi,
-                         const GemmPlan& p, cudaStream_t st) {
-  void (*kernel)(const CUtensorMap, const CUtensorMap, int, Epi) =
-      gemm_wgmma_s8_kernel<kGroups, Epi>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-  if (e != cudaSuccess) return (int)e;
-  IRT_TRY(kernel<<<dim3(p.grid_x, p.grid_y), p.threads, p.smem, st>>>(ma, mb, k_steps, epi));
-  return 0;
-}
-
-// C = epi(A Bt^T) for int8 A (epi.m, k) and Bt (epi.n, k). IRT_BAD_ARGS for
-// a shape gemm_s8_plan refuses or an operand TMA cannot address (its base
-// not 16-byte aligned).
-template <typename Epi>
-int launch_gemm_wgmma_s8(const int8_t* a, const int8_t* bt, int k, const Epi& epi,
-                         cudaStream_t st) {
-  GemmPlan p;
-  if (!gemm_s8_plan(epi.m, epi.n, k, &p)) return IRT_BAD_ARGS;
-  if ((uintptr_t)a % 16 || (uintptr_t)bt % 16) return IRT_BAD_ARGS;
-  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap ma, mb;
-  if (!encode_operand(&ma, a, epi.m, k, p.rows) || !encode_operand(&mb, bt, epi.n, k, kGemmTileN)) {
-    return IRT_BAD_ARGS;
-  }
-  const int k_steps = (k + kGemmRowBytes - 1) / kGemmRowBytes;
-  if (p.rows == 256) return launch_gemm_wgmma_as<4>(ma, mb, k_steps, epi, p, st);
-  return p.rows == 128 ? launch_gemm_wgmma_as<2>(ma, mb, k_steps, epi, p, st)
-                       : launch_gemm_wgmma_as<1>(ma, mb, k_steps, epi, p, st);
 }
 
 // The launch of the fused stage on the plan's cluster. IRT_BAD_ARGS for a
@@ -1088,97 +1075,131 @@ int rowquant_max_clusters(int m, int n, int k) {
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
-// The bf16 GEMM on the block form (kG, kSub) in clusters of kCluster, over
-// col_tiles x row_tiles tiles on `blocks` blocks. IRT_BAD_ARGS where TMA
-// cannot address an operand or C (a base not 16-byte aligned).
-template <int kG, int kSub, int kCluster, typename Epi>
-int launch_gemm_bf16_form(const __nv_bfloat16* a, const __nv_bfloat16* bt, __nv_bfloat16* c,
-                          int k, const Epi& epi, int col_tiles, int row_tiles, int blocks,
-                          cudaStream_t st) {
-  typedef BfBlock<kG, kSub> B;
+template <typename In, int kG, int kCluster, typename Epi>
+using GemmKernelFn = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                              const CUtensorMap, typename Epi::Out*, const typename Epi::Out*,
+                              int, int, int, Epi);
+
+// A launch of `blocks` blocks in clusters of `cluster` (1: a plain launch).
+inline cudaLaunchConfig_t gemm_launch_config(int blocks, int threads, int smem, int cluster,
+                                             cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
+// The GEMM on the block form kG in clusters of kCluster, over col_tiles x
+// row_tiles tiles on `blocks` blocks; `residual` is read by the epilogues
+// that add one. IRT_BAD_ARGS where TMA cannot address an operand, C or the
+// residual (a base not 16-byte aligned).
+template <typename In, int kG, int kCluster, typename Epi>
+int launch_gemm_form(const In* a, const In* bt, const typename Epi::Out* residual,
+                     typename Epi::Out* c, int k, const Epi& epi, int col_tiles, int row_tiles,
+                     int blocks, cudaStream_t st) {
+  typedef GemmBlock<kG, Epi::kColParams> B;
+  typedef typename Epi::Out Out;
   if ((uintptr_t)a % 16 || (uintptr_t)bt % 16 || (uintptr_t)c % 16) return IRT_BAD_ARGS;
-  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap ma, mb, mc;
-  if (!encode_operand(&ma, a, epi.m, k, B::kRows / kCluster) ||
-      !encode_operand(&mb, bt, epi.n, k, kGemmTileN) ||
-      !encode_operand(&mc, (const __nv_bfloat16*)c, epi.m, epi.n, kGemmWarpGroupRows)) {
+  if (Epi::kAddsResidual && (residual == nullptr || (uintptr_t)residual % 16)) {
     return IRT_BAD_ARGS;
   }
-  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, int, int, int, Epi) =
-      gemm_bf16_kernel<kG, kSub, kCluster, Epi>;
+  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap ma, mb, mc = {}, mr = {};
+  if (!encode_operand(&ma, a, epi.m, k, B::kRows / kCluster) ||
+      !encode_operand(&mb, bt, epi.n, k, kGemmTileN)) {
+    return IRT_BAD_ARGS;
+  }
+  if constexpr (sizeof(Out) == 2) {  // bf16 outputs and residuals pass through the slab
+    if (!encode_operand(&mc, (const Out*)c, epi.m, epi.n, kGemmWarpGroupRows) ||
+        (Epi::kAddsResidual &&
+         !encode_operand(&mr, residual, epi.m, epi.n, kGemmWarpGroupRows))) {
+      return IRT_BAD_ARGS;
+    }
+  }
+  const GemmKernelFn<In, kG, kCluster, Epi> kernel = gemm_persistent_kernel<In, kG, kCluster, Epi>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmem);
   if (e != cudaSuccess) return (int)e;
   const int pairs = (col_tiles + kCluster - 1) / kCluster;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(B::kThreads);
-  cfg.dynamicSmemBytes = B::kSmem;
-  cfg.stream = st;
+  const int k_steps = (k * (int)sizeof(In) + kGemmRowBytes - 1) / kGemmRowBytes;
   cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, ma, mb, mc, k / kBfBox, pairs, row_tiles * pairs, epi);
+  const cudaLaunchConfig_t cfg = gemm_launch_config(blocks, B::kThreads, B::kSmem, kCluster, st,
+                                                    &attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, ma, mb, mc, mr, c, residual, k_steps, pairs,
+                         row_tiles * pairs, epi);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The library's block form of the plan's tile height, clusters of kCluster.
-template <int kCluster, typename Epi>
-int launch_gemm_bf16_plan(const __nv_bfloat16* a, const __nv_bfloat16* bt, __nv_bfloat16* c,
-                          int k, const Epi& epi, const GemmBf16Plan& p, cudaStream_t st) {
-#define IRT_BF_FORM(G) \
-  launch_gemm_bf16_form<G, 1, kCluster>(a, bt, c, k, epi, p.col_tiles, p.row_tiles, p.blocks, st)
+// The library's block form of the plan's tile height: a block loads its own
+// A tile (clusters of one).
+template <typename In, typename Epi>
+int launch_gemm_plan(const In* a, const In* bt, const typename Epi::Out* residual,
+                     typename Epi::Out* c, int k, const Epi& epi, const GemmTilePlan& p,
+                     cudaStream_t st) {
+#define IRT_GEMM_FORM(G) \
+  launch_gemm_form<In, G, 1>(a, bt, residual, c, k, epi, p.col_tiles, p.row_tiles, p.blocks, st)
   switch (p.rows) {
     case 192:
-      return IRT_BF_FORM(3);
+      return IRT_GEMM_FORM(3);
     case 128:
-      return IRT_BF_FORM(2);
+      return IRT_GEMM_FORM(2);
     default:
-      return IRT_BF_FORM(1);
+      return IRT_GEMM_FORM(1);
   }
-#undef IRT_BF_FORM
+#undef IRT_GEMM_FORM
 }
 
-// How many clusters of kCluster blocks of the form (kG, kSub) the card holds
-// at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
-template <int kG, int kSub, int kCluster, typename Epi>
-int gemm_bf16_max_clusters_as() {
-  typedef BfBlock<kG, kSub> B;
-  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, int, int, int, Epi) =
-      gemm_bf16_kernel<kG, kSub, kCluster, Epi>;
+// How many clusters of kCluster blocks of the form kG the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+template <typename In, int kG, int kCluster, typename Epi>
+int gemm_max_clusters_as() {
+  typedef GemmBlock<kG, Epi::kColParams> B;
+  const GemmKernelFn<In, kG, kCluster, Epi> kernel = gemm_persistent_kernel<In, kG, kCluster, Epi>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmem);
   if (e != cudaSuccess) return -(int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(B::kThreads);
-  cfg.dynamicSmemBytes = B::kSmem;
   cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg =
+      gemm_launch_config(kCluster, B::kThreads, B::kSmem, kCluster, nullptr, &attr);
   int clusters = 0;
   e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
-// The plan's `slots`: the clusters of two blocks the card holds at once,
-// the fewest over the three block forms (each takes one block an SM),
-// asked once; or minus a CUDA error code.
-template <typename Epi>
-int gemm_bf16_slots() {
+// How many blocks of the library's form kG the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), or minus a
+// CUDA error code.
+template <typename In, int kG, typename Epi>
+int gemm_max_blocks_as() {
+  typedef GemmBlock<kG, Epi::kColParams> B;
+  const GemmKernelFn<In, kG, 1, Epi> kernel = gemm_persistent_kernel<In, kG, 1, Epi>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmem);
+  if (e != cudaSuccess) return -(int)e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, B::kThreads, B::kSmem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e == cudaSuccess ? per_sm * sms : -(int)e;
+}
+
+// The plan's `slots`: the blocks the card holds at once, the fewest over the
+// three block forms (each takes one block an SM), asked once; or minus a
+// CUDA error code.
+template <typename In, typename Epi>
+int gemm_slots() {
   static const int slots = [] {
-    const int n[3] = {gemm_bf16_max_clusters_as<1, 1, kBfCluster, Epi>(),
-                      gemm_bf16_max_clusters_as<2, 1, kBfCluster, Epi>(),
-                      gemm_bf16_max_clusters_as<3, 1, kBfCluster, Epi>()};
+    const int n[3] = {gemm_max_blocks_as<In, 1, Epi>(), gemm_max_blocks_as<In, 2, Epi>(),
+                      gemm_max_blocks_as<In, 3, Epi>()};
     int least = n[0];
     for (int i = 1; i < 3; ++i) least = n[i] < least ? n[i] : least;
     return least == 0 ? -(int)cudaErrorInvalidConfiguration : least;
@@ -1186,29 +1207,17 @@ int gemm_bf16_slots() {
   return slots;
 }
 
-// C (epi.m, epi.n) bf16 = epi(A Bt^T) for bf16 A (epi.m, k) and Bt (epi.n,
-// k), on the plan gemm_bf16_plan gives the shape on this card. IRT_BAD_ARGS
-// for a shape the plan refuses or a base TMA cannot address.
-template <typename Epi>
-int launch_gemm_bf16(const __nv_bfloat16* a, const __nv_bfloat16* bt, __nv_bfloat16* c, int k,
-                     const Epi& epi, cudaStream_t st) {
-  const int slots = gemm_bf16_slots<Epi>();
+// C (epi.m, epi.n) = epi(A Bt^T) for A (epi.m, k) and Bt (epi.n, k) of In
+// (bf16 or int8), on the plan gemm_tile_plan gives the shape on this card.
+// IRT_BAD_ARGS for a shape the plan refuses or a base TMA cannot address.
+template <typename In, typename Epi>
+int launch_gemm_tc(const In* a, const In* bt, const typename Epi::Out* residual,
+                   typename Epi::Out* c, int k, const Epi& epi, cudaStream_t st) {
+  const int slots = gemm_slots<In, Epi>();
   if (slots < 0) return -slots;
-  GemmBf16Plan p;
-  if (!gemm_bf16_plan(epi.m, epi.n, k, slots, &p)) return IRT_BAD_ARGS;
-  return launch_gemm_bf16_plan<kBfCluster>(a, bt, c, k, epi, p, st);
-}
-
-// Two neighbouring outputs of one row, as one 4-byte (bf16) or 8-byte (f32)
-// store.
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  __nv_bfloat162 v;
-  v.x = __float2bfloat16(a);
-  v.y = __float2bfloat16(b);
-  *reinterpret_cast<__nv_bfloat162*>(p) = v;
-}
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  GemmTilePlan p;
+  if (!gemm_tile_plan(epi.m, epi.n, k, slots, Epi::kColParams, &p)) return IRT_BAD_ARGS;
+  return launch_gemm_plan<In>(a, bt, residual, c, k, epi, p, st);
 }
 
 }  // namespace

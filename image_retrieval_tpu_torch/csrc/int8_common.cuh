@@ -8,14 +8,16 @@
 //                               per-row int8 quantization; a warp per row
 //                               (up to 2,048 values, held in registers),
 //                               eight rows a block.
-//   (b) gemm_wgmma_s8_kernel    int8 GEMM on the tensor cores
-//                               (gemm_sm90.cuh: wgmma m64n128k32 with int32
-//                               sums fed by TMA through a shared-memory
-//                               ring, tiles of 128 columns and 256, 128 or
-//                               64 rows) and a fused epilogue:
-//                               acc * row_scale * col_scale + bias,
-//                               then quick_gelu in f32 or the residual add in
-//                               the compute type.
+//   (b) gemm_persistent_kernel  int8 GEMM on the tensor cores
+//                               (gemm_sm90.cuh: the bf16 chains' persistent
+//                               kernel, tiles of 128 columns and 64-192
+//                               rows, wgmma m64n128k32 with int32 sums fed
+//                               by TMA, bf16 outputs stored by TMA from
+//                               shared memory under the next tile's
+//                               products) and a fused epilogue: acc *
+//                               row_scale * col_scale + bias, then
+//                               quick_gelu in f32 or the residual add in the
+//                               compute type.
 //   (c) gemm_wgmma_s8_rowquant_kernel  the same GEMM for fc1 with quick_gelu
 //                               and the per-row requantization in its
 //                               epilogue, a thread block cluster per row
@@ -211,35 +213,35 @@ __device__ __forceinline__ float int8_dequant(int acc, float rs, float cs, float
   return v;
 }
 
-// The epilogue of the int8 GEMM (gemm_sm90.cuh): two neighbouring outputs of
-// one row from their int32 sums, acc * row_scale * col_scale + bias in f32,
+// The epilogue of the int8 GEMM (gemm_persistent_kernel, gemm_sm90.cuh):
+// one output from its int32 sum, acc * row_scale * col_scale + bias in f32,
 // then quick_gelu in f32, or the cast and the residual add in the compute
-// type; one 4-byte (bf16) or 8-byte (f32) store.
+// type; the kernel casts the value to OutT. The column scales and biases
+// are the tile's two staged column parameters, the row scale is held in
+// registers.
 template <typename OutT, int kEpi>
 struct Int8Epilogue {
+  typedef OutT Out;
+  static constexpr int kColParams = 2;  // col_scale, bias
+  static constexpr bool kRowScale = true;
+  static constexpr bool kAddsResidual = kEpi == kResidual;
   const float* row_scale;
   const float* col_scale;
   const float* bias;
-  const OutT* residual;  // kResidual only
-  OutT* c;
   int m, n;
-  __device__ __forceinline__ float finish(int acc, float rs, int col, size_t o) const {
-    float v = int8_dequant<kEpi == kGelu ? kGelu : kStore>(acc, rs, col_scale[col], bias[col]);
-    if (kEpi == kResidual) {  // cast, then add in the compute type
-      v = __fadd_rn(to_f32(residual[o]), round_to<OutT>(v));
-    }
+  __device__ __forceinline__ const float* col_param(int j) const {
+    return j == 0 ? col_scale : bias;
+  }
+  __device__ __forceinline__ float operator()(int acc, float rs, float cs, float b,
+                                              float res) const {
+    float v = int8_dequant<kEpi == kGelu ? kGelu : kStore>(acc, rs, cs, b);
+    if (kEpi == kResidual) v = __fadd_rn(res, round_to<OutT>(v));  // cast, then add
     return v;
   }
-  // The same with the column's scale and bias at hand (no residual): the
-  // clustered rowquant GEMM keeps its columns' in shared memory.
+  // The same without a residual (the clustered rowquant GEMM's finish).
   __device__ __forceinline__ float finish(int acc, float rs, float cs, float b) const {
     static_assert(kEpi != kResidual, "the residual epilogue reads the residual");
     return int8_dequant<kEpi>(acc, rs, cs, b);
-  }
-  __device__ __forceinline__ void operator()(int row, int col, int a0, int a1) const {
-    const size_t o = (size_t)row * n + col;
-    const float rs = row_scale[row];
-    store_pair(c + o, finish(a0, rs, col, o), finish(a1, rs, col + 1, o + 1));
   }
 };
 
@@ -280,8 +282,8 @@ template <typename OutT, int kEpi>
 int launch_gemm_s8(const int8_t* a, const int8_t* bt, const float* row_scale,
                    const float* col_scale, const float* bias, const OutT* residual,
                    OutT* c, int m, int n, int k, cudaStream_t st) {
-  return launch_gemm_wgmma_s8(
-      a, bt, k, Int8Epilogue<OutT, kEpi>{row_scale, col_scale, bias, residual, c, m, n}, st);
+  return launch_gemm_tc<int8_t>(a, bt, residual, c, k,
+                               Int8Epilogue<OutT, kEpi>{row_scale, col_scale, bias, m, n}, st);
 }
 
 typedef Int8Epilogue<float, kGelu> GeluFinish;
@@ -296,7 +298,7 @@ inline int launch_gemm_s8_gelu_rowquant(const int8_t* a, const int8_t* bt,
                                         int m, int n, int k, cudaStream_t st) {
   RowquantGemmPlan p;
   if (!rowquant_gemm_plan(m, n, k, &p)) return IRT_BAD_ARGS;
-  const GeluFinish fin{row_scale, col_scale, bias, nullptr, nullptr, m, n};
+  const GeluFinish fin{row_scale, col_scale, bias, m, n};
   if (p.fused) return launch_gemm_s8_rowquant(a, bt, k, fin, gq, gs, st);
   if (g == nullptr || n > kMaxRowWidth) return IRT_BAD_ARGS;
   IRT_CHECK((launch_gemm_s8<float, kGelu>(a, bt, row_scale, col_scale, bias, nullptr, g, m, n,

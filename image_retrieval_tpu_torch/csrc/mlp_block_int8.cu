@@ -19,9 +19,10 @@
 // What the design does about it. Three launches of int8_common.cuh's
 // kernels: LN + rowquant (a warp per row), fc1 with quick_gelu in f32 and
 // the requantization in its epilogue, and the fc2 GEMM with the residual
-// add in its epilogue. fc2 is gemm_sm90.cuh's int8 GEMM: wgmma m64n128k32
-// with int32 sums, fed by TMA through a shared-memory ring, a producer warp
-// and one consumer warpgroup per 64 rows. fc1 is its clustered form: blocks
+// add in its epilogue. fc2 is gemm_sm90.cuh's persistent GEMM: wgmma
+// m64n128k32 with int32 sums, fed by TMA through a shared-memory ring, a
+// producer warp and one consumer warpgroup per 64 rows. fc1 is the clustered
+// form of that GEMM (gemm_wgmma_s8_rowquant_kernel): blocks
 // of 64 rows x 512 columns, hidden / 512 of them in a thread block cluster,
 // exchange their rows' |max| through distributed shared memory, so that the
 // f32 hidden activation (m x hidden x 4 bytes, the largest intermediate)

@@ -184,8 +184,8 @@ def load_library() -> ctypes.CDLL:
             lib.irt_fused_optimized_topk.restype = i
             lib.irt_gemm_plan.argtypes = [i, i, i, i, i, p]
             lib.irt_gemm_plan.restype = i
-            lib.irt_gemm_bf16_max_clusters.argtypes = []
-            lib.irt_gemm_bf16_max_clusters.restype = i
+            lib.irt_gemm_max_blocks.argtypes = [i]
+            lib.irt_gemm_max_blocks.restype = i
             lib.irt_ln_cast.argtypes = [p] * 4 + [i] * 3 + [p]
             lib.irt_ln_cast.restype = i
             lib.irt_gemm_bf16.argtypes = [p] * 5 + [i] * 4 + [p]

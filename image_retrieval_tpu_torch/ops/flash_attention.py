@@ -62,8 +62,8 @@ CUDA tensor and runs its ``*_reference`` for a CPU tensor; none falls back
 from the card to the plain version. Weight matrices are kept output-major
 ((N, K), K contiguous) because that is the operand layout of the kernels'
 GEMMs (``wgmma``, which takes 8-bit operands K-major only). ``gemm_bf16``
-(persistent clusters of two blocks) and ``gemm_s8`` (a block a tile) run
-them alone, with ``gemm_plan`` their launch plans. The int8 MLP's fc1 ->
+and ``gemm_s8`` (one persistent kernel for both operand types) run them
+alone, with ``gemm_plan`` their launch plan. The int8 MLP's fc1 ->
 quick_gelu -> rowquant is one clustered launch of the int8 GEMM where
 ``rowquant_gemm_plan`` says so (``gemm_s8(..., "gelu_rowquant")`` alone);
 ``ln_rowquant`` and ``ln_cast`` are the int8 and the compute-type chains'
@@ -529,43 +529,46 @@ def _check_attention_shape(fn: str, t: int, w: int, heads: int, dtype: torch.dty
     return w // heads
 
 
-# The GEMMs' launch plans, mirrored from csrc/gemm_sm90.cuh (irt_gemm_plan
+# The GEMM's launch plan, mirrored from csrc/gemm_sm90.cuh (irt_gemm_plan
 # answers the same; tests/test_torch_gpu.py holds them equal). Every chain's
-# projections in bf16 and int8 run on them.
+# projections in bf16 and int8 run on it.
 _GEMM_DTYPES = {torch.bfloat16: 0, torch.int8: 1}
-_GEMM_TILE_N, _GEMM_ROW_BYTES, _GEMM_SMS, _GEMM_ALIGN = 128, 128, 132, 1024
-# int8: ring depth by tile rows: two blocks of 64 or 128 rows share an SM, one of 256
-_GEMM_STAGES = {256: 4, 128: 3, 64: 4}
-# bf16: blocks of a cluster; the clusters of two an H100's 132 SMs hold at
-# once (irt_gemm_bf16_max_clusters reads the card's); a block's dynamic
-# shared memory at most; a warpgroup's 64 x 128 bf16 output tile
-_BF_CLUSTER, GEMM_BF16_CLUSTERS, _BF_SMEM_LIMIT, _BF_GROUP_OUT = 2, 66, 232448, 64 * 128 * 2
+_GEMM_TILE_N, _GEMM_ROW_BYTES, _GEMM_ALIGN = 128, 128, 1024
+# the blocks an H100's 132 SMs hold at once, one an SM (irt_gemm_max_blocks
+# reads the card's); a block's shared memory at most, of which the kernel's
+# static barriers take at most 256 bytes; a warpgroup's 64 x 128 bf16 output
+# slab; 64-row warpgroups of the tallest tile
+GEMM_BLOCKS = 132
+_GEMM_SMEM_LIMIT, _GEMM_STATIC, _GEMM_GROUP_OUT, _GEMM_MAX_GROUPS = 232448, 256, 64 * 128 * 2, 3
+# the column parameters a tile stages (bf16: the bias; int8: the column
+# scales too)
+_GEMM_COL_PARAMS = {torch.bfloat16: 1, torch.int8: 2}
 
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
-    rows: int                # output rows of a tile: int8 256, 128 or 64; bf16 192,
-                             # 128 or 64 (one consumer warpgroup per 64)
+    rows: int                # output rows of a tile: 64 G (G = 1-3), one consumer
+                             # warpgroup per 64
     stages: int              # depth of the shared-memory ring of TMA loads
     smem_bytes: int          # dynamic shared memory of one block
-    grid: Tuple[int, int]    # int8: (column tiles of 128, row tiles), a block a tile;
-                             # bf16: (blocks, 1), persistent over the tiles
+    grid: Tuple[int, int]    # (blocks, 1), persistent over the tiles
     threads: int             # 128 per consumer warpgroup and one producer warp
     refused: str | None      # why the kernel does not take the shape
-    cluster: int = 1         # blocks of a thread block cluster (bf16: 2)
     tiles: Tuple[int, int] = (0, 0)  # (column tiles of 128, row tiles)
-    waves: int = 0           # bf16: cluster tiles per launched cluster, rounded up
+    waves: int = 0           # tiles per launched block, rounded up
 
 
-def _bf16_block(groups: int) -> Tuple[int, int, int]:
-    """(stages, shared memory bytes, threads) of a bf16 GEMM block for tiles
-    of 64 `groups` rows: a consumer warpgroup per 64 rows and a producer
-    warp; as many stages of (64 groups + 128) rows of 128 bytes as fit
-    beside one 64 x 128 bf16 output slab a warpgroup, at most 8."""
+def gemm_block(groups: int, params: int) -> Tuple[int, int, int]:
+    """(stages, shared memory bytes, threads) of a GEMM block for tiles of
+    64 `groups` rows: a consumer warpgroup per 64 rows and a producer warp;
+    each warpgroup's 64 x 128 bf16 output slab and `params` staged column
+    parameters (128 f32 each), and as many stages of (64 groups + 128) rows
+    of 128 bytes as fit beside them within 227 KB less the static barriers,
+    at most 8."""
     stage = (64 * groups + _GEMM_TILE_N) * _GEMM_ROW_BYTES
-    out = groups * _BF_GROUP_OUT
-    stages = min(8, (_BF_SMEM_LIMIT - out - _GEMM_ALIGN) // stage)
-    return stages, stages * stage + out + _GEMM_ALIGN, 128 * groups + 32
+    fixed = groups * (_GEMM_GROUP_OUT + params * _GEMM_TILE_N * 4) + _GEMM_ALIGN
+    stages = min(8, (_GEMM_SMEM_LIMIT - _GEMM_STATIC - fixed) // stage)
+    return stages, stages * stage + fixed, 128 * groups + 32
 
 
 def _gemm_refusal(m: int, n: int, k: int) -> str | None:
@@ -576,57 +579,34 @@ def _gemm_refusal(m: int, n: int, k: int) -> str | None:
     return None
 
 
-def gemm_bf16_plan(m: int, n: int, k: int, clusters: int = GEMM_BF16_CLUSTERS) -> GemmPlan:
-    """How the bf16 GEMM runs C (m, n) = A (m, k) Bt (n, k)^T on a card that
-    holds `clusters` clusters of two blocks at once: tiles of 128 columns and
-    64 G rows (G consumer warpgroups, 1-3), a cluster taking a row band by a
-    pair of column tiles and walking such cluster tiles persistently, the A
-    tile multicast to both blocks. G minimises waves x (G + 4), the waves of
-    cluster tiles times the L2 bytes of a block's K step ((G/2 + 2) x 8 KB),
-    ties to the taller tile; min(clusters, cluster tiles) clusters launch."""
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(m: int, n: int, k: int, dtype: torch.dtype, blocks: int = GEMM_BLOCKS
+              ) -> GemmPlan:
+    """How the GEMM runs C (m, n) = A (m, k) Bt (n, k)^T with operands of
+    `dtype` (bf16 or int8) on a card that holds `blocks` of its blocks at
+    once: tiles of 128 columns and 64 G rows (G consumer warpgroups, 1-3),
+    min(blocks, tiles) blocks walking the tiles persistently, a row band's
+    column tiles together. G minimises waves x (G + 2), the waves of tiles
+    times the L2 bytes of a block's K step ((G + 2) x 8 KB), ties to the
+    taller tile."""
+    if dtype not in _GEMM_DTYPES:
+        raise TypeError(f"the GEMM takes bfloat16 or int8 operands, got {dtype}")
     refused = _gemm_refusal(m, n, k)
-    if refused is None and clusters < 1:
-        refused = f"{clusters} clusters: the card must hold at least one"
+    if refused is None and blocks < 1:
+        refused = f"{blocks} blocks: the card must hold at least one"
     if refused is not None:
         return GemmPlan(0, 0, 0, (0, 0), 0, refused)
     cols = -(-n // _GEMM_TILE_N)
-    pairs = -(-cols // _BF_CLUSTER)
-    groups = min(range(3, 0, -1),
-                 key=lambda g: -(-(-(-m // (64 * g)) * pairs) // clusters) * (g + 4))
+    groups = min(range(_GEMM_MAX_GROUPS, 0, -1),
+                 key=lambda g: -(-(-(-m // (64 * g)) * cols) // blocks) * (g + 2))
     bands = -(-m // (64 * groups))
     if bands > 65535:
         return GemmPlan(0, 0, 0, (0, 0), 0,
                         f"M = {m} needs more than 65535 row tiles of {64 * groups}")
-    stages, smem, threads = _bf16_block(groups)
-    tiles = bands * pairs
-    return GemmPlan(64 * groups, stages, smem, (_BF_CLUSTER * min(tiles, clusters), 1), threads,
-                    None, _BF_CLUSTER, (cols, bands), -(-tiles // clusters))
-
-
-@functools.lru_cache(maxsize=1024)
-def gemm_plan(m: int, n: int, k: int, dtype: torch.dtype,
-              clusters: int = GEMM_BF16_CLUSTERS) -> GemmPlan:
-    """How the GEMM runs C (m, n) = A (m, k) Bt (n, k)^T with operands of
-    `dtype`. bf16: gemm_bf16_plan on `clusters`. int8: output tiles of 128
-    columns and 256 rows where those give the card's 132 SMs a block each,
-    else 128 rows where those do, else 64; K steps of 128 bytes; a ring of
-    four stages of (rows + 128) rows of 128 bytes at 256 rows (one block an
-    SM), three at 128 and four at 64 (two blocks an SM)."""
-    if dtype not in _GEMM_DTYPES:
-        raise TypeError(f"the GEMM takes bfloat16 or int8 operands, got {dtype}")
-    if dtype == torch.bfloat16:
-        return gemm_bf16_plan(m, n, k, clusters)
-    refused = _gemm_refusal(m, n, k)
-    cols = -(-n // _GEMM_TILE_N)
-    rows = next((r for r in (256, 128) if -(-max(m, 0) // r) * cols >= _GEMM_SMS), 64)
-    if refused is None and -(-m // rows) > 65535:
-        refused = f"M = {m} needs more than 65535 row tiles of {rows}"
-    if refused is not None:
-        return GemmPlan(0, 0, 0, (0, 0), 0, refused)
-    smem = _GEMM_STAGES[rows] * (rows + _GEMM_TILE_N) * _GEMM_ROW_BYTES + _GEMM_ALIGN
-    grid = (cols, -(-m // rows))
-    return GemmPlan(rows, _GEMM_STAGES[rows], smem, grid, 128 * (rows // 64) + 32, None,
-                    tiles=grid)
+    stages, smem, threads = gemm_block(groups, _GEMM_COL_PARAMS[dtype])
+    tiles = bands * cols
+    return GemmPlan(64 * groups, stages, smem, (min(tiles, blocks), 1), threads, None,
+                    (cols, bands), -(-tiles // blocks))
 
 
 # The launch plan of fc1 -> quick_gelu -> rowquant as one clustered GEMM,

@@ -260,39 +260,42 @@ def test_quant_dense_kernel_matches_plain(cuda, m, k, n, in_dtype, out_dtype):
 # The GEMM every chain runs (csrc/gemm_sm90.cuh), alone
 # ---------------------------------------------------------------------------
 
-# ragged M on every tile form: 1-400 and N < 4096 take 64-row tiles, 1000 at
-# N = 4096 takes 128 rows, 4928 at N >= 1024 256 rows (gemm_plan)
+# ragged M on every tile form: 1-400 take 64-row tiles (a block a tile),
+# 1000 at N = 4096 128 rows, 4928 at N >= 1024 192 rows (persistent blocks;
+# gemm_plan, the same for bf16 and int8)
 GEMM_M = (1, 63, 65, 400, 1000, 4928)
 GEMM_N = GEMM_K = (64, 192, 1024, 4096)
 
 
 def test_gemm_plan_matches_the_kernels(cuda):
     """ops/flash_attention.py::gemm_plan is the C side's launch plan: tile
-    rows, stages, shared memory, grid, threads, cluster, tiles and waves for
-    both operand types (bf16 on the card's own count of clusters and on
-    others), and the same shapes refused."""
+    rows, stages, shared memory, grid, threads, tiles and waves for
+    both operand types (each on the card's own count of blocks and on
+    another), and the same shapes refused."""
     import ctypes
 
     from image_retrieval_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    card = lib.irt_gemm_bf16_max_clusters()
-    assert 1 <= card <= 66, card
-    got = (ctypes.c_int * 10)()
+    card = lib.irt_gemm_max_blocks(0)
+    card8 = lib.irt_gemm_max_blocks(1)
+    assert 1 <= card <= 132 and 1 <= card8 <= 132, (card, card8)
+    got = (ctypes.c_int * 9)()
     for m in (0, 1, 63, 64, 65, 400, 1024, 4928, 6400, 12800, 16448, 32896, 65535 * 64,
-              65535 * 64 + 1, 65535 * 128, 65535 * 128 + 1, 65535 * 256, 65535 * 256 + 1):
+              65535 * 64 + 1, 65535 * 128, 65535 * 128 + 1, 65535 * 192, 65535 * 192 + 1,
+              65535 * 256, 65535 * 256 + 1):
         for n in (0, 32, 64, 96, 192, 320, 768, 1024, 2304, 3072, 4096):
             for k in (0, 32, 64, 100, 192, 768, 1024, 4096):
-                for dtype, code, clusters in ((torch.bfloat16, 0, card), (torch.bfloat16, 0, 60),
-                                              (torch.int8, 1, 0)):
-                    plan = fa.gemm_plan(m, n, k, dtype, clusters or fa.GEMM_BF16_CLUSTERS)
-                    rc = lib.irt_gemm_plan(m, n, k, code, clusters, got)
-                    case = (m, n, k, dtype, clusters)
+                for dtype, code, blocks in ((torch.bfloat16, 0, card), (torch.bfloat16, 0, 120),
+                                            (torch.int8, 1, card8), (torch.int8, 1, 120)):
+                    plan = fa.gemm_plan(m, n, k, dtype, blocks)
+                    rc = lib.irt_gemm_plan(m, n, k, code, blocks, got)
+                    case = (m, n, k, dtype, blocks)
                     assert (rc != 0) == (plan.refused is not None), case
                     if rc == 0:
                         assert tuple(got) == (plan.rows, plan.stages, plan.smem_bytes,
-                                              *plan.grid, plan.threads, plan.cluster,
-                                              *plan.tiles, plan.waves), case
+                                              *plan.grid, plan.threads, *plan.tiles,
+                                              plan.waves), case
 
 
 def _gemm_operands(m, n, k, dtype, seed):
@@ -310,6 +313,25 @@ def _gemm_operands(m, n, k, dtype, seed):
     return a, bt, 0.02 * torch.randn(n, generator=g, device="cuda")
 
 
+def _s8_all_epilogues(m, n, k, seed, out_rows=None):
+    """gemm_s8 against gemm_s8_reference, bit for bit, in every epilogue and
+    both output types; with out_rows, into the first m rows of a buffer of
+    out_rows rows whose rows past m must keep their guard value."""
+    a, bt, rs, cs, bias = _gemm_operands(m, n, k, torch.int8, seed)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        residual = torch.randn((m, n), device="cuda").to(out_dtype)
+        for epilogue in fa.GEMM_EPILOGUES:
+            r = residual if epilogue == "residual" else None
+            buf = torch.full((out_rows or m, n), 7.0, dtype=out_dtype, device="cuda")
+            before = fa.gemm_s8.launches
+            got = fa.gemm_s8(a, bt, rs, cs, bias, out_dtype, epilogue, r, out=buf[:m])
+            want = fa.gemm_s8_reference(a, bt, rs, cs, bias, out_dtype, epilogue, r)
+            torch.cuda.synchronize()
+            assert fa.gemm_s8.launches == before + 1
+            assert got.dtype == out_dtype and torch.equal(got, want), (epilogue, out_dtype)
+            assert bool((buf[m:] == 7.0).all()), (epilogue, out_dtype)
+
+
 @pytest.mark.parametrize("m", GEMM_M)
 @pytest.mark.parametrize("n", GEMM_N)
 @pytest.mark.parametrize("k", GEMM_K)
@@ -318,17 +340,54 @@ def test_gemm_s8_kernel_matches_plain_bitwise(cuda, m, n, k):
     tails add nothing) and the epilogue runs the same correctly rounded f32
     operations in the same order: every epilogue, both output types, bit for
     bit."""
-    a, bt, rs, cs, bias = _gemm_operands(m, n, k, torch.int8, m * n + k)
-    for out_dtype in (torch.bfloat16, torch.float32):
-        residual = torch.randn((m, n), device=cuda).to(out_dtype)
-        for epilogue in fa.GEMM_EPILOGUES:
-            r = residual if epilogue == "residual" else None
-            before = fa.gemm_s8.launches
-            got = fa.gemm_s8(a, bt, rs, cs, bias, out_dtype, epilogue, r)
-            want = fa.gemm_s8_reference(a, bt, rs, cs, bias, out_dtype, epilogue, r)
+    _s8_all_epilogues(m, n, k, m * n + k)
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (1, 64, 64),          # one tile, a block; K half a 128-byte step
+    (200, 320, 192),      # three column tiles, the last of 64, a block each
+    (257, 192, 128),      # a last column tile of 64; M one past 256
+    (63, 1024, 64),       # M below one tile, K = 64
+    (193, 768, 768),      # M one past 192
+    (4928, 768, 768),     # 128-row tiles in two waves, the L/14 text batch's out
+    (4929, 768, 64),      # one row into a new band, K = 64
+    (8448, 320, 192),     # two waves over three column tiles, the last of 64
+    (12800, 768, 3072),   # several persistent waves, a ragged last one, K = 3,072
+    (12800, 2304, 768),   # the B/32 image batch's q/k/v: ten waves
+    (32896, 1024, 1024),  # the L/14 image batch: a last band of 64 rows on 192-row tiles
+    (616, 1536, 512),     # the B/32 text layer at B = 8: 64-row tiles, a block each
+])
+def test_gemm_s8_bitwise_at_the_plan_edges(cuda, m, n, k):
+    """Every epilogue in bf16 (stored by TMA, the residual read by TMA) and
+    f32 (stored from registers) at the persistent walk's edges, bit for bit,
+    and nothing written past row M."""
+    _s8_all_epilogues(m, n, k, m + n + k, out_rows=m + 64)
+
+
+def _s8_rows(n, k, m, seed=5):
+    """gemm_s8 of the first m rows of one seeded (12800, k) A, every epilogue,
+    bf16 outputs."""
+    a, bt, rs, cs, bias = _gemm_operands(12800, n, k, torch.int8, seed)
+    res = torch.randn((12800, n), generator=torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda").to(torch.bfloat16)
+    return [fa.gemm_s8(a[:m], bt, rs[:m], cs, bias, torch.bfloat16, e,
+                       res[:m] if e == "residual" else None) for e in fa.GEMM_EPILOGUES]
+
+
+@pytest.mark.parametrize("n,k", [(768, 768), (2304, 768), (768, 3072), (1024, 4096)])
+def test_gemm_s8_rows_keep_their_bits_whatever_m_and_plan(cuda, n, k):
+    """One wgmma shape and one ascending K order on every plan: a row's
+    outputs are the same bits at M = 12,800 (192-row tiles, several waves),
+    6,400, 1,000, 400 and 65 (shorter tiles, a block a tile, where the last
+    wave would idle or the batch is small), in every epilogue."""
+    full = _s8_rows(n, k, 12800)
+    heights = set()
+    for m in (6400, 1000, 400, 65):
+        heights.add(fa.gemm_plan(m, n, k, torch.int8).rows)
+        for got, want in zip(_s8_rows(n, k, m), full):
             torch.cuda.synchronize()
-            assert fa.gemm_s8.launches == before + 1
-            assert got.dtype == out_dtype and torch.equal(got, want), (epilogue, out_dtype)
+            assert torch.equal(got, want[:m]), (m, n, k)
+    assert len(heights | {fa.gemm_plan(12800, n, k, torch.int8).rows}) >= 2
 
 
 @pytest.mark.parametrize("m", GEMM_M)
@@ -376,14 +435,14 @@ def test_gemm_bf16_rows_keep_their_bits_whatever_m_and_plan(cuda, n, k):
 
 
 @pytest.mark.parametrize("m,n,k", [
-    (1, 64, 64),        # a single tile; the cluster partner's column tile lies past N
-    (200, 320, 192),    # three column tiles: the second pair's partner past N
+    (1, 64, 64),        # a single tile, a single block
+    (200, 320, 192),    # three column tiles, the last of 64
     (257, 192, 128),    # a last column tile of 64; M not a multiple of 64
     (6400, 768, 768),   # 192-row tiles, the trainer's out-projection
     (6401, 768, 768),   # one row into a new band
-    (4928, 768, 768),   # 256-row tiles, the L/14 text batch (one wave)
-    (12800, 768, 3072),  # three persistent waves, K = 3,072
-    (32896, 1024, 1024),  # the L/14 image batch: a last band of 128 rows on 256-row tiles
+    (4928, 768, 768),   # 128-row tiles, the L/14 text batch (two waves)
+    (12800, 768, 3072),  # four persistent waves, K = 3,072
+    (32896, 1024, 1024),  # the L/14 image batch: a last band of 64 rows on 192-row tiles
 ])
 def test_gemm_bf16_within_the_float64_limit_at_the_plan_edges(cuda, m, n, k):
     """Every epilogue at the new plan's edges, by gemm_bf16_agreement's
