@@ -19,8 +19,10 @@
     python3 chip_smoke.py --rowquant-variants  # build and run the design experiments of
                                             # K2b's fused fc1 -> quick_gelu -> rowquant
                                             # (csrc/experiments/rowquant_gemm_variants.cu)
-    python3 chip_smoke.py --time-k5         # build, then only K5 (the int8 weighted
-                                            # sweep): registers, vs plain, times
+    python3 chip_smoke.py --time-metrics    # build, then only the metric kernels K4-K7:
+                                            # registers, vs plain at the f32 sweep's
+                                            # edges, times (event and device) at Q = 1
+                                            # and 64, the int8 tier's multi-metric call
     python3 chip_smoke.py --time-k3         # build, then only K3 and K12 (the int4
                                             # screen): registers, vs plain, times at
                                             # Q = 1, 8, 64, a segment's breakdown
@@ -244,6 +246,9 @@ PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
 # so the CUDA cores complete 33.5e12 f32 operations a second, an FMA, a
 # subtract, an add or a max each taking one slot.
 PEAK_F32_SLOTS = 67e12 / 2
+# TF32 on the tensor cores (H100 SXM, dense): the split-TF32 products of the
+# f32 metric sweep (K4, K6, K7) run at this rate.
+PEAK_TF32_FLOPS = 495e12
 # bf16 outside the tensor cores is packed two to a lane (NVIDIA's H100
 # architecture paper: 133.8 TFLOP/s, an FMA counted twice), so a bf16
 # subtract or max of one element takes half an f32 slot.
@@ -254,10 +259,11 @@ def fail(msg: str):
     raise RuntimeError(f"chip_smoke FAILED: {msg}")
 
 
-def bound(int8_ops: float, bf16_flops: float, nbytes: float, f32_slots: float = 0.0) -> dict:
+def bound(int8_ops: float, bf16_flops: float, nbytes: float, f32_slots: float = 0.0,
+          tf32_flops: float = 0.0) -> dict:
     """The least time the card could take: {"bound_ms", "bound_by"}."""
     ops_ms = (int8_ops / PEAK_INT8_OPS + bf16_flops / PEAK_BF16_FLOPS
-              + f32_slots / PEAK_F32_SLOTS) * 1e3
+              + f32_slots / PEAK_F32_SLOTS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -2474,7 +2480,7 @@ def metric_kernels_vs_plain(torch, g32, m32, q32, g8, sc8, m8, q8):
     return worst
 
 
-def sweep_slots(w, int8=False):
+def sweep_slots(w, int8=False, tensor=False):
     """f32 CUDA-core slots per (query, row, dim) that the weighted score
     needs under weights `w` (a dict; None: weights read at run time, so every
     term is computed): one FMA for the product where the cosine or the
@@ -2482,13 +2488,34 @@ def sweep_slots(w, int8=False):
     for L1 and one max for Linf, each only if its weight is not 0. Over int8
     rows (K5) the product and the L1 sum are tensor-core work (k5_bounds) and
     are not counted here, and the subtract (with its rounding) and the max
-    are bf16 operations at the packed rate, BF16_SLOT each."""
+    are bf16 operations at the packed rate, BF16_SLOT each. `tensor`: the
+    product runs on the tensor cores in split TF32 (the f32 sweep of K4, K6
+    and K7 since PR 16; f32_bounds) and takes no slot here."""
     live = [True] * 5 if w is None else [x != 0.0 for x in wtuple(w)]
-    slots = 0.0 if int8 or not (live[0] or live[2]) else 1.0
+    slots = 0.0 if int8 or tensor or not (live[0] or live[2]) else 1.0
     if live[1] or live[3]:
         narrow = BF16_SLOT if int8 else 1.0
         slots += narrow + (1.0 if live[1] and not int8 else 0.0) + (narrow if live[3] else 0.0)
     return slots
+
+
+def f32_bounds(w, nq, n, d, row_bytes, out_bytes, planes=False):
+    """The bound of K4, K6 or K7 on these shapes, and the bound as PRs 4-15
+    counted it. Bytes: the rows (row_bytes a value), magnitudes, f32 queries
+    and `out_bytes` of output once. Operations per (query, row, dim):
+    sweep_slots(tensor=True) on the CUDA cores (and K6's direct-L2 FMA,
+    `planes`); where the cosine or the L2 is live, the product in split TF32
+    on the tensor cores, 3 products of 2 flops over f32 rows, 2 over bf16
+    rows (a bf16 value is a TF32 value). The old count took the product as
+    one f32 FMA slot."""
+    live = [True] * 5 if w is None else [x != 0.0 for x in wtuple(w)]
+    el = float(nq) * n * d
+    nbytes = n * (d * row_bytes + 4) + nq * d * 4 + out_bytes
+    extra = 1.0 if planes else 0.0
+    tf32 = (6.0 if row_bytes == 4 else 4.0) * el if live[0] or live[2] else 0.0
+    new = bound(0.0, 0.0, nbytes, (sweep_slots(w, tensor=True) + extra) * el, tf32)
+    old = bound(0.0, 0.0, nbytes, (sweep_slots(w) + extra) * el)
+    return new, old
 
 
 def k5_bounds(w, nq, n, d):
@@ -2517,7 +2544,7 @@ def time_k5(torch, card, g8, sc8, m8, q8, device=False):
     cases: ms (CUDA events, in turns with the plain version), the bound now
     and as counted before, the share of the bound, and with `device` the
     device time of one call (torch.profiler: the kernel and the query norms;
-    only in --time-k5, so that no profiler runs between the phases)."""
+    only in --time-metrics, so that no profiler runs between the phases)."""
     from image_retrieval_tpu_torch.ops import fused_metrics as fm
 
     out = {}
@@ -2545,28 +2572,6 @@ def time_k5(torch, card, g8, sc8, m8, q8, device=False):
     return out
 
 
-def k5_registers(lib_path):
-    """ptxas's registers and spills of each K5 instantiation from build.log,
-    as {(dot, l1, linf, queries of a unit): line}."""
-    import re
-
-    found = {}
-    for name, line in ptxas_report(lib_path, "optimized_scores_int8_kernel").items():
-        k = re.search(r"optimized_scores_int8_kernelILb(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?", name)
-        if k:
-            found[tuple(int(x or 0) for x in k.groups())] = line
-    return found
-
-
-def print_k5_registers(lib_path):
-    regs = k5_registers(lib_path)
-    for key in sorted(regs):
-        print(f"K5 <dot={key[0]}, l1={key[1]}, linf={key[2]}, {key[3]} queries a unit> ptxas: "
-              f"{regs[key]}", flush=True)
-    if not regs:
-        fail("build.log holds no K5 instantiation")
-
-
 def k5_gallery(torch, n=1_049_728, d=768, nq=64, seed=11):
     """A seeded gallery of the L/14 int8 tier's shape on the card: unit rows
     quantized as the index quantizes them (absmax/127 grid, norm-preserving
@@ -2586,18 +2591,172 @@ def k5_gallery(torch, n=1_049_728, d=768, nq=64, seed=11):
     return g8, sc, m, q
 
 
-def phase_time_k5(torch, card, lib_path):
-    """--time-k5: K5's registers and spills, K5 against its plain version on
-    2^16 rows of a seeded gallery (every weight set of phase 6, Q = 1 and 64,
-    Linf alone bit for bit), then its three timed cases over the whole
-    gallery. To compare two checkouts in one call, copy this script into each
-    and run it there in turns."""
+def f32_gallery(torch, n=1_001_344, d=512, nq=64, seed=12):
+    """A seeded gallery of phase 6's f32 shape on the card: unit rows,
+    magnitudes in [0.5, 4], and nq unnormalized queries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    for lo in range(0, n, 1 << 17):
+        x = torch.randn((min(n, lo + (1 << 17)) - lo, d), generator=gen, device="cuda")
+        g[lo:lo + len(x)] = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    m = torch.rand(n, generator=gen, device="cuda") * 3.5 + 0.5
+    q = torch.randn((nq, d), generator=gen, device="cuda") * 0.4
+    return g, m, q
+
+
+# the metric kernels' mangled names as ptxas reports them: the f32 sweep (and
+# the CUDA-core kernels it replaced, for a run from an older checkout), K5
+METRIC_KERNEL_NAMES = ("f32_sweep_kernel", "all_metrics_kernel", "optimized_scores_kernel",
+                       "optimized_topk_kernel", "optimized_scores_int8_kernel")
+
+
+# f32 sweep instantiations (f32_sweep_form) known to spill, each with why it
+# stands: a spill in any other fails print_metric_registers
+F32_KNOWN_SPILLS = {
+    # K4 with the cosine and Linf live, L1 and the Gram-form L2 dead: no main
+    # path launches it (phase 6's K4 takes the reference weights)
+    "K4 f32 qw8 dot1 l1=0 linf=1",
+}
+
+
+def f32_sweep_form(name):
+    """'K4 f32 qw8 dot2 l1=1 linf=0' for a mangled f32_sweep_kernel name
+    (dot: 1 split TF32 on the tensor cores, 2 the CUDA cores), else None."""
+    import re
+
+    m = re.search(r"f32_sweep_kernelILi(\d)E(f|13__nv_bfloat16)Li(\d+)EL[ib](\d)ELb(\d)ELb(\d)E",
+                  name)
+    if not m:
+        return None
+    kind, rows, qw, dot, l1, linf = m.groups()
+    return (f"{('K6', 'K7', 'K4')[int(kind)]} {'f32' if rows == 'f' else 'bf16'} qw{qw} "
+            f"dot{dot} l1={l1} linf={linf}")
+
+
+def print_metric_registers(lib_path):
+    """ptxas's registers and spills of every instantiation of the four
+    metric kernels (K4, K6, K7 on the f32 sweep; K5); fails on a spill in
+    an f32 sweep instantiation that F32_KNOWN_SPILLS does not list."""
+    import re
+
+    found = 0
+    for pattern in METRIC_KERNEL_NAMES:
+        for name, line in sorted(ptxas_report(lib_path, pattern).items()):
+            form = f32_sweep_form(name)
+            short = form or re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "", name)[:90]
+            print(f"metric kernel {short} ptxas: {line}", flush=True)
+            found += 1
+            if (form and form not in F32_KNOWN_SPILLS
+                    and any(int(x) for x in re.findall(r"(\d+) bytes spill", line))):
+                fail(f"f32 sweep {form} spills: {line}")
+    if not found:
+        fail("build.log holds no metric kernel")
+
+
+def print_f32_plan(fm, label, nq, n, d, w, row_bytes=4, k=0):
+    """The f32 sweep's plan for one timed shape (w None: K6 / K7)."""
+    if not hasattr(fm, "f32_sweep_plan"):  # an older checkout: no f32 sweep
+        return
+    import dataclasses
+
+    p = fm.f32_sweep_plan(nq, n, d, None if w is None else wtuple(w), row_bytes, k)
+    print(f"f32 sweep plan {label} Q={nq} over {n} x {d}: {dataclasses.asdict(p)}", flush=True)
+
+
+def metric_edges_vs_plain(torch):
+    """K6, K7 and K4 against their plain versions at the f32 sweep's edges:
+    Q = 1, 8, 33, 64, 65 (one query, a unit, a ragged group, a pass, two
+    passes), D = 512, 768 and 37 (odd: the copying producer), N = 9 (below a
+    unit) and 3001; K4 over f32 and bf16 rows under three weight sets at
+    k = 1, 10, 64; K6's Linf and |dmag| planes bit for bit; K4's rows
+    scoring -inf at Q = 1 and 64."""
     from image_retrieval_tpu_torch.ops import fused_metrics as fm
     from image_retrieval_tpu_torch.ops import metrics as M
 
-    print_k5_registers(lib_path)
-    g8, sc, m, q = k5_gallery(torch)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = {"fused_all_metrics": 0.0, "fused_optimized_scores": 0.0, "fused_optimized_topk": 0.0}
+    cases = dict.fromkeys(worst, 0)
+
+    def note(kernel, ratio):
+        worst[kernel] = max(worst[kernel], ratio)
+        cases[kernel] += 1
+
+    def slack(q, rows, m, d):
+        qn = torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        return fm.gram_l2_slack(M.gram_sq(m, q @ rows.float().t(), qn), m, qn, d)
+
+    for d in (512, 768, 37):
+        for n in (9, 3001):
+            g = torch.randn((n, d), generator=gen, device="cuda")
+            g /= torch.linalg.vector_norm(g, dim=1, keepdim=True)
+            m = torch.rand(n, generator=gen, device="cuda") * 3.5 + 0.5
+            for nq in (1, 8, 33, 64, 65):
+                q = torch.randn((nq, d), generator=gen, device="cuda") * 0.4
+                q[-1] = g[5] * m[5]  # a query equal to a stored row
+                case = f"Q={nq} {n}x{d}"
+                want = fm.fused_all_metrics_reference(q, g, m)
+                got = fm.fused_all_metrics(q, g, m)
+                r = fm.scores_agree(got, want, fm.score_limit(want))
+                if not r["ok"]:
+                    fail(f"fused_all_metrics {case} disagrees with its plain version: {r}")
+                if not (torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])):
+                    fail(f"fused_all_metrics {case}: Linf and |dmag| are not the plain "
+                         "version's bits")
+                note("fused_all_metrics", r["worst_ratio"])
+                for w in (W_ALL, W_REF):
+                    wt = torch.tensor(wtuple(w), device="cuda")
+                    want = fm.fused_optimized_scores_reference(q, g, m, wt)
+                    r = fm.scores_agree(fm.fused_optimized_scores(q, g, m, wt), want,
+                                        fm.score_limit(want, w["w_l2"], slack(q, g, m, d)))
+                    if not r["ok"]:
+                        fail(f"fused_optimized_scores {case} {w}: {r}")
+                    note("fused_optimized_scores", r["worst_ratio"])
+                for rows in (g, g.to(torch.bfloat16)):
+                    l2s = slack(q, rows, m, d)
+                    for w in (W_COS, W_REF, W_ALL):
+                        plain = M.fused_optimized_scores_xla(q, rows, m, wtuple(w),
+                                                             exact_l2=False)
+                        lim = fm.score_limit(plain, w["w_l2"], l2s)
+                        for k in (1, 10, 64):
+                            got_v, got_i = fm.fused_optimized_topk(q, rows, m, wtuple(w), k=k)
+                            want_v, want_i = fm.fused_optimized_topk_reference(q, rows, m,
+                                                                               wtuple(w), k=k)
+                            r = fm.topk_agree(got_v, got_i, want_v, want_i.to(torch.int64),
+                                              plain, lim)
+                            if not r["ok"]:
+                                fail(f"fused_optimized_topk {case} {rows.dtype} {w} k={k}: "
+                                     f"{r['why']}")
+                            note("fused_optimized_topk", r["max_abs_err"] / float(lim.max()))
+        # rows of infinite magnitude score -inf and are still returned under
+        # their own row numbers, lowest first
+        for nq in (1, 64):
+            q = torch.randn((nq, d), generator=gen, device="cuda") * 0.4
+            minf = m.clone()
+            minf[40:] = float("inf")
+            for rows in (g, g.to(torch.bfloat16)):
+                w = (1.0, 0.0, 0.0, 0.0, 0.5)
+                got_v, got_i = fm.fused_optimized_topk(q, rows, minf, w, k=64)
+                want_v, want_i = fm.fused_optimized_topk_reference(q, rows, minf, w, k=64)
+                if not (torch.equal(got_i, want_i) and bool(torch.isneginf(got_v[:, 40:]).all())
+                        and torch.equal(torch.isneginf(got_v), torch.isneginf(want_v))):
+                    fail(f"fused_optimized_topk Q={nq} D={d} {rows.dtype}: rows scoring -inf "
+                         "are not returned as the plain version returns them")
+    torch.cuda.synchronize()
+    print("kernel-vs-plain at the f32 sweep's edges (Q 1, 8, 33, 64, 65; D 512, 768, 37; N 9, "
+          "3001; K4 f32 and bf16 rows, k 1, 10, 64; -inf rows at Q 1 and 64): "
+          + ", ".join(f"{k} {cases[k]} cases, worst error/limit {worst[k]:.3g}" for k in worst)
+          + "; K6's Linf and |dmag| bit for bit", flush=True)
+
+
+def k5_vs_plain(torch, g8, sc, m):
+    """K5 against its plain version on 2^16 rows of a seeded gallery: every
+    weight set of phase 6 at Q = 1 and 64, Linf alone bit for bit."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops import metrics as M
+
     rows, s, mm = g8[-(1 << 16):], sc[-(1 << 16):], m[-(1 << 16):]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn((64, g8.shape[1]), generator=gen, device="cuda") * 0.4
     for nq in (1, 64):
         qq = q[:nq].contiguous()
         qn = torch.linalg.vector_norm(qq, dim=1, keepdim=True)
@@ -2617,60 +2776,166 @@ def phase_time_k5(torch, card, lib_path):
         if not torch.equal(fm.fused_optimized_scores_int8_pallas(qq, rows, s, mm, linf),
                            fm.fused_optimized_scores_int8_reference(qq, rows, s, mm, linf)):
             fail(f"fused_optimized_scores_int8 Q={nq}: Linf is not the plain version's bits")
-    time_k5(torch, card, g8, sc, m, q, device=True)
 
 
-def time_metric_kernels(torch, card, g32, m32, q32, g8, sc8, m8, q8):
+def phase_time_metrics(torch, card, lib_path):
+    """--time-metrics: the four metric kernels alone. Registers and spills of
+    every instantiation; K4, K6, K7 against their plain versions at the f32
+    sweep's edges and K5 on 2^16 rows; then, over seeded galleries of phase
+    6's shapes (1,001,344 x 512 f32, 1,049,728 x 768 int8), every kernel's
+    event and device times at Q = 1 and 64 beside its plain version and its
+    bound (now and as counted before), the f32 sweep's plans, the index's
+    two-call cosine sweep beside K4, K6 on one 65,536-row block of
+    the int8 tier and the int8 tier's whole multi-metric call with its
+    device breakdown. It uses only entries older checkouts have: to compare two
+    checkouts in one call, copy this script into each and run it there in
+    turns."""
+    from image_retrieval_tpu_torch.parallel.collectives import sharded_multimetric_topk
+
+    print_metric_registers(lib_path)
+    metric_edges_vs_plain(torch)
+    g8, sc, m8, q8 = k5_gallery(torch)
+    k5_vs_plain(torch, g8, sc, m8)
+    g32, m32, q32 = f32_gallery(torch)
+    valid = torch.ones(len(g8), dtype=torch.bool, device="cuda")
+    time_metric_kernels(torch, card, g32, m32, q32, g8, sc, m8, q8, device=True,
+                        multimetric=lambda q: sharded_multimetric_topk(q, g8, valid, m8, TOP_K,
+                                                                        sc))
+
+
+def device_breakdown(torch, fn, calls=5):
+    """{kernel name: device ms a call} of fn under torch.profiler, after one
+    warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+
+
+def call_gap_ms(torch, fn, calls=10):
+    """The device's idle time inside one call of fn: from the start of its
+    first kernel to the end of its last, less the kernels' own times (the
+    host's work between its launches, where the host is the slower), median
+    over `calls` calls with a synchronize between them, under
+    torch.profiler; None when the profiler records no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA")
+    if not spans or len(spans) % calls:
+        return None
+    per = len(spans) // calls
+    gaps = [(grp[-1][1] - grp[0][0] - sum(b - a for a, b in grp)) / 1e3
+            for grp in (spans[i:i + per] for i in range(0, len(spans), per))]
+    return float(np.median(gaps))
+
+
+def time_metric_kernels(torch, card, g32, m32, q32, g8, sc8, m8, q8, device=False,
+                        multimetric=None):
     """The four kernels beside their plain versions and their bounds over the
-    whole galleries. Bytes: rows, magnitudes (and scales), queries and the
-    output once. Operations per (query, row, dim): sweep_slots of the live
-    weights on the f32 CUDA cores (K6: and an FMA for the direct L2); K5 by
-    k5_bounds (time_k5)."""
+    whole galleries, at Q = 1 and 64: CUDA-event ms in turns with the plain
+    version and, with `device`, the device ms of one call (torch.profiler:
+    every kernel of the call), one call alone by events and the device's
+    idle time between its launches (call_gap_ms); bounds by f32_bounds (now and as counted
+    before) and k5_bounds (time_k5). Then K6 on one 65,536-row block of the
+    int8 tier as sharded_multimetric_topk hands it over (rows dequantized to
+    f32), and `multimetric(q)`, the int8 tier's whole multi-metric call, by
+    event and device time with K6's share of the latter."""
     from image_retrieval_tpu_torch.ops import fused_metrics as fm
     from image_retrieval_tpu_torch.ops.topk import exact_topk_wide
 
     out = {}
 
-    def run(kernel, case, fns, nq, n, d, row_bytes, out_bytes, slots, bf16_flops=0.0):
+    def run(kernel, case, fns, nq, n, d, bounds):
         big = nq * n * d > 1 << 32
         t = time_pair(torch, fns, samples=4 if big else 12, reps=1 if big else 3,
                       warm=1 if big else 2)
-        b = bound(0.0, bf16_flops, n * (d * row_bytes + 4) + nq * d * 4 + out_bytes,
-                  slots * nq * n * d)
-        out.setdefault(kernel, {})[case] = dict(t, **b, shape=f"Q{nq} x {n} rows x {d}")
-        print(f"time {kernel} {case} Q={nq} over {n} x {d}: kernel {t['kernel']:.4f} ms, "
-              f"plain {t['plain']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) "
-              f"[{card}]", flush=True)
+        b, old = bounds
+        r = out.setdefault(kernel, {})[case] = dict(t, **b, old_bound_ms=old["bound_ms"],
+                                                     shape=f"Q{nq} x {n} rows x {d}")
+        dev = ""
+        if device:
+            ms = r["device_ms"] = device_ms(torch, fns["kernel"], calls=5 if big else 20)
+            one = r["single_call_ms"] = event_ms(torch, fns["kernel"], samples=15, reps=1)
+            gap = r["call_gap_ms"] = call_gap_ms(torch, fns["kernel"])
+            dev = (f" (device {ms if ms is None else round(ms, 4)}; one call alone {one:.4f} ms "
+                   f"by events, of it the device idle between its launches "
+                   f"{gap if gap is None else round(gap, 4)} ms)")
+        print(f"time {kernel} {case} Q={nq} over {n} x {d}: kernel {t['kernel']:.4f} ms{dev}, "
+              f"plain {t['plain']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+              f"{100 * b['bound_ms'] / t['kernel']:.1f} % of it), bound as counted before "
+              f"{old['bound_ms']:.4f} ms ({old['bound_by']}) [{card}]", flush=True)
 
     n, d = g32.shape
     w_all = torch.tensor(wtuple(W_ALL), device="cuda")
     for nq in (1, 64):
         q = q32[:nq].contiguous()
+        print_f32_plan(fm, "K6 / K7", nq, n, d, None)
         run("fused_optimized_scores", f"q{nq}-all-live", {
             "kernel": lambda: fm.fused_optimized_scores(q, g32, m32, w_all),
             "plain": lambda: fm.fused_optimized_scores_reference(q, g32, m32, w_all),
-        }, nq, n, d, 4, nq * n * 4, sweep_slots(None))
+        }, nq, n, d, f32_bounds(None, nq, n, d, 4, nq * n * 4))
         run("fused_all_metrics", f"q{nq}", {
             "kernel": lambda: fm.fused_all_metrics(q, g32, m32),
             "plain": lambda: fm.fused_all_metrics_reference(q, g32, m32),
-        }, nq, n, d, 4, 5 * nq * n * 4, sweep_slots(None) + 1.0)
+        }, nq, n, d, f32_bounds(None, nq, n, d, 4, 5 * nq * n * 4, planes=True))
         for name, w in (("cosine-only", W_COS), ("reference", W_REF)):
+            print_f32_plan(fm, f"K4 {name} k={TOP_K}", nq, n, d, w, 4, TOP_K)
             run("fused_optimized_topk", f"q{nq}-{name}", {
                 "kernel": lambda: fm.fused_optimized_topk(q, g32, m32, wtuple(w), k=TOP_K),
                 "plain": lambda: fm.fused_optimized_topk_reference(q, g32, m32, wtuple(w),
                                                                    k=TOP_K),
-            }, nq, n, d, 4, 2 * nq * TOP_K * 4, sweep_slots(w))
-        # a note, used by nothing: the index's own cosine sweep (one product
-        # and the wide top-k: two calls) beside K4 with the cosine-only weights
+            }, nq, n, d, f32_bounds(w, nq, n, d, 4, 2 * nq * TOP_K * 4))
+        # beside K4 cosine-only, used by nothing: the index's own cosine sweep
+        # (one product and the wide top-k: two calls)
         qn = torch.linalg.vector_norm(q, dim=1, keepdim=True)
         t = time_pair(torch, {
             "kernel": lambda: fm.fused_optimized_topk(q, g32, m32, wtuple(W_COS), k=TOP_K),
             "plain": lambda: exact_topk_wide((q @ g32.t()) / qn, TOP_K),
         }, samples=12, reps=3, warm=2)
-        print(f"note: cosine top-{TOP_K} at Q={nq} over {n} x {d} f32: K4 {t['kernel']:.4f} ms, "
-              f"the index's sweep (q @ rows.T, exact_topk_wide) {t['plain']:.4f} ms [{card}]",
-              flush=True)
-    out["fused_optimized_scores_int8"] = time_k5(torch, card, g8, sc8, m8, q8)
+        out["fused_optimized_topk"][f"q{nq}-cosine-only"]["index_sweep_ms"] = t["plain"]
+        print(f"cosine top-{TOP_K} at Q={nq} over {n} x {d} f32: K4 {t['kernel']:.4f} ms, the "
+              f"index's sweep (q @ rows.T, exact_topk_wide) {t['plain']:.4f} ms, in turns "
+              f"[{card}]", flush=True)
+    out["fused_optimized_scores_int8"] = time_k5(torch, card, g8, sc8, m8, q8, device=device)
+    # the int8 tier's multi-metric route: K6 on each 65,536-row block of rows
+    # dequantized to f32 (parallel/collectives.py sharded_multimetric_topk)
+    blk = 1 << 16
+    rows = g8[:blk].to(torch.float32) * sc8[:blk, None]
+    d8 = rows.shape[1]
+    mm = {}
+    for nq in (1, 64):
+        q = q8[:nq].contiguous()
+        print_f32_plan(fm, "K6 int8-tier block", nq, blk, d8, None)
+        run("fused_all_metrics", f"int8-block-q{nq}", {
+            "kernel": lambda: fm.fused_all_metrics(q, rows, m8[:blk]),
+            "plain": lambda: fm.fused_all_metrics_reference(q, rows, m8[:blk]),
+        }, nq, blk, d8, f32_bounds(None, nq, blk, d8, 4, 5 * nq * blk * 4, planes=True))
+        if multimetric is not None:
+            ms = event_ms(torch, lambda: multimetric(q), samples=5, reps=2, warm=1)
+            by = device_breakdown(torch, lambda: multimetric(q), calls=3)
+            k6 = sum(v for k, v in by.items() if any(s in k for s in ("f32_sweep_kernel",
+                                                                      "all_metrics_kernel")))
+            busy = sum(by.values())
+            top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+            mm[f"q{nq}"] = {"ms": ms, "device_ms": busy, "k6_device_ms": k6}
+            print(f"multi_metric_topk, int8 tier, Q={nq} over {len(g8)} x {d8} "
+                  f"({-(-len(g8) // blk)} blocks of {blk}): {ms:.4f} ms (events), device "
+                  f"{busy:.4f} ms, of it K6 {k6:.4f} ({100 * k6 / busy:.1f} %); largest: "
+                  + "; ".join(f"{k[:60]} {v:.4f}" for k, v in top) + f" [{card}]", flush=True)
+    out["multi_metric_topk_int8"] = mm
     return out
 
 
@@ -2861,10 +3126,12 @@ def phase_weighted(torch, card, enc32, index32, enc14, index14, queries):
     args = (index32._gallery, index32._mags, qdev[32], index14._gallery, index14._scales,
             index14._mags, qdev[14])
     worst = metric_kernels_vs_plain(torch, *args)
-    times = time_metric_kernels(torch, card, *args)
+    times = time_metric_kernels(
+        torch, card, *args,
+        multimetric=lambda q: index14.multi_metric_topk(q.cpu().numpy(), TOP_K))
     from image_retrieval_tpu_torch.ops import _build
 
-    print_k5_registers(_build.build())
+    print_metric_registers(_build.build())
     return launches, worst, times
 
 
@@ -3280,8 +3547,8 @@ def main() -> int:
         # the same for the int8 GEMM, beside the one-tile kernel it replaced
         run_experiment(card, "gemm_s8_variants", "gemm s8 variants")
         return 0
-    if sys.argv[1:] == ["--time-k5"]:
-        phase_time_k5(torch, card, lib_path)
+    if sys.argv[1:] == ["--time-metrics"]:
+        phase_time_metrics(torch, card, lib_path)
         return 0
     if sys.argv[1:] == ["--time-k3"]:
         phase_time_k3(torch, card, lib_path)
@@ -3382,7 +3649,8 @@ def main() -> int:
                         f"{key}_bound_ms": t[case]["bound_ms"],
                         f"{key}_bound_by": t[case]["bound_by"]})
         for key, case in {"": main, **{f"{k}_": c for k, c in extra.items()}}.items():
-            for field in ("old_bound_ms", "device_ms"):  # K5: the bound as counted before
+            # the bound as counted before (K5: before PR 11; K4, K6, K7: before PR 16)
+            for field in ("old_bound_ms", "device_ms", "index_sweep_ms"):
                 if field in t[case]:
                     out[f"{key}{field}"] = t[case][field]
         return out
@@ -3421,7 +3689,11 @@ def main() -> int:
         metric_entry("fused_optimized_scores_int8",
                      "fused_optimized_scores_int8_pallas, ..._pallas_v2", (162, 275),
                      "q64-reference", {"q64_default": "q64-default", "q1_default": "q1-default"}),
-        metric_entry("fused_all_metrics", "fused_all_metrics", (45,), "q64", {"q1": "q1"}),
+        dict(metric_entry("fused_all_metrics", "fused_all_metrics", (45,), "q64",
+                          {"q1": "q1", "int8_block": "int8-block-q64",
+                           "int8_block_q1": "int8-block-q1"}),
+             **{f"int8_multi_metric_topk_{q}_{k}": v
+                for q, r in w_times["multi_metric_topk_int8"].items() for k, v in r.items()}),
         metric_entry("fused_optimized_scores", "fused_optimized_scores", (124,),
                      "q64-all-live", {"q1": "q1-all-live"}),
         # K8-K9b: no single PyTorch call computes a layer or a half of one.

@@ -17,39 +17,27 @@
 //
 // What bounds them on this card. At Q = 1 the read of the rows (2 KB per
 // f32 row at D = 512, 768 B per int8 row at D = 768). From a few queries on,
-// for K4, K6 and K7 the CUDA cores: per (query, row, dim) one FMA for the
-// product and, where L1/Linf (or K6's direct L2) are live, a subtract, an
-// add, a max (and an FMA), against 33.5 T such operations a second; the
-// planes K6 writes (20 B per query and row) stay under that. K5 has its own
-// sweep (int8_sweep_sm90.cuh, which says what bounds it).
+// K4, K6 and K7 take the product on the tensor cores (three TF32 products a
+// value, f32_sweep_sm90.cuh) and are then bound by the f32 differences where
+// L1/Linf (or K6's direct L2) are live: per (query, row, dim) a subtract, an
+// add, a max (and an FMA) on the CUDA cores, against 33.5 T such operations
+// a second; the planes K6 writes (20 B per query and row) stay under that.
+// K5 has its own sweep (int8_sweep_sm90.cuh, which says what bounds it).
 //
-// What the design of K4, K6 and K7 does about it. Simple and right first:
-//   * a block of 128 threads takes a tile of 64 rows; the tile comes into
-//     shared memory 64 dims at a time, converted to f32 on the way (16-byte
-//     loads), beside the same 64 dims of 32 queries;
-//   * a warp is a query group: lane r holds the sums of rows r and r + 32
-//     against the group's 8 queries in registers. Per four dims it reads
-//     each row's four floats once (conflict-free 16-byte reads) and each
-//     query's as a broadcast: 10 reads of shared memory for 64 products (a
-//     16-byte read costs four cycles broadcast or not; with one row per
-//     thread these reads outweighed the products). A group that has all 8
-//     queries runs a loop without conditions, so the compiler interleaves
-//     the queries' reads and sums. There is no reduction across threads, and
-//     a warp's stores to the (Q, N) outputs are 128 contiguous bytes;
-//   * more than 32 queries take further passes (grid.y), which re-read the
-//     tile through L2;
-//   * weights whose bit in `live` is clear choose an instantiation without
-//     the product, without the L1 sum or without the Linf max, so a dead
-//     term costs nothing (with L1 and Linf dead no difference is formed and
-//     the kernel is one FMA per element);
-//   * K4 writes a tile's scores into shared memory (over the staged rows),
-//     and one warp per query merges them into the query's running top-k:
-//     kk rounds of extracting the best (score, then lowest row) of the 64
-//     scores and the kk kept ones with warp shuffles, skipped when no score
-//     of the tile beats the kk-th kept one. A block walks many tiles, so
-//     there are few candidate lists to merge afterwards. A NaN score counts
-//     as -inf, and a row whose score is -inf is still a candidate under its
-//     own row number: only columns past N are never returned.
+// K4, K6 and K7 run one sweep (f32_sweep_sm90.cuh, which sets out its
+// design): persistent blocks stream the rows once per pass of resident
+// queries through a TMA ring; 16-row units of 8 or 32 queries a warp; the
+// products on mma.sync in split TF32 (hi*lo + lo*hi + hi*hi), their sums
+// restarted every box into f32 totals (K4 with the Gram-form L2 live: on the
+// CUDA cores, in the order of the sweep this one replaced); the differences
+// in f32 on the CUDA cores in the plain version's roundings; weights whose
+// bit in `live` is clear choose an instantiation without the product, the
+// L1 sum or the Linf max, so a dead term costs nothing. K6 writes its five planes and K7 its
+// score plane from the units' fragments; K4 merges each unit's scores into
+// the warp's own top-kk lists while the other warps sweep, best first,
+// lowest row first among equal scores. A NaN score counts as -inf, and a row
+// whose score is -inf is still a candidate under its own row number: only
+// columns past N are never returned.
 // K5 rounds where the int8 scorer rounds: the query and the reconstruction
 // bf16(int8 * bf16(scale*mag)) once each, the difference u - q once more
 // (one bf16 fma: the exact difference rounded once; the plain version's
@@ -62,243 +50,14 @@
 
 #include "fused_metrics.cuh"
 #include "int8_sweep_sm90.cuh"
+#include "f32_sweep_sm90.cuh"
 
+#include <atomic>
 #include <string.h>
 
 namespace {
 
 using namespace fm;
-
-// A thread's place in a tile: lane r holds rows r and r + 32 (`in`: inside
-// the gallery) against the up to kQT queries from qbase of its warp's group.
-struct TileCtx {
-  int r, grp, q0, qbase, qcount, tile_rows;
-  long long row0;
-  bool in[kRT];
-};
-
-__device__ __forceinline__ TileCtx tile_ctx(long long tile, int n, int nq) {
-  TileCtx c;
-  c.r = threadIdx.x & 31;
-  c.grp = threadIdx.x >> 5;
-  c.row0 = tile * kRows;
-  c.tile_rows = (int)min((long long)kRows, (long long)n - c.row0);
-  c.q0 = blockIdx.y * kQP;
-  c.qbase = c.q0 + c.grp * kQT;
-  c.qcount = max(0, min(kQT, nq - c.qbase));
-#pragma unroll
-  for (int t = 0; t < kRT; ++t) c.in[t] = c.r + 32 * t < c.tile_rows;
-  return c;
-}
-
-// A per-row operand of the thread's rows, 0 outside the gallery.
-__device__ __forceinline__ void row_values(const TileCtx& c, const float* v, float* out) {
-#pragma unroll
-  for (int t = 0; t < kRT; ++t) out[t] = c.in[t] ? v[c.row0 + c.r + 32 * t] : 0.f;
-}
-
-// K6: five planes, direct L2.
-__global__ void __launch_bounds__(kThreads, 3) all_metrics_kernel(
-    const float* __restrict__ q, const float* __restrict__ qn, const float* __restrict__ rows,
-    const float* __restrict__ mags, float* __restrict__ out, int nq, int n, int d, bool vec,
-    bool qvec) {
-  __shared__ __align__(16) float s_rows[kRows * kRStride];
-  __shared__ __align__(16) float s_q[kQP * kDC];
-  const TileCtx c = tile_ctx(blockIdx.x, n, nq);
-  float m[kRT];
-  row_values(c, mags, m);
-  Acc tot;
-  sweep_tile<float, true, true, true, true>(s_rows, s_q, rows + (size_t)c.row0 * d, c.tile_rows,
-                                             q, c.q0, nq, d, vec, qvec, c.r, c.grp, c.qcount, m,
-                                             tot);
-  const size_t plane = (size_t)nq * n;
-#pragma unroll
-  for (int j = 0; j < kQT; ++j) {
-    if (j < c.qcount) {
-      const float qnj = qn[c.qbase + j];
-#pragma unroll
-      for (int t = 0; t < kRT; ++t) {
-        if (c.in[t]) {
-          float* o = out + (size_t)(c.qbase + j) * n + c.row0 + c.r + 32 * t;
-          o[0] = cosine(tot.dot[t][j], qnj);
-          o[plane] = l1_term(tot.l1[t][j], d);
-          o[2 * plane] = l2_term(tot.sq[t][j], d);
-          o[3 * plane] = tot.linf[t][j];
-          o[4 * plane] = mag_term(m[t], qnj);
-        }
-      }
-    }
-  }
-}
-
-// K7: run-time weights, every term taken.
-__global__ void __launch_bounds__(kThreads, 4) optimized_scores_kernel(
-    const float* __restrict__ q, const float* __restrict__ qn, const float* __restrict__ wdev,
-    const float* __restrict__ rows, const float* __restrict__ mags, float* __restrict__ out,
-    int nq, int n, int d, bool vec, bool qvec) {
-  __shared__ __align__(16) float s_rows[kRows * kRStride];
-  __shared__ __align__(16) float s_q[kQP * kDC];
-  const TileCtx c = tile_ctx(blockIdx.x, n, nq);
-  float m[kRT];
-  row_values(c, mags, m);
-  Weights w;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) w.w[i] = wdev[i];
-  w.live = 31;
-  Acc tot;
-  sweep_tile<float, true, true, true, false>(s_rows, s_q, rows + (size_t)c.row0 * d,
-                                              c.tile_rows, q, c.q0, nq, d, vec, qvec, c.r, c.grp,
-                                              c.qcount, m, tot);
-#pragma unroll
-  for (int j = 0; j < kQT; ++j) {
-    if (j < c.qcount) {
-      const float qnj = qn[c.qbase + j];
-#pragma unroll
-      for (int t = 0; t < kRT; ++t) {
-        if (c.in[t]) {
-          out[(size_t)(c.qbase + j) * n + c.row0 + c.r + 32 * t] =
-              weighted<false>(w, tot.dot[t][j], tot.l1[t][j], tot.linf[t][j], m[t], qnj, d);
-        }
-      }
-    }
-  }
-}
-
-// (av, ai) ranks before (bv, bi): the higher score, then the lower row.
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
-
-// One warp merges a tile's kRows scores of one query into the query's kept
-// list (kk entries, best first). Tiles arrive in ascending row order, so a
-// score equal to the kk-th kept one ranks after it and the tile is skipped
-// unless some score is strictly higher or the list is not full yet. The
-// tile's first `tile_rows` scores are rows of the gallery, candidates under
-// their own row numbers whatever their score; the rest rank after every row.
-__device__ __forceinline__ void merge_tile(const float* sc, int row0, int tile_rows, float* lv,
-                                           int* li, int kk, int lane) {
-  constexpr unsigned kFull = 0xffffffffu;
-  float v[4];
-  int id[4];
-  v[0] = sc[lane];
-  v[1] = sc[lane + 32];
-  float tmax = fmaxf(v[0], v[1]);
-#pragma unroll
-  for (int off = 16; off; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(kFull, tmax, off));
-  if (!(tmax > lv[kk - 1]) && li[kk - 1] != INT_MAX) return;
-  id[0] = lane < tile_rows ? row0 + lane : INT_MAX;
-  id[1] = lane + 32 < tile_rows ? row0 + lane + 32 : INT_MAX;
-  v[2] = lane < kk ? lv[lane] : -INFINITY;
-  id[2] = lane < kk ? li[lane] : INT_MAX;
-  v[3] = lane + 32 < kk ? lv[lane + 32] : -INFINITY;
-  id[3] = lane + 32 < kk ? li[lane + 32] : INT_MAX;
-  __syncwarp();  // every lane holds its kept entries before any is overwritten
-  for (int round = 0; round < kk; ++round) {
-    float bv = v[0];
-    int bi = id[0];
-#pragma unroll
-    for (int i = 1; i < 4; ++i) {
-      if (better(v[i], id[i], bv, bi)) {
-        bv = v[i];
-        bi = id[i];
-      }
-    }
-#pragma unroll
-    for (int off = 16; off; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      lv[round] = bv;
-      li[round] = bi;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (id[i] == bi && bi != INT_MAX) {
-        v[i] = -INFINITY;
-        id[i] = INT_MAX;
-      }
-    }
-  }
-  __syncwarp();
-}
-
-// K4: the weighted score and the block's top-kk per query.
-template <typename RowT, bool kDot, bool kL1, bool kLinf>
-__global__ void __launch_bounds__(kThreads, 4) optimized_topk_kernel(
-    const float* __restrict__ q, const float* __restrict__ qn, const RowT* __restrict__ rows,
-    const float* __restrict__ mags, float* __restrict__ out_v, int* __restrict__ out_i, int nq,
-    int n, int d, int kk, int tiles_per_block, Weights w, bool vec, bool qvec) {
-  __shared__ __align__(16) float s_rows[kRows * kRStride];
-  __shared__ __align__(16) float s_q[kQP * kDC];
-  __shared__ float s_lv[kQP * kMaxK];
-  __shared__ int s_li[kQP * kMaxK];
-  float* s_scores = s_rows;  // (kQP, kRows), once the tile's last chunk is read
-  static_assert(kQP * kRows <= kRows * kRStride, "scores fit over the staged rows");
-  static_assert(kRows == 64 && kMaxK == 64, "merge_tile holds two of each per lane");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < kQP * kMaxK; i += kThreads) {
-    s_lv[i] = -INFINITY;
-    s_li[i] = INT_MAX;
-  }
-  const int ntiles = (n + kRows - 1) / kRows;
-  const int t_begin = blockIdx.x * tiles_per_block;
-  const int t_end = min(ntiles, t_begin + tiles_per_block);
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const TileCtx c = tile_ctx(tile, n, nq);
-    float m[kRT];
-    row_values(c, mags, m);
-    Acc tot;
-    sweep_tile<RowT, kDot, kL1, kLinf, false>(s_rows, s_q, rows + (size_t)c.row0 * d,
-                                                     c.tile_rows, q, c.q0, nq, d, vec, qvec, c.r,
-                                                     c.grp, c.qcount, m, tot);
-    __syncthreads();  // the staged rows are read, the last tile's scores merged
-#pragma unroll
-    for (int j = 0; j < kQT; ++j) {
-      const float qnj = j < c.qcount ? qn[c.qbase + j] : 0.f;
-#pragma unroll
-      for (int t = 0; t < kRT; ++t) {
-        float s = -INFINITY;  // rows past n and queries past nq
-        if (c.in[t] && j < c.qcount) {
-          s = weighted<false>(w, tot.dot[t][j], tot.l1[t][j], tot.linf[t][j], m[t], qnj, d);
-          if (!(s == s)) s = -INFINITY;
-        }
-        s_scores[(c.grp * kQT + j) * kRows + c.r + 32 * t] = s;
-      }
-    }
-    __syncthreads();
-    for (int ql = warp; ql < kQP; ql += kThreads / 32) {
-      if (c.q0 + ql < nq) {
-        merge_tile(s_scores + ql * kRows, (int)c.row0, c.tile_rows, s_lv + ql * kMaxK,
-                   s_li + ql * kMaxK, kk, lane);
-      }
-    }
-  }
-  __syncthreads();
-  const int q0 = blockIdx.y * kQP;
-  for (int i = threadIdx.x; i < kQP * kk; i += kThreads) {
-    const int ql = i / kk, s = i - ql * kk;
-    if (q0 + ql < nq) {
-      const size_t o = ((size_t)blockIdx.x * nq + q0 + ql) * kk + s;
-      out_v[o] = s_lv[ql * kMaxK + s];
-      out_i[o] = s_li[ql * kMaxK + s];
-    }
-  }
-}
-
-bool bad_shape(int nq, int n, int d) { return nq <= 0 || n <= 0 || d <= 0; }
-
-// 16-byte loads are possible: every row of d elements starts 16-byte aligned.
-template <typename RowT>
-bool can_vec(const void* rows, int d) {
-  return d % (16 / (int)sizeof(RowT)) == 0 && (uintptr_t)rows % 16 == 0;
-}
-
-dim3 tile_grid(int n, int nq) { return dim3((n + kRows - 1) / kRows, (nq + kQP - 1) / kQP); }
 
 // Which sums the live weights need, as the case of IRT_LIVE_CASES: bit 0
 // the product (cosine or the Gram-form L2), bit 1 the L1 sum, bit 2 the
@@ -552,28 +311,164 @@ int launch_int8_sweep(const CUtensorMap& map, const void* q, const void* qn, con
 
 }  // namespace
 
-extern "C" int irt_fused_metrics_tile_rows(void) { return kRows; }
-extern "C" int irt_fused_metrics_max_k(void) { return kMaxK; }
 
-extern "C" int irt_fused_all_metrics(const void* q, const void* qn, const void* rows,
-                                     const void* mags, void* out, int nq, int n, int d,
-                                     void* stream) {
-  if (bad_shape(nq, n, d)) return IRT_BAD_ARGS;
-  all_metrics_kernel<<<tile_grid(n, nq), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)qn, (const float*)rows, (const float*)mags, (float*)out, nq,
-      n, d, can_vec<float>(rows, d), can_vec<float>(q, d));
-  return (int)cudaGetLastError();
+namespace {
+
+constexpr int kMaxDevices = 64;
+
+// The current device and its SMs, the count read once per device.
+bool device_sms(int* dev, int* sms) {
+  static std::atomic<int> known[kMaxDevices];
+  if (cudaGetDevice(dev) != cudaSuccess || *dev < 0 || *dev >= kMaxDevices) return false;
+  *sms = known[*dev].load(std::memory_order_relaxed);
+  if (*sms == 0) {
+    if (cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev) != cudaSuccess) {
+      return false;
+    }
+    known[*dev].store(*sms, std::memory_order_relaxed);
+  }
+  return true;
 }
 
-extern "C" int irt_fused_optimized_scores(const void* q, const void* qn, const void* weights,
-                                          const void* rows, const void* mags, void* out, int nq,
-                                          int n, int d, void* stream) {
-  if (bad_shape(nq, n, d)) return IRT_BAD_ARGS;
-  optimized_scores_kernel<<<tile_grid(n, nq), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)qn, (const float*)weights, (const float*)rows,
-      (const float*)mags, (float*)out, nq, n, d, can_vec<float>(rows, d),
-      can_vec<float>(q, d));
-  return (int)cudaGetLastError();
+// The f32 sweep's plan on the current device; false where f32_sweep_plan
+// refuses.
+bool fs_plan(int nq, int n, int d, int row_bytes, int live, int kk, const void* rows,
+             F32SweepPlan* p) {
+  int dev = 0, sms = 0;
+  return device_sms(&dev, &sms) &&
+         f32_sweep_plan(nq, n, d, row_bytes, live, kk, (uintptr_t)rows % 16 == 0, sms, p);
+}
+
+// One launch of the sweep under plan p (its tensor map encoded where it
+// takes TMA). The caller passes the padded query copy exactly where the
+// plan does not keep the queries resident: IRT_BAD_ARGS otherwise, as for a
+// plan whose unit width is not the instantiation's. The instantiation's
+// shared-memory limit is raised once per device, to what any plan takes.
+template <int kKind, typename RowT, int kQW, int kDot, bool kL1, bool kLinf>
+int launch_f32_sweep(const F32SweepArgs& a, const F32SweepPlan& p, cudaStream_t st) {
+  static std::atomic<bool> raised[kMaxDevices];
+  int dev = 0, sms = 0;
+  if (p.qw != kQW || (p.resident != 0) != (a.qpad == nullptr) || !device_sms(&dev, &sms)) {
+    return IRT_BAD_ARGS;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (p.tma && (kDot || kL1 || kLinf)) {
+    if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+    if (!fs_encode(&map, a.rows, a.n, a.d, (int)sizeof(RowT), p)) return IRT_BAD_ARGS;
+  }
+  auto kernel = f32_sweep_kernel<kKind, RowT, kQW, kDot, kL1, kLinf>;
+  if (!raised[dev].load(std::memory_order_relaxed)) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSwSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    raised[dev].store(true, std::memory_order_relaxed);
+  }
+  IRT_TRY(kernel<<<dim3(p.grid, p.passes), kSwThreads, p.smem, st>>>(map, a, p));
+  return 0;
+}
+
+F32SweepArgs fs_args(const void* q, const void* qn, const void* qpad, const void* rows,
+                     const void* mags, int nq, int n, int d) {
+  F32SweepArgs a;
+  memset(&a, 0, sizeof(a));
+  a.q = (const float*)q;
+  a.qn = (const float*)qn;
+  a.qpad = (const float*)qpad;
+  a.rows = rows;
+  a.mags = (const float*)mags;
+  a.nq = nq;
+  a.n = n;
+  a.d = d;
+  return a;
+}
+
+// K4 over rows of RowT: the instantiation of the live sums and the plan's
+// unit width (32 queries where only the cosine's product is live and they
+// fit, else 8). With the Gram-form L2 live the product runs on the CUDA
+// cores (kDot 2, f32_sweep_sm90.cuh says why).
+template <typename RowT>
+int launch_topk(const F32SweepArgs& a, const F32SweepPlan& p, cudaStream_t st) {
+  const int c = live_case(a.w);
+  if (c == 1 && p.qw == 32) {
+    return launch_f32_sweep<kFsTopk, RowT, 32, 1, false, false>(a, p, st);
+  }
+  if (a.w.live & 4) {
+    switch (c >> 1) {
+      case 0:
+        return launch_f32_sweep<kFsTopk, RowT, 8, 2, false, false>(a, p, st);
+      case 1:
+        return launch_f32_sweep<kFsTopk, RowT, 8, 2, true, false>(a, p, st);
+      case 2:
+        return launch_f32_sweep<kFsTopk, RowT, 8, 2, false, true>(a, p, st);
+      default:
+        return launch_f32_sweep<kFsTopk, RowT, 8, 2, true, true>(a, p, st);
+    }
+  }
+#define IRT_LAUNCH(dot, l1, linf) return launch_f32_sweep<kFsTopk, RowT, 8, dot, l1, linf>(a, p, st)
+  IRT_LIVE_CASES(c)
+#undef IRT_LAUNCH
+  return IRT_BAD_ARGS;
+}
+
+}  // namespace
+
+extern "C" int irt_fused_all_metrics(const void* q, const void* qn, const void* qpad,
+                                     const void* rows, const void* mags, void* out, int nq, int n,
+                                     int d, void* stream) {
+  F32SweepPlan p;
+  if (!fs_plan(nq, n, d, 4, 31, 0, rows, &p)) return IRT_BAD_ARGS;
+  F32SweepArgs a = fs_args(q, qn, qpad, rows, mags, nq, n, d);
+  a.out = (float*)out;
+  return launch_f32_sweep<kFsPlanes, float, 8, 1, true, true>(a, p, (cudaStream_t)stream);
+}
+
+extern "C" int irt_fused_optimized_scores(const void* q, const void* qn, const void* qpad,
+                                          const void* weights, const void* rows, const void* mags,
+                                          void* out, int nq, int n, int d, void* stream) {
+  F32SweepPlan p;
+  if (!fs_plan(nq, n, d, 4, 31, 0, rows, &p)) return IRT_BAD_ARGS;
+  F32SweepArgs a = fs_args(q, qn, qpad, rows, mags, nq, n, d);
+  a.out = (float*)out;
+  a.wdev = (const float*)weights;
+  return launch_f32_sweep<kFsScores, float, 8, 1, true, true>(a, p, (cudaStream_t)stream);
+}
+
+extern "C" int irt_fused_optimized_topk(const void* q, const void* qn, const void* qpad,
+                                        const void* rows, int rows_bf16, const void* mags,
+                                        void* out_v, void* out_i, int nq, int n, int d, int kk,
+                                        int lists, float w0, float w1, float w2, float w3,
+                                        float w4, int live, void* stream) {
+  if (kk < 1 || kk > kMaxK || kk > n) return IRT_BAD_ARGS;
+  F32SweepPlan p;
+  F32SweepArgs a = fs_args(q, qn, qpad, rows, mags, nq, n, d);
+  a.w = make_weights(w0, w1, w2, w3, w4, live);
+  if (!fs_plan(nq, n, d, rows_bf16 ? 2 : 4, a.w.live, kk, rows, &p) || p.lists != lists) {
+    return IRT_BAD_ARGS;  // the caller's candidate buffers hold `lists` lists
+  }
+  a.out = (float*)out_v;
+  a.out_i = (int*)out_i;
+  a.kk = kk;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return rows_bf16 ? launch_topk<__nv_bfloat16>(a, p, st) : launch_topk<float>(a, p, st);
+}
+
+// The f32 sweep's launch plan as K4, K6 and K7 would take it: 0 and out[17]
+// = (qw, groups, tile_rows, passes, resident, q_rows, q_pitch, box_dims,
+// boxes, stage_boxes, stages, stage_bytes, tma, tiles, grid, lists, smem), or
+// IRT_BAD_ARGS where the kernels refuse the shape. row_bytes 4 (f32) or 2
+// (bf16); kk 0 for K6 and K7; `aligned`: the rows' base is 16-byte aligned.
+extern "C" int irt_f32_sweep_plan(int nq, int n, int d, int row_bytes, int live, int kk,
+                                  int aligned, int sms, int* out) {
+  F32SweepPlan p;
+  if (!f32_sweep_plan(nq, n, d, row_bytes, live & 31, kk, aligned != 0, sms, &p)) {
+    return IRT_BAD_ARGS;
+  }
+  const int v[17] = {p.qw,     p.groups,      p.tile_rows, p.passes, p.resident, p.q_rows,
+                     p.q_pitch, p.box_dims,  p.boxes,     p.stage_boxes, p.stages, p.stage_bytes,
+                     p.tma,    p.tiles,       p.grid,      p.lists,  p.smem};
+  for (int i = 0; i < 17; ++i) out[i] = v[i];
+  return 0;
 }
 
 extern "C" int irt_fused_optimized_scores_int8(const void* q, const void* qn, const void* rows,
@@ -623,38 +518,3 @@ extern "C" int irt_int8_sweep_plan(int nq, int n, int d, int live, int aligned, 
   return 0;
 }
 
-namespace {
-
-template <typename RowT>
-int launch_topk(const void* q, const void* qn, const void* rows, const void* mags, void* out_v,
-                void* out_i, int nq, int n, int d, int kk, int nblocks, const Weights& w,
-                cudaStream_t st) {
-  const int ntiles = (n + kRows - 1) / kRows;
-  const int tpb = (ntiles + nblocks - 1) / nblocks;
-  const dim3 grid(nblocks, (nq + kQP - 1) / kQP);
-  const bool vec = can_vec<RowT>(rows, d), qvec = can_vec<float>(q, d);
-#define IRT_LAUNCH(dot, l1, linf)                                                        \
-  optimized_topk_kernel<RowT, dot, l1, linf><<<grid, kThreads, 0, st>>>(                 \
-      (const float*)q, (const float*)qn, (const RowT*)rows, (const float*)mags,          \
-      (float*)out_v, (int*)out_i, nq, n, d, kk, tpb, w, vec, qvec)
-  IRT_LIVE_CASES(live_case(w))
-#undef IRT_LAUNCH
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int irt_fused_optimized_topk(const void* q, const void* qn, const void* rows,
-                                        int rows_bf16, const void* mags, void* out_v,
-                                        void* out_i, int nq, int n, int d, int kk, int nblocks,
-                                        float w0, float w1, float w2, float w3, float w4,
-                                        int live, void* stream) {
-  if (bad_shape(nq, n, d) || kk < 1 || kk > kMaxK || kk > n || nblocks < 1) return IRT_BAD_ARGS;
-  const Weights w = make_weights(w0, w1, w2, w3, w4, live);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (rows_bf16) {
-    return launch_topk<__nv_bfloat16>(q, qn, rows, mags, out_v, out_i, nq, n, d, kk, nblocks, w,
-                                      st);
-  }
-  return launch_topk<float>(q, qn, rows, mags, out_v, out_i, nq, n, d, kk, nblocks, w, st);
-}

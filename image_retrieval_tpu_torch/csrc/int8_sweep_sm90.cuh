@@ -206,23 +206,33 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v 
 // The stages
 // ---------------------------------------------------------------------------
 
-// The 32 lanes of the producer warp copy box b of the tile at row0 into `dst`
-// as TMA would: row r's 16-byte chunk c at chunk c ^ (r & 7), zeros past row
-// n and past dim d.
-__device__ __forceinline__ void copy_box(uint8_t* dst, const int8_t* rows, int n, int d,
-                                         int row0, int tile_rows, int b, int lane) {
+// A row value's bits in the low bytes of a word.
+__device__ __forceinline__ uint32_t value_bits(int8_t x) { return (uint8_t)x; }
+__device__ __forceinline__ uint32_t value_bits(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
+__device__ __forceinline__ uint32_t value_bits(float x) { return __float_as_uint(x); }
+
+// The 32 lanes of the producer warp copy 128-byte box b of the tile at row0
+// of a (n, d) matrix of T into `dst` as TMA would: row r's 16-byte chunk c at
+// chunk c ^ (r & 7), zeros past row n and past dim d. K5 (int8 rows) and the
+// f32 sweep (f32 or bf16 rows, f32_sweep_sm90.cuh) take it.
+template <typename T>
+__device__ __forceinline__ void copy_box(uint8_t* dst, const T* rows, int n, int d, int row0,
+                                         int tile_rows, int b, int lane) {
+  constexpr int kE = 16 / (int)sizeof(T), kPerWord = 4 / (int)sizeof(T);  // values a chunk, a word
   for (int i = lane; i < tile_rows * 8; i += 32) {
     const int r = i >> 3, c = i & 7;
-    const int c0 = b * kSwBoxDims + c * 16;
-    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    const int c0 = (b * 8 + c) * kE;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};  // all-zero bits are 0 in every row type
     if (row0 + r < n) {
-      const int8_t* src = rows + (size_t)(row0 + r) * d;
+      const T* src = rows + (size_t)(row0 + r) * d;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (c0 + j < d) v[j >> 2] |= (uint32_t)(uint8_t)src[c0 + j] << (8 * (j & 3));
+      for (int j = 0; j < kE; ++j) {
+        if (c0 + j < d) {
+          v[j / kPerWord] |= value_bits(src[c0 + j]) << (8 * (int)sizeof(T) * (j % kPerWord));
+        }
       }
     }
-    *reinterpret_cast<uint4*>(dst + r * kSwBoxDims + ((c ^ (r & 7)) << 4)) =
+    *reinterpret_cast<uint4*>(dst + r * 128 + ((c ^ (r & 7)) << 4)) =
         make_uint4(v[0], v[1], v[2], v[3]);
   }
 }

@@ -34,7 +34,7 @@ HEADERS = ("block_common.cuh", "int8_common.cuh", "layer_block_int8.cuh",
            "attention_block_int8.cuh", "mlp_block_int8.cuh", "quant_dense.cuh",
            "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh",
            "attention_mma.cuh", "gemm_sm90.cuh", "int8_sweep_sm90.cuh",
-           "int4_screen_sm90.cuh")
+           "int4_screen_sm90.cuh", "f32_sweep_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -166,13 +166,9 @@ def load_library() -> ctypes.CDLL:
             lib.irt_int4_screen_plan.argtypes = [i, i, i, ctypes.c_longlong, i, i, i, p]
             lib.irt_int4_screen_plan.restype = i
             f = ctypes.c_float
-            lib.irt_fused_metrics_tile_rows.argtypes = []
-            lib.irt_fused_metrics_tile_rows.restype = i
-            lib.irt_fused_metrics_max_k.argtypes = []
-            lib.irt_fused_metrics_max_k.restype = i
-            lib.irt_fused_all_metrics.argtypes = [p] * 5 + [i] * 3 + [p]
+            lib.irt_fused_all_metrics.argtypes = [p] * 6 + [i] * 3 + [p]
             lib.irt_fused_all_metrics.restype = i
-            lib.irt_fused_optimized_scores.argtypes = [p] * 6 + [i] * 3 + [p]
+            lib.irt_fused_optimized_scores.argtypes = [p] * 7 + [i] * 3 + [p]
             lib.irt_fused_optimized_scores.restype = i
             lib.irt_fused_optimized_scores_int8.argtypes = (
                 [p] * 6 + [i] * 3 + [f] * 5 + [i, p])
@@ -180,8 +176,10 @@ def load_library() -> ctypes.CDLL:
             lib.irt_int8_sweep_plan.argtypes = [i] * 6 + [p]
             lib.irt_int8_sweep_plan.restype = i
             lib.irt_fused_optimized_topk.argtypes = (
-                [p] * 3 + [i] + [p] * 3 + [i] * 5 + [f] * 5 + [i, p])
+                [p] * 4 + [i] + [p] * 3 + [i] * 5 + [f] * 5 + [i, p])
             lib.irt_fused_optimized_topk.restype = i
+            lib.irt_f32_sweep_plan.argtypes = [i] * 8 + [p]
+            lib.irt_f32_sweep_plan.restype = i
             lib.irt_gemm_plan.argtypes = [i, i, i, i, i, p]
             lib.irt_gemm_plan.restype = i
             lib.irt_gemm_max_blocks.argtypes = [i]

@@ -12,7 +12,12 @@ package's names (the int4 screen of that file is ``ops/int4_screen.py``):
   fused_optimized_topk (K4, ``_make_combo_topk_kernel`` l.399)
       the weighted similarity with static weights (zero weights drop their
       terms) and the top-k selection inside the kernel: the (Q, N) score
-      plane never reaches device memory;
+      plane never reaches device memory. K4, K6 and K7 run one sweep
+      (csrc/f32_sweep_sm90.cuh): persistent blocks stream the rows once per
+      pass of resident queries through a TMA ring, the products run on the
+      tensor cores in split TF32 (K4's with the Gram-form L2 live on the CUDA
+      cores, in the order of the sweep it replaced) and the differences in
+      f32 on the CUDA cores; ``f32_sweep_plan`` is its launch plan;
   fused_optimized_scores_int8_pallas, fused_optimized_scores_int8_pallas_v2
       (K5, ``_make_int8_combo_kernel`` l.162 and ``..._v2`` l.275)
       the weighted similarity over int8 rows in one read. The two JAX bodies
@@ -32,10 +37,11 @@ for CUDA tensors and runs its ``*_reference`` for CPU tensors; it never falls
 back from the card to the plain version. ``<entry>.launches`` counts kernel
 launches.
 
-Kernel against plain version: both compute every product and difference
-with the same roundings, and the epilogue repeats the plain version's
-operations in its order, so only the order of the f32 sums over D (for K5
-also the tensor cores' f32 sums inside one 128-dim box) separates them:
+Kernel against plain version: both compute every difference with the same
+roundings, and the epilogue repeats the plain version's operations in its
+order, so only the order of the f32 sums over D (and the tensor cores' f32
+sums inside one box: for K5 exact products, for K4, K6 and K7 the split-TF32
+products of ``split_tf32_dots``) separates them:
 ``score_limit`` / ``scores_agree`` / ``topk_agree`` state what that allows,
 and tests/test_torch_fused_metrics.py shows that the limits reject a
 dropped magnitude, an L2 without its 1/sqrt(D), an int8 difference left in
@@ -57,17 +63,14 @@ from image_retrieval_tpu_torch.ops.topk import exact_topk_wide, two_key_topk
 PLANES = ("cosine_similarity", "l1_distance", "l2_distance", "linf_distance",
           "magnitude_difference")
 
-# Blocks the top-k kernel is spread over: each walks a contiguous share of
-# the tiles and emits one candidate list per query, so 4 blocks for each of
-# an H100's 132 SMs leave 528 x k candidates per query to merge.
-TOPK_BLOCKS = 528
-
 # ---- what separates a kernel from its plain version -------------------------
 # A sum over D = 512..768 f32 terms taken in another order moves by about
 # sqrt(D) * 2^-24 of its size, ~1.5e-6 relative at worst in practice; the
 # cosine's product is bounded by ||q|| and is divided by it, so it moves by
-# ~1e-7 absolute. Linf, |dmag| and every rounding of K5 are the same
-# operations on both sides and agree bit for bit.
+# ~1e-7 absolute (the split-TF32 product of K4, K6 and K7 drops lo * lo, a
+# term of 2^-22 of each product, and its tensor-core sums restart every box:
+# ``split_tf32_dots`` models it). Linf, |dmag| and every rounding of K5 are
+# the same operations on both sides and agree bit for bit.
 SCORE_ATOL = 3e-6
 SCORE_RTOL = 3e-6
 # The Gram-form L2 takes sqrt of sq = m^2 - 2 m <g, q> + ||q||^2. Where a
@@ -232,9 +235,10 @@ def fused_all_metrics(queries: torch.Tensor, gallery_unit: torch.Tensor,
     qn = torch.linalg.vector_norm(q, dim=1)
     out = torch.empty((5, q.shape[0], g.shape[0]), dtype=torch.float32, device=q.device)
     if out.numel():
+        qpad = _padded_queries(_device_plan(q, g, None), q)
         _launch("fused_all_metrics", "irt_fused_all_metrics", q.device,
-                q.data_ptr(), qn.data_ptr(), g.data_ptr(), m.data_ptr(), out.data_ptr(),
-                q.shape[0], g.shape[0], q.shape[1])
+                q.data_ptr(), qn.data_ptr(), _ptr(qpad), g.data_ptr(), m.data_ptr(),
+                out.data_ptr(), q.shape[0], g.shape[0], q.shape[1])
         fused_all_metrics.launches += 1
     return out
 
@@ -275,9 +279,10 @@ def fused_optimized_scores(queries: torch.Tensor, gallery_unit: torch.Tensor,
     qn = torch.linalg.vector_norm(q, dim=1)
     out = torch.empty((q.shape[0], g.shape[0]), dtype=torch.float32, device=q.device)
     if out.numel():
+        qpad = _padded_queries(_device_plan(q, g, None), q)
         _launch("fused_optimized_scores", "irt_fused_optimized_scores", q.device,
-                q.data_ptr(), qn.data_ptr(), w.data_ptr(), g.data_ptr(), m.data_ptr(),
-                out.data_ptr(), q.shape[0], g.shape[0], q.shape[1])
+                q.data_ptr(), qn.data_ptr(), _ptr(qpad), w.data_ptr(), g.data_ptr(),
+                m.data_ptr(), out.data_ptr(), q.shape[0], g.shape[0], q.shape[1])
         fused_optimized_scores.launches += 1
     return out
 
@@ -439,6 +444,178 @@ fused_optimized_scores_int8_pallas.launches = 0
 fused_optimized_scores_int8_pallas_v2 = fused_optimized_scores_int8_pallas
 
 
+# ---- the sweep of K4, K6 and K7 ---------------------------------------------
+
+# Their sweep (csrc/f32_sweep_sm90.cuh) runs in K5's block (SWEEP_WARPS
+# consumer warps and a producer warp, one block an SM, dynamic shared memory
+# up to SWEEP_SMEM_MAX, the ring aligned to SWEEP_ALIGN, at most
+# SWEEP_MAX_STAGES stages); a warp's unit is 16 rows; a stage is 128 bytes of
+# each row of a tile for each of a stage's boxes; K4 keeps per warp a top-kk
+# list and a 17-float scratch
+# for each query of its unit; k is at most 64.
+F32_UNIT_ROWS, F32_BOX_BYTES, F32_KEEP, F32_MAX_K = 16, 128, 17, 64
+F32_STAGE_TARGET = 8192  # bytes a stage aims at: several 128-byte boxes of a small tile
+
+
+@dataclass(frozen=True)
+class F32SweepPlan:
+    """The launch plan of K4, K6 and K7: the fields of the C side's
+    F32SweepPlan, in its order."""
+    qw: int           # queries of a warp's unit: 8 or 32
+    groups: int       # query groups of one pass (1, 2, 4 or 8)
+    tile_rows: int    # rows of a tile: 16 * 8 / groups
+    passes: int       # ceil(nq / (groups * qw)): the grid's second dimension
+    resident: int     # 1: the pass's queries in shared memory; 0: read from a padded copy
+    q_rows: int       # query rows in shared memory
+    q_pitch: int      # f32 elements from one query row to the next
+    box_dims: int     # values of a row in one stage: 32 (f32) or 64 (bf16)
+    boxes: int        # ceil(d / box_dims)
+    stage_boxes: int  # boxes of a tile one stage holds (about 8 KB, at most a row's)
+    stages: int       # ring depth
+    stage_bytes: int  # stage_boxes * tile_rows * 128
+    tma: int          # 1: TMA loads; 0: the producer warp copies
+    tiles: int        # ceil(n / tile_rows)
+    grid: int         # blocks of a pass: min(tiles, max(1, SMs // passes))
+    lists: int        # K4: candidate lists per query, grid * 8 / groups; else 0
+    smem: int         # dynamic shared memory of a block, bytes
+
+    def block_tiles(self, block: int) -> range:
+        """The row tiles block `block` of a pass walks: block, block + grid, ..."""
+        return range(block, self.tiles, self.grid)
+
+
+def f32_topk_bytes(qw: int, kk: int) -> int:
+    """K4's per-warp top-kk lists (score and row) and unit scratch, bytes."""
+    return SWEEP_WARPS * qw * (kk * 8 + F32_KEEP * 4) if kk > 0 else 0
+
+
+def f32_sweep_plan(nq: int, n: int, d: int, weights=None, row_bytes: int = 4, k: int = 0,
+                   aligned: bool = True, sms: int = H100_SMS) -> F32SweepPlan:
+    """How K4, K6 or K7 sweep nq queries against n rows of d values of
+    `row_bytes` bytes (4: f32, 2: bf16) under `weights` (None: every term, as
+    K6 and K7 take them; else the static weights of K4, zeros dead) with a
+    top-k of k (K4; 0 for K6 and K7) on a card of `sms` SMs; `aligned`: the
+    rows' base is 16-byte aligned. A warp's unit is 16 rows and 32 queries
+    where the cosine's product is the only sum (8 where 32 do not fit
+    beside their lists), else 8: L1 or Linf live, no product, or the
+    Gram-form L2, whose product K4 takes on the CUDA cores. A pass holds as many query
+    groups as the queries need (a power of two, at most one per consumer
+    warp), the tile's rows the row units of the warps a group leaves; the
+    passes are the grid's second dimension. A pass's queries stay in shared
+    memory where they fit beside two stages (with fewer groups a pass if
+    need be), else the kernel reads them from a zero-padded copy in device
+    memory. TMA loads where d % 4 == 0 (f32) or d % 8 == 0 (bf16) and the
+    base is aligned, else the producer warp copies. Raises ValueError for a
+    shape the kernels do not take: nq, n, d below 1, k above 64, or more
+    than 65,535 passes."""
+    live = 31 if weights is None else _live_bits(_static_weights(weights))
+    return _f32_plan(nq, n, d, row_bytes, live, k, bool(aligned), sms)
+
+
+@functools.lru_cache(maxsize=512)
+def _f32_plan(nq: int, n: int, d: int, row_bytes: int, live: int, kk: int, aligned: bool,
+              sms: int) -> F32SweepPlan:
+    if (nq < 1 or n < 1 or d < 1 or sms < 1 or not 0 <= kk <= F32_MAX_K
+            or row_bytes not in (2, 4)):
+        raise ValueError(f"the f32 sweep needs at least one query, row, dim and SM, k <= "
+                         f"{F32_MAX_K} and rows of 4 or 2 bytes: nq={nq}, n={n}, d={d}, "
+                         f"k={kk}, row_bytes={row_bytes}, sms={sms}")
+    dot_only = live & (1 | 2 | 4 | 8) == 1
+    plan = _f32_plan_as(32, nq, n, d, row_bytes, kk, True, aligned, sms) if dot_only else None
+    for resident in (True, False):
+        plan = plan or _f32_plan_as(8, nq, n, d, row_bytes, kk, resident, aligned, sms)
+    if plan.passes > 65535:
+        raise ValueError(f"the f32 sweep takes at most 65,535 passes of queries: nq={nq}")
+    return plan
+
+
+def _f32_plan_as(qw: int, nq: int, n: int, d: int, row_bytes: int, kk: int, resident: bool,
+                 aligned: bool, sms: int) -> Optional[F32SweepPlan]:
+    box_dims = F32_BOX_BYTES // row_bytes
+    boxes = -(-d // box_dims)
+    q_pitch = boxes * box_dims + 4
+    epi = f32_topk_bytes(qw, kk)
+    all_q = -(-nq // 8) * 8
+    groups = 1
+    while groups < SWEEP_WARPS and groups * qw < nq:
+        groups *= 2
+    while True:
+        box = F32_UNIT_ROWS * (SWEEP_WARPS // groups) * F32_BOX_BYTES
+        q_rows = min(groups * qw, all_q) if resident else 0
+        fixed = SWEEP_ALIGN + q_rows * q_pitch * 4 + epi
+        if fixed + 2 * box <= SWEEP_SMEM_MAX:
+            break
+        if groups == 1:
+            return None
+        groups //= 2
+    stage_boxes = max(1, min(F32_STAGE_TARGET // box, boxes))
+    while stage_boxes > 1 and fixed + 2 * stage_boxes * box > SWEEP_SMEM_MAX:
+        stage_boxes -= 1
+    stage = stage_boxes * box
+    stages = min(SWEEP_MAX_STAGES, (SWEEP_SMEM_MAX - fixed) // stage)
+    tile_rows = F32_UNIT_ROWS * (SWEEP_WARPS // groups)
+    passes = -(-nq // (groups * qw))
+    tiles = -(-n // tile_rows)
+    grid = min(tiles, max(1, sms // passes))
+    return F32SweepPlan(qw, groups, tile_rows, passes, int(resident), q_rows, q_pitch, box_dims,
+                        boxes, stage_boxes, stages, stage,
+                        int(aligned and d % (16 // row_bytes) == 0), tiles,
+                        grid, grid * (SWEEP_WARPS // groups) if kk else 0,
+                        fixed + stages * stage)
+
+
+def _device_plan(q: torch.Tensor, rows: torch.Tensor, weights, kk: int = 0) -> F32SweepPlan:
+    """The plan the C side takes for this call on q's card."""
+    return f32_sweep_plan(q.shape[0], rows.shape[0], q.shape[1], weights, rows.element_size(),
+                          kk, rows.data_ptr() % 16 == 0,
+                          torch.cuda.get_device_properties(q.device).multi_processor_count)
+
+
+def _padded_queries(plan: F32SweepPlan, q: torch.Tensor) -> Optional[torch.Tensor]:
+    """None where the plan keeps the queries in shared memory; else q
+    zero-padded to (nq rounded up to 8, q_pitch), which the kernel reads."""
+    if plan.resident:
+        return None
+    out = torch.zeros((-(-q.shape[0] // 8) * 8, plan.q_pitch), dtype=torch.float32,
+                      device=q.device)
+    out[: q.shape[0], : q.shape[1]] = q
+    return out
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as cvt.rna.tf32.f32 rounds: half a TF32 unit added to
+    the magnitude's bits, then the 13 low bits cleared."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_dots(queries: torch.Tensor, rows: torch.Tensor, box: int = 32,
+                    products: int = 3) -> torch.Tensor:
+    """(Q, N) <q, row> as the sweep of K4, K6 and K7 forms them on the
+    tensor cores, in f32: every value split into hi = tf32_rna(x) and lo =
+    tf32_rna(x - hi); per box of `box` dims the sum of the products
+    q_lo * g_hi + q_hi * g_lo + q_hi * g_hi (products=3; products=1: hi * hi
+    alone, one TF32 product); each box's sum added to the f32 total. The
+    order of the sums inside a box is the f32 matmul's here, the tensor
+    cores' there: a model of the split, not of its bits."""
+    q, g = queries.to(torch.float32), rows.to(torch.float32)
+    qh, gh = tf32_rna(q), tf32_rna(g)
+    ql, gl = tf32_rna(q - qh), tf32_rna(g - gh)
+    total = torch.zeros((q.shape[0], g.shape[0]), dtype=torch.float32, device=q.device)
+    for lo in range(0, q.shape[1], box):
+        s = slice(lo, lo + box)
+        part = qh[:, s] @ gh[:, s].t()
+        if products == 3:
+            part = (ql[:, s] @ gh[:, s].t() + qh[:, s] @ gl[:, s].t()) + part
+        total = total + part
+    return total
+
+
 # ---- K4 ---------------------------------------------------------------------
 
 def fused_optimized_topk_reference(queries: torch.Tensor, gallery_unit: torch.Tensor,
@@ -475,32 +652,27 @@ def fused_optimized_topk(queries: torch.Tensor, gallery_unit: torch.Tensor,
         raise ValueError(f"{name}: k must be at least 1, got {k}")
     if queries.device.type == "cpu":
         return fused_optimized_topk_reference(queries, gallery_unit, magnitudes, w, k)
-    from image_retrieval_tpu_torch.ops._build import load_library
-
-    lib = load_library()
     q, g, m = _contiguous(M._f32(queries), gallery_unit, M._f32(magnitudes))
     nq, n = q.shape[0], g.shape[0]
     kk = min(k, n)
-    if kk > lib.irt_fused_metrics_max_k():
-        raise ValueError(f"{name}: k = {kk} is above the kernel's limit of "
-                         f"{lib.irt_fused_metrics_max_k()}")
+    if kk > F32_MAX_K:
+        raise ValueError(f"{name}: k = {kk} is above the kernel's limit of {F32_MAX_K}")
     if nq == 0 or n == 0:
         return (torch.empty((nq, kk), dtype=torch.float32, device=q.device),
                 torch.empty((nq, kk), dtype=torch.int32, device=q.device))
-    ntiles = -(-n // lib.irt_fused_metrics_tile_rows())
-    per_block = -(-ntiles // TOPK_BLOCKS)
-    nblocks = -(-ntiles // per_block)
+    plan = _device_plan(q, g, w, kk)
     qn = torch.linalg.vector_norm(q, dim=1)
-    cand_v = torch.empty((nblocks, nq, kk), dtype=torch.float32, device=q.device)
-    cand_i = torch.empty((nblocks, nq, kk), dtype=torch.int32, device=q.device)
+    qpad = _padded_queries(plan, q)
+    cand_v = torch.empty((plan.lists, nq, kk), dtype=torch.float32, device=q.device)
+    cand_i = torch.empty((plan.lists, nq, kk), dtype=torch.int32, device=q.device)
     _launch(name, "irt_fused_optimized_topk", q.device,
-            q.data_ptr(), qn.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
-            m.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(), nq, n, q.shape[1], kk,
-            nblocks, *w, _live_bits(w))
+            q.data_ptr(), qn.data_ptr(), _ptr(qpad), g.data_ptr(),
+            int(g.dtype == torch.bfloat16), m.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
+            nq, n, q.shape[1], kk, plan.lists, *w, _live_bits(w))
     fused_optimized_topk.launches += 1
-    # the blocks' candidates, merged under the canonical (score, row) order
-    vals, idx = two_key_topk(cand_v.permute(1, 0, 2).reshape(nq, nblocks * kk),
-                             cand_i.permute(1, 0, 2).reshape(nq, nblocks * kk), kk, True)
+    # the warps' candidate lists, merged under the canonical (score, row) order
+    vals, idx = two_key_topk(cand_v.permute(1, 0, 2).reshape(nq, plan.lists * kk),
+                             cand_i.permute(1, 0, 2).reshape(nq, plan.lists * kk), kk, True)
     return vals, idx.to(torch.int32)
 
 

@@ -1147,6 +1147,213 @@ def test_fused_topk_kernel_returns_rows_that_score_minus_inf(cuda, n, k):
 
 
 # ---------------------------------------------------------------------------
+# The f32 sweep of K4, K6 and K7 (csrc/f32_sweep_sm90.cuh): the plan against
+# the C side, and every kernel at the sweep's edges against its plain version
+# ---------------------------------------------------------------------------
+
+
+def test_f32_sweep_plan_matches_the_kernel(cuda):
+    """ops/fused_metrics.py::f32_sweep_plan is the C side's launch plan,
+    field by field, and both refuse the same shapes."""
+    import ctypes
+
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    got = (ctypes.c_int * 17)()
+    for nq in (0, 1, 8, 9, 33, 64, 65, 128, 129, 1000):
+        for d in (0, 37, 40, 512, 768, 1024, 4096, 8192):
+            for live in (31, 1, 3, 2, 8, 16, 4, 5, 17, 21):
+                for row_bytes, kk in ((4, 0), (4, 10), (4, 64), (2, 10), (2, 65)):
+                    for aligned in (True, False):
+                        for n, sms in ((0, 132), (1, 132), (1000, 132), (1_001_344, 132),
+                                       (5000, 114)):
+                            rc = lib.irt_f32_sweep_plan(nq, n, d, row_bytes, live, kk,
+                                                        int(aligned), sms, got)
+                            try:
+                                plan = fm._f32_plan(nq, n, d, row_bytes, live, kk, aligned, sms)
+                            except ValueError:
+                                plan = None
+                            key = (nq, n, d, row_bytes, live, kk, aligned, sms)
+                            assert (rc == 0) == (plan is not None), key
+                            if plan is not None:
+                                assert tuple(got) == dataclasses.astuple(plan), key
+
+
+def test_fused_topk_refuses_a_plan_it_was_not_given(cuda):
+    """K4 writes its candidate lists into buffers the caller sized from the
+    Python plan: the C side refuses a call whose list count or padded-query
+    copy is not its own plan's, so the two plans cannot part unnoticed."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    q, g, m = _fused_inputs(cuda, 3000, 9, 512)
+    w = FUSED_WEIGHTS[0]
+    plan = fm._device_plan(q, g, w, 10)
+    assert plan.resident == 1 and plan.lists > 1
+    qn = torch.linalg.vector_norm(q, dim=1)
+    pad = fm._padded_queries(dataclasses.replace(plan, resident=0), q)
+    cand_v = torch.empty((plan.lists + 1, 9, 10), dtype=torch.float32, device=cuda)
+    cand_i = torch.empty((plan.lists + 1, 9, 10), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lists, qpad):
+        return lib.irt_fused_optimized_topk(
+            q.data_ptr(), qn.data_ptr(), qpad, g.data_ptr(), 0, m.data_ptr(), cand_v.data_ptr(),
+            cand_i.data_ptr(), 9, 3000, 512, 10, lists, *w, fm._live_bits(w), stream)
+
+    bad = 100000  # IRT_BAD_ARGS (csrc/fused_metrics.cuh)
+    assert call(plan.lists - 1, None) == bad
+    assert call(plan.lists + 1, None) == bad
+    assert call(plan.lists, pad.data_ptr()) == bad  # resident queries given a padded copy
+    assert call(plan.lists, None) == 0
+    torch.cuda.synchronize()
+
+
+def _unaligned_like(t):
+    """A copy of t whose base is 4 bytes past a 16-byte boundary: the rows
+    take the copying producer."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = flat[1: 1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+F32_EDGE_QUERIES = [1, 8, 33, 64, 65]
+
+
+@pytest.mark.parametrize("d", [512, 768, 37])
+@pytest.mark.parametrize("nq", F32_EDGE_QUERIES)
+@pytest.mark.parametrize("n", [9, 1000])
+def test_f32_sweep_all_metrics_at_the_edges(cuda, d, nq, n):
+    """K6 at the sweep's query counts (one, a unit, a ragged group, a full
+    pass, two passes), widths (D = 37 takes the copying producer) and a
+    gallery below one tile: within score_limit, Linf and |dmag| bit for
+    bit."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g, m = _fused_inputs(cuda, max(n, 80), nq, d)
+    g, m = g[:n].contiguous(), m[:n].contiguous()
+    plan = fm.f32_sweep_plan(nq, n, d)
+    assert plan.tma == (d % 4 == 0)
+    got = fm.fused_all_metrics(q, g, m)
+    want = fm.fused_all_metrics_reference(q, g, m)
+    torch.cuda.synchronize()
+    r = fm.scores_agree(got, want, fm.score_limit(want))
+    assert r["ok"], r
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])  # Linf, |dmag|
+
+
+@pytest.mark.parametrize("d", [512, 768, 37])
+@pytest.mark.parametrize("nq", F32_EDGE_QUERIES)
+def test_f32_sweep_scores_at_the_edges(cuda, d, nq):
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g, m = _fused_inputs(cuda, 1000, nq, d)
+    for w in FUSED_WEIGHTS[:3]:
+        got = fm.fused_optimized_scores(q, g, m, torch.tensor(w, device=cuda))
+        want = fm.fused_optimized_scores_reference(q, g, m, w)
+        torch.cuda.synchronize()
+        r = fm.scores_agree(got, want, _fused_limit(fm, want, q, g, m, w[2]))
+        assert r["ok"], (w, r)
+
+
+@pytest.mark.parametrize("rows", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [512, 768, 37])
+@pytest.mark.parametrize("nq", F32_EDGE_QUERIES)
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_f32_sweep_topk_at_the_edges(cuda, rows, d, nq, k):
+    """K4 over f32 and bf16 rows at the sweep's edges, every live case that
+    picks a unit width (cosine alone: 32 queries a unit; L1 live: 8; |dmag|
+    alone: no sweep), against the plain version by topk_agree."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops import metrics as M
+
+    q, g, m = _fused_inputs(cuda, 3001, nq, d)
+    g = g.to(getattr(torch, rows))
+    for w in (FUSED_WEIGHTS[1], FUSED_WEIGHTS[0], FUSED_WEIGHTS[2], FUSED_WEIGHTS[4]):
+        got_v, got_i = fm.fused_optimized_topk(q, g, m, w, k=k)
+        want_v, want_i = fm.fused_optimized_topk_reference(q, g, m, w, k=k)
+        torch.cuda.synchronize()
+        plain = M.fused_optimized_scores_xla(q, g, m, w, exact_l2=False)
+        r = fm.topk_agree(got_v, got_i, want_v, want_i.to(torch.int64), plain,
+                          _fused_limit(fm, plain, q, g, m, w[2]))
+        assert r["ok"], (w, r)
+
+
+@pytest.mark.parametrize("rows", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 5, 15, 17])
+def test_f32_sweep_topk_gallery_below_a_unit(cuda, rows, n):
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    from image_retrieval_tpu_torch.ops import metrics as M
+
+    q, g, m = _fused_inputs(cuda, 80, 3, 512)
+    g, m = g[:n].to(getattr(torch, rows)).contiguous(), m[:n].contiguous()
+    for w in FUSED_WEIGHTS:
+        v, i = fm.fused_optimized_topk(q, g, m, w, k=10)
+        wv, wi = fm.fused_optimized_topk_reference(q, g, m, w, k=10)
+        assert v.shape == (3, min(n, 10)) and torch.equal(i, wi), (w, i, wi)
+        plain = M.fused_optimized_scores_xla(q, g, m, w, exact_l2=False)
+        r = fm.topk_agree(v, i, wv, wi.to(torch.int64), plain,
+                          _fused_limit(fm, plain, q, g, m, w[2]))
+        assert r["ok"], (w, r)
+
+
+@pytest.mark.parametrize("what", ["all_metrics", "scores", "topk"])
+def test_f32_sweep_unaligned_rows_and_wide_rows(cuda, what):
+    """Rows whose base is not 16-byte aligned take the copying producer;
+    rows too wide for a pass of queries in shared memory take the padded
+    copy of the queries in device memory."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops import metrics as M
+
+    for nq, d, unaligned in ((9, 512, True), (64, 8192, False), (3, 8200, True)):
+        q, g, m = _fused_inputs(cuda, 700, nq, d)
+        if unaligned:
+            g = _unaligned_like(g)
+        plan = fm.f32_sweep_plan(nq, 700, d, None if what != "topk" else FUSED_WEIGHTS[0],
+                                 k=0 if what != "topk" else 10, aligned=not unaligned)
+        assert plan.tma == int(not unaligned) and plan.resident == int(d < 8192)
+        if what == "all_metrics":
+            got, want = fm.fused_all_metrics(q, g, m), fm.fused_all_metrics_reference(q, g, m)
+            assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+            r = fm.scores_agree(got, want, fm.score_limit(want))
+        elif what == "scores":
+            w = FUSED_WEIGHTS[2]
+            got = fm.fused_optimized_scores(q, g, m, torch.tensor(w, device=cuda))
+            want = fm.fused_optimized_scores_reference(q, g, m, w)
+            r = fm.scores_agree(got, want, _fused_limit(fm, want, q, g, m, w[2]))
+        else:
+            w = FUSED_WEIGHTS[0]
+            got_v, got_i = fm.fused_optimized_topk(q, g, m, w, k=10)
+            want_v, want_i = fm.fused_optimized_topk_reference(q, g, m, w, k=10)
+            plain = M.fused_optimized_scores_xla(q, g, m, w, exact_l2=False)
+            r = fm.topk_agree(got_v, got_i, want_v, want_i.to(torch.int64), plain,
+                              _fused_limit(fm, plain, q, g, m, w[2]))
+        torch.cuda.synchronize()
+        assert r["ok"], (nq, d, r)
+
+
+def test_f32_sweep_linf_bits_at_far_apart_exponents(cuda):
+    """Linf is a max of the same rounded differences on both sides, so it is
+    the plain version's bits even where a row value and a query value are
+    far apart in size."""
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    q, g, m = _fused_inputs(cuda, 500, 33, 768)
+    q[:, ::7] *= 1e-20
+    g[::3, ::5] *= 1e-12
+    m[::11] = 1e6
+    got, want = fm.fused_all_metrics(q, g, m), fm.fused_all_metrics_reference(q, g, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+
+
+# ---------------------------------------------------------------------------
 # K5's sweep (csrc/int8_sweep_sm90.cuh): every live case, query count, row
 # count and width against the plain version
 # ---------------------------------------------------------------------------
