@@ -28,6 +28,8 @@
                                             # Q = 1, 8, 64, a segment's breakdown
     python3 chip_smoke.py --k3-variants     # the int4 screen's design against the
                                             # variants it was chosen over, in turns
+    python3 chip_smoke.py --durable         # build, then only phase 9 on the encoders
+                                            # and the gallery phases 3 and 5 would give it
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
@@ -180,6 +182,30 @@ Phases (any failure exits non-zero):
      kernels are held against the same step through the plain versions on
      the card by cosine per parameter. Then the time of K11's hand-written
      backward beside the backward that recomputes through the plain version.
+
+  9. the durable ingest-and-serve slice, run after phase 6 while phase 3's
+     and phase 5's encoders and phase 3's gallery are on the card. 4,096
+     seeded 640 x 480 JPEGs in three subfolders go through the port's CLI,
+     cli.main(["search", "--folder", ..., "--fast_encoder", "--journal_dir",
+     J, query]): ImageSearchApp, encode_folder, the encoder's chunks in
+     flight; K1's counter must show 12 launches per encoded batch (image and
+     text), and the embeddings must equal phase 3's encoder's with a window
+     of one chunk, bit for bit. `compare` on the same folder and journal:
+     one K6 launch, its five lists against the float64 oracle. A child
+     process (chip_smoke.py --durable-child) opens J, ingests 512 more JPEGs
+     and removes 256 paths through SearchServer while 64 text and 16 image
+     queries are served, answers them again and kills itself with SIGKILL,
+     without a checkpoint; the parent reopens J: every acknowledged insert
+     present, every acknowledged delete absent, the 80 answers against the
+     child's and the float64 oracle, each image query's own path excluded.
+     The web UI over the reopened index answers /search and /similar over
+     HTTP as the server does. tests/data/jax_journal_int8 (a journal the JAX
+     package wrote) reopens with the JAX index's answers. Phase 3's
+     1,000,256 x 512 rows go into a journaled index: checkpoint, 65,536 more
+     rows, open, save, load_from, each timed, the answers of 64 queries
+     against the oracle. Last, the card's idle share over encode_stream of 8
+     L/14 int8 batches of 128 images with the window of four and of one
+     (torch.profiler: the union of the kernels' and copies' intervals).
 
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
@@ -3499,7 +3525,559 @@ def phase_train(torch, card):
     return launches, {"step_ms": step_k, "plain_step_ms": step_p, "backward": backward}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the durable ingest-and-serve slice.
+
+# Seeded JPEGs in three subfolders (the `dir` attribute), those the live
+# ingest adds and removes, the served queries, the gallery-scale checkpoint's
+# added rows, the idle-share window's batches.
+N_JPEG9, JPEG_SIZE9, SUBDIRS9 = 4096, (640, 480), ("a", "b", "c")
+N_ADD9, N_REMOVE9, N_TEXT9, N_IMAGE9 = 512, 256, 64, 16
+N_CKPT_ADD9 = 65_536
+IDLE_BATCHES9, IDLE_BATCH9 = 8, 128
+DURABLE_FIXTURE = os.path.join("tests", "data", "jax_journal_int8")
+
+
+def write_jpegs(folder, first, n, seed):
+    """n seeded 640 x 480 JPEGs, image i in subfolder SUBDIRS9[i % 3]: a
+    smooth field (a 20 x 15 seeded grid, bilinear), so each file is a few
+    tens of KB. Returns the paths in index order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def one(i):
+        rng = np.random.default_rng((seed, i))
+        small = Image.fromarray(rng.integers(0, 256, (15, 20, 3), dtype=np.uint8))
+        path = os.path.join(folder, SUBDIRS9[i % 3], f"img{i:05d}.jpg")
+        small.resize(JPEG_SIZE9, Image.Resampling.BILINEAR).save(path, quality=90)
+        return path
+
+    for sub in SUBDIRS9:
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(first, first + n)))
+
+
+def encoder_chunks(n, buckets=(8, 32, 128, 192, 256)):
+    """Forwards CLIPEncoder runs for a batch of n rows (its bucket ladder)."""
+    step = next((b for b in buckets if min(n, buckets[-1]) <= b), n)
+    return -(-n // step) if n else 0
+
+
+def live_oracle(index, q, k, exclude=None):
+    """float64 cosine of queries q (Q, D) against the live rows of `index`:
+    per query the best k + 1 as (scores, paths), lowest row first among
+    ties, the path `exclude[i]` (an image query's own) dropped."""
+    live = np.flatnonzero(index.live_mask())
+    q = np.asarray(q, np.float64)
+    qn = np.linalg.norm(q, axis=1, keepdims=True)
+    s = np.empty((q.shape[0], len(live)), np.float64)
+    step = 1 << 17
+    for lo in range(0, len(live), step):
+        s[:, lo: lo + step] = q @ index.get_vectors(live[lo: lo + step]).astype(np.float64).T
+    s /= np.where(qn > 0, qn, 1.0)
+    out = []
+    for i, row in enumerate(s):
+        cand = np.flatnonzero(row >= np.partition(row, -(k + 2))[-(k + 2)])
+        order = cand[np.lexsort((cand, -row[cand]))]
+        keep = [j for j in order
+                if exclude is None or index.paths[live[j]] != exclude[i]][: k + 1]
+        out.append((row[keep], [index.paths[live[j]] for j in keep]))
+    return out
+
+
+def check_path_answers(what, answers, oracle, k=TOP_K, others=None):
+    """Served [{'path', 'score'}] answers against live_oracle's (scores,
+    paths): k hits each, scores within ORACLE_SCORE_ATOL, paths identical
+    except where the oracle's neighbours lie within that; `others` (answers
+    of another run of the same queries) held to the same rule. Returns
+    (worst score difference, near-tie swaps)."""
+    worst, swaps = 0.0, 0
+    for i, (ans, (ov, op)) in enumerate(zip(answers, oracle)):
+        if len(ans) != k:
+            fail(f"{what} query {i}: {len(ans)} hits, expected {k}")
+        for name, got in (("served", ans), ("other", None if others is None else others[i])):
+            if got is None:
+                continue
+            sv = np.array([h["score"] for h in got], np.float64)
+            diff = np.abs(sv - ov[:k])
+            worst = max(worst, float(diff.max()))
+            if (diff > ORACLE_SCORE_ATOL).any():
+                fail(f"{what} query {i} ({name}): scores {sv} vs oracle {ov[:k]}")
+            for r, h in enumerate(got):
+                if h["path"] != op[r]:
+                    gaps = [abs(ov[r] - ov[o]) for o in (r - 1, r + 1) if 0 <= o < len(ov)]
+                    if min(gaps) > ORACLE_SCORE_ATOL:
+                        fail(f"{what} query {i} ({name}) rank {r}: {h['path']} != oracle "
+                             f"{op[r]} with gaps {gaps}")
+                    swaps += 1
+    return worst, swaps
+
+
+def durable_child(journal_dir, incoming, gallery_json, out_path):
+    """Phase 9's crashing server (run as `chip_smoke.py --durable-child`):
+    open the journal, ingest the incoming images and remove N_REMOVE9 paths
+    through SearchServer while 64 text and 16 image queries are served, then
+    answer the same queries again, write everything down and SIGKILL
+    itself, with no checkpoint."""
+    import signal
+
+    import torch
+
+    from image_retrieval_tpu_torch.app.server import SearchServer
+    from image_retrieval_tpu_torch.config import Config, vit_b32_serving
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with open(gallery_json) as f:
+        spec = json.load(f)
+    enc = CLIPEncoder(Config(model=vit_b32_serving()), seed=0)
+    index = ShardedVectorIndex.open(journal_dir)
+    print(f"child: reopened {journal_dir} ({len(index)} rows) and built the encoder in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    adds = sorted(os.path.join(incoming, sub, f) for sub in SUBDIRS9
+                  for f in os.listdir(os.path.join(incoming, sub)))
+    removes = spec["remove_gallery"] + adds[: N_REMOVE9 - len(spec["remove_gallery"])]
+    texts, images = spec["texts"], spec["images"]
+    errors, acks = [], {}
+    server = SearchServer(enc, index, max_batch=64, max_wait_ms=2.0)
+    server.start()
+    enc.encode_texts(texts[:8])  # the int8 weights, before the clock starts
+
+    def client(key, call):
+        try:
+            hits = call()
+            if len(hits) != TOP_K:
+                errors.append(f"{key}: {len(hits)} hits during the ingest")
+        except Exception as e:  # reported below
+            errors.append(f"{key}: {e!r}")
+
+    def ingest():
+        try:
+            acks["inserted"] = server.add_images(adds)
+            acks["removed"] = server.remove_images(removes)
+        except Exception as e:
+            errors.append(f"ingest: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=ingest)]
+    threads += [threading.Thread(target=client, args=(("text", i), lambda i=i: server.search(
+        texts[i], top_k=TOP_K, timeout=300))) for i in range(len(texts))]
+    threads += [threading.Thread(target=client, args=(("image", i), lambda i=i: server.search_similar(
+        images[i], top_k=TOP_K, timeout=300))) for i in range(len(images))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    ingest_s = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        print(f"child: failed: {errors[:3]}", flush=True)
+        os._exit(3)
+    final_text = server.search_many(texts, top_k=TOP_K, timeout=300)
+    final_image = [server.search_similar(p, top_k=TOP_K, timeout=300) for p in images]
+    server.stop()
+    out = {"inserted": adds, "removed": removes, "acks": acks, "final_text": final_text, "final_image": final_image,
+           "text_emb": enc.encode_texts(texts).tolist(),
+           "image_emb": enc.encode_images(images).tolist()}
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(out, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(out_path + ".tmp", out_path)
+    print(f"child: acknowledged {acks} in {ingest_s:.2f} s with {len(texts)} text and "
+          f"{len(images)} image queries served meanwhile; killing itself", flush=True)
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def idle_share(torch, enc, batches, window, card):
+    """encode_stream over `batches` with the window set to `window`, under
+    torch.profiler: wall time, and the device's busy time as the union of
+    its kernel and copy intervals. Prints and returns the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    enc._MAX_IN_FLIGHT = window
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in enc.encode_stream(iter(batches)):
+                pass
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        del enc._MAX_IN_FLIGHT
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start)
+    if not spans:
+        print(f"idle share, window {window}: torch.profiler recorded no device time; "
+              "not measured", flush=True)
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    share = max(0.0, 1.0 - busy / wall_us)
+    print(f"idle share, L/14 int8 encode_stream of {len(batches)} x {len(batches[0][1])} "
+          f"uint8 images, window {window}: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"(kernels and copies, union) {busy / 1e3:.1f} ms, idle {share:.1%} "
+          f"(torch.profiler on) [{card}]", flush=True)
+    return share
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def work_root():
+    """TMPDIR, or the checkout when TMPDIR has less than 10 GB free (the
+    gallery-scale checkpoint peaks near 6 GB)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.gettempdir()
+    free = {tmp: shutil.disk_usage(tmp).free, ".": shutil.disk_usage(".").free}
+    root = tmp if free[tmp] >= 10e9 or free[tmp] >= free["."] else "."
+    print(f"phase 9 work directory under {os.path.abspath(root)} "
+          f"({free[root] / 1e9:.1f} GB free)", flush=True)
+    return tempfile.mkdtemp(prefix="chip_smoke_durable_", dir=root)
+
+
+def phase_durable(torch, card, enc, enc14, index32, queries):
+    """Phase 9 (see the module docstring). Returns the K1 and K6 launches of
+    its counted runs."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+
+    from image_retrieval_tpu_torch.app import cli, webui
+    from image_retrieval_tpu_torch.app.server import SearchServer
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from concurrent.futures import ThreadPoolExecutor
+
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.preprocess import preprocess_host
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+
+    t_phase = time.perf_counter()
+    work = work_root()
+    try:
+        gallery, incoming = os.path.join(work, "gallery"), os.path.join(work, "incoming")
+        journal = os.path.join(work, "journal")
+        t0 = time.perf_counter()
+        # the order ImageSearchApp.scan_folders ingests them in
+        paths = sorted(write_jpegs(gallery, 0, N_JPEG9, 9))
+        write_jpegs(incoming, N_JPEG9, N_ADD9, 9)
+        print(f"phase 9: wrote {N_JPEG9} + {N_ADD9} seeded {JPEG_SIZE9[0]} x {JPEG_SIZE9[1]} "
+              f"JPEGs ({dir_bytes(gallery) / 1e6:.1f} MB + {dir_bytes(incoming) / 1e6:.1f} MB) "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # ---- the CLI: ingest + a text query, counted --------------------
+        def run_cli(argv):
+            out = io.StringIO()
+            with contextlib.chdir(work), contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            logging.getLogger().setLevel(logging.WARNING)  # the CLI set INFO
+            if rc != 0:
+                fail(f"cli {argv[0]} exited {rc}")
+            return out.getvalue()
+
+        fa.layer_block_int8.launches = 0
+        t0 = time.perf_counter()
+        printed = run_cli(["search", "--folder", gallery, "--fast_encoder",
+                           "--journal_dir", journal, queries[0]])
+        cli_s = time.perf_counter() - t0
+        k1 = fa.layer_block_int8.launches
+        # ---- end of the counted CLI run ---------------------------------
+        bs = 100  # Config.batch_size, the loader's batch
+        image_chunks = sum(encoder_chunks(min(bs, N_JPEG9 - i)) for i in range(0, N_JPEG9, bs))
+        expected = 12 * image_chunks + 12
+        print(f"cli search --fast_encoder over {N_JPEG9} JPEGs: {cli_s:.1f} s "
+              f"({N_JPEG9 / cli_s:.1f} img/s with the decode, one loader thread); "
+              f"layer_block_int8 launches {k1} (expected 12 x {image_chunks} image batches "
+              f"+ 12 x 1 text batch = {expected}) [{card}]", flush=True)
+        if k1 != expected:
+            fail("the CLI's ingest did not run layer_block_int8 12 times per batch")
+        hits = [line for line in printed.splitlines() if line.strip()[:1].isdigit()]
+        if len(hits) != TOP_K:
+            fail(f"cli search printed {len(hits)} hits: {printed[-500:]}")
+
+        # the in-flight embeddings against the same encoder with a window of 1
+        cached = np.load(os.path.join(work, "new_embeddings.npz"),
+                         allow_pickle=True)["embeddings"].item()
+        # the loader's pixels (preprocess_host, as its PIL path decodes),
+        # decoded on 8 threads, in the loader's batches
+        with ThreadPoolExecutor(8) as pool:
+            pixels = np.stack(list(pool.map(lambda p: preprocess_host(p, 224), paths)))
+        enc._MAX_IN_FLIGHT = 1
+        try:
+            feed = ((paths[i: i + bs], pixels[i: i + bs]) for i in range(0, N_JPEG9, bs))
+            sync = {p: e for ps, embs in enc.encode_stream(feed) for p, e in zip(ps, embs)}
+        finally:
+            del enc._MAX_IN_FLIGHT
+        del pixels
+        if list(cached) != paths:
+            fail(f"the CLI ingested {len(cached)} paths in another order: {list(cached)[:3]}")
+        differ = [p for p in paths if not np.array_equal(cached[p], sync[p])]
+        if differ:
+            worst = max(float(np.abs(cached[p] - sync[p]).max()) for p in differ)
+            fail(f"in-flight embeddings differ from the window-of-1 embeddings: "
+                 f"{len(differ)} of {len(paths)} rows, max abs {worst:.3g}")
+        print(f"in-flight embeddings of the CLI's ingest equal the window-of-1 run's bit for "
+              f"bit ({N_JPEG9} x {len(sync[paths[0]])})", flush=True)
+
+        # ---- compare: K6 through search_with_multiple_metrics, counted --
+        recorded = []
+        real_mm = ShardedVectorIndex.multi_metric_topk
+
+        def recording_mm(self, q, *a, **kw):
+            out = real_mm(self, q, *a, **kw)
+            recorded.append((np.array(q, np.float32, ndmin=2), self, out))
+            return out
+
+        ShardedVectorIndex.multi_metric_topk = recording_mm
+        fa.layer_block_int8.launches = fm.fused_all_metrics.launches = 0
+        try:
+            run_cli(["compare", "--folder", gallery, "--fast_encoder", "--journal_dir",
+                     journal, queries[1], "--top-k", str(TOP_K)])
+        finally:
+            ShardedVectorIndex.multi_metric_topk = real_mm
+        k6, k1_compare = fm.fused_all_metrics.launches, fa.layer_block_int8.launches
+        # ---- end of the counted compare run ------------------------------
+        print(f"cli compare: fused_all_metrics launches {k6} (expected 1 per call, "
+              f"{len(recorded)} call), layer_block_int8 {k1_compare} (12 x 1 text batch; "
+              "the rows came back from the journal)", flush=True)
+        if len(recorded) != 1 or k6 != 1 or k1_compare != 12:
+            fail("compare did not run K6 once and K1 once per layer")
+        q, ix, mm = recorded[0]
+        qd = torch.from_numpy(q).cuda().double()
+        rows = torch.from_numpy(ix.get_vectors(np.arange(len(ix)))).cuda().double()
+        mags = torch.from_numpy(ix.get_magnitudes(np.arange(len(ix)))).cuda().double()
+        planes = f64_planes(torch, qd, rows, mags)
+        for name, (vals, idx) in mm.items():
+            best = Best(torch, 1, TOP_K + 1, name == "cosine_similarity")
+            best.add(planes[name], 0)
+            worst, swaps = check_ranked(f"compare {name}", np.atleast_2d(vals),
+                                        np.atleast_2d(idx), best)
+            print(f"compare {name}: vs float64 oracle max diff {worst:.3g}, "
+                  f"{swaps} near-tie swaps", flush=True)
+        # the compare app's index holds the journal open: drop it before
+        # another process writes the directory
+        recorded.clear()
+        del q, ix, mm, rows, mags, planes
+
+        # ---- a server crashes under load ---------------------------------
+        texts = queries[:N_TEXT9]
+        images = [p for i, p in enumerate(paths) if i % 97 == 5][:N_IMAGE9]
+        remove_gallery = [p for i, p in enumerate(paths)
+                          if i % 31 == 7 and p not in images][: N_REMOVE9 // 2]
+        spec = os.path.join(work, "child.json")
+        with open(spec, "w") as f:
+            json.dump({"texts": texts, "images": images, "remove_gallery": remove_gallery}, f)
+        out_path = os.path.join(work, "child_answers.json")
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--durable-child",
+                                journal, incoming, spec, out_path],
+                               capture_output=True, text=True, timeout=600)
+        print(child.stdout.rstrip(), flush=True)
+        if child.returncode != -9 or not os.path.exists(out_path):
+            fail(f"the child exited {child.returncode}, not by SIGKILL: {child.stderr[-2000:]}")
+        print(f"child killed by SIGKILL after {time.perf_counter() - t0:.1f} s", flush=True)
+        with open(out_path) as f:
+            done = json.load(f)
+        if done["acks"] != {"inserted": [N_ADD9, 0], "removed": N_REMOVE9}:
+            fail(f"the child's acknowledgements: {done['acks']}")
+
+        # ---- reopen ---------------------------------------------------------
+        t0 = time.perf_counter()
+        ix = ShardedVectorIndex.open(journal)
+        reopen_s = time.perf_counter() - t0
+        alive = {p for p, a in zip(ix.paths, ix.live_mask()) if a}
+        lost = [p for p in done["inserted"] if p not in alive and p not in done["removed"]]
+        back = [p for p in done["removed"] if p in alive]
+        print(f"reopened after the crash in {reopen_s:.2f} s: {len(ix)} rows, {ix.live_count} "
+              f"live; acknowledged inserts missing {len(lost)}, acknowledged deletes back "
+              f"{len(back)}", flush=True)
+        if lost or back or len(ix) != N_JPEG9 + N_ADD9 or ix.live_count != \
+                N_JPEG9 + N_ADD9 - N_REMOVE9:
+            fail("the reopened index lost an acknowledged insert or delete")
+        text_emb = np.asarray(done["text_emb"], np.float32)
+        image_emb = np.asarray(done["image_emb"], np.float32)
+        server = SearchServer(enc, ix, max_batch=64, max_wait_ms=2.0)
+        server.start()
+        try:
+            got_text = server.search_many(texts, top_k=TOP_K, timeout=300)
+            got_image = [server.search_similar(p, top_k=TOP_K, timeout=300) for p in images]
+            for what, got, child_ans, emb, excl in (
+                    ("text", got_text, done["final_text"], text_emb, None),
+                    ("image", got_image, done["final_image"], image_emb, images)):
+                worst, swaps = check_path_answers(f"after the crash, {what}", got,
+                                                  live_oracle(ix, emb, TOP_K, excl),
+                                                  others=child_ans)
+                if excl is not None and any(p in [h["path"] for h in a]
+                                            for p, a in zip(excl, got + child_ans)):
+                    fail("an image query's own path was not excluded")
+                print(f"after the crash: {len(got)} {what} answers vs the child's last answers "
+                      f"and the float64 oracle: max score diff {worst:.3g} (limit "
+                      f"{ORACLE_SCORE_ATOL}), {swaps} near-tie swaps", flush=True)
+
+            # ---- the web UI over the reopened index ------------------------
+            httpd = webui.serve(server, ix.paths, port=0)
+            th = threading.Thread(target=httpd.serve_forever, daemon=True)
+            th.start()
+            try:
+                import urllib.parse
+                import urllib.request
+
+                base = f"http://127.0.0.1:{httpd.server_address[1]}"
+                web = [json.loads(urllib.request.urlopen(base + tail, timeout=120).read())
+                       for tail in (f"/search?q={urllib.parse.quote(texts[0])}&k={TOP_K}",
+                                    f"/similar?path={urllib.parse.quote(images[0])}&k={TOP_K}")]
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            for (what, a), b in zip((("search", web[0]), ("similar", web[1])),
+                                    (server.search(texts[0], top_k=TOP_K),
+                                     server.search_similar(images[0], top_k=TOP_K))):
+                if [h["path"] for h in a] != [h["path"] for h in b] or not np.allclose(
+                        [h["score"] for h in a], [h["score"] for h in b], rtol=0, atol=1e-6):
+                    fail(f"web UI /{what} differs from the server's answer")
+            print("web UI: /search and /similar over HTTP equal the server's answers", flush=True)
+        finally:
+            server.stop()
+        del ix, server
+
+        # ---- a journal directory written by the JAX package --------------
+        jax_dir = os.path.join(work, "jax_journal")
+        shutil.copytree(DURABLE_FIXTURE, jax_dir)
+        with open(os.path.join(jax_dir, "expected.json")) as f:
+            exp = json.load(f)
+        jx = ShardedVectorIndex.open(jax_dir)
+        if (len(jx), jx.live_count, jx.paths, jx.meta) != (exp["count"], exp["live"],
+                                                          exp["paths"], exp["meta"]):
+            fail("the JAX-written journal reopened with other rows or meta")
+        qf = np.asarray(exp["queries"], np.float32)
+        for key, flt in (("unfiltered", None), ("filtered", exp["filter"])):
+            vals, ids = jx.search(qf, top_k=TOP_K, flt=flt)
+            if not (np.array_equal(ids, exp[key]["ids"]) and np.allclose(
+                    vals, exp[key]["scores"], rtol=0, atol=ORACLE_SCORE_ATOL)):
+                fail(f"the JAX-written journal answers differently ({key})")
+        print(f"{DURABLE_FIXTURE} (written by the JAX package: int8 tier, a snapshot and a "
+              f"log to replay) reopened on the card: {len(jx)} rows, the JAX index's answers "
+              "(ids identical, scores within 1e-5)", flush=True)
+        del jx
+
+        # ---- checkpoint at gallery scale ----------------------------------
+        n3 = N_IMAGES + N_ROWS
+        big = os.path.join(work, "big")
+        rows3 = index32._host_gallery[:n3]
+        mags3 = index32._host_mags[:n3]
+        paths3 = index32.paths[:n3]
+        ix = ShardedVectorIndex.open(big, config=IndexConfig(embedding_dim=rows3.shape[1]))
+        t0 = time.perf_counter()
+        ix.insert(paths3, rows3, mags3)
+        ix.flush()
+        insert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ix.checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        extra = np.random.default_rng(19).standard_normal((N_CKPT_ADD9, rows3.shape[1]),
+                                                          dtype=np.float32)
+        extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+        ix.insert([f"late/{i:05d}" for i in range(N_CKPT_ADD9)], extra)
+        ix.flush()
+        journal_bytes = dir_bytes(big)
+        del ix
+        t0 = time.perf_counter()
+        ix = ShardedVectorIndex.open(big)
+        open_s = time.perf_counter() - t0
+        q64 = enc.encode_texts(queries)
+        oracle = live_oracle(ix, q64, TOP_K)
+
+        def held(index, what):
+            if len(index) != n3 + N_CKPT_ADD9 or index.live_count != n3 + N_CKPT_ADD9:
+                fail(f"{what}: {len(index)} rows, expected {n3 + N_CKPT_ADD9}")
+            vals, ids = index.search(q64 / np.linalg.norm(q64, axis=1, keepdims=True),
+                                     top_k=TOP_K)
+            ans = [[{"path": index.paths[j], "score": float(v)} for v, j in zip(vr, ir)]
+                   for vr, ir in zip(vals, ids)]
+            return check_path_answers(what, ans, oracle)
+
+        w_open = held(ix, "checkpoint + log, reopened")
+        saved = os.path.join(work, "saved", "gallery")
+        t0 = time.perf_counter()
+        ix.save(saved)
+        save_s = time.perf_counter() - t0
+        save_bytes = sum(os.path.getsize(os.path.join(work, "saved", f))
+                         for f in os.listdir(os.path.join(work, "saved")))
+        del ix
+        t0 = time.perf_counter()
+        lx = ShardedVectorIndex.load_from(saved)
+        load_s = time.perf_counter() - t0
+        w_load = held(lx, "save -> load_from")
+        del lx
+        print(f"gallery-scale durability, {n3:,} x {rows3.shape[1]} f32 rows (phase 3's) + "
+              f"{N_CKPT_ADD9:,}: insert + flush {insert_s:.2f} s, checkpoint {ckpt_s:.2f} s, "
+              f"journal directory {journal_bytes / 1e9:.3f} GB, open (snapshot + log replay) "
+              f"{open_s:.2f} s, save {save_s:.2f} s ({save_bytes / 1e9:.3f} GB), load_from "
+              f"{load_s:.2f} s (warm page cache); 64 queries vs the float64 oracle: max diff "
+              f"{max(w_open[0], w_load[0]):.3g}, near-tie swaps {w_open[1]} / {w_load[1]} "
+              f"[{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- the device's idle share over L/14 image batches, window 4 and 1 ----
+    size = enc14.config.model.image_size
+    rng = np.random.default_rng(23)
+    batches = [(i, rng.integers(0, 256, size=(IDLE_BATCH9, size, size, 3), dtype=np.uint8))
+               for i in range(IDLE_BATCHES9)]
+    for _ in enc14.encode_stream(iter(batches[:1])):
+        pass
+    for window in (4, 1):
+        idle_share(torch, enc14, batches, window, card)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1 + k1_compare, k6
+
+
+def phase_durable_alone(torch, card):
+    """--durable: phase 9 on what phases 3 and 5 would hand it: the B/32
+    serving encoder and its 1,000,256-row f32 gallery (256 encoded seeded
+    images and N_ROWS seeded unit rows, as phase 3 builds them) and the L/14
+    int8 serving encoder, all from seed 0."""
+    from image_retrieval_tpu_torch.config import (Config, IndexConfig, serving_config,
+                                                  vit_b32_serving, vit_l14)
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+
+    enc = CLIPEncoder(Config(model=vit_b32_serving()), seed=0)
+    enc14 = CLIPEncoder(Config(model=serving_config(vit_l14()),
+                               index=IndexConfig(embedding_dim=768, dtype="int8")), seed=0)
+    words_a = ["red", "blue", "green", "small", "old", "shiny", "dark", "wet"]
+    words_b = ["car", "dog", "house", "tree", "boat", "cat", "bridge", "clock"]
+    queries = [f"a photo of a {a} {b}" for a in words_a for b in words_b][:N_CLIENTS]
+    images = np.random.default_rng(0).integers(0, 256, size=(N_IMAGES, 224, 224, 3),
+                                               dtype=np.uint8)
+    index32 = ShardedVectorIndex(dim=512)
+    index32.insert([f"images/{i:04d}.jpg" for i in range(N_IMAGES)], enc.encode_pixels(images))
+    grng = np.random.default_rng(1)
+    rows = grng.standard_normal((N_ROWS, 512), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    index32.insert([f"gallery/{i:07d}" for i in range(N_ROWS)], rows,
+                   grng.uniform(0.5, 4.0, N_ROWS).astype(np.float32))
+    del rows
+    return phase_durable(torch, card, enc, enc14, index32, queries)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--durable-child"]:  # phase 9's crashing server
+        durable_child(*sys.argv[2:6])
+        return 3  # not reached: the child kills itself once it has answered
     import torch
 
     if not torch.cuda.is_available():
@@ -3564,6 +4142,10 @@ def main() -> int:
     if sys.argv[1:] == ["--dense-readings"]:
         dense_readings(torch)
         return 0
+    if sys.argv[1:] == ["--durable"]:
+        print(f"phase 9 alone: K1 and K6 launches {phase_durable_alone(torch, card)}",
+              flush=True)
+        return 0
     print_new_kernel_registers(lib_path)
     if sys.argv[1:] == ["--gemm-stages"]:
         check_fused_stage(torch, card)
@@ -3582,6 +4164,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     w_launches, w_err, w_times = phase_weighted(torch, card, enc, index32, enc14, index14,
                                                 queries)
+    # phase 9 runs here, while phase 3's encoder and gallery and phase 5's
+    # encoder are on the card
+    k1_durable, k6_durable = phase_durable(torch, card, enc, enc14, index32, queries)
     del enc, enc14, index32
     torch.cuda.empty_cache()
     d_launches = phase_dense(torch, card, queries, index14)
@@ -3634,6 +4219,8 @@ def main() -> int:
                         out[f"{prefix}{stage}_{key}"] = r[key]
         return out
 
+    w_launches["fused_all_metrics"] += k6_durable  # the CLI's compare (phase 9)
+
     def metric_entry(name, entry, lines, main, extra):
         t = w_times[name]
         out = {"name": name, "route": "cuda",
@@ -3662,7 +4249,7 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [
         block_entry("layer_block_int8", "layer_block_int8.cu", 772,
-                    launches + l14_launches["layer_block_int8"], "b32-vision-B256",
+                    launches + l14_launches["layer_block_int8"] + k1_durable, "b32-vision-B256",
                     {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
                      "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
         {"name": "int4_screen", "route": "cuda",

@@ -1,8 +1,10 @@
 """Embedding write path: batched encode -> index insert.
 
 Port of ``image_retrieval_tpu/app/embed.py``: decode in the loader's
-background thread, encode batch by batch, and insert (unit vector,
-magnitude) rows into the index in one bulk insert.
+background thread, encode with the encoder's batches in flight
+(``encode_stream``), and insert (unit vector, magnitude) rows into the index
+in one bulk insert, flushed (the durability barrier of a journaled index)
+inside the ``embed/index_insert`` trace range.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from image_retrieval_tpu_torch.config import Config
 from image_retrieval_tpu_torch.device import DeviceLike
 from image_retrieval_tpu_torch.index import ShardedVectorIndex
 from image_retrieval_tpu_torch.models.encoder import Encoder
+from image_retrieval_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
 
@@ -66,9 +69,10 @@ class ImageEmbeddingSystem:
             ok_paths.extend(good_paths)
             ok_embs.extend(embs)
         if ok_paths:
-            attrs = self.attrs_fn(ok_paths) if self.attrs_fn else None
-            self.index.insert(ok_paths, np.stack(ok_embs), attrs=attrs)
-            self.index.flush()
+            with trace("embed/index_insert", self.index.device):
+                attrs = self.attrs_fn(ok_paths) if self.attrs_fn else None
+                self.index.insert(ok_paths, np.stack(ok_embs), attrs=attrs)
+                self.index.flush()  # the durability barrier of a journaled index
             logger.info(f"Inserted batch of {len(ok_paths)} images into index.")
         return len(ok_paths), fail_count[0]
 

@@ -2,15 +2,18 @@
 
 Candidates are a cosine top-(k * overfetch) from the index, optionally
 under an attribute filter, followed by the same optional optimized rerank,
-threshold and dedup as the JAX searcher; ``search_with_multiple_metrics``
-ranks the candidates by every metric on the host and compares the rankings.
-The IVF candidate path (ann=) and image queries are not ported yet
-(ROADMAP.md).
+threshold and dedup as the JAX searcher; ``search_by_image`` runs the same
+chain for an image query (a path, excluded from its own results, or pixels);
+``search_with_multiple_metrics`` ranks the candidates by every metric on the
+host and compares the rankings. The query encodes run inside the
+``search/encode_text`` and ``search/encode_image`` trace ranges. The IVF
+candidate path (ann=) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -21,6 +24,7 @@ from image_retrieval_tpu_torch.config import (
 )
 from image_retrieval_tpu_torch.index import ShardedVectorIndex
 from image_retrieval_tpu_torch.models.encoder import Encoder
+from image_retrieval_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
 
@@ -45,6 +49,27 @@ def _all_metrics_rows(q: np.ndarray, g: np.ndarray) -> Dict[str, np.ndarray]:
         "linf_distance": diff.max(1),
         "magnitude_difference": np.abs(ng - nq),
     }
+
+
+def image_query(encoder: Encoder, image, size: int):
+    """(unnormalized embedding, path or None) of an image query: a file path
+    (decoded and transformed like the gallery) or (H, W, 3) pixels, which
+    get the full CLIP transform to `size` (uint8, or float in [0, 255] or
+    [0, 1]), since the tower's positional embeddings are fixed-size."""
+    if isinstance(image, (str, bytes)) or hasattr(image, "__fspath__"):
+        path = os.fsdecode(image)
+        return encoder.encode_images([path])[0], path
+    pixels = np.asarray(image)
+    if pixels.ndim != 3:
+        raise ValueError(f"expected a path or (H, W, 3) pixels, got shape {pixels.shape}")
+    from image_retrieval_tpu_torch.models.preprocess import preprocess_host
+
+    if pixels.dtype != np.uint8:
+        arr = np.asarray(pixels, np.float32)
+        if arr.size and float(arr.max()) <= 1.0:
+            arr = arr * 255.0  # the [0, 1] float convention
+        pixels = np.clip(np.rint(arr), 0, 255).astype(np.uint8)
+    return encoder.encode_pixels(preprocess_host(pixels, size=size)[None])[0], None
 
 
 def _optimized_rows(m: Dict[str, np.ndarray], p: Dict[str, float]) -> np.ndarray:
@@ -88,20 +113,43 @@ class TextImageSearcher:
                filter_expr=None) -> List[dict]:
         """Candidate overfetch -> optional optimized rerank -> threshold ->
         dedup -> top_k; [{'path', 'score'}]."""
-        text_embedding = self.generate_text_embedding(text_query)
+        with trace("search/encode_text", self.index.device):
+            text_embedding = self.generate_text_embedding(text_query)
         return self._search_with_embedding(
             text_embedding, top_k, score_threshold, use_optimized_similarity,
             filter_expr=filter_expr)
 
+    def search_by_image(self, image, top_k: int = 5,
+                        score_threshold: float = SCORE_THRESHOLD,
+                        use_optimized_similarity: bool = False,
+                        exclude_self: bool = True, filter_expr=None) -> List[dict]:
+        """Image -> image search through the same candidate -> rerank ->
+        threshold -> dedup chain as a text query. `image` is a file path or
+        (H, W, 3) pixels; a path is excluded from its own results (compared
+        by real path, so another spelling of it is excluded too) unless
+        exclude_self=False."""
+        size = getattr(getattr(getattr(self.encoder, "config", None), "model", None),
+                       "image_size", 224) or 224
+        with trace("search/encode_image", self.index.device):
+            emb, path = image_query(self.encoder, image, size)
+        exclude = frozenset([path]) if exclude_self and path is not None else frozenset()
+        return self._search_with_embedding(
+            np.asarray(emb), top_k, score_threshold, use_optimized_similarity,
+            exclude_paths=exclude, filter_expr=filter_expr)
+
     def _search_with_embedding(self, embedding: np.ndarray, top_k: int,
                                score_threshold: float,
                                use_optimized_similarity: bool,
+                               exclude_paths: frozenset = frozenset(),
                                filter_expr=None) -> List[dict]:
         """Shared query chain: candidates -> optional optimized rerank ->
-        threshold (min-max-relative when reranked) -> dedup -> top_k."""
+        threshold (min-max-relative when reranked) -> dedup and exclusion
+        -> top_k."""
         self.index.load()
         try:
-            cos_scores, idx = self._candidates(embedding, top_k * 3, filter_expr)
+            # overfetch one more per excluded path: the query's own row
+            cos_scores, idx = self._candidates(
+                embedding, (top_k + len(exclude_paths)) * 3, filter_expr)
             if filter_expr is not None:
                 # sub-overfetch matches pad with (-inf, -1); drop them so no
                 # -1 picks the last path, nor skews the min-max rerank
@@ -126,9 +174,13 @@ class TextImageSearcher:
                 filtered = [m for m in matches if m["score"] >= cut]
             else:
                 filtered = [m for m in matches if m["score"] >= score_threshold]
-            seen, unique = set(), []
+            # exclusion compares real paths: the caller's spelling of the
+            # query path rarely equals the indexed string byte for byte
+            excl_real = {os.path.realpath(p) for p in exclude_paths}
+            seen, unique = set(exclude_paths), []
             for m in filtered:  # dedup by path, best score first
-                if m["path"] not in seen:
+                if (m["path"] not in seen
+                        and os.path.realpath(m["path"]) not in excl_real):
                     seen.add(m["path"])
                     unique.append(m)
                     if len(unique) >= top_k:

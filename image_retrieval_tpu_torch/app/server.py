@@ -15,14 +15,20 @@ Usage:
 A request names its metric (any the index searches by, or
 "optimized_similarity" with the five weights) and an optional attribute
 filter; a micro-batch is split into groups of equal (metric, weights,
-filter), each one exact sweep of the index. Not ported yet (ROADMAP.md): the
-IVF candidate path (ann=), live ingest and delete, image queries and
+filter), each one exact sweep of the index. Image queries
+(``search_similar``) are encoded in the caller's thread and ride the same
+sweeps, their own path excluded. Live ingest and delete (``add_images``,
+``remove_images``) change the serving index in place and call its
+``flush()`` before they return, so with a journaled index
+(``ShardedVectorIndex.open``) an acknowledged insert or delete survives a
+crash. Not ported yet (ROADMAP.md): the IVF candidate path (ann=) and
 approximate selection.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -45,6 +51,10 @@ class _Request:
     metric: str = "cosine_similarity"
     weights: Optional[tuple] = None  # (w_angle, w_l1, w_l2, w_inf, w_mag)
     flt: Optional[str] = None  # boolean attribute expression (index/filters.py)
+    # image queries arrive embedded (search_similar): they skip the batch's
+    # text encode but share its sweeps
+    embedding: Optional[np.ndarray] = None
+    exclude_path: Optional[str] = None  # the query image's own row
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[List[dict]] = None
     error: Optional[Exception] = None
@@ -111,12 +121,47 @@ class SearchServer:
     def __exit__(self, *exc):
         self.stop()
 
+    # -- live ingest ---------------------------------------------------------
+
+    def add_images(self, image_paths: Sequence, batch_size: Optional[int] = None,
+                   attrs_fn=None):
+        """Live ingest: decode, embed and insert into the serving index
+        without a restart. In-flight micro-batches are safe through the
+        index's lock; the rows appear from the next batch after the insert.
+        The index is flushed before this returns (the durability barrier of
+        a journaled index). Returns (inserted, failed)."""
+        from image_retrieval_tpu_torch.app.embed import ImageEmbeddingSystem
+
+        emb = ImageEmbeddingSystem(self.encoder, index=self.index, attrs_fn=attrs_fn)
+        ok, failed = emb.process_and_store_images(list(image_paths), batch_size=batch_size)
+        self.index.flush()
+        self.stats["ingested"] = self.stats.get("ingested", 0) + ok
+        return ok, failed
+
+    def remove_images(self, image_paths: Sequence) -> int:
+        """Live delete: tombstone every row of these paths (the sweeps mask
+        tombstones), flushed before this returns, so an acknowledged delete
+        does not come back after a restart. Returns rows deleted."""
+        n = self.index.delete(list(image_paths))
+        if n:
+            self.index.flush()
+        self.stats["removed"] = self.stats.get("removed", 0) + n
+        return n
+
     # -- client API ----------------------------------------------------------
 
     @staticmethod
     def _weights(weights: Optional[dict]) -> Optional[tuple]:
         """The request's hashable weights: the index's 5-tuple, or None."""
         return None if weights is None else ShardedVectorIndex._weights_tuple(weights)
+
+    def _wait(self, req: _Request, timeout: float) -> List[dict]:
+        self._enqueue(req)
+        if not req.done.wait(timeout):
+            raise TimeoutError(f"search timed out after {timeout}s")
+        if req.error is not None:
+            raise req.error
+        return req.result
 
     def search(self, query: str, top_k: int = 10, timeout: float = 30.0,
                metric: str = "cosine_similarity", weights: Optional[dict] = None,
@@ -128,14 +173,34 @@ class SearchServer:
         or "optimized_similarity" with the 5-weight params dict `weights`.
         flt: boolean attribute expression (index/filters.py); requests with
         the same filter share a micro-batch group and the cached mask."""
-        req = _Request(query=query, top_k=top_k, metric=metric,
-                       weights=self._weights(weights), flt=flt)
-        self._enqueue(req)
-        if not req.done.wait(timeout):
-            raise TimeoutError(f"search timed out after {timeout}s")
-        if req.error is not None:
-            raise req.error
-        return req.result
+        return self._wait(_Request(query=query, top_k=top_k, metric=metric,
+                                   weights=self._weights(weights), flt=flt), timeout)
+
+    def search_similar(self, image, top_k: int = 10, timeout: float = 30.0,
+                       metric: str = "cosine_similarity",
+                       weights: Optional[dict] = None, exclude_self: bool = True,
+                       flt: Optional[str] = None) -> List[dict]:
+        """Image-query search: encode `image` (a path or (H, W, 3) pixels)
+        in the calling thread, then ride the micro-batched sweeps like a
+        text request. A gallery path equal to the query path (or the same
+        file by real path) is dropped from its own results unless
+        exclude_self=False."""
+        exclude = None
+        if isinstance(image, (str, bytes)) or hasattr(image, "__fspath__"):
+            path = os.fsdecode(image)
+            emb = self.encoder.encode_images([path])[0]
+            if exclude_self:
+                exclude = path
+        else:
+            pixels = np.asarray(image)
+            if pixels.ndim != 3:
+                raise ValueError(
+                    f"expected a path or (H, W, 3) pixels, got shape {pixels.shape}")
+            emb = self.encoder.encode_pixels(pixels[None])[0]
+        return self._wait(_Request(query="", top_k=top_k, metric=metric,
+                                   weights=self._weights(weights), flt=flt,
+                                   embedding=np.asarray(emb, np.float32),
+                                   exclude_path=exclude), timeout)
 
     def search_many(self, queries: Sequence[str], top_k: int = 10,
                     timeout: float = 30.0, metric: str = "cosine_similarity",
@@ -183,9 +248,15 @@ class SearchServer:
             if not batch:
                 continue
             try:
-                # one batched text encode per batch
-                embs = np.asarray(self.encoder.encode_texts([r.query for r in batch]),
-                                  np.float32)
+                # one batched text encode per batch; image queries arrive
+                # embedded and slot straight in
+                text_rows = [i for i, r in enumerate(batch) if r.embedding is None]
+                parts = [r.embedding for r in batch]
+                if text_rows:
+                    tembs = self.encoder.encode_texts([batch[i].query for i in text_rows])
+                    for row, i in enumerate(text_rows):
+                        parts[i] = np.asarray(tembs[row])
+                embs = np.stack(parts).astype(np.float32)
                 norms = np.linalg.norm(embs, axis=1, keepdims=True)
                 qn = embs / np.where(norms > 0, norms, 1.0)
                 # one index sweep per (metric, weights, filter) group
@@ -195,7 +266,9 @@ class SearchServer:
                 for (metric, weights, flt), rows in groups.items():
                     self.stats["groups"] += 1
                     try:
-                        k = max(batch[i].top_k for i in rows)
+                        # one more for a request that drops its own row
+                        k = max(batch[i].top_k + (batch[i].exclude_path is not None)
+                                for i in rows)
                         # the optimized metric scores the unnormalized query
                         q_in = embs[rows] if metric == "optimized_similarity" else qn[rows]
                         params = dict(zip(WEIGHT_KEYS, weights)) if weights is not None else None
@@ -204,12 +277,20 @@ class SearchServer:
                             params=params, flt=flt)
                         for row, i in enumerate(rows):
                             r = batch[i]
-                            # index -1 pads a filter's short tail: fewer
-                            # hits, never a bogus path
-                            r.result = [
-                                {"path": self.index.paths[int(j)], "score": float(v)}
-                                for v, j in zip(vals[row], idx[row]) if j >= 0
-                            ][: r.top_k]
+                            hits = []
+                            for v, j in zip(vals[row], idx[row]):
+                                if j < 0:  # a filter's short tail: fewer hits
+                                    continue
+                                p = self.index.paths[int(j)]
+                                if r.exclude_path is not None and (
+                                        p == r.exclude_path
+                                        or os.path.realpath(p)
+                                        == os.path.realpath(r.exclude_path)):
+                                    continue
+                                hits.append({"path": p, "score": float(v)})
+                                if len(hits) >= r.top_k:
+                                    break
+                            r.result = hits
                             r.done.set()
                     except Exception as e:
                         # a bad metric/weights group fails only its own requests

@@ -334,10 +334,10 @@ def encode_folder(
 
     ok_paths: List[str] = []
     embs: List[np.ndarray] = []
-    # encode_stream keeps batches in flight ACROSS loader batches, so batch
-    # N's device transfer/compute/fetch overlaps batch N+1's decode
-    # (per-batch encode_pixels fetch-barriers each call — measured fully
-    # serial, bench_results/ingest_attrib_probe.json)
+    # CLIPEncoder.encode_stream keeps up to four chunks in flight across
+    # loader batches: batch N's upload, forward and fetch are queued on the
+    # card while the loader thread decodes batch N+1, where one
+    # encode_pixels call per batch would wait for each batch's result
     for good_paths, out in encoder.encode_stream(feed()):
         embs.append(out)
         ok_paths.extend(good_paths)

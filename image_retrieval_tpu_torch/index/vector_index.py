@@ -34,17 +34,31 @@ on the card the int8 tier's weighted score and the multi-metric planes run
 through the hand-written kernels of ``ops/fused_metrics.py``. The int4 tier
 is cosine-only and raises ValueError for the rest.
 
+Persistence keeps the JAX package's on-disk formats, so a saved index or
+a journal directory written by either package reopens in the other:
+``save`` writes the rows as portable f32 (dequantized) in an npz with JSON
+sidecars (paths, attributes, the tier configuration, ``meta``) and
+``load_from`` re-tiers them per the saved configuration; ``open`` attaches
+the write-ahead journal of ``index/journal.py`` (``ops.jsonl``,
+``seg-<seq>.npz``, ``snap-<seq>/``, ``CURRENT``): every mutation is logged,
+``flush`` is the durability barrier and ``checkpoint`` seals the log into a
+snapshot.
+
 Not ported yet (each raises NotImplementedError naming ROADMAP.md):
-approximate selection, ``l1_shadow``, the streamed beyond-HBM tier,
-save/``load_from``/``open`` and the journal, and multi-device sharding.
+approximate selection, ``l1_shadow``, the streamed beyond-HBM tier and
+multi-device sharding.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import errno
 import functools
+import json
 import logging
 import os
 import threading
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -76,6 +90,13 @@ DTYPES = ("float32", "bfloat16", "int8", "int4")
 # its bits do not depend on how the rows are split; a large insert spreads
 # the tasks over the host's cores (numpy releases the GIL in its loops).
 QUANT_ROWS = 1 << 16
+
+
+def _config_from_saved(saved: dict) -> IndexConfig:
+    """IndexConfig from a persisted dict, ignoring unknown keys (a config
+    saved by a newer version); shared by journal recovery and load_from."""
+    known = {fl.name for fl in dataclasses.fields(IndexConfig)}
+    return IndexConfig(**{k: v for k, v in saved.items() if k in known})
 
 
 def _locked(fn):
@@ -131,9 +152,16 @@ class ShardedVectorIndex:
         if self.config.dtype == "int4" and dim % 2:
             raise ValueError(f"the int4 tier packs dim pairs: dim {dim} is odd")
         self._lock = threading.RLock()
+        # the write-ahead journal (index/journal.py), attached by open();
+        # _replaying keeps operations applied from it out of it
+        self._journal = None
+        self._replaying = False
         self.dim = dim
         self.device = resolve_device(device)
         self.paths: List[str] = []
+        # small JSON metadata that survives save() and journal recovery
+        # without rows behind it (e.g. the Milvus shim's partition names)
+        self.meta: Dict[str, object] = {}
         self.count = 0
         self.capacity = 0
         self._host_gallery = None  # (capacity, D): f32, bf16 bits, or int8
@@ -245,6 +273,10 @@ class ShardedVectorIndex:
         self.generation += 1
         self.paths.extend(str(p) for p in paths)
         self.count += n_new
+        if self._journal is not None and not self._replaying:
+            # the (unit, mags) form: replaying it through insert()
+            # re-quantizes identically for every tier
+            self._journal.log_insert(paths, unit, mags, attrs)
         return n_new
 
     def _quantize_into(self, unit: np.ndarray, start: int) -> None:
@@ -282,6 +314,8 @@ class ShardedVectorIndex:
         if deleted:
             self._device_dirty = True
             self.generation += 1
+            if self._journal is not None and not self._replaying:
+                self._journal.log_delete(paths)
         return deleted
 
     @_locked
@@ -301,6 +335,8 @@ class ShardedVectorIndex:
             self._host_valid[idx] = False
             self._device_dirty = True
             self.generation += 1
+            if self._journal is not None and not self._replaying:
+                self._journal.log_delete_rows(idx)
         return int(len(idx))
 
     @_locked
@@ -376,6 +412,8 @@ class ShardedVectorIndex:
         self.count = len(live)
         self._device_dirty = True
         self.generation += 1
+        if self._journal is not None and not self._replaying:
+            self._journal.log_compact()
         return reclaimed
 
     def _warn_if_too_big(self) -> None:
@@ -433,20 +471,21 @@ class ShardedVectorIndex:
         pass
 
     @_locked
+    def set_meta(self, key: str, value) -> None:
+        """Set a small JSON-serializable metadata value; journaled (when a
+        journal is attached) and saved, so it survives crash recovery and
+        checkpoints without rows behind it."""
+        self.meta[str(key)] = value
+        if self._journal is not None and not self._replaying:
+            self._journal.log_meta(key, value)
+
+    @_locked
     def flush(self) -> None:
-        """Durability barrier; a no-op without a journal (not ported)."""
-
-    @classmethod
-    def open(cls, journal_dir: str, **kwargs):
-        """A journaled index (the JAX package's write-ahead log)."""
-        raise _not_ported("ShardedVectorIndex.open (the journal)")
-
-    def save(self, path: str) -> None:
-        raise _not_ported("ShardedVectorIndex.save")
-
-    @classmethod
-    def load_from(cls, path: str, **kwargs):
-        raise _not_ported("ShardedVectorIndex.load_from")
+        """Durability barrier (Milvus collection.flush()): with a journal
+        (open()), fsync the pending segments and the op log, so every
+        mutation so far survives a process crash. A no-op without one."""
+        if self._journal is not None:
+            self._journal.flush()
 
     def __len__(self) -> int:
         return self.count
@@ -654,3 +693,133 @@ class ShardedVectorIndex:
     def reconstruct_original_embeddings(self, limit: int = 1000):
         """(path, unit * magnitude) round-trip."""
         return [(p, e * m) for p, e, m in self.query(limit, with_magnitude=True)]
+
+    # -- persistence --------------------------------------------------------
+
+    @_locked
+    def save(self, path: str) -> None:
+        """Persist as npz (rows as portable dequantized f32, magnitudes,
+        attribute columns) + JSON sidecars: paths, attributes, the tier
+        configuration and meta. Tombstoned rows are compacted away first,
+        so deletes survive the save/load cycle."""
+        self.compact()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        g = (self._rows_f32(slice(0, self.count)) if self.count
+             else np.zeros((0, self.dim), np.float32))
+        m = (self._host_mags[: self.count].astype(np.float32)
+             if self.count else np.zeros((0,), np.float32))
+        attr_arrays, attr_meta = self.attrs.to_arrays()
+        np.savez(path, embeddings=g, magnitudes=m, **attr_arrays)
+        # np.savez appends .npz when absent: key the sidecars off the final
+        # name, so save('gallery') / load_from('gallery') round-trip
+        npz_path = path if path.endswith(".npz") else path + ".npz"
+        with open(npz_path + ".paths.json", "w") as f:
+            json.dump(self.paths, f)
+        if attr_arrays:
+            with open(npz_path + ".attrs.json", "w") as f:
+                json.dump(attr_meta, f)
+        with open(npz_path + ".config.json", "w") as f:
+            json.dump(dataclasses.asdict(self.config), f)
+        if self.meta:
+            with open(npz_path + ".meta.json", "w") as f:
+                json.dump(self.meta, f)
+
+    @_locked
+    def checkpoint(self) -> None:
+        """Seal the journal: save a full snapshot into the journal
+        directory, publish it atomically, truncate the op log and remove
+        the segments it consumed. Requires an index opened with open()."""
+        if self._journal is None:
+            raise ValueError("checkpoint() requires a journaled index: use "
+                             "ShardedVectorIndex.open(journal_dir)")
+        seq, base = self._journal.begin_checkpoint()
+        if seq is None:
+            return  # nothing logged since the last checkpoint
+        # save() compacts: the snapshot embodies that compact, and the log
+        # it would be written to is truncated anyway
+        self._replaying = True
+        try:
+            self.save(base)
+        finally:
+            self._replaying = False
+        self._journal.commit_checkpoint(seq)
+
+    @classmethod
+    def open(cls, journal_dir: str, config: Optional[IndexConfig] = None, *,
+             device: DeviceLike = "cuda") -> "ShardedVectorIndex":
+        """Open (or create) a journaled index on `device`: load the newest
+        checkpoint under `journal_dir` if there is one, replay the op log
+        on top and attach the journal, so every later mutation is logged.
+        `config` applies to a new directory; afterwards the saved one wins
+        unless `config` overrides it."""
+        from image_retrieval_tpu_torch.index.journal import IndexJournal
+
+        journal = IndexJournal(journal_dir)
+        snap = journal.snapshot_path()
+        if snap is not None:
+            idx = cls.load_from(snap, config=config, device=device)
+        else:
+            # no checkpoint yet: the tier configuration comes from the
+            # directory itself, or a 64-dim int8 index would replay into a
+            # fresh 512-dim f32 one
+            if config is None:
+                saved = journal.load_config()
+                if saved is not None:
+                    config = _config_from_saved(saved)
+            cfg = config or IndexConfig()
+            idx = cls(dim=cfg.embedding_dim, config=config, device=device)
+        journal.store_config(dataclasses.asdict(idx.config))
+        for rec in journal.pending():
+            op = rec["op"]
+            if op == "insert":
+                try:
+                    unit, mags = journal.load_segment(rec["seq"])
+                except (FileNotFoundError, KeyError, OSError, ValueError,
+                        zipfile.BadZipFile) as e:
+                    # a torn or missing segment: this record and all after
+                    # it are the tail that no flush() made durable; drop
+                    # them. A transient resource error re-raises instead of
+                    # destroying flushed records.
+                    if isinstance(e, OSError) and e.errno in (
+                            errno.ENOMEM, errno.EMFILE, errno.ENFILE):
+                        raise
+                    journal.drop_from(rec["seq"])
+                    break
+                idx.insert(rec["paths"], unit, mags, attrs=rec.get("attrs"))
+            elif op == "delete":
+                idx.delete(rec["paths"])
+            elif op == "delete_rows":
+                idx.delete_rows(rec["rows"])
+            elif op == "compact":
+                idx.compact()
+            elif op == "meta":
+                idx.meta[rec["key"]] = rec["value"]
+        idx._journal = journal
+        return idx
+
+    @classmethod
+    def load_from(cls, path: str, config: Optional[IndexConfig] = None, *,
+                  device: DeviceLike = "cuda") -> "ShardedVectorIndex":
+        """Rebuild from save() on `device`. The saved tier configuration is
+        restored (insert() re-quantizes the portable f32 rows for it);
+        `config` overrides it, e.g. to re-tier on load."""
+        npz_path = path if path.endswith(".npz") else path + ".npz"
+        data = np.load(npz_path)
+        with open(npz_path + ".paths.json") as f:
+            paths = json.load(f)
+        if config is None and os.path.exists(npz_path + ".config.json"):
+            with open(npz_path + ".config.json") as f:
+                config = _config_from_saved(json.load(f))
+        emb = data["embeddings"]
+        dim = emb.shape[1] if emb.size else (config.embedding_dim if config else 512)
+        idx = cls(dim=dim, config=config, device=device)
+        if len(paths):
+            idx.insert(paths, emb, data["magnitudes"])
+        attr_arrays = {k: data[k] for k in data.files if k.startswith("attr__")}
+        if attr_arrays and os.path.exists(npz_path + ".attrs.json"):
+            with open(npz_path + ".attrs.json") as f:
+                idx.attrs = AttributeStore.from_arrays(attr_arrays, json.load(f))
+        if os.path.exists(npz_path + ".meta.json"):
+            with open(npz_path + ".meta.json") as f:
+                idx.meta = json.load(f)
+        return idx

@@ -15,7 +15,8 @@ pad a batch to the same shape.
 from __future__ import annotations
 
 import hashlib
-from typing import Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,8 +51,10 @@ class Encoder:
         raise NotImplementedError
 
     def encode_stream(self, batches):
-        """Iterate (meta, pixels) pairs, yield (meta, embeddings) in order,
-        one synchronous encode_pixels per batch."""
+        """Iterate (meta, pixels) pairs, yield (meta, embeddings) in order.
+
+        Synchronous here (one encode_pixels per batch); CLIPEncoder keeps
+        several batches in flight across the caller's batches."""
         for meta, pixels in batches:
             yield meta, self.encode_pixels(pixels)
 
@@ -63,14 +66,39 @@ def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([x, pad], 0)
 
 
+class _Pending:
+    """One dispatched chunk: its forward is queued on the device (or, on
+    the CPU, already done), its result lands in `host_out`; `keep` rows of
+    it are real. `staging` and `host_out` are pinned buffers on loan from
+    the encoder's pool until fetch."""
+
+    __slots__ = ("host_out", "keep", "event", "staging")
+
+    def __init__(self, host_out, keep, event=None, staging=None):
+        self.host_out, self.keep, self.event, self.staging = host_out, keep, event, staging
+
+
 class CLIPEncoder(Encoder):
     """CLIP on `device` ("cuda", the default, or "cpu"). `params` is a state
     dict from models/weights.py; without one, Config.weights_path or `seed`
-    decides."""
+    decides.
+
+    Batches are kept in flight: on the card a chunk is staged in a pinned
+    host buffer, copied to the device on a copy stream, run on the device's
+    current stream once that copy's event has fired, and copied back into a
+    pinned buffer behind an event; the host fetches the oldest chunk only
+    when _MAX_IN_FLIGHT are queued, so uploads, forwards and fetches overlap
+    the caller's host work (decode). On the CPU the same order and window
+    run synchronously. Either way the outputs equal the one-at-a-time
+    form's bit for bit: the same chunks go through the same forward."""
 
     # the JAX encoder's bucket ladder (one compile per shape there; here it
     # keeps both packages' padded shapes equal)
     _BUCKETS = (8, 32, 128, 192, 256)
+    # chunks dispatched and not yet fetched; each holds a pinned staging and
+    # a pinned output buffer until fetched, so the window bounds both the
+    # pinned memory and how far the host runs ahead of the card
+    _MAX_IN_FLIGHT = 4
 
     def __init__(self, config: Optional[Config] = None, params=None,
                  seed: int = 0, *, device: DeviceLike = "cuda"):
@@ -92,6 +120,11 @@ class CLIPEncoder(Encoder):
             {k: torch.as_tensor(v, dtype=torch.float32) for k, v in params.items()})
         self.model.to(self.device).eval()
         self.tokenizer = get_tokenizer(self.config.weights_path)
+        self._copy_stream = None  # created at the first dispatch on the card
+        # free pinned buffers by (shape, dtype); a server encodes from several
+        # threads at once, hence the lock (it also guards the copy stream)
+        self._pinned: Dict[tuple, List[torch.Tensor]] = {}
+        self._lock = threading.Lock()
 
     def _batch_sizes(self, requested: int) -> int:
         for b in self._BUCKETS:
@@ -99,55 +132,164 @@ class CLIPEncoder(Encoder):
                 return b
         return requested
 
-    def _run_batched(self, x: np.ndarray, fn) -> np.ndarray:
-        """Split into bucket-padded chunks, run `fn` on each, unpad."""
-        n = x.shape[0]
-        if n == 0:
-            return np.zeros((0, self.dim), np.float32)
-        require_full_f32(self.device)  # the towers' f32 projections
-        step = self._batch_sizes(min(n, self._BUCKETS[-1]))
-        outs = []
+    # -- the in-flight window ------------------------------------------------
+
+    def _take_pinned(self, shape, dtype) -> torch.Tensor:
+        with self._lock:
+            free = self._pinned.get((tuple(shape), dtype))
+            if free:
+                return free.pop()
+        return torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+
+    def _give_pinned(self, buf: torch.Tensor) -> None:
+        with self._lock:
+            self._pinned.setdefault((tuple(buf.shape), buf.dtype), []).append(buf)
+
+    def _launch(self, padded: np.ndarray, keep: int, fn) -> _Pending:
+        """Queue one padded chunk's forward; see the class docstring."""
         with torch.inference_mode():
-            for i in range(0, n, step):
-                chunk = x[i: i + step]
-                padded = _pad_to(chunk, self._batch_sizes(chunk.shape[0]))
-                out = fn(torch.from_numpy(padded).to(self.device))
-                outs.append(out.float().cpu().numpy()[: chunk.shape[0]])
+            if self.device.type != "cuda":
+                out = fn(torch.from_numpy(padded))
+                return _Pending(out.float().numpy(), keep)
+            with self._lock:
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+            compute = torch.cuda.current_stream(self.device)
+            staging = self._take_pinned(padded.shape, torch.from_numpy(padded).dtype)
+            # the buffer came back from a fetch, which waited on the event
+            # recorded after this buffer's last upload: refilling is safe
+            staging.numpy()[...] = padded
+            with torch.cuda.stream(self._copy_stream):
+                x = staging.to(self.device, non_blocking=True)
+                uploaded = torch.cuda.Event()
+                uploaded.record(self._copy_stream)
+            compute.wait_event(uploaded)
+            # x was allocated on the copy stream and is read on the compute
+            # stream: keep the allocator from reusing it before that read
+            x.record_stream(compute)
+            out = fn(x).float()
+            host_out = self._take_pinned(out.shape, torch.float32)
+            host_out.copy_(out, non_blocking=True)
+            fetched = torch.cuda.Event()
+            fetched.record(compute)
+            return _Pending(host_out, keep, fetched, staging)
+
+    def _fetch(self, p: _Pending) -> np.ndarray:
+        """Wait for one chunk and return its real rows (a host copy)."""
+        if p.event is None:
+            return p.host_out[: p.keep]
+        p.event.synchronize()
+        out = p.host_out.numpy()[: p.keep].copy()
+        self._give_pinned(p.host_out)
+        self._give_pinned(p.staging)
+        return out
+
+    def _chunks(self, x: np.ndarray):
+        """(padded chunk, real rows) of `x`, split and padded to the ladder."""
+        n = x.shape[0]
+        step = self._batch_sizes(min(n, self._BUCKETS[-1])) if n else 1
+        for i in range(0, n, step):
+            chunk = x[i: i + step]
+            yield _pad_to(chunk, self._batch_sizes(chunk.shape[0])), chunk.shape[0]
+
+    def _dispatch(self, x: np.ndarray, fn) -> List[_Pending]:
+        """Queue every chunk of `x`: [_Pending]."""
+        return [self._launch(padded, keep, fn) for padded, keep in self._chunks(x)]
+
+    def _run_windowed(self, arrays, fn) -> np.ndarray:
+        """Queue the chunks of every array of `arrays`, keeping at most
+        _MAX_IN_FLIGHT in flight: the oldest is fetched before another is
+        queued. Returns the concatenated embeddings."""
+        require_full_f32(self.device)  # the towers' f32 projections
+        pending, outs = [], []
+        for x in arrays:
+            for padded, keep in self._chunks(x):
+                while len(pending) >= self._MAX_IN_FLIGHT:
+                    outs.append(self._fetch(pending.pop(0)))
+                pending.append(self._launch(padded, keep, fn))
+        while pending:
+            outs.append(self._fetch(pending.pop(0)))
+        if not outs:
+            return np.zeros((0, self.dim), np.float32)
         return np.concatenate(outs, 0)
+
+    # -- the encoder interface -----------------------------------------------
 
     def _encode_image(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.uint8:
             x = normalize_u8_device(x)  # raw RGB ingest form: 1/4 the bytes
         return self.model.encode_image(x)
 
+    def _encode_text(self, t: torch.Tensor) -> torch.Tensor:
+        return self.model.encode_text(t.to(torch.int64))
+
+    @staticmethod
+    def _pixels(pixels) -> np.ndarray:
+        pixels = np.asarray(pixels)
+        if pixels.dtype != np.uint8 and pixels.dtype != np.float32:
+            pixels = pixels.astype(np.float32)
+        return pixels
+
     def encode_pixels(self, pixels: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) pixels -> (B, dim) f32 unnormalized embeddings.
 
         Accepts CLIP-normalized f32 or raw uint8 RGB; uint8 batches are
-        normalized on the device."""
-        pixels = np.asarray(pixels)
-        if pixels.dtype != np.uint8 and pixels.dtype != np.float32:
-            pixels = pixels.astype(np.float32)
-        return self._run_batched(pixels, self._encode_image)
+        normalized on the device. Up to _MAX_IN_FLIGHT chunks in flight."""
+        return self._run_windowed([self._pixels(pixels)], self._encode_image)
+
+    def encode_stream(self, batches):
+        """Iterate (meta, pixels), yield (meta, embeddings) in order, with up
+        to _MAX_IN_FLIGHT chunks queued ahead of the oldest fetch, across
+        the caller's batches: batch N is fetched while batch N+1 is being
+        decoded by the caller and its upload and forward are queued.
+
+        The window is drained before a batch is dispatched, so it never
+        holds more than _MAX_IN_FLIGHT chunks, even for a moment; a batch
+        larger than the whole window drains it first and then runs through
+        encode_pixels, which bounds its own window."""
+        require_full_f32(self.device)
+        pending = []  # (meta, [_Pending])
+
+        def fetch(entry):
+            meta, parts = entry
+            if not parts:
+                return meta, np.zeros((0, self.dim), np.float32)
+            return meta, np.concatenate([self._fetch(p) for p in parts], 0)
+
+        def in_flight():
+            return sum(len(parts) for _, parts in pending)
+
+        big = self._BUCKETS[-1] * self._MAX_IN_FLIGHT
+        for meta, pixels in batches:
+            pixels = self._pixels(pixels)
+            n = pixels.shape[0]
+            if n > big:
+                while pending:
+                    yield fetch(pending.pop(0))
+                yield meta, self.encode_pixels(pixels)
+                continue
+            incoming = max(1, -(-n // self._batch_sizes(min(n, self._BUCKETS[-1]))))
+            while pending and in_flight() + incoming > self._MAX_IN_FLIGHT:
+                yield fetch(pending.pop(0))
+            pending.append((meta, self._dispatch(pixels, self._encode_image)))
+        while pending:
+            yield fetch(pending.pop(0))
 
     def encode_images(self, paths: Sequence[str], batch_size: int = 256) -> np.ndarray:
-        """Host decode + transform, then the batched forward."""
+        """Host decode + transform of `batch_size` paths at a time, each
+        batch queued before the next is decoded, so decode overlaps the
+        forwards in flight."""
         bs = self._batch_sizes(batch_size)
-        outs = [
-            self.encode_pixels(preprocess_batch(
-                list(paths[i: i + bs]), size=self.config.model.image_size))
-            for i in range(0, len(paths), bs)
-        ]
-        if not outs:
-            return np.zeros((0, self.dim), np.float32)
-        return np.concatenate(outs, 0)
+        size = self.config.model.image_size
+        return self._run_windowed(
+            (preprocess_batch(list(paths[i: i + bs]), size=size)
+             for i in range(0, len(paths), bs)), self._encode_image)
 
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         tokens = self.tokenizer(
             list(texts), context_length=self.config.model.context_length)
         # padded rows pool at argmax = 0; harmless, sliced away
-        return self._run_batched(
-            tokens, lambda t: self.model.encode_text(t.to(torch.int64)))
+        return self._run_windowed([tokens], self._encode_text)
 
 
 class FakeEncoder(Encoder):
@@ -191,3 +333,11 @@ class FakeEncoder(Encoder):
                 out[i, h % 256] += 1.0
         return (out @ self._txt_proj).astype(np.float32) * 4.0
 
+
+
+def get_encoder(config: Optional[Config] = None, fake: bool = False, **kw) -> Encoder:
+    """FakeEncoder when `fake`, else CLIPEncoder(config, **kw) (on the card
+    unless kw names device="cpu")."""
+    if fake:
+        return FakeEncoder(dim=(config.model.embed_dim if config else 512))
+    return CLIPEncoder(config=config, **kw)

@@ -1915,3 +1915,31 @@ def test_trainer_defaults_to_the_card_and_matches_the_cpu(cuda, remat):
     want = cpu.fit([(px, toks)] * 3)
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got[2] < got[0]
+
+
+def test_encoder_in_flight_equals_window_of_one_on_the_card(cuda):
+    """The encoder's window on the card (pinned staging buffers, the copy
+    stream, one event a chunk) gives the one-at-a-time form's bits, in
+    order, through K1 (vit_b32_serving at two layers a tower)."""
+    from image_retrieval_tpu_torch.config import Config, vit_b32_serving
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+
+    cfg = dataclasses.replace(vit_b32_serving(), vision_layers=2, text_layers=2)
+    enc = CLIPEncoder(Config(model=cfg), seed=0)
+    rng = np.random.default_rng(3)
+    batches = [(f"b{i}", rng.integers(0, 256, size=(n, 224, 224, 3), dtype=np.uint8))
+               for i, n in enumerate((8, 5, 0, 40, 300, 1))]
+    texts = [f"a photo of thing {i}" for i in range(70)]
+    before = fa.layer_block_int8.launches
+    got = list(enc.encode_stream(iter(batches)))
+    got_t = enc.encode_texts(texts)
+    assert fa.layer_block_int8.launches - before == 2 * (1 + 1 + 1 + 2 + 1) + 2
+    enc._MAX_IN_FLIGHT = 1
+    want = list(enc.encode_stream(iter(batches)))
+    want_t = enc.encode_texts(texts)
+    assert [m for m, _ in got] == [m for m, _ in want] == [m for m, _ in batches]
+    for (_, a), (_, b), (_, px) in zip(got, want, batches):
+        assert a.shape == (len(px), cfg.embed_dim)
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got_t, want_t)
+    np.testing.assert_array_equal(enc.encode_pixels(batches[4][1]), got[4][1])

@@ -9,7 +9,11 @@ import torch
 from image_retrieval_tpu.config import IndexConfig
 from image_retrieval_tpu.index.vector_index import ShardedVectorIndex as JaxIndex
 from image_retrieval_tpu.ops import topk as jtopk
+from image_retrieval_tpu_torch.app import cli
+from image_retrieval_tpu_torch.app.search import TextImageSearcher
+from image_retrieval_tpu_torch.app.server import SearchServer
 from image_retrieval_tpu_torch.index import ShardedVectorIndex
+from image_retrieval_tpu_torch.models.encoder import FakeEncoder
 from image_retrieval_tpu_torch.ops import topk
 
 
@@ -136,8 +140,17 @@ def test_unported_index_tiers_raise(kwargs):
 
 
 def test_journal_not_ported(tmp_path):
+    """The journal is ported (tests/test_torch_journal.py); a directory whose
+    saved tier is one the port lacks (approximate selection, written by the
+    JAX package) still raises naming ROADMAP.md instead of opening as
+    another tier."""
+    ref = JaxIndex.open(str(tmp_path / "journal"),
+                        config=IndexConfig(embedding_dim=8, approx_select=True))
+    ref.insert(["a"], np.ones((1, 8), np.float32))
+    ref.flush()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ShardedVectorIndex.open(str(tmp_path / "journal"), device="cpu")
+    ShardedVectorIndex.open(str(tmp_path / "fresh"), device="cpu")  # a new directory opens
 
 
 def _collective(ix, **kwargs):
@@ -148,13 +161,30 @@ def _collective(ix, **kwargs):
                                **kwargs)
 
 
+def _app_with_ann(ix):
+    from image_retrieval_tpu_torch.app.pipeline import ImageSearchApp
+
+    app = ImageSearchApp(encoder=FakeEncoder(dim=8), device="cpu")
+    app.config.search.ann = "ivf"
+    return app._ensure_ann(ix)
+
+
 @pytest.mark.parametrize("call", [
     lambda ix: ix.search(np.ones(8, np.float32), metric="l2_distance", approx=True),
     lambda ix: _collective(ix, selector="approx"),
     lambda ix: ix.search(np.ones(8, np.float32), approx=True),
     lambda ix: _collective(ix, shadow=torch.ones(1, 8, dtype=torch.bfloat16)),
-    lambda ix: ix.save("index_dir"),
-    lambda ix: ix.load_from("index_dir"),
+    lambda ix: TextImageSearcher(FakeEncoder(dim=8), ix, ann=object()),
+    lambda ix: SearchServer(FakeEncoder(dim=8), ix, ann=object()),
+    lambda ix: _app_with_ann(ix),
+    lambda ix: cli.main(["mi", "--folder", ".", "--fake-encoder", "--device", "cpu"]),
+    lambda ix: cli.main(["geometric", "--folder", ".", "--optimize"]),
+    lambda ix: cli.main(["analyze", "--synthetic", "--fake-encoder"]),
+    lambda ix: cli.main(["plan", "--rows", "1000000"]),
+    lambda ix: cli.main(["search", "--folder", ".", "--fake-encoder", "--device", "cpu",
+                         "--ann", "ivf", "a query"]),
+    lambda ix: cli.main(["compare", "--folder", ".", "--fake-encoder", "--device", "cpu",
+                         "--approx-select", "a query"]),
 ])
 def test_unported_index_calls_raise(call):
     ix = ShardedVectorIndex(dim=8, config=IndexConfig(embedding_dim=8), device="cpu")
