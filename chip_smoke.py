@@ -30,6 +30,8 @@
                                             # variants it was chosen over, in turns
     python3 chip_smoke.py --durable         # build, then only phase 9 on the encoders
                                             # and the gallery phases 3 and 5 would give it
+    python3 chip_smoke.py --tiers           # build, then only phase 10 on the encoder
+                                            # and the gallery phases 5 and 6 would give it
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
@@ -206,6 +208,32 @@ Phases (any failure exits non-zero):
      against the oracle. Last, the card's idle share over encode_stream of 8
      L/14 int8 batches of 128 images with the window of four and of one
      (torch.profiler: the union of the kernels' and copies' intervals).
+
+ 10. the tiers beyond the resident sweep, run after phase 9 while phase
+     5's encoder and gallery (with phase 6's planted rows) are on the card.
+     On that int8 gallery: approx_select=True (answers bit for bit the exact
+     selector's); l1_shadow=True (no shadow built: the weighted answers
+     under (1, 1, 1, 0, 0.5) through K5 against the int8 scorer's float64
+     oracle by phase 6's limits; the shadow scorer's time and memory beside
+     K5's); ScreenedSearch (pca, 128 dims, 128 candidates): build time,
+     latency, recall@10 against the exact tier (>= 0.9), a pool of every row
+     on a 2^16-row slice giving the exact answers, SearchServer(ann=screen)
+     answering 64 concurrent queries with what the screen returns, and an
+     insert detaching the screen (the row is then deleted and compacted away,
+     so the later phases see phase 5's gallery). Then 2^24
+     seeded 512-d unit rows (16 planted per query of phase 3) are quantized
+     on the host in 2^22-row pieces into an int8 and an int4 index past
+     their stream_threshold_bytes (8 GiB of pinned int8 rows, 4 GiB of
+     pinned packed rows), streamed in 2^22-row chunks. Counted: a batch of
+     64 queries and 4 single ones, unfiltered and under a filter, on both,
+     then after 4,096 deletes, then after compact; K3 must show one launch
+     per 2^21-row segment of each packed chunk per search. Every answer
+     against the float64 int8-exact oracle (int4: recall@10 >= 0.99), the
+     int8 answers against the resident int8 tier over the same rows within
+     1e-6. K3 against its plain version on a streamed chunk's segment; each
+     sweep timed beside one chunk's upload (GB/s) and one chunk's sweep on
+     the card, and expected_sweep_seconds from the two; the streamed screen
+     over the int8 index (recall@10 >= 0.9, latency); MemAvailable.
 
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
@@ -1438,15 +1466,15 @@ def planted_rows(q_emb, rng, n_rows=N4):
     return pos, rows.reshape(-1, d).astype(np.float32)
 
 
-def gallery_chunk(torch, c, d, pos, planted):
-    """Chunk c of the seeded unit gallery (made on the card), with the
-    planted rows that fall inside it."""
-    g = torch.Generator(device="cuda").manual_seed(1000 + c)
-    rows = torch.randn((CHUNK4, d), generator=g, device="cuda")
+def gallery_chunk(torch, c, d, pos, planted, n=CHUNK4, seed=1000):
+    """Chunk c (of n rows) of the seeded unit gallery (made on the card),
+    with the planted rows that fall inside it."""
+    g = torch.Generator(device="cuda").manual_seed(seed + c)
+    rows = torch.randn((n, d), generator=g, device="cuda")
     rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
     rows = rows.cpu().numpy()
-    inside = (pos >= c * CHUNK4) & (pos < (c + 1) * CHUNK4)
-    rows[pos[inside] - c * CHUNK4] = planted[inside]
+    inside = (pos >= c * n) & (pos < (c + 1) * n)
+    rows[pos[inside] - c * n] = planted[inside]
     return rows
 
 
@@ -4074,6 +4102,467 @@ def phase_durable_alone(torch, card):
     return phase_durable(torch, card, enc, enc14, index32, queries)
 
 
+# ---- phase 10: the tiers beyond the resident sweep ---------------------------
+
+# The streamed gallery: rows (8 GiB of int8 at D = 512), rows a generated
+# piece (quantized on the host a piece at a time: the f32 gallery never
+# exists whole), single queries per stage, tombstones (blocks of 8 rows, so
+# that a compact keeps every row's bucket = row % 8 for the oracle).
+N10, PIECE10, SINGLES10, DELETES10 = 1 << 24, 1 << 22, 4, 4096
+FLT10 = "bucket == 3"
+STREAM_ATOL = 1e-6  # streamed vs resident int8 tier over the same rows on the card
+# recall@10 of the screen against the exact tier: the floor of the JAX
+# package's tests/test_screen.py::test_recall_on_clustered_data
+SCREEN_RECALL_MIN = 0.9
+SCREEN_DIMS, SCREEN_POOL = 128, 128
+
+
+def mem_available_gib() -> float:
+    """MemAvailable of /proc/meminfo, GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / (1 << 20)
+    return float("nan")
+
+
+def agree_topk(what, got, want, atol):
+    """(scores, ids) against (scores, ids) of the same queries: scores
+    within atol, ids equal except where neighbouring wanted scores lie
+    within atol (a tie either side may order). Returns (worst, swaps)."""
+    gv, gi = (np.atleast_2d(a) for a in got)
+    wv, wi = (np.atleast_2d(a) for a in want)
+    if gv.shape != wv.shape:
+        fail(f"{what}: shapes {gv.shape} and {wv.shape}")
+    fin = np.isfinite(wv)
+    if not np.array_equal(np.isfinite(gv), fin) or not np.array_equal(gi[~fin], wi[~fin]):
+        fail(f"{what}: the padding differs")
+    worst = float(np.abs(gv[fin] - wv[fin]).max()) if fin.any() else 0.0
+    if worst > atol:
+        fail(f"{what}: scores differ by {worst:.3g} (limit {atol})")
+    swaps = 0
+    for r, c in zip(*np.nonzero(gi != wi)):
+        gaps = [abs(wv[r, c] - wv[r, o]) for o in (c - 1, c + 1) if 0 <= o < wv.shape[1]]
+        if min(gaps) > atol:
+            fail(f"{what}: query {r} rank {c}: id {gi[r, c]} != {wi[r, c]}, gaps {gaps}")
+        swaps += 1
+    return worst, swaps
+
+
+def recall_at10(got_ids, exact_ids) -> float:
+    got, exact = np.atleast_2d(got_ids), np.atleast_2d(exact_ids)
+    return float(np.mean([len(set(g[:TOP_K].tolist()) & set(e[:TOP_K].tolist())) / TOP_K
+                          for g, e in zip(got, exact)]))
+
+
+def host_ms(fn, times):
+    """Median host-clock ms of `times` calls of fn (each ends with its
+    answers on the host)."""
+    got = []
+    for _ in range(times):
+        t0 = time.perf_counter()
+        fn()
+        got.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(got))
+
+
+def tiers_on_phase5(torch, card, enc14, index14, queries):
+    """Approximate selection, the l1_shadow gallery and the resident screen
+    over phase 5's int8 gallery (with phase 6's planted rows), and
+    SearchServer(ann=screen). Returns the readings."""
+    import dataclasses
+
+    from image_retrieval_tpu_torch.app.server import SearchServer
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.index.screen import ScreenedSearch
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops.metrics import (
+        fused_optimized_scores_int8_shadow,
+        make_l1_shadow,
+    )
+
+    out = {}
+    cfg = index14.config
+    emb = enc14.encode_texts(queries)  # unnormalized: the weighted score's query
+    qn = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+    qdev = torch.from_numpy(emb).cuda()
+    index14.stage = "phase 10"
+
+    # approximate selection: the exact selector's answers, bit for bit
+    index14.config = dataclasses.replace(cfg, approx_select=True)
+    for metric, params in (("cosine_similarity", None), ("optimized_similarity", W_REF)):
+        q = qn if params is None else emb
+        for got, want in ((index14.search(q, TOP_K, metric, params),
+                           index14.search(q, TOP_K, metric, params, approx=False)),
+                          (index14.search(q[0], TOP_K, metric, params),
+                           index14.search(q[0], TOP_K, metric, params, approx=False))):
+            if not (np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])):
+                fail(f"approx_select=True: {metric} answers differ from the exact selector's")
+    index14.config = cfg
+    print(f"approx_select=True over phase 5's {len(index14)} x {index14.dim} int8 rows: "
+          f"cosine and optimized answers (64 queries and a single one) bit for bit the "
+          f"exact selector's", flush=True)
+
+    # l1_shadow=True: accepted, no bf16 copy built, the weighted answers
+    # through K5 against the int8 scorer's float64 oracle by phase 6's
+    # limits; the shadow scorer the option once ran (tensor operations over
+    # a bf16 copy, ops/metrics.py) timed beside K5 on the same rows
+    w = wtuple(W_REF)
+    index14.config = dataclasses.replace(cfg, l1_shadow=True)
+    index14._device_dirty = True
+    index14.load()
+    torch.cuda.synchronize()
+    k5 = fm.fused_optimized_scores_int8_pallas
+    k5_before = k5.launches
+    vals, idx = index14.search(emb, TOP_K, "optimized_similarity", W_REF)
+    k5_launches = k5.launches - k5_before
+    if k5_launches < 1 or hasattr(index14, "_shadow"):
+        fail(f"l1_shadow=True: the weighted search ran {k5_launches} K5 launches")
+    best, full, full_sq = oracle_pass(torch, index14, qdev, w, TOP_K + 1)
+    del full
+    mags = torch.from_numpy(index14._host_mags[: len(index14)]).cuda().double()
+    qnd = torch.linalg.vector_norm(qdev.double(), dim=1, keepdim=True)
+    b = best[("optimized_similarity", False)]
+    slack = gram_slack(fm, torch.gather(full_sq, 1, b.i), mags[b.i], qnd, index14.dim, w[2])
+    worst, swaps = check_ranked("l1_shadow weighted", vals, idx, b, slack=slack)
+    del best, full_sq, slack
+    index14.config = cfg
+    g, sc, m = index14._gallery, index14._scales, index14._mags
+    sh = make_l1_shadow(g, sc, m)
+    shadow_gib = sh.numel() * 2 / 2**30
+    times = {}
+    for nq in (1, 64):
+        q = qdev[:nq].contiguous()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fused_optimized_scores_int8_shadow(q, g, sc, m, sh, w)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        times[nq] = {
+            "shadow_ms": event_ms(torch, lambda: fused_optimized_scores_int8_shadow(
+                q, g, sc, m, sh, w), samples=3, reps=1, warm=1),
+            "k5_ms": event_ms(torch, lambda: k5(q, g, sc, m, w), samples=5, reps=2,
+                              warm=1),
+            "shadow_peak_gib": peak}
+    rows_gib = g.numel() / 2**30
+    del g, sc, m, sh
+    print(f"l1_shadow=True over the same rows: no shadow built, the weighted search "
+          f"through K5 ({k5_launches} launch(es)); answers (weights {W_REF}, 64 queries) "
+          f"vs the int8 scorer's float64 oracle: max score diff {worst:.3g}, {swaps} "
+          f"near-tie swaps. The shadow scorer the option would run: {shadow_gib:.3f} GiB "
+          f"of bf16 rows beside {rows_gib:.3f} GiB of int8 rows, Q=64 "
+          f"{times[64]['shadow_ms']:.3f} ms, peak +{times[64]['shadow_peak_gib']:.3f} GiB; "
+          f"K5 {times[64]['k5_ms']:.4f} ms; Q=1 shadow {times[1]['shadow_ms']:.3f} ms, "
+          f"peak +{times[1]['shadow_peak_gib']:.3f} GiB, K5 {times[1]['k5_ms']:.4f} ms "
+          f"[{card}]", flush=True)
+    out["shadow"] = dict(times, shadow_gib=shadow_gib, worst=worst)
+    torch.cuda.empty_cache()
+
+    # the projection screen over the resident int8 gallery
+    t0 = time.perf_counter()
+    scr = ScreenedSearch.from_index(index14, sketch_dims=SCREEN_DIMS, candidates=SCREEN_POOL)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sv, si = scr.search(qn, TOP_K)
+    ev, ei = index14.search(qn, TOP_K)
+    rec = recall_at10(si, ei)
+    p50_1 = host_ms(lambda: scr.search(qn[3], TOP_K), 20)
+    p50_64 = host_ms(lambda: scr.search(qn, TOP_K), 5)
+    exact_1 = host_ms(lambda: index14.search(qn[3], TOP_K), 20)
+    exact_64 = host_ms(lambda: index14.search(qn, TOP_K), 5)
+    print(f"screen over phase 5's {len(index14)} x {index14.dim} int8 rows (pca, "
+          f"{SCREEN_DIMS} dims, {SCREEN_POOL} candidates): built in {build_s:.2f} s; "
+          f"recall@10 vs the exact tier {rec:.4f} over {len(qn)} queries (limit "
+          f"{SCREEN_RECALL_MIN}); p50 single query {p50_1:.3f} ms, 64 queries "
+          f"{p50_64:.3f} ms; the exact tier {exact_1:.3f} / {exact_64:.3f} ms (host clock) "
+          f"[{card}]", flush=True)
+    if rec < SCREEN_RECALL_MIN:
+        fail(f"the screen's recall@10 {rec:.4f} is below {SCREEN_RECALL_MIN}")
+    out["screen"] = dict(build_s=build_s, recall=rec, p50_1=p50_1, p50_64=p50_64,
+                         exact_1=exact_1, exact_64=exact_64)
+
+    # a pool that covers every row: the exact tier's answers
+    sub = np.arange(1 << 16)
+    small = ShardedVectorIndex(dim=index14.dim, config=IndexConfig(
+        embedding_dim=index14.dim, dtype="int8", capacity_step=1 << 16))
+    small.insert([index14.paths[i] for i in sub], index14.get_vectors(sub),
+                 index14.get_magnitudes(sub))
+    full = ScreenedSearch.from_index(small, sketch_dims=SCREEN_DIMS, candidates=len(small))
+    worst, swaps = agree_topk("screen, full pool", full.search(qn[:8], TOP_K),
+                              small.search(qn[:8], TOP_K), STREAM_ATOL)
+    print(f"screen with a pool of every row ({len(small)} rows, 8 queries): the exact "
+          f"tier's answers, scores within {worst:.3g}, {swaps} near-tie swaps", flush=True)
+    del small, full
+
+    # SearchServer(ann=screen): the clients get what the screen answered
+    class RecordingScreen:
+        def __init__(self, inner):
+            self.inner, self.calls = inner, []
+
+        def search(self, q, top_k):
+            got = self.inner.search(q, top_k)
+            self.calls.append((np.array(q, np.float32, ndmin=2), top_k, got))
+            return got
+
+    rscr = RecordingScreen(scr)
+    server = SearchServer(enc14, index14, max_batch=64, max_wait_ms=2.0, ann=rscr)
+    answers, seconds, batches = serve_wave(server, queries)
+    seen = set()
+    for _, _, (v, i) in rscr.calls:
+        for vr, ir in zip(np.atleast_2d(v), np.atleast_2d(i)):
+            seen.add(tuple((index14.paths[j], float(x)) for x, j in zip(vr, ir) if j >= 0)[:TOP_K])
+    for a in answers:
+        if tuple((h["path"], h["score"]) for h in a) not in seen:
+            fail("SearchServer(ann=screen): a client's answer is not the screen's")
+    # the micro-batches' queries as one search() through the screen
+    qs = np.concatenate([q for q, _, _ in rscr.calls])
+    k = rscr.calls[0][1]
+    want = scr.search(qs, k)
+    got = tuple(np.concatenate([np.atleast_2d(a[j]) for _, _, a in rscr.calls])
+                for j in (0, 1))
+    worst, swaps = agree_topk("SearchServer(ann=screen) vs one search()", got, want,
+                              STREAM_ATOL)
+    # an insert detaches the screen (it cannot follow it); the exact sweep serves
+    from PIL import Image
+
+    img = os.path.join(work_root(), "inserted.jpg")
+    Image.fromarray(np.random.default_rng(10).integers(0, 256, (480, 640, 3),
+                                                       dtype=np.uint8)).save(img)
+    ok, _ = server.add_images([img])
+    if ok != 1 or server.ann is not None:
+        fail("SearchServer(ann=screen) kept the screen after an insert")
+    after, _, _ = serve_wave(server, queries[:4])
+    exact_after = index14.search(qn[:4], TOP_K)
+    if [[h["path"] for h in a] for a in after] != [[index14.paths[j] for j in r]
+                                                    for r in exact_after[1]]:
+        fail("after the detach the server did not serve the exact tier's answers")
+    # leave phase 5's gallery as the later phases expect it: the insert out
+    n_before = len(index14) - 1
+    index14.delete([img])
+    index14.compact()
+    if len(index14) != n_before:
+        fail(f"phase 5's gallery holds {len(index14)} rows after phase 10, not {n_before}")
+    print(f"SearchServer(ann=screen): {len(queries)} concurrent text queries in "
+          f"{seconds:.3f} s = {len(queries) / seconds:.1f} QPS, {batches} micro-batches; "
+          f"every answer what the screen returned for its micro-batch, and the same "
+          f"queries as one search() within {worst:.3g} ({swaps} near-tie swaps); an insert detached the screen "
+          f"and 4 more queries got the exact tier's answers [{card}]", flush=True)
+    out["screen"]["server_qps"] = len(queries) / seconds
+    del scr, rscr, server
+    torch.cuda.empty_cache()
+    return out
+
+
+def streamed_timings(torch, card, name, ix, qbatch):
+    """The streamed sweep of `ix` timed: a 64-query batch and single
+    queries (host clock), one chunk's upload from pinned host rows (CUDA
+    events: the host->device rate), one chunk's sweep with the chunk on the
+    card (CUDA events), and expected_sweep_seconds from those two."""
+    from image_retrieval_tpu_torch.ops.int4 import unit_queries
+
+    eng = ix._stream
+    q = torch.from_numpy(qbatch).cuda()
+    batch_ms = host_ms(lambda: ix.search(qbatch, TOP_K), 3)
+    single_ms = host_ms(lambda: ix.search(qbatch[5], TOP_K), 5)
+    host = torch.from_numpy(eng._rows[: eng.chunk_rows])
+    buf = torch.empty(host.shape, dtype=host.dtype, device="cuda")
+    copy_ms = event_ms(torch, lambda: buf.copy_(host, non_blocking=True), samples=3, reps=1,
+                       warm=1)
+    gbps = host.numel() / (copy_ms / 1e3) / 1e9
+    out = {"batch_ms": batch_ms, "single_ms": single_ms, "h2d_gbps": gbps}
+    for nq in (64, 1):
+        q16 = unit_queries(q[:nq]).to(torch.bfloat16).contiguous()
+        kk = min(max(eng.rerank_c, TOP_K), eng.n) if eng.packed4 else TOP_K
+        ms = event_ms(torch, lambda: eng._chunk_topk(q16, q16.float(), buf, 0, buf.shape[0],
+                                                     None, kk), samples=3, reps=1, warm=1)
+        out[f"chunk_ms_q{nq}"] = ms
+        out[f"expected_s_q{nq}"] = eng.expected_sweep_seconds(gbps, ms / 1e3)
+    print(f"{name} streamed over {eng.n} rows ({len(eng._chunks)} chunks of {eng.chunk_rows} "
+          f"rows, {eng.bytes_per_sweep / 2**30:.2f} GiB a sweep): 64 queries {batch_ms:.1f} ms, "
+          f"single query p50 {single_ms:.1f} ms (host clock); one chunk's upload from pinned "
+          f"host rows {copy_ms:.2f} ms = {gbps:.2f} GB/s; one chunk's sweep on the card Q=64 "
+          f"{out['chunk_ms_q64']:.2f} ms, Q=1 {out['chunk_ms_q1']:.2f} ms; "
+          f"expected_sweep_seconds {out['expected_s_q64'] * 1e3:.1f} ms (Q=64) / "
+          f"{out['expected_s_q1'] * 1e3:.1f} ms (Q=1) beside the sweeps above [{card}]",
+          flush=True)
+    del buf
+    return out
+
+
+def phase_tiers(torch, card, enc14, index14, queries, q_emb):
+    """Phase 10: the tiers beyond the resident sweep. Returns (K3 launches
+    of the streamed main path, readings)."""
+    import dataclasses
+
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.index.screen import ScreenedSearch
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    t_phase = time.perf_counter()
+    print(f"phase 10: MemAvailable {mem_available_gib():.1f} GiB", flush=True)
+    out = tiers_on_phase5(torch, card, enc14, index14, queries)
+
+    # ---- the streamed gallery: 2^24 rows, int8 and int4 -------------------
+    d = q_emb.shape[1]
+    qbatch = q_emb / np.linalg.norm(q_emb, axis=1, keepdims=True)
+    pos, planted = planted_rows(q_emb, np.random.default_rng(10), N10)
+    cfg8 = IndexConfig(embedding_dim=d, dtype="int8", capacity_step=N10,
+                       stream_threshold_bytes=N10 * d // 2)
+    cfg4 = IndexConfig(embedding_dim=d, dtype="int4", capacity_step=N10, rerank_c=RERANK_C,
+                       stream_threshold_bytes=N10 * d // 4)
+    Index = recording_index(ShardedVectorIndex)
+    ix8, ix4 = Index(dim=d, config=cfg8), Index(dim=d, config=cfg4)
+    t0 = time.perf_counter()
+    for c in range(N10 // PIECE10):
+        rows = gallery_chunk(torch, c, d, pos, planted, n=PIECE10, seed=2000)
+        ids = np.arange(c * PIECE10, (c + 1) * PIECE10)
+        paths = [f"stream/{i:08d}" for i in ids]
+        for ix in (ix8, ix4):
+            ix.insert(paths, rows, np.ones(PIECE10, np.float32), attrs={"bucket": ids % 8})
+        del rows, paths
+    insert_s = time.perf_counter() - t0
+    print(f"streamed galleries: {N10} x {d} seeded unit rows ({PLANTED4} planted per query) "
+          f"quantized on the host in pieces of {PIECE10} into an int8 index "
+          f"({ix8._host_gallery.nbytes / 2**30:.1f} GiB of pinned int8 rows, threshold "
+          f"{cfg8.stream_threshold_bytes / 2**30:.1f} GiB) and an int4 index "
+          f"({ix4._host_packed.nbytes / 2**30:.1f} GiB of pinned packed rows, threshold "
+          f"{cfg4.stream_threshold_bytes / 2**30:.1f} GiB) in {insert_s:.1f} s; "
+          f"MemAvailable {mem_available_gib():.1f} GiB", flush=True)
+    asks = [(qbatch, None), (qbatch, FLT10)] + [
+        (qbatch[j], f) for j in range(SINGLES10) for f in (None, FLT10)]
+
+    def run(ix, stage):
+        ix.stage = stage
+        return [ix.search(q, top_k=TOP_K, flt=f) for q, f in asks]
+
+    # the resident int8 tier over the same rows on the card, for comparison
+    ix8.config = dataclasses.replace(cfg8, stream_threshold_bytes=None)
+    ix8._device_dirty = True
+    resident = run(ix8, "resident")
+    ix8.calls = []
+    ix8.config, ix8._device_dirty = cfg8, True
+    torch.cuda.empty_cache()
+
+    # ---- the main path, counted ------------------------------------------
+    k3.int4_screen_scores.launches = 0
+    expected, took, checks = 0, {}, []
+    # tombstones: the 8-row blocks of two queries' planted rows, then seeded
+    # blocks up to DELETES10 rows
+    mine = np.unique(pos[:2 * PLANTED4] // 8)
+    more = np.random.default_rng(11).choice(N10 // 8, DELETES10 // 8 + len(mine), replace=False)
+    blocks = np.concatenate([mine, more[~np.isin(more, mine)]])[: DELETES10 // 8]
+    dead = (blocks[:, None] * 8 + np.arange(8)).ravel()
+    for stage in ("initial", "deleted", "compacted"):
+        for ix in (ix8, ix4):
+            if stage == "deleted":
+                ix.delete_rows(dead)
+            elif stage == "compacted":
+                ix.compact()
+        for name, ix in (("int8", ix8), ("int4", ix4)):
+            t0 = time.perf_counter()
+            answers = run(ix, stage)
+            took[(name, stage)] = time.perf_counter() - t0
+            if ix._stream is None:
+                fail(f"{name}: the index left the streamed tier at {stage}")
+            if name == "int4":
+                expected += len(asks) * sum(-(-nv // k3.SEGMENT_ROWS)
+                                            for _, nv in ix._stream._chunks)
+            if stage == "initial" and name == "int8":
+                for (q, f), got, want in zip(asks, answers, resident):
+                    checks.append(agree_topk(f"streamed vs resident int8 ({f})", got, want,
+                                             STREAM_ATOL))
+            worst, recall = check_answers(ix, int8_exact_oracle(torch, ix, 3 * TOP_K))
+            for st, (n, misses) in recall.items():
+                if 1 - misses / n < RECALL_MIN:
+                    fail(f"streamed {name} {st}: recall@10 {1 - misses / n:.4f}")
+            print(f"streamed {name}, {stage} ({ix.live_count} live rows): {len(asks)} "
+                  f"searches (64 queries and {SINGLES10} single ones, unfiltered and under "
+                  f"{FLT10!r}) in {took[(name, stage)]:.2f} s; vs the float64 int8-exact "
+                  f"oracle max score diff {worst:.3g} (limit {INT4_ORACLE_ATOL}), recall@10 "
+                  f"{1 - misses / n:.4f}", flush=True)
+            ix.calls = []
+    launches = k3.int4_screen_scores.launches
+    # ---- end of the counted run ------------------------------------------
+    worst = max(w for w, _ in checks)
+    print(f"streamed int8 vs the resident int8 tier over the same rows on the card: "
+          f"{len(checks)} answers, max score diff {worst:.3g} (limit {STREAM_ATOL}), "
+          f"{sum(s for _, s in checks)} near-tie swaps", flush=True)
+    print(f"int4_screen launches in the streamed main path: {launches} (expected {expected}: "
+          f"one per {k3.SEGMENT_ROWS}-row segment of each packed chunk, per search)",
+          flush=True)
+    if launches != expected:
+        fail("the streamed int4 tier did not screen every chunk segment through K3")
+
+    # K3 on one streamed chunk's segment against its plain version
+    eng4 = ix4._stream
+    seg = torch.from_numpy(eng4._rows[: k3.SEGMENT_ROWS]).cuda()
+    valid = torch.ones(seg.shape[0], dtype=torch.bool, device="cuda")
+    qu64 = torch.from_numpy(qbatch).cuda().to(torch.bfloat16)
+    out["k3_chunk"] = screen_vs_plain(torch, card, seg, eng4._scales[: seg.shape[0]], valid,
+                                      qu64, counts=(64,))
+    del seg, valid
+
+    out["int8"] = streamed_timings(torch, card, "int8", ix8, qbatch)
+    out["int4"] = streamed_timings(torch, card, "int4", ix4, qbatch)
+    del ix4
+    torch.cuda.empty_cache()
+
+    # the streamed screen over the streamed int8 index
+    t0 = time.perf_counter()
+    scr = ScreenedSearch.from_index(ix8, sketch_dims=SCREEN_DIMS, candidates=SCREEN_POOL)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not scr.streamed:
+        fail("the screen over the streamed index did not take its streamed mode")
+    ix8.stage = "screen"
+    rec = recall_at10(scr.search(qbatch, TOP_K)[1], ix8.search(qbatch, TOP_K)[1])
+    p50_1 = host_ms(lambda: scr.search(qbatch[3], TOP_K), 20)
+    p50_64 = host_ms(lambda: scr.search(qbatch, TOP_K), 5)
+    print(f"streamed screen over {ix8.live_count} x {d} int8 rows (pca, {SCREEN_DIMS} dims, "
+          f"{SCREEN_POOL} candidates; sketch {scr._sketch.numel() / 2**30:.2f} GiB on the "
+          f"card): built in {build_s:.2f} s (two passes over the host rows); recall@10 vs the "
+          f"streamed exact tier {rec:.4f} (limit {SCREEN_RECALL_MIN}); p50 single query "
+          f"{p50_1:.3f} ms, 64 queries {p50_64:.3f} ms (host clock) [{card}]", flush=True)
+    if rec < SCREEN_RECALL_MIN:
+        fail(f"the streamed screen's recall@10 {rec:.4f} is below {SCREEN_RECALL_MIN}")
+    out["streamed_screen"] = dict(build_s=build_s, recall=rec, p50_1=p50_1, p50_64=p50_64)
+    ix8._drop_stream()
+    del scr, ix8
+    torch.cuda.empty_cache()
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s; MemAvailable "
+          f"{mem_available_gib():.1f} GiB", flush=True)
+    return launches, out
+
+
+def phase_tiers_alone(torch, card):
+    """--tiers: phase 10 on what phases 3, 5 and 6 would hand it: the B/32
+    serving encoder's text embeddings, the L/14 int8 serving encoder and a
+    2^20-row int8 gallery with phase 5's and phase 6's planted rows."""
+    from image_retrieval_tpu_torch.config import (Config, IndexConfig, serving_config,
+                                                  vit_b32_serving, vit_l14)
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+
+    words_a = ["red", "blue", "green", "small", "old", "shiny", "dark", "wet"]
+    words_b = ["car", "dog", "house", "tree", "boat", "cat", "bridge", "clock"]
+    queries = [f"a photo of a {a} {b}" for a in words_a for b in words_b][:N_CLIENTS]
+    q_emb = CLIPEncoder(Config(model=vit_b32_serving()), seed=0).encode_texts(queries)
+    enc14 = CLIPEncoder(Config(model=serving_config(vit_l14()),
+                               index=IndexConfig(embedding_dim=768, dtype="int8")), seed=0)
+    emb14 = enc14.encode_texts(queries)
+    index14 = recording_index(ShardedVectorIndex)(dim=768, config=IndexConfig(
+        embedding_dim=768, dtype="int8", capacity_step=N5 + 65536))
+    pos, planted = planted_rows(emb14, np.random.default_rng(6), N5)
+    index14.insert([f"gallery/{i:07d}" for i in range(N5)],
+                   gallery_chunk(torch, 0, 768, pos, planted),
+                   np.random.default_rng(7).uniform(0.5, 4.0, N5).astype(np.float32),
+                   attrs={"bucket": np.arange(N5) % 8})
+    plant_rows(torch, index14, emb14, 62)
+    return phase_tiers(torch, card, enc14, index14, queries, q_emb)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--durable-child"]:  # phase 9's crashing server
         durable_child(*sys.argv[2:6])
@@ -4146,6 +4635,9 @@ def main() -> int:
         print(f"phase 9 alone: K1 and K6 launches {phase_durable_alone(torch, card)}",
               flush=True)
         return 0
+    if sys.argv[1:] == ["--tiers"]:
+        print(f"phase 10 alone: K3 launches {phase_tiers_alone(torch, card)[0]}", flush=True)
+        return 0
     print_new_kernel_registers(lib_path)
     if sys.argv[1:] == ["--gemm-stages"]:
         check_fused_stage(torch, card)
@@ -4167,7 +4659,11 @@ def main() -> int:
     # phase 9 runs here, while phase 3's encoder and gallery and phase 5's
     # encoder are on the card
     k1_durable, k6_durable = phase_durable(torch, card, enc, enc14, index32, queries)
-    del enc, enc14, index32
+    del enc, index32
+    torch.cuda.empty_cache()
+    # phase 10 runs here, while phase 5's encoder and gallery are on the card
+    k3_streamed, tiers = phase_tiers(torch, card, enc14, index14, queries, q_emb)
+    del enc14
     torch.cuda.empty_cache()
     d_launches = phase_dense(torch, card, queries, index14)
     del index14
@@ -4255,12 +4751,17 @@ def main() -> int:
         {"name": "int4_screen", "route": "cuda",
          "source": "image_retrieval_tpu_torch/csrc/int4_screen.cu",
          "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:602",
-         "launches": int4_launches,
-         "max_abs_err": max(k3[1]["max_abs_err"], k3[64]["max_abs_err"]),
+         "launches": int4_launches + k3_streamed,
+         "max_abs_err": max(k3[1]["max_abs_err"], k3[64]["max_abs_err"],
+                            tiers["k3_chunk"][64]["max_abs_err"]),
          "ms": k3[64]["kernel"], "plain_ms": k3[64]["plain"], "bound_ms": k3[64]["bound_ms"],
          "bound_by": k3[64]["bound_by"], "library_ms": None, "shape": f"Q64 x {seg} rows x {d}",
          "q1_ms": k3[1]["kernel"], "q1_plain_ms": k3[1]["plain"],
-         "q1_bound_ms": k3[1]["bound_ms"]},
+         "q1_bound_ms": k3[1]["bound_ms"],
+         # phase 10: the streamed int4 tier's packed chunks, a segment each launch
+         "streamed_launches": k3_streamed,
+         "streamed_chunk_segment_ms": tiers["k3_chunk"][64]["kernel"],
+         "streamed_chunk_segment_plain_ms": tiers["k3_chunk"][64]["plain"]},
         dict(block_entry("attention_block_int8", "attention_block_int8.cu", 554,
                          l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
              **stage_entries(stages["attention_block_int8"])),

@@ -12,12 +12,14 @@ multi-metric pass, and how the lists overlap) and `serve` (an interactive
 loop over the micro-batching SearchServer). --journal-dir makes the index
 durable; --fake-encoder uses the deterministic projection encoder (no
 weights); --fast-encoder selects vit_b32_serving(), whose layers run the
-int8 whole-layer kernel. Everything runs on the card unless --device cpu is
-given. Options take dashes or underscores (--fake_encoder).
+int8 whole-layer kernel; --approx-select sets IndexConfig.approx_select
+(accepted; the answers are exact);
+--ann screen takes the candidates from a projection screen over the index
+(--screen-dims, --screen-candidates). Everything runs on the card unless
+--device cpu is given. Options take dashes or underscores (--fake_encoder).
 
 Not ported yet (each raises NotImplementedError naming ROADMAP.md): the
-`mi`, `geometric`, `analyze` and `plan` subcommands, --approx-select, and
---ann other than "exact".
+`mi`, `geometric`, `analyze` and `plan` subcommands and --ann ivf.
 """
 
 from __future__ import annotations
@@ -38,16 +40,19 @@ def _build_app(args):
     from image_retrieval_tpu_torch.app.pipeline import ImageSearchApp
     from image_retrieval_tpu_torch.models.encoder import get_encoder
 
-    if args.approx_select:
-        raise _not_ported("--approx-select (approximate selection)")
-    if args.ann != "exact":
-        raise _not_ported(f"--ann {args.ann} (the IVF and screened candidate tiers)")
+    if args.ann == "ivf":
+        raise _not_ported("--ann ivf (the IVF candidate tier)")
     encoder = get_encoder(fake=True) if args.fake_encoder else None
     app = ImageSearchApp(encoder=encoder, journal_dir=args.journal_dir, device=args.device)
     if args.fast_encoder and not args.fake_encoder:
         from image_retrieval_tpu_torch.config import vit_b32_serving
 
         app.config.model = vit_b32_serving()
+    if args.approx_select:
+        app.config.index.approx_select = True
+    app.config.search.ann = args.ann
+    app.config.search.screen_dims = args.screen_dims
+    app.config.search.screen_candidates = args.screen_candidates
     paths = app.scan_folders(args.folder)
     if not paths:
         print(f"No images found under {args.folder}", file=sys.stderr)
@@ -130,7 +135,9 @@ def cmd_serve(args) -> int:
     if index is None or len(index) == 0:
         print("No images produced any embeddings - nothing to serve.")
         return 1
-    with SearchServer(app._get_encoder(), index, max_batch=args.max_batch) as server:
+    with SearchServer(app._get_encoder(), index, max_batch=args.max_batch,
+                      ann=app._ensure_ann(index),
+                      overfetch=app.config.search.overfetch) as server:
         print(f"Serving {len(index)} vectors. Enter queries (blank line to exit).")
         while True:
             try:
@@ -175,9 +182,15 @@ def make_parser() -> argparse.ArgumentParser:
         flag(sp, "device", default="cuda",
              help="Device of the index and the encoder: cuda (default) or cpu")
         flag(sp, "approx-select", action="store_true",
-             help="Approximate selection (not ported yet)")
+             help="IndexConfig.approx_select: accepted, the answers are exact "
+                  "(the JAX package's approximate selector is exact off a TPU)")
         flag(sp, "ann", choices=("exact", "ivf", "screen"), default="exact",
-             help="Candidate generation; only exact is ported")
+             help="Candidate generation: the exact index, or a projection screen "
+                  "(int8 sketch sweep -> exact rerank); ivf is not ported yet")
+        flag(sp, "screen-dims", type=int, default=128,
+             help="--ann screen: the sketch's width")
+        flag(sp, "screen-candidates", type=int, default=128,
+             help="--ann screen: candidates per query reranked exactly")
 
     sp = sub.add_parser("search", help="Text or image search over an image folder")
     common(sp)

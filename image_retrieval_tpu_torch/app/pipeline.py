@@ -9,12 +9,14 @@ and answers text queries (``search_images``), image queries
 ``journal_dir`` the index is durable (``ShardedVectorIndex.open``): rows are
 recovered from the directory, only new paths are encoded, every insert is
 flushed before the index is used, and ``checkpoint()`` seals the log.
+``SearchConfig.ann = "screen"`` takes the candidates of text and image
+queries from a ScreenedSearch over the index (rebuilt when the index or the
+screen's settings change), reranked exactly.
 
 The encoder is built once and reused; nothing falls back to another
 encoder or to the CPU when it cannot be built. Not ported yet (each raises
-NotImplementedError naming ROADMAP.md): the ANN candidate tiers
-(``SearchConfig.ann`` other than "exact"), the MI analyses and their
-visualizations, and ``run_color_analysis``.
+NotImplementedError naming ROADMAP.md): ``SearchConfig.ann = "ivf"``, the MI
+analyses and their visualizations, and ``run_color_analysis``.
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ class ImageSearchApp:
         self.searcher = SimpleSearcher()
         self._index: Optional[ShardedVectorIndex] = None
         self._index_dirty = True
+        self._ann = None  # the ANN tier of SearchConfig.ann, built on first use
+        self._ann_key = None  # (index generation, ann settings) it was built from
 
     def _get_encoder(self) -> Encoder:
         if self.encoder is None:
@@ -216,6 +220,7 @@ class ImageSearchApp:
             self._index.insert(paths, np.stack([self.embeddings[p] for p in paths]),
                                attrs={"dir": self._dir_attrs(paths)})
             self._index_dirty = False
+            self._ann = None  # a new index: its ANN tier is built on demand
         return self._index
 
     def _ensure_journaled_index(self) -> Optional[ShardedVectorIndex]:
@@ -231,6 +236,7 @@ class ImageSearchApp:
                 self._index.insert(new, np.stack([self.embeddings[p] for p in new]),
                                    attrs={"dir": self._dir_attrs(new)})
                 self._index.flush()
+                self._ann = None
             self._index_dirty = False
         return self._index if len(self._index) else None
 
@@ -242,11 +248,22 @@ class ImageSearchApp:
             idx.checkpoint()
 
     def _ensure_ann(self, index: ShardedVectorIndex):
-        """The candidate tier of SearchConfig.ann: the exact index only."""
-        if self.config.search.ann != "exact":
-            raise _not_ported(f"SearchConfig.ann={self.config.search.ann!r} "
-                              "(the IVF and screened candidate tiers)")
-        return None
+        """The candidate tier of SearchConfig.ann: None for "exact" (or a
+        gallery with no live row), a ScreenedSearch for "screen", rebuilt
+        when the index's generation or the screen's settings change."""
+        sc = self.config.search
+        if sc.ann == "ivf":
+            raise _not_ported("SearchConfig.ann='ivf' (the IVF candidate tier)")
+        if sc.ann != "screen" or index is None or index.live_count == 0:
+            return None
+        key = (index.generation, sc.ann, sc.screen_dims, sc.screen_candidates)
+        if self._ann is None or self._ann_key != key:
+            from image_retrieval_tpu_torch.index.screen import ScreenedSearch
+
+            self._ann = ScreenedSearch.from_index(index, sketch_dims=sc.screen_dims,
+                                                  candidates=sc.screen_candidates)
+            self._ann_key = key
+        return self._ann
 
     # -- search --------------------------------------------------------------
 
@@ -295,28 +312,60 @@ class ImageSearchApp:
                              use_optimized_similarity: bool,
                              exclude_paths: frozenset = frozenset(),
                              filter_expr: Optional[str] = None) -> List[dict]:
-        """The ranking chain of text and image queries: the full score row
-        of the query (cosine or the weighted combination), abs() when
-        SearchConfig.rank_by_abs, tombstoned and filtered rows dropped after
-        abs(), the excluded paths skipped, top_k."""
-        self._ensure_ann(index)
+        """The ranking chain of text and image queries: the candidates (the
+        ANN tier's, overfetched, or the exact index's full score row of the
+        query), the optimized rerank, abs() when SearchConfig.rank_by_abs,
+        tombstoned and filtered rows dropped after abs(), the excluded paths
+        skipped, top_k. A filter rides the exact index."""
         k_eff = top_k + len(exclude_paths)
         metric = "optimized_similarity" if use_optimized_similarity else "cosine_similarity"
-        scores = index.scores(
-            q, metric=metric,
-            params=self.searcher.similarity_params if use_optimized_similarity else None)
+        ann = self._ensure_ann(index)
+        if filter_expr is not None and ann is not None:
+            logger.info("filter set: using the exact index, not the ANN")
+            ann = None
+        pool = None
+        if ann is not None:
+            from image_retrieval_tpu_torch.app.search import (
+                _all_metrics_rows,
+                _optimized_rows,
+                ann_valid_candidates,
+            )
+
+            limit = min(k_eff * self.config.search.overfetch, len(index))
+            qn = q / max(np.linalg.norm(q), 1e-12)
+            cos, cand = ann_valid_candidates(ann, index, qn, limit)
+            if self.config.search.rank_by_abs:
+                # abs-ranking also surfaces strongly negative cosines: the
+                # ANN candidates are the best descending, so probe the
+                # antipode too and take the union
+                ncos, ncand = ann_valid_candidates(ann, index, -qn, limit)
+                keep = ~np.isin(ncand, cand)
+                cand = np.concatenate([cand, ncand[keep]])
+                cos = np.concatenate([cos, -ncos[keep]])
+            if use_optimized_similarity:
+                rows = index.get_vectors(cand) * index.get_magnitudes(cand)[:, None]
+                scores = _optimized_rows(_all_metrics_rows(q, rows),
+                                         self.searcher.similarity_params)
+            else:
+                scores = cos
+            pool = np.asarray(cand)
+        else:
+            scores = index.scores(
+                q, metric=metric,
+                params=self.searcher.similarity_params if use_optimized_similarity else None)
         rank_scores = np.abs(scores) if self.config.search.rank_by_abs else scores
-        # scores() covers tombstoned rows too: drop them after abs(), where
-        # abs(-inf) would rank first; a filter drops its misses the same way
-        mask = (index.filter_mask(filter_expr) if filter_expr is not None
-                else index.live_mask())
-        rank_scores = np.where(mask, rank_scores, -np.inf)
+        if pool is None:
+            # scores() covers tombstoned rows too: drop them after abs(),
+            # where abs(-inf) would rank first; a filter drops its misses
+            mask = (index.filter_mask(filter_expr) if filter_expr is not None
+                    else index.live_mask())
+            rank_scores = np.where(mask, rank_scores, -np.inf)
         order = np.argsort(-rank_scores, kind="stable")[:k_eff]
         out = []
         for i in order:
             if not np.isfinite(rank_scores[i]):
                 continue
-            path = index.paths[int(i)]
+            path = index.paths[int(i if pool is None else pool[int(i)])]
             if path in exclude_paths:
                 continue
             out.append({"path": path, "score": float(rank_scores[i])})

@@ -6,8 +6,10 @@ threshold and dedup as the JAX searcher; ``search_by_image`` runs the same
 chain for an image query (a path, excluded from its own results, or pixels);
 ``search_with_multiple_metrics`` ranks the candidates by every metric on the
 host and compares the rankings. The query encodes run inside the
-``search/encode_text`` and ``search/encode_image`` trace ranges. The IVF
-candidate path (ann=) is not ported yet (ROADMAP.md).
+``search/encode_text`` and ``search/encode_image`` trace ranges. With
+``ann=`` (an ``index/screen.py::ScreenedSearch`` over the same rows) the
+unfiltered candidates come from that tier and the rerank stays exact; a
+filter rides the exact index.
 """
 
 from __future__ import annotations
@@ -72,6 +74,16 @@ def image_query(encoder: Encoder, image, size: int):
     return encoder.encode_pixels(preprocess_host(pixels, size=size)[None])[0], None
 
 
+def ann_valid_candidates(ann, index, q_unit: np.ndarray, limit: int):
+    """The valid candidates of an ANN tier for one unit query: (cosines,
+    index row ids) with its -1 padding slots dropped. Every ANN consumer
+    goes through this: a -1 id fed to index.paths or get_vectors would
+    silently read the last row."""
+    cos, idx = ann.search(q_unit, top_k=min(limit, len(index)))
+    valid = idx >= 0
+    return cos[valid], idx[valid]
+
+
 def _optimized_rows(m: Dict[str, np.ndarray], p: Dict[str, float]) -> np.ndarray:
     return (
         p.get("w_angle", 1.0) * m["cosine_similarity"]
@@ -83,14 +95,14 @@ def _optimized_rows(m: Dict[str, np.ndarray], p: Dict[str, float]) -> np.ndarray
 
 
 class TextImageSearcher:
-    """Text->image search over the exact index."""
+    """Text->image search over the exact index, or over an ANN tier's
+    candidates (`ann`, e.g. a ScreenedSearch over the same rows) with the
+    rerank exact."""
 
     def __init__(self, encoder: Encoder, index: ShardedVectorIndex, ann=None):
-        if ann is not None:
-            raise NotImplementedError(
-                "ann= (IVF candidates) is not ported yet (see ROADMAP.md)")
         self.encoder = encoder
         self.index = index
+        self.ann = ann
         self.similarity_params = dict(DEFAULT_SIMILARITY_PARAMS)
 
     def set_similarity_params(self, params: dict) -> None:
@@ -103,8 +115,14 @@ class TextImageSearcher:
         return self.encoder.encode_texts([text])[0]
 
     def _candidates(self, text_embedding: np.ndarray, limit: int, filter_expr=None):
-        """Cosine top-`limit` of the unit query: (scores, indices)."""
+        """Cosine top-`limit` of the unit query: (scores, indices), from the
+        ANN tier when one is set and no filter is (the ANN tiers do not see
+        attribute columns), else from the exact index."""
         qn = text_embedding / max(float(np.linalg.norm(text_embedding)), 1e-12)
+        if self.ann is not None and filter_expr is None:
+            return ann_valid_candidates(self.ann, self.index, qn, limit)
+        if self.ann is not None:
+            logger.info("filter set: using the exact index, not the ANN")
         return self.index.search(qn, top_k=min(limit, len(self.index)), flt=filter_expr)
 
     def search(self, text_query: str, top_k: int = 5,

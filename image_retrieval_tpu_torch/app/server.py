@@ -21,8 +21,15 @@ sweeps, their own path excluded. Live ingest and delete (``add_images``,
 ``remove_images``) change the serving index in place and call its
 ``flush()`` before they return, so with a journaled index
 (``ShardedVectorIndex.open``) an acknowledged insert or delete survives a
-crash. Not ported yet (ROADMAP.md): the IVF candidate path (ann=) and
-approximate selection.
+crash. ``approx`` (per request, or the server's ``approx_select``) is
+accepted and the answers are exact (the index's ``approx_select``). With
+``ann=`` (a ScreenedSearch over the same rows) unfiltered cosine and
+optimized requests take overfetched candidates from that tier, reranked
+exactly; the tier cannot follow a mutation, so ``add_images`` /
+``remove_images`` detach it before they change the index, and serving
+falls back to the exact sweep. A batch that took the tier just before is
+served by the exact sweep too: the tier's staleness is checked under the
+index's lock.
 """
 
 from __future__ import annotations
@@ -64,12 +71,16 @@ class SearchServer:
     """Thread-safe text-search server with request micro-batching."""
 
     def __init__(self, encoder: Encoder, index: ShardedVectorIndex,
-                 max_batch: int = 64, max_wait_ms: float = 2.0, ann=None):
-        if ann is not None:
-            raise NotImplementedError(
-                "ann= (IVF candidates) is not ported yet (see ROADMAP.md)")
+                 max_batch: int = 64, max_wait_ms: float = 2.0, ann=None,
+                 overfetch: int = 3, approx_select: Optional[bool] = None):
+        """`ann`: an ANN tier over the same rows (ScreenedSearch), whose
+        overfetched (x `overfetch`) candidates serve unfiltered cosine and
+        optimized requests. `approx_select` (and a request's `approx`):
+        accepted; the answers are exact."""
         self.encoder = encoder
         self.index = index
+        self.ann = ann
+        self.overfetch = overfetch
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
         self._queue: "queue.Queue[_Request]" = queue.Queue()
@@ -132,8 +143,11 @@ class SearchServer:
         a journaled index). Returns (inserted, failed)."""
         from image_retrieval_tpu_torch.app.embed import ImageEmbeddingSystem
 
+        image_paths = list(image_paths)
+        if image_paths:
+            self._detach_ann("insertions")
         emb = ImageEmbeddingSystem(self.encoder, index=self.index, attrs_fn=attrs_fn)
-        ok, failed = emb.process_and_store_images(list(image_paths), batch_size=batch_size)
+        ok, failed = emb.process_and_store_images(image_paths, batch_size=batch_size)
         self.index.flush()
         self.stats["ingested"] = self.stats.get("ingested", 0) + ok
         return ok, failed
@@ -142,11 +156,58 @@ class SearchServer:
         """Live delete: tombstone every row of these paths (the sweeps mask
         tombstones), flushed before this returns, so an acknowledged delete
         does not come back after a restart. Returns rows deleted."""
-        n = self.index.delete(list(image_paths))
+        image_paths = list(image_paths)
+        if image_paths:
+            self._detach_ann("deletions")
+        n = self.index.delete(image_paths)
         if n:
             self.index.flush()
         self.stats["removed"] = self.stats.get("removed", 0) + n
         return n
+
+    def _detach_ann(self, what: str) -> None:
+        """The ANN tier (a ScreenedSearch) goes stale on a mutation and would
+        raise on every later search: serve from the exact sweep."""
+        ann, self.ann = self.ann, None
+        if ann is not None:
+            logger.warning("the ANN tier (%s) cannot follow %s; detached: serving falls "
+                           "back to the exact sweep (rebuild and re-attach it)",
+                           type(ann).__name__, what)
+
+    def _ann_search(self, ann, q_unit, q_in, k, metric, params):
+        """Two-phase serving through the ANN tier `ann`: k x overfetch
+        cosine candidates, rows tombstoned since the tier was built dropped,
+        the optimized metric reranked exactly on the host. Padding slots
+        come back as (-inf, -1), which the result builder skips. None when
+        the index has changed since the tier was built (the caller sweeps
+        exactly); the index's lock keeps a mutation out until the
+        candidates are read."""
+        from image_retrieval_tpu_torch.app.search import _all_metrics_rows, _optimized_rows
+
+        with self.index._lock:
+            if getattr(ann, "stale", False):
+                return None
+            limit = min(k * self.overfetch, len(self.index))
+            cos, cand = ann.search(q_unit, top_k=limit)
+            live = self.index.live_mask()
+        if len(live):
+            dead = (cand >= 0) & ~live[np.clip(cand, 0, len(live) - 1)]
+            cos = np.where(dead, -np.inf, cos)
+            cand = np.where(dead, -1, cand)
+        width = min(k, limit)
+        vals = np.full((len(q_unit), width), -np.inf, np.float32)
+        idx = np.full((len(q_unit), width), -1, np.int64)
+        for r in range(len(q_unit)):
+            cr = cand[r][cand[r] >= 0]
+            if metric == "cosine_similarity":
+                m = min(width, len(cr))
+                vals[r, :m], idx[r, :m] = cos[r][cand[r] >= 0][:m], cr[:m]
+            elif len(cr):
+                rows = self.index.get_vectors(cr) * self.index.get_magnitudes(cr)[:, None]
+                s = _optimized_rows(_all_metrics_rows(q_in[r], rows), params or {})
+                order = np.argsort(-s, kind="stable")[:width]
+                vals[r, : len(order)], idx[r, : len(order)] = s[order], cr[order]
+        return vals, idx
 
     # -- client API ----------------------------------------------------------
 
@@ -165,21 +226,23 @@ class SearchServer:
 
     def search(self, query: str, top_k: int = 10, timeout: float = 30.0,
                metric: str = "cosine_similarity", weights: Optional[dict] = None,
-               flt: Optional[str] = None) -> List[dict]:
+               flt: Optional[str] = None, approx: Optional[bool] = None) -> List[dict]:
         """Blocking search; safe to call from many threads concurrently.
         Returns [{'path', 'score'}] best first.
 
         metric: "cosine_similarity" (default), another metric of the index,
         or "optimized_similarity" with the 5-weight params dict `weights`.
         flt: boolean attribute expression (index/filters.py); requests with
-        the same filter share a micro-batch group and the cached mask."""
+        the same filter share a micro-batch group and the cached mask.
+        approx: accepted; the answers are exact."""
         return self._wait(_Request(query=query, top_k=top_k, metric=metric,
                                    weights=self._weights(weights), flt=flt), timeout)
 
     def search_similar(self, image, top_k: int = 10, timeout: float = 30.0,
                        metric: str = "cosine_similarity",
                        weights: Optional[dict] = None, exclude_self: bool = True,
-                       flt: Optional[str] = None) -> List[dict]:
+                       flt: Optional[str] = None,
+                       approx: Optional[bool] = None) -> List[dict]:
         """Image-query search: encode `image` (a path or (H, W, 3) pixels)
         in the calling thread, then ride the micro-batched sweeps like a
         text request. A gallery path equal to the query path (or the same
@@ -204,8 +267,8 @@ class SearchServer:
 
     def search_many(self, queries: Sequence[str], top_k: int = 10,
                     timeout: float = 30.0, metric: str = "cosine_similarity",
-                    weights: Optional[dict] = None,
-                    flt: Optional[str] = None) -> List[List[dict]]:
+                    weights: Optional[dict] = None, flt: Optional[str] = None,
+                    approx: Optional[bool] = None) -> List[List[dict]]:
         """Enqueue all queries before waiting, so they share micro-batches.
         Results are in input order; per-request errors re-raise."""
         wt = self._weights(weights)
@@ -242,6 +305,13 @@ class SearchServer:
                 break
         return batch
 
+    @staticmethod
+    def _ann_serves(ann, metric: str, flt) -> bool:
+        """Whether the ANN tier `ann` answers a request: unfiltered cosine
+        and optimized ones (the tiers see no attribute columns)."""
+        return (ann is not None and flt is None
+                and metric in ("cosine_similarity", "optimized_similarity"))
+
     def _loop(self) -> None:
         while not self._stop.is_set():
             batch = self._collect()
@@ -263,6 +333,7 @@ class SearchServer:
                 groups: Dict[tuple, List[int]] = {}
                 for i, r in enumerate(batch):
                     groups.setdefault((r.metric, r.weights, r.flt), []).append(i)
+                ann = self.ann  # one read a batch: add_images may detach it
                 for (metric, weights, flt), rows in groups.items():
                     self.stats["groups"] += 1
                     try:
@@ -272,7 +343,9 @@ class SearchServer:
                         # the optimized metric scores the unnormalized query
                         q_in = embs[rows] if metric == "optimized_similarity" else qn[rows]
                         params = dict(zip(WEIGHT_KEYS, weights)) if weights is not None else None
-                        vals, idx = self.index.search(
+                        got = (self._ann_search(ann, qn[rows], q_in, k, metric, params)
+                               if self._ann_serves(ann, metric, flt) else None)
+                        vals, idx = got if got is not None else self.index.search(
                             q_in, top_k=min(k, len(self.index)), metric=metric,
                             params=params, flt=flt)
                         for row, i in enumerate(rows):

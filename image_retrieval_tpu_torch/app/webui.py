@@ -23,8 +23,11 @@ Endpoints:
     GET  /image?path=...            the image file (only paths in the index)
     GET  /stats                     JSON serving counters
 
-`approx` (approximate selection) is not ported: &approx=1 or
-"approx": true answers 400 naming ROADMAP.md.
+/search, /similar and /batch_search take `approx` (&approx=1/0, or
+"approx": true/false in the JSON body), as does the command line
+(--approx-select): validated and accepted, the answers are exact (the
+JAX package's approximate selector is exact off a TPU). --ann screen serves
+unfiltered queries from a projection screen over the index.
 """
 
 from __future__ import annotations
@@ -84,12 +87,6 @@ async function similar(p){
 _SEARCH_TIMEOUT_S = 120.0
 
 
-def _exact_only(approx) -> None:
-    """approx=True asks for approximate selection, which is not ported."""
-    if approx:
-        raise _not_ported("approximate selection (approx=1)")
-
-
 class _Handler(BaseHTTPRequestHandler):
     server_ctx = None  # set by serve()
 
@@ -131,10 +128,9 @@ class _Handler(BaseHTTPRequestHandler):
         raise ValueError(f"bad approx value {raw!r} (use 1/0)")
 
     def _metric_kwargs(self, qs):
-        _exact_only(self._parse_approx(qs))
         metric = (qs.get("metric") or ["cosine"])[0]
         flt = (qs.get("filter") or [None])[0] or None
-        kw = {"flt": flt, "timeout": _SEARCH_TIMEOUT_S}
+        kw = {"flt": flt, "approx": self._parse_approx(qs), "timeout": _SEARCH_TIMEOUT_S}
         if metric.startswith("optimized"):
             kw.update(metric="optimized_similarity", weights=self._parse_weights(qs))
         return kw
@@ -201,9 +197,8 @@ class _Handler(BaseHTTPRequestHandler):
                 approx = body.get("approx")
                 if approx is not None and not isinstance(approx, bool):
                     raise ValueError(f"bad approx value {approx!r} (use true/false)")
-                _exact_only(approx)
                 out = ctx["server"].search_many(list(body.get("queries") or []),
-                                                top_k=int(body.get("k", 10)),
+                                                top_k=int(body.get("k", 10)), approx=approx,
                                                 timeout=_SEARCH_TIMEOUT_S)
                 self._json(200, out)
             elif self.path == "/add":
@@ -246,13 +241,19 @@ def main(argv=None):
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8008)
     ap.add_argument("--ann", choices=("exact", "ivf", "screen"), default="exact",
-                    help="Candidate generation; only exact is ported")
+                    help="Candidate generation: the exact index or a projection "
+                         "screen; ivf is not ported yet")
+    ap.add_argument("--screen-dims", "--screen_dims", dest="screen_dims", type=int,
+                    default=128)
+    ap.add_argument("--screen-candidates", "--screen_candidates", dest="screen_candidates",
+                    type=int, default=128)
     ap.add_argument("--approx-select", "--approx_select", dest="approx_select",
-                    action="store_true", help="Approximate selection (not ported yet)")
+                    action="store_true",
+                    help="Accepted for the JAX web UI's command line; the answers "
+                         "are exact")
     args = ap.parse_args(argv)
-    if args.ann != "exact":
-        raise _not_ported(f"--ann {args.ann} (the IVF and screened candidate tiers)")
-    _exact_only(args.approx_select)
+    if args.ann == "ivf":
+        raise _not_ported("--ann ivf (the IVF candidate tier)")
 
     from image_retrieval_tpu_torch.app.pipeline import ImageSearchApp
     from image_retrieval_tpu_torch.app.server import SearchServer
@@ -260,11 +261,16 @@ def main(argv=None):
 
     encoder = get_encoder(fake=True) if args.fake_encoder else None
     app = ImageSearchApp(encoder=encoder, journal_dir=args.journal_dir, device=args.device)
+    app.config.search.ann = args.ann
+    app.config.search.screen_dims = args.screen_dims
+    app.config.search.screen_candidates = args.screen_candidates
     app.process_images(app.scan_folders(args.folder))
     index = app._ensure_index()
     if index is None or len(index) == 0:
         raise SystemExit(f"no images found under {args.folder!r}: nothing to serve")
-    with SearchServer(app._get_encoder(), index) as srv:
+    with SearchServer(app._get_encoder(), index, ann=app._ensure_ann(index),
+                      overfetch=app.config.search.overfetch,
+                      approx_select=True if args.approx_select else None) as srv:
         httpd = serve(srv, index.paths, args.host, args.port)
         print(f"Serving {len(index)} images at http://{args.host}:{args.port}")
         try:

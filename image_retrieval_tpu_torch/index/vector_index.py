@@ -19,6 +19,21 @@ inserts cost one upload. ``IndexConfig.dtype`` picks the storage tier:
   reranked exactly on the device. ``rerank_device=True`` (latency mode)
   also keeps the int8 rows on the device and gathers there.
 
+``approx_select`` (or ``search(approx=True)``) and ``l1_shadow`` are
+accepted, journaled and saved, so configurations and journals of the JAX
+package open, and they change nothing: off a TPU the JAX package's
+approximate selector is exact, and its bf16 shadow gives the int8 weighted
+scores bit for bit, far slower than the kernel does
+(``parallel/collectives.py``).
+
+Past ``stream_threshold_bytes`` of device rows the int8 and int4 tiers
+stream: the rows stay in host RAM (pinned) and every cosine search sweeps
+them through the card in chunks (``index/streaming.py``; int4 chunks through
+the int4 screen kernel, then the exact rerank from the host int8 rows). The
+streamed tier is cosine-only: other metrics, ``multi_metric_topk`` and
+``scores`` raise ValueError there. A compact that brings the gallery back
+under the threshold returns it to the resident tier.
+
 Every tier takes attribute filters (``flt=``, ``index/filters.py``): the
 filter mask replaces the valid mask; when fewer rows match than top_k, the
 tail pads with (-inf, -1). Tombstoned and filtered rows score -inf before
@@ -44,9 +59,7 @@ the write-ahead journal of ``index/journal.py`` (``ops.jsonl``,
 ``flush`` is the durability barrier and ``checkpoint`` seals the log into a
 snapshot.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP.md):
-approximate selection, ``l1_shadow``, the streamed beyond-HBM tier and
-multi-device sharding.
+Not ported yet (ROADMAP.md): multi-device sharding.
 """
 
 from __future__ import annotations
@@ -72,10 +85,9 @@ from image_retrieval_tpu_torch.device import (
     resolve_device,
 )
 from image_retrieval_tpu_torch.index.filters import AttributeStore, parse_filter
-from image_retrieval_tpu_torch.ops.int4 import quantize_pack_int4, rerank_int8_topk
+from image_retrieval_tpu_torch.ops.int4 import quantize_pack_int4, rerank_int8_topk, unit_queries
 from image_retrieval_tpu_torch.ops.metrics import WEIGHT_KEYS
 from image_retrieval_tpu_torch.parallel.collectives import (
-    _not_ported,
     sharded_int4_screen_topk,
     sharded_int4_two_phase_topk,
     sharded_multimetric_topk,
@@ -89,7 +101,9 @@ DTYPES = ("float32", "bfloat16", "int8", "int4")
 # Rows per task of the host quantization. Every step of it is row-wise, so
 # its bits do not depend on how the rows are split; a large insert spreads
 # the tasks over the host's cores (numpy releases the GIL in its loops).
-QUANT_ROWS = 1 << 16
+# Tasks of 2^13 rows keep a task's temporaries (16 MiB at D = 512) in the
+# allocator's reused memory instead of fresh pages for every task.
+QUANT_ROWS = 1 << 13
 
 
 def _config_from_saved(saved: dict) -> IndexConfig:
@@ -126,12 +140,27 @@ def quantize_int8(unit: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Symmetric per-row int8 on the absmax/127 grid, with the
     norm-preserving scale ||int8 row|| * scale == ||unit row||, exactly as
     the JAX index's insert computes it. Returns (int8 rows, f32 scales)."""
-    absmax = np.maximum(np.abs(unit).max(axis=1), 1e-12)
+    t = np.abs(unit)
+    absmax = np.maximum(t.max(axis=1), 1e-12)
     grid = (absmax / 127.0).astype(np.float32)
-    qrows = np.clip(np.rint(unit / grid[:, None]), -127, 127).astype(np.int8)
-    qnorm = np.linalg.norm(qrows.astype(np.float32), axis=1)
+    # the grid values, rounded and clipped, in place in one f32 buffer: they
+    # are the int8 rows exactly, so their norm is the int8 rows' norm
+    np.divide(unit, grid[:, None], out=t)
+    np.clip(np.rint(t, out=t), -127, 127, out=t)
+    qnorm = np.linalg.norm(t, axis=1)
     unorm = np.linalg.norm(unit, axis=1)
-    return qrows, (unorm / np.where(qnorm > 0, qnorm, 1.0)).astype(np.float32)
+    return t.astype(np.int8), (unorm / np.where(qnorm > 0, qnorm, 1.0)).astype(np.float32)
+
+
+def _host_zeros(shape, dtype, pinned: bool) -> np.ndarray:
+    """A zeroed host array, in pinned memory when `pinned`."""
+    if not pinned:
+        return np.zeros(shape, dtype)
+    from image_retrieval_tpu_torch.index.streaming import pinned_empty
+
+    out = pinned_empty(shape, dtype)
+    out.fill(0)
+    return out
 
 
 class ShardedVectorIndex:
@@ -143,12 +172,6 @@ class ShardedVectorIndex:
         self.config = config or IndexConfig(embedding_dim=dim)
         if self.config.dtype not in DTYPES:
             raise ValueError(f"IndexConfig.dtype={self.config.dtype!r}: one of {DTYPES}")
-        if self.config.stream_threshold_bytes is not None:
-            raise _not_ported("IndexConfig.stream_threshold_bytes (streamed tier)")
-        if self.config.approx_select:
-            raise _not_ported("IndexConfig.approx_select")
-        if self.config.l1_shadow:
-            raise _not_ported("IndexConfig.l1_shadow")
         if self.config.dtype == "int4" and dim % 2:
             raise ValueError(f"the int4 tier packs dim pairs: dim {dim} is odd")
         self._lock = threading.RLock()
@@ -177,6 +200,9 @@ class ShardedVectorIndex:
         self._packed = None  # (count, D/2) device uint8, int4 tier
         self._scales4 = None  # (count,) device f32, int4 tier
         self._device_dirty = True
+        # the streamed tier (stream_threshold_bytes): the engine over views
+        # of the host rows
+        self._stream = None
         # bumps on every mutation; the filter-mask cache and live_count key on it
         self.generation = 0
         self._live = (-1, 0)  # (generation, live rows)
@@ -209,11 +235,15 @@ class ShardedVectorIndex:
         cap = -(-n // step) * step
         if cap <= self.capacity:
             return
-        g = np.zeros((cap, self.dim), self._np_dtype)
+        # the rows the streamed tier would stream live in pinned host memory
+        # on the card's index: they then upload without a copy
+        pin = self.config.stream_threshold_bytes is not None and self.device.type == "cuda"
+        g = _host_zeros((cap, self.dim), self._np_dtype,
+                        pin and self.config.dtype == "int8")
         m = np.zeros((cap,), np.float32)
         v = np.zeros((cap,), bool)
         sc = np.ones((cap,), np.float32) if self._quantized else None
-        pk = np.zeros((cap, self.dim // 2), np.uint8) if self._packed4 else None
+        pk = _host_zeros((cap, self.dim // 2), np.uint8, pin) if self._packed4 else None
         sc4 = np.ones((cap,), np.float32) if self._packed4 else None
         if self.count:
             g[: self.count] = self._host_gallery[: self.count]
@@ -429,17 +459,41 @@ class ShardedVectorIndex:
                 "expect an out-of-memory error; use the capacity configuration "
                 "(rerank_device=False)", need / (1 << 30), free / (1 << 30), self.device)
 
+    def _stream_active(self) -> bool:
+        """Whether the stored device rows exceed stream_threshold_bytes: the
+        int8 rows, or for int4 the packed rows (plus the int8 rows in
+        latency mode). A compacted gallery that fits again is resident."""
+        thr = self.config.stream_threshold_bytes
+        if thr is None or self._host_gallery is None:
+            return False
+        if self._packed4:
+            row_bytes = (self.dim // 2 + self.dim if self.config.rerank_device
+                         else self.dim // 2)
+        else:
+            row_bytes = self._host_gallery.itemsize * self.dim
+        return self.count * row_bytes > thr
+
+    def _drop_stream(self) -> None:
+        if self._stream is not None:
+            self._stream.close()
+        self._stream = None
+
     def _sync_device(self) -> None:
         if not self._device_dirty or self._host_gallery is None:
             return
         n = self.count
+        # drop the old copies first: a re-upload never holds two galleries
+        self._drop_stream()
+        self._gallery = self._valid = self._scales = self._mags = None
+        self._packed = self._scales4 = None
+        if self._stream_active():
+            self._sync_streamed()
+            self._device_dirty = False
+            return
 
         def up(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(a[:n]).to(self.device)
 
-        # drop the old copies first: a re-upload never holds two galleries
-        self._gallery = self._valid = self._scales = self._mags = None
-        self._packed = self._scales4 = None
         self._valid = up(self._host_valid)
         if self._packed4:
             # capacity tier: the screen copy only; the int8 rows stay on the
@@ -461,6 +515,33 @@ class ShardedVectorIndex:
             if self._quantized:
                 self._scales = up(self._host_scales)
         self._device_dirty = False
+
+    def _sync_streamed(self) -> None:
+        """The streamed tier: an engine over views of the host buffers (no
+        copy of the gallery) and the valid mask on the device; tombstones
+        are masked in every sweep until compact(), as on the resident
+        tiers."""
+        from image_retrieval_tpu_torch.index import streaming
+
+        if not self._quantized:
+            raise ValueError(
+                "stream_threshold_bytes exceeded with dtype="
+                f"'{self.config.dtype}': the streamed tier requires int8 storage "
+                "(IndexConfig(dtype='int8')): streaming f32 would quadruple the "
+                "bytes every sweep moves")
+        n = self.count
+        rows, sc = self._host_gallery[:n], self._host_scales[:n]
+        self._valid = torch.from_numpy(self._host_valid[:n]).to(self.device)
+        if self._packed4:
+            # each sweep moves the packed rows; the int8 rows stay on the
+            # host as the exact-rerank source
+            self._stream = streaming.StreamingGallerySearch(
+                self._host_packed[:n], self._host_scales4[:n], streaming.CHUNK_ROWS,
+                self.device, packed4=True, rerank_rows=rows, rerank_scales=sc,
+                rerank_c=self.config.rerank_c)
+        else:
+            self._stream = streaming.StreamingGallerySearch(rows, sc, streaming.CHUNK_ROWS,
+                                                            self.device)
 
     @_locked
     def load(self) -> None:
@@ -521,12 +602,15 @@ class ShardedVectorIndex:
         ({"w_angle", "w_l1", "w_l2", "w_inf", "w_mag"}), computed against
         the magnitude-reconstructed stored vectors, for which the query is
         passed unnormalized. Similarities rank descending, distances
-        ascending. The int4 tier is cosine-only.
+        ascending. The int4 and streamed tiers are cosine-only.
 
         flt: an attribute expression or a (count,) bool mask; rows outside
         it never appear, and a tail the filter cannot fill pads with index
         -1 and the metric's worst score (-inf descending, +inf ascending):
-        check `idx < 0`, not the score."""
+        check `idx < 0`, not the score.
+
+        approx: this call's IndexConfig.approx_select; accepted, and the
+        answers are the exact ones on every tier (module docstring)."""
         if self.count == 0:
             raise ValueError("index is empty")
         if metric == "cosine":
@@ -535,10 +619,11 @@ class ShardedVectorIndex:
         # int8/int4 ones (exact in TF32) keep the same one rule
         require_full_f32(self.device)
         self._sync_device()
-        if self._packed4:  # cosine-only by design; ignores approx, as in JAX
+        # the streamed and int4 tiers are cosine-only by design
+        if self._stream is not None:
+            return self._search_streamed(queries, top_k, metric, flt)
+        if self._packed4:
             return self._search_int4(queries, top_k, metric, flt)
-        if approx:
-            raise _not_ported("search(approx=True)")
         valid = self._valid if flt is None else self._filtered_valid(flt)
         q, single = self._prep_queries(queries)
         weights = self._weights_tuple(params) if metric == "optimized_similarity" else None
@@ -599,6 +684,26 @@ class ShardedVectorIndex:
             return vals[0], idx[0]
         return vals, idx
 
+    def _search_streamed(self, queries, top_k: int, metric: str,
+                         flt=None) -> Tuple[np.ndarray, np.ndarray]:
+        """The streamed tier's cosine search (index/streaming.py): the unit
+        query as the resident int8 sweep forms it, so the answers equal the
+        resident tier's; tombstones and a filter become the engine's mask."""
+        if metric != "cosine_similarity":
+            raise ValueError(
+                f"metric '{metric}' is not available in the streamed beyond-HBM tier "
+                "(cosine only); raise stream_threshold_bytes for multi-metric search "
+                "at this scale")
+        q, single = self._prep_queries(queries)
+        mask = None
+        if flt is not None:
+            mask = self.filter_mask(flt)  # tombstones already out
+        elif self.live_count < self.count:
+            mask = self._host_valid[: self.count]
+        vals, idx = self._stream.search(unit_queries(q), top_k=min(top_k, self.live_count),
+                                        mask=mask)
+        return (vals[0], idx[0]) if single else (vals, idx)
+
     @_locked
     def multi_metric_topk(self, queries: np.ndarray, top_k: int = 5,
                           flt=None) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
@@ -608,11 +713,14 @@ class ShardedVectorIndex:
         `flt` filters rows like search()."""
         if self.count == 0:
             raise ValueError("index is empty")
+        require_full_f32(self.device)
+        self._sync_device()
+        if self._stream is not None:
+            raise ValueError("multi-metric search is not available in the streamed "
+                             "beyond-HBM tier; raise stream_threshold_bytes")
         if self._packed4:
             raise ValueError("multi-metric search is not available in the int4 "
                              "capacity tier (cosine-only); use dtype='int8'")
-        require_full_f32(self.device)
-        self._sync_device()
         valid = self._valid if flt is None else self._filtered_valid(flt)
         q, single = self._prep_queries(queries)
         with torch.inference_mode():
@@ -645,13 +753,16 @@ class ShardedVectorIndex:
         search()'s int8 fast paths at the int8/bf16 rounding level."""
         if self.count == 0:
             raise ValueError("index is empty")
-        if self._packed4:
-            raise ValueError("scores() is not available in the int4 capacity "
-                             "tier (two-phase top-k only); use dtype='int8'")
         if metric == "cosine":
             metric = "cosine_similarity"
         require_full_f32(self.device)
         self._sync_device()
+        if self._stream is not None:
+            raise ValueError("scores() materializes (Q, count): not available in the "
+                             "streamed beyond-HBM tier (use search())")
+        if self._packed4:
+            raise ValueError("scores() is not available in the int4 capacity "
+                             "tier (two-phase top-k only); use dtype='int8'")
         q, single = self._prep_queries(queries)
         weights = self._weights_tuple(params) if metric == "optimized_similarity" else None
         with torch.inference_mode():

@@ -25,6 +25,15 @@ Everything else is plain tensor operations in row blocks, as the JAX
 package leaves it to XLA: the f32/bf16 weighted score uses the direct L2
 (``fused_optimized_scores_xla(exact_l2=True)``), which the Gram-form
 kernels K4 and K7 do not compute.
+
+``selector="approx"`` (``IndexConfig.approx_select``) and ``shadow=`` (the
+bf16 ``l1_shadow`` rows) are accepted and change nothing. Off a TPU the JAX
+package's approximate selector lowers to an exact top-k, so its answers are
+the exact selector's; and its shadow scorer computes the int8 weighted
+score (bit for bit the plain version's on the CPU) in tensor operations over
+a bf16 copy of the gallery, 47 times K5's time at 64 queries on an NVIDIA
+H100 80GB HBM3, 700.00 W (ROADMAP.md). Every call here takes the exact path
+and K5.
 """
 
 from __future__ import annotations
@@ -170,13 +179,11 @@ def sharded_search_topk(queries: torch.Tensor, gallery: torch.Tensor,
     (w_angle, w_l1, w_l2, w_inf, w_mag) when metric is
     "optimized_similarity"; scales the (N,) int8 norm-preserving scales.
     Similarities rank descending, distances ascending; equal scores by
-    ascending row. Returns (values (Q, kk) f32, indices (Q, kk) int64),
-    kk = min(k, N). `selector="approx"` and the bf16 `shadow` are not
-    ported (ROADMAP.md)."""
-    if selector != "exact":
-        raise _not_ported(f"selector={selector!r} (approximate selection)")
-    if shadow is not None:
-        raise _not_ported("the l1_shadow gallery")
+    ascending row. `shadow` and selector "approx" are accepted and give the
+    exact answers (module docstring). Returns (values (Q, kk) f32, indices
+    (Q, kk) int64), kk = min(k, N)."""
+    if selector not in ("exact", "approx"):
+        raise ValueError(f"selector must be 'exact' or 'approx', got {selector!r}")
     require_full_f32(gallery.device)
     descending = metric in DESCENDING_METRICS
     scores = _masked_shard_scores(queries, gallery, valid, mags, scales, metric, weights,

@@ -417,6 +417,40 @@ def test_cli_compare_matches_the_jax_cli(gallery, tmp_path, monkeypatch, capsys)
     assert tail(mine) == tail(ref)
 
 
+@pytest.mark.parametrize("cmd,extra", [
+    ("search", ["a red square", "--ann", "screen", "--screen-candidates", "16"]),
+    ("search", ["a red square", "--ann", "screen", "--screen-dims", "8", "--optimized"]),
+    ("search", ["--approx-select", "a red square"]),
+    ("compare", ["--approx-select", "a red square", "--top-k", "4"]),
+])
+def test_cli_ann_screen_and_approx_select_match_the_jax_cli(gallery, tmp_path, monkeypatch,
+                                                            capsys, cmd, extra):
+    """--ann screen (candidates from the projection screen, reranked) and
+    --approx-select: the JAX CLI's answers on the same folder."""
+    monkeypatch.chdir(tmp_path)
+    folder, _ = gallery
+    mine, ref = _run_both([cmd, "--folder", str(folder), "--fake-encoder"] + extra, capsys)
+    got, want = _hits(mine), _hits(ref)
+    assert got and [p for _, p in got] == [p for _, p in want]
+    np.testing.assert_allclose([s for s, _ in got], [s for s, _ in want], atol=SCORE_ATOL)
+
+
+def test_cli_serve_with_ann_screen(gallery, tmp_path, monkeypatch, capsys):
+    """serve --ann screen: the server takes its candidates from the screen;
+    over 13 rows the pool covers them all, so the exact server's answers."""
+    monkeypatch.chdir(tmp_path)
+    folder, _ = gallery
+    out = []
+    for ann in ("screen", "exact"):
+        lines = iter(["a red square", ""])
+        monkeypatch.setattr("builtins.input", lambda prompt: next(lines))
+        assert cli.main(["serve", "--folder", str(folder), "--fake-encoder", "--device",
+                         "cpu", "--ann", ann, "--top-k", "3"]) == 0
+        out.append(_hits(capsys.readouterr().out))
+    assert len(out[0]) == 3 and [p for _, p in out[0]] == [p for _, p in out[1]]
+    np.testing.assert_allclose([s for s, _ in out[0]], [s for s, _ in out[1]], atol=1e-5)
+
+
 def test_cli_journal_dir_grid_and_serve(gallery, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     folder, _ = gallery
@@ -506,15 +540,27 @@ def test_webui_json_matches_the_jax_webui(web_pair):
 
 
 def test_webui_client_errors_and_approx(web_pair):
-    (mine, _), _ = web_pair
-    for tail in ("/search?q=brown&k=3&approx=exact", "/search?q=brown&k=3&approx=1",
+    """Malformed requests answer 400; approx=1 (the approximate selector)
+    answers as the JAX web UI does."""
+    (mine, ref), paths = web_pair
+    for tail in ("/search?q=brown&k=3&approx=exact", "/search?q=brown&k=3&approx=maybe",
                  "/search?q=brown&k=3&filter=nope%20%3D%3D", "/search?q=%20&k=3"):
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(mine + tail)
         assert e.value.code == 400
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(mine + "/batch_search", {"queries": ["a"], "approx": True})
-    assert e.value.code == 400 and "ROADMAP.md" in e.value.read().decode()
+        _post(mine + "/batch_search", {"queries": ["a"], "approx": "yes"})
+    assert e.value.code == 400
+    q = urllib.parse.quote(paths[1])
+    for tail in ("/search?q=brown&k=3&approx=1", f"/similar?path={q}&k=3&approx=1",
+                 "/search?q=brown&k=4&metric=optimized&w_l1=1&approx=true"):
+        got, want = _get(mine + tail), _get(ref + tail)
+        assert [h["path"] for h in got] == [h["path"] for h in want]
+        np.testing.assert_allclose([h["score"] for h in got], [h["score"] for h in want],
+                                   atol=1e-5)
+    body = {"queries": ["brown", "shape"], "k": 2, "approx": True}
+    got, want = _post(mine + "/batch_search", body), _post(ref + "/batch_search", body)
+    assert [[h["path"] for h in r] for r in got] == [[h["path"] for h in r] for r in want]
 
 
 def test_webui_live_add_and_remove(tmp_path):

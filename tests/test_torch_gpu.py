@@ -1943,3 +1943,135 @@ def test_encoder_in_flight_equals_window_of_one_on_the_card(cuda):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got_t, want_t)
     np.testing.assert_array_equal(enc.encode_pixels(batches[4][1]), got[4][1])
+
+
+# ---- the streamed tier and the screen (index/streaming.py, index/screen.py) ----
+
+
+def _unit_rows(rng, n, d):
+    rows = rng.normal(size=(n, d)).astype(np.float32)
+    return rows / np.linalg.norm(rows, axis=1, keepdims=True)
+
+
+def test_streamed_packed_chunks_through_k3_match_plain(cuda):
+    """A packed4 engine on the card screens each chunk with K3 (one launch a
+    2^21-row segment of a chunk), against the same engine on the CPU (the
+    plain screen): scores within SCREEN_MAX_ABS, ids equal but for near
+    ties; with a mask too."""
+    from image_retrieval_tpu_torch.index.streaming import StreamingGallerySearch
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+    from image_retrieval_tpu_torch.ops.int4 import quantize_pack_int4
+
+    rng = np.random.default_rng(31)
+    n, d = 5000, 512
+    pk, sc4 = quantize_pack_int4(_unit_rows(rng, n, d))
+    q = _unit_rows(rng, 7, d)
+    mask = rng.random(n) < 0.6
+    for m in (None, mask):
+        dev = StreamingGallerySearch(pk, sc4, chunk_rows=1536, packed4=True)
+        before = k3.int4_screen_scores.launches
+        gv, gi = dev.search(q, top_k=40, mask=m)
+        assert k3.int4_screen_scores.launches == before + 4  # 3 x 1536 + 392
+        wv, wi = StreamingGallerySearch(pk, sc4, chunk_rows=1536, packed4=True,
+                                        device="cpu").search(q, top_k=40, mask=m)
+        assert float(np.abs(gv - wv).max()) <= k3.SCREEN_MAX_ABS
+        for r, c in zip(*np.nonzero(gi != wi)):
+            assert min(abs(wv[r, c] - wv[r, o]) for o in (c - 1, c + 1)
+                       if 0 <= o < 40) <= 2 * k3.SCREEN_MAX_ABS
+        if m is not None:
+            assert m[gi].all()
+        dev.close()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_streamed_tiers_match_resident_on_the_card(cuda, dtype, monkeypatch):
+    """The streamed int8 and int4 tiers on the card: the resident tiers'
+    answers over the same rows (int8: scores within 1e-6; int4: the exact
+    rerank's scores within 1e-6), filtered and after deletes too; the rows
+    the tier streams live in pinned host memory."""
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex, streaming
+
+    monkeypatch.setattr(streaming, "CHUNK_ROWS", 6000)  # several chunks, a ragged tail
+    rng = np.random.default_rng(32)
+    n, d = 20000, 256
+    rows = _unit_rows(rng, n, d)
+    q = np.concatenate([rows[[5, 17000]], _unit_rows(rng, 6, d)])
+    out = {}
+    for name, thr in (("streamed", 1), ("resident", None)):
+        ix = ShardedVectorIndex(dim=d, config=IndexConfig(
+            embedding_dim=d, dtype=dtype, rerank_c=64, stream_threshold_bytes=thr))
+        ix.insert([str(i) for i in range(n)], rows, attrs={"b": np.arange(n) % 3})
+        ix._sync_device()
+        if name == "streamed":
+            assert ix._stream is not None and len(ix._stream._chunks) == 4
+            streamed_rows = ix._host_packed if dtype == "int4" else ix._host_gallery
+            assert torch.from_numpy(streamed_rows).is_pinned()
+        res = [ix.search(q, top_k=10), ix.search(q, top_k=10, flt="b == 1")]
+        ix.delete_rows(np.arange(0, n, 7))
+        res.append(ix.search(q, top_k=10))
+        out[name] = res
+    for (gv, gi), (wv, wi) in zip(out["streamed"], out["resident"]):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-6)
+
+
+def test_double_buffer_waits_for_each_sweep(cuda):
+    """Small chunks and a sweep slowed on the compute stream: no chunk
+    buffer is refilled before the event of the sweep that read it (the
+    timeline's copy of chunk i starts after the sweep of chunk i - 2 ends),
+    the next upload still overlaps the current sweep, and the answers are
+    the CPU engine's."""
+    from image_retrieval_tpu_torch.index.streaming import StreamingGallerySearch, quantize_rows_int8
+
+    rng = np.random.default_rng(33)
+    q8, sc = quantize_rows_int8(_unit_rows(rng, 12000, 128))
+    q = _unit_rows(rng, 4, 128)
+    eng = StreamingGallerySearch(q8, sc, chunk_rows=1000)
+    sweep = eng._chunk_topk
+
+    def slow(*args):
+        torch.cuda._sleep(20_000_000)  # ~10 ms of the compute stream
+        return sweep(*args)
+
+    eng._chunk_topk = slow
+    eng.timeline = []
+    gv, gi = eng.search(q, top_k=20)
+    torch.cuda.synchronize()
+    tl = {ci: (b, start, end, swept) for ci, b, start, end, swept in eng.timeline}
+    assert len(tl) == 12 and {b for b, *_ in tl.values()} == {0, 1}
+    for ci in range(2, 12):
+        assert tl[ci][0] == tl[ci - 2][0]
+        assert tl[ci - 2][3].elapsed_time(tl[ci][1]) >= 0.0  # refilled after the sweep
+    overlapped = sum(tl[ci + 1][2].elapsed_time(tl[ci][3]) > 0 for ci in range(11))
+    assert overlapped >= 9  # upload i + 1 ended before sweep i did
+    wv, wi = StreamingGallerySearch(q8, sc, chunk_rows=1000, device="cpu").search(q, top_k=20)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-6)
+    assert torch.from_numpy(eng._rows).is_pinned()  # copied once into pinned memory
+    eng.close()
+
+
+def test_screen_on_the_card_matches_cpu(cuda):
+    """The projection screen, resident and streamed, on the card and on the
+    CPU: at full coverage both give the exact answers."""
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.index.screen import ScreenedSearch
+
+    rng = np.random.default_rng(34)
+    rows = _unit_rows(rng, 3000, 128)
+    q = _unit_rows(rng, 5, 128)
+    for thr in (None, 1):
+        out = []
+        for dev in (cuda, "cpu"):
+            ix = ShardedVectorIndex(dim=128, device=dev, config=IndexConfig(
+                embedding_dim=128, dtype="int8", stream_threshold_bytes=thr))
+            ix.insert([str(i) for i in range(3000)], rows)
+            scr = ScreenedSearch.from_index(ix, sketch_dims=32, candidates=3000)
+            assert scr.streamed == (thr is not None)
+            out.append(scr.search(q, top_k=10) + ix.search(q, top_k=10))
+        (gv, gi, ev, ei), (cv, ci, _, _) = out
+        np.testing.assert_array_equal(gi, ei)
+        np.testing.assert_array_equal(gi, ci)
+        np.testing.assert_allclose(gv, ev, rtol=0, atol=1e-6)

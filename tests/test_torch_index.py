@@ -12,6 +12,7 @@ from image_retrieval_tpu.ops import topk as jtopk
 from image_retrieval_tpu_torch.app import cli
 from image_retrieval_tpu_torch.app.search import TextImageSearcher
 from image_retrieval_tpu_torch.app.server import SearchServer
+from image_retrieval_tpu_torch.app.webui import main as webui_main
 from image_retrieval_tpu_torch.index import ShardedVectorIndex
 from image_retrieval_tpu_torch.models.encoder import FakeEncoder
 from image_retrieval_tpu_torch.ops import topk
@@ -131,34 +132,79 @@ def test_index_mutations_after_search_resync():
 
 @pytest.mark.parametrize("kwargs", [
     dict(config=IndexConfig(embedding_dim=8, dtype="int8", l1_shadow=True)),
-    dict(config=IndexConfig(embedding_dim=8, stream_threshold_bytes=1 << 20)),
+    dict(config=IndexConfig(embedding_dim=8, dtype="int8", stream_threshold_bytes=1 << 20)),
     dict(config=IndexConfig(embedding_dim=8, approx_select=True)),
 ])
-def test_unported_index_tiers_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardedVectorIndex(dim=8, device="cpu", **kwargs)
+def test_index_tier_options_match_jax(kwargs):
+    """The tier options that raised before they were ported build and answer
+    as the JAX index with the same configuration."""
+    rng = np.random.default_rng(14)
+    emb = rng.normal(size=(50, 8)).astype(np.float32)
+    mine = ShardedVectorIndex(dim=8, device="cpu", **kwargs)
+    ref = JaxIndex(dim=8, **kwargs)
+    for ix in (mine, ref):
+        ix.insert([f"r{i}" for i in range(50)], emb)
+    q = rng.normal(size=(3, 8)).astype(np.float32)
+    got, want = mine.search(q, top_k=5), ref.search(q, top_k=5)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
 
 
 def test_journal_not_ported(tmp_path):
-    """The journal is ported (tests/test_torch_journal.py); a directory whose
-    saved tier is one the port lacks (approximate selection, written by the
-    JAX package) still raises naming ROADMAP.md instead of opening as
-    another tier."""
-    ref = JaxIndex.open(str(tmp_path / "journal"),
-                        config=IndexConfig(embedding_dim=8, approx_select=True))
-    ref.insert(["a"], np.ones((1, 8), np.float32))
+    """A journal directory the JAX package wrote with approx_select (a tier
+    option the port once lacked) reopens in the port with that option and
+    the JAX index's answers."""
+    rng = np.random.default_rng(15)
+    emb = rng.normal(size=(40, 8)).astype(np.float32)
+    cfg = IndexConfig(embedding_dim=8, dtype="int8", approx_select=True)
+    ref = JaxIndex.open(str(tmp_path / "journal"), config=cfg)
+    ref.insert([f"r{i}" for i in range(40)], emb)
+    ref.delete(["r3"])
     ref.flush()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardedVectorIndex.open(str(tmp_path / "journal"), device="cpu")
+    mine = ShardedVectorIndex.open(str(tmp_path / "journal"), device="cpu")
+    assert mine.config.approx_select and mine.config.dtype == "int8"
+    q = rng.normal(size=(4, 8)).astype(np.float32)
+    got, want = mine.search(q, top_k=6), ref.search(q, top_k=6)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=2e-3)
     ShardedVectorIndex.open(str(tmp_path / "fresh"), device="cpu")  # a new directory opens
 
 
-def _collective(ix, **kwargs):
+@pytest.mark.parametrize("kwargs", [dict(selector="approx"),
+                                    dict(shadow=torch.ones(1, 8, dtype=torch.bfloat16))])
+def test_collective_options(kwargs):
+    """sharded_search_topk's approximate selector gives the exact answers;
+    a shadow is read only by the int8 weighted score (an f32 gallery's
+    cosine ignores it)."""
     from image_retrieval_tpu_torch.parallel.collectives import sharded_search_topk
 
+    ix = ShardedVectorIndex(dim=8, config=IndexConfig(embedding_dim=8), device="cpu")
+    ix.insert(["a", "b", "c"], np.eye(3, 8, dtype=np.float32))
     ix.load()
-    return sharded_search_topk(torch.ones(1, 8), ix._gallery, ix._valid, ix._mags, 1,
-                               **kwargs)
+    args = (torch.ones(1, 8), ix._gallery, ix._valid, ix._mags, 2)
+    got, want = sharded_search_topk(*args, **kwargs), sharded_search_topk(*args)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_searcher_and_server_take_an_ann_tier():
+    """ann= is accepted: any object with search(q_unit, top_k) -> (cos,
+    ids) serves the candidates; its -1 slots never reach a path."""
+
+    class Pool:
+        def search(self, q, top_k):
+            v = np.array([0.9, 0.5, -np.inf], np.float32)[:top_k]
+            i = np.array([2, 0, -1])[:top_k]
+            if np.ndim(q) == 2:  # a batch: one row of candidates a query
+                return np.tile(v, (len(q), 1)), np.tile(i, (len(q), 1))
+            return v, i
+
+    ix = ShardedVectorIndex(dim=8, config=IndexConfig(embedding_dim=8), device="cpu")
+    ix.insert(["a", "b", "c"], np.eye(3, 8, dtype=np.float32))
+    searcher = TextImageSearcher(FakeEncoder(dim=8), ix, ann=Pool())
+    hits = searcher.search("x", top_k=3, score_threshold=-1.0)
+    assert [h["path"] for h in hits] == ["c", "a"]
+    with SearchServer(FakeEncoder(dim=8), ix, ann=Pool(), overfetch=1) as srv:
+        assert [h["path"] for h in srv.search("x", top_k=3)] == ["c", "a"]
 
 
 def _app_with_ann(ix):
@@ -170,12 +216,6 @@ def _app_with_ann(ix):
 
 
 @pytest.mark.parametrize("call", [
-    lambda ix: ix.search(np.ones(8, np.float32), metric="l2_distance", approx=True),
-    lambda ix: _collective(ix, selector="approx"),
-    lambda ix: ix.search(np.ones(8, np.float32), approx=True),
-    lambda ix: _collective(ix, shadow=torch.ones(1, 8, dtype=torch.bfloat16)),
-    lambda ix: TextImageSearcher(FakeEncoder(dim=8), ix, ann=object()),
-    lambda ix: SearchServer(FakeEncoder(dim=8), ix, ann=object()),
     lambda ix: _app_with_ann(ix),
     lambda ix: cli.main(["mi", "--folder", ".", "--fake-encoder", "--device", "cpu"]),
     lambda ix: cli.main(["geometric", "--folder", ".", "--optimize"]),
@@ -183,8 +223,8 @@ def _app_with_ann(ix):
     lambda ix: cli.main(["plan", "--rows", "1000000"]),
     lambda ix: cli.main(["search", "--folder", ".", "--fake-encoder", "--device", "cpu",
                          "--ann", "ivf", "a query"]),
-    lambda ix: cli.main(["compare", "--folder", ".", "--fake-encoder", "--device", "cpu",
-                         "--approx-select", "a query"]),
+    lambda ix: webui_main(["--folder", ".", "--fake-encoder", "--device", "cpu", "--ann",
+                           "ivf"]),
 ])
 def test_unported_index_calls_raise(call):
     ix = ShardedVectorIndex(dim=8, config=IndexConfig(embedding_dim=8), device="cpu")

@@ -199,16 +199,128 @@ def test_int4_tier_and_unported_options_still_raise():
                  lambda: ix.multi_metric_topk(q, 1), lambda: ix.scores(q)):
         with pytest.raises(ValueError, match="int4 capacity tier"):
             call()
+    # the int4 tier ignores approx, as the JAX index does; approximate
+    # selection and the shadow are ported (test_approx_selection_matches_jax,
+    # test_l1_shadow_matches_the_int8_scorer_and_jax)
+    np.testing.assert_array_equal(ix.search(q, 2, approx=True)[1], ix.search(q, 2)[1])
     f32 = _pair("float32")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        f32.search(q, 1, "l1_distance", approx=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardedVectorIndex(dim=D, device="cpu",
-                           config=IndexConfig(embedding_dim=D, dtype="int8", l1_shadow=True))
+    np.testing.assert_array_equal(f32.search(q, 3, "l1_distance", approx=True)[1],
+                                  f32.search(q, 3, "l1_distance")[1])
+    assert ShardedVectorIndex(dim=D, device="cpu", config=IndexConfig(
+        embedding_dim=D, dtype="int8", l1_shadow=True)).config.l1_shadow
     empty = ShardedVectorIndex(dim=D, device="cpu")
     for call in (lambda: empty.multi_metric_topk(q), lambda: empty.scores(q)):
         with pytest.raises(ValueError, match="empty"):
             call()
+
+
+# ---- approximate selection and the l1_shadow gallery --------------------------
+
+
+_approx_built = {}
+
+
+def _approx_pair(dtype):
+    """The rows of _pair in an index with approx_select=True on each side."""
+    if dtype not in _approx_built:
+        _, _, q, emb = _pair(dtype)
+        cfg = IndexConfig(embedding_dim=D, dtype=dtype, capacity_step=128,
+                          approx_select=True)
+        mine = ShardedVectorIndex(dim=D, config=cfg, device="cpu")
+        ref = JaxIndex(dim=D, config=cfg)
+        for ix in (mine, ref):
+            ix.insert([f"img/{i:03d}" for i in range(N)], emb,
+                      attrs={"bucket": np.arange(N) % 4})
+            ix.delete_rows([20, 21])
+        _approx_built[dtype] = (mine, ref)
+    return _approx_built[dtype]
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("metric,weights", [("cosine_similarity", None), ("l2_distance", None),
+                                            ("optimized_similarity", "reference")])
+@pytest.mark.parametrize("dtype", TIERS)
+def test_approx_selection_matches_jax(dtype, metric, weights, filtered):
+    """IndexConfig(approx_select=True): the JAX index's answers (its
+    approx_max_k is exact off the TPU) and, bit for bit, the port's exact
+    selector's, also at k past the candidate set's 128 rows."""
+    exact, _, q, _ = _pair(dtype)
+    mine, ref = _approx_pair(dtype)
+    params = WEIGHTS[weights] if weights else None
+    flt = FILTER if filtered else None
+    live = set(range(N)) - {20, 21}
+    if filtered:
+        live = {i for i in live if i % 4 == 1}
+    for k in (K, 150):
+        got = mine.search(q, k, metric, params, flt=flt)
+        want = exact.search(q, k, metric, params, flt=flt)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+        atol = max(ATOL[dtype], 2e-3) if metric != "cosine_similarity" else ATOL[dtype]
+        _assert_topk(got, ref.search(q, k, metric, params, flt=flt), atol,
+                     metric in DESCENDING_METRICS, live)
+    # the per-call override, both ways
+    np.testing.assert_array_equal(exact.search(q, K, metric, params, approx=True)[1],
+                                  mine.search(q, K, metric, params, approx=False)[1])
+
+
+@pytest.mark.parametrize("descending", [True, False])
+def test_approx_collective_on_ties(descending):
+    """selector="approx" over a plane of exact ties at the candidate set's
+    boundary keeps the lowest rows, as the exact selector does."""
+    import torch
+
+    from image_retrieval_tpu_torch.parallel.collectives import sharded_search_topk
+
+    rng = np.random.default_rng(4)
+    g = np.round(rng.normal(size=(600, 8)), 0).astype(np.float32)  # many equal rows
+    g /= np.maximum(np.linalg.norm(g, axis=1, keepdims=True), 1e-6)
+    q = torch.from_numpy(np.round(rng.normal(size=(3, 8)), 0).astype(np.float32))
+    metric = "cosine_similarity" if descending else "l1_distance"
+    args = (q, torch.from_numpy(g), torch.ones(600, dtype=torch.bool), torch.ones(600), 40,
+            metric)
+    av, ai = sharded_search_topk(*args, selector="approx")
+    ev, ei = sharded_search_topk(*args)
+    np.testing.assert_array_equal(ai.numpy(), ei.numpy())
+    np.testing.assert_array_equal(av.numpy(), ev.numpy())
+    with pytest.raises(ValueError, match="selector"):
+        sharded_search_topk(*args, selector="hnsw")
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("weights", list(WEIGHTS))
+def test_l1_shadow_matches_the_int8_scorer_and_jax(weights, filtered):
+    """IndexConfig(l1_shadow=True) is accepted and builds no bf16 copy: the
+    weighted answers are bit for bit those of the index without it (the
+    int8 scorer) and the JAX index's with its shadow, also after a resync
+    and on the streamed tier."""
+    plain, _, q, emb = _pair("int8")
+    cfg = IndexConfig(embedding_dim=D, dtype="int8", capacity_step=128, l1_shadow=True)
+    mine = ShardedVectorIndex(dim=D, config=cfg, device="cpu")
+    ref = JaxIndex(dim=D, config=cfg)
+    for ix in (mine, ref):
+        ix.insert([f"img/{i:03d}" for i in range(N)], emb, attrs={"bucket": np.arange(N) % 4})
+        ix.delete_rows([20, 21])
+    flt = FILTER if filtered else None
+    got = mine.search(q, K, "optimized_similarity", WEIGHTS[weights], flt=flt)
+    assert mine.config.l1_shadow and not hasattr(mine, "_shadow")
+    want = plain.search(q, K, "optimized_similarity", WEIGHTS[weights], flt=flt)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].view(np.uint32), want[0].view(np.uint32))
+    live = {i for i in set(range(N)) - {20, 21} if not filtered or i % 4 == 1}
+    _assert_topk(got, ref.search(q, K, "optimized_similarity", WEIGHTS[weights], flt=flt),
+                 ATOL["int8"], True, live)
+    np.testing.assert_array_equal(mine.search(q, K, "l1_distance")[1],
+                                  plain.search(q, K, "l1_distance")[1])
+    for ix in (mine, ref):
+        ix.insert(["late"], emb[:1])  # a resync
+    _assert_topk(mine.search(q, K, "optimized_similarity", WEIGHTS[weights]),
+                 ref.search(q, K, "optimized_similarity", WEIGHTS[weights]),
+                 ATOL["int8"], True, set(range(N + 1)) - {20, 21})
+    streamed = ShardedVectorIndex(dim=D, device="cpu", config=IndexConfig(
+        embedding_dim=D, dtype="int8", l1_shadow=True, stream_threshold_bytes=1))
+    streamed.insert(["a", "b"], emb[:2])
+    assert streamed.search(emb[0], 1)[1][0] == 0 and streamed._stream is not None
 
 
 # ---- the server and the searcher, FakeEncoder on both sides ------------------
