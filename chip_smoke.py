@@ -32,6 +32,8 @@
                                             # and the gallery phases 3 and 5 would give it
     python3 chip_smoke.py --tiers           # build, then only phase 10 on the encoder
                                             # and the gallery phases 5 and 6 would give it
+    python3 chip_smoke.py --ivf             # build, then only phase 11 on the encoder
+                                            # and the gallery phases 3 and 6 would give it
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
@@ -234,6 +236,34 @@ Phases (any failure exits non-zero):
      sweep timed beside one chunk's upload (GB/s) and one chunk's sweep on
      the card, and expected_sweep_seconds from the two; the streamed screen
      over the int8 index (recall@10 >= 0.9, latency); MemAvailable.
+
+ 11. the IVF tier and the planner, run after phase 10 (its pinned rows
+     freed) on phase 3's encoder and f32 gallery with phase 6's planted rows.
+     A, the reference's deployment: IVFIndex.from_index(nlist=1024,
+     nprobe=10) over the f32 rows, its build timed in parts;
+     SearchServer(ann=ivf) answers 64 concurrent text queries (K1 counted:
+     12 launches a text batch) and TextImageSearcher(ann=ivf) four single
+     ones; every (score, id) against the float64 cosine of its row (1e-5)
+     and inside one of its query's probed clusters; recall@10 against the
+     exact f32 tier where the exact top-10 are planted rows (>= 0.9); p50
+     latencies beside the exact tier's; then 256 seeded JPEGs inserted
+     through SearchServer.add_images (the IVF stays attached, each of 16 is
+     its own best hit through the tail) and 256 rows removed (never returned
+     in a second wave). B, the operating point: 2^23 seeded clustered unit
+     rows (4,096 planted clusters, made on the card), recommended_ivf(2^23)
+     = (4096, 8) over int8 slabs with train_size 512k, the build timed in
+     parts and lmax printed; recall@10 and p50 latencies of one and of 64
+     queries against the exact int8 tier over the same rows; offload() (the
+     same answers bit for bit, the bytes uploaded for a 64-query batch),
+     save and load (the same answers). C, the planner: usable device memory,
+     the card's time for one query over 2^20 x 512 rows in f32, bf16, int8
+     and int4 (torch.profiler; the host clock's p50 printed beside it),
+     the int8 sweep rate at Q = 64 over B's gallery and the upload rate
+     (phase 10's), each beside index/plan.py's constant (more than 25% off
+     fails the phase once everything is printed); `cli plan` for 2^20, 2^23,
+     2^25 and 2^27 rows; tests/data/jax_ivf_int8.npz (an IVF the JAX package
+     saved) loaded on the card, resident and offloaded, answering as the JAX
+     package did.
 
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
@@ -3760,18 +3790,19 @@ def dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
-def work_root():
-    """TMPDIR, or the checkout when TMPDIR has less than 10 GB free (the
-    gallery-scale checkpoint peaks near 6 GB)."""
+def work_root(prefix="chip_smoke_durable_"):
+    """A new directory under TMPDIR, or under the checkout when TMPDIR has
+    less than 10 GB free (phase 9's gallery-scale checkpoint peaks near 6 GB,
+    phase 11's IVF save near 7 GB)."""
     import shutil
     import tempfile
 
     tmp = tempfile.gettempdir()
     free = {tmp: shutil.disk_usage(tmp).free, ".": shutil.disk_usage(".").free}
     root = tmp if free[tmp] >= 10e9 or free[tmp] >= free["."] else "."
-    print(f"phase 9 work directory under {os.path.abspath(root)} "
+    print(f"work directory under {os.path.abspath(root)} "
           f"({free[root] / 1e9:.1f} GB free)", flush=True)
-    return tempfile.mkdtemp(prefix="chip_smoke_durable_", dir=root)
+    return tempfile.mkdtemp(prefix=prefix, dir=root)
 
 
 def phase_durable(torch, card, enc, enc14, index32, queries):
@@ -4563,6 +4594,459 @@ def phase_tiers_alone(torch, card):
     return phase_tiers(torch, card, enc14, index14, queries, q_emb)
 
 
+# Phase 11: IVF over phase 3's f32 gallery (the reference's IVF_FLAT
+# deployment: nlist 1024, nprobe 10), its recall floor where the exact
+# top-10 are planted rows; 2^23 clustered rows (4,096 planted clusters) at
+# recommended_ivf's operating point; single-query samples; the planner's
+# constants held within PLAN_TOLERANCE of index/plan.py's.
+NLIST11, NPROBE11, IVF_ATOL11, IVF_RECALL_MIN11 = 1024, 10, 1e-5, 0.9
+N11, CLUSTERS11, TRAIN11, PIECE11 = 1 << 23, 4096, 512 << 10, 1 << 20
+N_ADD11, N_REMOVE11, SINGLES11 = 256, 256, 4
+PLAN_TOLERANCE = 0.25
+PLAN_ROWS11 = (1 << 20, 1 << 23, 1 << 25, 1 << 27)
+IVF_FIXTURE = os.path.join("tests", "data", "jax_ivf_int8.npz")
+IVF_FIXTURE_ANSWERS = os.path.join("tests", "data", "jax_ivf_int8_answers.npz")
+
+
+def ivf_clusters(ivf, n_rows):
+    """Row id -> its cluster (the slab it lies in), -1 for rows not packed."""
+    rid = ivf._row_ids.cpu().numpy()
+    cl = np.full(n_rows, -1, np.int64)
+    slots = np.flatnonzero(rid >= 0)
+    cl[rid[slots]] = slots // ivf._lmax
+    return cl
+
+
+def ivf_probes(torch, ivf, q, nprobe):
+    """The top-nprobe clusters of each query (lowest id first among ties)."""
+    from image_retrieval_tpu_torch.ops.int4 import unit_queries
+    from image_retrieval_tpu_torch.ops.topk import exact_topk
+
+    with torch.inference_mode():
+        qu = unit_queries(torch.from_numpy(np.atleast_2d(q).astype(np.float32)).cuda())
+        return exact_topk(qu @ ivf._centroids.t(), nprobe)[1].cpu().numpy()
+
+
+def check_ivf_hits(what, index, ivf, q_emb, hits, nprobe):
+    """Every (score, path) of hits[i] (served for query q_emb[i]) against
+    the float64 cosine of that row (IVF_ATOL11) and inside one of the
+    query's probed clusters or the IVF's tail. Returns (worst diff, ids
+    (Q, TOP_K), -1 pad)."""
+    import torch
+
+    path_id = {p: i for i, p in enumerate(index.paths)}
+    cl = ivf_clusters(ivf, len(index))
+    probes = ivf_probes(torch, ivf, q_emb, nprobe)
+    worst, ids = 0.0, np.full((len(hits), TOP_K), -1, np.int64)
+    for i, ans in enumerate(hits):
+        if not ans:
+            fail(f"{what}: query {i} got no hits")
+        got = np.array([path_id[h["path"]] for h in ans])
+        ids[i, : len(got)] = got[:TOP_K]
+        q = q_emb[i].astype(np.float64)
+        cos = index.get_vectors(got).astype(np.float64) @ (q / np.linalg.norm(q))
+        worst = max(worst, float(np.abs(cos - np.array([h["score"] for h in ans])).max()))
+        tail = got >= ivf.count - ivf.tail_count  # rows added since the build
+        outside = [int(j) for j, t in zip(got, tail) if not t and cl[j] not in probes[i]]
+        if outside:
+            fail(f"{what}: query {i} returned rows outside its {nprobe} probed clusters "
+                 f"and the tail: {outside[:5]}")
+    if worst > IVF_ATOL11:
+        fail(f"{what}: scores differ from the float64 cosine by {worst:.3g} "
+             f"(limit {IVF_ATOL11})")
+    return worst, ids
+
+
+def clustered_gallery(torch, n, d, clusters, seed):
+    """n seeded unit rows around `clusters` seeded unit centres (cosine to
+    the centre uniform in [0.4, 0.8]), made on the card in PIECE11-row
+    pieces and copied to the host. Returns (rows f32 (n, d), centres (C, d)
+    on the card, cluster of each row)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.nn.functional.normalize(
+        torch.randn(clusters, d, device="cuda", generator=g), dim=1)
+    member = torch.randint(0, clusters, (n,), device="cuda", generator=g)
+    rows = np.empty((n, d), np.float32)
+    for lo in range(0, n, PIECE11):
+        hi = min(lo + PIECE11, n)
+        torch.from_numpy(rows[lo:hi]).copy_(clustered_points(torch, centres, member[lo:hi], g))
+    return rows, centres, member.cpu().numpy()
+
+
+def clustered_points(torch, centres, member, g):
+    """Unit points at cosine U[0.4, 0.8] to their centres."""
+    d = centres.shape[1]
+    rho = torch.rand(len(member), 1, device="cuda", generator=g) * 0.4 + 0.4
+    noise = torch.randn(len(member), d, device="cuda", generator=g)
+    sigma = torch.sqrt((1.0 / rho ** 2 - 1.0) / d)
+    return torch.nn.functional.normalize(centres[member] + sigma * noise, dim=1)
+
+
+def offload_breakdown(torch, ivf, q):
+    """Where an offloaded search of the batch q goes (medians of 3, host
+    clock, each part ending synchronized): the probes on the card, the host
+    gather of the unique probed slabs into pinned memory on one thread,
+    their upload. Returns (parts, unique slabs)."""
+    from image_retrieval_tpu_torch.ops.int4 import unit_queries
+    from image_retrieval_tpu_torch.ops.topk import exact_topk
+
+    lmax, row = ivf._lmax, ivf._host_packed.shape[1]
+    qu = unit_queries(torch.from_numpy(q).cuda())
+    probe = [None]
+
+    def probes():
+        probe[0] = exact_topk(qu @ ivf._centroids.t(), ivf.nprobe)[1].cpu().numpy()
+
+    probe_ms = host_ms(probes, 3)
+    uniq = np.unique(probe[0])
+    staging = torch.empty((len(uniq), lmax * row), dtype=torch.int8, pin_memory=True)
+    gather_ms = host_ms(lambda: np.take(ivf._host_packed.reshape(-1, lmax * row), uniq, axis=0,
+                                        out=staging.numpy(), mode="clip"), 3)
+
+    def upload():
+        staging.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+
+    return {"probe": probe_ms, "gather": gather_ms, "upload": host_ms(upload, 3)}, len(uniq)
+
+
+def ivf_reference_deployment(torch, card, enc, index32, queries, q_emb):
+    """Phase 11 A: IVF_FLAT nlist 1024 / nprobe 10 over phase 3's f32 gallery
+    with phase 6's planted rows; the server and the searcher through it;
+    inserts and removals through the server. Returns (K1 launches, readings)."""
+    from image_retrieval_tpu_torch.app.search import TextImageSearcher
+    from image_retrieval_tpu_torch.app.server import SearchServer
+    from image_retrieval_tpu_torch.index.ivf import IVFIndex
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    t0 = time.perf_counter()
+    ivf = IVFIndex.from_index(index32, nlist=NLIST11, nprobe=NPROBE11)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    parts = ", ".join(f"{k} {v:.2f} s" for k, v in ivf.build_seconds.items())
+    print(f"IVF_FLAT over {index32.live_count} x {index32.dim} f32 rows: nlist {ivf.nlist}, "
+          f"nprobe {ivf.nprobe}, lmax {ivf._lmax} ({ivf._packed.numel() * 4 / 2**30:.2f} GiB "
+          f"of slabs on the card), built by IVFIndex.from_index in {out['build_s']:.2f} s "
+          f"({parts}) [{card}]", flush=True)
+
+    text_layers = enc.config.model.text_layers
+    server = SearchServer(enc, index32, max_batch=64, max_wait_ms=2.0, ann=ivf)
+    fa.layer_block_int8.launches = 0
+    answers, serve_s, batches = serve_wave(server, queries)
+    k1 = fa.layer_block_int8.launches
+    if k1 != text_layers * batches:
+        fail(f"the IVF server's text batches ran {k1} K1 launches, expected "
+             f"{text_layers} x {batches}")
+    worst, got = check_ivf_hits("SearchServer(ann=ivf)", index32, ivf, q_emb, answers, NPROBE11)
+    searcher = TextImageSearcher(enc, index32, ann=ivf)
+    singles = [searcher.search(queries[i], top_k=TOP_K, score_threshold=-1.0)
+               for i in range(SINGLES11)]
+    worst1, got1 = check_ivf_hits("TextImageSearcher(ann=ivf)", index32, ivf,
+                                  q_emb[:SINGLES11], singles, NPROBE11)
+    if not np.array_equal(got1, got[:SINGLES11]):
+        fail("the searcher's IVF answers differ from the server's")
+    qn = q_emb / np.linalg.norm(q_emb, axis=1, keepdims=True)
+    exact = index32.search(qn, TOP_K)[1]
+    planted = np.array([all(index32.paths[j].startswith(("self/", "near/")) for j in row)
+                        for row in exact])
+    rec = recall_at10(got[planted], exact[planted]) if planted.any() else float("nan")
+    out.update(recall=rec, planted_queries=int(planted.sum()))
+    ivf_1 = host_ms(lambda: ivf.search(qn[0], TOP_K), 20)
+    ivf_64 = host_ms(lambda: ivf.search(qn, TOP_K), 5)
+    ex_1 = host_ms(lambda: index32.search(qn[0], TOP_K), 20)
+    ex_64 = host_ms(lambda: index32.search(qn, TOP_K), 5)
+    out.update(p50_1=ivf_1, p50_64=ivf_64, exact_p50_1=ex_1, exact_p50_64=ex_64,
+               serve_s=serve_s)
+    print(f"SearchServer(ann=ivf): {N_CLIENTS} concurrent text queries in {serve_s:.3f} s "
+          f"({batches} micro-batches, {k1} K1 launches); TextImageSearcher(ann=ivf) "
+          f"{SINGLES11} single ones, the same answers; every (score, id) vs the float64 "
+          f"cosine of its row max diff {max(worst, worst1):.3g} (limit {IVF_ATOL11}), every "
+          f"id in one of its query's {NPROBE11} probed clusters; recall@10 vs the exact f32 "
+          f"tier over the {int(planted.sum())} queries whose exact top-10 are planted rows "
+          f"{rec:.4f} (limit {IVF_RECALL_MIN11}); p50 (host clock) one query IVF {ivf_1:.3f} "
+          f"ms vs exact {ex_1:.3f} ms, 64 queries IVF {ivf_64:.3f} ms vs exact {ex_64:.3f} ms "
+          f"[{card}]", flush=True)
+    if planted.sum() < N_CLIENTS // 2 or not rec >= IVF_RECALL_MIN11:
+        fail(f"IVF recall@10 {rec:.4f} over {int(planted.sum())} planted queries")
+
+    # live inserts and removals through the server: the IVF stays attached
+    import shutil
+    import tempfile
+
+    folder = tempfile.mkdtemp(prefix="chip_smoke_ivf_")
+    try:
+        paths = write_jpegs(folder, 0, N_ADD11, seed=1111)
+        first = len(index32)
+        fa.layer_block_int8.launches = 0
+        ok, failed = server.add_images(paths)
+        if ok != N_ADD11 or failed or server.ann is not ivf or ivf.tail_count != N_ADD11:
+            fail(f"add_images: {ok} inserted, {failed} failed, IVF attached "
+                 f"{server.ann is ivf}, tail {ivf.tail_count}")
+        server.start()
+        try:
+            found = [server.search_similar(p, top_k=TOP_K, exclude_self=False, timeout=300)
+                     for p in paths[:16]]
+        finally:
+            server.stop()
+        for p, hits in zip(paths, found):
+            if hits[0]["path"] != p or hits[0]["score"] < 0.999:
+                fail(f"an inserted image is not its own best hit through the IVF tail: "
+                     f"{p} -> {hits[0]}")
+        # the answers' best non-self rows, then seeded gallery rows
+        gone = sorted({index32.paths[j] for j in got[:, :4].ravel()
+                       if not index32.paths[j].startswith("self/")})[:N_REMOVE11]
+        extra = np.random.default_rng(113).choice(N_ROWS, N_REMOVE11, replace=False)
+        gone = list(dict.fromkeys(gone + [f"gallery/{i:07d}" for i in extra]))[:N_REMOVE11]
+        removed = server.remove_images(gone)
+        again, _, _ = serve_wave(server, queries)
+        k1 += fa.layer_block_int8.launches
+        if server.ann is not ivf or removed != len(gone):
+            fail(f"remove_images: {removed} of {len(gone)} removed, IVF attached "
+                 f"{server.ann is ivf}")
+        back = {h["path"] for ans in again for h in ans} & set(gone)
+        if back:
+            fail(f"removed rows returned by the IVF server: {sorted(back)[:3]}")
+        check_ivf_hits("SearchServer(ann=ivf) after removals", index32, ivf, q_emb, again,
+                       NPROBE11)
+        print(f"{ok} images inserted through SearchServer.add_images (rows {first}.."
+              f"{first + ok - 1}, the IVF attached with a tail of {ivf.tail_count} rows, each "
+              f"of 16 found first by its own image query); {removed} rows removed, never "
+              f"returned in a second wave of {N_CLIENTS}", flush=True)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    del ivf, server, searcher
+    torch.cuda.empty_cache()
+    return k1, out
+
+
+def ivf_operating_point(torch, card):
+    """Phase 11 B: 2^23 clustered rows at recommended_ivf's (4096, 8) int8
+    operating point against the exact int8 tier; offload, save / load.
+    Returns readings, among them the 2^20-row single-query samples of C."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.index.ivf import IVFIndex, recommended_ivf
+
+    d, out = 512, {}
+    t0 = time.perf_counter()
+    rows, centres, _ = clustered_gallery(torch, N11, d, CLUSTERS11, seed=111)
+    g = torch.Generator(device="cuda").manual_seed(112)
+    qc = torch.randint(0, CLUSTERS11, (N_CLIENTS,), device="cuda", generator=g)
+    qbatch = clustered_points(torch, centres, qc, g).cpu().numpy()
+    del centres
+    gen_s = time.perf_counter() - t0
+    exact = ShardedVectorIndex(dim=d, config=IndexConfig(embedding_dim=d, dtype="int8",
+                                                         capacity_step=N11))
+    t0 = time.perf_counter()
+    names = [f"c/{i:08d}" for i in range(N11)]
+    for lo in range(0, N11, 1 << 22):
+        exact.insert(names[lo: lo + (1 << 22)], rows[lo: lo + (1 << 22)])
+    exact.load()
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    del names
+    nlist, nprobe = recommended_ivf(N11)
+    t0 = time.perf_counter()
+    ivf = IVFIndex(nlist=nlist, nprobe=nprobe, dtype="int8").build(rows, train_size=TRAIN11)
+    build_s = time.perf_counter() - t0
+    parts = ", ".join(f"{k} {v:.2f} s" for k, v in ivf.build_seconds.items())
+    print(f"{N11} x {d} clustered unit rows ({CLUSTERS11} planted clusters) made on the card "
+          f"and copied to the host in {gen_s:.1f} s; the exact int8 tier over them in "
+          f"{insert_s:.1f} s; recommended_ivf({N11}) = ({nlist}, {nprobe}); IVFIndex int8, "
+          f"train_size {TRAIN11}, built in {build_s:.1f} s ({parts}), lmax {ivf._lmax} "
+          f"({ivf._packed.numel() / 2**30:.2f} GiB of slabs); MemAvailable "
+          f"{mem_available_gib():.1f} GiB [{card}]", flush=True)
+    got = ivf.search(qbatch, TOP_K)
+    want = exact.search(qbatch, TOP_K)
+    rec = recall_at10(got[1], want[1])
+    ivf_1 = host_ms(lambda: ivf.search(qbatch[0], TOP_K), 20)
+    ivf_64 = host_ms(lambda: ivf.search(qbatch, TOP_K), 5)
+    ex_1 = host_ms(lambda: exact.search(qbatch[0], TOP_K), 20)
+    ex_64 = host_ms(lambda: exact.search(qbatch, TOP_K), 9)
+    out.update(lmax=ivf._lmax, build_s=build_s, parts=ivf.build_seconds, recall=rec,
+               p50_1=ivf_1, p50_64=ivf_64, exact_p50_1=ex_1, exact_p50_64=ex_64,
+               sweep_gbps=N11 * (d + 4) / (ex_64 / 1e3) / 1e9)
+    print(f"IVF ({nlist}, {nprobe}) over {N11} clustered rows: recall@10 vs the exact int8 "
+          f"tier {rec:.4f}; p50 (host clock) one query IVF {ivf_1:.3f} ms vs exact "
+          f"{ex_1:.3f} ms, 64 queries IVF {ivf_64:.3f} ms vs exact {ex_64:.3f} ms "
+          f"(the exact sweep {out['sweep_gbps']:.1f} GB/s of int8 rows and scales) [{card}]",
+          flush=True)
+
+    ivf.offload()
+    torch.cuda.empty_cache()
+    off = ivf.search(qbatch, TOP_K)
+    moved = ivf.last_upload_bytes
+    if not (np.array_equal(off[1], got[1]) and np.array_equal(off[0], got[0])):
+        fail("the offloaded IVF's answers differ from the resident ones")
+    off_1 = host_ms(lambda: ivf.search(qbatch[0], TOP_K), 20)
+    off_64 = host_ms(lambda: ivf.search(qbatch, TOP_K), 5)
+    parts, slabs = offload_breakdown(torch, ivf, qbatch)
+    out.update(offload_p50_1=off_1, offload_p50_64=off_64, offload_bytes_64=moved,
+               offload_parts_64=parts)
+    print(f"offloaded ({ivf._host_packed.nbytes / 2**30:.2f} GiB of pinned host slabs): "
+          f"answers bit for bit the resident ones; p50 one query {off_1:.3f} ms, 64 queries "
+          f"{off_64:.3f} ms (host clock); {moved / 2**30:.3f} GiB uploaded for the 64-query "
+          f"batch ({slabs} unique slabs) vs {N11 * d / 2**30:.1f} GiB an exact streamed "
+          f"sweep moves; parts of the batch (one thread's gather): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f" [{card}]", flush=True)
+
+    folder = work_root("chip_smoke_ivf_")
+    try:
+        path = os.path.join(folder, "ivf.npz")
+        t0 = time.perf_counter()
+        ivf.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = IVFIndex.load(path)
+        load_s = time.perf_counter() - t0
+        again = back.search(qbatch, TOP_K)
+        if not (np.array_equal(again[1], got[1]) and np.array_equal(again[0], got[0])):
+            fail("the IVF loaded from its save answers differently")
+        print(f"save {save_s:.1f} s ({os.path.getsize(path) / 2**30:.2f} GiB npz), load "
+              f"{load_s:.1f} s (offloaded: {back._offloaded}), the same answers", flush=True)
+        del back
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    del ivf, exact
+    torch.cuda.empty_cache()
+
+    # C: one query at 2^20 x 512 in each storage type: the card's time (the
+    # p50 over five queries of torch.profiler's device time, four calls
+    # each) and the host clock's; recall vs f32
+    n = 1 << 20
+    singles, host_singles, recalls, f32_ids = {}, {}, {}, None
+    for dtype in ("float32", "bfloat16", "int8", "int4"):
+        cfg = IndexConfig(embedding_dim=d, dtype=dtype, capacity_step=n)
+        ix = ShardedVectorIndex(dim=d, config=cfg)
+        ix.insert([f"r/{i}" for i in range(n)], rows[:n])
+        ix.load()
+        ids = ix.search(qbatch, TOP_K)[1]
+        f32_ids = ids if dtype == "float32" else f32_ids
+        recalls[dtype] = recall_at10(ids, f32_ids)
+        dev = [device_ms(torch, lambda: ix.search(qbatch[j], TOP_K), calls=4) for j in range(5)]
+        if None in dev:
+            fail(f"torch.profiler recorded no device time for the {dtype} tier's search")
+        singles[dtype] = float(np.median(dev))
+        host_singles[dtype] = float(np.median([host_ms(lambda: ix.search(qbatch[j], TOP_K), 10)
+                                               for j in range(5)]))
+        del ix
+        torch.cuda.empty_cache()
+    out.update(single_ms=singles, single_host_ms=host_singles, dtype_recall=recalls)
+    del rows
+    return out
+
+
+def phase_ivf(torch, card, enc, index32, queries, q_emb, upload_gbps=None):
+    """Phase 11: the IVF tier and the planner. Returns (K1 launches, readings)."""
+    from image_retrieval_tpu_torch.app import cli
+    from image_retrieval_tpu_torch.index import plan as P
+    from image_retrieval_tpu_torch.index.ivf import IVFIndex
+
+    t_phase = time.perf_counter()
+    host_empty_cache = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty_cache is not None:  # pinned blocks the caching allocator keeps
+        host_empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    usable = free + torch.cuda.memory_reserved() - P.SEARCH_HEADROOM_BYTES
+    print(f"phase 11: MemAvailable {mem_available_gib():.1f} GiB; the card's memory "
+          f"{total / 2**30:.2f} GiB, free + held by this process's allocator "
+          f"{(usable + P.SEARCH_HEADROOM_BYTES) / 2**30:.2f} GiB", flush=True)
+    k1, ref = ivf_reference_deployment(torch, card, enc, index32, queries, q_emb)
+    op = ivf_operating_point(torch, card)
+
+    # the upload rate: phase 10's reading, else one 2^22 x 512 pinned chunk
+    if upload_gbps is None:
+        host = torch.empty((1 << 22, 512), dtype=torch.int8, pin_memory=True)
+        buf = torch.empty(host.shape, dtype=torch.int8, device="cuda")
+        ms = event_ms(torch, lambda: buf.copy_(host, non_blocking=True), samples=3, reps=1,
+                      warm=1)
+        upload_gbps = host.numel() / (ms / 1e3) / 1e9
+        del host, buf
+    measured = {"USABLE_HBM_BYTES": (usable, P.USABLE_HBM_BYTES),
+                "SWEEP_GBPS": (op["sweep_gbps"], P.SWEEP_GBPS),
+                "PCIE_GBPS": (upload_gbps, P.PCIE_GBPS)}
+    for dtype, ms in op["single_ms"].items():
+        measured[f"SINGLE_Q_MS_1M[{dtype}]"] = (ms, P.SINGLE_Q_MS_1M[dtype])
+    off = {}
+    for name, (m, c) in measured.items():
+        off[name] = abs(m - c) / c
+        print(f"planner constant {name}: measured {m:.8g}, index/plan.py {c:.8g} "
+              f"({100 * off[name]:.1f}% off, limit {100 * PLAN_TOLERANCE:.0f}%) [{card}]",
+              flush=True)
+    print("one query over 2^20 x 512 rows, host clock p50 (the card's time plus the host's "
+          "launches and synchronizations; not held): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in op["single_host_ms"].items()), flush=True)
+    for dtype, r in op["dtype_recall"].items():
+        print(f"planner RECALL_AT_10[{dtype}] = {P.RECALL_AT_10[dtype]} (the JAX package's, "
+              f"vs the f32 oracle); read here at 2^20 clustered rows vs the f32 tier: "
+              f"{r:.4f}", flush=True)
+    print(f"planner IVF_RECALL_CLUSTERED = {P.IVF_RECALL_CLUSTERED} (the JAX package's); read "
+          f"here at 2^23 clustered rows vs the exact int8 tier: {op['recall']:.4f}", flush=True)
+    for n in PLAN_ROWS11:
+        for extra in ([], ["--clustered"]):
+            print(f"$ cli plan --rows {n} {' '.join(extra)}", flush=True)
+            cli.main(["plan", "--rows", str(n), *extra])
+
+    # the JAX-written IVF fixture answers as the JAX package did
+    with np.load(IVF_FIXTURE_ANSWERS) as z:
+        q, want_v, want_i = z["queries"], z["scores"], z["ids"]
+    for offloaded in (False, True):
+        ivf = IVFIndex.load(IVF_FIXTURE)
+        if offloaded:
+            ivf.offload()
+        v, i = ivf.search(q, top_k=want_i.shape[1])
+        diff = float(np.abs(v - want_v).max())
+        if not np.array_equal(i, want_i) or diff > 1e-6:
+            fail(f"the JAX-written IVF ({'offloaded' if offloaded else 'resident'}) answers "
+                 f"differently: ids equal {np.array_equal(i, want_i)}, score diff {diff:.3g}")
+    print(f"{IVF_FIXTURE} (written by the JAX package: int8, replicas 2, a tail of "
+          f"{ivf.tail_count} rows, custom paths) loaded on the card, resident and offloaded: "
+          f"ids equal to the JAX answers, scores within {diff:.3g} (limit 1e-6)", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 11 took {seconds:.1f} s; MemAvailable {mem_available_gib():.1f} GiB",
+          flush=True)
+    bad = [n for n, o in off.items() if o > PLAN_TOLERANCE]
+    if bad:
+        fail(f"planner constants more than {100 * PLAN_TOLERANCE:.0f}% off the card's "
+             f"readings: {bad}")
+    return k1, {"reference": ref, "operating_point": op, "constants": measured,
+                "seconds": seconds}
+
+
+def phase_ivf_alone(torch, card):
+    """--ivf: phase 11 on what phases 3 and 6 would hand it: the B/32
+    serving encoder and its f32 gallery (256 encoded seeded images, N_ROWS
+    seeded unit rows) with phase 6's planted rows, all from seed 0."""
+    from image_retrieval_tpu_torch.config import Config, vit_b32_serving
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+
+    enc = CLIPEncoder(Config(model=vit_b32_serving()), seed=0)
+    words_a = ["red", "blue", "green", "small", "old", "shiny", "dark", "wet"]
+    words_b = ["car", "dog", "house", "tree", "boat", "cat", "bridge", "clock"]
+    queries = [f"a photo of a {a} {b}" for a in words_a for b in words_b][:N_CLIENTS]
+    images = np.random.default_rng(0).integers(0, 256, size=(N_IMAGES, 224, 224, 3),
+                                               dtype=np.uint8)
+    index32 = ShardedVectorIndex(dim=512)
+    index32.insert([f"images/{i:04d}.jpg" for i in range(N_IMAGES)], enc.encode_pixels(images))
+    grng = np.random.default_rng(1)
+    rows = grng.standard_normal((N_ROWS, 512), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    index32.insert([f"gallery/{i:07d}" for i in range(N_ROWS)], rows,
+                   grng.uniform(0.5, 4.0, N_ROWS).astype(np.float32),
+                   attrs={"bucket": np.arange(N_ROWS) % 8})
+    del rows
+    q_emb = enc.encode_texts(queries)
+    plant_rows(torch, index32, q_emb, 61)
+    return phase_ivf(torch, card, enc, index32, queries, q_emb)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--durable-child"]:  # phase 9's crashing server
         durable_child(*sys.argv[2:6])
@@ -4638,6 +5122,9 @@ def main() -> int:
     if sys.argv[1:] == ["--tiers"]:
         print(f"phase 10 alone: K3 launches {phase_tiers_alone(torch, card)[0]}", flush=True)
         return 0
+    if sys.argv[1:] == ["--ivf"]:
+        print(f"phase 11 alone: K1 launches {phase_ivf_alone(torch, card)[0]}", flush=True)
+        return 0
     print_new_kernel_registers(lib_path)
     if sys.argv[1:] == ["--gemm-stages"]:
         check_fused_stage(torch, card)
@@ -4659,11 +5146,16 @@ def main() -> int:
     # phase 9 runs here, while phase 3's encoder and gallery and phase 5's
     # encoder are on the card
     k1_durable, k6_durable = phase_durable(torch, card, enc, enc14, index32, queries)
-    del enc, index32
     torch.cuda.empty_cache()
     # phase 10 runs here, while phase 5's encoder and gallery are on the card
     k3_streamed, tiers = phase_tiers(torch, card, enc14, index14, queries, q_emb)
     del enc14
+    torch.cuda.empty_cache()
+    # phase 11 runs here, phase 10's pinned rows freed, on phase 3's encoder
+    # and gallery (with phase 6's planted rows)
+    k1_ivf, _ = phase_ivf(torch, card, enc, index32, queries, q_emb,
+                          upload_gbps=tiers["int8"]["h2d_gbps"])
+    del enc, index32
     torch.cuda.empty_cache()
     d_launches = phase_dense(torch, card, queries, index14)
     del index14
@@ -4745,7 +5237,8 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [
         block_entry("layer_block_int8", "layer_block_int8.cu", 772,
-                    launches + l14_launches["layer_block_int8"] + k1_durable, "b32-vision-B256",
+                    launches + l14_launches["layer_block_int8"] + k1_durable + k1_ivf,
+                    "b32-vision-B256",
                     {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
                      "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
         {"name": "int4_screen", "route": "cuda",

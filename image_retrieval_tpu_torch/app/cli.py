@@ -14,12 +14,14 @@ durable; --fake-encoder uses the deterministic projection encoder (no
 weights); --fast-encoder selects vit_b32_serving(), whose layers run the
 int8 whole-layer kernel; --approx-select sets IndexConfig.approx_select
 (accepted; the answers are exact);
---ann screen takes the candidates from a projection screen over the index
-(--screen-dims, --screen-candidates). Everything runs on the card unless
---device cpu is given. Options take dashes or underscores (--fake_encoder).
+--ann ivf takes the candidates from an IVF over the index (--nlist,
+--nprobe; 0 = auto), --ann screen from a projection screen (--screen-dims,
+--screen-candidates). `plan` prints the index tier for a corpus size
+(index/plan.py). Everything runs on the card unless --device cpu is given.
+Options take dashes or underscores (--fake_encoder).
 
 Not ported yet (each raises NotImplementedError naming ROADMAP.md): the
-`mi`, `geometric`, `analyze` and `plan` subcommands and --ann ivf.
+`mi`, `geometric` and `analyze` subcommands.
 """
 
 from __future__ import annotations
@@ -40,8 +42,6 @@ def _build_app(args):
     from image_retrieval_tpu_torch.app.pipeline import ImageSearchApp
     from image_retrieval_tpu_torch.models.encoder import get_encoder
 
-    if args.ann == "ivf":
-        raise _not_ported("--ann ivf (the IVF candidate tier)")
     encoder = get_encoder(fake=True) if args.fake_encoder else None
     app = ImageSearchApp(encoder=encoder, journal_dir=args.journal_dir, device=args.device)
     if args.fast_encoder and not args.fake_encoder:
@@ -51,6 +51,8 @@ def _build_app(args):
     if args.approx_select:
         app.config.index.approx_select = True
     app.config.search.ann = args.ann
+    app.config.search.nlist = args.nlist
+    app.config.search.nprobe = args.nprobe
     app.config.search.screen_dims = args.screen_dims
     app.config.search.screen_candidates = args.screen_candidates
     paths = app.scan_folders(args.folder)
@@ -152,6 +154,18 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_plan(args) -> int:
+    """Print the index tier plan_index picks for a corpus size."""
+    from image_retrieval_tpu_torch.index.plan import plan_index
+
+    plan = plan_index(
+        n_rows=args.rows, dim=args.dim, n_devices=args.devices,
+        recall_floor=args.recall_floor, clustered=args.clustered,
+        exact_scores=args.exact_scores, host_to_device_gbps=args.link_gbps)
+    print(plan.describe())
+    return 0
+
+
 def _unported(what):
     def cmd(args) -> int:
         raise _not_ported(what)
@@ -185,8 +199,16 @@ def make_parser() -> argparse.ArgumentParser:
              help="IndexConfig.approx_select: accepted, the answers are exact "
                   "(the JAX package's approximate selector is exact off a TPU)")
         flag(sp, "ann", choices=("exact", "ivf", "screen"), default="exact",
-             help="Candidate generation: the exact index, or a projection screen "
-                  "(int8 sketch sweep -> exact rerank); ivf is not ported yet")
+             help="Candidate generation: the exact index, an IVF over it (the "
+                  "reference's Milvus IVF_FLAT), or a projection screen (int8 "
+                  "sketch sweep -> exact rerank)")
+        flag(sp, "nlist", type=int, default=1024,
+             help="--ann ivf: clusters (reference ImageEmbeddingSystem.py:56-61); "
+                  "0 = recommended_ivf's operating point for the gallery (exact "
+                  "below its crossover)")
+        flag(sp, "nprobe", type=int, default=10,
+             help="--ann ivf: clusters probed per query (reference "
+                  "image_search.py:88); 0 = auto")
         flag(sp, "screen-dims", type=int, default=128,
              help="--ann screen: the sketch's width")
         flag(sp, "screen-candidates", type=int, default=128,
@@ -219,11 +241,31 @@ def make_parser() -> argparse.ArgumentParser:
     flag(sp, "max-batch", type=int, default=64)
     sp.set_defaults(fn=cmd_serve)
 
+    from image_retrieval_tpu_torch.index.plan import PCIE_GBPS
+
+    sp = sub.add_parser(
+        "plan", help="Pick the index tier for a corpus size (resident "
+                     "f32/bf16/int8/int4, streamed, offloaded IVF)")
+    flag(sp, "rows", type=int, required=True, help="corpus size in vectors")
+    flag(sp, "dim", type=int, default=512)
+    flag(sp, "devices", type=int, default=1, help="devices the rows shard over")
+    flag(sp, "recall-floor", type=float, default=0.98,
+         help="min recall@10 vs the f32 oracle; 1.0 forces exact tiers, 0.98 "
+              "admits int8/int4")
+    flag(sp, "clustered", action="store_true",
+         help="corpus has cluster structure (gates IVF tiers; IVF recall "
+              "collapses on i.i.d. data)")
+    flag(sp, "exact-scores", action="store_true",
+         help="require bit-faithful f32 similarity values (e.g. MI analysis)")
+    flag(sp, "link-gbps", type=float, default=PCIE_GBPS,
+         help="host->device GB/s for beyond-device-memory estimates (default: "
+              "this card's pinned upload rate)")
+    sp.set_defaults(fn=cmd_plan)
+
     # not ported yet: each takes any arguments and raises
     for name, what in (("mi", "mi subcommand (analysis/)"),
                        ("geometric", "geometric subcommand (analysis/)"),
-                       ("analyze", "analyze subcommand (app/workflow.py)"),
-                       ("plan", "plan subcommand (index/plan.py)")):
+                       ("analyze", "analyze subcommand (app/workflow.py)")):
         sp = sub.add_parser(name, help=f"the {what}: not ported yet")
         sp.set_defaults(fn=_unported(f"the CLI's {what}"), takes_any=True)
     return p

@@ -9,14 +9,16 @@ and answers text queries (``search_images``), image queries
 ``journal_dir`` the index is durable (``ShardedVectorIndex.open``): rows are
 recovered from the directory, only new paths are encoded, every insert is
 flushed before the index is used, and ``checkpoint()`` seals the log.
-``SearchConfig.ann = "screen"`` takes the candidates of text and image
-queries from a ScreenedSearch over the index (rebuilt when the index or the
-screen's settings change), reranked exactly.
+``SearchConfig.ann = "ivf"`` (an IVFIndex, the reference's Milvus IVF_FLAT;
+nlist / nprobe 0 = ``recommended_ivf``'s operating point) or ``"screen"``
+(a ScreenedSearch) takes the candidates of text and image queries from that
+tier over the index (rebuilt when the index or the tier's settings change),
+reranked exactly.
 
 The encoder is built once and reused; nothing falls back to another
 encoder or to the CPU when it cannot be built. Not ported yet (each raises
-NotImplementedError naming ROADMAP.md): ``SearchConfig.ann = "ivf"``, the MI
-analyses and their visualizations, and ``run_color_analysis``.
+NotImplementedError naming ROADMAP.md): the MI analyses and their
+visualizations, and ``run_color_analysis``.
 """
 
 from __future__ import annotations
@@ -249,20 +251,35 @@ class ImageSearchApp:
 
     def _ensure_ann(self, index: ShardedVectorIndex):
         """The candidate tier of SearchConfig.ann: None for "exact" (or a
-        gallery with no live row), a ScreenedSearch for "screen", rebuilt
-        when the index's generation or the screen's settings change."""
+        gallery with no live row), an IVFIndex for "ivf" (the reference's
+        Milvus IVF_FLAT, ImageEmbeddingSystem.py:56-61; nlist or nprobe 0 =
+        the recommended_ivf operating point, and the exact tier below its
+        crossover), a ScreenedSearch for "screen"; rebuilt when the index's
+        generation or the tier's settings change."""
         sc = self.config.search
-        if sc.ann == "ivf":
-            raise _not_ported("SearchConfig.ann='ivf' (the IVF candidate tier)")
-        if sc.ann != "screen" or index is None or index.live_count == 0:
+        if sc.ann not in ("ivf", "screen") or index is None or index.live_count == 0:
             return None
-        key = (index.generation, sc.ann, sc.screen_dims, sc.screen_candidates)
-        if self._ann is None or self._ann_key != key:
+        key = (index.generation, sc.ann, sc.nlist, sc.nprobe, sc.screen_dims,
+               sc.screen_candidates)
+        if self._ann is not None and self._ann_key == key:
+            return self._ann
+        if sc.ann == "screen":
             from image_retrieval_tpu_torch.index.screen import ScreenedSearch
 
             self._ann = ScreenedSearch.from_index(index, sketch_dims=sc.screen_dims,
                                                   candidates=sc.screen_candidates)
-            self._ann_key = key
+        else:
+            from image_retrieval_tpu_torch.index.ivf import IVFIndex, recommended_ivf
+
+            nlist, nprobe = sc.nlist, sc.nprobe
+            if nlist == 0 or nprobe == 0:
+                rec = recommended_ivf(index.live_count)
+                if rec is None:
+                    return None
+                nlist, nprobe = nlist or rec[0], nprobe or rec[1]
+            self._ann = IVFIndex.from_index(index, nlist=min(nlist, index.live_count),
+                                            nprobe=nprobe)
+        self._ann_key = key
         return self._ann
 
     # -- search --------------------------------------------------------------

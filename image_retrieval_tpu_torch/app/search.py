@@ -7,9 +7,10 @@ chain for an image query (a path, excluded from its own results, or pixels);
 ``search_with_multiple_metrics`` ranks the candidates by every metric on the
 host and compares the rankings. The query encodes run inside the
 ``search/encode_text`` and ``search/encode_image`` trace ranges. With
-``ann=`` (an ``index/screen.py::ScreenedSearch`` over the same rows) the
-unfiltered candidates come from that tier and the rerank stays exact; a
-filter rides the exact index.
+``ann=`` (an ``index/ivf.py::IVFIndex`` or an
+``index/screen.py::ScreenedSearch`` over the same rows) the unfiltered
+candidates come from that tier and the rerank stays exact; a filter rides
+the exact index.
 """
 
 from __future__ import annotations
@@ -96,8 +97,8 @@ def _optimized_rows(m: Dict[str, np.ndarray], p: Dict[str, float]) -> np.ndarray
 
 class TextImageSearcher:
     """Text->image search over the exact index, or over an ANN tier's
-    candidates (`ann`, e.g. a ScreenedSearch over the same rows) with the
-    rerank exact."""
+    candidates (`ann`, an IVFIndex or a ScreenedSearch over the same rows)
+    with the rerank exact."""
 
     def __init__(self, encoder: Encoder, index: ShardedVectorIndex, ann=None):
         self.encoder = encoder

@@ -23,13 +23,15 @@ sweeps, their own path excluded. Live ingest and delete (``add_images``,
 (``ShardedVectorIndex.open``) an acknowledged insert or delete survives a
 crash. ``approx`` (per request, or the server's ``approx_select``) is
 accepted and the answers are exact (the index's ``approx_select``). With
-``ann=`` (a ScreenedSearch over the same rows) unfiltered cosine and
-optimized requests take overfetched candidates from that tier, reranked
-exactly; the tier cannot follow a mutation, so ``add_images`` /
-``remove_images`` detach it before they change the index, and serving
-falls back to the exact sweep. A batch that took the tier just before is
-served by the exact sweep too: the tier's staleness is checked under the
-index's lock.
+``ann=`` (an IVFIndex or a ScreenedSearch over the same rows) unfiltered
+cosine and optimized requests take overfetched candidates from that tier,
+reranked exactly. An IVF follows mutations: ``add_images`` hands it the new
+rows (its exactly swept tail), and after ``remove_images`` its candidates of
+deleted rows are dropped. A tier without ``add`` (the screen) cannot follow
+a mutation, so ``add_images`` / ``remove_images`` detach it before they
+change the index, and serving falls back to the exact sweep; a batch that
+took it just before is served by the exact sweep too: the tier's staleness
+is checked under the index's lock.
 """
 
 from __future__ import annotations
@@ -73,9 +75,9 @@ class SearchServer:
     def __init__(self, encoder: Encoder, index: ShardedVectorIndex,
                  max_batch: int = 64, max_wait_ms: float = 2.0, ann=None,
                  overfetch: int = 3, approx_select: Optional[bool] = None):
-        """`ann`: an ANN tier over the same rows (ScreenedSearch), whose
-        overfetched (x `overfetch`) candidates serve unfiltered cosine and
-        optimized requests. `approx_select` (and a request's `approx`):
+        """`ann`: an ANN tier over the same rows (an IVFIndex or a
+        ScreenedSearch), whose overfetched (x `overfetch`) candidates serve
+        unfiltered cosine and optimized requests. `approx_select` (and a request's `approx`):
         accepted; the answers are exact."""
         self.encoder = encoder
         self.index = index
@@ -144,20 +146,28 @@ class SearchServer:
         from image_retrieval_tpu_torch.app.embed import ImageEmbeddingSystem
 
         image_paths = list(image_paths)
-        if image_paths:
+        if image_paths and not hasattr(self.ann, "add"):
             self._detach_ann("insertions")
         emb = ImageEmbeddingSystem(self.encoder, index=self.index, attrs_fn=attrs_fn)
+        start = len(self.index)
         ok, failed = emb.process_and_store_images(image_paths, batch_size=batch_size)
+        ann = self.ann
+        if ann is not None and ok:
+            # an IVF follows: the new rows go to its exactly swept tail, under
+            # the index's lock that its searches take
+            with self.index._lock:
+                ann.add(self.index.get_vectors(range(start, start + ok)))
         self.index.flush()
         self.stats["ingested"] = self.stats.get("ingested", 0) + ok
         return ok, failed
 
     def remove_images(self, image_paths: Sequence) -> int:
         """Live delete: tombstone every row of these paths (the sweeps mask
-        tombstones), flushed before this returns, so an acknowledged delete
-        does not come back after a restart. Returns rows deleted."""
+        tombstones; an attached IVF stays, its candidates of deleted rows are
+        dropped), flushed before this returns, so an acknowledged delete does
+        not come back after a restart. Returns rows deleted."""
         image_paths = list(image_paths)
-        if image_paths:
+        if image_paths and not hasattr(self.ann, "add"):
             self._detach_ann("deletions")
         n = self.index.delete(image_paths)
         if n:
@@ -166,8 +176,8 @@ class SearchServer:
         return n
 
     def _detach_ann(self, what: str) -> None:
-        """The ANN tier (a ScreenedSearch) goes stale on a mutation and would
-        raise on every later search: serve from the exact sweep."""
+        """A tier without ``add`` (a ScreenedSearch) goes stale on a mutation
+        and would raise on every later search: serve from the exact sweep."""
         ann, self.ann = self.ann, None
         if ann is not None:
             logger.warning("the ANN tier (%s) cannot follow %s; detached: serving falls "

@@ -26,8 +26,9 @@ Endpoints:
 /search, /similar and /batch_search take `approx` (&approx=1/0, or
 "approx": true/false in the JSON body), as does the command line
 (--approx-select): validated and accepted, the answers are exact (the
-JAX package's approximate selector is exact off a TPU). --ann screen serves
-unfiltered queries from a projection screen over the index.
+JAX package's approximate selector is exact off a TPU). --ann ivf serves
+unfiltered queries from an IVF over the index (--nlist, --nprobe; 0 =
+auto; /add and /remove keep it), --ann screen from a projection screen.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ import logging
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from image_retrieval_tpu_torch.parallel.collectives import _not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -241,8 +241,11 @@ def main(argv=None):
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8008)
     ap.add_argument("--ann", choices=("exact", "ivf", "screen"), default="exact",
-                    help="Candidate generation: the exact index or a projection "
-                         "screen; ivf is not ported yet")
+                    help="Candidate generation: the exact index, an IVF over it "
+                         "(the reference's Milvus IVF_FLAT) or a projection screen")
+    ap.add_argument("--nlist", type=int, default=1024, help="--ann ivf: clusters (0 = auto)")
+    ap.add_argument("--nprobe", type=int, default=10,
+                    help="--ann ivf: clusters probed per query (0 = auto)")
     ap.add_argument("--screen-dims", "--screen_dims", dest="screen_dims", type=int,
                     default=128)
     ap.add_argument("--screen-candidates", "--screen_candidates", dest="screen_candidates",
@@ -252,8 +255,6 @@ def main(argv=None):
                     help="Accepted for the JAX web UI's command line; the answers "
                          "are exact")
     args = ap.parse_args(argv)
-    if args.ann == "ivf":
-        raise _not_ported("--ann ivf (the IVF candidate tier)")
 
     from image_retrieval_tpu_torch.app.pipeline import ImageSearchApp
     from image_retrieval_tpu_torch.app.server import SearchServer
@@ -262,6 +263,8 @@ def main(argv=None):
     encoder = get_encoder(fake=True) if args.fake_encoder else None
     app = ImageSearchApp(encoder=encoder, journal_dir=args.journal_dir, device=args.device)
     app.config.search.ann = args.ann
+    app.config.search.nlist = args.nlist
+    app.config.search.nprobe = args.nprobe
     app.config.search.screen_dims = args.screen_dims
     app.config.search.screen_candidates = args.screen_candidates
     app.process_images(app.scan_folders(args.folder))

@@ -4,7 +4,7 @@ Port of ``image_retrieval_tpu/parallel/collectives.py`` for a single shard:
 the gallery is not split, so each function is its shard-local body followed
 by the k-sized merge, which on one shard only restores the canonical order
 (score, then ascending row index). Multi-device (a row-sharded gallery with
-an NCCL merge) comes with ROADMAP.md queue 1 item 7.
+an NCCL merge) comes with ROADMAP.md queue 1 item 10.
 
 ``sharded_search_topk`` (every metric), ``sharded_multimetric_topk`` and
 ``sharded_scores`` serve the f32, bf16 and int8 tiers;
@@ -245,7 +245,7 @@ def sharded_int4_screen_topk(queries: torch.Tensor, packed: torch.Tensor,
     zero-norm guard and cast to bf16. Rows where `valid` is False score
     -inf and surface only as padding. Returns (scores (Q, cc) f32, row
     indices (Q, cc) int64). One device; multi-device comes with ROADMAP.md
-    queue 1 item 7."""
+    queue 1 item 10."""
     cc = min(c, packed.shape[0])
     qu = unit_queries(queries).to(torch.bfloat16)
     return int4_screen_topc(qu, packed, scales, valid, cc, qform=INT4_SCREEN_QFORM)
@@ -261,7 +261,7 @@ def sharded_int4_two_phase_topk(queries: torch.Tensor, packed: torch.Tensor,
     rows, f32 sums, x the int8 scale; screen padding -inf), top-kk with the
     lowest candidate position first among ties, then the merge's canonical
     order. Returns (scores (Q, kk) f32, row indices (Q, kk) int64). One
-    device; multi-device comes with ROADMAP.md queue 1 item 7."""
+    device; multi-device comes with ROADMAP.md queue 1 item 10."""
     require_full_f32(rows8.device)
     cc = min(c, packed.shape[0])
     kk = min(k, cc)

@@ -12,8 +12,7 @@ from image_retrieval_tpu.ops import topk as jtopk
 from image_retrieval_tpu_torch.app import cli
 from image_retrieval_tpu_torch.app.search import TextImageSearcher
 from image_retrieval_tpu_torch.app.server import SearchServer
-from image_retrieval_tpu_torch.app.webui import main as webui_main
-from image_retrieval_tpu_torch.index import ShardedVectorIndex
+from image_retrieval_tpu_torch.index import ShardedVectorIndex, ivf
 from image_retrieval_tpu_torch.models.encoder import FakeEncoder
 from image_retrieval_tpu_torch.ops import topk
 
@@ -207,24 +206,13 @@ def test_searcher_and_server_take_an_ann_tier():
         assert [h["path"] for h in srv.search("x", top_k=3)] == ["c", "a"]
 
 
-def _app_with_ann(ix):
-    from image_retrieval_tpu_torch.app.pipeline import ImageSearchApp
-
-    app = ImageSearchApp(encoder=FakeEncoder(dim=8), device="cpu")
-    app.config.search.ann = "ivf"
-    return app._ensure_ann(ix)
-
-
 @pytest.mark.parametrize("call", [
-    lambda ix: _app_with_ann(ix),
     lambda ix: cli.main(["mi", "--folder", ".", "--fake-encoder", "--device", "cpu"]),
     lambda ix: cli.main(["geometric", "--folder", ".", "--optimize"]),
     lambda ix: cli.main(["analyze", "--synthetic", "--fake-encoder"]),
-    lambda ix: cli.main(["plan", "--rows", "1000000"]),
-    lambda ix: cli.main(["search", "--folder", ".", "--fake-encoder", "--device", "cpu",
-                         "--ann", "ivf", "a query"]),
-    lambda ix: webui_main(["--folder", ".", "--fake-encoder", "--device", "cpu", "--ann",
-                           "ivf"]),
+    lambda ix: ivf.sharded_ivf_search(None, None, None, None, 1, 1, 1, mesh=None),
+    lambda ix: ivf.IVFIndex.from_index(ix, nlist=1, nprobe=1).sharded(None),
+    lambda ix: ivf.IVFIndex.from_index(ix, nlist=1, nprobe=1).attach_mesh(None),
 ])
 def test_unported_index_calls_raise(call):
     ix = ShardedVectorIndex(dim=8, config=IndexConfig(embedding_dim=8), device="cpu")

@@ -24,6 +24,8 @@ DURABLE_SLICE = ("utils/profiling.py", "models/encoder.py", "app/embed.py",
                  "app/webui.py", "index/compat.py")
 # the tiers beyond the resident sweep
 TIERS = ("index/streaming.py", "index/screen.py")
+# the IVF tier and the planner
+IVF_SLICE = ("index/ivf.py", "index/plan.py")
 
 
 def imported_modules(path):
@@ -43,7 +45,7 @@ def test_port_files_found():
     for module in ("ops/flash_attention.py", "ops/int4.py", "ops/int4_screen.py",
                    "parallel/collectives.py", "index/filters.py", "config.py",
                    "utils/native.py", "train/__init__.py", "train/trainer.py",
-                   "train/data.py") + DURABLE_SLICE + TIERS:
+                   "train/data.py") + DURABLE_SLICE + TIERS + IVF_SLICE:
         assert f"image_retrieval_tpu_torch/{module}" in names
     assert len(names) >= 40
 

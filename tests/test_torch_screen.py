@@ -429,12 +429,16 @@ def test_facade_ann_screen(rng, optimized):
 
 def test_facade_ann_config_flip_rebuilds(rng):
     """A change of SearchConfig.ann or its settings rebuilds the tier at an
-    unchanged index generation; 'ivf' still raises naming ROADMAP.md."""
+    unchanged index generation: 'ivf' builds an IVFIndex, 'screen' then a
+    ScreenedSearch."""
+    from image_retrieval_tpu_torch.index.ivf import IVFIndex
+
     rows = clustered_rows(rng, n=64)
-    app = _app("ivf", rows, rows.shape[1], screen_candidates=64)
+    app = _app("ivf", rows, rows.shape[1], screen_candidates=64, nlist=8, nprobe=4)
     index = app._ensure_index()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        app._ensure_ann(index)
+    ann1 = app._ensure_ann(index)
+    assert isinstance(ann1, IVFIndex) and (ann1.nlist, ann1.nprobe) == (8, 4)
+    assert app._ensure_ann(index) is ann1
     app.config.search.ann = "screen"
     ann2 = app._ensure_ann(index)
     assert isinstance(ann2, ScreenedSearch) and app._ensure_ann(index) is ann2
