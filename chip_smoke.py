@@ -34,6 +34,8 @@
                                             # and the gallery phases 5 and 6 would give it
     python3 chip_smoke.py --ivf             # build, then only phase 11 on the encoder
                                             # and the gallery phases 3 and 6 would give it
+    python3 chip_smoke.py --analysis        # build, then only phase 12 (its own dataset
+                                            # and encoders)
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
@@ -264,6 +266,25 @@ Phases (any failure exits non-zero):
      2^25 and 2^27 rows; tests/data/jax_ivf_int8.npz (an IVF the JAX package
      saved) loaded on the card, resident and offloaded, answering as the JAX
      package did.
+ 12. the color-analysis slice, run after phase 11 on its own dataset and
+     encoders (seeded B/32 weights, full width). A: prepare_color_dataset
+     builds 600 synthetic images (10 categories x 3 colours x 20) and their
+     179,700 relationship pairs; dominant_colors_batch (batched k-means) on
+     the card and on the CPU over the 600 JPEGs must name the same colours.
+     B: run_workflow over that dataset under vit_b32_serving() (K1 counted:
+     12 launches an image batch) and under plain vit_b32(); every image's
+     embedding at row cosine >= 0.999 between the two, their results.json
+     printed side by side. C: on B's npz ColorMIAnalyzer(precision="device")
+     (f32 pair_metrics on the card) against precision="strict" (host
+     float64): the tables within 1e-5 + 1e-5 |v|, general and colour MI
+     within 5e-3; the host grid search of optimize_weights(grid_size=3) timed
+     (analysis_grid_ms), then discretize_uniform / mutual_info_uniform over
+     its 243 combinations on the card against the CPU (bins equal, MI within
+     1e-5). D: the CLI's `analyze --synthetic` (150 images) and, over A's
+     folder with --fast-encoder (K1 counted), `mi` and `geometric --optimize
+     --grid-size 3 --ci` (with --plot where matplotlib is installed; the
+     card's machine has none, so the analyses there write results.json
+     without the plots). Prints each part's seconds and K1's launches.
 
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
@@ -3805,15 +3826,31 @@ def work_root(prefix="chip_smoke_durable_"):
     return tempfile.mkdtemp(prefix=prefix, dir=root)
 
 
-def phase_durable(torch, card, enc, enc14, index32, queries):
-    """Phase 9 (see the module docstring). Returns the K1 and K6 launches of
-    its counted runs."""
+def run_cli_in(cwd, argv):
+    """cli.main(argv) from `cwd`, its standard output captured; a non-zero
+    exit fails the phase. The CLI's INFO logging is turned back down."""
     import contextlib
     import io
     import logging
+
+    from image_retrieval_tpu_torch.app import cli
+
+    os.makedirs(cwd, exist_ok=True)
+    out = io.StringIO()
+    with contextlib.chdir(cwd), contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    logging.getLogger().setLevel(logging.WARNING)
+    if rc != 0:
+        fail(f"cli {' '.join(argv)} exited {rc}")
+    return out.getvalue()
+
+
+def phase_durable(torch, card, enc, enc14, index32, queries):
+    """Phase 9 (see the module docstring). Returns the K1 and K6 launches of
+    its counted runs."""
     import shutil
 
-    from image_retrieval_tpu_torch.app import cli, webui
+    from image_retrieval_tpu_torch.app import webui
     from image_retrieval_tpu_torch.app.server import SearchServer
     from image_retrieval_tpu_torch.config import IndexConfig
     from concurrent.futures import ThreadPoolExecutor
@@ -3838,13 +3875,7 @@ def phase_durable(torch, card, enc, enc14, index32, queries):
 
         # ---- the CLI: ingest + a text query, counted --------------------
         def run_cli(argv):
-            out = io.StringIO()
-            with contextlib.chdir(work), contextlib.redirect_stdout(out):
-                rc = cli.main(argv)
-            logging.getLogger().setLevel(logging.WARNING)  # the CLI set INFO
-            if rc != 0:
-                fail(f"cli {argv[0]} exited {rc}")
-            return out.getvalue()
+            return run_cli_in(work, argv)
 
         fa.layer_block_int8.launches = 0
         t0 = time.perf_counter()
@@ -5047,6 +5078,276 @@ def phase_ivf_alone(torch, card):
     return phase_ivf(torch, card, enc, index32, queries, q_emb)
 
 
+# ---- phase 12: the color-analysis slice --------------------------------------
+
+# The dataset: 10 categories x 3 colours x 20 synthetic examples (600 images,
+# 179,700 relationship pairs); the CLI's `analyze` at the reference's default
+# of 5 (150 images); the weight grid of optimize_weights(grid_size=3).
+N_EXAMPLES12, PAIRS12, CLI_EXAMPLES12, GRID12 = 20, 179_700, 5, 3
+BATCH12 = 100  # run_workflow's and Config.batch_size's loader batch
+# device (f32) against strict (float64) pair tables: 1e-5 + 1e-5 |v|; MI of
+# the two within the JAX package's own limit
+# (tests/test_analysis.py::test_device_precision_close_to_strict); the grid's
+# MI on the card against the same function on the CPU
+TABLE_TOL12, MI_ATOL12, GRID_MI_ATOL12 = 1e-5, 5e-3, 1e-5
+
+
+def timed_encode_folder(seconds):
+    """A context in which data.loader.encode_folder (the workflow's step 2
+    and the app's ingest) appends its wall seconds and image count to
+    `seconds`."""
+    import contextlib
+
+    from image_retrieval_tpu_torch.data import loader
+
+    @contextlib.contextmanager
+    def ctx():
+        real = loader.encode_folder
+
+        def timed(encoder, paths, *a, **kw):
+            t0 = time.perf_counter()
+            out = real(encoder, paths, *a, **kw)
+            seconds.append((time.perf_counter() - t0, len(out[0])))
+            return out
+
+        loader.encode_folder = timed
+        try:
+            yield
+        finally:
+            loader.encode_folder = real
+
+    return ctx()
+
+
+def phase_analysis(torch, card):
+    """Phase 12 (see the module docstring). Returns (K1 launches, readings)."""
+    import itertools
+    import shutil
+
+    from PIL import Image
+
+    from image_retrieval_tpu_torch.analysis import plots
+    from image_retrieval_tpu_torch.analysis.color_mi import METRIC_NAMES, ColorMIAnalyzer
+    from image_retrieval_tpu_torch.app.workflow import run_workflow
+    from image_retrieval_tpu_torch.config import Config, vit_b32, vit_b32_serving
+    from image_retrieval_tpu_torch.data.color import dominant_colors_batch
+    from image_retrieval_tpu_torch.data.dataset import prepare_color_dataset
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+    from image_retrieval_tpu_torch.ops.binning import discretize_uniform
+    from image_retrieval_tpu_torch.ops.mi import mutual_info_uniform
+
+    t_phase = time.perf_counter()
+    secs = {}
+    drawn = plots.available()
+    work = work_root("chip_smoke_analysis_")
+    try:
+        # ---- A: the dataset, and its dominant colours on the card and CPU --
+        ds = os.path.join(work, "color_dataset")
+        t0 = time.perf_counter()
+        pairs, meta = prepare_color_dataset(base_dir=ds, num_examples=N_EXAMPLES12)
+        secs["dataset"] = time.perf_counter() - t0
+        counts = {k: len(v) for k, v in pairs.items()}
+        print(f"phase 12: prepare_color_dataset(synthetic, num_examples={N_EXAMPLES12}): "
+              f"{len(meta)} images, pairs {counts} = {sum(counts.values())} in "
+              f"{secs['dataset']:.2f} s (host; the dataset_examples.png grid "
+              f"{'drawn' if drawn else 'not drawn: no matplotlib here'})", flush=True)
+        if len(meta) != 30 * N_EXAMPLES12 or sum(counts.values()) != PAIRS12:
+            fail(f"the dataset holds {len(meta)} images and {sum(counts.values())} pairs")
+        images = [np.asarray(Image.open(m["path"]).convert("RGB")) for m in meta]
+        names = {}
+        for dev in ("cuda", "cpu"):
+            dominant_colors_batch(images[:8], device=dev)  # warm
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            names[dev] = dominant_colors_batch(images, device=dev)
+            secs[f"colors_{dev}"] = time.perf_counter() - t0
+        if names["cuda"] != names["cpu"]:
+            bad = [i for i, (a, b) in enumerate(zip(names["cuda"], names["cpu"])) if a != b]
+            fail(f"dominant colours on the card differ from the CPU's at {len(bad)} images, "
+                 f"e.g. {meta[bad[0]]['path']}: {names['cuda'][bad[0]]} vs {names['cpu'][bad[0]]}")
+        found = {c: names["cuda"].count(c) for c in sorted(set(names["cuda"]))}
+        same = sum(n == m["color"] for n, m in zip(names["cuda"], meta))
+        print(f"dominant_colors_batch (k-means, 3 centres, 10 steps, 4,096 pixels an image) "
+              f"over the {len(images)} JPEGs: the card's names equal the CPU's ({found}; "
+              f"{same} equal the folder's colour: the background is the largest cluster, and "
+              f"tests/test_dataset.py::test_synth_images_have_right_dominant_color holds no "
+              f"colour, only the size); card {secs['colors_cuda']:.3f} s, CPU "
+              f"{secs['colors_cpu']:.3f} s [{card}]", flush=True)
+
+        # ---- B: the workflow through K1, and the plain route -------------
+        enc_s = {}
+        results, emb = {}, {}
+        for name, model in (("k1", vit_b32_serving()), ("plain", vit_b32())):
+            out = os.path.join(work, f"workflow_{name}")
+            seconds = []
+            if name == "k1":
+                fa.layer_block_int8.launches = 0
+            t0 = time.perf_counter()
+            with timed_encode_folder(seconds):
+                results[name] = run_workflow(output_dir=out, dataset_dir=ds,
+                                             config=Config(model=model))
+            secs[f"workflow_{name}"] = time.perf_counter() - t0
+            if name == "k1":
+                k1_workflow = fa.layer_block_int8.launches
+            if not results[name] or set(results[name]) != {"general_mi", "color_mi",
+                                                            "optimal_weights"}:
+                fail(f"run_workflow ({name}) returned {results[name]}")
+            enc_s[name], n_enc = seconds[0]
+            with np.load(os.path.join(out, "color_embeddings.npz"), allow_pickle=True) as z:
+                emb[name] = z["embeddings"].item()
+            if n_enc != len(meta) or len(emb[name]) != len(meta):
+                fail(f"the {name} workflow embedded {n_enc} of {len(meta)} images")
+        chunks = sum(encoder_chunks(min(BATCH12, len(meta) - i))
+                     for i in range(0, len(meta), BATCH12))
+        paths = list(emb["k1"])
+        cos = row_cos(torch.from_numpy(np.stack([emb["k1"][p] for p in paths])),
+                      torch.from_numpy(np.stack([emb["plain"][p] for p in paths])))
+        print(f"run_workflow over the {len(meta)} images (skip_dataset): vit_b32_serving() "
+              f"{secs['workflow_k1']:.2f} s (encode {enc_s['k1']:.2f} s, "
+              f"{len(meta) / enc_s['k1']:.1f} img/s with the PIL decode), layer_block_int8 "
+              f"launches {k1_workflow} (expected 12 x {chunks} image batches); plain "
+              f"vit_b32() {secs['workflow_plain']:.2f} s (encode {enc_s['plain']:.2f} s, "
+              f"{len(meta) / enc_s['plain']:.1f} img/s); row cosine K1 vs plain min "
+              f"{float(cos.min()):.6f}, mean {float(cos.mean()):.6f} (limit "
+              f"{TOWER_MIN_COS}) [{card}]", flush=True)
+        if k1_workflow != 12 * chunks:
+            fail(f"the workflow ran layer_block_int8 {k1_workflow} times, not 12 x {chunks}")
+        if float(cos.min()) < TOWER_MIN_COS:
+            fail(f"K1 embeddings vs the plain route: row cosine {float(cos.min()):.6f}")
+        print("results.json, vit_b32_serving() | vit_b32() (not held: binning is "
+              "discontinuous):", flush=True)
+        for part in ("general_mi", "color_mi", "optimal_weights"):
+            for key, v in results["k1"][part].items():
+                print(f"  {part}.{key}: {v:.6f} | {results['plain'][part][key]:.6f}", flush=True)
+
+        # ---- C: the analysis, device tables against strict ----------------
+        npz = os.path.join(work, "workflow_k1", "color_embeddings.npz")
+        strict = ColorMIAnalyzer(base_dir=ds, precision="strict")
+        device = ColorMIAnalyzer(base_dir=ds, precision="device", device="cuda")
+        worst = {}
+        for name, an in (("strict", strict), ("device", device)):
+            ok, msg = an.load_dataset(npz)
+            if not ok:
+                fail(f"ColorMIAnalyzer ({name}) could not load {npz}: {msg}")
+            t0 = time.perf_counter()
+            for rel in an.relationship_types:
+                an._table_for(rel)
+            an._color_table()
+            secs[f"tables_{name}"] = time.perf_counter() - t0
+        for rel in strict.relationship_types + ["color"]:
+            ts, td = ((strict._color_table()[0], device._color_table()[0]) if rel == "color"
+                      else (strict._table_for(rel), device._table_for(rel)))
+            for m in list(METRIC_NAMES) + ["cosine_similarity"]:
+                excess = np.abs(td[m] - ts[m]) - TABLE_TOL12 * (1 + np.abs(ts[m]))
+                worst[(rel, m)] = float(np.abs(td[m] - ts[m]).max())
+                if excess.max() > 0:
+                    fail(f"device table {rel}.{m} off the float64 one by "
+                         f"{worst[(rel, m)]:.3g} (limit 1e-5 + 1e-5 |v|)")
+        mi = {}
+        for name, an in (("strict", strict), ("device", device)):
+            mi[name] = (an.calculate_mutual_information(), an.calculate_color_specific_mi())
+        mi_diff = max(abs(mi["device"][i][m] - mi["strict"][i][m])
+                      for i in (0, 1) for m in METRIC_NAMES)
+        print(f"ColorMIAnalyzer tables over the {PAIRS12} pairs and the "
+              f"{len(strict._color_table()[1])} colour pairs: strict (host float64) "
+              f"{secs['tables_strict']:.2f} s, device (f32 pair_metrics on the card, with the "
+              f"gathers and copies) {secs['tables_device']:.2f} s; largest difference "
+              f"{max(worst.values()):.3g} ({max(worst, key=worst.get)}; limit 1e-5 + 1e-5 |v|); "
+              f"general and colour MI within {mi_diff:.3g} (limit {MI_ATOL12}) [{card}]",
+              flush=True)
+        if mi_diff > MI_ATOL12:
+            fail(f"device-precision MI off the strict MI by {mi_diff:.3g}")
+
+        # the grid search: on the host (the analyzer's), then the same 243
+        # combinations' binning and MI on the card and on the CPU
+        t0 = time.perf_counter()
+        best = strict.optimize_weights(grid_size=GRID12)
+        secs["grid_host"] = time.perf_counter() - t0
+        table, labels = strict._color_table()
+        basis = np.stack([-table["cosine_similarity"], table["l1_distance"],
+                          table["l2_distance"], table["linf_distance"],
+                          table["magnitude_difference"]], axis=1)
+        grid = np.linspace(0.0, 1.0, GRID12)
+        combos = np.array(list(itertools.product(grid, repeat=5)))  # the analyzer's order
+        scores = (combos @ basis.T).astype(np.float32)  # (243, P)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            vals = torch.from_numpy(scores).to(dev)
+            lab = torch.from_numpy(labels).to(dev)
+            run = lambda: mutual_info_uniform(vals, lab, strict.bin_count, 2)
+            if dev == "cuda":
+                secs["grid_mi_cuda_ms"] = event_ms(torch, run, samples=5, reps=3, warm=2)
+            else:
+                t0 = time.perf_counter()
+                run()
+                secs["grid_mi_cpu_ms"] = (time.perf_counter() - t0) * 1e3
+            got[dev] = (discretize_uniform(vals, strict.bin_count).cpu().numpy(),
+                        run().cpu().numpy())
+        same_bins = np.array_equal(got["cuda"][0], got["cpu"][0])
+        grid_diff = float(np.abs(got["cuda"][1] - got["cpu"][1]).max())
+        dev_best = dict(zip(("w_angle", "w_l1", "w_l2", "w_inf", "w_mag"),
+                            map(float, combos[int(np.argmax(got["cuda"][1]))])))
+        print(f"the weight grid ({len(combos)} combinations x {scores.shape[1]} colour pairs): "
+              f"host search (optimize_weights, float64, analysis_grid_ms) "
+              f"{secs['grid_host'] * 1e3:.1f} ms, best {best}; mutual_info_uniform (f32) on "
+              f"the card {secs['grid_mi_cuda_ms']:.3f} ms (CUDA events), on the CPU "
+              f"{secs['grid_mi_cpu_ms']:.1f} ms; bins card = CPU: {same_bins}; MI within "
+              f"{grid_diff:.3g} (limit {GRID_MI_ATOL12}); the f32 grid's best {dev_best} "
+              f"[{card}]", flush=True)
+        if not same_bins:
+            fail("discretize_uniform on the card differs from the CPU's")
+        if grid_diff > GRID_MI_ATOL12:
+            fail(f"mutual_info_uniform on the card off the CPU's by {grid_diff:.3g}")
+
+        # ---- D: the CLI on the card ----------------------------------------
+        cli_root = os.path.join(work, "cli")
+        t0 = time.perf_counter()
+        printed = run_cli_in(os.path.join(cli_root, "analyze"), [
+            "analyze", "--synthetic", "--num_examples", str(CLI_EXAMPLES12),
+            "--output_dir", "out"])
+        secs["cli_analyze"] = time.perf_counter() - t0
+        with open(os.path.join(cli_root, "analyze", "out", "analysis_results",
+                               "results.json")) as f:
+            keys = set(json.load(f))
+        if keys != {"general_mi", "color_mi", "optimal_weights"}:
+            fail(f"cli analyze wrote results.json with {keys}")
+        print(f"cli analyze --synthetic (num_examples {CLI_EXAMPLES12}: "
+              f"{30 * CLI_EXAMPLES12} images, plain vit_b32() on the card): exit 0 in "
+              f"{secs['cli_analyze']:.1f} s, results.json has {sorted(keys)} [{card}]",
+              flush=True)
+        k1_cli = 0
+        geometric = ["geometric", "--folder", ds, "--fast-encoder", "--optimize",
+                     "--grid-size", str(GRID12), "--ci"]
+        if drawn:
+            geometric += ["--plot", "mi.png"]
+        for argv in (["mi", "--folder", ds, "--fast-encoder"], geometric):
+            fa.layer_block_int8.launches = 0
+            t0 = time.perf_counter()
+            printed = run_cli_in(os.path.join(cli_root, argv[0]), argv)
+            secs[f"cli_{argv[0]}"] = time.perf_counter() - t0
+            launches = fa.layer_block_int8.launches
+            k1_cli += launches
+            print(f"$ cli {' '.join(a if a != ds else '<dataset>' for a in argv)}: exit 0 in "
+                  f"{secs[f'cli_{argv[0]}']:.1f} s, layer_block_int8 launches {launches} "
+                  f"(expected 12 x {chunks}) [{card}]\n" + printed.rstrip(), flush=True)
+            if launches != 12 * chunks:
+                fail(f"cli {argv[0]} ran layer_block_int8 {launches} times, not 12 x {chunks}")
+        if not drawn:
+            print("matplotlib is not installed here: the analyses ran with make_plots=False "
+                  "(results.json only) and `geometric` without --plot; the CPU tests hold "
+                  "every plot", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    k1 = k1_workflow + k1_cli
+    secs["phase"] = time.perf_counter() - t_phase
+    print(f"phase 12 took {secs['phase']:.1f} s; layer_block_int8 launches {k1} "
+          f"({k1_workflow} the workflow, {k1_cli} the CLI's mi and geometric) [{card}]",
+          flush=True)
+    return k1, {"seconds": secs, "table_diff": max(worst.values()), "mi_diff": mi_diff,
+                "grid_mi_diff": grid_diff}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--durable-child"]:  # phase 9's crashing server
         durable_child(*sys.argv[2:6])
@@ -5125,6 +5426,9 @@ def main() -> int:
     if sys.argv[1:] == ["--ivf"]:
         print(f"phase 11 alone: K1 launches {phase_ivf_alone(torch, card)[0]}", flush=True)
         return 0
+    if sys.argv[1:] == ["--analysis"]:  # phase 12 builds its own dataset and encoders
+        print(f"phase 12 alone: K1 launches {phase_analysis(torch, card)[0]}", flush=True)
+        return 0
     print_new_kernel_registers(lib_path)
     if sys.argv[1:] == ["--gemm-stages"]:
         check_fused_stage(torch, card)
@@ -5156,6 +5460,9 @@ def main() -> int:
     k1_ivf, _ = phase_ivf(torch, card, enc, index32, queries, q_emb,
                           upload_gbps=tiers["int8"]["h2d_gbps"])
     del enc, index32
+    torch.cuda.empty_cache()
+    # phase 12 after phase 11: the color-analysis slice on its own dataset
+    k1_analysis, _ = phase_analysis(torch, card)
     torch.cuda.empty_cache()
     d_launches = phase_dense(torch, card, queries, index14)
     del index14
@@ -5237,7 +5544,8 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [
         block_entry("layer_block_int8", "layer_block_int8.cu", 772,
-                    launches + l14_launches["layer_block_int8"] + k1_durable + k1_ivf,
+                    launches + l14_launches["layer_block_int8"] + k1_durable + k1_ivf
+                    + k1_analysis,
                     "b32-vision-B256",
                     {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
                      "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),

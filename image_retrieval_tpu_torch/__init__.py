@@ -11,6 +11,8 @@ jax. The port covers the text->image serving slice so far:
 - the resident f32 exact index                                 -> index/
 - ingest, search and the micro-batching server                 -> app/
 - contrastive training on one device                           -> train/
+- the color analysis: binning and MI, the color dataset,       -> ops/, data/,
+  the pair and color MI analyzers, the headless workflow          analysis/, app/
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise, and nothing falls back to the CPU.

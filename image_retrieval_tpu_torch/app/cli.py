@@ -4,12 +4,22 @@
     python -m image_retrieval_tpu_torch.app.cli search --folder ./photos --image q.jpg
     python -m image_retrieval_tpu_torch.app.cli compare --folder ./photos "a red car"
     python -m image_retrieval_tpu_torch.app.cli serve --folder ./photos
+    python -m image_retrieval_tpu_torch.app.cli geometric --folder ./photos --optimize
+    python -m image_retrieval_tpu_torch.app.cli analyze --synthetic
 
-Each subcommand drives ``ImageSearchApp`` over the images under --folder:
-`search` (a text query, or --image for an image query; --optimized,
---filter, --save-grid), `compare` (top-k by cosine, L1 and L2 from one
-multi-metric pass, and how the lists overlap) and `serve` (an interactive
-loop over the micro-batching SearchServer). --journal-dir makes the index
+Each subcommand but `analyze` and `plan` drives ``ImageSearchApp`` over the
+images under --folder: `search` (a text query, or --image for an image
+query; --optimized, --filter, --save-grid), `compare` (top-k by cosine, L1
+and L2 from one multi-metric pass, and how the lists overlap), `serve` (an
+interactive loop over the micro-batching SearchServer), `mi` (the standard
+pair MI analysis) and `geometric` (the multi-metric pair MI analysis;
+--optimize runs the weight grid search, --apply sets the searcher's
+weights, --plot writes a bar chart, with bootstrap intervals under --ci).
+`analyze` runs the headless color-analysis workflow (app/workflow.py) with
+the JAX CLI's flags. Helpers the reference GUI calls but never defines are
+implemented here: interpret_mi_value (main.py:370), and an honest bootstrap
+interval (mi_confidence_interval) in place of its fabricated one
+(main.py:551-570). --journal-dir makes the index
 durable; --fake-encoder uses the deterministic projection encoder (no
 weights); --fast-encoder selects vit_b32_serving(), whose layers run the
 int8 whole-layer kernel; --approx-select sets IndexConfig.approx_select
@@ -17,23 +27,64 @@ int8 whole-layer kernel; --approx-select sets IndexConfig.approx_select
 --ann ivf takes the candidates from an IVF over the index (--nlist,
 --nprobe; 0 = auto), --ann screen from a projection screen (--screen-dims,
 --screen-candidates). `plan` prints the index tier for a corpus size
-(index/plan.py). Everything runs on the card unless --device cpu is given.
-Options take dashes or underscores (--fake_encoder).
-
-Not ported yet (each raises NotImplementedError naming ROADMAP.md): the
-`mi`, `geometric` and `analyze` subcommands.
+(index/plan.py). Everything runs on the card unless --device cpu is given
+(`analyze` has no --device: its encoder runs on the card, its fake encoder
+and analysis on the host). Options take dashes or underscores
+(--fake_encoder).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
+from typing import Tuple
 
-from image_retrieval_tpu_torch.parallel.collectives import _not_ported
+import numpy as np
 
 logger = logging.getLogger(__name__)
+
+
+def interpret_mi_value(mi: float) -> str:
+    """Qualitative reading of an MI value (implements the undefined helper
+    the reference GUI calls at main.py:370)."""
+    if mi <= 0.0:
+        return "no dependence detected"
+    if mi < 0.01:
+        return "negligible dependence"
+    if mi < 0.05:
+        return "weak dependence"
+    if mi < 0.2:
+        return "moderate dependence"
+    if mi < 0.5:
+        return "strong dependence"
+    return "very strong dependence"
+
+
+def mi_confidence_interval(
+    values: np.ndarray,
+    labels: np.ndarray,
+    n_bins: int = 20,
+    n_boot: int = 200,
+    alpha: float = 0.05,
+    seed: int = 0,
+) -> Tuple[float, float]:
+    """Bootstrap CI for binned MI — replaces the reference GUI's fabricated
+    sigma ~ MI/sqrt(1000)*0.1 (main.py:551-570)."""
+    from image_retrieval_tpu_torch.ops.mi import mutual_info_from_labels
+
+    rng = np.random.default_rng(seed)
+    values = np.asarray(values, float)
+    labels = np.asarray(labels)
+    n = len(values)
+    stats = np.empty(n_boot)
+    for b in range(n_boot):
+        idx = rng.integers(0, n, n)
+        stats[b] = mutual_info_from_labels(values[idx], labels[idx], n_bins)
+    lo, hi = np.quantile(stats, [alpha / 2, 1 - alpha / 2])
+    return float(lo), float(hi)
 
 
 def _build_app(args):
@@ -110,6 +161,61 @@ def cmd_search(args) -> int:
     return 0
 
 
+def cmd_mi(args) -> int:
+    app = _build_app(args)
+    analyzer, results = app.run_mi_analysis(num_pairs=args.num_pairs, num_bins=args.num_bins)
+    if results is None:
+        return 1
+    print(f"Default MI: {results['default']:.4f} bits "
+          f"({interpret_mi_value(results['default'])})")
+    if analyzer is not None and analyzer.mi_values:
+        for metric, mi in sorted(analyzer.mi_values.items(), key=lambda x: -x[1]):
+            print(f"  {metric:16s} {mi:.4f} bits  ({interpret_mi_value(mi)})")
+    return 0
+
+
+def cmd_geometric(args) -> int:
+    app = _build_app(args)
+    analyzer, results = app.run_enhanced_mi_analysis(
+        num_pairs=args.num_pairs, num_bins=args.num_bins, keep_unnormalized=True)
+    if results is None:
+        return 1
+    print("Per-metric MI (enhanced analysis):")
+    for metric, mi in sorted(results.items(), key=lambda x: -x[1]):
+        print(f"  {metric:16s} {mi:.4f} bits  ({interpret_mi_value(mi)})")
+    if args.plot:
+        from image_retrieval_tpu_torch.analysis.plots import mi_bar_chart
+
+        ci = None
+        if args.ci:
+            numeric = np.array([analyzer.label_map.get(l, -1) for l in analyzer.labels])
+            # distance_measures covers only the KEPT pairs; select labels
+            # by the kept indices (truncation misaligns every label after
+            # a dropped pair — pair_mi._pair_matrices docstring)
+            kept = analyzer._pair_matrices()[4]
+            ci = {}
+            for metric, vals in analyzer.distance_measures.items():
+                v = np.array(vals)
+                labels_v = (numeric[kept[: len(v)]] if len(kept) >= len(v)
+                            else numeric[: len(v)])
+                ci[metric] = mi_confidence_interval(v, labels_v, n_bins=args.num_bins)
+        mi_bar_chart(results, args.plot, ci=ci,
+                     title="Geometric MI Analysis (bootstrap 95% CI)" if ci
+                     else "Geometric MI Analysis")
+        print(f"Saved bar chart to {args.plot}")
+    if args.optimize:
+        grid = np.linspace(0, 1, args.grid_size)
+        res = analyzer.find_optimal_parameters(
+            {k: grid for k in ("w_angle", "w_l1", "w_l2", "w_inf", "w_mag")})
+        print(f"Optimal parameters (MI={res['mi_value']:.4f}):")
+        for k, v in res["parameters"].items():
+            print(f"  {k} = {v:.2f}")
+        if args.apply:
+            app.searcher.set_similarity_params(res["parameters"])
+            print("Applied optimal parameters to searcher.")
+    return 0
+
+
 def cmd_compare(args) -> int:
     app = _build_app(args)
     results = app.search_with_multiple_metrics(args.query, top_k=args.top_k)
@@ -166,11 +272,23 @@ def cmd_plan(args) -> int:
     return 0
 
 
-def _unported(what):
-    def cmd(args) -> int:
-        raise _not_ported(what)
+def cmd_analyze(args) -> int:
+    """The full offline color-analysis workflow (app/workflow.py)."""
+    from image_retrieval_tpu_torch.app.workflow import run_workflow
 
-    return cmd
+    results = run_workflow(
+        coco_dir=args.coco_dir,
+        annotation_file=args.annotation_file,
+        output_dir=args.output_dir,
+        skip_dataset=args.skip_dataset,
+        skip_embeddings=args.skip_embeddings,
+        synthetic=args.synthetic,
+        fake_encoder=args.fake_encoder,
+        num_examples=args.num_examples,
+    )
+    if results:
+        print(json.dumps(results, indent=2))
+    return 0 if results else 1
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -229,6 +347,24 @@ def make_parser() -> argparse.ArgumentParser:
     flag(sp, "save-grid", help="Write a thumbnail contact sheet PNG")
     sp.set_defaults(fn=cmd_search)
 
+    sp = sub.add_parser("mi", help="Standard MI analysis")
+    common(sp)
+    flag(sp, "num-pairs", type=int, default=1000)
+    flag(sp, "num-bins", type=int, default=20)
+    sp.set_defaults(fn=cmd_mi)
+
+    sp = sub.add_parser("geometric", help="Geometric (multi-metric) MI analysis")
+    common(sp)
+    flag(sp, "num-pairs", type=int, default=1000)
+    flag(sp, "num-bins", type=int, default=20)
+    flag(sp, "optimize", action="store_true", help="Run the weight grid search")
+    flag(sp, "grid-size", type=int, default=3)
+    flag(sp, "apply", action="store_true", help="Apply optimal weights to the searcher")
+    flag(sp, "plot", help="Write an MI bar chart PNG here")
+    flag(sp, "ci", action="store_true",
+         help="Add bootstrap confidence intervals to the chart")
+    sp.set_defaults(fn=cmd_geometric)
+
     sp = sub.add_parser("compare", help="Multi-metric search comparison")
     common(sp)
     sp.add_argument("query")
@@ -262,21 +398,22 @@ def make_parser() -> argparse.ArgumentParser:
               "this card's pinned upload rate)")
     sp.set_defaults(fn=cmd_plan)
 
-    # not ported yet: each takes any arguments and raises
-    for name, what in (("mi", "mi subcommand (analysis/)"),
-                       ("geometric", "geometric subcommand (analysis/)"),
-                       ("analyze", "analyze subcommand (app/workflow.py)")):
-        sp = sub.add_parser(name, help=f"the {what}: not ported yet")
-        sp.set_defaults(fn=_unported(f"the CLI's {what}"), takes_any=True)
+    sp = sub.add_parser("analyze", help="Full color-analysis workflow")
+    flag(sp, "coco-dir")
+    flag(sp, "annotation-file")
+    flag(sp, "output-dir", default="color_analysis")
+    flag(sp, "skip-dataset", action="store_true")
+    flag(sp, "skip-embeddings", action="store_true")
+    flag(sp, "synthetic", action="store_true")
+    flag(sp, "fake-encoder", action="store_true")
+    flag(sp, "num-examples", type=int, default=5)
+    sp.set_defaults(fn=cmd_analyze)
     return p
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
-    parser = make_parser()
-    args, unknown = parser.parse_known_args(argv)
-    if unknown and not getattr(args, "takes_any", False):
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = make_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -15,10 +15,14 @@ nlist / nprobe 0 = ``recommended_ivf``'s operating point) or ``"screen"``
 tier over the index (rebuilt when the index or the tier's settings change),
 reranked exactly.
 
+The MI analyses (``run_mi_analysis``, ``run_enhanced_mi_analysis``,
+``run_enhanced_mi_analysis_coco``) run the pair analyzers of
+``analysis/pair_mi.py`` over the processed embeddings on the host, as the
+JAX facade does; ``run_color_analysis`` is the color-analysis entry of the
+headless workflow.
+
 The encoder is built once and reused; nothing falls back to another
-encoder or to the CPU when it cannot be built. Not ported yet (each raises
-NotImplementedError naming ROADMAP.md): the MI analyses and their
-visualizations, and ``run_color_analysis``.
+encoder or to the CPU when it cannot be built.
 """
 
 from __future__ import annotations
@@ -36,7 +40,6 @@ from image_retrieval_tpu_torch.config import DEFAULT_SIMILARITY_PARAMS, Config
 from image_retrieval_tpu_torch.device import DeviceLike
 from image_retrieval_tpu_torch.index import ShardedVectorIndex
 from image_retrieval_tpu_torch.models.encoder import Encoder
-from image_retrieval_tpu_torch.parallel.collectives import _not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -390,24 +393,81 @@ class ImageSearchApp:
                 break
         return out
 
-    # -- the MI analyses and their plots: not ported -------------------------
+    # -- MI analyses (reference app_pipeline.py:200-240) ----------------------
 
     def run_mi_analysis(self, num_pairs: int = 1000, num_bins: int = 20):
-        raise _not_ported("ImageSearchApp.run_mi_analysis (analysis/)")
+        """(analyzer, {"default": the largest per-metric MI}), or (None, None)
+        without embeddings."""
+        if not self.embeddings:
+            logger.warning("No embeddings available for MI analysis")
+            return None, None
+        from image_retrieval_tpu_torch.analysis.pair_mi import EnhancedPairMIAnalysis
+
+        analyzer = EnhancedPairMIAnalysis(list(self.embeddings.items()), num_pairs, num_bins)
+        analyzer.generate_pairs()
+        mi_results = analyzer.compute_mi_for_all_metrics()
+        default_mi = max(mi_results.values()) if mi_results else 0.0
+        return analyzer, {"default": default_mi}
 
     def run_enhanced_mi_analysis(self, num_pairs: int = 1000, num_bins: int = 20,
                                  keep_unnormalized: bool = True):
-        raise _not_ported("ImageSearchApp.run_enhanced_mi_analysis (analysis/)")
+        """(analyzer, per-metric MI) over at most 1,000 pairs (the
+        reference's cap, app_pipeline.py:230)."""
+        if not self.embeddings:
+            logger.warning("No embeddings available for enhanced MI analysis")
+            return None, None
+        from image_retrieval_tpu_torch.analysis.pair_mi import EnhancedPairMIAnalysis
+
+        analyzer = EnhancedPairMIAnalysis(list(self.embeddings.items()), min(num_pairs, 1000),
+                                          num_bins, keep_unnormalized)
+        analyzer.generate_pairs()
+        mi_results = analyzer.compute_mi_for_all_metrics()
+        logger.info(f"MI analysis complete. Results: {mi_results}")
+        return analyzer, mi_results
 
     def run_enhanced_mi_analysis_coco(self, num_pairs: int = 1000, num_bins: int = 20,
                                       keep_unnormalized: bool = True):
-        raise _not_ported("ImageSearchApp.run_enhanced_mi_analysis_coco (analysis/)")
+        """The COCO-pair variant (the orphaned module-level function in the
+        reference, app_pipeline.py:403-427): every pair stratified."""
+        if not self.embeddings:
+            return None, None
+        from image_retrieval_tpu_torch.analysis.pair_mi import EnhancedPairMIAnalysis
+
+        embeddings_list = list(self.embeddings.items())
+        n = len(embeddings_list)
+        analyzer = EnhancedPairMIAnalysis(embeddings_list, min(num_pairs, n * (n - 1) // 2),
+                                          num_bins, keep_unnormalized)
+        analyzer.generate_coco_pairs()
+        return analyzer, analyzer.compute_mi_for_all_metrics()
+
+    # -- visual placeholders (reference app_pipeline.py:242-276) --------------
 
     def create_mi_visualization(self, filename: str) -> str:
-        raise _not_ported("ImageSearchApp.create_mi_visualization (analysis/)")
+        return self._placeholder_plot(filename, "Standard MI Analysis")
 
     def create_enhanced_mi_visualization(self, filename: str) -> str:
-        raise _not_ported("ImageSearchApp.create_enhanced_mi_visualization (analysis/)")
+        return self._placeholder_plot(filename, "Enhanced MI Analysis")
+
+    def _placeholder_plot(self, filename: str, title: str) -> str:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.figure(figsize=(8, 6))
+        if self.embeddings:
+            plt.text(0.5, 0.5,
+                     f"{title}\nEmbeddings loaded: {len(self.embeddings)}\n"
+                     "Run analysis to see results",
+                     ha="center", va="center", fontsize=12)
+        else:
+            plt.text(0.5, 0.5, f"{title}\nNo embeddings loaded",
+                     ha="center", va="center", fontsize=14)
+        plt.title(title)
+        plt.axis("off")
+        plt.savefig(filename, dpi=150, bbox_inches="tight")
+        plt.close()
+        return filename
 
     # -- multi-metric search --------------------------------------------------
 
@@ -462,6 +522,11 @@ class ImageSearchApp:
         return results
 
 
-def run_color_analysis(embeddings_file: str, dataset_dir: str, results_dir: str):
-    """The color-analysis entry of the JAX facade: not ported."""
-    raise _not_ported("run_color_analysis (analysis/color_mi.py)")
+def run_color_analysis(embeddings_file: str, dataset_dir: str, results_dir: str, *,
+                       device: DeviceLike = "cuda"):
+    """Compatibility entry (reference app_pipeline.py:393-400): the color
+    analysis of an embeddings npz over a prepared dataset, results.json (and
+    the plots, where matplotlib is installed) under `results_dir`."""
+    from image_retrieval_tpu_torch.analysis.color_mi import analyze_color_embeddings
+
+    return analyze_color_embeddings(embeddings_file, dataset_dir, results_dir, device=device)

@@ -9,7 +9,6 @@ import torch
 from image_retrieval_tpu.config import IndexConfig
 from image_retrieval_tpu.index.vector_index import ShardedVectorIndex as JaxIndex
 from image_retrieval_tpu.ops import topk as jtopk
-from image_retrieval_tpu_torch.app import cli
 from image_retrieval_tpu_torch.app.search import TextImageSearcher
 from image_retrieval_tpu_torch.app.server import SearchServer
 from image_retrieval_tpu_torch.index import ShardedVectorIndex, ivf
@@ -207,9 +206,6 @@ def test_searcher_and_server_take_an_ann_tier():
 
 
 @pytest.mark.parametrize("call", [
-    lambda ix: cli.main(["mi", "--folder", ".", "--fake-encoder", "--device", "cpu"]),
-    lambda ix: cli.main(["geometric", "--folder", ".", "--optimize"]),
-    lambda ix: cli.main(["analyze", "--synthetic", "--fake-encoder"]),
     lambda ix: ivf.sharded_ivf_search(None, None, None, None, 1, 1, 1, mesh=None),
     lambda ix: ivf.IVFIndex.from_index(ix, nlist=1, nprobe=1).sharded(None),
     lambda ix: ivf.IVFIndex.from_index(ix, nlist=1, nprobe=1).attach_mesh(None),

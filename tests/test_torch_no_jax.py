@@ -26,6 +26,13 @@ DURABLE_SLICE = ("utils/profiling.py", "models/encoder.py", "app/embed.py",
 TIERS = ("index/streaming.py", "index/screen.py")
 # the IVF tier and the planner
 IVF_SLICE = ("index/ivf.py", "index/plan.py")
+# the color-analysis slice: binning and MI, the dataset builder, the
+# analyzers and their plots, the workflow (app/cli.py and app/pipeline.py
+# above grew with it)
+ANALYSIS_SLICE = ("ops/binning.py", "ops/mi.py", "data/__init__.py", "data/color.py",
+                  "data/dataset.py", "data/synthetic.py", "analysis/__init__.py",
+                  "analysis/pair_mi.py", "analysis/color_mi.py", "analysis/plots.py",
+                  "app/workflow.py")
 
 
 def imported_modules(path):
@@ -45,7 +52,7 @@ def test_port_files_found():
     for module in ("ops/flash_attention.py", "ops/int4.py", "ops/int4_screen.py",
                    "parallel/collectives.py", "index/filters.py", "config.py",
                    "utils/native.py", "train/__init__.py", "train/trainer.py",
-                   "train/data.py") + DURABLE_SLICE + TIERS + IVF_SLICE:
+                   "train/data.py") + DURABLE_SLICE + TIERS + IVF_SLICE + ANALYSIS_SLICE:
         assert f"image_retrieval_tpu_torch/{module}" in names
     assert len(names) >= 40
 
