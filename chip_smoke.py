@@ -36,6 +36,14 @@
                                             # and the gallery phases 3 and 6 would give it
     python3 chip_smoke.py --analysis        # build, then only phase 12 (its own dataset
                                             # and encoders)
+    python3 chip_smoke.py --mesh            # build, then only phase 13 on the encoder,
+                                            # galleries and IVF phases 3, 5, 6 and 11
+                                            # would give it
+    python3 chip_smoke.py --time-encoder    # build, then only the one-device paths of
+                                            # phases 3, 5 and 8, timed: B/32 and L/14
+                                            # encode, a train step (to compare two
+                                            # checkouts, copy this script into each and
+                                            # run it there in turns)
 
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then the
@@ -285,6 +293,30 @@ Phases (any failure exits non-zero):
      --grid-size 3 --ci` (with --plot where matplotlib is installed; the
      card's machine has none, so the analyses there write results.json
      without the plots). Prints each part's seconds and K1's launches.
+ 13. multi-device search, run after phase 11 on phase 3's encoder, phase 3's
+     1,001,344 rows (with phase 6's planted ones), phase 5's int8 gallery and
+     phase 11 A's IVF. One process drives a mesh of 4 virtual shards on
+     cuda:0 (and, where the machine has several cards, a mesh of every card
+     too). The rows go into f32, int8 and int4 (latency mode) indexes on one
+     device and over the mesh; 64 queries: f32 cosine, a filter (every third
+     row), the weighted score, multi_metric_topk (K6 on each shard) and
+     scores(); int8 cosine, the weighted score with and without the filter
+     (K5 on each shard), multi_metric_topk (K6 on each shard's blocks);
+     int4 two-phase with and without the filter and its screen alone (K3 on
+     each shard). K3, K5 and K6 answers bit for bit the one-device answers,
+     the others within 1e-5 (ids equal but where neighbours lie closer).
+     multislice_search_topk on a (slice 2, data 2) mesh bit for bit the flat
+     4-shard merge (cosine; the int8 weighted score). Phase 11 A's IVF_FLAT
+     (1024, 10) with its slabs cluster-sharded against itself on one device;
+     IVFIndex.from_index over the sharded f32 index attaches the mesh, its
+     answers those of its slabs on one device, its recall@10 against the
+     exact tier printed. The screen (pca, 128 dims, 128 candidates a shard)
+     over phase 5's rows on 4 shards: recall@10 against the sharded exact
+     tier (>= 0.9). vit_b32_serving() encoding phase 3's 256 images over 2
+     parts (and over every card) bit for bit the one-device embeddings, 12
+     K1 launches a part. Each sharded call's CUDA-event time beside its
+     one-device time; the sharded calls' launches of K1, K3, K5 and K6 (each
+     must launch).
 
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
@@ -1720,7 +1752,7 @@ def first_segment(torch, index):
     seg = k3.SEGMENT_ROWS
     g = torch.Generator(device="cuda").manual_seed(7)
     valid = torch.rand(seg, generator=g, device="cuda") >= 0.01
-    return index._packed[:seg], index._scales4[:seg], valid
+    return index._packed[0][:seg], index._scales4[0][:seg], valid
 
 
 def kernel_vs_plain_int4(torch, card, index, qu64):
@@ -1746,19 +1778,20 @@ def kernel_vs_plain_int4_i8(torch, card, index, qu64):
 
     # ---- the ops-level entry over the whole gallery, counted ---------------
     k3.int4_screen_scores_i8.launches = 0
-    v8, i8 = k3.int4_screen_topc(qu64, index._packed, index._scales4, index._valid, RERANK_C,
+    packed, scales4, valid = index._packed[0], index._scales4[0], index._valid[0]
+    v8, i8 = k3.int4_screen_topc(qu64, packed, scales4, valid, RERANK_C,
                                  qform="i8")
     torch.cuda.synchronize()
     out["launches"] = k3.int4_screen_scores_i8.launches
     # ---- end of the counted run --------------------------------------------
-    vb, ib = k3.int4_screen_topc(qu64, index._packed, index._scales4, index._valid, RERANK_C)
-    segments = -(-index._packed.shape[0] // seg)
+    vb, ib = k3.int4_screen_topc(qu64, packed, scales4, valid, RERANK_C)
+    segments = -(-packed.shape[0] // seg)
     i8l, ibl = i8.tolist(), ib.tolist()
     out["top128"] = float(np.mean([len(set(a) & set(b)) / RERANK_C for a, b in zip(i8l, ibl)]))
     out["top10"] = float(np.mean([len(set(a) & set(b[:TOP_K])) / TOP_K
                                   for a, b in zip(i8l, ibl)]))
     top1 = float((v8[:, 0] - vb[:, 0]).abs().max())
-    print(f"int4_screen_topc(qform=\"i8\") over {index._packed.shape[0]} rows, Q=64, c={RERANK_C}: "
+    print(f"int4_screen_topc(qform=\"i8\") over {packed.shape[0]} rows, Q=64, c={RERANK_C}: "
           f"{out['launches']} kernel launches (expected {segments} segments); its top-{RERANK_C} "
           f"holds {out['top128']:.4f} of the bf16 sweep's top-{RERANK_C} (limit {I8_TOP128_MIN}) "
           f"and {out['top10']:.4f} of its top-{TOP_K} (limit {I8_TOP10_MIN}); best scores "
@@ -2006,9 +2039,9 @@ def phase_int4(torch, card, enc, queries, q_emb):
     torch.cuda.synchronize()
     print(f"int4 tier: {len(cap)} x {d} rows inserted into two indexes in {insert_s:.1f} s "
           f"(host quantization), uploaded in {time.perf_counter() - t0:.1f} s; on the card "
-          f"capacity mode holds {cap._packed.numel() / 2**30:.2f} GiB of packed rows, "
-          f"latency mode {lat._packed.numel() / 2**30:.2f} GiB + "
-          f"{lat._gallery.numel() / 2**30:.2f} GiB of int8 rows [{card}]", flush=True)
+          f"capacity mode holds {cap._packed[0].numel() / 2**30:.2f} GiB of packed rows, "
+          f"latency mode {lat._packed[0].numel() / 2**30:.2f} GiB + "
+          f"{lat._gallery[0].numel() / 2**30:.2f} GiB of int8 rows [{card}]", flush=True)
     waves = {}
     for name, ix in (("capacity", cap), ("latency", lat)):
         ix.stage = "warm-up"  # first-call costs (allocator, cuBLAS handles)
@@ -2277,7 +2310,7 @@ def phase_l14(torch, card, queries):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
     (_, cold, cold_b), (_, warm, warm_b) = waves
     print(f"int8 tier: {len(index)} x {mc.embed_dim} rows quantized on the host and "
-          f"uploaded in {insert_s:.1f} s ({index._gallery.numel() / 2**30:.2f} GiB on the "
+          f"uploaded in {insert_s:.1f} s ({index._gallery[0].numel() / 2**30:.2f} GiB on the "
           f"card); {N_CLIENTS} concurrent text queries through SearchServer: cold "
           f"{N_CLIENTS / cold:.1f} QPS ({cold_b} micro-batches), again "
           f"{N_CLIENTS / warm:.1f} QPS ({warm_b} micro-batches); single searches "
@@ -3113,8 +3146,9 @@ def phase_weighted(torch, card, enc32, index32, enc14, index14, queries):
     # K4 and K7 serve no index tier (the f32 tiers' weighted score takes the
     # direct L2); their entry points are called as a user of ops/ would, over
     # the whole f32 gallery
-    k4 = fm.fused_optimized_topk(qdev[32], index32._gallery, index32._mags, wtuple(W_REF), k=TOP_K)
-    k7 = fm.fused_optimized_scores(qdev[32], index32._gallery, index32._mags,
+    k4 = fm.fused_optimized_topk(qdev[32], index32._gallery[0], index32._mags[0], wtuple(W_REF),
+                                 k=TOP_K)
+    k7 = fm.fused_optimized_scores(qdev[32], index32._gallery[0], index32._mags[0],
                                    torch.tensor(wtuple(W_REF), device="cuda"))
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
@@ -3228,8 +3262,8 @@ def phase_weighted(torch, card, enc32, index32, enc14, index14, queries):
           "ranking is the index's", flush=True)
 
     # ---- the kernels against their plain versions, then their times ------
-    args = (index32._gallery, index32._mags, qdev[32], index14._gallery, index14._scales,
-            index14._mags, qdev[14])
+    args = (index32._gallery[0], index32._mags[0], qdev[32], index14._gallery[0],
+            index14._scales[0], index14._mags[0], qdev[14])
     worst = metric_kernels_vs_plain(torch, *args)
     times = time_metric_kernels(
         torch, card, *args,
@@ -3464,6 +3498,63 @@ def profile_step(torch, tr, pixels, tokens, card, label):
     print(f"{label} step profile at batch {N_PAIRS}, torch.profiler on: wall {wall_ms:.1f} ms, "
           f"device busy {busy:.1f} ms (idle share {max(0.0, 1 - busy / wall_ms):.1%}): {parts}; "
           f"the largest of the other kernels: {largest} [{card}]", flush=True)
+
+
+def time_encoder(torch, card, rounds=15):
+    """--time-encoder: the medians, on the host clock, of phase 3's B/32
+    serving encode of N_IMAGES uint8 images, phase 5's L/14 encode of
+    N_IMAGES5 and phase 8's train step at batch N_PAIRS (fit over 5 steps,
+    the step's mean), each over `rounds` warm calls; the spread as p10-p90.
+    It uses only what every checkout of the port since phase 8 has, so two
+    checkouts compare inside one call."""
+    import dataclasses
+    import itertools
+
+    from image_retrieval_tpu_torch.config import (
+        Config,
+        serving_config,
+        vit_b32,
+        vit_b32_serving,
+        vit_l14,
+    )
+    from image_retrieval_tpu_torch.models import clip as tclip
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+    from image_retrieval_tpu_torch.train import CLIPTrainer
+
+    def spread(fn, n=rounds):
+        fn()
+        fn()
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return np.percentile(ts, [50, 10, 90])
+
+    out = []
+    for name, mc, n in (("B/32 vit_b32_serving()", vit_b32_serving(), N_IMAGES),
+                        ("L/14 serving_config(vit_l14())", serving_config(vit_l14()), N_IMAGES5)):
+        enc = CLIPEncoder(Config(model=mc), seed=0, device="cuda")
+        images = np.random.default_rng(0).integers(
+            0, 256, size=(n, mc.image_size, mc.image_size, 3), dtype=np.uint8)
+        med, lo, hi = spread(lambda: enc.encode_pixels(images))
+        out.append(f"{name} encode_pixels({n}) {med:.2f} ms = {n * 1e3 / med:.1f} img/s "
+                   f"(p10-p90 {lo:.2f}-{hi:.2f} ms)")
+        del enc
+        torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(vit_b32(), fused_attn_block=True, fused_mlp_block=True,
+                               fused_train_vjp=True)
+    pixels, tokens = train_batch(tcfg)
+    tr = CLIPTrainer(tcfg, seed=0)
+    steps = 5
+    med, lo, hi = spread(lambda: tr.fit(itertools.repeat((pixels, tokens)), steps=steps),
+                         n=max(3, rounds // 5))
+    out.append(f"train step at batch {N_PAIRS} {med / steps:.2f} ms (p10-p90 "
+               f"{lo / steps:.2f}-{hi / steps:.2f} ms)")
+    print(f"time-encoder, models/clip.py PRODUCT_ROWS "
+          f"{getattr(tclip, 'PRODUCT_ROWS', 'absent')}: {'; '.join(out)} [{card}]", flush=True)
 
 
 def phase_train(torch, card):
@@ -4290,7 +4381,7 @@ def tiers_on_phase5(torch, card, enc14, index14, queries):
     worst, swaps = check_ranked("l1_shadow weighted", vals, idx, b, slack=slack)
     del best, full_sq, slack
     index14.config = cfg
-    g, sc, m = index14._gallery, index14._scales, index14._mags
+    g, sc, m = index14._gallery[0], index14._scales[0], index14._mags[0]
     sh = make_l1_shadow(g, sc, m)
     shadow_gib = sh.numel() * 2 / 2**30
     times = {}
@@ -4755,6 +4846,7 @@ def ivf_reference_deployment(torch, card, enc, index32, queries, q_emb):
     ivf = IVFIndex.from_index(index32, nlist=NLIST11, nprobe=NPROBE11)
     torch.cuda.synchronize()
     out["build_s"] = time.perf_counter() - t0
+    out["ivf"] = ivf  # phase 13 shards its slabs
     parts = ", ".join(f"{k} {v:.2f} s" for k, v in ivf.build_seconds.items())
     print(f"IVF_FLAT over {index32.live_count} x {index32.dim} f32 rows: nlist {ivf.nlist}, "
           f"nprobe {ivf.nprobe}, lmax {ivf._lmax} ({ivf._packed.numel() * 4 / 2**30:.2f} GiB "
@@ -5050,10 +5142,11 @@ def phase_ivf(torch, card, enc, index32, queries, q_emb, upload_gbps=None):
                 "seconds": seconds}
 
 
-def phase_ivf_alone(torch, card):
-    """--ivf: phase 11 on what phases 3 and 6 would hand it: the B/32
-    serving encoder and its f32 gallery (256 encoded seeded images, N_ROWS
-    seeded unit rows) with phase 6's planted rows, all from seed 0."""
+def b32_gallery(torch):
+    """What phases 3 and 6 hand the later phases: the B/32 serving encoder
+    and its f32 gallery (256 encoded seeded images, N_ROWS seeded unit rows)
+    with phase 6's planted rows, all from seed 0. Returns (encoder, index,
+    queries, query embeddings)."""
     from image_retrieval_tpu_torch.config import Config, vit_b32_serving
     from image_retrieval_tpu_torch.index import ShardedVectorIndex
     from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
@@ -5075,6 +5168,12 @@ def phase_ivf_alone(torch, card):
     del rows
     q_emb = enc.encode_texts(queries)
     plant_rows(torch, index32, q_emb, 61)
+    return enc, index32, queries, q_emb
+
+
+def phase_ivf_alone(torch, card):
+    """--ivf: phase 11 on what phases 3 and 6 would hand it (b32_gallery)."""
+    enc, index32, queries, q_emb = b32_gallery(torch)
     return phase_ivf(torch, card, enc, index32, queries, q_emb)
 
 
@@ -5348,6 +5447,281 @@ def phase_analysis(torch, card):
                 "grid_mi_diff": grid_diff}
 
 
+# ---- phase 13: multi-device search over a mesh --------------------------------
+
+# Phase 13: the shards of the index's mesh (virtual shards on cuda:0; every
+# card as well where there are several), the encoder's parts, the filtered
+# search's share of rows, the score limit of the plain sweeps (f32 products:
+# cuBLAS may sum a block of rows in another order than the whole gallery).
+SHARDS13, ENC_SHARDS13, FILTER_EVERY13, ATOL13 = 4, 2, 3, 1e-5
+DEVICE13 = "cuda:0"  # the device of the virtual shards and of the one-device indexes
+MESH_KERNELS = ("layer_block_int8", "int4_screen", "fused_optimized_scores_int8",
+                "fused_all_metrics")
+
+
+def mesh_counts():
+    """The launch counters of the kernels the sharded paths run."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+    from image_retrieval_tpu_torch.ops import fused_metrics as fm
+    from image_retrieval_tpu_torch.ops import int4_screen as k3
+
+    return {"layer_block_int8": fa.layer_block_int8.launches,
+            "int4_screen": k3.int4_screen_scores.launches,
+            "fused_optimized_scores_int8": fm.fused_optimized_scores_int8_pallas.launches,
+            "fused_all_metrics": fm.fused_all_metrics.launches}
+
+
+class MeshRun:
+    """Phase 13's bookkeeping: each check runs the one-device call, then the
+    sharded call with the kernels' counters read around it, holds one to
+    the other and times both (CUDA events)."""
+
+    def __init__(self, torch, card):
+        self.torch, self.card = torch, card
+        self.launches = dict.fromkeys(MESH_KERNELS, 0)
+        self.times = {}
+
+    def held(self, what, sharded, one, bitwise, atol=ATOL13, shards=SHARDS13,
+             against="the one-device answers"):
+        want = one()
+        before = mesh_counts()
+        got = sharded()
+        self.torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in mesh_counts().items()}
+        for k, v in took.items():
+            self.launches[k] += v
+        pairs = ([(got[n], want[n], n) for n in want] if isinstance(want, dict)
+                 else [(got, want, "")])
+        worst = 0.0
+        for g, w, name in pairs:
+            if bitwise:
+                if not all(np.array_equal(a, b) for a, b in zip(g, w)):
+                    fail(f"{what} {name}: the sharded answers are not {against} bit "
+                         "for bit")
+            else:
+                worst = max(worst, agree_topk(f"{what} {name}", g, w, atol)[0])
+        ms = event_ms(self.torch, sharded, samples=5, reps=1, warm=1)
+        one_ms = event_ms(self.torch, one, samples=5, reps=1, warm=1)
+        self.times[what] = {"ms": ms, "one_device_ms": one_ms}
+        kernels = ", ".join(f"{k} {v} ({v / shards:g} a shard)" for k, v in took.items() if v)
+        print(f"mesh: {what}: {'bit for bit' if bitwise else f'within {worst:.3g}'} "
+              f"{against}; {ms:.3f} ms against {one_ms:.3f} ms (CUDA events, host round "
+              f"trip included); launches {kernels or 'none'} [{self.card}]", flush=True)
+        return got
+
+
+def mesh_index(torch, where, dtype, paths, unit, mags, **cfg):
+    """An index of the rows (unit, mags) over a mesh or on one device, its
+    rows staged on the card(s)."""
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.parallel.mesh import Mesh
+
+    config = IndexConfig(embedding_dim=unit.shape[1], dtype=dtype,
+                         capacity_step=len(paths) + 65536, **cfg)
+    kw = {"mesh": where} if isinstance(where, Mesh) else {"device": where}
+    ix = ShardedVectorIndex(dim=unit.shape[1], config=config, **kw)
+    ix.insert(paths, unit, mags)
+    ix.load()
+    torch.cuda.synchronize()
+    return ix
+
+
+def topk_arrays(fn, *args, **kw):
+    return [t.cpu().numpy() for t in fn(*args, **kw)]
+
+
+def phase_mesh(torch, card, enc, index32, index14, q_emb, q14, ivf_a):
+    """Phase 13: search sharded over a mesh of SHARDS13 virtual shards on
+    cuda:0 (and over every card where there are several) against one device;
+    the multi-slice merge; the cluster-sharded IVF; the screen over sharded
+    rows; the encoder's batches split over ENC_SHARDS13 parts. Returns
+    (sharded launches by kernel, readings)."""
+    from image_retrieval_tpu_torch.config import Config, vit_b32_serving
+    from image_retrieval_tpu_torch.index.ivf import IVFIndex
+    from image_retrieval_tpu_torch.index.screen import ScreenedSearch
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+    from image_retrieval_tpu_torch.parallel import collectives as col
+    from image_retrieval_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    t_phase = time.perf_counter()
+    run = MeshRun(torch, card)
+    flat = make_mesh(devices=[DEVICE13] * SHARDS13)
+    grid = np.empty((2, SHARDS13 // 2), dtype=object)
+    grid[:] = torch.device(DEVICE13)
+    sliced = Mesh(grid, ("slice", "data"))
+    meshes = [(f"{SHARDS13} shards on {DEVICE13}", flat)]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", make_mesh()))
+    print(f"phase 13: meshes {[str(m) for _, m in meshes]}; a (slice 2, data "
+          f"{SHARDS13 // 2}) mesh on {DEVICE13}", flush=True)
+
+    # ---- phase 3's rows with phase 6's planted rows, three tiers --------------
+    n = N_ROWS + N_IMAGES + N_CLIENTS * (1 + PLANTED4)
+    unit = index32._host_gallery[:n]
+    mags = index32._host_mags[:n]
+    paths = index32.paths[:n]
+    flt = np.arange(n) % FILTER_EVERY13 == 0
+    q = q_emb
+    for label, mesh in meshes:
+        nsh = len(mesh.devices.flat)
+        t0 = time.perf_counter()
+        f1, fs, i1, is_, l1, ls = (
+            mesh_index(torch, where, dtype, paths, unit, mags, **cfg)
+            for dtype, cfg in (("float32", {}), ("int8", {}),
+                               ("int4", {"rerank_c": RERANK_C, "rerank_device": True}))
+            for where in (DEVICE13, mesh))
+        print(f"mesh ({label}): {n} x {unit.shape[1]} rows into f32, int8 and int4 "
+              f"(latency mode) indexes, one device and sharded, in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        h = lambda what, *a, **k: run.held(f"{label}: {what}", *a, shards=nsh, **k)
+        # the f32 tier: tensor operations on each shard
+        h("f32 cosine top-10, 64 queries", lambda: fs.search(q, TOP_K),
+          lambda: f1.search(q, TOP_K), False)
+        h(f"f32 cosine, filter (every {FILTER_EVERY13}rd row)",
+          lambda: fs.search(q, TOP_K, flt=flt), lambda: f1.search(q, TOP_K, flt=flt), False)
+        w_scale = 1 + float(np.abs(f1.search(q, TOP_K, "optimized_similarity", W_REF)[0]).max())
+        h("f32 weighted (1,1,1,0,0.5)",
+          lambda: fs.search(q, TOP_K, "optimized_similarity", W_REF),
+          lambda: f1.search(q, TOP_K, "optimized_similarity", W_REF), False,
+          atol=ATOL13 * w_scale)
+        h("f32 multi_metric_topk (K6 a shard)", lambda: fs.multi_metric_topk(q, TOP_K),
+          lambda: f1.multi_metric_topk(q, TOP_K), True)
+        got = fs.scores(q[:4])
+        want = f1.scores(q[:4])
+        diff = float(np.abs(got - want).max())
+        if got.shape != (4, n) or diff > ATOL13:
+            fail(f"mesh ({label}): scores() shape {got.shape}, differs by {diff:.3g}")
+        print(f"mesh ({label}): f32 scores() of 4 queries x {n} rows within {diff:.3g} of "
+              "one device", flush=True)
+        # the int8 tier: K5 and K6 on each shard
+        h("int8 cosine top-10", lambda: is_.search(q, TOP_K), lambda: i1.search(q, TOP_K),
+          False)
+        h("int8 weighted (K5 a shard)",
+          lambda: is_.search(q, TOP_K, "optimized_similarity", W_REF),
+          lambda: i1.search(q, TOP_K, "optimized_similarity", W_REF), True)
+        h("int8 weighted, filter (K5 a shard)",
+          lambda: is_.search(q, TOP_K, "optimized_similarity", W_REF, flt=flt),
+          lambda: i1.search(q, TOP_K, "optimized_similarity", W_REF, flt=flt), True)
+        h("int8 multi_metric_topk (K6 a block of each shard)",
+          lambda: is_.multi_metric_topk(q, TOP_K), lambda: i1.multi_metric_topk(q, TOP_K), True)
+        got, want = is_.scores(q[:4]), i1.scores(q[:4])
+        if float(np.abs(got - want).max()) > ATOL13:
+            fail(f"mesh ({label}): int8 scores() differ by {np.abs(got - want).max():.3g}")
+        # the int4 tier: K3 on each shard, the exact rerank on each shard
+        h("int4 two-phase, latency mode (K3 a shard)", lambda: ls.search(q, TOP_K),
+          lambda: l1.search(q, TOP_K), True)
+        h("int4 two-phase, filter", lambda: ls.search(q, TOP_K, flt=flt),
+          lambda: l1.search(q, TOP_K, flt=flt), True)
+        qd = torch.from_numpy(q).to(DEVICE13)
+        h(f"int4 screen top-{RERANK_C} (K3 a shard)",
+          lambda: topk_arrays(col.sharded_int4_screen_topk, qd, ls._packed, ls._valid,
+                              ls._scales4, RERANK_C, mesh=mesh),
+          lambda: topk_arrays(col.sharded_int4_screen_topk, qd, l1._packed, l1._valid,
+                              l1._scales4, RERANK_C), True)
+        if mesh is flat:
+            # the multi-slice merge over the same shards: the flat merge's answers
+            f32_args = (qd, fs._gallery, fs._valid, fs._mags, TOP_K)
+            int8_args = (qd, is_._gallery, is_._valid, is_._mags, TOP_K, "optimized_similarity",
+                         is_._weights_tuple(W_REF), is_._scales)
+            for what, args in (("f32 cosine", f32_args), ("int8 weighted (K5 a shard)",
+                                                          int8_args)):
+                h(f"multislice_search_topk {what} on (slice 2, data {SHARDS13 // 2}) vs the "
+                  f"flat {SHARDS13}-shard merge",
+                  lambda: topk_arrays(col.multislice_search_topk, *args, mesh=sliced),
+                  lambda: topk_arrays(col.sharded_search_topk, *args, mesh=flat), True,
+                  against="the flat merge's answers")
+            # IVF_FLAT: phase 11 A's index, its slabs sharded, against itself
+            # on one device; then from_index over the sharded f32 index
+            fn = ivf_a.sharded(flat)
+            h(f"phase 11 A's IVF_FLAT ({ivf_a.nlist}, {ivf_a.nprobe}) cluster-sharded",
+              lambda: fn(q, TOP_K), lambda: ivf_a.search(q, TOP_K), False)
+            t0 = time.perf_counter()
+            ivf_s = IVFIndex.from_index(fs, nlist=NLIST11, nprobe=NPROBE11)
+            build_s = time.perf_counter() - t0
+            if ivf_s._mesh is not flat:
+                fail("IVFIndex.from_index over a sharded index did not attach its mesh")
+            got = ivf_s.search(q, TOP_K)
+            ivf_s.attach_mesh(None)
+            want = ivf_s.search(q, TOP_K)
+            agree_topk("from_index IVF, sharded vs one device", got, want, ATOL13)
+            exact = f1.search(q, TOP_K)[1]
+            same_a = float(np.mean(got[1] == ivf_a.search(q, TOP_K)[1]))
+            print(f"mesh: IVFIndex.from_index over the {SHARDS13}-shard f32 index "
+                  f"({NLIST11}, {NPROBE11}) built in {build_s:.2f} s, mesh attached: the same "
+                  f"answers as its slabs on one device; recall@10 vs the exact f32 tier "
+                  f"{recall_at10(got[1], exact):.4f}; ids equal to phase 11 A's IVF at "
+                  f"{same_a:.4f} of ranks (a second build) [{card}]", flush=True)
+            del ivf_s, fn
+        del f1, fs, i1, is_, l1, ls
+        torch.cuda.empty_cache()
+
+    # ---- the screen over phase 5's int8 rows on the flat mesh -----------------
+    n14 = len(index14)
+    t0 = time.perf_counter()
+    rows14 = index14.get_vectors(np.arange(n14))
+    ix14 = mesh_index(torch, flat, "int8", index14.paths[:n14], rows14,
+                      index14.get_magnitudes(np.arange(n14)))
+    del rows14
+    scr = ScreenedSearch.from_index(ix14, sketch_dims=SCREEN_DIMS, candidates=SCREEN_POOL)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rec = recall_at10(scr.search(q14, TOP_K)[1], ix14.search(q14, TOP_K)[1])
+    s_ms = event_ms(torch, lambda: scr.search(q14, TOP_K), samples=5, reps=1, warm=1)
+    e_ms = event_ms(torch, lambda: ix14.search(q14, TOP_K), samples=5, reps=1, warm=1)
+    print(f"mesh: ScreenedSearch (pca, {SCREEN_DIMS} dims, {SCREEN_POOL} candidates a shard) "
+          f"over {n14} x 768 int8 rows on {SHARDS13} shards: index and sketch built in "
+          f"{build_s:.1f} s; recall@10 vs the sharded exact tier {rec:.4f} (limit "
+          f"{SCREEN_RECALL_MIN}); 64 queries {s_ms:.3f} ms, the exact tier {e_ms:.3f} ms "
+          f"(CUDA events) [{card}]", flush=True)
+    if rec < SCREEN_RECALL_MIN:
+        fail(f"the sharded screen's recall@10 {rec:.4f} < {SCREEN_RECALL_MIN}")
+    del scr, ix14
+    torch.cuda.empty_cache()
+
+    # ---- the encoder's batches split over the mesh -----------------------------
+    images = np.random.default_rng(0).integers(0, 256, size=(N_IMAGES, 224, 224, 3),
+                                               dtype=np.uint8)
+    enc_meshes = [(f"{ENC_SHARDS13} parts on {DEVICE13}",
+                   make_mesh(devices=[DEVICE13] * ENC_SHARDS13))]
+    if torch.cuda.device_count() > 1:
+        enc_meshes.append((f"{torch.cuda.device_count()} cards", make_mesh()))
+    for label, mesh in enc_meshes:
+        parts = len(mesh.devices.flat)
+        enc_m = CLIPEncoder(Config(model=vit_b32_serving()), seed=0, mesh=mesh)
+        run.held(f"vit_b32_serving() encoding {N_IMAGES} images over {label}",
+                 lambda: [enc_m.encode_pixels(images)], lambda: [enc.encode_pixels(images)],
+                 True, shards=parts)
+        del enc_m
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 13 took {seconds:.1f} s; sharded launches {run.launches}", flush=True)
+    missing = [k for k, v in run.launches.items() if v == 0]
+    if missing:
+        fail(f"phase 13: the sharded paths launched no {missing}")
+    return run.launches, {"times": run.times, "seconds": seconds, "screen_recall": rec}
+
+
+def phase_mesh_alone(torch, card):
+    """--mesh: phase 13 on what phases 3, 5, 6 and 11 would hand it: the
+    B/32 serving encoder and its f32 gallery with phase 6's planted rows (as
+    --ivf builds them), IVF_FLAT (1024, 10) over it, and a 2^20 x 768 int8
+    gallery with PLANTED4 rows near each of 64 seeded 768-d queries."""
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.index.ivf import IVFIndex
+
+    enc, index32, _, q_emb = b32_gallery(torch)
+    ivf_a = IVFIndex.from_index(index32, nlist=NLIST11, nprobe=NPROBE11)
+    q14 = np.random.default_rng(14).standard_normal((N_CLIENTS, 768)).astype(np.float32)
+    index14 = ShardedVectorIndex(dim=768, config=IndexConfig(
+        embedding_dim=768, dtype="int8", capacity_step=N5 + 65536))
+    pos, planted = planted_rows(q14, np.random.default_rng(6), N5)
+    index14.insert([f"gallery/{i:07d}" for i in range(N5)],
+                   gallery_chunk(torch, 0, 768, pos, planted),
+                   np.random.default_rng(7).uniform(0.5, 4.0, N5).astype(np.float32))
+    return phase_mesh(torch, card, enc, index32, index14, q_emb, q14, ivf_a)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--durable-child"]:  # phase 9's crashing server
         durable_child(*sys.argv[2:6])
@@ -5386,6 +5760,9 @@ def main() -> int:
         launch_breakdown(torch, card)
         phase_gemm_stages(torch, card, halves=("mlp_block_int8",), only=("qkv", "out", "fc2"))
         profile_l14_int8_batch(torch, card)
+        return 0
+    if sys.argv[1:] == ["--time-encoder"]:
+        time_encoder(torch, card)
         return 0
     if sys.argv[1:] == ["--time-dense"]:
         phase_time_dense(torch, card)
@@ -5429,6 +5806,10 @@ def main() -> int:
     if sys.argv[1:] == ["--analysis"]:  # phase 12 builds its own dataset and encoders
         print(f"phase 12 alone: K1 launches {phase_analysis(torch, card)[0]}", flush=True)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        print(f"phase 13 alone: sharded launches {phase_mesh_alone(torch, card)[0]}",
+              flush=True)
+        return 0
     print_new_kernel_registers(lib_path)
     if sys.argv[1:] == ["--gemm-stages"]:
         check_fused_stage(torch, card)
@@ -5453,13 +5834,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 10 runs here, while phase 5's encoder and gallery are on the card
     k3_streamed, tiers = phase_tiers(torch, card, enc14, index14, queries, q_emb)
+    q14 = enc14.encode_texts(queries)  # phase 13's queries of phase 5's gallery
     del enc14
     torch.cuda.empty_cache()
     # phase 11 runs here, phase 10's pinned rows freed, on phase 3's encoder
     # and gallery (with phase 6's planted rows)
-    k1_ivf, _ = phase_ivf(torch, card, enc, index32, queries, q_emb,
-                          upload_gbps=tiers["int8"]["h2d_gbps"])
-    del enc, index32
+    k1_ivf, ivf_readings = phase_ivf(torch, card, enc, index32, queries, q_emb,
+                                     upload_gbps=tiers["int8"]["h2d_gbps"])
+    # phase 13 runs here, on phase 3's encoder and gallery, phase 5's gallery
+    # and phase 11's IVF
+    mesh_launches, _ = phase_mesh(torch, card, enc, index32, index14, q_emb, q14,
+                                  ivf_readings["reference"].pop("ivf"))
+    del enc, index32, ivf_readings
     torch.cuda.empty_cache()
     # phase 12 after phase 11: the color-analysis slice on its own dataset
     k1_analysis, _ = phase_analysis(torch, card)
@@ -5515,6 +5901,8 @@ def main() -> int:
         return out
 
     w_launches["fused_all_metrics"] += k6_durable  # the CLI's compare (phase 9)
+    for name in ("fused_all_metrics", "fused_optimized_scores_int8"):  # phase 13's shards
+        w_launches[name] += mesh_launches[name]
 
     def metric_entry(name, entry, lines, main, extra):
         t = w_times[name]
@@ -5523,6 +5911,7 @@ def main() -> int:
                "replaces": " and ".join(f"image_retrieval_tpu/ops/pallas_kernels.py:{n}"
                                         for n in lines),
                "entry": entry, "launches": w_launches[name], "max_abs_err": w_err[name],
+               "mesh_launches": mesh_launches.get(name, 0),
                "ms": t[main]["kernel"], "plain_ms": t[main]["plain"],
                "bound_ms": t[main]["bound_ms"], "bound_by": t[main]["bound_by"],
                "library_ms": None, "shape": f"{main}: {t[main]['shape']}"}
@@ -5543,16 +5932,18 @@ def main() -> int:
     big = f"l14-vision-B{ENC_BUCKET5}"
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        block_entry("layer_block_int8", "layer_block_int8.cu", 772,
-                    launches + l14_launches["layer_block_int8"] + k1_durable + k1_ivf
-                    + k1_analysis,
-                    "b32-vision-B256",
-                    {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
-                     "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
+        dict(block_entry("layer_block_int8", "layer_block_int8.cu", 772,
+                         launches + l14_launches["layer_block_int8"] + k1_durable + k1_ivf
+                         + k1_analysis + mesh_launches["layer_block_int8"],
+                         "b32-vision-B256",
+                         {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
+                          "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
+             mesh_launches=mesh_launches["layer_block_int8"]),
         {"name": "int4_screen", "route": "cuda",
          "source": "image_retrieval_tpu_torch/csrc/int4_screen.cu",
          "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:602",
-         "launches": int4_launches + k3_streamed,
+         "launches": int4_launches + k3_streamed + mesh_launches["int4_screen"],
+         "mesh_launches": mesh_launches["int4_screen"],
          "max_abs_err": max(k3[1]["max_abs_err"], k3[64]["max_abs_err"],
                             tiers["k3_chunk"][64]["max_abs_err"]),
          "ms": k3[64]["kernel"], "plain_ms": k3[64]["plain"], "bound_ms": k3[64]["bound_ms"],

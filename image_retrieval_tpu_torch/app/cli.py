@@ -27,9 +27,10 @@ int8 whole-layer kernel; --approx-select sets IndexConfig.approx_select
 --ann ivf takes the candidates from an IVF over the index (--nlist,
 --nprobe; 0 = auto), --ann screen from a projection screen (--screen-dims,
 --screen-candidates). `plan` prints the index tier for a corpus size
-(index/plan.py). Everything runs on the card unless --device cpu is given
-(`analyze` has no --device: its encoder runs on the card, its fake encoder
-and analysis on the host). Options take dashes or underscores
+(index/plan.py). Everything runs on every visible card (the index's rows
+and the encoder's batches split over them) unless --device names one
+device, e.g. --device cpu (`analyze` has no --device: its encoder runs on
+the card, its fake encoder and analysis on the host). Options take dashes or underscores
 (--fake_encoder).
 """
 
@@ -311,8 +312,9 @@ def make_parser() -> argparse.ArgumentParser:
              help="Deterministic projection encoder (no CLIP weights needed)")
         flag(sp, "fast-encoder", action="store_true",
              help="vit_b32_serving(): every layer one int8 whole-layer kernel")
-        flag(sp, "device", default="cuda",
-             help="Device of the index and the encoder: cuda (default) or cpu")
+        flag(sp, "device", default=None,
+             help="Device of the index and the encoder (cuda:1, cpu); default: "
+                  "every visible card")
         flag(sp, "approx-select", action="store_true",
              help="IndexConfig.approx_select: accepted, the answers are exact "
                   "(the JAX package's approximate selector is exact off a TPU)")

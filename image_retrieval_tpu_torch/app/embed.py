@@ -18,6 +18,7 @@ from image_retrieval_tpu_torch.config import Config
 from image_retrieval_tpu_torch.device import DeviceLike
 from image_retrieval_tpu_torch.index import ShardedVectorIndex
 from image_retrieval_tpu_torch.models.encoder import Encoder
+from image_retrieval_tpu_torch.parallel.mesh import Mesh
 from image_retrieval_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
@@ -25,19 +26,19 @@ logger = logging.getLogger(__name__)
 
 class ImageEmbeddingSystem:
     """Generate and store image embeddings. Without an `index`, one is
-    created on `device` (the card unless the caller names the CPU).
+    created over every visible card, or on `device` or `mesh` when given.
     `attrs_fn`, paths -> {field: [values]}, attaches scalar attribute
     columns to every insert, for searches with a filter expression
     (index/filters.py); without it inserts carry no attributes."""
 
     def __init__(self, encoder: Encoder, index: Optional[ShardedVectorIndex] = None,
                  config: Optional[Config] = None, attrs_fn=None,
-                 device: DeviceLike = "cuda"):
+                 device: Optional[DeviceLike] = None, mesh: Optional[Mesh] = None):
         self.encoder = encoder
         self.config = config or Config()
         if index is None:
             index = ShardedVectorIndex(dim=encoder.dim, config=self.config.index,
-                                       device=device)
+                                       device=device, mesh=mesh)
         self.index = index
         self.attrs_fn = attrs_fn
 

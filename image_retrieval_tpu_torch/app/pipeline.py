@@ -2,7 +2,8 @@
 
 ``ImageSearchApp`` discovers cached embeddings, encodes a folder (the
 loader's decode overlapping the encoder's batches in flight), keeps the rows
-in one exact index on `device` (the card unless the caller names the CPU)
+in one exact index over every visible card (the encoder's batches split over
+them too), or on `device` or `mesh` when the caller names one,
 and answers text queries (``search_images``), image queries
 (``find_similar_images``) and the multi-metric comparison
 (``search_with_multiple_metrics``, one five-plane pass of the index). With
@@ -40,6 +41,7 @@ from image_retrieval_tpu_torch.config import DEFAULT_SIMILARITY_PARAMS, Config
 from image_retrieval_tpu_torch.device import DeviceLike
 from image_retrieval_tpu_torch.index import ShardedVectorIndex
 from image_retrieval_tpu_torch.models.encoder import Encoder
+from image_retrieval_tpu_torch.parallel.mesh import Mesh
 
 logger = logging.getLogger(__name__)
 
@@ -70,17 +72,20 @@ class ImageSearchApp:
     """Self-contained search application over local image folders."""
 
     def __init__(self, encoder: Optional[Encoder] = None, config: Optional[Config] = None,
-                 journal_dir: Optional[str] = None, *, device: DeviceLike = "cuda"):
+                 journal_dir: Optional[str] = None, *, device: Optional[DeviceLike] = None,
+                 mesh: Optional[Mesh] = None):
         """`journal_dir` makes the index durable (index/journal.py): rows
         already there are recovered on first use, every mutation is
         write-ahead logged and checkpoint() seals the log into a snapshot.
-        Without it the index lives in memory only. `device` holds the index
-        and, when no `encoder` is given, the CLIP encoder built on first
-        use."""
+        Without it the index lives in memory only. The index and, when no
+        `encoder` is given, the CLIP encoder built on first use span every
+        visible card, as the JAX facade's do, unless `device` (one device)
+        or `mesh` is given."""
         self.config = config or Config()
         self.encoder = encoder
         self.journal_dir = journal_dir
         self.device = device
+        self.mesh = mesh
         self.embeddings: Dict[str, np.ndarray] = {}
         self.searcher = SimpleSearcher()
         self._index: Optional[ShardedVectorIndex] = None
@@ -92,7 +97,7 @@ class ImageSearchApp:
         if self.encoder is None:
             from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
 
-            self.encoder = CLIPEncoder(config=self.config, device=self.device)
+            self.encoder = CLIPEncoder(config=self.config, device=self.device, mesh=self.mesh)
         return self.encoder
 
     # -- ingestion -----------------------------------------------------------
@@ -181,7 +186,7 @@ class ImageSearchApp:
                 if cfg.embedding_dim != dim:
                     cfg = dataclasses.replace(cfg, embedding_dim=dim)
             self._index = ShardedVectorIndex.open(self.journal_dir, config=cfg,
-                                                  device=self.device)
+                                                  device=self.device, mesh=self.mesh)
             self._index_dirty = True
         return self._index
 
@@ -220,7 +225,7 @@ class ImageSearchApp:
         if self._index is None or self._index_dirty:
             dim = next(iter(self.embeddings.values())).shape[0]
             self._index = ShardedVectorIndex(dim=dim, config=self.config.index,
-                                             device=self.device)
+                                             device=self.device, mesh=self.mesh)
             paths = list(self.embeddings.keys())
             self._index.insert(paths, np.stack([self.embeddings[p] for p in paths]),
                                attrs={"dir": self._dir_attrs(paths)})

@@ -236,8 +236,9 @@ def main(argv=None):
     ap.add_argument("--journal-dir", "--journal_dir", dest="journal_dir", default=None,
                     help="Durable index directory: rows recovered on start, mutations "
                          "write-ahead logged, so POST /add survives a restart")
-    ap.add_argument("--device", default="cuda",
-                    help="Device of the index and the encoder: cuda (default) or cpu")
+    ap.add_argument("--device", default=None,
+                    help="Device of the index and the encoder (cuda:1, cpu); default: "
+                         "every visible card")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8008)
     ap.add_argument("--ann", choices=("exact", "ivf", "screen"), default="exact",

@@ -92,6 +92,7 @@
 #include <cuda.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "block_common.cuh"
@@ -1192,18 +1193,28 @@ int gemm_max_blocks_as() {
   return e == cudaSuccess ? per_sm * sms : -(int)e;
 }
 
-// The plan's `slots`: the blocks the card holds at once, the fewest over the
-// three block forms (each takes one block an SM), asked once; or minus a
-// CUDA error code.
+// The plan's `slots`: the blocks the current card holds at once, the fewest
+// over the three block forms (each takes one block an SM), asked once per
+// device (a process may drive several cards, and a card of another kind
+// holds another count); or minus a CUDA error code.
+constexpr int kGemmMaxDevices = 64;
+
 template <typename In, typename Epi>
 int gemm_slots() {
-  static const int slots = [] {
+  static std::atomic<int> known[kGemmMaxDevices];  // 0: not asked yet
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (dev < 0 || dev >= kGemmMaxDevices) return -(int)cudaErrorInvalidDevice;
+  int slots = known[dev].load(std::memory_order_relaxed);
+  if (slots == 0) {
     const int n[3] = {gemm_max_blocks_as<In, 1, Epi>(), gemm_max_blocks_as<In, 2, Epi>(),
                       gemm_max_blocks_as<In, 3, Epi>()};
-    int least = n[0];
-    for (int i = 1; i < 3; ++i) least = n[i] < least ? n[i] : least;
-    return least == 0 ? -(int)cudaErrorInvalidConfiguration : least;
-  }();
+    slots = n[0];
+    for (int i = 1; i < 3; ++i) slots = n[i] < slots ? n[i] : slots;
+    if (slots <= 0) return slots == 0 ? -(int)cudaErrorInvalidConfiguration : slots;
+    known[dev].store(slots, std::memory_order_relaxed);
+  }
   return slots;
 }
 

@@ -1,6 +1,6 @@
 """pymilvus-style compatibility layer over ShardedVectorIndex — port of
-``image_retrieval_tpu/index/compat.py``, over the port's index on `device`
-(the card unless the caller names the CPU).
+``image_retrieval_tpu/index/compat.py``, over the port's index on every
+visible card, or on `device` or `mesh` when the caller names one.
 
 Lets code written against the reference's Milvus usage
 (reference ImageEmbeddingSystem.py:35-66,136-137,158-171 and
@@ -32,6 +32,7 @@ import numpy as np
 
 from image_retrieval_tpu_torch.device import DeviceLike
 from image_retrieval_tpu_torch.index.vector_index import ShardedVectorIndex
+from image_retrieval_tpu_torch.parallel.mesh import Mesh
 
 _REGISTRY: Dict[str, "Collection"] = {}
 
@@ -58,7 +59,8 @@ class Collection:
 
     def __init__(self, name: str, dim: Optional[int] = None,
                  index: Optional[ShardedVectorIndex] = None,
-                 journal_dir: Optional[str] = None, *, device: DeviceLike = "cuda"):
+                 journal_dir: Optional[str] = None, *, device: Optional[DeviceLike] = None,
+                 mesh: Optional[Mesh] = None):
         """`Collection(name)` opens an existing collection (pymilvus
         semantics); pass `dim` to declare the schema — an EXPLICIT dim that
         conflicts with the registered collection raises here instead of as
@@ -100,10 +102,10 @@ class Collection:
 
                 cfg = IndexConfig(embedding_dim=dim) if dim else None
                 self._impl = ShardedVectorIndex.open(journal_dir, config=cfg,
-                                                     device=device)
+                                                     device=device, mesh=mesh)
             else:
                 self._impl = ShardedVectorIndex(
-                    dim=dim if dim is not None else 512, device=device
+                    dim=dim if dim is not None else 512, device=device, mesh=mesh
                 )
             self._partitions = {"_default"}
             self._journal_dir = journal_dir

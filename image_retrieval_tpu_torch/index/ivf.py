@@ -1,4 +1,4 @@
-"""IVF (inverted-file) approximate cosine index on one device — the port of
+"""IVF (inverted-file) approximate cosine index — the port of
 ``image_retrieval_tpu/index/ivf.py``.
 
 The exact sweep stays the default. IVF trades exactness for reading only
@@ -32,9 +32,16 @@ The full-set build (no ``train_size``) draws its k-means init from
 ``np.random.default_rng(seed)``, where the JAX package uses
 ``jax.random.choice(PRNGKey(seed))``: the two packages start such builds
 from different rows. The ``train_size`` build makes the JAX package's numpy
-draws in the same order and starts from the same init. The cluster-sharded
-search (``sharded_ivf_search``, ``IVFIndex.sharded``, ``attach_mesh``) is
-multi-device: ROADMAP.md queue 1 item 10.
+draws in the same order and starts from the same init.
+
+Over a mesh (``attach_mesh``, which ``from_index`` calls for an index
+row-sharded over more than one device) the cluster slabs split over the
+mesh axis in contiguous cluster ranges (``sharded``): the centroids are
+replicated, every shard selects the same nprobe clusters and scores only
+those it owns, and the shards' k-lists merge on the first device
+(``sharded_ivf_search``). nlist pads with empty clusters to a multiple of
+the axis. The build, ``add``'s tail and an offloaded index stay on the
+index's first device.
 """
 
 from __future__ import annotations
@@ -50,7 +57,14 @@ import torch
 from image_retrieval_tpu_torch.device import DeviceLike, require_full_f32, resolve_device
 from image_retrieval_tpu_torch.ops.int4 import unit_queries
 from image_retrieval_tpu_torch.ops.topk import exact_topk
-from image_retrieval_tpu_torch.parallel.collectives import _not_ported
+from image_retrieval_tpu_torch.parallel.mesh import (
+    Mesh,
+    entry_mesh,
+    on_device,
+    replicate,
+    shard_devices,
+    shard_rows,
+)
 
 # The gathered f32 slab rows of one scoring step stay within this many bytes:
 # a step scores as many queries as fit, at least one.
@@ -67,8 +81,6 @@ HOST_WORKERS = min(8, os.cpu_count() or 1)
 # An offloaded search gathers its slabs on HOST_WORKERS threads past this
 # many bytes, on the calling thread below it.
 GATHER_THREADS_BYTES = 64 << 20
-
-_MULTI_DEVICE = "multi-device IVF, ROADMAP.md queue 1 item 10"
 
 
 def _sync(device: torch.device) -> None:
@@ -146,11 +158,14 @@ def _top_r_centroids(rows: torch.Tensor, centroids: torch.Tensor, r: int) -> tor
 
 def _score_probed(qu: torch.Tensor, probe: torch.Tensor, packed: torch.Tensor,
                   ids: torch.Tensor, lmax: int, k: int,
-                  scales: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+                  scales: Optional[torch.Tensor],
+                  owned: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query top-k over its probed cluster slabs.
 
     `probe` (Q, nprobe) holds slab positions into `packed` (cluster ids on
-    the resident path; positions among the gathered slabs when offloaded).
+    the resident path; positions among the gathered slabs when offloaded;
+    local cluster ids on a shard, where `owned` (Q, nprobe) marks the
+    probes the shard owns and the others count as empty slabs).
     A step gathers its queries' slabs into (Qs, nprobe * lmax, D) f32 rows
     (within STEP_BYTES), scores them (int8: the bf16-rounded unit query x
     the int8 values, f32 sums, x the scales; f32: the f32 unit query x the
@@ -170,15 +185,82 @@ def _score_probed(qu: torch.Tensor, probe: torch.Tensor, packed: torch.Tensor,
         if slab_sc is not None:
             s = s * slab_sc[p].reshape(len(p), -1)
         rid = slab_ids[p].reshape(len(p), -1)
+        if owned is not None:
+            rid = rid.masked_fill(~owned[lo: lo + step].repeat_interleave(lmax, dim=1), -1)
         v, local = exact_topk(s.masked_fill(rid < 0, float("-inf")), k)
         vals.append(v)
         out.append(torch.gather(rid, 1, local))
     return torch.cat(vals), torch.cat(out)
 
 
-def sharded_ivf_search(*args, **kwargs):
-    """Clusters sharded over a mesh: not ported (one device)."""
-    raise _not_ported(f"sharded_ivf_search ({_MULTI_DEVICE})")
+def sharded_ivf_search(queries: torch.Tensor, centroids, packed_flat, ids_flat, lmax: int,
+                       nprobe: int, k: int, scales_flat=None, *, mesh: Mesh,
+                       axis: str = "data",
+                       nlist_real: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF search with the cluster slabs sharded over `axis`.
+
+    centroids (C, D), replicated: a tensor, or {device: copy}; packed_flat
+    (C * lmax, D) f32 or int8 slabs, ids_flat (C * lmax,) int32 row ids (-1
+    empty) and scales_flat (C * lmax,) for int8: whole tensors (split here)
+    or lists of per-shard blocks, shard i holding clusters [i * C / n,
+    (i + 1) * C / n). Every shard takes the same top-nprobe clusters of the
+    unit queries (lowest id first among ties; ids >= nlist_real, the
+    divisibility padding, never probed), scores only the probes it owns (a
+    query's owned probes in rank order, padded to the most any query owns,
+    the padding counting as empty slabs) with the one-device scoring, and
+    keeps its top-k in (probe rank, slot) order; the shards' lists are concatenated in shard
+    order on the first device and the k best kept by a stable sort (shard
+    order, then probe rank, among ties), as the JAX package merges them.
+    Returns (values (Q, k) f32, row ids (Q, k) int32; -1 where the probed
+    clusters hold fewer than k rows). Raises ValueError for an nlist that
+    the axis does not divide: trailing clusters would be unreachable and
+    every later shard mis-addressed."""
+    devs = shard_devices(mesh, axis)
+    ndev = len(devs)
+    cent = centroids if isinstance(centroids, dict) else replicate(centroids, mesh)
+    nlist = next(iter(cent.values())).shape[0]
+    if nlist % ndev:
+        raise ValueError(f"sharded_ivf_search requires nlist ({nlist}) divisible by the "
+                         f"'{axis}' mesh axis size ({ndev})")
+    per = nlist // ndev
+
+    def split(x):
+        if x is None:
+            return [None] * ndev
+        return list(x) if isinstance(x, (list, tuple)) else shard_rows(x, mesh, axis)
+
+    packed, ids, scales = split(packed_flat), split(ids_flat), split(scales_flat)
+    vals, out = [], []
+    for s, dev in enumerate(devs):
+        with on_device(dev):
+            require_full_f32(dev)
+            qu = unit_queries(queries.to(dev))
+            sims = qu @ cent[dev].t()
+            if nlist_real is not None and nlist_real < nlist:
+                sims[:, nlist_real:] = float("-inf")
+            _, probe = exact_topk(sims, nprobe)
+            if ndev == 1:  # every probe owned: the one-device scoring, no merge
+                return _score_probed(qu, probe, packed[0], ids[0], lmax,
+                                     min(k, nprobe * lmax), scales[0])
+            local = probe - s * per
+            owned = (local >= 0) & (local < per)
+            # each query's owned probes first, in probe rank order: the shard
+            # gathers and scores only as many probes as a query owns at most
+            first = torch.sort((~owned).to(torch.int8), dim=1, stable=True)[1]
+            width = int(owned.sum(1).max())
+            if width == 0:
+                continue
+            local = torch.gather(local, 1, first[:, :width])
+            owned = torch.gather(owned, 1, first[:, :width])
+            v, i = _score_probed(qu, local.clamp(0, per - 1), packed[s], ids[s], lmax,
+                                 min(k, width * lmax), scales[s], owned)
+            vals.append(v)
+            out.append(i)
+    dst = devs[0]
+    all_vals = torch.cat([v.to(dst) for v in vals], 1)
+    all_ids = torch.cat([i.to(dst) for i in out], 1)
+    top, order = torch.sort(all_vals, dim=1, descending=True, stable=True)
+    return top[:, :k], torch.gather(all_ids, 1, order[:, :k])
 
 
 def recommended_ivf(n_rows: int) -> Optional[Tuple[int, int]]:
@@ -360,6 +442,11 @@ class IVFIndex:
         self._host_slab_scales = None
         self.build_seconds: dict = {}  # the last build's parts
         self.last_upload_bytes = 0  # slab bytes the last offloaded search moved
+        # cluster-sharded serving (attach_mesh): the mesh, its axis and the
+        # sharded search, made at the first search after a (re)build
+        self._mesh: Optional[Mesh] = None
+        self._mesh_axis = "data"
+        self._sharded_fn = None
 
     @property
     def _pin(self) -> bool:
@@ -500,6 +587,7 @@ class IVFIndex:
         _sync(dev)
         times["upload"] = time.perf_counter() - t
         self.build_seconds = times
+        self._sharded_fn = None  # the sharded slabs are made anew from these
         self.paths = list(paths) if paths is not None else [str(i) for i in range(n)]
         self._custom_paths = paths is not None
         self.count = n
@@ -660,8 +748,10 @@ class IVFIndex:
         go to build(); train_size defaults to 512k above 2^20 rows. Past the
         index's stream_threshold_bytes the slabs are offloaded: decided
         before the build from the rows' bytes, and checked again after it on
-        the padded slabs' bytes. (The JAX package's mesh branch is
-        multi-device: ROADMAP.md queue 1 item 10.)"""
+        the padded slabs' bytes. The build runs on the index's first
+        device; an index row-sharded over more than one device (and not
+        over a multi-slice mesh, whose hierarchical merge is the exact
+        tier's) attaches its mesh unless the slabs were offloaded."""
         live = np.flatnonzero(index._host_valid[: index.count])
         rows = index._rows_f32(live)
         if dtype is None:
@@ -689,6 +779,8 @@ class IVFIndex:
         if not ivf._offloaded and thr is not None and (
                 ivf._packed.numel() * ivf._packed.element_size() > thr):
             ivf.offload()
+        if not ivf._offloaded and not index._multislice and index._nshards > 1:
+            ivf.attach_mesh(index.mesh, index.axis)
         return ivf
 
     def offload(self) -> "IVFIndex":
@@ -707,6 +799,7 @@ class IVFIndex:
         )
         self._packed = self._row_ids = self._scales = None
         self._offloaded = True
+        self._sharded_fn = None
         return self
 
     def _gathered_search(self, qu: torch.Tensor, probe: torch.Tensor, kf: int):
@@ -747,13 +840,60 @@ class IVFIndex:
         local = torch.from_numpy(inv.reshape(pr.shape).astype(np.int64)).to(self.device)
         return _score_probed(qu, local, slabs.view(-1, d), ids, lmax, kf, scales)
 
-    def attach_mesh(self, mesh, axis: str = "data") -> "IVFIndex":
-        """Cluster-sharded serving over a mesh: not ported (one device)."""
-        raise _not_ported(f"IVFIndex.attach_mesh ({_MULTI_DEVICE})")
+    def attach_mesh(self, mesh: Optional[Mesh], axis: str = "data") -> "IVFIndex":
+        """Serve search() cluster-sharded over `mesh` (``sharded``): the
+        sharded slabs are made at the first search after a (re)build. Mesh
+        None serves on the index's device; an offloaded index through the
+        host gather, on one device."""
+        self._mesh = mesh
+        self._mesh_axis = axis
+        self._sharded_fn = None
+        return self
 
-    def sharded(self, mesh, axis: str = "data"):
-        """The cluster-sharded search callable: not ported (one device)."""
-        raise _not_ported(f"IVFIndex.sharded ({_MULTI_DEVICE})")
+    def sharded(self, mesh: Mesh, axis: str = "data"):
+        """Shard the built slabs over `axis` of `mesh` and return a search
+        callable with search()'s contract.
+
+        Each shard holds nlist / n clusters' slabs (with their int8 scales);
+        the centroids are replicated; nlist pads with empty clusters (ids -1,
+        never probed) to a multiple of the axis so shard boundaries fall on
+        cluster boundaries. The tail stays on the first device and merges
+        on the host, as on one device. The whole slabs stay where the build
+        put them (save, offload and another mesh read them); a shard on
+        their device is a view of them (a padded shard a copy of its part),
+        so that device holds them once."""
+        if self._packed is None:
+            raise ValueError(
+                "sharded() needs device-resident slabs (build() first; an "
+                "offloaded index serves through the host gather instead)")
+        devs = shard_devices(mesh, axis)
+        nlist, lmax = self.nlist, self._lmax
+        pad = (-nlist) % len(devs)
+        rows = (nlist + pad) // len(devs) * lmax  # slab rows a shard
+
+        def split(x, fill):
+            # shard i's rows, the last shards filled out with empty clusters
+            out = []
+            for i, dev in enumerate(devs):
+                blk = x[i * rows: (i + 1) * rows]
+                if len(blk) < rows:
+                    blk = torch.cat([blk, blk.new_full((rows - len(blk),) + blk.shape[1:], fill)])
+                out.append(blk.to(dev))
+            return out
+
+        cent = self._centroids
+        if pad:
+            cent = torch.cat([cent, cent.new_zeros((pad, cent.shape[1]))])
+        d_cent, d_packed, d_ids = (replicate(cent, mesh), split(self._packed, 0),
+                                   split(self._row_ids, -1))
+        d_scales = None if self._scales is None else split(self._scales, 0)
+
+        def score(qdev, qu, np_, kf):
+            return sharded_ivf_search(qdev, d_cent, d_packed, d_ids, lmax, np_, kf, d_scales,
+                                      mesh=mesh, axis=axis, nlist_real=nlist if pad else None)
+
+        return lambda queries, top_k=10, nprobe=None: self._search(queries, top_k, nprobe,
+                                                                   score)
 
     # -- search -------------------------------------------------------------
 
@@ -784,20 +924,8 @@ class IVFIndex:
             ids = np.take_along_axis(ids, order, axis=1)[:, :kk]
         return (vals[0], ids[0]) if single else (vals, ids)
 
-    def search(
-        self, queries: np.ndarray, top_k: int = 10, nprobe: Optional[int] = None
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """Approximate cosine top-k: (scores f32, ids int32), (Q, k) or 1-D
-        for a single query; ids in build() order (index row order after
-        from_index), -1 for slots the probed clusters cannot fill."""
-        if self.count == 0:
-            raise ValueError("index is empty")
-        require_full_f32(self.device)
-        q = np.asarray(queries, np.float32)
-        single = q.ndim == 1
-        if single:
-            q = q[None]
-        nq = q.shape[0]
+    def _probe_counts(self, top_k: int, nprobe: Optional[int]) -> Tuple[int, int, int]:
+        """(clusters probed, results k, candidates kf kept per query)."""
         np_ = min(nprobe or self.nprobe, self.nlist)
         packed_n = self.count - self._tail_n
         # k can't exceed the probed slot count (nprobe * lmax scores exist
@@ -810,16 +938,47 @@ class IVFIndex:
         kf = min(k * self._replicas, np_ * self._lmax)
         kf = min(next((b for b in (16, 32, 64, 128, 256) if kf <= b), kf),
                  np_ * self._lmax, packed_n)
+        return np_, k, kf
+
+    def search(
+        self, queries: np.ndarray, top_k: int = 10, nprobe: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Approximate cosine top-k: (scores f32, ids int32), (Q, k) or 1-D
+        for a single query; ids in build() order (index row order after
+        from_index), -1 for slots the probed clusters cannot fill. Resident
+        slabs serve through ``sharded`` over the attached mesh, or over the
+        one-device mesh of the index's device; offloaded slabs through the
+        host gather."""
+        if self.count == 0:
+            raise ValueError("index is empty")
+        require_full_f32(self.device)
+        if self._offloaded:
+            def score(qdev, qu, np_, kf):
+                _, probe = exact_topk(qu @ self._centroids.t(), np_)
+                return self._gathered_search(qu, probe, kf)
+
+            return self._search(queries, top_k, nprobe, score)
+        if self._sharded_fn is None:
+            mesh, axis = self._mesh, self._mesh_axis
+            if mesh is None:
+                mesh, axis = entry_mesh(self.device, None), "data"
+            self._sharded_fn = self.sharded(mesh, axis)
+        return self._sharded_fn(queries, top_k=top_k, nprobe=nprobe)
+
+    def _search(self, queries, top_k: int, nprobe: Optional[int], score):
+        """search()'s body around `score(queries on the device, unit
+        queries, nprobe, kf) -> (values, row ids)`, each (Q, kf)."""
+        q = np.asarray(queries, np.float32)
+        single = q.ndim == 1
+        if single:
+            q = q[None]
+        np_, k, kf = self._probe_counts(top_k, nprobe)
         with torch.inference_mode():
-            qu = unit_queries(self._up(q))
-            _, probe = exact_topk(qu @ self._centroids.t(), np_)
-            if self._offloaded:
-                vals, ids = self._gathered_search(qu, probe, kf)
-            else:
-                vals, ids = _score_probed(qu, probe, self._packed, self._row_ids,
-                                          self._lmax, kf, self._scales)
-            return self._postprocess(vals.cpu().numpy(), ids.cpu().numpy(), nq, k, top_k,
-                                     qu, single)
+            qdev = self._up(q)
+            qu = unit_queries(qdev)
+            vals, ids = score(qdev, qu, np_, kf)
+            return self._postprocess(vals.cpu().numpy(), ids.cpu().numpy(), q.shape[0], k,
+                                     top_k, qu, single)
 
     def recall_at(self, queries: np.ndarray, exact_ids: np.ndarray, k: int = 10,
                   nprobe: Optional[int] = None) -> float:

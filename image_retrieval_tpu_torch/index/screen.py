@@ -1,9 +1,9 @@
 """Projection-screened two-phase cosine search — port of
-``image_retrieval_tpu/index/screen.py`` on one device.
+``image_retrieval_tpu/index/screen.py``.
 
   phase 1  q' = q @ P; sweep an int8 (N, ds) sketch of the rows (ds << D)
-           for the top-C candidates per query: ds / D of the exact sweep's
-           row bytes.
+           for the top-C candidates per query and shard: ds / D of the
+           exact sweep's row bytes.
   phase 2  gather the C candidates' full stored rows and rerank them with
            the resident engine's scoring math (for int8 rows: the bf16 unit
            query x the int8 rows, f32 sums, x the norm-preserving scale), so
@@ -16,6 +16,15 @@ the host with the JAX package's numpy code) or a seeded random rotation
 ("random"). Recall is a property of the data's clustering: measure it with
 ``recall_at``.
 
+The resident screen follows its index's mesh, as the JAX package's does:
+each shard's moment is summed (float64) over the shards, which is another
+order of sums than one device's, so a sharded projection agrees with the
+one-device projection to rounding; each shard projects and quantizes its
+own rows into its sketch, sweeps it for its top-C, reranks those
+candidates against its own rows, and the exact k-lists merge as the exact
+tier's do (``parallel/collectives.py``), hierarchically on a multi-slice
+mesh. The candidate pool is C a shard.
+
 Over a streamed index (``index/streaming.py``) the screen runs in streamed
 mode: the sketch is built in chunked passes over the host rows (one for
 "random", two for "pca") and stays on the device; phase 2 gathers only the
@@ -23,9 +32,8 @@ Q x C candidate rows from host RAM.
 
 Cosine only. It plugs into the app as ``SearchConfig.ann = "screen"``
 through ``search(q_unit, top_k) -> (cos, ids)`` with (-inf, -1) padding, and
-is rebuilt when its parent index mutates (``stale``). The JAX package's mesh
-pieces (the row-sharded second moment and sweep, the gather-merge across
-shards) are one-device code here: multi-device is ROADMAP.md queue 1 item 10.
+is rebuilt when its parent index mutates (``stale``). The streamed screen
+stays on the index's first device, as the streamed tier does.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import torch
 from image_retrieval_tpu_torch.device import require_full_f32
 from image_retrieval_tpu_torch.ops.int4 import segmented_topc, unit_queries
 from image_retrieval_tpu_torch.ops.topk import exact_topk, two_key_topk
+from image_retrieval_tpu_torch.parallel.collectives import _merge, _Split
+from image_retrieval_tpu_torch.parallel.mesh import on_device
 
 # Resident phase 1: rows per scored block, with a running top-C merge.
 _RESIDENT_P1_BLOCK = 1 << 17
@@ -82,10 +92,19 @@ def _dequant(rows: torch.Tensor, scales: Optional[torch.Tensor]) -> torch.Tensor
     return x if scales is None else x * scales[:, None]
 
 
-def second_moment(gallery: torch.Tensor, valid: Optional[torch.Tensor],
-                  scales: Optional[torch.Tensor], block: int = _BUILD_BLOCK) -> np.ndarray:
+def second_moment(gallery, valid, scales, block: int = _BUILD_BLOCK) -> np.ndarray:
     """(D, D) uncentered second moment of the live dequantized rows: f32
-    products a block of rows at a time, summed in float64."""
+    products a block of rows at a time, summed in float64. Lists of row
+    shards (the index's device copy) sum their shards' moments in shard
+    order, each computed on its shard's device."""
+    if isinstance(gallery, (list, tuple)):
+        cov = None
+        for s, g in enumerate(gallery):
+            with on_device(g.device):
+                part = second_moment(g, None if valid is None else valid[s],
+                                     None if scales is None else scales[s], block)
+            cov = part if cov is None else cov + part
+        return cov
     require_full_f32(gallery.device)
     d = gallery.shape[1]
     cov = np.zeros((d, d), np.float64)
@@ -153,7 +172,9 @@ class ScreenedSearch:
         self._index = index
         self.proj = proj  # (D, ds) host copy
         self._proj = torch.from_numpy(proj).to(index.device)
-        self._sketch = sketch  # (N, ds) int8 on the index's device
+        # (N, ds) int8: streamed, one tensor on the index's first device;
+        # resident, a list of row shards beside the index's (sk_scales alike)
+        self._sketch = sketch
         self._sk_scales = sk_scales
         self.candidates = int(candidates)
         self.method = method
@@ -182,14 +203,18 @@ class ScreenedSearch:
             return cls._from_streamed(index, sketch_dims, candidates, method, seed)
         d = index.dim
         ds = int(min(sketch_dims, d))
+        split = _Split(index._gallery, index.mesh, index._row_axes)
+        scales = split.rows(index._scales)
         with torch.inference_mode():
             cov = (second_moment(index._gallery, index._valid, index._scales)
                    if method == "pca" else None)
             proj = _fit_projection(d, ds, method, seed, cov)
-            sketch = torch.empty((index.count, ds), dtype=torch.int8, device=index.device)
-            sk_scales = torch.empty(index.count, dtype=torch.float32, device=index.device)
-            project_quantize(index._gallery, index._scales,
-                             torch.from_numpy(proj).to(index.device), sketch, sk_scales)
+            sketch, sk_scales = [], []
+            for s, dev in split.each():
+                sketch.append(torch.empty((split.nlocal, ds), dtype=torch.int8, device=dev))
+                sk_scales.append(torch.empty(split.nlocal, dtype=torch.float32, device=dev))
+                project_quantize(split.gallery[s], scales[s], torch.from_numpy(proj).to(dev),
+                                 sketch[s], sk_scales[s])
         return cls(index, proj, sketch, sk_scales, candidates, method)
 
     @classmethod
@@ -275,18 +300,26 @@ class ScreenedSearch:
         return (vals[0], gidx[0]) if single else (vals, gidx)
 
     def _search_resident(self, qu, qs16, top_k):
-        """Phase 1 over the device sketch, phase 2 over the device rows."""
+        """Per shard: phase 1 over its sketch, phase 2 over its rows, its
+        top-cl; then the k-sized merge of the shards' exact lists."""
         idx = self._index
-        c = self._pool(top_k, idx.count)
-        p1v, cidx = sketch_topc(qs16, self._sketch, self._sk_scales, idx._valid, c,
-                                int(self.p1_block))
+        split = _Split(idx._gallery, idx.mesh, idx._row_axes)
+        scales = split.rows(idx._scales)
+        c = self._pool(top_k, idx._device_rows())
+        cl = min(c, split.nlocal)
         quantized = idx._quantized
-        r = rerank_rows(qu.to(torch.bfloat16) if quantized else qu, idx._gallery[cidx],
-                        idx._scales[cidx] if quantized else None)
-        # a pool larger than the live rows carries -inf slots: never reranked in
-        r = torch.where(idx._valid[cidx] & torch.isfinite(p1v), r, float("-inf"))
-        vals, ii = exact_topk(r, c)
-        return two_key_topk(vals, torch.gather(cidx, 1, ii), c, True)
+        parts = []
+        for s, _ in split.each():
+            p1v, cidx = sketch_topc(split.queries(qs16, s), self._sketch[s], self._sk_scales[s],
+                                    idx._valid[s], cl, int(self.p1_block))
+            q = split.queries(qu, s)
+            r = rerank_rows(q.to(torch.bfloat16) if quantized else q, split.gallery[s][cidx],
+                            scales[s][cidx] if quantized else None)
+            # a pool larger than the live rows carries -inf slots: never reranked in
+            r = torch.where(idx._valid[s][cidx] & torch.isfinite(p1v), r, float("-inf"))
+            vals, ii = exact_topk(r, cl)
+            parts.append((vals, split.offset(torch.gather(cidx, 1, ii), s)))
+        return _merge(parts, split, c, True)
 
     def _search_streamed(self, qu, qs16, top_k):
         """Phase 1 over the device sketch; phase 2 gathers the Q x C

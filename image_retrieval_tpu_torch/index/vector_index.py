@@ -1,10 +1,17 @@
-"""Resident vector index on one device — the port of
+"""Resident vector index sharded over a mesh of devices — the port of
 ``image_retrieval_tpu/index/vector_index.py``'s resident tiers.
 
 Rows are stored as (unit vector, magnitude), like the JAX index and the
 Milvus schema it replaces. Host numpy buffers are the source of truth; the
 device copy is refreshed lazily on the first search after a mutation, so N
-inserts cost one upload. ``IndexConfig.dtype`` picks the storage tier:
+inserts cost one upload. The device rows split in equal blocks over the
+mesh's ``IndexConfig.shard_axis`` (``parallel/mesh.py``; a mesh with a
+``slice`` axis shards over ('slice', 'data') and merges hierarchically), and
+every search runs ``parallel/collectives.py``'s per-shard sweep and k-sized
+merge. ``ShardedVectorIndex()`` spans every visible card; ``device=`` names
+one device, ``mesh=`` any mesh. Save files and journals do not depend on
+the mesh: a file saved on one mesh reopens on another with the same
+answers. ``IndexConfig.dtype`` picks the storage tier:
 
 - ``float32``: f32 queries x f32 unit rows (full f32: TF32 is refused).
 - ``bfloat16``: rows stored in bf16 (the host keeps their bit patterns);
@@ -28,9 +35,9 @@ scores bit for bit, far slower than the kernel does
 
 Past ``stream_threshold_bytes`` of device rows the int8 and int4 tiers
 stream: the rows stay in host RAM (pinned) and every cosine search sweeps
-them through the card in chunks (``index/streaming.py``; int4 chunks through
-the int4 screen kernel, then the exact rerank from the host int8 rows). The
-streamed tier is cosine-only: other metrics, ``multi_metric_topk`` and
+them through the mesh's first device in chunks (``index/streaming.py``;
+int4 chunks through the int4 screen kernel, then the exact rerank from the
+host int8 rows). The streamed tier is cosine-only: other metrics, ``multi_metric_topk`` and
 ``scores`` raise ValueError there. A compact that brings the gallery back
 under the threshold returns it to the resident tier.
 
@@ -58,8 +65,6 @@ the write-ahead journal of ``index/journal.py`` (``ops.jsonl``,
 ``seg-<seq>.npz``, ``snap-<seq>/``, ``CURRENT``): every mutation is logged,
 ``flush`` is the durability barrier and ``checkpoint`` seals the log into a
 snapshot.
-
-Not ported yet (ROADMAP.md): multi-device sharding.
 """
 
 from __future__ import annotations
@@ -79,20 +84,24 @@ import numpy as np
 import torch
 
 from image_retrieval_tpu_torch.config import IndexConfig
-from image_retrieval_tpu_torch.device import (
-    DeviceLike,
-    require_full_f32,
-    resolve_device,
-)
+from image_retrieval_tpu_torch.device import DeviceLike, require_full_f32
 from image_retrieval_tpu_torch.index.filters import AttributeStore, parse_filter
 from image_retrieval_tpu_torch.ops.int4 import quantize_pack_int4, rerank_int8_topk, unit_queries
 from image_retrieval_tpu_torch.ops.metrics import WEIGHT_KEYS
 from image_retrieval_tpu_torch.parallel.collectives import (
+    multislice_search_topk,
     sharded_int4_screen_topk,
     sharded_int4_two_phase_topk,
     sharded_multimetric_topk,
     sharded_scores,
     sharded_search_topk,
+)
+from image_retrieval_tpu_torch.parallel.mesh import (
+    Mesh,
+    axis_size,
+    entry_mesh,
+    shard_devices,
+    shard_rows,
 )
 
 logger = logging.getLogger(__name__)
@@ -164,11 +173,12 @@ def _host_zeros(shape, dtype, pinned: bool) -> np.ndarray:
 
 
 class ShardedVectorIndex:
-    """Exact multi-metric index over (unit row, magnitude) pairs on `device`
-    (the card unless the caller names the CPU)."""
+    """Exact multi-metric index over (unit row, magnitude) pairs, row-sharded
+    over `mesh` (every visible card unless the caller names a `device`, a
+    one-device mesh, or a mesh; never both)."""
 
     def __init__(self, dim: int = 512, config: Optional[IndexConfig] = None,
-                 *, device: DeviceLike = "cuda"):
+                 *, device: Optional[DeviceLike] = None, mesh: Optional[Mesh] = None):
         self.config = config or IndexConfig(embedding_dim=dim)
         if self.config.dtype not in DTYPES:
             raise ValueError(f"IndexConfig.dtype={self.config.dtype!r}: one of {DTYPES}")
@@ -180,7 +190,15 @@ class ShardedVectorIndex:
         self._journal = None
         self._replaying = False
         self.dim = dim
-        self.device = resolve_device(device)
+        self.mesh = entry_mesh(device, mesh)
+        self.device = self.mesh.first  # merges, the host rerank, the streamed tier
+        self.axis = self.config.shard_axis
+        # multi-slice mode: a mesh with a "slice" axis shards rows over
+        # (slice, data) and merges each slice's shards before the slices
+        self._multislice = ("slice" in self.mesh.axis_names
+                            and self.axis in self.mesh.axis_names)
+        self._row_axes = ("slice", self.axis) if self._multislice else self.axis
+        self._nshards = axis_size(self.mesh, self._row_axes)
         self.paths: List[str] = []
         # small JSON metadata that survives save() and journal recovery
         # without rows behind it (e.g. the Milvus shim's partition names)
@@ -193,12 +211,16 @@ class ShardedVectorIndex:
         self._host_scales = None  # (capacity,) f32, int8/int4 tiers
         self._host_packed = None  # (capacity, D/2) uint8, int4 tier only
         self._host_scales4 = None  # (capacity,) f32, int4 tier only
-        self._gallery = None  # (count, D) device rows (int4: latency mode only)
-        self._valid = None  # (count,) device bool
-        self._mags = None  # (count,) device f32 (not in the int4 tier)
-        self._scales = None  # (count,) device f32, int8 (and int4 latency mode)
-        self._packed = None  # (count, D/2) device uint8, int4 tier
-        self._scales4 = None  # (count,) device f32, int4 tier
+        # the device copies, each a list of row shards in shard order over
+        # the first count rows rounded up to the shard count (_device_rows;
+        # the padding rows are invalid); the streamed tier's valid mask is
+        # one tensor on self.device
+        self._gallery = None  # (rows, D) (int4: latency mode only)
+        self._valid = None  # (rows,) bool
+        self._mags = None  # (rows,) f32 (not in the int4 tier)
+        self._scales = None  # (rows,) f32, int8 (and int4 latency mode)
+        self._packed = None  # (rows, D/2) uint8, int4 tier
+        self._scales4 = None  # (rows,) f32, int4 tier
         self._device_dirty = True
         # the streamed tier (stream_threshold_bytes): the engine over views
         # of the host rows
@@ -231,8 +253,10 @@ class ShardedVectorIndex:
         return self.config.dtype == "int4"
 
     def _grow_to(self, n: int) -> None:
-        step = max(self.config.capacity_step, 1)
+        step = max(self.config.capacity_step, self._nshards)
         cap = -(-n // step) * step
+        # capacity splits evenly over the shards
+        cap = -(-cap // self._nshards) * self._nshards
         if cap <= self.capacity:
             return
         # the rows the streamed tier would stream live in pinned host memory
@@ -384,16 +408,27 @@ class ShardedVectorIndex:
             mask = mask & self._host_valid[: self.count]
         return mask
 
-    def _filtered_valid(self, flt) -> torch.Tensor:
-        """Device mask (filter AND live), a drop-in for the valid mask.
-        Expression strings are cached per (expression, generation); mask
-        arrays are shipped fresh each call."""
+    def _device_rows(self) -> int:
+        """Rows of the device copy: count rounded up to the shard count."""
+        return -(-self.count // self._nshards) * self._nshards
+
+    def _shard(self, a: np.ndarray) -> List[torch.Tensor]:
+        """The first _device_rows() rows of a host buffer, row-sharded over
+        the mesh."""
+        return shard_rows(a[: self._device_rows()], self.mesh, self._row_axes)
+
+    def _filtered_valid(self, flt) -> List[torch.Tensor]:
+        """Sharded device mask (filter AND live), a drop-in for the valid
+        mask. Expression strings are cached per (expression, generation);
+        mask arrays are shipped fresh each call."""
         key = flt if isinstance(flt, str) else None
         if key is not None:
             hit = self._filter_cache.get(key)
             if hit is not None and hit[0] == self.generation:
                 return hit[1]
-        dev = torch.from_numpy(self.filter_mask(flt)).to(self.device)
+        full = np.zeros((self._device_rows(),), bool)
+        full[: self.count] = self.filter_mask(flt)
+        dev = self._shard(full)
         if key is not None:
             if len(self._filter_cache) >= 16:  # bound device-mask memory
                 self._filter_cache.pop(next(iter(self._filter_cache)))
@@ -448,16 +483,21 @@ class ShardedVectorIndex:
 
     def _warn_if_too_big(self) -> None:
         """Latency mode holds the packed rows, the int8 rows and their
-        scales: warn when that exceeds the card's free memory."""
-        if self.device.type != "cuda":
-            return
-        need = self.count * (self.dim // 2 + self.dim + 9)
-        free, _ = torch.cuda.mem_get_info(self.device)
-        if need > free:
-            logger.warning(
-                "rerank_device: ~%.1f GiB of rows exceeds the %.1f GiB free on %s; "
-                "expect an out-of-memory error; use the capacity configuration "
-                "(rerank_device=False)", need / (1 << 30), free / (1 << 30), self.device)
+        scales: warn when a card's shards exceed its free memory."""
+        per_shard = self._device_rows() // self._nshards * (self.dim // 2 + self.dim + 9)
+        held: Dict[torch.device, int] = {}
+        for d in shard_devices(self.mesh, self._row_axes):
+            held[d] = held.get(d, 0) + per_shard
+        for d, need in held.items():
+            if d.type != "cuda":
+                continue
+            free, _ = torch.cuda.mem_get_info(d)
+            if need > free:
+                logger.warning(
+                    "rerank_device: ~%.1f GiB of rows exceeds the %.1f GiB free on %s; "
+                    "expect an out-of-memory error; use the capacity configuration "
+                    "(rerank_device=False) or more devices", need / (1 << 30),
+                    free / (1 << 30), d)
 
     def _stream_active(self) -> bool:
         """Whether the stored device rows exceed stream_threshold_bytes: the
@@ -481,7 +521,6 @@ class ShardedVectorIndex:
     def _sync_device(self) -> None:
         if not self._device_dirty or self._host_gallery is None:
             return
-        n = self.count
         # drop the old copies first: a re-upload never holds two galleries
         self._drop_stream()
         self._gallery = self._valid = self._scales = self._mags = None
@@ -491,9 +530,7 @@ class ShardedVectorIndex:
             self._device_dirty = False
             return
 
-        def up(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a[:n]).to(self.device)
-
+        up = self._shard
         self._valid = up(self._host_valid)
         if self._packed4:
             # capacity tier: the screen copy only; the int8 rows stay on the
@@ -509,7 +546,8 @@ class ShardedVectorIndex:
         else:
             self._mags = up(self._host_mags)
             if self.config.dtype == "bfloat16":
-                self._gallery = up(self._host_gallery.view(np.int16)).view(torch.bfloat16)
+                self._gallery = [g.view(torch.bfloat16)
+                                 for g in up(self._host_gallery.view(np.int16))]
             else:
                 self._gallery = up(self._host_gallery)
             if self._quantized:
@@ -628,9 +666,13 @@ class ShardedVectorIndex:
         q, single = self._prep_queries(queries)
         weights = self._weights_tuple(params) if metric == "optimized_similarity" else None
         with torch.inference_mode():
-            vals, idx = sharded_search_topk(
-                q, self._gallery, valid, self._mags, min(top_k, self.live_count),
-                metric, weights, self._scales)
+            args = (q, self._gallery, valid, self._mags, min(top_k, self.live_count),
+                    metric, weights, self._scales)
+            if self._multislice:
+                vals, idx = multislice_search_topk(*args, mesh=self.mesh, slice_axis="slice",
+                                                   data_axis=self.axis)
+            else:
+                vals, idx = sharded_search_topk(*args, mesh=self.mesh, axis=self.axis)
             vals, idx = vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
         if flt is not None:
             idx = np.where(np.isfinite(vals), idx, -1)
@@ -664,11 +706,12 @@ class ShardedVectorIndex:
             if self._gallery is not None:  # latency mode: one device pass
                 vals, idx = sharded_int4_two_phase_topk(
                     q, self._packed, valid, self._scales4, self._gallery,
-                    self._scales, c, k)
+                    self._scales, c, k, mesh=self.mesh, axis=self._row_axes)
                 vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
             else:
                 vals4, gidx = sharded_int4_screen_topk(q, self._packed, valid,
-                                                       self._scales4, c)
+                                                       self._scales4, c, mesh=self.mesh,
+                                                       axis=self._row_axes)
                 vals4, gidx = vals4.cpu().numpy(), gidx.cpu().numpy()
                 ok = np.isfinite(vals4)
                 safe = np.where(ok, gidx, 0)
@@ -725,7 +768,8 @@ class ShardedVectorIndex:
         q, single = self._prep_queries(queries)
         with torch.inference_mode():
             out = sharded_multimetric_topk(q, self._gallery, valid, self._mags,
-                                           min(top_k, self.live_count), self._scales)
+                                           min(top_k, self.live_count), self._scales,
+                                           mesh=self.mesh, axis=self._row_axes)
         result = {}
         for name, (vals, idx) in out.items():
             vals, idx = vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
@@ -767,7 +811,8 @@ class ShardedVectorIndex:
         weights = self._weights_tuple(params) if metric == "optimized_similarity" else None
         with torch.inference_mode():
             s = sharded_scores(q, self._gallery, self._mags, metric, weights,
-                               self._scales).cpu().numpy()
+                               self._scales, mesh=self.mesh,
+                               axis=self._row_axes)[:, : self.count].cpu().numpy()
         return s[0] if single else s
 
     def _rows_f32(self, indices) -> np.ndarray:
@@ -857,8 +902,10 @@ class ShardedVectorIndex:
 
     @classmethod
     def open(cls, journal_dir: str, config: Optional[IndexConfig] = None, *,
-             device: DeviceLike = "cuda") -> "ShardedVectorIndex":
-        """Open (or create) a journaled index on `device`: load the newest
+             device: Optional[DeviceLike] = None,
+             mesh: Optional[Mesh] = None) -> "ShardedVectorIndex":
+        """Open (or create) a journaled index on `device` or `mesh` (the
+        constructor's rule): load the newest
         checkpoint under `journal_dir` if there is one, replay the op log
         on top and attach the journal, so every later mutation is logged.
         `config` applies to a new directory; afterwards the saved one wins
@@ -868,7 +915,7 @@ class ShardedVectorIndex:
         journal = IndexJournal(journal_dir)
         snap = journal.snapshot_path()
         if snap is not None:
-            idx = cls.load_from(snap, config=config, device=device)
+            idx = cls.load_from(snap, config=config, device=device, mesh=mesh)
         else:
             # no checkpoint yet: the tier configuration comes from the
             # directory itself, or a 64-dim int8 index would replay into a
@@ -878,7 +925,7 @@ class ShardedVectorIndex:
                 if saved is not None:
                     config = _config_from_saved(saved)
             cfg = config or IndexConfig()
-            idx = cls(dim=cfg.embedding_dim, config=config, device=device)
+            idx = cls(dim=cfg.embedding_dim, config=config, device=device, mesh=mesh)
         journal.store_config(dataclasses.asdict(idx.config))
         for rec in journal.pending():
             op = rec["op"]
@@ -910,8 +957,10 @@ class ShardedVectorIndex:
 
     @classmethod
     def load_from(cls, path: str, config: Optional[IndexConfig] = None, *,
-                  device: DeviceLike = "cuda") -> "ShardedVectorIndex":
-        """Rebuild from save() on `device`. The saved tier configuration is
+                  device: Optional[DeviceLike] = None,
+                  mesh: Optional[Mesh] = None) -> "ShardedVectorIndex":
+        """Rebuild from save() on `device` or `mesh`, which need not be the
+        one it was saved from. The saved tier configuration is
         restored (insert() re-quantizes the portable f32 rows for it);
         `config` overrides it, e.g. to re-tier on load."""
         npz_path = path if path.endswith(".npz") else path + ".npz"
@@ -923,7 +972,7 @@ class ShardedVectorIndex:
                 config = _config_from_saved(json.load(f))
         emb = data["embeddings"]
         dim = emb.shape[1] if emb.size else (config.embedding_dim if config else 512)
-        idx = cls(dim=dim, config=config, device=device)
+        idx = cls(dim=dim, config=config, device=device, mesh=mesh)
         if len(paths):
             idx.insert(paths, emb, data["magnitudes"])
         attr_arrays = {k: data[k] for k in data.files if k.startswith("attr__")}

@@ -117,10 +117,23 @@ def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(*shape, dtype=torch.float32))
 
 
+# Rows per product of the towers' f32 output projection. A GEMM library
+# picks its algorithm by the shape, and on an H100 cuBLAS sums a row of a
+# 256-row f32 product in another order than of a 128-row one; products of
+# one fixed shape give a row the same bits whatever batch it came in, which
+# the encoder's data-parallel parts need (models/encoder.py).
+PRODUCT_ROWS = 64
+
+
 def _f32_product(a: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """jnp.dot(a.astype(dt), w.astype(dt), preferred_element_type=f32):
-    round both to the compute type, then multiply and sum in f32."""
-    return a.to(dt).float() @ w.to(dt).float()
+    round both to the compute type, then multiply and sum in f32, in
+    products of PRODUCT_ROWS rows (the last padded with zero rows)."""
+    a, w = a.to(dt).float(), w.to(dt).float()
+    m = a.shape[0]
+    if m % PRODUCT_ROWS:
+        a = torch.cat([a, a.new_zeros((PRODUCT_ROWS - m % PRODUCT_ROWS, a.shape[1]))])
+    return torch.cat([blk @ w for blk in a.split(PRODUCT_ROWS)])[:m]
 
 
 class LayerNorm(nn.Module):

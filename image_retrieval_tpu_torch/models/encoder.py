@@ -1,19 +1,28 @@
-"""Encoder facade: batched embedding generation on one device.
+"""Encoder facade: batched embedding generation, data-parallel over a mesh.
 
 Port of ``image_retrieval_tpu/models/encoder.py``. Two implementations share
 one interface:
   CLIPEncoder — the PyTorch CLIP (HF weights when a checkpoint directory is
-                configured, seeded random weights otherwise) on the card,
-                or on the CPU when the caller asks for it.
+                configured, seeded random weights otherwise) over every
+                visible card, or on one device (the CPU when the caller asks
+                for it), or over a mesh's ``data`` axis: each padded batch
+                splits in equal parts, one a device, each run by that
+                device's replica of the model.
   FakeEncoder — the deterministic numpy projection encoder, a verbatim copy
                 (bit-identical embeddings to the JAX package's).
 
-Batches snap to the same bucket ladder as the JAX encoder, so both packages
-pad a batch to the same shape.
+Batches snap to the same bucket ladder as the JAX encoder (a bucket the
+data axis divides), so both packages pad a batch to the same shape. The
+towers treat every example alone, the port's kernels sum a product's terms
+in an order set by its width, not by its rows (no split of the sum,
+ROADMAP.md queue 2), and the f32 output projection runs in products of one
+fixed shape (``models/clip.py::PRODUCT_ROWS``), so on the card a batch split
+over the mesh gives the one-device embeddings bit for bit.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import threading
 from typing import Dict, List, Optional, Sequence
@@ -22,18 +31,14 @@ import numpy as np
 import torch
 
 from image_retrieval_tpu_torch.config import Config
-from image_retrieval_tpu_torch.device import (
-    DeviceLike,
-    require_full_f32,
-    resolve_device,
-    torch_dtype,
-)
+from image_retrieval_tpu_torch.device import DeviceLike, require_full_f32, torch_dtype
 from image_retrieval_tpu_torch.models.clip import CLIP
 from image_retrieval_tpu_torch.models.preprocess import (
     normalize_u8_device,
     preprocess_batch,
 )
 from image_retrieval_tpu_torch.models.tokenizer import get_tokenizer
+from image_retrieval_tpu_torch.parallel.mesh import Mesh, entry_mesh, on_device, shard_devices
 
 
 class Encoder:
@@ -66,31 +71,46 @@ def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([x, pad], 0)
 
 
+class _Part:
+    """One device's part of a dispatched chunk: its forward is queued on the
+    device (or, on the CPU, already done), its result lands in `host_out`.
+    `staging` and `host_out` are pinned buffers on loan from the encoder's
+    pool until fetch."""
+
+    __slots__ = ("host_out", "event", "staging")
+
+    def __init__(self, host_out, event=None, staging=None):
+        self.host_out, self.event, self.staging = host_out, event, staging
+
+
 class _Pending:
-    """One dispatched chunk: its forward is queued on the device (or, on
-    the CPU, already done), its result lands in `host_out`; `keep` rows of
-    it are real. `staging` and `host_out` are pinned buffers on loan from
-    the encoder's pool until fetch."""
+    """One dispatched chunk: its parts in mesh order; `keep` rows of their
+    concatenation are real."""
 
-    __slots__ = ("host_out", "keep", "event", "staging")
+    __slots__ = ("parts", "keep")
 
-    def __init__(self, host_out, keep, event=None, staging=None):
-        self.host_out, self.keep, self.event, self.staging = host_out, keep, event, staging
+    def __init__(self, parts, keep):
+        self.parts, self.keep = parts, keep
 
 
 class CLIPEncoder(Encoder):
-    """CLIP on `device` ("cuda", the default, or "cpu"). `params` is a state
-    dict from models/weights.py; without one, Config.weights_path or `seed`
-    decides.
+    """CLIP over `mesh`'s data axis: every visible card (Config.mesh) unless
+    the caller names a `device` (a one-device mesh; "cpu" on the host) or a
+    mesh, never both. The parameters are copied once to each distinct device
+    of the axis; the int8 serving weights each replica quantizes for itself
+    on first use. `params` is a state dict from models/weights.py; without
+    one, Config.weights_path or `seed` decides.
 
-    Batches are kept in flight: on the card a chunk is staged in a pinned
-    host buffer, copied to the device on a copy stream, run on the device's
-    current stream once that copy's event has fired, and copied back into a
-    pinned buffer behind an event; the host fetches the oldest chunk only
-    when _MAX_IN_FLIGHT are queued, so uploads, forwards and fetches overlap
-    the caller's host work (decode). On the CPU the same order and window
-    run synchronously. Either way the outputs equal the one-at-a-time
-    form's bit for bit: the same chunks go through the same forward."""
+    Batches are kept in flight: on the card each device's part of a chunk
+    is staged in a pinned host buffer, copied to the device on that
+    device's copy stream, run on the device's current stream once that
+    copy's event has fired, and copied back into a pinned buffer behind an
+    event; the host fetches the oldest chunk only when _MAX_IN_FLIGHT are
+    queued, so uploads, forwards and fetches overlap the caller's host work
+    (decode), and the parts on different cards run at once. On the CPU the
+    same order and window run synchronously. Either way the outputs equal
+    the one-at-a-time form's bit for bit: the same parts go through the
+    same forward."""
 
     # the JAX encoder's bucket ladder (one compile per shape there; here it
     # keeps both packages' padded shapes equal)
@@ -101,11 +121,15 @@ class CLIPEncoder(Encoder):
     _MAX_IN_FLIGHT = 4
 
     def __init__(self, config: Optional[Config] = None, params=None,
-                 seed: int = 0, *, device: DeviceLike = "cuda"):
+                 seed: int = 0, *, device: Optional[DeviceLike] = None,
+                 mesh: Optional[Mesh] = None):
         self.config = config or Config()
         cfg = self.config.model
         self.dim = cfg.embed_dim
-        self.device = resolve_device(device)
+        self.mesh = entry_mesh(device, mesh, self.config.mesh)
+        self.device = self.mesh.first
+        # the device of each part of a batch, in mesh order
+        self._part_devices = shard_devices(self.mesh, "data")
         self.model = CLIP(cfg, dtype=torch_dtype(cfg.dtype))
         if params is None:
             if self.config.weights_path:
@@ -118,19 +142,27 @@ class CLIPEncoder(Encoder):
                 params = init_params(cfg, seed=seed)
         self.model.load_state_dict(
             {k: torch.as_tensor(v, dtype=torch.float32) for k, v in params.items()})
-        self.model.to(self.device).eval()
+        self.model.eval()
+        # one replica a distinct device, copied before any weight cache is made
+        self._replicas = {d: copy.deepcopy(self.model).to(d)
+                          for d in dict.fromkeys(self._part_devices) if d != self.device}
+        self._replicas[self.device] = self.model.to(self.device)
         self.tokenizer = get_tokenizer(self.config.weights_path)
-        self._copy_stream = None  # created at the first dispatch on the card
+        self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}  # made on first use
         # free pinned buffers by (shape, dtype); a server encodes from several
         # threads at once, hence the lock (it also guards the copy stream)
         self._pinned: Dict[tuple, List[torch.Tensor]] = {}
         self._lock = threading.Lock()
 
     def _batch_sizes(self, requested: int) -> int:
+        """The padded batch: the first bucket that holds `requested` rows
+        and that the data axis divides, else `requested` rounded up to the
+        axis (the JAX encoder's rule)."""
+        nd = len(self._part_devices)
         for b in self._BUCKETS:
-            if requested <= b:
+            if requested <= b and b % nd == 0:
                 return b
-        return requested
+        return max(nd, -(-requested // nd) * nd)
 
     # -- the in-flight window ------------------------------------------------
 
@@ -146,43 +178,55 @@ class CLIPEncoder(Encoder):
             self._pinned.setdefault((tuple(buf.shape), buf.dtype), []).append(buf)
 
     def _launch(self, padded: np.ndarray, keep: int, fn) -> _Pending:
-        """Queue one padded chunk's forward; see the class docstring."""
+        """Queue one padded chunk's forward, an equal part on each device of
+        the data axis; see the class docstring."""
+        per = padded.shape[0] // len(self._part_devices)
+        return _Pending([self._launch_part(padded[i * per: (i + 1) * per], dev, fn)
+                         for i, dev in enumerate(self._part_devices)], keep)
+
+    def _launch_part(self, part: np.ndarray, dev: torch.device, fn) -> _Part:
+        model = self._replicas[dev]
         with torch.inference_mode():
-            if self.device.type != "cuda":
-                out = fn(torch.from_numpy(padded))
-                return _Pending(out.float().numpy(), keep)
-            with self._lock:
-                if self._copy_stream is None:
-                    self._copy_stream = torch.cuda.Stream(self.device)
-            compute = torch.cuda.current_stream(self.device)
-            staging = self._take_pinned(padded.shape, torch.from_numpy(padded).dtype)
-            # the buffer came back from a fetch, which waited on the event
-            # recorded after this buffer's last upload: refilling is safe
-            staging.numpy()[...] = padded
-            with torch.cuda.stream(self._copy_stream):
-                x = staging.to(self.device, non_blocking=True)
-                uploaded = torch.cuda.Event()
-                uploaded.record(self._copy_stream)
-            compute.wait_event(uploaded)
-            # x was allocated on the copy stream and is read on the compute
-            # stream: keep the allocator from reusing it before that read
-            x.record_stream(compute)
-            out = fn(x).float()
-            host_out = self._take_pinned(out.shape, torch.float32)
-            host_out.copy_(out, non_blocking=True)
-            fetched = torch.cuda.Event()
-            fetched.record(compute)
-            return _Pending(host_out, keep, fetched, staging)
+            if dev.type != "cuda":
+                return _Part(fn(model, torch.from_numpy(part)).float().numpy())
+            with on_device(dev):  # the kernels launch on dev's streams
+                with self._lock:
+                    copy_stream = self._copy_streams.get(dev)
+                    if copy_stream is None:
+                        copy_stream = self._copy_streams[dev] = torch.cuda.Stream(dev)
+                compute = torch.cuda.current_stream(dev)
+                staging = self._take_pinned(part.shape, torch.from_numpy(part).dtype)
+                # the buffer came back from a fetch, which waited on the event
+                # recorded after this buffer's last upload: refilling is safe
+                staging.numpy()[...] = part
+                with torch.cuda.stream(copy_stream):
+                    x = staging.to(dev, non_blocking=True)
+                    uploaded = torch.cuda.Event()
+                    uploaded.record(copy_stream)
+                compute.wait_event(uploaded)
+                # x was allocated on the copy stream and is read on the compute
+                # stream: keep the allocator from reusing it before that read
+                x.record_stream(compute)
+                out = fn(model, x).float()
+                host_out = self._take_pinned(out.shape, torch.float32)
+                host_out.copy_(out, non_blocking=True)
+                fetched = torch.cuda.Event()
+                fetched.record(compute)
+                return _Part(host_out, fetched, staging)
 
     def _fetch(self, p: _Pending) -> np.ndarray:
-        """Wait for one chunk and return its real rows (a host copy)."""
-        if p.event is None:
-            return p.host_out[: p.keep]
-        p.event.synchronize()
-        out = p.host_out.numpy()[: p.keep].copy()
-        self._give_pinned(p.host_out)
-        self._give_pinned(p.staging)
-        return out
+        """Wait for one chunk's parts and return its real rows (a host copy
+        on the card)."""
+        outs = []
+        for part in p.parts:
+            if part.event is None:
+                outs.append(part.host_out)
+                continue
+            part.event.synchronize()
+            outs.append(part.host_out.numpy().copy())
+            self._give_pinned(part.host_out)
+            self._give_pinned(part.staging)
+        return (outs[0] if len(outs) == 1 else np.concatenate(outs, 0))[: p.keep]
 
     def _chunks(self, x: np.ndarray):
         """(padded chunk, real rows) of `x`, split and padded to the ladder."""
@@ -215,13 +259,15 @@ class CLIPEncoder(Encoder):
 
     # -- the encoder interface -----------------------------------------------
 
-    def _encode_image(self, x: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _encode_image(model: CLIP, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.uint8:
             x = normalize_u8_device(x)  # raw RGB ingest form: 1/4 the bytes
-        return self.model.encode_image(x)
+        return model.encode_image(x)
 
-    def _encode_text(self, t: torch.Tensor) -> torch.Tensor:
-        return self.model.encode_text(t.to(torch.int64))
+    @staticmethod
+    def _encode_text(model: CLIP, t: torch.Tensor) -> torch.Tensor:
+        return model.encode_text(t.to(torch.int64))
 
     @staticmethod
     def _pixels(pixels) -> np.ndarray:

@@ -1,1 +1,2 @@
-"""Search collectives (one device so far; multi-device: ROADMAP.md queue 1)."""
+"""The device mesh (``mesh.py``) and the search collectives over it
+(``collectives.py``)."""

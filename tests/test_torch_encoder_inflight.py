@@ -8,6 +8,7 @@ batch larger than the window, and empty batches."""
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from image_retrieval_tpu.config import Config as JaxConfig
@@ -186,3 +187,79 @@ def test_base_encoder_stream_and_get_encoder():
     enc = get_encoder(Config(model=ModelConfig(**SMALL)), device="cpu", seed=1)
     assert isinstance(enc, CLIPEncoder) and enc._MAX_IN_FLIGHT == 4
     assert enc_mod.CLIPEncoder._MAX_IN_FLIGHT == 4
+
+
+# -- data parallel over a mesh ------------------------------------------------------
+
+# The sharded encoder against the one-device encoder on the CPU. Each part is
+# the one-device forward of that part bit for bit (below); the whole batch
+# agrees within 1e-5, because the CPU's BLAS may order a product's sums by
+# the number of rows it is given, and a part has fewer rows than the batch.
+# The card's kernels plan by width only, and chip_smoke.py --mesh holds the
+# sharded vit_b32_serving() encoder to the one-device one bit for bit there.
+SHARDED_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def enc8(jax_params):
+    from image_retrieval_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = ModelConfig(**SMALL)
+    return CLIPEncoder(Config(model=cfg), params=params_from_jax(jax_params, cfg),
+                       mesh=make_mesh(devices=["cpu"] * 8))
+
+
+def test_sharded_encoder_parts_are_the_one_device_forward(enc, enc8):
+    """A 32-row chunk over eight shards: part i is the one-device encoder's
+    forward of rows 4i..4i+3 alone, bit for bit, in mesh order."""
+    px = _pixels(20, 11)
+    got = enc8.encode_pixels(px)
+    assert got.shape == (20, 24) and enc8._batch_sizes(20) == 32
+    padded = np.concatenate([px, np.zeros((12,) + px.shape[1:], px.dtype)])
+    with torch.inference_mode():
+        parts = [enc._encode_image(enc.model, torch.from_numpy(padded[i: i + 4])).numpy()
+                 for i in range(0, 32, 4)]
+    np.testing.assert_array_equal(got, np.concatenate(parts)[:20])
+    np.testing.assert_allclose(got, enc.encode_pixels(px), **SHARDED_TOL)
+    texts = ["a red car", "two dogs on a beach", "x"]
+    np.testing.assert_allclose(enc8.encode_texts(texts), enc.encode_texts(texts),
+                               **SHARDED_TOL)
+
+
+def test_sharded_encoder_matches_the_jax_encoder_on_its_mesh(enc8, jax_params):
+    """The JAX encoder's shard_map over its 8-device mesh, the same weights."""
+    jax8 = JaxEncoder(JaxConfig(model=JaxModelConfig(**SMALL)), params=jax_params,
+                      mesh=make_mesh())
+    px = _pixels(40, 12)  # one chunk, padded to 128: 16 rows a device
+    np.testing.assert_allclose(enc8.encode_pixels(px), jax8.encode_pixels(px), **TOL)
+    texts = ["a photo of a cat", "y"]
+    np.testing.assert_allclose(enc8.encode_texts(texts), jax8.encode_texts(texts), **TOL)
+
+
+def test_sharded_encoder_window_and_stream(enc8, monkeypatch):
+    """A chunk of eight parts is one launch of the window; the stream keeps
+    its order and equals encode_pixels batch by batch."""
+    w = Window(monkeypatch, enc8)
+    out = list(enc8.encode_stream(iter(_batches())))
+    assert w.most == 4 and w.now == 0 and w.launches == 7
+    for (meta, a), (m2, px) in zip(out, _batches()):
+        assert meta == m2
+        np.testing.assert_array_equal(a, enc8.encode_pixels(px))
+
+
+@pytest.mark.parametrize("nd", [1, 2, 3, 8])
+def test_batch_sizes_snap_like_jax(nd):
+    """The padded batch is the first bucket the data axis divides, else the
+    request rounded up to the axis: the JAX encoder's _batch_sizes."""
+    from types import SimpleNamespace
+
+    from image_retrieval_tpu.config import MeshConfig as JaxMeshConfig
+    from image_retrieval_tpu_torch.parallel.mesh import make_mesh as port_mesh
+
+    jmesh = make_mesh(JaxMeshConfig(data=nd, model=1))
+    mine = SimpleNamespace(_part_devices=[torch.device("cpu")] * nd,
+                           _BUCKETS=CLIPEncoder._BUCKETS)
+    theirs = SimpleNamespace(mesh=jmesh, _BUCKETS=JaxEncoder._BUCKETS)
+    for n in (1, 5, 8, 9, 33, 129, 200, 256, 300, 1000):
+        assert CLIPEncoder._batch_sizes(mine, n) == JaxEncoder._batch_sizes(theirs, n)
+    assert len(port_mesh(devices=["cpu"] * nd).devices.flat) == nd

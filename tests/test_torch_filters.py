@@ -7,6 +7,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from image_retrieval_tpu.app.search import TextImageSearcher as JaxSearcher
 from image_retrieval_tpu.config import IndexConfig
@@ -97,7 +98,8 @@ def test_filter_mask_cache_follows_generation():
     first = ix._filtered_valid("g == 1")
     assert ix._filtered_valid("g == 1") is first  # reused while nothing changes
     ix.delete(["a"])
-    assert ix._filtered_valid("g == 1").tolist() == [False, False, True]
+    # the mask is the index's row shards (one shard on one device)
+    assert torch.cat(ix._filtered_valid("g == 1")).tolist() == [False, False, True]
     _, i = ix.search(np.ones(4, np.float32), top_k=3, flt="g == 1")
     assert list(i) == [2, -1]
 

@@ -2075,3 +2075,64 @@ def test_screen_on_the_card_matches_cpu(cuda):
         np.testing.assert_array_equal(gi, ei)
         np.testing.assert_array_equal(gi, ci)
         np.testing.assert_allclose(gv, ev, rtol=0, atol=1e-6)
+
+
+# -- a virtual mesh on the card --------------------------------------------------------
+
+
+def test_sharded_paths_on_a_virtual_mesh_equal_one_device(cuda):
+    """Four shards on cuda:0 (and on every visible card, when there are
+    several) against one device: the int8 weighted score (K5 on each shard),
+    the multi-metric planes (K6) and the int4 two-phase search (K3) bit for
+    bit; the sharded vit_b32_serving()-shaped encoder (K1 on each part) bit
+    for bit, with K1 launched once a layer a part."""
+    from image_retrieval_tpu_torch.config import Config, IndexConfig, ModelConfig
+    from image_retrieval_tpu_torch.index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.encoder import CLIPEncoder
+    from image_retrieval_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(5)
+    n, d = 70_000, 512
+    centres = rng.normal(size=(8, d))
+    emb = rng.normal(size=(n, d))
+    emb[:96] = np.repeat(centres, 12, axis=0) + 0.05 * rng.normal(size=(96, d))
+    emb = (emb * rng.uniform(0.5, 4, (n, 1))).astype(np.float32)
+    q = centres.astype(np.float32)  # twelve planted neighbours a query
+    paths = [str(i) for i in range(n)]
+    meshes = [make_mesh(devices=["cuda:0"] * 4)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    w = {"w_angle": 1.0, "w_l1": 1.0, "w_l2": 1.0, "w_mag": 0.5}
+    for dtype in ("int8", "int4"):
+        cfg = IndexConfig(embedding_dim=d, dtype=dtype, rerank_device=True, rerank_c=64)
+        one = ShardedVectorIndex(dim=d, config=cfg, device=cuda)
+        one.insert(paths, emb)
+        for mesh in meshes:
+            ix = ShardedVectorIndex(dim=d, config=cfg, mesh=mesh)
+            ix.insert(paths, emb)
+            if dtype == "int8":
+                for args in ((q, 10, "optimized_similarity", w), (q, 10)):
+                    for a, b in zip(ix.search(*args), one.search(*args)):
+                        np.testing.assert_array_equal(a, b)
+                got, want = ix.multi_metric_topk(q, 10), one.multi_metric_topk(q, 10)
+                for name in got:
+                    for a, b in zip(got[name], want[name]):
+                        np.testing.assert_array_equal(a, b)
+            else:  # the planted top-10 lie in every pool: the same answers
+                a, b = ix.search(q, 10), one.search(q, 10)
+                np.testing.assert_array_equal(a[1], b[1])
+                np.testing.assert_array_equal(a[0], b[0])
+    small = ModelConfig(image_size=64, patch_size=32, vision_width=128, vision_layers=2,
+                        vision_heads=2, text_width=64, text_layers=2, text_heads=1,
+                        vocab_size=1000, context_length=16, embed_dim=32, dtype="bfloat16",
+                        fused_layer_block=True, int8_matmuls=True)
+    px = rng.integers(0, 256, size=(40, 64, 64, 3), dtype=np.uint8)
+    ref = CLIPEncoder(Config(model=small), seed=1, device=cuda)
+    want = ref.encode_pixels(px)
+    for mesh in meshes:
+        enc = CLIPEncoder(Config(model=small), seed=1, mesh=make_mesh(
+            devices=list(mesh.devices.flat)[:2]))
+        before = fa.layer_block_int8.launches
+        got = enc.encode_pixels(px)  # one chunk of 128 rows, 64 a part
+        assert fa.layer_block_int8.launches - before == 2 * 2
+        np.testing.assert_array_equal(got, want)

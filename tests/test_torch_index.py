@@ -11,7 +11,7 @@ from image_retrieval_tpu.index.vector_index import ShardedVectorIndex as JaxInde
 from image_retrieval_tpu.ops import topk as jtopk
 from image_retrieval_tpu_torch.app.search import TextImageSearcher
 from image_retrieval_tpu_torch.app.server import SearchServer
-from image_retrieval_tpu_torch.index import ShardedVectorIndex, ivf
+from image_retrieval_tpu_torch.index import ShardedVectorIndex
 from image_retrieval_tpu_torch.models.encoder import FakeEncoder
 from image_retrieval_tpu_torch.ops import topk
 
@@ -203,18 +203,6 @@ def test_searcher_and_server_take_an_ann_tier():
     assert [h["path"] for h in hits] == ["c", "a"]
     with SearchServer(FakeEncoder(dim=8), ix, ann=Pool(), overfetch=1) as srv:
         assert [h["path"] for h in srv.search("x", top_k=3)] == ["c", "a"]
-
-
-@pytest.mark.parametrize("call", [
-    lambda ix: ivf.sharded_ivf_search(None, None, None, None, 1, 1, 1, mesh=None),
-    lambda ix: ivf.IVFIndex.from_index(ix, nlist=1, nprobe=1).sharded(None),
-    lambda ix: ivf.IVFIndex.from_index(ix, nlist=1, nprobe=1).attach_mesh(None),
-])
-def test_unported_index_calls_raise(call):
-    ix = ShardedVectorIndex(dim=8, config=IndexConfig(embedding_dim=8), device="cpu")
-    ix.insert(["a"], np.ones((1, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(ix)
 
 
 def test_tf32_is_refused_not_changed():

@@ -305,6 +305,94 @@ def test_jax_written_fixture_answers_as_jax_did():
                         atol=0)
 
 
+# -- the cluster-sharded search ------------------------------------------------
+
+
+def cpu_mesh(n=8):
+    from image_retrieval_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=["cpu"] * n)
+
+
+@pytest.mark.parametrize("dtype,nlist,replicas", [
+    ("float32", 32, 1), ("int8", 32, 1), ("int8", 32, 2), ("float32", 20, 1), ("int8", 12, 1)])
+def test_sharded_matches_jax_and_one_device(data, dtype, nlist, replicas):
+    """The slabs over eight CPU shards (nlist 20 and 12 pad to 24 and 16
+    with empty clusters) against the JAX package's sharded() on its 8-device
+    mesh and against the port's one-device search, at ATOL with ids
+    identical."""
+    from image_retrieval_tpu.config import MeshConfig as JaxMeshConfig
+    from image_retrieval_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    rows, q = data
+    j, p = pair(rows, nlist=nlist, dtype=dtype, replicas=replicas, train_size=1500)
+    jfn = j.sharded(jax_make_mesh(JaxMeshConfig(data=8, model=1)))
+    pfn = p.sharded(cpu_mesh())
+    for nprobe, k in ((1, 10), (8, 10), (8, 40), (nlist, 10)):
+        got = pfn(q, top_k=k, nprobe=nprobe)
+        assert_same_answers(got, jfn(q, top_k=k, nprobe=nprobe))
+        assert_same_answers(got, p.search(q, top_k=k, nprobe=nprobe))
+    assert_same_answers(pfn(q[3], top_k=10), p.search(q[3], top_k=10))
+    # search() delegates once a mesh is attached; a tail merges on the host
+    p.attach_mesh(cpu_mesh())
+    p.add(q[:2] * 3.0)
+    j.add(q[:2] * 3.0)
+    assert_same_answers(p.search(q, top_k=10), j.sharded(
+        jax_make_mesh(JaxMeshConfig(data=8, model=1)))(q, top_k=10))
+
+
+def test_sharded_search_guards_and_padding(data):
+    rows, q = data
+    p = IVFIndex(nlist=12, nprobe=12, seed=3, device="cpu").build(rows[:600], train_size=500)
+    with pytest.raises(ValueError, match="divisible"):
+        pivf.sharded_ivf_search(torch.from_numpy(q), p._centroids, p._packed, p._row_ids,
+                                p._lmax, 4, 10, mesh=cpu_mesh())
+    # nprobe = nlist probes every real cluster and no padding one: every row
+    # is reachable, nothing is -1
+    v, i = p.sharded(cpu_mesh())(q, top_k=600)
+    assert (i >= 0).all() and np.isfinite(v).all()
+    assert sorted(i[0].tolist()) == list(range(600))
+    off = IVFIndex(nlist=8, device="cpu").build(rows[:100]).offload()
+    with pytest.raises(ValueError, match="device-resident"):
+        off.sharded(cpu_mesh())
+    off.attach_mesh(cpu_mesh())  # offloaded: the host gather serves, on one device
+    assert off.search(q, top_k=5)[1].shape == (len(q), 5)
+    assert p.attach_mesh(None) is p and p.search(q, top_k=5)[1].shape == (len(q), 5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_from_index_on_a_mesh_attaches_it(data, dtype):
+    """An index on eight CPU shards: from_index builds on its first device
+    and attaches the mesh; the answers are the JAX from_index's on its
+    8-device mesh (which attaches its mesh the same way)."""
+    rows, q = data
+    d = rows.shape[1]
+    p_ix = ShardedVectorIndex(dim=d, config=IndexConfig(embedding_dim=d, dtype=dtype,
+                                                        capacity_step=64), mesh=cpu_mesh())
+    _, j_ix = indexes(rows[:600], dtype)
+    p_ix.insert([f"p{i}" for i in range(600)], rows[:600])
+    dead = [f"p{i}" for i in range(0, 600, 7)]
+    p_ix.delete(dead)
+    j_ix.delete(dead)
+    p = IVFIndex.from_index(p_ix, nlist=16, nprobe=4, train_size=500)
+    j = jivf.IVFIndex.from_index(j_ix, nlist=16, nprobe=4, train_size=500)
+    assert p._mesh is p_ix.mesh and j._mesh is not None
+    got = p.search(q, top_k=10)
+    assert p._sharded_fn is not None
+    assert_same_answers(got, j.search(q, top_k=10))
+    assert not set(got[1].ravel().tolist()) & {int(x[1:]) for x in dead}
+
+
+def test_jax_written_fixture_sharded():
+    """tests/data/jax_ivf_int8.npz (int8, replicas 2, a tail) over eight CPU
+    shards gives the answers the JAX package stored."""
+    with np.load(FIXTURE_ANSWERS) as z:
+        q, want = z["queries"], (z["scores"], z["ids"])
+    p = IVFIndex.load(FIXTURE, device="cpu").attach_mesh(cpu_mesh())
+    assert_same_answers(p.search(q, top_k=want[1].shape[1]), want)
+    assert p._sharded_fn is not None
+
+
 # -- from_index --------------------------------------------------------------
 
 
@@ -397,17 +485,6 @@ def test_guards():
         p.search(np.ones(8, np.float32))
     with pytest.raises(ValueError, match="dtype"):
         IVFIndex(dtype="int4", device="cpu")
-
-
-@pytest.mark.parametrize("call", [
-    lambda p: p.attach_mesh(None),
-    lambda p: p.sharded(None),
-    lambda p: pivf.sharded_ivf_search(None, None, None, None, 1, 1, 1, mesh=None),
-])
-def test_multi_device_stubs_name_the_roadmap(call):
-    p = IVFIndex(nlist=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        call(p)
 
 
 # -- serving ----------------------------------------------------------------------

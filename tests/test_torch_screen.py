@@ -563,3 +563,81 @@ def test_server_mutation_while_a_wave_is_served(rng, tmp_path, mutation):
         want = exact_srv.search_many(texts, top_k=5)
     assert [[r["path"] for r in m] for m in out["got"]] == [
         [r["path"] for r in m] for m in want]
+
+
+# -- the screen over a mesh --------------------------------------------------------
+
+
+def _mesh_pair(rows, dtype="int8"):
+    """The port's index on eight CPU shards and the JAX index on its 8-device
+    mesh, over the same rows with the same tombstones."""
+    from image_retrieval_tpu_torch.parallel.mesh import make_mesh
+
+    config = IndexConfig(embedding_dim=rows.shape[1], dtype=dtype, capacity_step=64)
+    mine = ShardedVectorIndex(dim=rows.shape[1], config=config,
+                              mesh=make_mesh(devices=["cpu"] * 8))
+    ref = JaxIndex(dim=rows.shape[1], config=config)
+    for ix in (mine, ref):
+        ix.insert([f"img_{i}.jpg" for i in range(len(rows))], rows)
+        ix.delete([f"img_{i}.jpg" for i in range(0, len(rows), 9)])
+    return mine, ref
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_sharded_second_moment_matches_jax(rng, dtype):
+    """Each shard's moment summed over the shards (float64) against the JAX
+    package's psum of f32 shard moments on its mesh and against the port's
+    one-device moment: within the one-device moment test's 1e-5."""
+    import jax.numpy as jnp
+
+    rows = clustered_rows(rng, n=600)
+    mine, ref = _mesh_pair(rows, dtype)
+    one = build(rows, dtype)
+    one.delete([f"img_{i}.jpg" for i in range(0, 600, 9)])
+    for ix in (mine, ref, one):
+        ix.load()
+    got = scr_mod.second_moment(mine._gallery, mine._valid, mine._scales)
+    want = np.asarray(jscreen._sharded_second_moment(ref._gallery, ref._valid, ref._scales,
+                                                     mesh=ref.mesh, axes=ref._row_axes))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, scr_mod.second_moment(one._gallery, one._valid,
+                                                          one._scales), rtol=1e-5, atol=1e-5)
+    assert len(mine._gallery) == 8 and jnp.asarray(want).shape == (64, 64)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_sharded_screen_matches_jax_on_its_mesh(rng, dtype):
+    """The random projection (seeded: the same matrix in both packages) over
+    eight shards, a pool of C a shard on both sides: the JAX screen's answers
+    at ATOL, ids equal but for ties. PCA: the projections come from moments
+    summed in other orders, so its recall is held to the JAX screen's."""
+    rows = clustered_rows(rng, n=1024)
+    q = clustered_rows(rng, n=16)
+    mine, ref = _mesh_pair(rows, dtype)
+    for method in ("random", "pca"):
+        a = ScreenedSearch.from_index(mine, sketch_dims=16, candidates=24, method=method, seed=5)
+        b = jscreen.ScreenedSearch.from_index(ref, sketch_dims=16, candidates=24, method=method,
+                                              seed=5)
+        assert len(a._sketch) == 8 and sum(s.shape[0] for s in a._sketch) == 1024
+        got, want = a.search(q, top_k=10), b.search(q, top_k=10)
+        if method == "random":
+            np.testing.assert_array_equal(a.proj, b.proj)
+            assert_same_topk(*got, *want)
+        else:
+            exact = mine.search(q, top_k=10)[1]
+            assert abs(recall(got[1], exact) - recall(want[1], exact)) <= 0.05
+        assert not set(got[1].ravel().tolist()) & set(range(0, 1024, 9))
+
+
+def test_sharded_screen_full_pool_is_exact(rng):
+    """A pool of every row of a shard reranks every live row: the exact
+    tier's answers, as on one device."""
+    rows = clustered_rows(rng, n=400)
+    mine, _ = _mesh_pair(rows)
+    scr = ScreenedSearch.from_index(mine, sketch_dims=8, candidates=64)
+    got = scr.search(rows[:6], top_k=12)
+    assert_same_topk(*got, *mine.search(rows[:6], top_k=12))
+    one = build(rows)
+    one.delete([f"img_{i}.jpg" for i in range(0, 400, 9)])
+    assert_same_topk(*got, *ScreenedSearch.from_index(one, sketch_dims=8, candidates=400)
+                     .search(rows[:6], top_k=12))
