@@ -39,6 +39,11 @@
     python3 chip_smoke.py --mesh            # build, then only phase 13 on the encoder,
                                             # galleries and IVF phases 3, 5, 6 and 11
                                             # would give it
+    python3 chip_smoke.py --models          # build, then only phase 14 (its own
+                                            # checkpoint, trainers and images)
+    python3 chip_smoke.py --profiler-windows  # build, then only how often a
+                                            # torch.profiler window loses kernel
+                                            # records, started at once and settled
     python3 chip_smoke.py --time-encoder    # build, then only the one-device paths of
                                             # phases 3, 5 and 8, timed: B/32 and L/14
                                             # encode, a train step (to compare two
@@ -317,6 +322,31 @@ Phases (any failure exits non-zero):
      K1 launches a part. Each sharded call's CUDA-event time beside its
      one-device time; the sharded calls' launches of K1, K3, K5 and K6 (each
      must launch).
+ 14. the rest of models/ and the checkpoint path, run last. A: an HF
+     checkpoint directory of seeded vit_b32() weights under HF's key names
+     (pytorch_model.bin through torch.save, config.json in the CLIPConfig
+     layout with openai/clip-vit-base-patch32's widths, the fixture
+     vocabulary), written without transformers; model_config_from_hf must
+     read vit_b32()'s widths and load_hf_clip_params the written weights bit
+     for bit. B: app/validate_pretrained.py on it (--synthetic
+     --check-serving --report-only, 150 synthetic images): rc 0, K1
+     launches, the serving tower (K1) against the plain tower at row cosine
+     >= 0.98; then the workflow's command line with --weights_path twice:
+     the first runs the tool in a child process and writes the marker, the
+     second runs no child. C: CLIPTrainer at full ViT-B/32 width, batch 128,
+     under int8_matmuls through K2a + K2b and through K1 (the
+     straight-through backward), beside phase 8's bf16 kernel route: a warm
+     step and 5 counted steps through fit() on one batch each, the launches
+     24 a step per kernel, every loss finite and the last below the first,
+     the step's CUDA-event and host-clock times and the peak memory; for
+     each int8 trainer K1, K2a and K2b against their plain versions (phase
+     2's limits) on the first and last layers of each tower, at the batch,
+     dtype and activations the trainer gives them, and each
+     straight-through entry's gradients on one layer against autograd
+     through the dense plain version on the card (2e-5). D: the histogram
+     encoder over 1,024 seeded 224^2 images on the card equal to the CPU's,
+     the L2 top-10 of 8 colour queries card = CPU. E: preprocess_device, 256
+     uint8 images 320^2 -> 224^2, on the card, within 1e-4 of the CPU.
 
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
@@ -325,6 +355,7 @@ line. Imports no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -489,17 +520,81 @@ def time_pair(torch, fns, samples=24, reps=5, warm=3):
     return {k: float(np.median(v)) for k, v in got.items()}
 
 
+# torch.profiler can lose the last kernel records of a window whose work
+# starts the moment the profiler does (about 1 window in 100 lost some,
+# now and then all of them; --profiler-windows reads the rate): each window
+# synchronizes and waits this long once the profiler is on, before its work
+PROFILER_SETTLE_S = 0.02
+
+
+@contextlib.contextmanager
+def profiled(torch, cpu=False):
+    """torch.profiler over the block's work: the card's activity (with
+    `cpu`, the host's too), started PROFILER_SETTLE_S before the work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = ([ProfilerActivity.CPU] if cpu else []) + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_SETTLE_S)
+        yield prof
+
+
+def profiler_windows(torch, card, windows=300):
+    """--profiler-windows: how many of `windows` torch.profiler windows of
+    four calls lose kernel records when the calls start the moment the
+    profiler does, and under profiled(), the two kinds in turns: one f32
+    query over 2^20 x 512 rows (phase 11 C's) and a 4096^2 f32 matmul."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index.vector_index import ShardedVectorIndex
+
+    n, d = 1 << 20, 512
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows = torch.nn.functional.normalize(torch.randn(n, d, device="cuda", generator=g), dim=1)
+    rows = rows.cpu().numpy()
+    ix = ShardedVectorIndex(dim=d, config=IndexConfig(embedding_dim=d, dtype="float32",
+                                                      capacity_step=n))
+    ix.insert([f"r/{i}" for i in range(n)], rows)
+    ix.load()
+    q, a = rows[0] + 0.01, torch.randn(4096, 4096, device="cuda", generator=g)
+    kinds = {"started at once": lambda: profile(activities=[ProfilerActivity.CUDA]),
+             "settled (profiled)": lambda: profiled(torch)}
+
+    def records(fn, window):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with window() as prof:
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+
+    for what, fn in (("one f32 query over 2^20 x 512 rows", lambda: ix.search(q, TOP_K)),
+                     ("a 4096^2 f32 matmul", lambda: a @ a)):
+        counts = {k: [] for k in kinds}
+        for _ in range(windows):
+            for k, window in kinds.items():
+                counts[k].append(records(fn, window))
+        full = max(max(c) for c in counts.values())
+        for k, c in counts.items():
+            lossy = sorted(x for x in c if x < full)
+            print(f"profiler windows, {what}, four calls, {k}: {len(lossy)} of {windows} "
+                  f"lost records ({full} in a whole window; the others kept {lossy}) "
+                  f"[{card}]", flush=True)
+
+
 def device_ms(torch, fn, calls=20):
     """Device time of one call of fn: the kernels' self time under
     torch.profiler over `calls` calls, divided by `calls` (no host time and
     no gaps between launches), after three warm calls; None when the
     profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -1104,8 +1199,6 @@ def launch_breakdown(torch, card, dense=False):
     B/32 vision B = 256 and of K9a at the L/14 image batch. Uses only entries
     that earlier checkouts also have, so that --time-k1 and --time-dense read
     both."""
-    from torch.profiler import ProfilerActivity, profile
-
     from image_retrieval_tpu_torch.ops import flash_attention as fa
 
     cases = {"K1 b32-vision-B256": (B32_BATCH, lambda x, w: fa.layer_block_int8(x, w, 12)),
@@ -1126,7 +1219,7 @@ def launch_breakdown(torch, card, dense=False):
         for _ in range(3):
             call(x, wts)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiled(torch) as prof:
             for _ in range(calls):
                 call(x, wts)
             torch.cuda.synchronize()
@@ -2168,14 +2261,12 @@ def profile_encode(torch, enc, images, card, label="L/14"):
     """One warm encode_pixels call under torch.profiler: wall time, and the
     device's self time by kernel family (the launches are serial on one
     stream, so their sum is the device's busy time)."""
-    from torch.profiler import ProfilerActivity, profile
-
     families = (("gemm_wgmma_s8_rowquant", "fc1 + quick_gelu + rowquant (clustered GEMM)"),
                 ("Int8Epilogue", "int8 GEMMs (wgmma)"),
                 ("DenseEpilogueBf16", "bf16 GEMMs (wgmma)"), ("attention_tiled", "attention"),
                 ("ln_rowquant", "LayerNorm/rowquant passes"),
                 ("ln_cast", "LayerNorm passes"), ("Memcpy", "copies"))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled(torch, cpu=True) as prof:
         t0 = time.perf_counter()
         enc.encode_pixels(images)
         torch.cuda.synchronize()
@@ -2944,11 +3035,9 @@ def phase_time_metrics(torch, card, lib_path):
 def device_breakdown(torch, fn, calls=5):
     """{kernel name: device ms a call} of fn under torch.profiler, after one
     warm call."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -2962,11 +3051,9 @@ def call_gap_ms(torch, fn, calls=10):
     host's work between its launches, where the host is the slower), median
     over `calls` calls with a synchronize between them, under
     torch.profiler; None when the profiler records no kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         for _ in range(calls):
             fn()
             torch.cuda.synchronize()
@@ -3467,14 +3554,12 @@ def profile_step(torch, tr, pixels, tokens, card, label):
     """One warm train step under torch.profiler: wall time, the device's busy
     time (the launches are serial on one stream) and its split by kernel
     family, the library's f32 products apart from the port's own kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     families = (("DenseEpilogueBf16", "the port's bf16 GEMMs (wgmma)"),
                 ("attention_tiled", "attention"),
                 ("ln_cast", "LayerNorm passes"), ("sgemm", "library f32 GEMMs"),
                 ("f32f32", "library f32 GEMMs"), ("multi_tensor_apply", "AdamW"),
                 ("Memcpy", "copies"))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled(torch, cpu=True) as prof:
         t0 = time.perf_counter()
         tr.train_step(pixels, tokens)
         torch.cuda.synchronize()
@@ -3866,11 +3951,9 @@ def idle_share(torch, enc, batches, window, card):
     """encode_stream over `batches` with the window set to `window`, under
     torch.profiler: wall time, and the device's busy time as the union of
     its kernel and copy intervals. Prints and returns the idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
     enc._MAX_IN_FLIGHT = window
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled(torch, cpu=True) as prof:
             t0 = time.perf_counter()
             for _ in enc.encode_stream(iter(batches)):
                 pass
@@ -5722,10 +5805,503 @@ def phase_mesh_alone(torch, card):
     return phase_mesh(torch, card, enc, index32, index14, q_emb, q14, ivf_a)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the rest of models/ and the checkpoint path.
+
+# The openai/clip-vit-base-patch32 config.json's widths (vit_b32()).
+B32_HF_CONFIG = {
+    "projection_dim": 512,
+    "text_config": {"hidden_size": 512, "intermediate_size": 2048, "num_hidden_layers": 12,
+                    "num_attention_heads": 8, "vocab_size": 49408,
+                    "max_position_embeddings": 77, "hidden_act": "quick_gelu"},
+    "vision_config": {"hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+                      "num_attention_heads": 12, "patch_size": 32, "image_size": 224,
+                      "hidden_act": "quick_gelu"},
+}
+# int8 training: counted steps a trainer; the straight-through entries'
+# gradients on the card against autograd through the dense plain versions
+# (tests/test_torch_train_int8.py's ENTRY_TOL); the serving tower against the
+# plain one on the checkpoint (the validation tool's threshold)
+STEPS14, ENTRY_GRAD_TOL14, SERVING_MIN_COS14 = 5, 2e-5, 0.98
+# the histogram gallery and queries; preprocess_device's batch and sides
+N_HIST14, HIST_QUERIES14 = 1024, ("red", "green", "blue", "white", "black", "brown",
+                                  "yellow", "purple")
+N_RESIZE14, RESIZE_FROM14, RESIZE_ATOL14 = 256, 320, 1e-4
+INT8_KERNELS = ("layer_block_int8", "attention_block_int8", "mlp_block_int8", "quant_dense")
+
+
+def hf_state_dict(sd, cfg):
+    """The port's state dict under an HF CLIPModel's key names and layouts:
+    the inverse of models/weights.py params_from_hf_state_dict (kernels
+    (in, out) -> HF weights (out, in), the patch kernel (p, p, 3, W) -> the
+    conv weight (W, 3, p, p))."""
+    out = {}
+
+    def dense(dst, src):
+        out[f"{dst}.weight"] = sd[f"{src}.kernel"].t().contiguous()
+        out[f"{dst}.bias"] = sd[f"{src}.bias"]
+
+    def ln(dst, src):
+        out[f"{dst}.weight"] = sd[f"{src}.scale"]
+        out[f"{dst}.bias"] = sd[f"{src}.bias"]
+
+    def blocks(tower, hf, layers):
+        for i in range(layers):
+            src, dst = f"{tower}.blocks.{i}", f"{hf}.encoder.layers.{i}"
+            ln(f"{dst}.layer_norm1", f"{src}.ln1")
+            ln(f"{dst}.layer_norm2", f"{src}.ln2")
+            for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                dense(f"{dst}.self_attn.{nm}", f"{src}.attn.{nm}")
+            dense(f"{dst}.mlp.fc1", f"{src}.mlp.fc1")
+            dense(f"{dst}.mlp.fc2", f"{src}.mlp.fc2")
+
+    out["vision_model.embeddings.patch_embedding.weight"] = (
+        sd["vision.patch_embed.kernel"].permute(3, 2, 0, 1).contiguous())
+    out["vision_model.embeddings.class_embedding"] = sd["vision.class_embedding"]
+    out["vision_model.embeddings.position_embedding.weight"] = sd["vision.position_embedding"]
+    ln("vision_model.pre_layrnorm", "vision.pre_ln")
+    ln("vision_model.post_layernorm", "vision.post_ln")
+    out["visual_projection.weight"] = sd["vision.proj"].t().contiguous()
+    blocks("vision", "vision_model", cfg.vision_layers)
+    out["text_model.embeddings.token_embedding.weight"] = sd["text.token_embedding"]
+    out["text_model.embeddings.position_embedding.weight"] = sd["text.position_embedding"]
+    ln("text_model.final_layer_norm", "text.final_ln")
+    out["text_projection.weight"] = sd["text.proj"].t().contiguous()
+    blocks("text", "text_model", cfg.text_layers)
+    out["logit_scale"] = sd["logit_scale"]
+    return out
+
+
+def int8_counts(fa):
+    return {k: getattr(fa, k).launches for k in INT8_KERNELS}
+
+
+def write_checkpoint(torch, root):
+    """Phase 14 A: an HF checkpoint directory of seeded ViT-B/32 weights,
+    written without transformers or safetensors; the config read back and
+    the weights loaded back, bit for bit."""
+    import shutil
+
+    from image_retrieval_tpu_torch.config import vit_b32
+    from image_retrieval_tpu_torch.models.tokenizer import FIXTURE_DIR
+    from image_retrieval_tpu_torch.models.weights import (
+        init_params,
+        load_hf_clip_params,
+        model_config_from_hf,
+    )
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "clip-vit-base-patch32-seeded")
+    os.makedirs(ckpt)
+    mc = vit_b32()
+    params = init_params(mc, seed=0)
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(B32_HF_CONFIG, f, indent=1)
+    torch.save(hf_state_dict(params, mc), os.path.join(ckpt, "pytorch_model.bin"))
+    for name in ("vocab.json", "merges.txt"):
+        shutil.copy(os.path.join(FIXTURE_DIR, name), os.path.join(ckpt, name))
+    written = time.perf_counter() - t0
+    read = model_config_from_hf(ckpt)
+    widths = lambda c: {f: getattr(c, f) for f in (
+        "image_size", "patch_size", "vision_width", "vision_layers", "vision_heads",
+        "text_width", "text_layers", "text_heads", "vocab_size", "context_length",
+        "embed_dim")}
+    if widths(read) != widths(mc) or read.dtype != "float32":
+        fail(f"model_config_from_hf read {read}, not vit_b32()'s widths in float32")
+    t0 = time.perf_counter()
+    loaded = load_hf_clip_params(ckpt, read)
+    load_s = time.perf_counter() - t0
+    if loaded.keys() != params.keys() or not all(torch.equal(loaded[k], params[k])
+                                                  for k in params):
+        fail("the checkpoint's weights did not load back bit for bit")
+    nbytes = os.path.getsize(os.path.join(ckpt, "pytorch_model.bin"))
+    print(f"phase 14 A: checkpoint of seeded vit_b32() weights written in {written:.1f} s "
+          f"({nbytes / 2 ** 20:.0f} MiB pytorch_model.bin, {len(params)} tensors under HF "
+          f"names); model_config_from_hf = vit_b32()'s widths in float32; "
+          f"load_hf_clip_params {load_s:.1f} s, bit for bit", flush=True)
+    return ckpt
+
+
+def validate_checkpoint(torch, card, ckpt, root):
+    """Phase 14 B: the port's validation tool on the checkpoint, in this
+    process (K1 counted), then the workflow's command line with
+    --weights_path twice: the first runs the tool in a child process and
+    writes the marker, the second finds the marker and runs no child."""
+    import logging
+    import subprocess as sp
+
+    from image_retrieval_tpu_torch.app import validate_pretrained, workflow
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    cosines = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("serving-tower consistency"):
+                cosines.extend(record.args)
+
+    # the tool's INFO lines are read here whatever an earlier phase left the
+    # root logger's level at
+    vlog, handler = logging.getLogger("validate_pretrained"), Catch()
+    level = vlog.level
+    vlog.addHandler(handler)
+    vlog.setLevel(logging.INFO)
+    before = fa.layer_block_int8.launches
+    t0 = time.perf_counter()
+    try:
+        rc = validate_pretrained.main([ckpt, "--synthetic", "--check-serving",
+                                       "--report-only", "--output-dir",
+                                       os.path.join(root, "validation")])
+    finally:
+        vlog.removeHandler(handler)
+        vlog.setLevel(level)
+        logging.getLogger().setLevel(logging.WARNING)
+    tool_s = time.perf_counter() - t0
+    k1 = fa.layer_block_int8.launches - before
+    results = os.path.join(root, "validation", "analysis_results", "results.json")
+    if rc != 0 or not os.path.exists(results):
+        fail(f"the validation tool exited {rc}")
+    if k1 <= 0 or len(cosines) != 2 or min(cosines) < SERVING_MIN_COS14:
+        fail(f"validation: {k1} K1 launches, serving-tower cosines {cosines}")
+    print(f"phase 14 B: app/validate_pretrained.py --synthetic --check-serving --report-only "
+          f"on the checkpoint: rc 0 in {tool_s:.1f} s (host clock), {k1} K1 launches, serving "
+          f"tower vs plain tower worst row cosine image {cosines[0]:.6f}, text "
+          f"{cosines[1]:.6f} (limit {SERVING_MIN_COS14}) [{card}]", flush=True)
+
+    out = os.path.join(root, "workflow")
+    children = []
+    real_run = sp.run
+
+    def counted(cmd, *a, **kw):
+        children.append(cmd)
+        return real_run(cmd, *a, **kw)
+
+    times = []
+    sp.run = counted
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            workflow.main(["--synthetic", "--output_dir", out, "--weights_path", ckpt])
+            times.append(time.perf_counter() - t0)
+            logging.getLogger().setLevel(logging.WARNING)
+    finally:
+        sp.run = real_run
+    validated = [c for c in children if "image_retrieval_tpu_torch.app.validate_pretrained" in c]
+    marker = os.path.join(out, ".validated_weights")
+    if len(validated) != 1 or not os.path.exists(marker):
+        fail(f"workflow --weights_path: {len(validated)} validation children over two runs, "
+             f"marker {'present' if os.path.exists(marker) else 'absent'}")
+    with open(marker) as f:
+        tags = f.read().split()
+    if len(tags) != 2 or not tags[1].startswith("stat:"):
+        fail(f"the marker holds {tags}")
+    if not os.path.exists(os.path.join(out, "analysis_results", "results.json")):
+        fail("workflow --weights_path wrote no results.json")
+    print(f"phase 14 B: workflow.main(--synthetic --weights_path) first run {times[0]:.1f} s "
+          f"(the validation child, then the workflow; marker written: sha256 + stat tag), "
+          f"second {times[1]:.1f} s (marker found, no child) [{card}]", flush=True)
+    return {"tool_s": tool_s, "k1": k1, "cosines": cosines, "workflow_s": times}
+
+
+def time_steps(torch, tr, pixels, tokens, steps, counted):
+    """A warm step, `counted()` (which zeroes the launch counters), then
+    `steps` counted steps through fit(); each step's CUDA-event time (fit
+    enqueues them back to back) and the host clock of the whole fit. Returns
+    (first loss, losses, median event ms, host ms a step, peak GiB)."""
+    import itertools
+
+    first = tr.train_step(pixels, tokens)  # warm (allocator, cuBLAS handles)
+    torch.cuda.synchronize()
+    counted()
+    torch.cuda.reset_peak_memory_stats()
+    events, real = [], tr.train_step_async
+
+    def stepped(px, tok):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        loss = real(px, tok)
+        e.record()
+        events.append((s, e))
+        return loss
+
+    tr.train_step_async = stepped
+    t0 = time.perf_counter()
+    try:
+        losses = tr.fit(itertools.repeat((pixels, tokens)), steps=steps)
+        torch.cuda.synchronize()
+    finally:
+        del tr.train_step_async
+    host = (time.perf_counter() - t0) * 1e3 / steps
+    ev = float(np.median([s.elapsed_time(e) for s, e in events]))
+    return first, losses, ev, host, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def trainer_agreement(torch, card, tr, pixels, tokens):
+    """Each int8 kernel against its plain version at the shapes the trainer
+    gives it: the first and last layers of each tower, on the activations a
+    forward pass of the training batch hands them (vision (N_PAIRS, 50, 768),
+    text (N_PAIRS, 77, 512) causal) in the trainer's compute dtype, the
+    weights quantized as a step quantizes them; K2b on the attention half's
+    output. Returns {kernel: max abs err}. These launches come after the
+    counted steps."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    runs = kernel_runs(fa)
+    worst = dict.fromkeys(runs, 0.0)
+    px, tok = tr._to_device(pixels, tokens)
+    for tower, feed in (("vision", px), ("text", tok)):
+        model = getattr(tr.model, tower)
+        picked = {0: model.blocks[0], len(model.blocks) - 1: model.blocks[-1]}
+        seen = {}
+        hooks = [blk.register_forward_pre_hook(
+            lambda m, args, i=i: seen.__setitem__(i, args[0].detach()))
+            for i, blk in picked.items()]
+        try:
+            with torch.no_grad():
+                model(feed)
+        finally:
+            for h in hooks:
+                h.remove()
+        for i, blk in picked.items():
+            x, wts, heads, causal = seen[i].contiguous(), blk.int8_weights(), blk.heads, blk.causal
+            if x.dtype != model.dtype:
+                fail(f"{tower} layer {i} was handed {x.dtype}, not {model.dtype}")
+            with torch.no_grad():
+                mid = fa.attention_block_int8_reference(x, wts.attn, heads, causal)
+                for name, (kernel, plain, kind) in runs.items():
+                    xin = mid if kind == "mlp" else x
+                    case = f"trainer {tower} layer {i} {tuple(xin.shape)}"
+                    err = _agree(fa, torch, name, case, kernel(xin, wts, heads, causal),
+                                 plain(xin, wts, heads, causal), xin)
+                    worst[name] = max(worst[name], err)
+    print(f"phase 14 C: the int8 kernels vs their plain versions at the trainer's shapes "
+          f"(first and last layers, batch {px.shape[0]}): max abs "
+          + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + f" [{card}]", flush=True)
+    return worst
+
+
+def entry_gradients(torch, card, block):
+    """Each straight-through entry on one layer of the trainer, in f32 on the
+    card: its gradients against autograd through the dense plain version at
+    the same inputs and cotangent (the entries' wiring: which plain version,
+    which saved inputs, which parameters)."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    params = [p.detach().float().clone() for p in block._layer_params()]
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((8, 50, 768), device="cuda", generator=g)
+    cot = torch.randn((8, 50, 768), device="cuda", generator=g)
+    cases = {
+        "layer_block_int8_train": (
+            lambda x, ps: fa.layer_block_int8_train(x, ps, 12, False),
+            lambda x, ps: fa.layer_block_reference(x, fa.prepare_layer(*ps, dtype=x.dtype),
+                                                   12, False), slice(0, 16)),
+        "attention_block_int8_train": (
+            lambda x, ps: fa.attention_block_int8_train(x, ps, 12, False),
+            lambda x, ps: fa.attention_block_reference(
+                x, fa.prepare_attn(*ps, dtype=x.dtype), 12, False), slice(0, 10)),
+        "mlp_block_int8_train": (
+            lambda x, ps: fa.mlp_block_int8_train(x, ps),
+            lambda x, ps: fa.mlp_block_reference(x, fa.prepare_mlp(*ps, dtype=x.dtype)),
+            slice(10, 16)),
+    }
+    worst = {}
+    for name, (entry, plain, part) in cases.items():
+        grads = []
+        for fn in (entry, plain):
+            xi = x.clone().requires_grad_(True)
+            ps = [p.clone().requires_grad_(True) for p in params[part]]
+            (fn(xi, ps).float() * cot).sum().backward()
+            grads.append([xi.grad] + [p.grad for p in ps])
+        for a, b in zip(*grads):
+            if not torch.allclose(a, b, rtol=ENTRY_GRAD_TOL14, atol=ENTRY_GRAD_TOL14):
+                fail(f"{name}: a gradient on the card left the dense plain version's "
+                     f"by {float((a - b).abs().max()):.3g}")
+        worst[name] = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    print(f"phase 14 C: straight-through gradients on the card vs autograd through the dense "
+          f"plain versions, one layer of the trainer, x (8, 50, 768) f32: max abs "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (limit {ENTRY_GRAD_TOL14} + {ENTRY_GRAD_TOL14} |v|) [{card}]", flush=True)
+    return worst
+
+
+def train_int8(torch, card):
+    """Phase 14 C: CLIPTrainer at full ViT-B/32 width, batch N_PAIRS, under
+    int8_matmuls through K2a + K2b and through K1, beside phase 8's bf16
+    kernel route, each a warm step and STEPS14 counted steps on one fixed
+    batch. Returns the K1, K2a, K2b launches of the counted steps."""
+    import dataclasses
+    import math
+
+    from image_retrieval_tpu_torch.config import vit_b32
+    from image_retrieval_tpu_torch.models.clip import DENSE_KERNEL, KERNEL, LAYER
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+    from image_retrieval_tpu_torch.train import CLIPTrainer
+
+    b32 = vit_b32()
+    layers = b32.vision_layers + b32.text_layers
+    runs = {
+        "int8, K2a + K2b": (dataclasses.replace(b32, int8_matmuls=True, fused_attn_block=True,
+                                                fused_mlp_block=True), (KERNEL, KERNEL),
+                            {"attention_block_int8": layers, "mlp_block_int8": layers}),
+        "int8, K1": (dataclasses.replace(b32, int8_matmuls=True, fused_layer_block=True),
+                     (LAYER, LAYER), {"layer_block_int8": layers}),
+        "bf16, phase 8's K11 + K9b": (
+            dataclasses.replace(b32, fused_attn_block=True, fused_mlp_block=True,
+                                fused_train_vjp=True), (DENSE_KERNEL, DENSE_KERNEL),
+            {"attention_block_train": layers, "mlp_block": layers}),
+    }
+    pixels, tokens = train_batch(b32)
+    launches = dict.fromkeys(INT8_KERNELS, 0)
+    readings = {}
+    for name, (cfg, mode, per_step) in runs.items():
+        tr = CLIPTrainer(cfg, seed=0)  # no device=: the card
+        got = (tr.model.vision.blocks[0].mode, tr.model.text.blocks[0].mode)
+        if tr.device.type != "cuda" or got != (mode, mode):
+            fail(f"phase 14 {name}: on {tr.device}, routed {got}")
+        counters = set(per_step) | set(INT8_KERNELS)
+
+        def zero():
+            for k in counters:
+                getattr(fa, k).launches = 0
+
+        first, losses, ev, host, peak = time_steps(torch, tr, pixels, tokens, STEPS14, zero)
+        counted = {k: getattr(fa, k).launches for k in counters}
+        want = {k: per_step.get(k, 0) * STEPS14 for k in counters}
+        if counted != want:
+            fail(f"phase 14 {name}: launches {counted}, expected {want}")
+        curve = [first] + losses
+        if not all(math.isfinite(v) for v in curve) or not curve[-1] < curve[0]:
+            fail(f"phase 14 {name}: losses {curve}")
+        for k in INT8_KERNELS:
+            launches[k] += counted.get(k, 0)
+        readings[name] = {"step_event_ms": ev, "step_host_ms": host, "peak_gib": peak}
+        print(f"phase 14 C {name}: routed {mode}, {per_step} a step; losses "
+              f"{' '.join(f'{v:.4f}' for v in curve)}; step median {ev:.1f} ms (CUDA events), "
+              f"{host:.1f} ms (host clock) = {N_PAIRS * 1e3 / host:.0f} pairs/s, peak "
+              f"{peak:.2f} GiB allocated [{card}]", flush=True)
+        if name.startswith("int8"):
+            readings[name]["agree_max_abs"] = trainer_agreement(torch, card, tr, pixels, tokens)
+        if name == "int8, K1":
+            readings["entry_max_abs"] = entry_gradients(torch, card, tr.model.vision.blocks[0])
+        del tr
+        torch.cuda.empty_cache()
+    return launches, readings
+
+
+def histogram_and_resize(torch, card):
+    """Phase 14 D: the histogram encoder over N_HIST14 seeded CLIP-normalized
+    images on the card = on the CPU, and the exact L2 top-10 of the colour
+    queries over them; E: preprocess_device on N_RESIZE14 uint8 images,
+    RESIZE_FROM14 -> 224, card vs CPU."""
+    from image_retrieval_tpu_torch.config import IndexConfig
+    from image_retrieval_tpu_torch.index.vector_index import ShardedVectorIndex
+    from image_retrieval_tpu_torch.models.histogram import HistogramEncoder
+    from image_retrieval_tpu_torch.models.preprocess import (
+        CLIP_MEAN,
+        CLIP_STD,
+        preprocess_device,
+    )
+
+    rng = np.random.default_rng(14)
+    # images of a few flat colour bands with noise: histograms far apart
+    cols = rng.random((N_HIST14, 4, 3)).astype(np.float32)
+    x01 = np.repeat(cols, 56, axis=1)[:, :, None, :].repeat(224, axis=2)
+    x01 = np.clip(x01 + 0.03 * rng.standard_normal(x01.shape, dtype=np.float32), 0, 1)
+    px = ((x01 - CLIP_MEAN) / CLIP_STD).astype(np.float32)
+    enc, cpu = HistogramEncoder(), HistogramEncoder(device="cpu")
+    if enc.device.type != "cuda":
+        fail(f"HistogramEncoder() runs on {enc.device}")
+    got = enc.encode_pixels(px)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = enc.encode_pixels(px)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = cpu.encode_pixels(px)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got, want):
+        fail(f"histograms card vs CPU differ by {float(np.abs(got - want).max()):.3g}")
+    q = enc.encode_texts(list(HIST_QUERIES14))
+    answers, notes = [], []
+    for where in ("cuda", "cpu"):
+        ix = ShardedVectorIndex(dim=enc.dim, config=IndexConfig(capacity_step=N_HIST14),
+                                device=where)
+        ix.insert([f"img_{i}" for i in range(N_HIST14)], got)
+        vals, ids = ix.search(q, top_k=TOP_K, metric="l2_distance")
+        again = ix.search(q, top_k=TOP_K, metric="l2_distance")
+        # the f32 Gram form (|q|^2 + |g|^2 - 2 q.g under the square root)
+        # against the float64 L2 of the same pairs
+        exact = np.sqrt(((q[:, None, :].astype(np.float64) - got[ids].astype(np.float64)) ** 2)
+                        .sum(-1) / enc.dim)
+        notes.append(f"{where} vs float64 {float(np.abs(vals - exact).max()):.3g}, repeats "
+                     f"{'bit for bit' if all(map(np.array_equal, (vals, ids), again)) else 'NOT'}")
+        answers.append((vals, ids))
+    # the exact tier's contract: scores within ORACLE_SCORE_ATOL, ids equal
+    # but where neighbours lie closer
+    worst, swaps = agree_topk("histogram L2 top-10, card vs CPU", answers[0], answers[1],
+                              ORACLE_SCORE_ATOL)
+    print(f"phase 14 D: HistogramEncoder on the card, {N_HIST14} x 224^2 images: "
+          f"{card_ms:.1f} ms (host clock, with the host's un-normalization; the CPU's "
+          f"{cpu_ms:.1f} ms), equal to the CPU's bit for bit; L2 top-10 of "
+          f"{len(HIST_QUERIES14)} colour queries card = CPU (scores within {worst:.2g}, "
+          f"{swaps} tie swaps; {'; '.join(notes)}; smallest distance "
+          f"{float(answers[1][0].min()):.3g}) [{card}]", flush=True)
+
+    u8 = rng.integers(0, 256, size=(N_RESIZE14, RESIZE_FROM14, RESIZE_FROM14, 3),
+                      dtype=np.uint8)
+    out = preprocess_device(u8)  # no device=: the card
+    ref = preprocess_device(u8, device="cpu")
+    if out.device.type != "cuda" or out.shape != (N_RESIZE14, 224, 224, 3):
+        fail(f"preprocess_device gave {tuple(out.shape)} on {out.device}")
+    err = float((out.cpu() - ref).abs().max())
+    if not err <= RESIZE_ATOL14:
+        fail(f"preprocess_device card vs CPU: {err:.3g} (limit {RESIZE_ATOL14})")
+    on_card = torch.from_numpy(u8).cuda()
+    resize_ms = event_ms(torch, lambda: preprocess_device(on_card))
+    t0 = time.perf_counter()
+    preprocess_device(u8)
+    torch.cuda.synchronize()
+    up_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 14 E: preprocess_device {N_RESIZE14} x {RESIZE_FROM14}^2 uint8 -> 224^2 "
+          f"on the card: {resize_ms:.3f} ms (CUDA events, batch on the card), "
+          f"{up_ms:.1f} ms from numpy with the upload (host clock); vs the CPU max abs "
+          f"{err:.3g} (limit {RESIZE_ATOL14}) [{card}]", flush=True)
+    return {"hist_ms": card_ms, "hist_cpu_ms": cpu_ms, "resize_ms": resize_ms,
+            "resize_upload_ms": up_ms, "resize_err": err}
+
+
+def phase_models(torch, card):
+    """Phase 14 (see the module docstring). Returns (the K1, K2a, K2b
+    launches of the counted runs, readings)."""
+    import shutil
+
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    root = work_root("chip_smoke_models_")
+    try:
+        ckpt = write_checkpoint(torch, root)
+        before = int8_counts(fa)
+        readings = validate_checkpoint(torch, card, ckpt, root)
+        launches = {k: v - before[k] for k, v in int8_counts(fa).items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    trained, readings["train"] = train_int8(torch, card)
+    for k, v in trained.items():
+        launches[k] += v
+    readings.update(histogram_and_resize(torch, card))
+    print(f"phase 14 launches: {launches}; phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return launches, readings
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--durable-child"]:  # phase 9's crashing server
         durable_child(*sys.argv[2:6])
         return 3  # not reached: the child kills itself once it has answered
+    t_run = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5806,6 +6382,13 @@ def main() -> int:
     if sys.argv[1:] == ["--analysis"]:  # phase 12 builds its own dataset and encoders
         print(f"phase 12 alone: K1 launches {phase_analysis(torch, card)[0]}", flush=True)
         return 0
+    if sys.argv[1:] == ["--models"]:
+        launches14, _ = phase_models(torch, card)
+        print(f"phase 14 alone: int8 launches {launches14}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--profiler-windows"]:
+        profiler_windows(torch, card)
+        return 0
     if sys.argv[1:] == ["--mesh"]:
         print(f"phase 13 alone: sharded launches {phase_mesh_alone(torch, card)[0]}",
               flush=True)
@@ -5856,6 +6439,12 @@ def main() -> int:
     t_launches, train = phase_train(torch, card)
     for name in DENSE_KERNELS:  # K9a and K9b also run on the trainer's path
         d_launches[name] += t_launches[name]
+    torch.cuda.empty_cache()
+    # phase 14: the checkpoint path and int8 training (K1, K2a, K2b)
+    m_launches, m_readings = phase_models(torch, card)
+    for run in m_readings["train"].values():  # K1, K2a, K2b at the trainer's shapes
+        for name, err in run.get("agree_max_abs", {}).items():
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "image_retrieval_tpu")]
     if loaded:
@@ -5930,15 +6519,19 @@ def main() -> int:
     seg, d = k3["rows"], q_emb.shape[1]
     vision_b, text_b = TRAIN_TIME_SHAPES
     big = f"l14-vision-B{ENC_BUCKET5}"
+    print(f"the whole run took {time.perf_counter() - t_run:.1f} s, the build included "
+          f"(limit 1200 s) [{card}]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         dict(block_entry("layer_block_int8", "layer_block_int8.cu", 772,
                          launches + l14_launches["layer_block_int8"] + k1_durable + k1_ivf
-                         + k1_analysis + mesh_launches["layer_block_int8"],
+                         + k1_analysis + mesh_launches["layer_block_int8"]
+                         + m_launches["layer_block_int8"],
                          "b32-vision-B256",
                          {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
                           "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
-             mesh_launches=mesh_launches["layer_block_int8"]),
+             mesh_launches=mesh_launches["layer_block_int8"],
+             models_launches=m_launches["layer_block_int8"]),
         {"name": "int4_screen", "route": "cuda",
          "source": "image_retrieval_tpu_torch/csrc/int4_screen.cu",
          "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:602",
@@ -5955,12 +6548,15 @@ def main() -> int:
          "streamed_chunk_segment_ms": tiers["k3_chunk"][64]["kernel"],
          "streamed_chunk_segment_plain_ms": tiers["k3_chunk"][64]["plain"]},
         dict(block_entry("attention_block_int8", "attention_block_int8.cu", 554,
-                         l14_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
+                         l14_launches["attention_block_int8"]
+                         + m_launches["attention_block_int8"], big, {"b4": "l14-vision-B4"}),
+             models_launches=m_launches["attention_block_int8"],
              **stage_entries(stages["attention_block_int8"])),
         dict(block_entry("mlp_block_int8", "mlp_block_int8.cu", 671,
-                         l14_launches["mlp_block_int8"], big,
+                         l14_launches["mlp_block_int8"] + m_launches["mlp_block_int8"], big,
                          {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
                           "b32_vision_b8": "b32-vision-B8"}),
+             models_launches=m_launches["mlp_block_int8"],
              **stage_entries(stages["mlp_block_int8"])),
         # no single PyTorch call computes any of the four: library_ms is null
         metric_entry("fused_optimized_topk", "fused_optimized_topk", (399,),

@@ -17,9 +17,10 @@ weights (deterministic, for CI and zero-egress environments). The encoder,
 the COCO filter's dominant colors and the analysis run on `device`, the card
 unless the caller of run_workflow asks for the CPU (the command line takes
 the JAX workflow's flags and runs CLIP on the card; --fake_encoder keeps
-the run on the host). A --weights_path checkpoint is loaded
-but not validated against the reference forward (the JAX package runs
-tools/validate_pretrained.py once per checkpoint; ROADMAP.md lists it).
+the run on the host). The first time a --weights_path checkpoint is used
+with an --output_dir, the port's validation tool
+(``app/validate_pretrained.py``) runs once on it in a subprocess
+(``_maybe_validate_weights``), as the JAX workflow runs its tool.
 """
 
 from __future__ import annotations
@@ -171,6 +172,82 @@ def run_workflow(
     return results
 
 
+def _validation_command(weights_path: str, output_dir: str):
+    """The one-time validation's command: the port's tool on the checkpoint,
+    over a synthetic dataset, with the serving-tower check, its artifacts
+    under <output_dir>/pretrained_validation. (The JAX workflow passes the
+    checkpoint alone, which its tool's argument parser refuses: ROADMAP.md
+    queue 3.)"""
+    import sys as _sys
+
+    return [_sys.executable, "-m", "image_retrieval_tpu_torch.app.validate_pretrained",
+            weights_path, "--synthetic", "--check-serving", "--report-only",
+            "--output-dir", os.path.join(output_dir, "pretrained_validation")]
+
+
+def _maybe_validate_weights(weights_path: str, output_dir: str) -> None:
+    """Checksum-triggered pretrained-checkpoint validation, the JAX
+    workflow's (app/workflow.py:163-236): the first time a given checkpoint
+    is used with this output dir, run the port's validation tool
+    (app/validate_pretrained.py: port, tokenizer probe, serving tower
+    against the plain one, the workflow) so a silently mis-ported checkpoint
+    can never produce a results.json that LOOKS like the reference
+    reproduction. The checkpoint's hash is recorded on success in
+    <output_dir>/.validated_weights beside a (path, size, mtime) tag; re-runs
+    with the same tag skip even the hash. A failed validation raises
+    SystemExit."""
+    import hashlib
+    import subprocess
+    import sys as _sys
+
+    candidates = [os.path.join(weights_path, n)
+                  for n in ("model.safetensors", "pytorch_model.bin")]
+    blob = next((c for c in candidates if os.path.exists(c)), None)
+    if blob is None:
+        logger.warning("weights_path %s has no model.safetensors / "
+                       "pytorch_model.bin — skipping validation", weights_path)
+        return
+    marker = os.path.join(output_dir, ".validated_weights")
+    st = os.stat(blob)
+    stat_tag = f"stat:{blob}:{st.st_size}:{int(st.st_mtime)}"
+    marked = ""
+    if os.path.exists(marker):
+        with open(marker) as f:
+            marked = f.read()
+        if stat_tag in marked.split():
+            return  # same blob by (path, size, mtime) — skip the re-hash
+    # full hash only when the cheap stat check missed (first run, or the
+    # blob was touched/replaced): a 600 MB read must not recur on every
+    # workflow start
+    h = hashlib.sha256()
+    with open(blob, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    digest = h.hexdigest()
+    if digest in marked.split():
+        # same bytes under a new mtime (copied/restored): refresh the tag
+        with open(marker, "a") as f:
+            f.write(stat_tag + "\n")
+        return
+    logger.info("new checkpoint detected (sha256 %s…) — running one-time "
+                "port validation", digest[:12])
+    # the package's parent on the child's path, wherever the caller runs from
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(_validation_command(weights_path, output_dir),
+                          capture_output=True, text=True, env=env)
+    _sys.stdout.write(proc.stdout[-2000:])
+    if proc.returncode != 0:
+        raise SystemExit(
+            f"pretrained-checkpoint validation FAILED for {weights_path} "
+            f"(rc={proc.returncode}):\n{proc.stderr[-2000:]}"
+        )
+    os.makedirs(output_dir, exist_ok=True)
+    with open(marker, "a") as f:
+        f.write(digest + "\n" + stat_tag + "\n")
+
+
 def main(argv=None):
     logging.basicConfig(
         level=logging.INFO,
@@ -203,9 +280,7 @@ def main(argv=None):
         from image_retrieval_tpu_torch.config import Config
 
         config = Config(weights_path=args.weights_path)
-        logger.warning("checkpoint %s is loaded but not validated against the "
-                       "reference forward: check the port's embeddings of it "
-                       "before trusting results.json", args.weights_path)
+        _maybe_validate_weights(args.weights_path, args.output_dir)
     run_workflow(
         coco_dir=args.coco_dir,
         annotation_file=args.annotation_file,

@@ -36,6 +36,14 @@ Each half of a transformer layer takes one of the routes that the Flax
 - ``remat``: each layer is recomputed in the backward pass
   (``torch.utils.checkpoint``) instead of keeping its activations.
 
+A pass that records gradients through an int8 route (``LAYER``, ``KERNEL``,
+``QUANT``) takes the straight-through entries (``layer_block_int8_train``,
+``attention_block_int8_train``, ``mlp_block_int8_train``,
+``quant_dense_train``): the same kernels forward on the layer's f32
+parameters quantized on that call, the dense plain version's gradients
+backward, as the JAX package's custom VJPs. A pass that records none reads
+the quantized weights cached by ``Block.int8_weights``.
+
 All nine kernels are hand-written Hopper kernels on a CUDA tensor
 (``ops/flash_attention.py``).
 """
@@ -52,18 +60,26 @@ from image_retrieval_tpu_torch.config import ModelConfig
 from image_retrieval_tpu_torch.ops.flash_attention import (
     attention_block,
     attention_block_int8,
+    attention_block_int8_train,
     attention_block_train,
     fast_layernorm_f32,
     layer_block,
     layer_block_int8,
+    layer_block_int8_train,
     mlp_block,
     mlp_block_int8,
+    mlp_block_int8_train,
     multihead_attention,
     prepare_layer,
     quant_dense,
+    quant_dense_train,
     quantize_layer,
     quick_gelu,
 )
+
+# the `int8` argument of Attention and MLP in a pass that records
+# gradients: quantize the module's own f32 parameters on every call
+STRAIGHT_THROUGH = "straight-through"
 
 # widest tower the whole-layer kernels serve; above it the JAX package takes
 # the sub-block pair on purpose (models/clip.py:268-286), and so does the port
@@ -177,16 +193,24 @@ class Attention(nn.Module):
         self.v_proj = Dense(width, width)
         self.out_proj = Dense(width, width)
 
+    def _qkv_params(self):
+        return (torch.cat([self.q_proj.kernel, self.k_proj.kernel, self.v_proj.kernel], 1),
+                torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias]))
+
     def forward(self, h, dt, mask: Optional[torch.Tensor], int8=None):
-        """On the f32 LayerNorm output `h`. With `int8` (Int8AttnWeights) the
-        projections are QuantDense: q, k, v as one int8 product over the
-        concatenated weights, which per-channel scales make bitwise equal to
-        three."""
+        """On the f32 LayerNorm output `h`. With `int8` the projections are
+        QuantDense: q, k, v as one int8 product over the concatenated
+        weights, which per-channel scales make bitwise equal to three.
+        `int8` is the cached Int8AttnWeights, or STRAIGHT_THROUGH for
+        quant_dense_train on this module's f32 parameters."""
         b, t, _ = h.shape
         hd = self.width // self.heads
         split = lambda a: a.reshape(b, t, self.heads, hd).transpose(1, 2)
         if int8 is None:
             q, k, v = self.q_proj(h, dt), self.k_proj(h, dt), self.v_proj(h, dt)
+        elif int8 is STRAIGHT_THROUGH:
+            q, k, v = quant_dense_train(h.contiguous(), *self._qkv_params(),
+                                        dt).split(self.width, dim=-1)
         else:
             q, k, v = quant_dense(h.contiguous(), int8.wqkv_t, int8.wqkv_s, int8.bqkv,
                                   dt).split(self.width, dim=-1)
@@ -205,6 +229,9 @@ class Attention(nn.Module):
             out = (probs @ split(v)).transpose(1, 2).reshape(b, t, self.width)
         if int8 is None:
             return self.out_proj(out, dt)
+        if int8 is STRAIGHT_THROUGH:
+            return quant_dense_train(out.contiguous(), self.out_proj.kernel,
+                                     self.out_proj.bias, dt)
         return quant_dense(out.contiguous(), int8.wo_t, int8.wo_s, int8.bo, dt)
 
 
@@ -215,11 +242,16 @@ class MLP(nn.Module):
         self.fc2 = Dense(4 * width, width)
 
     def forward(self, h, dt, int8=None):
-        """Unfused MLP on the f32 LayerNorm output `h`; with `int8`
-        (Int8MlpWeights) both projections are QuantDense, quick_gelu between
-        them in the compute dtype."""
+        """Unfused MLP on the f32 LayerNorm output `h`; with `int8` (the
+        cached Int8MlpWeights, or STRAIGHT_THROUGH for quant_dense_train on
+        this module's f32 parameters) both projections are QuantDense,
+        quick_gelu between them in the compute dtype."""
         if int8 is None:
             return self.fc2(quick_gelu(self.fc1(h, dt)), dt)
+        if int8 is STRAIGHT_THROUGH:
+            g = quick_gelu(quant_dense_train(h.contiguous(), self.fc1.kernel,
+                                             self.fc1.bias, dt))
+            return quant_dense_train(g, self.fc2.kernel, self.fc2.bias, dt)
         g = quick_gelu(quant_dense(h.contiguous(), int8.w1_t, int8.w1_s, int8.b1, dt))
         return quant_dense(g, int8.w2_t, int8.w2_s, int8.b2, dt)
 
@@ -251,11 +283,17 @@ class Block(nn.Module):
                 self.ln2.scale, self.ln2.bias,
                 m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias]
 
+    def _records_grad(self) -> bool:
+        """Whether this call is recorded for a backward pass that reaches the
+        layer's parameters."""
+        return torch.is_grad_enabled() and any(p.requires_grad for p in self._layer_params())
+
     def int8_weights(self):
         """The layer quantized on first use (bitwise quantize_weight of the
-        f32 parameters), then cached; every int8 route reads its half from
-        it. Loading a state dict or moving or casting the module drops the
-        cache; serving edits no parameter in place."""
+        f32 parameters), then cached; every int8 route of a pass without
+        gradients reads its half from it. Loading a state dict or moving or
+        casting the module drops the cache; serving edits no parameter in
+        place."""
         if self._int8 is None:
             with torch.no_grad():
                 self._int8 = quantize_layer(*self._layer_params())
@@ -267,7 +305,7 @@ class Block(nn.Module):
         int8_weights. While gradients are being recorded they are made anew
         on every call instead, as part of the graph, so that a backward pass
         reaches the parameters."""
-        if torch.is_grad_enabled() and any(p.requires_grad for p in self._layer_params()):
+        if self._records_grad():
             return prepare_layer(*self._layer_params(), dtype=dt)
         if dt not in self._dense:
             with torch.no_grad():
@@ -290,6 +328,8 @@ class Block(nn.Module):
 
     def forward(self, x, dt, mask=None):
         attn, mlp = self.mode
+        if attn in (LAYER, KERNEL, QUANT) and self._records_grad():
+            return self._int8_straight_through(x, dt, mask)
         if attn == LAYER:
             return layer_block_int8(x.to(dt).contiguous(), self.int8_weights(),
                                     self.heads, self.causal)
@@ -311,6 +351,25 @@ class Block(nn.Module):
         if mlp == DENSE_KERNEL:
             return mlp_block(x.to(dt).contiguous(), dense.mlp)
         return x + self.mlp(self.ln2(x), dt, int8.mlp if mlp == QUANT else None)
+
+    def _int8_straight_through(self, x, dt, mask):
+        """The int8 routes of a pass that records gradients: the
+        straight-through entries on the layer's f32 parameters, quantized on
+        this call (remat's recomputation quantizes them again, to the same
+        bits)."""
+        attn, mlp = self.mode
+        params = self._layer_params()
+        if attn == LAYER:
+            return layer_block_int8_train(x.to(dt).contiguous(), params, self.heads,
+                                          self.causal)
+        if attn == KERNEL:
+            x = attention_block_int8_train(x.to(dt).contiguous(), params[:10], self.heads,
+                                           self.causal)
+        else:
+            x = x + self.attn(self.ln1(x), dt, mask, STRAIGHT_THROUGH)
+        if mlp == KERNEL:
+            return mlp_block_int8_train(x.to(dt).contiguous(), params[10:])
+        return x + self.mlp(self.ln2(x), dt, STRAIGHT_THROUGH)
 
 
 def _run_blocks(blocks, x, dt, mask, remat: bool):

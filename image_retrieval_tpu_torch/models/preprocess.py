@@ -1,10 +1,17 @@
-"""Image preprocessing: host decode + on-device normalize.
+"""Image preprocessing: host decode + on-device resize and normalize.
 
 Port of ``image_retrieval_tpu/models/preprocess.py``. The host transform is
 the same CLIPProcessor-equivalent resize/crop/normalize; PIL is imported
 inside the functions that decode, since a serving host that only receives
 raw uint8 batches needs no PIL. Pixel batches stay NHWC, as in the JAX
 package, so both packages take the same arrays.
+
+``preprocess_device`` resizes with ``F.interpolate(mode="bilinear",
+antialias=True)`` where JAX runs ``jax.image.resize(..., "bilinear",
+antialias=True)``. The two filters are written apart and round apart: on
+[0, 1] inputs they differ by at most 1.3e-5 at 320 -> 224 (5.4e-5 after the
+division by CLIP's std), by less elsewhere, and by nothing where the side
+already equals `size` (tests/test_torch_preprocess_device.py holds 1e-4).
 """
 
 from __future__ import annotations
@@ -13,6 +20,9 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from image_retrieval_tpu_torch.device import DeviceLike, resolve_device
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -76,3 +86,31 @@ def normalize_u8_device(batch_u8: torch.Tensor) -> torch.Tensor:
     mean = torch.as_tensor(CLIP_MEAN, device=batch_u8.device)
     std = torch.as_tensor(CLIP_STD, device=batch_u8.device)
     return (batch_u8.to(torch.float32) / 255.0 - mean) / std
+
+
+def preprocess_device(batch_u8, size: int = 224, *, device: DeviceLike = "cuda"
+                      ) -> torch.Tensor:
+    """Batched resize + normalize of square (B, H, W, 3) uint8 images to
+    (B, size, size, 3) CLIP-normalized f32, the JAX package's
+    preprocess_device (models/preprocess.py:58-71): / 255, a bilinear
+    resize with antialiasing only where the side differs from `size`, then
+    the CLIP mean and std, all in f32. A numpy batch is uploaded to `device`
+    (the card unless the caller names the CPU); a tensor stays on its own
+    device. For the ingest path whose host decode emits fixed-size
+    thumbnails; the exact-bicubic host path stays for parity."""
+    if isinstance(batch_u8, torch.Tensor):
+        x = batch_u8
+    else:
+        x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(resolve_device(device))
+    if x.dim() != 4 or x.shape[1] != x.shape[2] or x.shape[3] != 3:
+        raise ValueError(f"preprocess_device takes square (B, H, W, 3) images, "
+                         f"got {tuple(x.shape)}")
+    # divided by a tensor: a CUDA division by a Python scalar multiplies by
+    # its reciprocal, which is not the correctly rounded quotient
+    x = x.to(torch.float32) / torch.tensor(255.0, device=x.device)
+    if x.shape[1] != size:
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+                          antialias=True, align_corners=False).permute(0, 2, 3, 1)
+    mean = torch.as_tensor(CLIP_MEAN, device=x.device)
+    std = torch.as_tensor(CLIP_STD, device=x.device)
+    return ((x - mean) / std).contiguous()

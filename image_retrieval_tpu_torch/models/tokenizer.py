@@ -18,9 +18,9 @@ implements that algorithm natively:
 
 Vocab/merges load from a checkpoint directory (``Config.weights_path``) when
 one is vendored; otherwise a small deterministic fixture vocab (trained by
-``tools/make_bpe_fixture.py``, vendored under
-``image_retrieval_tpu/models/bpe_fixture/``) keeps
-the production path on real BPE. The hash tokenizer is a test-only fallback
+``tools/make_bpe_fixture.py``; the port keeps its own copy under
+``models/bpe_fixture/``, which tests/test_torch_config.py pins byte for byte
+to the JAX package's) keeps the production path on real BPE. The hash tokenizer is a test-only fallback
 and is never returned by :func:`get_tokenizer`.
 
 Text normalization matches HF's no-ftfy path (``transformers``
@@ -58,12 +58,9 @@ PAD = 0
 CONTEXT = 77
 VOCAB = 49408
 
-# The port reads the JAX package's vendored fixture vocab (one copy of the
-# data, so token ids cannot drift between the two packages).
-FIXTURE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "image_retrieval_tpu", "models", "bpe_fixture",
-)
+# The port's copy of the fixture vocab (tests/test_torch_config.py holds it
+# byte for byte to the JAX package's, so token ids cannot drift apart).
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bpe_fixture")
 
 if _HAVE_REGEX:
     _CLIP_SPLIT = _re.compile(

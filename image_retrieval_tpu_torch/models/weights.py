@@ -1,7 +1,9 @@
 """Weights for the port's CLIP: carried across from the JAX package, mapped
-from a Hugging Face checkpoint, or initialized from a numpy seed.
+from a Hugging Face checkpoint, or initialized from a numpy seed; and the
+model configuration of such a checkpoint (``model_config_from_hf``).
 
-Every function but ``params_to_jax`` returns a state dict (name -> f32
+Every function but ``params_to_jax`` and ``model_config_from_hf`` returns a
+state dict (name -> f32
 tensor) for ``models.clip.CLIP.load_state_dict``. Names follow the Flax
 tree, so the JAX->port mapping is a rename of the tower-block keys only;
 ``params_to_jax`` is its inverse.
@@ -9,6 +11,7 @@ tree, so the JAX->port mapping is a rename of the tower-block keys only;
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import re
@@ -128,6 +131,33 @@ def params_from_hf_state_dict(sd: Mapping, cfg: ModelConfig) -> StateDict:
         text[f"block_{i}"] = _block(sd, f"text_model.encoder.layers.{i}")
     tree = {"vision": vision, "text": text, "logit_scale": sd["logit_scale"]}
     return params_from_jax({"params": tree}, cfg)
+
+
+def model_config_from_hf(path: str) -> ModelConfig:
+    """The ModelConfig of an HF checkpoint directory, from its config.json
+    (the CLIPConfig layout: text_config, vision_config, projection_dim), as
+    the JAX package's model_config_from_hf (models/weights.py:74-99) reads
+    it. Missing keys fall back to the HF CLIPText/VisionConfig defaults,
+    which are openai/clip-vit-base-patch32's; the compute dtype is f32.
+    Plain json: transformers is not needed."""
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        c = json.load(f)
+    t = c.get("text_config", {})
+    v = c.get("vision_config", {})
+    return ModelConfig(
+        image_size=v.get("image_size", 224),
+        patch_size=v.get("patch_size", 32),
+        vision_width=v.get("hidden_size", 768),
+        vision_layers=v.get("num_hidden_layers", 12),
+        vision_heads=v.get("num_attention_heads", 12),
+        text_width=t.get("hidden_size", 512),
+        text_layers=t.get("num_hidden_layers", 12),
+        text_heads=t.get("num_attention_heads", 8),
+        vocab_size=t.get("vocab_size", 49408),
+        context_length=t.get("max_position_embeddings", 77),
+        embed_dim=c.get("projection_dim", 512),
+        dtype="float32",
+    )
 
 
 def load_hf_clip_params(path: str, cfg: ModelConfig) -> StateDict:

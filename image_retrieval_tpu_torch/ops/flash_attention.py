@@ -21,9 +21,14 @@ pre-LN transformer layer is:
 ``layer_block_int8`` does both; x1 passes in the compute dtype either way,
 so the plain versions of the halves compose to the plain whole layer bit
 for bit. ``quant_dense`` is one such projection on its own. Weights are
-quantized once per layer (``quantize_layer``) from the f32 parameters,
-bitwise as the JAX package's ``_quantize_weight`` does. There is no backward
-(serving only).
+quantized per layer (``quantize_layer``, per half ``quantize_attn`` /
+``quantize_mlp``) from the f32 parameters, bitwise as the JAX package's
+``_quantize_weight`` does. Serving quantizes once and keeps the result; for
+training, ``layer_block_int8_train``, ``attention_block_int8_train``,
+``mlp_block_int8_train`` and ``quant_dense_train`` take the f32 parameters,
+quantize them on every call, run the same kernels forward and give the JAX
+package's straight-through backward: the gradients of the dense,
+unquantized plain version (there is no backward kernel).
 
 **The family in the compute dtype** (bf16 or f32, nothing quantized):
 ``layer_block`` (l.1003, TPU kernel ``_layer_block_kernel`` l.931), its halves
@@ -211,29 +216,52 @@ class Int8MlpWeights:
         return [getattr(self, f.name) for f in dataclasses.fields(self)]
 
 
+def _f32(a: torch.Tensor) -> torch.Tensor:
+    return a.detach().to(torch.float32)
+
+
+def _flat32(a: torch.Tensor) -> torch.Tensor:
+    """A bias, scale or LayerNorm parameter as a contiguous f32 vector
+    (differentiable)."""
+    return a.to(torch.float32).reshape(-1).contiguous()
+
+
+def _vec(a: torch.Tensor) -> torch.Tensor:
+    return _flat32(a.detach())
+
+
+def quantize_kernel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An f32 (in, out) kernel -> the int8 form the kernels take: int8
+    (out, in) output-major values and f32 (out,) per-channel scales
+    (quantize_weight's bits)."""
+    wq_, s = quantize_weight(_f32(w))
+    return wq_.t().contiguous(), s.reshape(-1).contiguous()
+
+
+def quantize_attn(ln_s, ln_b, wq, bq, wk, bk, wv, bv, wo, bo) -> Int8AttnWeights:
+    """The attention half's f32 parameters -> Int8AttnWeights. QKV is
+    quantized as one (W, 3W) matrix: per-output-channel scales make that
+    bitwise equal to three separate quantizations (the TPU kernel's
+    concatenation, flash_attention.py:787-789)."""
+    wqkv_t, wqkv_s = quantize_kernel(torch.cat([_f32(wq), _f32(wk), _f32(wv)], dim=1))
+    wo_t, wo_s = quantize_kernel(wo)
+    return Int8AttnWeights(_vec(ln_s), _vec(ln_b), wqkv_t, wqkv_s,
+                           torch.cat([_vec(bq), _vec(bk), _vec(bv)]), wo_t, wo_s, _vec(bo))
+
+
+def quantize_mlp(ln_s, ln_b, w1, b1, w2, b2) -> Int8MlpWeights:
+    """The MLP half's f32 parameters -> Int8MlpWeights."""
+    return Int8MlpWeights(_vec(ln_s), _vec(ln_b), *quantize_kernel(w1), _vec(b1),
+                          *quantize_kernel(w2), _vec(b2))
+
+
 def quantize_layer(ln1_s, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_s,
                    ln2_b, w1, b1, w2, b2) -> Int8LayerWeights:
-    """f32 layer parameters (JAX (in, out) kernel layout) -> Int8LayerWeights.
-
-    QKV is quantized as one (W, 3W) matrix: per-output-channel scales make
-    that bitwise equal to three separate quantizations (the TPU kernel's
-    concatenation, flash_attention.py:787-789)."""
-    f = lambda a: a.detach().to(torch.float32)
-
-    def q(w):
-        wq_, s = quantize_weight(f(w))
-        return wq_.t().contiguous(), s.reshape(-1).contiguous()
-
-    wqkv_t, wqkv_s = q(torch.cat([f(wq), f(wk), f(wv)], dim=1))
-    wo_t, wo_s = q(wo)
-    w1_t, w1_s = q(w1)
-    w2_t, w2_s = q(w2)
-    c = lambda a: f(a).reshape(-1).contiguous()
-    return Int8LayerWeights(
-        c(ln1_s), c(ln1_b), wqkv_t, wqkv_s,
-        torch.cat([c(bq), c(bk), c(bv)]), wo_t, wo_s, c(bo),
-        c(ln2_s), c(ln2_b), w1_t, w1_s, c(b1), w2_t, w2_s, c(b2),
-    )
+    """f32 layer parameters (JAX (in, out) kernel layout) -> Int8LayerWeights:
+    the two halves, quantize_attn and quantize_mlp."""
+    attn = quantize_attn(ln1_s, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo)
+    mlp = quantize_mlp(ln2_s, ln2_b, w1, b1, w2, b2)
+    return Int8LayerWeights(*attn.tensors(), *mlp.tensors())
 
 
 # ---------------------------------------------------------------------------
@@ -1296,19 +1324,36 @@ class MlpWeights:
         return [getattr(self, f.name) for f in dataclasses.fields(self)]
 
 
+def prepare_attn(ln_s, ln_b, wq, bq, wk, bk, wv, bv, wo, bo,
+                 dtype: torch.dtype) -> AttnWeights:
+    """The attention half's parameters (JAX (in, out) kernel layout) ->
+    AttnWeights in the compute `dtype`: the casts the JAX entries make on
+    every call (wq.astype(dt), flash_attention.py:389-391). Every step is
+    differentiable."""
+    m = lambda w: w.to(dtype).t().contiguous()
+    return AttnWeights(_flat32(ln_s), _flat32(ln_b), m(torch.cat([wq, wk, wv], dim=1)),
+                       torch.cat([_flat32(bq), _flat32(bk), _flat32(bv)]), m(wo),
+                       _flat32(bo))
+
+
+def prepare_mlp(ln_s, ln_b, w1, b1, w2, b2, dtype: torch.dtype) -> MlpWeights:
+    """The MLP half's parameters -> MlpWeights in the compute `dtype`
+    (flash_attention.py:497), differentiably."""
+    m = lambda w: w.to(dtype).t().contiguous()
+    return MlpWeights(_flat32(ln_s), _flat32(ln_b), m(w1), _flat32(b1), m(w2),
+                      _flat32(b2))
+
+
 def prepare_layer(ln1_s, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_s, ln2_b,
                   w1, b1, w2, b2, dtype: torch.dtype) -> LayerWeights:
     """Layer parameters (JAX (in, out) kernel layout) -> LayerWeights in the
     compute `dtype`: the casts the JAX entries make on every call
-    (wq.astype(dt), flash_attention.py:389-391, :497, :995-998), made once.
-    Every step is differentiable, so gradients taken through the four
-    wrappers reach the parameters given here."""
-    m = lambda w: w.to(dtype).t().contiguous()
-    v = lambda a: a.to(torch.float32).reshape(-1).contiguous()
-    return LayerWeights(
-        v(ln1_s), v(ln1_b), m(torch.cat([wq, wk, wv], dim=1)),
-        torch.cat([v(bq), v(bk), v(bv)]), m(wo), v(bo),
-        v(ln2_s), v(ln2_b), m(w1), v(b1), m(w2), v(b2))
+    (flash_attention.py:995-998), made once. Every step is differentiable,
+    so gradients taken through the four wrappers reach the parameters given
+    here."""
+    attn = prepare_attn(ln1_s, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, dtype)
+    mlp = prepare_mlp(ln2_s, ln2_b, w1, b1, w2, b2, dtype)
+    return LayerWeights(*attn.tensors(), *mlp.tensors())
 
 
 def _dense_proj(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1789,3 +1834,76 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 multihead_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training through the int8 family: the straight-through backward
+# ---------------------------------------------------------------------------
+#
+# The JAX int8 entries carry custom VJPs whose backward is the VJP of the
+# dense, unquantized math at the saved inputs and the f32 parameters
+# (_layer8_bwd flash_attention.py:900-915, _blk8_bwd :661-666, _mlp8_bwd
+# :755-758; _quant_matmul_bwd models/clip.py:62-73): rounding would
+# otherwise zero every weight gradient. The entries below take the f32
+# parameters, quantize them on every call (quantize_layer's bits) and run
+# the int8 kernel chain (on a CPU tensor its plain version) forward; the
+# backward differentiates the plain dense version, layer_block_reference and
+# its halves over prepare_layer's casts, or x @ W + b (_KernelFunction).
+# There is no backward kernel, as the JAX package has none. A call that
+# records no gradient launches directly.
+
+
+def layer_block_int8_train(x: torch.Tensor, params, heads: int,
+                           causal: bool = False) -> torch.Tensor:
+    """layer_block_int8 on the layer's 16 f32 parameters (the order of
+    quantize_layer's arguments) with the straight-through backward: the
+    gradients of layer_block_reference over prepare_layer(params, x.dtype).
+    Launches are counted in ``layer_block_int8.launches``."""
+    return _kernel_call(
+        lambda x, *ps: layer_block_int8(x, quantize_layer(*ps), heads, causal),
+        lambda x, *ps: layer_block_reference(x, prepare_layer(*ps, dtype=x.dtype),
+                                             heads, causal),
+        x, *params)
+
+
+def attention_block_int8_train(x: torch.Tensor, params, heads: int,
+                               causal: bool = False) -> torch.Tensor:
+    """attention_block_int8 on the attention half's 10 f32 parameters (ln
+    scale and bias, then q, k, v, out kernels and biases) with the
+    straight-through backward of attention_block_reference. Launches are
+    counted in ``attention_block_int8.launches``."""
+    return _kernel_call(
+        lambda x, *ps: attention_block_int8(x, quantize_attn(*ps), heads, causal),
+        lambda x, *ps: attention_block_reference(x, prepare_attn(*ps, dtype=x.dtype),
+                                                 heads, causal),
+        x, *params)
+
+
+def mlp_block_int8_train(x: torch.Tensor, params) -> torch.Tensor:
+    """mlp_block_int8 on the MLP half's 6 f32 parameters (ln scale and bias,
+    fc1 kernel and bias, fc2 kernel and bias) with the straight-through
+    backward of mlp_block_reference. Launches are counted in
+    ``mlp_block_int8.launches``."""
+    return _kernel_call(
+        lambda x, *ps: mlp_block_int8(x, quantize_mlp(*ps)),
+        lambda x, *ps: mlp_block_reference(x, prepare_mlp(*ps, dtype=x.dtype)),
+        x, *params)
+
+
+def _dense_f32(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """QuantDense's math without the quantization: (x @ kernel + bias) in
+    f32, cast to `out_dtype`; its gradient is _quant_matmul_bwd's (dx = g W^T
+    in f32 cast to x's dtype, dW = x^T g) and the bias add's."""
+    return (x.float() @ kernel.float() + bias.float()).to(out_dtype)
+
+
+def quant_dense_train(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """QuantDense on its f32 (in, out) kernel and (out,) bias, quantized on
+    every call, with the straight-through backward. Launches are counted in
+    ``quant_dense.launches``."""
+    return _kernel_call(
+        lambda x, k, b: quant_dense(x, *quantize_kernel(k), _vec(b), out_dtype),
+        lambda x, k, b: _dense_f32(x, k, b, out_dtype),
+        x, kernel, bias)

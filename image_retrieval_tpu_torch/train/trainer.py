@@ -15,6 +15,14 @@ hand-written backward reads) and its MLP half ``mlp_block`` (whose backward
 recomputes through the plain version); the parameters, the optimizer and the
 loss are the same as under the default configuration.
 
+Under ``int8_matmuls`` with ``fused_attn_block`` + ``fused_mlp_block`` the
+layers train through the int8 sub-block kernels (``attention_block_int8``,
+``mlp_block_int8``), with ``fused_layer_block`` through the whole-layer
+``layer_block_int8`` (the sub-blocks past width 768, as ``layer_mode``
+routes): the forward quantizes the f32 parameters on every step, the
+backward is the dense plain version's (straight-through, as the JAX
+package's custom VJPs).
+
 The trainer draws no random numbers: initial weights come from a numpy seed
 (``models/weights.py::init_params``) and the layers have no dropout.
 """
@@ -62,15 +70,15 @@ class CLIPTrainer:
         self.cfg = cfg or ModelConfig()
         fused = self.cfg.fused_attn_block or self.cfg.fused_layer_block
         if self.cfg.int8_matmuls and not fused:
+            # unfused QuantDense trains too (straight-through), but quantizes
+            # every projection with none of the fused kernels' speed: the
+            # trainer sends int8 training through the fused kernels
             raise ValueError(
                 "int8_matmuls without fused kernels: use the fused-kernel "
-                "straight-through path (fused_attn_block/fused_layer_block) for "
-                "int8 training, or the default config for bf16/f32 training.")
-        if self.cfg.int8_matmuls:
-            raise NotImplementedError(
-                "training through the int8 kernels needs their straight-through "
-                "backward, which is not ported to image_retrieval_tpu_torch yet "
-                "(see ROADMAP.md, queue 1)")
+                "STE path (fused_attn_block/fused_layer_block) for int8 "
+                "training, or the default config for bf16/f32 training. "
+                "(Direct jax.grad over unfused QuantDense does work — "
+                "straight-through — but is never the fast configuration.)")
         self.device = resolve_device(device)
         self.model = CLIP(self.cfg, dtype=torch_dtype(self.cfg.dtype))
         if params is None:

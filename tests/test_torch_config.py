@@ -1,7 +1,8 @@
 """The port's own copies of two framework-free modules of the JAX package,
 pinned to the originals: ``config.py`` (every dataclass field by field, every
 constant, every preset function) and ``utils/native.py`` (the same ctypes
-surface over the same ``native/libirnative.so``). The port imports nothing
+surface over the same ``native/libirnative.so``), and of the fixture BPE
+vocabulary (``models/bpe_fixture/``, byte for byte). The port imports nothing
 of the JAX package, so these copies are all that keeps a configuration
 written for one package meaning the same in the other."""
 
@@ -102,3 +103,18 @@ def test_native_copy_decodes_like_the_original(tmp_path):
         got, want = getattr(tnative, fn)(paths, 32), getattr(jnative, fn)(paths, 32)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", ["vocab.json", "merges.txt"])
+def test_bpe_fixture_copy_is_byte_for_byte(name):
+    """The port tokenizes with its own copy of the fixture vocabulary; the
+    copy must be the JAX package's file, byte for byte."""
+    import pathlib
+
+    import image_retrieval_tpu.models.tokenizer as jtok
+    import image_retrieval_tpu_torch.models.tokenizer as ttok
+
+    mine, ref = pathlib.Path(ttok.FIXTURE_DIR), pathlib.Path(jtok.FIXTURE_DIR)
+    assert mine.resolve() != ref.resolve()
+    assert mine.resolve().parent == pathlib.Path(ttok.__file__).resolve().parent
+    assert (mine / name).read_bytes() == (ref / name).read_bytes()

@@ -4,8 +4,10 @@ which the machine with the card lacks).
 An AST scan, not a sys.modules check: tests/conftest.py imports jax before
 any test runs. Neither the port nor chip_smoke.py imports anything of the JAX
 package, not even a module there that does not import JAX: the port keeps
-its own copies (config.py, utils/native.py; tests/test_torch_config.py pins
-them to the originals).
+its own copies (config.py, utils/native.py, the fixture BPE vocabulary;
+tests/test_torch_config.py pins them to the originals). Nor does either
+read a file under the JAX package's directory: a path into it, built from
+string parts for a call or a pathlib `/`, is rejected too.
 """
 
 import ast
@@ -33,6 +35,9 @@ ANALYSIS_SLICE = ("ops/binning.py", "ops/mi.py", "data/__init__.py", "data/color
                   "data/dataset.py", "data/synthetic.py", "analysis/__init__.py",
                   "analysis/pair_mi.py", "analysis/color_mi.py", "analysis/plots.py",
                   "app/workflow.py")
+# the rest of models/ and the checkpoint path
+MODELS_SLICE = ("models/histogram.py", "models/weights.py", "models/preprocess.py",
+                "app/validate_pretrained.py")
 
 
 def imported_modules(path):
@@ -52,7 +57,7 @@ def test_port_files_found():
     for module in ("ops/flash_attention.py", "ops/int4.py", "ops/int4_screen.py",
                    "parallel/collectives.py", "index/filters.py", "config.py",
                    "utils/native.py", "train/__init__.py", "train/trainer.py",
-                   "train/data.py") + DURABLE_SLICE + TIERS + IVF_SLICE + ANALYSIS_SLICE:
+                   "train/data.py") + DURABLE_SLICE + TIERS + IVF_SLICE + ANALYSIS_SLICE + MODELS_SLICE:
         assert f"image_retrieval_tpu_torch/{module}" in names
     assert len(names) >= 40
 
@@ -66,6 +71,52 @@ def test_imports_no_jax(path):
         if root == "image_retrieval_tpu":
             assert mod in JAX_PACKAGE_ALLOWED, \
                 f"{path.name} imports {mod} from the JAX package"
+
+
+JAX_DIR = "image_retrieval_tpu"
+
+
+def _into_jax_dir(node) -> bool:
+    """A string constant that names the JAX package's directory or a path
+    under it (a label such as "image_retrieval_tpu/ops/x.py:12" inside a
+    dict or an f-string is not a path the program opens)."""
+    return (isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and (node.value == JAX_DIR or node.value.startswith(JAX_DIR + "/")))
+
+
+def jax_dir_paths(path):
+    """Line numbers where `path` builds a path into the JAX package's
+    directory: such a constant as an argument of a call (os.path.join,
+    open, Path) or as an operand of a pathlib `/`."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            args = list(node.args) + [k.value for k in node.keywords]
+            if any(_into_jax_dir(a) for a in args):
+                yield node.lineno
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            if _into_jax_dir(node.left) or _into_jax_dir(node.right):
+                yield node.lineno
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_reads_nothing_under_the_jax_package(path):
+    assert list(jax_dir_paths(path)) == [], \
+        f"{path.name} builds a path into the JAX package's directory"
+
+
+def test_scan_sees_a_path_into_the_jax_package(tmp_path):
+    """The path scan itself: the form tokenizer.py used before it kept its
+    own fixture, and a pathlib join, are both seen; a label is not."""
+    f = tmp_path / "m.py"
+    f.write_text(
+        "import os, pathlib\n"
+        "D = os.path.join(os.path.dirname(__file__), 'image_retrieval_tpu', 'models')\n"
+        "P = pathlib.Path('.') / 'image_retrieval_tpu/models/bpe_fixture'\n"
+        "L = {'replaces': 'image_retrieval_tpu/ops/flash_attention.py:12'}\n"
+        "M = [m for m in () if m in ('jax', 'image_retrieval_tpu')]\n")
+    assert list(jax_dir_paths(f)) == [2, 3]
 
 
 def test_scan_sees_a_jax_package_import(tmp_path):

@@ -83,6 +83,11 @@ def calls(monkeypatch):
     for name in KERNELS:
         monkeypatch.setattr(jfa, name, counting("jax", name, getattr(jfa, name)))
         monkeypatch.setattr(tclip, name, counting("torch", name, getattr(tclip, name)))
+    # a pass that records gradients takes the int8 kernel's straight-through
+    # entry, the port's form of the JAX entry's custom VJP
+    monkeypatch.setattr(tclip, "attention_block_int8_train",
+                        counting("torch", "attention_block_int8",
+                                 tclip.attention_block_int8_train))
 
     def take():
         got = {side: dict(c) for side, c in counts.items()}
@@ -343,10 +348,11 @@ def test_config_errors():
         CLIPTrainer(dataclasses.replace(base, int8_matmuls=True), device="cpu")
     with pytest.raises(ValueError, match="int8_matmuls without fused kernels"):
         jtrainer.CLIPTrainer(cfg=dataclasses.replace(base, int8_matmuls=True))
+    # int8 through the fused kernels trains (tests/test_torch_train_int8.py)
     for flag in ("fused_attn_block", "fused_layer_block"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            CLIPTrainer(dataclasses.replace(base, int8_matmuls=True, **{flag: True}),
-                        device="cpu")
+        tr = CLIPTrainer(dataclasses.replace(base, int8_matmuls=True, **{flag: True}),
+                         device="cpu")
+        assert tr.cfg.int8_matmuls and getattr(tr.cfg, flag)
 
 
 def test_trainer_defaults_to_the_card():
