@@ -41,6 +41,8 @@
                                             # would give it
     python3 chip_smoke.py --models          # build, then only phase 14 (its own
                                             # checkpoint, trainers and images)
+    python3 chip_smoke.py --train-mesh      # build, then only phase 15 (training
+                                            # over a mesh and dryrun_multichip)
     python3 chip_smoke.py --profiler-windows  # build, then only how often a
                                             # torch.profiler window loses kernel
                                             # records, started at once and settled
@@ -322,7 +324,7 @@ Phases (any failure exits non-zero):
      K1 launches a part. Each sharded call's CUDA-event time beside its
      one-device time; the sharded calls' launches of K1, K3, K5 and K6 (each
      must launch).
- 14. the rest of models/ and the checkpoint path, run last. A: an HF
+ 14. the rest of models/ and the checkpoint path, run after phase 13. A: an HF
      checkpoint directory of seeded vit_b32() weights under HF's key names
      (pytorch_model.bin through torch.save, config.json in the CLIPConfig
      layout with openai/clip-vit-base-patch32's widths, the fixture
@@ -347,6 +349,23 @@ Phases (any failure exits non-zero):
      encoder over 1,024 seeded 224^2 images on the card equal to the CPU's,
      the L2 top-10 of 8 colour queries card = CPU. E: preprocess_device, 256
      uint8 images 320^2 -> 224^2, on the card, within 1e-4 of the CPU.
+ 15. training over a mesh, run last: 4 virtual shards of the card, full
+     ViT-B/32 width, seeded weights, one seeded batch of 128 pairs; each
+     layout's losses (a warm step, then the counted steps through
+     train_step_async) against the one-device CLIPTrainer's on the same
+     batch, config and seed: the first 8 within 0.005. A: dp 4 x tp 1 under
+     the training kernel config, 5 steps, K11 and K9b 24 launches a step a
+     shard; B: dp 2 x tp 2 on the plain bf16 route (the projections split
+     over the model axis), 5 steps, no kernel; C: dp 4 under int8_matmuls +
+     fused_layer_block, 3 steps, K1 24 a step a shard; D:
+     PipelinedCLIPTrainer on (data 2, pipe 2), num_micro 2, 3 steps. A launch
+     whose tensors lie on another device than the card fails. Each part's
+     step time (CUDA events, host clock) and peak memory beside the one-device
+     trainer's; K11, K9b and K1 against their plain versions at a shard's
+     shapes (batch 32); E: the port's dryrun_multichip(4) on the card (its 12
+     OK lines: the dp x tp step, the index, the IVF, the screen, the
+     multi-slice merge, the pipelined step, the serving tower over the
+     data-sharded encoder).
 
 Prints the card line, a JSON line of per-kernel results (times and the
 bound at the main path's shapes), and, last, the {"ok": true, "device": ...}
@@ -6297,6 +6316,220 @@ def phase_models(torch, card):
     return launches, readings
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training over a mesh.
+
+# virtual shards of the card; counted steps of parts A-D; the batch
+SHARDS15, STEPS15 = 4, {"A": 5, "B": 5, "C": 3, "D": 3}
+# the tclip entries whose tensors' device each launch is checked on
+SHARD_ENTRIES15 = ("attention_block_train", "mlp_block", "layer_block_int8_train")
+KERNELS15 = TRAIN_KERNELS + INT8_KERNELS
+
+
+def mesh_steps(torch, tr, pixels, tokens, steps, counted):
+    """A warm step, `counted()` (which zeroes the launch counters), then
+    `steps` steps through train_step_async (a trainer over a mesh, or the
+    pipelined one, which has no fit), each between two CUDA events, the
+    losses fetched once at the end. Returns (the losses, the warm one
+    first; the median event ms a step; host ms a step; peak GiB)."""
+    first = tr.train_step(pixels, tokens)
+    torch.cuda.synchronize()
+    counted()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        losses.append(tr.train_step_async(pixels, tokens))
+        e.record()
+        events.append((s, e))
+    curve = [first] + [float(v) for v in torch.stack(losses).cpu()]
+    host = (time.perf_counter() - t0) * 1e3 / steps
+    ev = float(np.median([s.elapsed_time(e) for s, e in events]))
+    return curve, ev, host, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def shard_kernels_vs_plain(torch, card, b):
+    """K11, K9b and K1 against their plain versions at the shapes a data
+    shard of phase 15 gives them (vision (b, 50, 768), text (b, 77, 512)
+    causal), in bf16. Returns {kernel: max abs err}."""
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    worst = {"attention_block_train": 0.0, "mlp_block": 0.0, "layer_block_int8": 0.0}
+    for case, (t, w, heads, causal) in {"vision": (50, 768, 12, False),
+                                        "text": (77, 512, 8, True)}.items():
+        case = f"phase 15 shard {case} B={b}"
+        x, wts = dense_layer_inputs(torch, b, t, w, heads, 15 + w, torch.bfloat16)
+        got = fa.attention_block_saved(x, wts.attn, heads, causal)
+        want = fa.attention_block_saved_reference(x, wts.attn, heads, causal)
+        for part, g, wn in zip(("o", "q", "k", "v", "attn"), got, want):
+            ref_x = x if part == "o" else torch.zeros_like(x)
+            err = _dense_agree(fa, torch, f"attention_block_train.{part}", case,
+                               g.contiguous(), wn.contiguous(), ref_x, "attn")
+            worst["attention_block_train"] = max(worst["attention_block_train"], err)
+        perr = float((got[5] - want[5]).abs().max())
+        print(f"kernel-vs-plain attention_block_train.probs {case} bf16: max_abs_err "
+              f"{perr:.3g} (limit {PROBS_ATOL['bfloat16']})", flush=True)
+        if not perr <= PROBS_ATOL["bfloat16"]:
+            fail(f"attention_block_train {case}: probabilities disagree")
+        worst["mlp_block"] = max(worst["mlp_block"], _dense_agree(
+            fa, torch, "mlp_block", case, fa.mlp_block(x, wts.mlp),
+            fa.mlp_block_reference(x, wts.mlp), x, "mlp"))
+        x32, w8 = layer_inputs(torch, b, t, w, heads, 15 + w)
+        x8 = x32.to("cuda", torch.bfloat16)
+        worst["layer_block_int8"] = max(worst["layer_block_int8"], _agree(
+            fa, torch, "layer_block_int8", case, fa.layer_block_int8(x8, w8, heads, causal),
+            fa.layer_block_int8_reference(x8, w8, heads, causal), x8))
+        del x, wts, got, want, x8, w8
+        torch.cuda.empty_cache()
+    print(f"phase 15: K11, K9b and K1 vs their plain versions at a data shard's shapes: "
+          f"max abs {worst} [{card}]", flush=True)
+    return worst
+
+
+def phase_train_mesh(torch, card):
+    """Phase 15: training over a mesh of SHARDS15 virtual shards of the card
+    at full ViT-B/32 width, batch N_PAIRS, each layout's losses against the
+    one-device trainer's on the same batch from the same seed. A: dp 4 under
+    the training kernel configuration (K11 + K9b on each shard); B: dp 2 x tp
+    2 on the plain bf16 route; C: dp 4 under int8_matmuls +
+    fused_layer_block (K1 on each shard); D: PipelinedCLIPTrainer on (data
+    2, pipe 2), num_micro 2; E: the port's dryrun_multichip(4). Returns (the
+    launches of K11, K9b and K1 in the counted steps, readings)."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+
+    from image_retrieval_tpu_torch.config import MeshConfig, vit_b32
+    from image_retrieval_tpu_torch.dryrun import dryrun_multichip
+    from image_retrieval_tpu_torch.models import clip as tclip
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+    from image_retrieval_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from image_retrieval_tpu_torch.train import CLIPTrainer, PipelinedCLIPTrainer
+
+    t_phase = time.perf_counter()
+    b32 = vit_b32()
+    kernel_cfg = dataclasses.replace(b32, fused_attn_block=True, fused_mlp_block=True,
+                                     fused_train_vjp=True)
+    int8_cfg = dataclasses.replace(b32, int8_matmuls=True, fused_layer_block=True)
+    layers = b32.vision_layers + b32.text_layers
+    pixels, tokens = train_batch(b32)
+    card_dev = torch.device("cuda", torch.cuda.current_device())
+    shards = [card_dev] * SHARDS15
+    mesh = lambda data, model: make_mesh(MeshConfig(data=data, model=model),
+                                         devices=shards[: data * model])
+    pipe_grid = np.empty((2, 2), dtype=object)
+    pipe_grid[:] = card_dev
+    parts = {
+        "A": ("dp 4 x tp 1 under the training kernel config (K11 + K9b a shard)", kernel_cfg,
+              lambda: CLIPTrainer(kernel_cfg, seed=0, mesh=mesh(4, 1)),
+              {"attention_block_train": layers * 4, "mlp_block": layers * 4}),
+        "B": ("dp 2 x tp 2 on the plain bf16 route", b32,
+              lambda: CLIPTrainer(b32, seed=0, mesh=mesh(2, 2)), {}),
+        "C": ("dp 4 under int8_matmuls + fused_layer_block (K1 a shard)", int8_cfg,
+              lambda: CLIPTrainer(int8_cfg, seed=0, mesh=mesh(4, 1)),
+              {"layer_block_int8": layers * 4}),
+        "D": ("PipelinedCLIPTrainer on (data 2, pipe 2), num_micro 2", b32,
+              lambda: PipelinedCLIPTrainer(b32, Mesh(pipe_grid, ("data", "pipe")),
+                                           num_micro=2, seed=0), {}),
+    }
+    # the launches' devices: every entry a shard's layer calls, recorded
+    seen, real = set(), {n: getattr(tclip, n) for n in SHARD_ENTRIES15}
+
+    def recording(name):
+        def entry(x, *a, **k):
+            seen.add((str(x.device), torch.cuda.current_device()))
+            return real[name](x, *a, **k)
+        return entry
+
+    def zero():
+        for k in KERNELS15:
+            getattr(fa, k).launches = 0
+
+    references, readings = {}, {}
+    launches = {"attention_block_train": 0, "mlp_block": 0, "layer_block_int8": 0}
+    for key, (what, cfg, build, per_step) in parts.items():
+        steps = STEPS15[key]
+        ref_name = repr(cfg)  # one one-device run a configuration, as long as a part needs
+        if ref_name not in references:
+            need = max(STEPS15[k] for k, p in parts.items() if repr(p[1]) == ref_name)
+            one = CLIPTrainer(cfg, seed=0, device=card_dev)
+            references[ref_name] = mesh_steps(torch, one, pixels, tokens, need, zero)
+            del one
+            torch.cuda.empty_cache()
+        ref_curve, ref_ev, ref_host, ref_peak = references[ref_name]
+        t0 = time.perf_counter()
+        tr = build()
+        build_s = time.perf_counter() - t0
+        for n in SHARD_ENTRIES15:
+            setattr(tclip, n, recording(n))
+        seen.clear()
+        try:
+            curve, ev, host, peak = mesh_steps(torch, tr, pixels, tokens, steps, zero)
+            counted = {k: getattr(fa, k).launches for k in KERNELS15}
+        finally:
+            for n in SHARD_ENTRIES15:
+                setattr(tclip, n, real[n])
+        want = {k: per_step.get(k, 0) * steps for k in KERNELS15}
+        if counted != want:
+            fail(f"phase 15 {key}: launches {counted}, expected {want}")
+        wrong = {d for d in seen if d != (str(card_dev), card_dev.index)}
+        if wrong:
+            fail(f"phase 15 {key}: a shard's kernel ran on another device: {wrong}")
+        for k in launches:
+            launches[k] += counted[k]
+        n = min(HELD_STEPS, len(curve))
+        apart = [abs(a - b) for a, b in zip(curve[:n], ref_curve[:n])]
+        print(f"phase 15 {key}, {what}: {build_s:.1f} s to build; losses "
+              f"{' '.join(f'{v:.4f}' for v in curve)}; one device "
+              f"{' '.join(f'{v:.4f}' for v in ref_curve[:len(curve)])}; the first {n} differ by "
+              f"at most {max(apart):.4f} (limit {TRAIN_LOSS_ATOL}); step median {ev:.1f} ms "
+              f"(CUDA events; one device {ref_ev:.1f} ms), {host:.1f} ms host clock (one device "
+              f"{ref_host:.1f} ms); peak {peak:.2f} GiB allocated (one device {ref_peak:.2f} "
+              f"GiB); launches {dict((k, v) for k, v in counted.items() if v) or 'none'} "
+              f"({', '.join(f'{k} {v // steps // SHARDS15 if key in ('A', 'C') else v} a step'
+                           + (' a shard' if key in ('A', 'C') else '')
+                           for k, v in counted.items() if v) or 'no kernel on this route'}), "
+              f"on {sorted(seen) or 'no entry'} [{card}]", flush=True)
+        if not all(math.isfinite(v) for v in curve) or not curve[-1] < curve[0]:
+            fail(f"phase 15 {key}: losses {curve}")
+        if abs(curve[0] - math.log(N_PAIRS)) > FIRST_LOSS_ATOL:
+            fail(f"phase 15 {key}: the first loss {curve[0]:.4f} is not near ln {N_PAIRS}")
+        if max(apart) > TRAIN_LOSS_ATOL:
+            fail(f"phase 15 {key}: the losses left the one-device trainer's")
+        readings[key] = {"step_ms": ev, "one_device_step_ms": ref_ev, "host_ms": host,
+                         "peak_gib": peak, "one_device_peak_gib": ref_peak,
+                         "max_loss_diff": max(apart)}
+        if key in ("A", "B"):  # where a step over the shards spends its time
+            profile_step(torch, tr, pixels, tokens, card, f"phase 15 {key}")
+        del tr
+        torch.cuda.empty_cache()
+
+    readings["agree_max_abs"] = shard_kernels_vs_plain(torch, card, N_PAIRS // SHARDS15)
+
+    zero()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(SHARDS15)  # the visible card, repeated as virtual shards
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    ok = [ln for ln in out.getvalue().splitlines() if ln.startswith("dryrun_multichip OK")]
+    for ln in ok:
+        print(f"phase 15 E: {ln}", flush=True)
+    dry = {k: getattr(fa, k).launches for k in KERNELS15 if getattr(fa, k).launches}
+    print(f"phase 15 E: dryrun_multichip({SHARDS15}) on {card_dev}: {len(ok)} OK lines in "
+          f"{dry_s:.1f} s, launches {dry} [{card}]", flush=True)
+    if len(ok) != 12:
+        fail(f"phase 15 E: {len(ok)} dryrun_multichip OK lines, expected 12")
+    readings["dryrun_s"] = dry_s
+    print(f"phase 15 launches in the counted steps: {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches, readings
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--durable-child"]:  # phase 9's crashing server
         durable_child(*sys.argv[2:6])
@@ -6389,6 +6622,9 @@ def main() -> int:
     if sys.argv[1:] == ["--profiler-windows"]:
         profiler_windows(torch, card)
         return 0
+    if sys.argv[1:] == ["--train-mesh"]:
+        print(f"phase 15 alone: launches {phase_train_mesh(torch, card)[0]}", flush=True)
+        return 0
     if sys.argv[1:] == ["--mesh"]:
         print(f"phase 13 alone: sharded launches {phase_mesh_alone(torch, card)[0]}",
               flush=True)
@@ -6445,6 +6681,12 @@ def main() -> int:
     for run in m_readings["train"].values():  # K1, K2a, K2b at the trainer's shapes
         for name, err in run.get("agree_max_abs", {}).items():
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    # phase 15: training over a mesh (K11 + K9b, K1 on each data shard)
+    tm_launches, tm = phase_train_mesh(torch, card)
+    for name, err in tm["agree_max_abs"].items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    d_launches["mlp_block"] += tm_launches["mlp_block"]
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "image_retrieval_tpu")]
     if loaded:
@@ -6526,12 +6768,13 @@ def main() -> int:
         dict(block_entry("layer_block_int8", "layer_block_int8.cu", 772,
                          launches + l14_launches["layer_block_int8"] + k1_durable + k1_ivf
                          + k1_analysis + mesh_launches["layer_block_int8"]
-                         + m_launches["layer_block_int8"],
+                         + m_launches["layer_block_int8"] + tm_launches["layer_block_int8"],
                          "b32-vision-B256",
                          {"b32_text_b64": "b32-text-B64", "l14_text_b64": "l14-text-B64",
                           "b32_vision_b8": "b32-vision-B8", "b32_text_b8": "b32-text-B8"}),
              mesh_launches=mesh_launches["layer_block_int8"],
-             models_launches=m_launches["layer_block_int8"]),
+             models_launches=m_launches["layer_block_int8"],
+             train_mesh_launches=tm_launches["layer_block_int8"]),
         {"name": "int4_screen", "route": "cuda",
          "source": "image_retrieval_tpu_torch/csrc/int4_screen.cu",
          "replaces": "image_retrieval_tpu/ops/pallas_kernels.py:602",
@@ -6587,6 +6830,7 @@ def main() -> int:
                          {"b4": "l14-vision-B4", "b32_vision_b256": "b32-vision-B256",
                           "b32_vision_b8": "b32-vision-B8",
                           f"b32_vision_b{N_PAIRS}": f"b32-vision-B{N_PAIRS}"}),
+             train_mesh_launches=tm_launches["mlp_block"],
              **stage_entries(stages["mlp_block"])),
         block_entry("multihead_attention", "multihead_attention.cu", 87,
                     d_launches["multihead_attention"], "b32-vision-B256",
@@ -6594,7 +6838,11 @@ def main() -> int:
                      "b32_text_b64_causal": "b32-text-B64"}),
         # K11 and K12: no single PyTorch call computes either
         dict(block_entry("attention_block_train", "attention_block_train.cu", 1051,
-                         t_launches["attention_block_train"], vision_b, {"b32_text": text_b}),
+                         t_launches["attention_block_train"]
+                         + tm_launches["attention_block_train"], vision_b, {"b32_text": text_b}),
+             train_mesh_launches=tm_launches["attention_block_train"],
+             train_mesh_step_ms={k: tm[k]["step_ms"] for k in "ABCD"},
+             train_mesh_one_device_step_ms={k: tm[k]["one_device_step_ms"] for k in "ABCD"},
              k9a_ms=kernels["attention_block_train"]["times"][vision_b]["k9a_ms"],
              b32_text_k9a_ms=kernels["attention_block_train"]["times"][text_b]["k9a_ms"],
              backward_ms=train["backward"][vision_b]["saved_ms"],

@@ -197,15 +197,33 @@ class Attention(nn.Module):
         return (torch.cat([self.q_proj.kernel, self.k_proj.kernel, self.v_proj.kernel], 1),
                 torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias]))
 
+    def attend(self, q, k, v, dt, mask: Optional[torch.Tensor], heads: Optional[int] = None):
+        """The attention between the projections: (B, T, heads * hd) q, k, v
+        in the compute dtype -> the heads' outputs, (B, T, heads * hd).
+        `heads` defaults to the module's; a tensor-parallel shard passes its
+        own share of them (train/trainer.py)."""
+        heads = heads or self.heads
+        b, t, w = q.shape
+        hd = self.width // self.heads
+        if self.kernel and mask is None:
+            return multihead_attention(q.contiguous(), k.contiguous(), v.contiguous(), heads)
+        split = lambda a: a.reshape(b, t, heads, hd).transpose(1, 2)
+        if self.scale_scores:
+            logits = (split(q).float() @ split(k).float().transpose(-1, -2)) * (hd ** -0.5)
+        else:
+            q = split(q) * (hd ** -0.5)  # scaled in dt, as Flax
+            logits = q.float() @ split(k).float().transpose(-1, -2)
+        if mask is not None:
+            logits = logits + mask
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        return (probs @ split(v)).transpose(1, 2).reshape(b, t, w)
+
     def forward(self, h, dt, mask: Optional[torch.Tensor], int8=None):
         """On the f32 LayerNorm output `h`. With `int8` the projections are
         QuantDense: q, k, v as one int8 product over the concatenated
         weights, which per-channel scales make bitwise equal to three.
         `int8` is the cached Int8AttnWeights, or STRAIGHT_THROUGH for
         quant_dense_train on this module's f32 parameters."""
-        b, t, _ = h.shape
-        hd = self.width // self.heads
-        split = lambda a: a.reshape(b, t, self.heads, hd).transpose(1, 2)
         if int8 is None:
             q, k, v = self.q_proj(h, dt), self.k_proj(h, dt), self.v_proj(h, dt)
         elif int8 is STRAIGHT_THROUGH:
@@ -214,19 +232,7 @@ class Attention(nn.Module):
         else:
             q, k, v = quant_dense(h.contiguous(), int8.wqkv_t, int8.wqkv_s, int8.bqkv,
                                   dt).split(self.width, dim=-1)
-        if self.kernel and mask is None:
-            out = multihead_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                      self.heads)
-        else:
-            if self.scale_scores:
-                logits = (split(q).float() @ split(k).float().transpose(-1, -2)) * (hd ** -0.5)
-            else:
-                q = split(q) * (hd ** -0.5)  # scaled in dt, as Flax
-                logits = q.float() @ split(k).float().transpose(-1, -2)
-            if mask is not None:
-                logits = logits + mask
-            probs = torch.softmax(logits, dim=-1).to(dt)
-            out = (probs @ split(v)).transpose(1, 2).reshape(b, t, self.width)
+        out = self.attend(q, k, v, dt, mask)
         if int8 is None:
             return self.out_proj(out, dt)
         if int8 is STRAIGHT_THROUGH:
@@ -272,8 +278,8 @@ class Block(nn.Module):
         self.attn = Attention(width, heads, attention_kernel, scale_scores)
         self.ln2 = LayerNorm(width)
         self.mlp = MLP(width)
-        self._int8 = None
-        self._dense = {}
+        self._int8 = None  # None, or {device: the quantized layer}
+        self._dense = {}  # by (compute dtype, device)
 
     def _layer_params(self):
         a, m = self.attn, self.mlp
@@ -293,24 +299,32 @@ class Block(nn.Module):
         f32 parameters), then cached; every int8 route of a pass without
         gradients reads its half from it. Loading a state dict or moving or
         casting the module drops the cache; serving edits no parameter in
-        place."""
+        place. The cache is kept per device of the parameters, so that a
+        layer called on another device's tensors (torch.func.functional_call
+        over a mesh) is never served weights made on the first."""
+        params = self._layer_params()
+        dev = params[0].device
         if self._int8 is None:
+            self._int8 = {}
+        if dev not in self._int8:
             with torch.no_grad():
-                self._int8 = quantize_layer(*self._layer_params())
-        return self._int8
+                self._int8[dev] = quantize_layer(*params)
+        return self._int8[dev]
 
     def dense_weights(self, dt: torch.dtype):
         """The layer's weights cast to the compute dtype `dt` for the kernels
         that keep it (prepare_layer), made on first use and cached like
         int8_weights. While gradients are being recorded they are made anew
         on every call instead, as part of the graph, so that a backward pass
-        reaches the parameters."""
+        reaches the parameters. Kept per device, as int8_weights."""
+        params = self._layer_params()
         if self._records_grad():
-            return prepare_layer(*self._layer_params(), dtype=dt)
-        if dt not in self._dense:
+            return prepare_layer(*params, dtype=dt)
+        key = (dt, params[0].device)
+        if key not in self._dense:
             with torch.no_grad():
-                self._dense[dt] = prepare_layer(*self._layer_params(), dtype=dt)
-        return self._dense[dt]
+                self._dense[key] = prepare_layer(*params, dtype=dt)
+        return self._dense[key]
 
     def _drop_caches(self):
         """Forget the cached weights: whoever edits a parameter in place (the
@@ -405,6 +419,44 @@ class PatchEmbed(nn.Module):
         return x @ self.kernel.to(x.dtype).reshape(p * p * 3, -1)
 
 
+def vision_tokens(mod: nn.Module, pixels: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Patch conv + [CLS] + positions + pre-LN, in the compute dtype, on any
+    module that holds the vision tower's patch_embed, class_embedding,
+    position_embedding and pre_ln (CLIPVisionTower, the pipelined trainer's
+    VisionEmbed)."""
+    x = mod.patch_embed(pixels.to(dt))
+    cls = mod.class_embedding.to(dt).expand(x.shape[0], 1, -1)
+    x = torch.cat([cls, x], dim=1) + mod.position_embedding.to(dt)
+    return mod.pre_ln(x).to(dt)
+
+
+def vision_pool(mod: nn.Module, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """post-LN of the [CLS] token, then the f32 projection (post_ln, proj)."""
+    return _f32_product(mod.post_ln(x[:, 0]), mod.proj, dt)
+
+
+def text_tokens(mod: nn.Module, token_ids: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Token + position embeddings (token_embedding, position_embedding), for
+    the batch's own length."""
+    t = token_ids.shape[1]
+    return mod.token_embedding.to(dt)[token_ids] + mod.position_embedding.to(dt)[:t]
+
+
+def causal_mask(t: int, device) -> torch.Tensor:
+    """The text tower's (T, T) additive mask: -inf above the diagonal."""
+    return torch.triu(torch.full((t, t), float("-inf"), device=device), diagonal=1)
+
+
+def text_pool(mod: nn.Module, x: torch.Tensor, token_ids: torch.Tensor,
+              dt: torch.dtype) -> torch.Tensor:
+    """final LN, the row at argmax(id) (the EOT token has the largest id;
+    argmax takes the first on ties), then the f32 projection (final_ln,
+    proj)."""
+    x = mod.final_ln(x)
+    pooled = x[torch.arange(x.shape[0], device=x.device), token_ids.argmax(-1)]
+    return _f32_product(pooled, mod.proj, dt)
+
+
 class CLIPVisionTower(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -426,11 +478,13 @@ class CLIPVisionTower(nn.Module):
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) normalized pixels -> (B, embed_dim) f32, unnormalized."""
-        dt = self.dtype
-        x = self.patch_embed(pixels.to(dt))
-        cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.position_embedding.to(dt)
-        x = self.pre_ln(x).to(dt)
+        x, mask = self.embed(pixels)
+        return self.head(_run_blocks(self.blocks, x, self.dtype, mask, self.cfg.remat))
+
+    def embed(self, pixels: torch.Tensor):
+        """The layers' input and their mask: (B, T, width) in the compute
+        dtype, and None or the padded keys' -inf bias."""
+        x = vision_tokens(self, pixels, self.dtype)
         mask = None
         if self.seq_pad:
             # real tokens' outputs (and the CLS pooling) stay identical: the
@@ -439,8 +493,11 @@ class CLIPVisionTower(nn.Module):
             x = torch.nn.functional.pad(x, (0, 0, 0, self.seq_pad))
             mask = torch.zeros(t + self.seq_pad, device=x.device)
             mask[t:] = float("-inf")
-        x = _run_blocks(self.blocks, x, dt, mask, self.cfg.remat)
-        return _f32_product(self.post_ln(x[:, 0]), self.proj, dt)
+        return x, mask
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The last layer's output -> (B, embed_dim) f32."""
+        return vision_pool(self, x, self.dtype)
 
 
 class CLIPTextTower(nn.Module):
@@ -460,15 +517,18 @@ class CLIPTextTower(nn.Module):
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
         """(B, T) token ids -> (B, embed_dim) f32, pooled at argmax(id) (the
         EOT token has the largest id; argmax takes the first on ties)."""
-        dt = self.dtype
-        b, t = token_ids.shape
-        x = self.token_embedding.to(dt)[token_ids] + self.position_embedding.to(dt)[:t]
-        mask = torch.triu(torch.full((t, t), float("-inf"), device=x.device),
-                          diagonal=1)
-        x = _run_blocks(self.blocks, x, dt, mask, self.cfg.remat)
-        x = self.final_ln(x)
-        pooled = x[torch.arange(b, device=x.device), token_ids.argmax(-1)]
-        return _f32_product(pooled, self.proj, dt)
+        x, mask = self.embed(token_ids)
+        x = _run_blocks(self.blocks, x, self.dtype, mask, self.cfg.remat)
+        return self.head(x, token_ids)
+
+    def embed(self, token_ids: torch.Tensor):
+        """The layers' input and the causal mask of the batch's length."""
+        x = text_tokens(self, token_ids, self.dtype)
+        return x, causal_mask(token_ids.shape[1], x.device)
+
+    def head(self, x: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
+        """The last layer's output -> (B, embed_dim) f32."""
+        return text_pool(self, x, token_ids, self.dtype)
 
 
 class CLIP(nn.Module):

@@ -9,6 +9,10 @@ function runs its shard-local body on each shard's device (queued on that
 device's current stream, so the shards of real cards run concurrently) and
 gathers the k-sized results onto the mesh's first device.
 
+The trainers lay their parameters out the same way (``NamedSharding``): a
+split tensor's parts on the devices along one axis, a whole one on the
+mesh's first device, read elsewhere through ``.to()``.
+
 A device may appear more than once in a mesh: ``[torch.device("cpu")] * 8``
 or ``[cuda:0] * 4`` are virtual devices, the counterpart of the JAX tests'
 ``--xla_force_host_platform_device_count``. Their shards run one after
@@ -145,6 +149,58 @@ def replicate(x, mesh: Mesh) -> Dict[torch.device, torch.Tensor]:
     """One copy of `x` per distinct device of the mesh."""
     t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
     return {d: t.to(d) for d in mesh.distinct()}
+
+
+Spec = Tuple[Optional[str], ...]
+
+
+def row_spec(ndim: int, axis: str = "data") -> Spec:
+    """The spec of a tensor whose leading axis splits over `axis`: rows of
+    a gallery over ``data``, the layer axis of stacked layers over ``pipe``
+    (parallel/pipeline.py::shard_stages)."""
+    return (axis,) + (None,) * (ndim - 1)
+
+
+class NamedSharding:
+    """Where the parts of one tensor live on a mesh: ``spec`` names, per
+    dimension of the tensor, the mesh axis it splits over (None: whole), as
+    a ``jax.sharding.PartitionSpec`` does; at most one dimension splits.
+    ``devices`` are the parts' homes in part order: along that axis, the
+    first device of every other axis (``shard_devices``); an unsplit tensor
+    has one home, the mesh's first device. A part is read on another device
+    through ``.to()``, which autograd differentiates: its gradient comes
+    back added into the part's."""
+
+    def __init__(self, mesh: Mesh, spec: Spec):
+        self.mesh, self.spec = mesh, tuple(spec)
+        split = [(d, a) for d, a in enumerate(self.spec) if a is not None]
+        if len(split) > 1:
+            raise ValueError(f"spec {self.spec}: at most one dimension splits")
+        self.dim, self.axis = split[0] if split else (None, None)
+        self.devices = shard_devices(mesh, self.axis) if split else [mesh.first]
+
+    @property
+    def parts(self) -> int:
+        return len(self.devices)
+
+    def put(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """`t` cut into its parts, each a contiguous tensor on its home."""
+        if self.dim is None:
+            return [t.to(self.mesh.first).contiguous()]
+        if t.shape[self.dim] % self.parts:
+            raise ValueError(f"dimension {self.dim} of {tuple(t.shape)} does not split "
+                             f"over {self.parts} {self.axis!r} shards")
+        return [p.to(d).contiguous() for p, d in zip(t.chunk(self.parts, self.dim),
+                                                     self.devices)]
+
+    def gather(self, parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+        """The whole tensor on `device` from its parts."""
+        if self.dim is None:
+            return parts[0].to(device)
+        return torch.cat([p.to(device) for p in parts], self.dim)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec}, {[str(d) for d in self.devices]})"
 
 
 def on_device(device: torch.device):

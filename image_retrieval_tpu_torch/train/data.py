@@ -14,6 +14,7 @@ import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from image_retrieval_tpu_torch.models.preprocess import preprocess_batch
 from image_retrieval_tpu_torch.models.tokenizer import get_tokenizer
@@ -83,7 +84,10 @@ def finetune_on_color_dataset(
     seed: int = 0,
 ) -> List[float]:
     """Convenience loop: metadata.csv -> shuffled contrastive batches ->
-    trainer.fit. Returns per-step losses."""
+    trainer.fit, or for a trainer without fit (PipelinedCLIPTrainer) the same
+    loop here: steps enqueued with train_step_async, the host waiting for
+    the device every 8 steps, the losses fetched in one transfer at the end.
+    Returns per-step losses."""
     cfg = trainer.cfg
     batches = contrastive_batches(
         read_metadata(base_dir),
@@ -93,4 +97,15 @@ def finetune_on_color_dataset(
         seed=seed,
         base_dir=base_dir,
     )
-    return trainer.fit(batches, steps=steps)
+    if hasattr(trainer, "fit"):
+        return trainer.fit(batches, steps=steps)
+    losses = []
+    for i, (pixels, tokens) in enumerate(batches):
+        if i >= steps:
+            break
+        losses.append(trainer.train_step_async(pixels, tokens))
+        if len(losses) % 8 == 0:
+            losses[-1].item()  # bound the steps in flight
+    if not losses:
+        return []
+    return [float(v) for v in torch.stack(losses).cpu()]

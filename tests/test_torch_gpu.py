@@ -2136,3 +2136,75 @@ def test_sharded_paths_on_a_virtual_mesh_equal_one_device(cuda):
         got = enc.encode_pixels(px)  # one chunk of 128 rows, 64 a part
         assert fa.layer_block_int8.launches - before == 2 * 2
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Training over a mesh
+# ---------------------------------------------------------------------------
+
+def test_dp2_trainer_on_one_card_matches_the_one_device_trainer(cuda):
+    """CLIPTrainer over [cuda:0] * 2 (data 2) under the training kernel
+    configuration: each data shard runs whole layers through
+    attention_block_train and mlp_block on the card (4 layers a shard), and
+    two steps' losses are the one-device trainer's to f32 summation order."""
+    from image_retrieval_tpu_torch.config import MeshConfig, ModelConfig
+    from image_retrieval_tpu_torch.parallel.mesh import make_mesh
+    from image_retrieval_tpu_torch.train import CLIPTrainer
+
+    cfg = ModelConfig(
+        image_size=64, patch_size=32, vision_width=128, vision_layers=2,
+        vision_heads=2, text_width=64, text_layers=2, text_heads=1,
+        vocab_size=1000, context_length=16, embed_dim=32, dtype="float32",
+        fused_attn_block=True, fused_mlp_block=True, fused_train_vjp=True)
+    rng = np.random.default_rng(3)
+    px = rng.normal(size=(8, 64, 64, 3)).astype(np.float32)
+    toks = rng.integers(1, 999, size=(8, 16)).astype(np.int32)
+    toks[:, 9] = 999
+    mesh = make_mesh(MeshConfig(data=2, model=1), devices=[cuda] * 2)
+    dp = CLIPTrainer(cfg, learning_rate=1e-3, seed=2, mesh=mesh)
+    one = CLIPTrainer(cfg, learning_rate=1e-3, seed=2, device=cuda)
+    assert all(p.is_cuda for ps in dp._parts.values() for p in ps)
+    before = {n: getattr(fa, n).launches for n in ("attention_block_train", "mlp_block")}
+    got = dp.fit([(px, toks)] * 2)
+    took = {n: getattr(fa, n).launches - v for n, v in before.items()}
+    assert took == {"attention_block_train": 2 * 2 * 4, "mlp_block": 2 * 2 * 4}
+    np.testing.assert_allclose(got, one.fit([(px, toks)] * 2), rtol=1e-4)
+
+
+def test_gpipe_on_one_card_matches_sequential(cuda):
+    """gpipe_apply over a 2-stage pipe mesh [cuda:0] * 2 of 4 plain layers:
+    forward and gradients those of sequential_apply on the card."""
+    from image_retrieval_tpu_torch.models.clip import PLAIN, Block
+    from image_retrieval_tpu_torch.parallel.mesh import Mesh
+    from image_retrieval_tpu_torch.parallel.pipeline import (
+        gpipe_apply,
+        sequential_apply,
+        stack_layer_params,
+    )
+
+    torch.manual_seed(0)
+    blocks = [Block(64, 4, False, (PLAIN, PLAIN)) for _ in range(4)]
+    for b in blocks:
+        with torch.no_grad():
+            for p in b.parameters():
+                p.normal_(0, 0.1)
+    with torch.device("meta"):
+        template = Block(64, 4, False, (PLAIN, PLAIN))
+    apply_layer = lambda p, x: torch.func.functional_call(template, p, (x, torch.float32, None))
+    grid = np.empty(2, dtype=object)
+    grid[:] = cuda
+    mesh = Mesh(grid, ("pipe",))
+    x = torch.randn(3, 2, 10, 64, device=cuda)
+    outs, grads = [], []
+    for run in ("pipe", "sequential"):
+        stacked = {k: v.detach().to(cuda).requires_grad_(True) for k, v in stack_layer_params(
+            [dict(b.named_parameters()) for b in blocks]).items()}
+        out = (gpipe_apply(apply_layer, stacked, x, mesh=mesh) if run == "pipe"
+               else sequential_apply(apply_layer, stacked, x))
+        (out ** 2).sum().backward()
+        outs.append(out.detach())
+        grads.append({k: v.grad for k, v in stacked.items()})
+    assert outs[0].is_cuda
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+    for k in grads[0]:
+        torch.testing.assert_close(grads[0][k], grads[1][k], rtol=1e-4, atol=1e-4)
