@@ -10,6 +10,10 @@
                                             # q/k/v and out-projection of K9a, fc1 and
                                             # fc2 of K9b and K2b (phase 2), and K2b's
                                             # fused fc1 -> quick_gelu -> rowquant
+    python3 chip_smoke.py --time-attention  # build, then only the bf16 attention's two
+                                            # forms at K10's shapes and L/14's causal
+                                            # one, in turns, beside one
+                                            # scaled_dot_product_attention call
     python3 chip_smoke.py --time-dense      # build, then only K8, K9a and K11 timed
                                             # (event and device time), K8's and K9a's
                                             # launch breakdown, the four bf16 stages
@@ -57,7 +61,8 @@ Phases (any failure exits non-zero):
      port's kernels compiled from image_retrieval_tpu_torch/csrc with nvcc
      for sm_90a (one nvcc per source, twelve in parallel); ptxas's registers
      and spills of the bf16 GEMM, the compute-type LayerNorm pass, the fused
-     fc1 stage and the int8 row pass (a spill fails).
+     fc1 stage, the int8 row pass and the bf16 attention's wgmma form (a
+     spill fails).
   2. kernel vs plain: layer_block_int8 (K1), attention_block_int8 (K2a) and
      mlp_block_int8 (K2b) on the card against their plain PyTorch versions
      on the same inputs, in bf16 and f32, by kernel_agreement: K1 at the
@@ -978,7 +983,8 @@ def phase_dense_kernels(torch, card):
                  library_device_ms=device_ms(torch, sdpa))
         out["multihead_attention"]["times"][case] = r
         entry = "tiled_attention(causal=True)" if causal else "multihead_attention"
-        print(f"time {entry} {case} bf16 B={b} T={t} W={w}: kernel "
+        route = fa.attention_plan(t, w // heads, torch.bfloat16, b * heads).route
+        print(f"time {entry} {case} bf16 B={b} T={t} W={w} (route {route}): kernel "
               f"{r['kernel']:.4f} ms, plain {r['plain']:.4f} ms, one "
               f"scaled_dot_product_attention{'(is_causal=True)' if causal else ''} call "
               f"{lib:.4f} ms (within {off:.3g} of the plain version; kernel within {err:.3g}), "
@@ -987,6 +993,86 @@ def phase_dense_kernels(torch, card):
               f"{r['device_ms']} ms, library {r['library_device_ms']} ms [{card}]", flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+    return out
+
+
+# --time-attention: K10's shapes, L/14 and B/16 at four images (their
+# blocks split an (image, head)'s tiles) and, through the packed entry, the
+# causal attention step at L/14's token count
+ATTENTION_TIME_SHAPES = {**MHA_TIME_SHAPES, "l14-vision-B4": L14_VISION,
+                         "b16-vision-B4": B16_VISION,
+                         f"l14-causal-B{ENC_BUCKET5}": (ENC_BUCKET5, 257, 1024, 16, True)}
+
+
+def phase_time_attention(torch, card, lib_path):
+    """--time-attention: ptxas's registers and spills of the bf16 attention's
+    forms (a spill of the wgmma form fails), then at each shape of
+    ATTENTION_TIME_SHAPES the form the plan takes against the mma.sync form
+    the shape would take without the wgmma form, both named through
+    attention_as_route on the same q, k, v (separate tensors, or views into
+    packed [q | k | v] rows for a causal shape): each against the plain
+    version, their times in turns (old, new, new, old; CUDA events), their
+    device times (torch.profiler), one scaled_dot_product_attention call's
+    event and device time, and the bound. Returns {case: numbers}."""
+    import re
+
+    import torch.nn.functional as F
+
+    from image_retrieval_tpu_torch.ops import flash_attention as fa
+
+    for pattern in ("attention_wgmma_kernel", "attention_tiled_mma_kernel"):
+        found = ptxas_report(lib_path, pattern)
+        if not found:
+            fail(f"build.log holds no {pattern} instantiation")
+        for name, line in sorted(found.items()):
+            print(f"ptxas {pattern} {name[-60:]}: {line}", flush=True)
+            if pattern == "attention_wgmma_kernel" and any(
+                    int(x) for x in re.findall(r"(\d+) bytes spill", line)):
+                fail(f"{name} spills: {line}")
+    out = {}
+    for case, (b, t, w, heads, causal) in ATTENTION_TIME_SHAPES.items():
+        hd = w // heads
+        q, k, v = mha_inputs(torch, b, t, w, 5, torch.bfloat16)
+        if causal:  # views into packed rows, as the layer chains hold them
+            qkv = torch.cat([q, k, v], -1)
+            q, k, v = qkv.split(w, -1)
+        plan = fa.attention_plan(t, hd, torch.bfloat16, b * heads)
+        old = 2 if plan.route == 4 else plan.route
+        forms = {"kernel": lambda: fa.attention_as_route(q, k, v, heads, plan.route, causal),
+                 "plain": lambda: fa.attention_as_route(q, k, v, heads, old, causal)}
+        want = fa.multihead_attention_reference(q.contiguous(), k.contiguous(), v.contiguous(),
+                                                heads, causal).float()
+        top = float(want.abs().max())
+        errs = {}
+        for name, fn in forms.items():
+            got = fn().float()
+            errs[name] = float((got - want).abs().max())
+            if not (torch.isfinite(got).all() and errs[name] <= 2 * top * 2.0 ** -8):
+                fail(f"attention route {plan.route if name == 'kernel' else old} disagrees with "
+                     f"its plain version at {case}: {errs[name]:.3g}")
+        r = time_pair(torch, forms)
+        split = lambda a: a.reshape(b, t, heads, hd).transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                                      is_causal=causal)
+        lib = time_pair(torch, {"kernel": sdpa, "plain": lambda: None}, samples=12)["kernel"]
+        pairs = t * (t + 1) // 2 if causal else t * t
+        r = {"route": plan.route, "old_route": old, "new_ms": r["kernel"], "old_ms": r["plain"],
+             "library_ms": lib, "new_device_ms": device_ms(torch, forms["kernel"]),
+             "old_device_ms": device_ms(torch, forms["plain"]),
+             "library_device_ms": device_ms(torch, sdpa), "new_err": errs["kernel"],
+             "old_err": errs["plain"],
+             **bound(0.0, 4.0 * b * pairs * w, 4 * b * t * w * q.element_size())}
+        out[case] = r
+        print(f"attention {case} bf16 B={b} T={t} W={w}{' causal' if causal else ''}: route "
+              f"{r['route']} {r['new_ms']:.4f} ms (device {r['new_device_ms']}), route "
+              f"{old} {r['old_ms']:.4f} ms (device {r['old_device_ms']}), one "
+              f"scaled_dot_product_attention call {lib:.4f} ms (device "
+              f"{r['library_device_ms']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"max abs vs plain {errs['kernel']:.3g} / {errs['plain']:.3g} [{card}]",
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    print("attention forms: " + json.dumps(out), flush=True)
     return out
 
 
@@ -1150,11 +1236,12 @@ def ptxas_report(lib_path, pattern):
 def print_new_kernel_registers(lib_path):
     """Registers and spills of the GEMM (every bf16 and int8 form the library
     builds), the LayerNorm pass of the compute-type chains, the fused fc1
-    stage and the int8 row pass; fails on a spill."""
+    stage, the int8 row pass and the bf16 attention's wgmma form; fails on a
+    spill."""
     import re
 
     for pattern in ("gemm_persistent_kernel", "ln_cast_kernel", "gemm_wgmma_s8_rowquant_kernel",
-                    "ln_rowquant_kernel"):
+                    "ln_rowquant_kernel", "attention_wgmma_kernel"):
         found = ptxas_report(lib_path, pattern)
         if not found:
             fail(f"build.log holds no {pattern} instantiation")
@@ -2283,6 +2370,7 @@ def profile_encode(torch, enc, images, card, label="L/14"):
     families = (("gemm_wgmma_s8_rowquant", "fc1 + quick_gelu + rowquant (clustered GEMM)"),
                 ("Int8Epilogue", "int8 GEMMs (wgmma)"),
                 ("DenseEpilogueBf16", "bf16 GEMMs (wgmma)"), ("attention_tiled", "attention"),
+                ("attention_wgmma", "attention"),
                 ("ln_rowquant", "LayerNorm/rowquant passes"),
                 ("ln_cast", "LayerNorm passes"), ("Memcpy", "copies"))
     with profiled(torch, cpu=True) as prof:
@@ -6575,6 +6663,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--time-dense"]:
         phase_time_dense(torch, card)
+        return 0
+    if sys.argv[1:] == ["--time-attention"]:
+        phase_time_attention(torch, card, lib_path)
         return 0
     if sys.argv[1:] == ["--gemm-variants"]:
         # the bf16 GEMM as the library plans it beside the variants its

@@ -21,7 +21,7 @@
 // kernels: LN + cast (a warp per row, 8 rows a block; the LN of the L/14
 // image batch reads and writes 134 MB, a bytes-bound pass), one GEMM for q,
 // k and v together (three products over the concatenated output channels),
-// the attention of block_common.cuh (whole score rows, because the
+// the attention of attention_sm90.cuh (whole score rows, because the
 // probabilities are rounded to the compute type before PV: in bf16 in
 // registers, QK^T and PV on the tensor cores; in f32 in shared memory), and
 // the out-projection GEMM with the residual add in its epilogue. In bf16

@@ -21,7 +21,7 @@
 // kernels: LN + rowquant, one int8 GEMM (gemm_sm90.cuh: wgmma fed by TMA)
 // for q, k and v together
 // (per-channel scales make the concatenation bitwise equal to three
-// products), the attention of block_common.cuh (bf16: QK^T and PV on the
+// products), the attention of attention_sm90.cuh (bf16: QK^T and PV on the
 // tensor cores, K and V of an (image, head) staged once in bf16; f32: query
 // rows in tiles of up to 64 beside K and V in shared memory), rowquant, and
 // the out-projection GEMM with the residual add in its epilogue. Weights and

@@ -1,53 +1,36 @@
-// The bf16 attention of every Hopper (sm_90a) layer kernel chain here, on the
-// tensor cores. Included by block_common.cuh after its helpers (cp.async,
-// mma_bf16); not a header of its own.
+// The bf16 attention on mma.sync for the shapes attention_sm90.cuh's wgmma
+// form does not take: up to 80 keys (the B/32 towers' T = 50 and 77), 81-288
+// keys at a head_dim other than 64, and more than 288 keys. Included by
+// attention_sm90.cuh, which dispatches; not a header of its own.
 //
-// Replaces the TPU kernels' attention: _attn_kernel
+// Replaces the TPU kernels' attention at those shapes: _attn_kernel
 // (image_retrieval_tpu/ops/flash_attention.py:87, multihead_attention) and
 // _inkernel_attention (:258, the attention step of every fused layer
-// kernel), which run QK^T and PV on the matrix unit with bf16 operands and
-// f32 results.
+// kernel).
 //
 // What bounds it on this card. One (image, head) does 4 T^2 hd operations on
-// 8 T hd bytes (q, k, v read, the output written): T / 2 operations a byte,
-// 25 at T = 50 and 128 at T = 257, below the 295 at which the H100's bf16
-// tensor cores and not its memory set the pace. So the bound is bytes, and
-// mma.sync at a fraction of the tensor-core peak can meet it.
+// 8 T hd bytes: T / 2 operations a byte, 25 at T = 50, so the bound is
+// bytes, and mma.sync at a fraction of the tensor-core peak can meet it.
 //
 // What the design does about it.
 //   * One block of 4 warps (8 for rows of 81-288 keys) per (head, image,
 //     group of 16-row query tiles); the groups are only as many as filling
-//     the card needs (mma_tiles_per_block), so at the batched shapes one
-//     block takes every query row of its (image, head) and q, k and v are
-//     read from device memory once.
-//   * K and V of the (image, head) are staged once, in bf16, by 16-byte
-//     cp.async copies (8-byte ones where a head's columns are not 16-byte
-//     aligned). Rows past the keys and columns past head_dim are zero-filled
-//     up to the padded shapes: shared memory can hold NaN bits, and 0 x NaN
-//     would poison PV. Rows are padded by 16 bytes, so the 8 rows an
-//     ldmatrix reads fall on distinct banks. Keeping K and V in bf16 lets
-//     two blocks share an SM at T = 257.
-//   * Each warp owns 16 query rows at a time: Q comes in as m16n8k16 A
-//     fragments (ldmatrix), K as the B operand (ldmatrix), V as B through
-//     ldmatrix.trans. Scores stay in registers: the C fragments of QK^T are
-//     masked, reduced across the four threads of a row with
-//     __shfl_xor_sync, and their rounded probabilities become PV's A
-//     fragments in registers, with no trip through shared memory.
-//   * Whole score rows, not an online softmax: the probabilities are
-//     rounded to bf16 after the exact two-pass softmax, as on the TPU. When
-//     a tile's keys fit in registers (kResident: up to 64 or 80 keys in one
-//     warp, or up to 288 at head_dim <= 64 in two warps of 144 keys each,
-//     which trade their row maxima, sums and PV sums through shared memory)
-//     the scores are computed once. Otherwise the warp walks 80-key chunks
-//     three times: QK^T for the row max, again for the sum, again for p and
-//     PV. The recomputed scores are the same bits, so p is unchanged; the
-//     extra tensor-core work is cheap under a bytes bound.
-//   * No branch inside the unrolled loops: key tiles past a tile's keys are
-//     computed on staged rows and masked whole, and the quotients take
-//     div_rn_by, __fdiv_rn's bits without its branch, so the compiler can
-//     interleave the independent work of every n-tile. Latency, not the
-//     card's rates, sets the pace: two warps to a long tile halve the
-//     registers a thread holds, so twice as many warps share an SM.
+//     the card needs (mma_tiles_per_block). K and V of the (image, head) are
+//     staged once in bf16 by cp.async (16-byte copies, 8-byte ones where a
+//     head's columns are not 16-byte aligned), rows past the keys and
+//     columns past head_dim zero-filled (0 x NaN would poison PV), rows
+//     padded by 16 bytes against bank conflicts.
+//   * Each warp owns 16 query rows: QK^T and PV on m16n8k16 (ldmatrix, V
+//     through ldmatrix.trans), the scores' C fragments masked and reduced
+//     across a row's four threads by shuffles, the rounded probabilities
+//     PV's A fragments in registers.
+//   * Whole score rows, not an online softmax. Up to 80 keys (kResident)
+//     one warp holds a tile's scores; 81-288 at head_dim <= 64 two warps
+//     of 144 keys each, trading row maxima, sums and PV sums through
+//     shared memory (kRouteResidentWide); past that the warp walks 80-key
+//     chunks three times (the recomputed scores are the same bits).
+//   * No branch inside the unrolled loops; the quotients take div_rn_by,
+//     __fdiv_rn's bits without its branch.
 //
 // Per row the order of operations is the scalar kernel's (block_common.cuh):
 // f32 dot over d, __fmul_rn by scale, -inf at masked keys, max,
@@ -71,10 +54,10 @@ constexpr int kMmaHalf = 18;
 // Blocks that fill the card: two per SM of 132.
 constexpr int kMmaFillBlocks = 2 * 132;
 
-// Which form of the bf16 kernel takes a shape (the f32 compute type takes
-// the scalar kernel, route 0).
+// Which form of the attention takes a shape (the f32 compute type takes
+// the scalar kernel, route 0; kRouteWgmma is attention_sm90.cuh's).
 enum AttentionRoute { kRouteScalarF32 = 0, kRouteResident = 1, kRouteResidentWide = 2,
-                      kRouteThreePass = 3 };
+                      kRouteThreePass = 3, kRouteWgmma = 4 };
 
 __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
 
@@ -83,6 +66,7 @@ inline int mma_kd(int head_dim) {
   return head_dim <= 16 ? 1 : head_dim <= 32 ? 2 : head_dim <= 64 ? 4 : 8;
 }
 
+// The mma.sync form of a shape.
 inline int mma_route(int seq, int head_dim) {
   const int keys = round16(seq);
   if (keys <= 8 * kMmaChunk) return kRouteResident;

@@ -2,10 +2,7 @@
 // chains: the int8 serving family (int8_common.cuh) and the family in the
 // compute type (dense_common.cuh). Type helpers, warp and block reductions,
 // cp.async, the bf16 mma, the workspace carver, the launch checks, and the
-// attention step of every layer kernel here and, on separate q, k and v,
-// multihead_attention itself. The kernel is chosen by the compute type:
-//   attention_tiled_mma_kernel  bf16 (attention_mma.cuh): QK^T and PV on the
-//                               tensor cores, scores in registers.
+// f32 form of the attention step:
 //   attention_tiled_kernel      f32: one block per (head, image, tile of
 //                               query rows), K, V, Q and score rows in
 //                               shared memory, every product an exact f32
@@ -13,8 +10,12 @@
 //                               never use TF32 (device.require_full_f32),
 //                               so f32 stays off the tensor cores; no bf16
 //                               path reaches this kernel.
-// Both: exact two-pass f32 softmax, probabilities cast to the compute type,
-// PV accumulated in f32.
+// The bf16 forms run on the tensor cores: attention_wgmma_kernel
+// (attention_sm90.cuh, 81-288 keys at head_dim 64) and
+// attention_tiled_mma_kernel (attention_mma.cuh, every other shape);
+// attention_sm90.cuh also holds the dispatch every chain and
+// multihead_attention share (launch_attention_as). All: exact two-pass f32
+// softmax, probabilities cast to the compute type, PV accumulated in f32.
 // Everything sits in an anonymous namespace: each source that includes this
 // file gets its own copy and instantiates only the kernels it launches.
 // Built without --use_fast_math.
@@ -310,66 +311,6 @@ struct Carver {
 constexpr size_t kMaxRows = (size_t)65535 * 64;
 
 inline bool rows_ok(long long m) { return m > 0 && (size_t)m <= kMaxRows; }
-
-}  // namespace
-
-#include "attention_mma.cuh"
-
-namespace {
-
-// dtype 0 = bf16 (the tensor-core kernel), 1 = f32 (the scalar one).
-inline bool attention_shape_ok(int seq, int width, int heads, int dtype) {
-  if (seq <= 0 || heads <= 0 || width <= 0 || width % heads) return false;
-  const int hd = width / heads;
-  if (hd % 4 || hd > 128) return false;
-  return dtype == 0 ? mma_smem_bytes(seq, hd) <= IRT_MAX_SMEM : attention_tile_rows(seq, hd) > 0;
-}
-
-template <typename T, bool kSaveProbs>
-int launch_attention_as(const T* q, const T* k, const T* v, size_t ld, T* out, float* probs,
-                        int batch, int seq, int width, int heads, int causal, float scale,
-                        cudaStream_t st) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_attention_mma<kSaveProbs>(q, k, v, ld, out, probs, batch, seq, width, heads,
-                                            causal, scale, st);
-  } else {
-    const int hd = width / heads;
-    const int tile = attention_tile_rows(seq, hd);
-    if (tile <= 0 || batch > 65535) return IRT_BAD_ARGS;  // gridDim.y carries the images
-    const size_t smem = attention_smem_floats(seq, hd, tile) * sizeof(float);
-    const cudaError_t e =
-        cudaFuncSetAttribute(attention_tiled_kernel<T, kSaveProbs>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    IRT_TRY(attention_tiled_kernel<T, kSaveProbs>
-            <<<dim3(heads, batch, (seq + tile - 1) / tile), kAttnThreads, smem, st>>>(
-                q, k, v, ld, out, probs, seq, width, hd, tile, causal, scale));
-    return 0;
-  }
-}
-
-template <typename T>
-int launch_attention(const T* q, const T* k, const T* v, size_t ld, T* out, int batch, int seq,
-                     int width, int heads, int causal, float scale, cudaStream_t st) {
-  return launch_attention_as<T, false>(q, k, v, ld, out, nullptr, batch, seq, width, heads,
-                                       causal, scale, st);
-}
-
-// The attention step on packed (batch * seq, 3 * width) [q | k | v] rows;
-// a non-null `probs` (batch, heads, seq, seq) also receives the f32
-// probabilities.
-template <typename T>
-int launch_attention_packed(const T* qkv, T* out, int batch, int seq, int width, int heads,
-                            int causal, float scale, cudaStream_t st, float* probs = nullptr) {
-  const T *k = qkv + width, *v = qkv + 2 * width;
-  const size_t ld = (size_t)3 * width;
-  if (probs != nullptr) {
-    return launch_attention_as<T, true>(qkv, k, v, ld, out, probs, batch, seq, width, heads,
-                                        causal, scale, st);
-  }
-  return launch_attention_as<T, false>(qkv, k, v, ld, out, nullptr, batch, seq, width, heads,
-                                       causal, scale, st);
-}
 
 #define IRT_CHECK(call)          \
   do {                           \

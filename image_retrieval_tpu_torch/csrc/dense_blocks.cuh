@@ -62,6 +62,13 @@ int irt_multihead_attention(const void* q, const void* k, const void* v, void* o
                             int batch, int seq, int width, int heads, int dtype,
                             float attn_scale, void* stream);
 
+// The bf16 attention through the form `route` names (irt_attention_route's
+// numbers), rows `ld` elements apart; for timing and tests (see
+// multihead_attention.cu).
+int irt_attention_as_route(const void* q, const void* k, const void* v, long long ld,
+                           void* out, int batch, int seq, int width, int heads, int causal,
+                           float attn_scale, int route, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

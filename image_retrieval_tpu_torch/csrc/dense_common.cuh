@@ -2,7 +2,7 @@
 // keep their projections in the compute type (bf16 or f32, no quantization):
 // layer_block.cu (whole layer, K8), attention_block.cu and mlp_block.cu (its
 // two halves, K9a and K9b) and attention_block_train.cu (K11).
-// multihead_attention.cu needs block_common.cuh alone. Each is a chain of
+// multihead_attention.cu needs attention_sm90.cuh alone. Each is a chain of
 // kernels, every one reading its operands once from device memory (the 50
 // MB L2 holds a layer's weights and activations between launches):
 //   (a) ln_cast_kernel          LayerNorm (f32, fast variance) cast to the
@@ -23,8 +23,9 @@
 //       Both end in one fused epilogue: acc + bias in f32, then the cast, or
 //       quick_gelu in f32 and the cast, or the cast and the residual add in
 //       the compute type.
-//   (c) the attention of block_common.cuh (bf16: attention_tiled_mma_kernel
-//       on the tensor cores; f32: attention_tiled_kernel), on packed
+//   (c) the attention of attention_sm90.cuh (bf16: attention_wgmma_kernel
+//       or attention_tiled_mma_kernel on the tensor cores; f32:
+//       attention_tiled_kernel), on packed
 //       [q | k | v] rows.
 //
 // Numerics follow the JAX kernels (_layer_block_kernel, _attn_block_kernel,
@@ -39,6 +40,7 @@
 
 #include "block_common.cuh"
 #include "gemm_sm90.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 

@@ -23,8 +23,9 @@
 //                               epilogue, a thread block cluster per row
 //                               tile (gemm_sm90.cuh): the f32 hidden rows
 //                               stay in registers.
-//   (d) the attention of block_common.cuh (bf16: attention_tiled_mma_kernel
-//       on the tensor cores; f32: attention_tiled_kernel), on packed
+//   (d) the attention of attention_sm90.cuh (bf16: attention_wgmma_kernel
+//       or attention_tiled_mma_kernel on the tensor cores; f32:
+//       attention_tiled_kernel), on packed
 //       [q | k | v] rows.
 // Everything sits in an anonymous namespace: each source that includes this
 // file gets its own copy and instantiates only the kernels it launches.
@@ -39,6 +40,7 @@
 
 #include "block_common.cuh"
 #include "gemm_sm90.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 

@@ -28,7 +28,7 @@
 // a warp per row that keeps the sums' order of the block per row it
 // replaced, so the layer's bits do not depend on the batch. In f32 the
 // products are exact f32 FMAs on the CUDA cores, slow and never TF32; the
-// attention is attention_mma.cuh's in bf16. On an H100 at B/32 B = 256 the
+// attention is attention_sm90.cuh's in bf16. On an H100 at B/32 B = 256 the
 // two LayerNorms take 5.5 % of the layer (12 % before), and most of its
 // time sits in fc1, whose quick_gelu epilogue (exp and an IEEE reciprocal
 // an output) runs with no products beside it, and in fc2 (PERF.md). Fewer

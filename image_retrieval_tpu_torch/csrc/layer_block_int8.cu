@@ -18,7 +18,7 @@
 // attention sub-block's five launches, then the MLP sub-block's three (four
 // where no cluster covers the hidden row), with the mid-layer activation x1
 // kept in the workspace. The row passes (LayerNorm and rowquant) take a
-// warp per row. The attention of block_common.cuh keeps an (image, head)'s
+// warp per row. The attention (attention_sm90.cuh) keeps an (image, head)'s
 // K and V in shared memory and the score rows in registers (bf16) or tiles
 // the query rows (f32), so T = 197 and 257 run. The GEMMs are
 // gemm_sm90.cuh's (wgmma fed by TMA); fc1, quick_gelu and the
@@ -75,6 +75,26 @@ __global__ void attention_division_check_kernel(unsigned long long* mismatches, 
   atomicAdd(mismatches, bad);
 }
 
+// Self-check of attn_exp8 against expf: n pseudo-random u <= 0 (dots below
+// a row's max, from 2^-30 to 2^12 in size, and 0 and -inf) with
+// attn_exp8(u) != expf(u / 8) added to *mismatches.
+__global__ void attention_exp_check_kernel(unsigned long long* mismatches, long long n) {
+  unsigned long long bad = 0;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    unsigned long long h = (unsigned long long)i * 0x9e3779b97f4a7c15ull;  // splitmix64
+    h = (h ^ (h >> 30)) * 0xbf58476d1ce4e5b9ull;
+    h = (h ^ (h >> 27)) * 0x94d049bb133111ebull;
+    h ^= h >> 31;
+    const unsigned lo = (unsigned)h, hi = (unsigned)(h >> 32);
+    float u = -__int_as_float((int)(((97u + (hi >> 23) % 43u) << 23) | (lo & 0x7fffffu)));
+    if (i == 0) u = 0.f;
+    if (i == 1) u = -INFINITY;
+    bad += __float_as_int(attn_exp8(u)) != __float_as_int(expf(__fmul_rn(u, 0.125f)));
+  }
+  atomicAdd(mismatches, bad);
+}
+
 }  // namespace
 
 extern "C" {
@@ -92,25 +112,32 @@ size_t irt_layer_block_int8_workspace_bytes(int m, int width, int hidden, int el
 int irt_attention_tile_rows(int seq, int head_dim, int dtype, int pairs) {
   if (seq <= 0 || head_dim <= 0 || pairs <= 0 || head_dim % 4 || head_dim > 128) return 0;
   if (dtype == 0) {
-    return mma_smem_bytes(seq, head_dim) <= IRT_MAX_SMEM
-               ? 16 * mma_tiles_per_block(seq, pairs) : 0;
+    return attention_bf16_smem_bytes(seq, head_dim) <= IRT_MAX_SMEM
+               ? attention_bf16_rows(seq, head_dim, pairs) : 0;
   }
   return attention_tile_rows(seq, head_dim);
 }
 
 size_t irt_attention_smem_bytes(int seq, int head_dim, int dtype) {
-  if (dtype == 0) return mma_smem_bytes(seq, head_dim);
+  if (dtype == 0) return attention_bf16_smem_bytes(seq, head_dim);
   const int tile = seq > 0 && head_dim > 0 ? attention_tile_rows(seq, head_dim) : 0;
   return attention_smem_floats(seq, head_dim, tile > 0 ? tile : 1) * sizeof(float);
 }
 
 int irt_attention_route(int seq, int head_dim, int dtype) {
-  return dtype == 0 ? mma_route(seq, head_dim) : kRouteScalarF32;
+  return dtype == 0 ? attention_route(seq, head_dim) : kRouteScalarF32;
 }
 
 int irt_attention_division_check(void* mismatches, long long n, void* stream) {
   if (mismatches == nullptr || n < 0) return IRT_BAD_ARGS;
   IRT_TRY(attention_division_check_kernel<<<4 * 132, 256, 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)mismatches, n));
+  return 0;
+}
+
+int irt_attention_exp_check(void* mismatches, long long n, void* stream) {
+  if (mismatches == nullptr || n < 0) return IRT_BAD_ARGS;
+  IRT_TRY(attention_exp_check_kernel<<<4 * 132, 256, 0, (cudaStream_t)stream>>>(
       (unsigned long long*)mismatches, n));
   return 0;
 }

@@ -18,7 +18,8 @@ size_t irt_layer_block_int8_workspace_bytes(int m, int width, int hidden,
 // The launch plan of the attention step of every layer kernel here, in the
 // compute type (dtype 0 = bf16, 1 = f32), for `pairs` = batch * heads
 // (image, head) pairs; ops/flash_attention.py::attention_plan mirrors it.
-// Query rows one block takes (a multiple of 16 in bf16), 0 when the shape
+// Query rows one block takes (a multiple of 16 in bf16; route 4: the 64-row
+// tiles of one work item, which persistent blocks walk), 0 when the shape
 // is refused: head_dim not a multiple of 4 or above 128, or the
 // (image, head)'s K and V not fitting in shared memory beside one query
 // tile.
@@ -28,14 +29,20 @@ int irt_attention_tile_rows(int seq, int head_dim, int dtype, int pairs);
 size_t irt_attention_smem_bytes(int seq, int head_dim, int dtype);
 
 // The kernel form: 0 the f32 kernel on the CUDA cores; bf16 on the tensor
-// cores with the scores computed once, 1 (up to 80 keys) or 2 (up to 272 at
-// head_dim <= 64), or 3 in three passes over 80-key chunks.
+// cores: 4 wgmma fed by TMA (81-288 keys at head_dim 64), or on mma.sync
+// with the scores computed once, 1 (up to 80 keys) or 2 (up to 288 at
+// head_dim < 64), or 3 in three passes over 80-key chunks.
 int irt_attention_route(int seq, int head_dim, int dtype);
 
 // Adds to *mismatches (one uint64 on the device) the count of quotients of
 // n pseudo-random pairs in the attention's range where its branch-free
 // division differs from __fdiv_rn; a self-check for the tests.
 int irt_attention_division_check(void* mismatches, long long n, void* stream);
+
+// Adds to *mismatches the count of n pseudo-random u <= 0 where the wgmma
+// attention's exponential (expf's sequence with the scale 1/8 moved into
+// its constants) differs from expf(u / 8); a self-check for the tests.
+int irt_attention_exp_check(void* mismatches, long long n, void* stream);
 
 // One pre-LN transformer layer, int8 projections (see layer_block_int8.cu).
 // x/out: (batch, seq, width) in the compute type (dtype 0 = bf16, 1 = f32).

@@ -33,7 +33,7 @@ SOURCES = ("layer_block_int8.cu", "attention_block_int8.cu", "mlp_block_int8.cu"
 HEADERS = ("block_common.cuh", "int8_common.cuh", "layer_block_int8.cuh",
            "attention_block_int8.cuh", "mlp_block_int8.cuh", "quant_dense.cuh",
            "int4_screen.cuh", "fused_metrics.cuh", "dense_common.cuh", "dense_blocks.cuh",
-           "attention_mma.cuh", "gemm_sm90.cuh", "int8_sweep_sm90.cuh",
+           "attention_mma.cuh", "attention_sm90.cuh", "gemm_sm90.cuh", "int8_sweep_sm90.cuh",
            "int4_screen_sm90.cuh", "f32_sweep_sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -120,6 +120,8 @@ def load_library() -> ctypes.CDLL:
             lib.irt_attention_route.restype = i
             lib.irt_attention_division_check.argtypes = [p, ctypes.c_longlong, p]
             lib.irt_attention_division_check.restype = i
+            lib.irt_attention_exp_check.argtypes = [p, ctypes.c_longlong, p]
+            lib.irt_attention_exp_check.restype = i
             lib.irt_layer_block_int8.argtypes = (
                 [p] * 2 + [p] * 16 + [p] + [i] * 7 + [ctypes.c_float, p])
             lib.irt_layer_block_int8.restype = i
@@ -159,6 +161,9 @@ def load_library() -> ctypes.CDLL:
             lib.irt_mlp_block.restype = i
             lib.irt_multihead_attention.argtypes = [p] * 4 + [i] * 5 + [ctypes.c_float, p]
             lib.irt_multihead_attention.restype = i
+            lib.irt_attention_as_route.argtypes = (
+                [p] * 3 + [ctypes.c_longlong, p] + [i] * 5 + [ctypes.c_float, i, p])
+            lib.irt_attention_as_route.restype = i
             lib.irt_int4_screen_scores.argtypes = [p] * 5 + [i, i, ctypes.c_longlong, i, p]
             lib.irt_int4_screen_scores.restype = i
             lib.irt_int4_screen_scores_i8.argtypes = lib.irt_int4_screen_scores.argtypes

@@ -467,22 +467,30 @@ def _check_gemm_dims(fn: str, *dims: int) -> None:
                          f"hidden divisible by 64, got {', '.join(map(str, dims))}")
 
 
-# The attention step's launch plan, mirrored from csrc/ (attention_mma.cuh in
-# bf16, block_common.cuh's attention_tile_rows in f32) so that a shape is
-# judged, and refused with its reason, before any launch; the C side's
-# irt_attention_tile_rows / irt_attention_smem_bytes / irt_attention_route
-# answer the same (tests/test_torch_gpu.py holds them equal).
+# The attention step's launch plan, mirrored from csrc/ (attention_sm90.cuh
+# and attention_mma.cuh in bf16, block_common.cuh's attention_tile_rows in
+# f32) so that a shape is judged, and refused with its reason, before any
+# launch; the C side's irt_attention_tile_rows / irt_attention_smem_bytes /
+# irt_attention_route answer the same (tests/test_torch_gpu.py holds them
+# equal).
 _MAX_SMEM = 232448  # dynamic shared memory one block may ask for on sm_90 (227 KB)
 _MMA_WARPS, _MMA_CHUNK_KEYS, _MMA_HALF_KEYS, _MMA_FILL_BLOCKS = 4, 80, 144, 2 * 132
+# the wgmma form: head_dim 64, up to 288 keys, 64-row query tiles, one block
+# an SM of an H100 holding two K and V stages (288 rows of 128 bytes each)
+# and four Q stages (64 rows), aligned to 1,024 bytes
+_WG_HEAD_DIM, _WG_MAX_KEYS, _WG_TILE_ROWS, _WG_BLOCKS = 64, 288, 64, 132
+_WG_SMEM = 2 * 2 * _WG_MAX_KEYS * 128 + 4 * _WG_TILE_ROWS * 128 + 1024
 ATTENTION_ROUTES = ("f32 on the CUDA cores", "bf16 tensor cores, scores computed once",
                     "bf16 tensor cores, scores computed once, two warps to a tile",
-                    "bf16 tensor cores, three passes over 80-key chunks")
+                    "bf16 tensor cores, three passes over 80-key chunks",
+                    "bf16 wgmma fed by TMA, a 64-row tile's whole score rows in a "
+                    "warpgroup's registers, persistent blocks")
 
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
     route: int           # index into ATTENTION_ROUTES
-    rows_per_block: int  # query rows one block takes; 0 when refused
+    rows_per_block: int  # query rows one block (route 4: one work item) takes; 0 when refused
     blocks: int          # blocks of one launch over `pairs` (image, head) pairs
     smem_bytes: int      # dynamic shared memory of one block
     refused: str | None  # why the kernel does not take the shape
@@ -509,21 +517,31 @@ def _f32_tile_rows(t: int, hd: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def attention_plan(t: int, hd: int, dtype: torch.dtype, pairs: int = 1) -> AttentionPlan:
     """How the attention kernel runs t tokens at head_dim hd in `dtype` over
-    `pairs` = batch * heads (image, head) pairs. bf16: four row groups of
-    16-row query tiles a block (one warp each, two with keys split in halves
-    for 81-288 keys at hd <= 64), K and V of the (image, head) in shared
-    memory at head_dim padded to 16, 32, 64 or 128 (+ 8), the scores in
-    registers; the query tiles are split over blocks only until the launch
-    has 264 blocks (two per SM). f32: the scalar kernel's power-of-two row
-    tiles."""
+    `pairs` = batch * heads (image, head) pairs. bf16 at head_dim 64 and
+    81-288 keys (t rounded up to 16; L/14's 257, B/16's 197): persistent
+    blocks, one an SM, walk work items of one (image, head) and its 64-row
+    query tiles (split into ranges only while the items are fewer than 132),
+    K, V and the query tiles loaded by TMA into two and four stages. Other
+    bf16 shapes: four row groups of 16-row query tiles a block (one warp
+    each, two with keys split in halves for 81-288 keys at hd < 64), K and V
+    of the (image, head) in shared memory at head_dim padded to 16, 32, 64
+    or 128 (+ 8), the scores in registers; the query tiles are split over
+    blocks only until the launch has 264 blocks (two per SM). f32: the
+    scalar kernel's power-of-two row tiles."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernel takes bfloat16 or float32, got {dtype}")
     refused = None
     if hd % 4 or hd > 128 or hd <= 0:
         refused = f"head_dim {hd} must be a multiple of 4, at most 128"
-    if dtype == torch.bfloat16:
+    keys = _up(t, 16)
+    if dtype == torch.bfloat16 and hd == _WG_HEAD_DIM and _MMA_CHUNK_KEYS < keys <= _WG_MAX_KEYS:
+        tiles = -(-t // _WG_TILE_ROWS)
+        splits = 1 if pairs >= _WG_BLOCKS else min(tiles, -(-_WG_BLOCKS // pairs))
+        per = -(-tiles // splits)
+        items = pairs * -(-tiles // per)
+        route, smem, rows, blocks = 4, _WG_SMEM, _WG_TILE_ROWS * per, min(items, _WG_BLOCKS)
+    elif dtype == torch.bfloat16:
         kd = 1 if hd <= 16 else 2 if hd <= 32 else 4 if hd <= 64 else 8
-        keys = _up(t, 16)
         route = (1 if keys <= _MMA_CHUNK_KEYS
                  else 2 if keys <= 2 * _MMA_HALF_KEYS and hd <= 64 else 3)
         smem = (2 * keys + 16 * _MMA_WARPS) * (16 * kd + 8) * 2
@@ -532,12 +550,13 @@ def attention_plan(t: int, hd: int, dtype: torch.dtype, pairs: int = 1) -> Atten
         tiles = -(-t // 16)
         groups = max(1, min(-(-_MMA_FILL_BLOCKS // pairs), -(-tiles // _MMA_WARPS)))
         per_block = -(-tiles // groups)
-        rows, blocks, what = 16 * per_block, pairs * -(-tiles // per_block), "query tile"
+        rows, blocks = 16 * per_block, pairs * -(-tiles // per_block)
     else:
         tile = _f32_tile_rows(t, hd)
         smem = _f32_smem_bytes(t, hd, max(tile, 1))
-        route, rows, blocks, what = 0, tile, pairs * -(-t // max(tile, 1)), "query row"
+        route, rows, blocks = 0, tile, pairs * -(-t // max(tile, 1))
     if refused is None and smem > _MAX_SMEM:
+        what = "query tile" if dtype == torch.bfloat16 else "query row"
         refused = (f"K and V of one (image, head) at t={t}, head_dim={hd} do not fit in a "
                    f"block's 227 KB of shared memory beside one {what} in "
                    f"{str(dtype)[6:]} ({smem} bytes)")
@@ -1834,6 +1853,42 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 multihead_attention.launches = 0
+
+
+def attention_as_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                       route: int, causal: bool = False) -> torch.Tensor:
+    """The bf16 attention on CUDA (B, T, W) q, k, v through the kernel form
+    `route` names (``attention_plan``'s numbers): 4, the wgmma form, where
+    it takes the shape, or the mma.sync form the shape has without it. For
+    timing the two forms in turns and for the card tests only: the main
+    path's wrappers take the plan's form and no route. q, k and v share one
+    row stride, so they may be views into packed [q | k | v] rows. Counts no
+    launch; raises where the form does not take the shape."""
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    fn = "attention_as_route"
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16 or q.dim() != 3:
+        raise ValueError(f"{fn} takes (B, T, W) bfloat16 tensors on the card")
+    b, t, w = q.shape
+    for a in (k, v):
+        if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
+            raise ValueError(f"{fn}: q, k and v differ in shape, dtype or device")
+    if any(a.stride() != q.stride() for a in (k, v)) or q.stride(2) != 1 or \
+            q.stride(0) != t * q.stride(1) or any(a.data_ptr() % 16 for a in (q, k, v)):
+        raise ValueError(f"{fn}: q, k and v need one row stride, unit columns and "
+                         "16-byte alignment")
+    hd = _check_attention_shape(fn, t, w, heads, q.dtype)
+    lib = load_library()
+    out = torch.empty((b, t, w), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.irt_attention_as_route(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1), out.data_ptr(), b, t, w,
+            heads, int(bool(causal)), ctypes.c_float(hd ** -0.5), route,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: route {route} at t={t}, head_dim={hd}: "
+                           + lib.irt_error_string(rc).decode())
+    return out
 
 
 # ---------------------------------------------------------------------------

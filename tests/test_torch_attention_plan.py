@@ -12,28 +12,36 @@ from image_retrieval_tpu_torch.ops import flash_attention as fa
 BF16, F32 = torch.bfloat16, torch.float32
 
 # (t, dtype, pairs) -> (route, rows per block, blocks, shared memory bytes)
-# at head_dim 64. bf16: rows of 64 + 8 columns (144 bytes), K and V rounded
-# up to 16 rows, four 16-row Q tiles; where two warps share a tile (81-288
-# keys), per row group two halves' 16 row maxima and sums and one half's
-# 16 x 64 PV sums in f32. f32: the scalar kernel's tiles.
-SPLIT = 4 * (2 * 2 * 16 + 16 * 64) * 4
+# at head_dim 64. bf16 at 81-288 keys (t rounded up to 16): the wgmma form,
+# one block an SM of an H100 (132) over work items of 64-row query tiles, its
+# shared memory two K and V stages of 288 rows of 128 bytes, four 64-row Q
+# stages and 1,024 bytes of alignment; the rows are one work item's. Other
+# bf16 shapes: rows of 64 + 8 columns (144 bytes), K and V rounded up to 16
+# rows, four 16-row Q tiles. f32: the scalar kernel's tiles.
+WG = 2 * 2 * 288 * 128 + 4 * 64 * 128 + 1024
 PRESETS = {
-    # one (image, head): split into groups of at least four tiles
+    # one (image, head): split into groups of at least four tiles; the wgmma
+    # form a 64-row tile an item
     (50, BF16, 1): (1, 64, 1, (2 * 64 + 64) * 144),
     (77, BF16, 1): (1, 48, 2, (2 * 80 + 64) * 144),
-    (197, BF16, 1): (2, 64, 4, (2 * 208 + 64) * 144 + SPLIT),
-    (257, BF16, 1): (2, 64, 5, (2 * 272 + 64) * 144 + SPLIT),
-    # the main paths' batches: one block per (image, head) fills the card
+    (197, BF16, 1): (4, 64, 4, WG),
+    (257, BF16, 1): (4, 64, 5, WG),
+    # the main paths' batches: one block per (image, head) fills the card;
+    # the wgmma form's persistent blocks walk whole (image, head)s
     (50, BF16, 256 * 12): (1, 64, 3072, 27648),   # ViT-B/32 vision, B = 256
     (50, BF16, 8 * 12): (1, 64, 96, 27648),       # ViT-B/32 vision, B = 8
     (77, BF16, 64 * 8): (1, 80, 512, 32256),      # ViT-B/32 text, B = 64
-    (197, BF16, 4 * 12): (2, 64, 192, 69120 + SPLIT),     # ViT-B/16 vision, B = 4
-    (257, BF16, 128 * 16): (2, 272, 2048, 87552 + SPLIT),  # ViT-L/14 vision, B = 128
-    (257, BF16, 4 * 16): (2, 64, 320, 87552 + SPLIT),     # ViT-L/14 vision, B = 4
+    (197, BF16, 4 * 12): (4, 128, 96, WG),        # ViT-B/16 vision, B = 4: 48 pairs x 2 items
+    (257, BF16, 128 * 16): (4, 320, 132, WG),     # ViT-L/14 vision, B = 128
+    (257, BF16, 4 * 16): (4, 128, 132, WG),       # ViT-L/14 vision, B = 4: 64 pairs x 3 items
     (50, F32, 1): (0, 64, 1, 4 * (52 * 68 + 52 * 64 + 64 * 68 + 64 * 52)),
     (77, F32, 1): (0, 64, 2, 4 * (80 * 68 + 80 * 64 + 64 * 68 + 64 * 80)),
     (197, F32, 1): (0, 64, 4, 4 * (200 * 68 + 200 * 64 + 64 * 68 + 64 * 200)),
     (257, F32, 128 * 16): (0, 64, 5 * 2048, 4 * (260 * 68 + 260 * 64 + 64 * 68 + 64 * 260)),
+    # the edges of the wgmma form: 81 and 288 tokens take it, 289 do not
+    (81, BF16, 8 * 12): (4, 64, 132, WG),         # 96 pairs x 2 one-tile items
+    (288, BF16, 128 * 16): (4, 320, 132, WG),
+    (289, BF16, 128 * 16): (3, 304, 2048, (2 * 304 + 64) * 144),
 }
 
 
@@ -47,14 +55,36 @@ def test_plan_at_the_presets(t, dtype, pairs):
 
 
 @pytest.mark.parametrize("t,hd,route", [
-    (80, 128, 1), (81, 64, 2), (288, 64, 2), (289, 64, 3), (257, 80, 3), (257, 128, 3),
-    (768, 64, 3)])
+    (80, 128, 1), (81, 64, 4), (288, 64, 4), (289, 64, 3), (257, 80, 3), (257, 128, 3),
+    (768, 64, 3), (50, 64, 1), (77, 64, 1), (80, 64, 1), (96, 64, 4), (197, 64, 4),
+    (257, 64, 4), (257, 32, 2), (257, 48, 2), (81, 16, 2), (288, 32, 2), (289, 32, 3)])
 def test_bf16_form_by_keys_and_head_dim(t, hd, route):
-    """Scores computed once while a tile's 16 rows of them fit in registers
-    (80 keys in one warp, or 288 at head_dim <= 64 in two), three passes
-    past that."""
+    """At head_dim 64 and 81-288 keys the wgmma form (a 64-row tile's whole
+    rows in a warpgroup's registers); elsewhere scores computed once while a
+    tile's 16 rows of them fit in registers (80 keys in one warp, or 288 at
+    head_dim < 64 in two), three passes past that."""
     plan = fa.attention_plan(t, hd, BF16)
     assert plan.refused is None and plan.route == route
+
+
+# (t, hd) -> (route, rows per block, shared memory bytes) at L/14's 2,048
+# (image, head) pairs, off head_dim 64: the mma.sync forms, rows of 16 kd +
+# 8 columns; two warps to a tile add per row group two halves' 16 maxima and
+# sums and one half's 16 x 16 kd PV sums in f32.
+OFF_64 = {
+    (257, 32): (2, 272, (2 * 272 + 64) * 80 + 4 * (2 * 2 * 16 + 2 * 2 * 4 * 32) * 4),
+    (257, 128): (3, 272, (2 * 272 + 64) * 272),
+    (257, 48): (2, 272, (2 * 272 + 64) * 144 + 4 * (2 * 2 * 16 + 2 * 4 * 4 * 32) * 4),
+}
+
+
+@pytest.mark.parametrize("t,hd", list(OFF_64))
+def test_plan_off_head_dim_64(t, hd):
+    """The wgmma form takes head_dim 64 only: the L/14 token count at other
+    head widths keeps the mma.sync forms, one block per (image, head)."""
+    plan = fa.attention_plan(t, hd, BF16, 2048)
+    assert (plan.route, plan.rows_per_block, plan.smem_bytes) == OFF_64[(t, hd)]
+    assert plan.blocks == 2048 and plan.refused is None
 
 
 @pytest.mark.parametrize("t,hd,dtype,why", [
@@ -65,6 +95,9 @@ def test_bf16_form_by_keys_and_head_dim(t, hd, route):
     (600, 64, F32, "do not fit"),
     (769, 64, BF16, "do not fit"),   # bf16 K and V fit up to 768 tokens at head_dim 64
     (385, 128, BF16, "do not fit"),  # and up to 384 at 128
+    (257, 66, BF16, "head_dim 66 must be a multiple of 4"),
+    (257, 136, BF16, "at most 128"),
+    (1500, 32, BF16, "do not fit"),  # and up to 1,420 at 32
 ])
 def test_refused_shapes_say_why(t, hd, dtype, why):
     plan = fa.attention_plan(t, hd, dtype, pairs=8)

@@ -126,9 +126,10 @@ def test_subblocks_compose_to_the_layer_kernel(cuda, dtype):
 
 
 # Token counts of the presets (50, 77, 197, 257), of one, around the 16-row
-# tiles and the 80-key chunk (13, 17, 65) and past the 288 keys whose scores
+# tiles and the 80-key chunk (13, 17, 65), the wgmma form's edges and a
+# ragged 64-row tile (81, 128, 200, 288) and past the 288 keys whose scores
 # stay in registers (300); head widths that are and are not powers of two.
-@pytest.mark.parametrize("t", [1, 13, 17, 50, 65, 77, 197, 257, 300])
+@pytest.mark.parametrize("t", [1, 13, 17, 50, 65, 77, 81, 128, 197, 200, 257, 288, 300])
 @pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 128])
 @pytest.mark.parametrize("b,causal", [(1, False), (3, True)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -158,7 +159,7 @@ def test_tiled_attention_matches_plain(cuda, t, hd, b, causal, dtype):
 
 @pytest.mark.parametrize("t,hd,causal", [
     (13, 48, True), (17, 80, False), (50, 64, False), (77, 20, True), (257, 64, True),
-    (300, 64, False)])
+    (300, 64, False), (81, 64, False), (200, 64, True), (288, 64, False), (257, 64, False)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_tiled_attention_reads_nothing_past_its_rows(cuda, t, hd, causal, dtype):
     """A NaN guard band: packed qkv as a view into a larger buffer that holds
@@ -177,7 +178,8 @@ def test_tiled_attention_reads_nothing_past_its_rows(cuda, t, hd, causal, dtype)
     assert torch.equal(got, fa.tiled_attention(qkv, b, heads, causal))
 
 
-@pytest.mark.parametrize("t,causal", [(50, False), (77, True), (257, False), (300, True)])
+@pytest.mark.parametrize("t,causal", [(50, False), (77, True), (257, False), (300, True),
+                                      (257, True), (81, False), (288, True)])
 def test_tiled_attention_with_scores_far_apart(cuda, t, causal):
     """q and k 12 x larger: scores hundreds apart, exponentials that
     underflow to 0 or fall below 2^-90, so that the bf16 kernel divides by
@@ -211,6 +213,20 @@ def test_attention_division_is_fdiv_rn(cuda):
     assert rc == 0 and int(bad.item()) == 0
 
 
+def test_attention_exponential_is_expf(cuda):
+    """The wgmma attention takes exp(s - max) on the unscaled dots with the
+    scale 1/8 (head_dim 64) moved into expf's own constants: over 2^30
+    pseudo-random differences (and 0 and -inf) it gives expf's bits."""
+    from image_retrieval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    rc = lib.irt_attention_exp_check(bad.data_ptr(), 1 << 30,
+                                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and int(bad.item()) == 0
+
+
 def test_attention_plan_matches_the_kernels(cuda):
     """ops/flash_attention.py::attention_plan is the C side's launch plan:
     rows per block, shared memory and kernel form for every dtype, over
@@ -218,8 +234,8 @@ def test_attention_plan_matches_the_kernels(cuda):
     from image_retrieval_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    for t in (1, 13, 16, 17, 50, 65, 77, 80, 81, 197, 257, 272, 273, 300, 384, 385, 600, 768,
-              769):
+    for t in (1, 13, 16, 17, 50, 65, 77, 80, 81, 96, 128, 197, 200, 257, 272, 273, 288, 289,
+              300, 384, 385, 600, 768, 769):
         for hd in (2, 4, 16, 20, 48, 64, 80, 128, 132):
             for dtype, code in ((torch.bfloat16, 0), (torch.float32, 1)):
                 for pairs in (1, 64, 96, 2048, 3072):
@@ -229,6 +245,72 @@ def test_attention_plan_matches_the_kernels(cuda):
                         plan.rows_per_block, case
                     assert lib.irt_attention_smem_bytes(t, hd, code) == plan.smem_bytes, case
                     assert lib.irt_attention_route(t, hd, code) == plan.route, case
+
+
+# The wgmma form's token counts (81-288 keys at head_dim 64): its edges, a
+# query tile of 64 rows exactly, a ragged one, and the L/14 tower's.
+WG_TOKENS = [81, 128, 200, 257, 288]
+
+
+@pytest.mark.parametrize("t", WG_TOKENS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_forms_match_plain(cuda, t, causal):
+    """Both bf16 forms at the wgmma form's shapes, each named through
+    attention_as_route: the wgmma form (4) and the two-warp mma.sync form
+    (2) these shapes took before it, against the plain version with the
+    limits of test_tiled_attention_matches_plain; tiled_attention and
+    multihead_attention take the wgmma form, bit for bit."""
+    rng = np.random.default_rng(t + 7 * causal)
+    b, heads, hd = 3, 4, 64
+    qkv = _x(rng, (b * t, 3 * heads * hd), cuda, "bfloat16")
+    q, k, v = qkv.view(b, t, -1).split(heads * hd, -1)
+    want = fa._attention_reference(qkv, b, t, heads * hd, heads, causal, qkv.dtype)
+    want = want.view(b, t, -1).float()
+    assert fa.attention_plan(t, hd, torch.bfloat16, b * heads).route == 4
+    top = float(want.abs().max())
+    outs = {}
+    for route in (4, 2):
+        outs[route] = fa.attention_as_route(q, k, v, heads, route, causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(outs[route]).all(), route
+        assert float((outs[route].float() - want).abs().max()) <= 2 * top * 2.0 ** -8, route
+    before = fa.tiled_attention.launches
+    assert torch.equal(fa.tiled_attention(qkv, b, heads, causal).view(b, t, -1), outs[4])
+    assert fa.tiled_attention.launches == before + 1
+    if not causal:
+        qc, kc, vc = (a.contiguous() for a in (q, k, v))
+        assert torch.equal(fa.multihead_attention(qc, kc, vc, heads), outs[4])
+
+
+@pytest.mark.parametrize("b,t,causal", [(64, 257, False), (64, 257, True), (37, 200, False),
+                                      (33, 81, True), (48, 288, False)])
+def test_attention_wgmma_many_tiles_a_block(cuda, b, t, causal):
+    """Batches whose (image, head)s outnumber the 132 persistent blocks, so
+    that each block walks several items and their tiles, an even or an odd
+    count of them, its two warpgroups taking turns: against the plain
+    version with the limits of test_tiled_attention_matches_plain."""
+    rng = np.random.default_rng(b + t)
+    heads, hd = 4, 64
+    qkv = _x(rng, (b * t, 3 * heads * hd), cuda, "bfloat16")
+    assert fa.attention_plan(t, hd, torch.bfloat16, b * heads).route == 4
+    got = fa.tiled_attention(qkv, b, heads, causal)
+    want = fa._attention_reference(qkv, b, t, heads * hd, heads, causal, qkv.dtype)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2 * top * 2.0 ** -8
+
+
+def test_attention_as_route_refuses_a_form_that_does_not_take_the_shape(cuda):
+    """Only the plan's form or, where the wgmma form takes the shape, the
+    mma.sync form it replaced: nothing else launches."""
+    rng = np.random.default_rng(3)
+    for t, hd, good, bad in ((50, 64, 1, 4), (257, 32, 2, 4), (257, 64, 4, 1), (300, 64, 3, 4)):
+        q, k, v = (_x(rng, (2, t, 2 * hd), cuda, "bfloat16") for _ in range(3))
+        fa.attention_as_route(q, k, v, 2, good)
+        with pytest.raises(RuntimeError, match="invalid shape"):
+            fa.attention_as_route(q, k, v, 2, bad)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 64, 64), (150, 768, 2304), (514, 1024, 4096),
@@ -649,7 +731,8 @@ def test_int8_chains_match_plain_at_the_tower_shapes(cuda, entry, b, t, w, heads
 @pytest.mark.parametrize("b,t,w,heads,causal", [(3, 50, 768, 12, False),
                                                 (3, 77, 512, 8, True),
                                                 (2, 257, 1024, 16, False),
-                                                (3, 13, 64, 2, True)])
+                                                (3, 13, 64, 2, True),
+                                                (2, 257, 1024, 16, True)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_subblocks_compose_to_the_layer_kernel_on_both_routes(cuda, b, t, w, heads, causal,
                                                               dtype):
@@ -1648,7 +1731,21 @@ def test_dense_subblocks_compose_to_the_layer_kernel(cuda, dtype, causal):
     assert torch.equal(two, one)
 
 
-@pytest.mark.parametrize("t", [1, 50, 197, 257])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dense_subblocks_compose_to_the_layer_kernel_at_l14(cuda, dtype, causal):
+    """The same at the L/14 vision width, whose bf16 attention step is the
+    wgmma form: K9a then K9b equal K8 bit for bit."""
+    rng = np.random.default_rng(13)
+    wts = _dense_weights(rng, 1024, cuda, dtype)
+    x = _x(rng, (2, 257, 1024), cuda, dtype)
+    two = fa.mlp_block(fa.attention_block(x, wts.attn, 16, causal), wts.mlp)
+    one = fa.layer_block(x, wts, 16, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(two, one)
+
+
+@pytest.mark.parametrize("t", [1, 50, 81, 128, 197, 200, 257, 288])
 @pytest.mark.parametrize("hd", [32, 64])
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
